@@ -7,21 +7,34 @@ Phases, each fatal on failure:
 
 1. card: name and power limit (``nvidia-smi``) and ``torch.cuda.get_device_name``;
 2. build: every CUDA source of the port, one ``nvcc`` each, started together;
-3. kernels: each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, with TF32 off; error, tolerance, and
-   device time per call (20 calls captured in one CUDA graph, CUDA events
-   around each of 50 replays queued behind a busy stream, median) and eager
-   time per call (events around each of 200 calls, host launch gaps
-   included), beside the plain version's and the bound;
+3. kernels: each kernel against its plain PyTorch version on the card, with
+   TF32 off; error, tolerance, and device time per call (20 calls captured
+   in one CUDA graph, CUDA events around each of 50 replays queued behind a
+   busy stream, median) beside the plain version's and the bound:
+   - the cell at the serving shapes (also eager time per call: events
+     around each of 200 calls, host launch gaps included);
+   - the cell at the training shapes (B=32, 801, 1600), with the hand VJP's
+     six gradients against autograd of the plain version;
+   - the sequence at the kernel bench's shape and an odd one, forward and
+     gradients against the plain loop;
 4. slice: a DreamerV2 agent at the full MsPacman width (rgb 3x64x64,
    channels 48/96/192/384, dense 400, recurrent 600, 32x32 latent, 9
    actions), seeded random weights, behind the port's ``ServeGateway`` with
    ``max_batch=64``; 64 clients x 16 lockstep requests of seeded uint8
    frames, then the same requests again through a gateway whose recurrent
-   cell runs the plain version, which must give the same actions.
+   cell runs the plain version, which must give the same actions;
+5. bench_kernels: the port's ``tools/bench_kernels.py`` (forward and
+   backward of the sequence, kernel against the plain loop);
+6. train: the DreamerV2 trainer at the full MsPacman width (B=32, T=50,
+   horizon 15): one step at fixed weights and noise on the kernel path and
+   on the plain-cell path, TF32 off, whose losses and gradient norms must
+   agree; then one warm-up step and TRAIN_STEPS timed steps with every loss
+   finite and exactly 65 cell launches a step (50 posterior steps at B=32,
+   15 imagination steps at B=1600), and a profiled window of as many steps.
 
-The kernels' launch counts are zeroed just before phase 4's served run and
-read just after it. The last lines are the card line, one JSON line with a
+Each path's launch counts are zeroed just before its run and read just
+after it: the served run (phase 4), the bench (phase 5) and the timed train
+steps (phase 6). The last lines are the card line, one JSON line with a
 record per kernel, and ``{"ok": true, "device": {...}}``. Exits non-zero,
 without that last line, when there is no CUDA device or any phase fails.
 """
@@ -37,6 +50,17 @@ import time
 
 TOL_KERNEL = 1e-4  # abs: f32 against f32, another summation order over K=1000
 TOL_STATE = 1e-3  # abs: recurrent state after 16 chained steps, kernel vs plain cell
+TOL_SEQUENCE = 1e-4  # abs: hs over T chained steps (the JAX suite's sequence tolerance is rtol 1e-4)
+TOL_GRAD = 1e-4  # relative to each gradient's largest magnitude: f32, other summation orders
+# kernel path against plain-cell path, one full-width train step at fixed weights and noise (TF32
+# off): relative, losses and gradient global norms. Read on the card: losses equal to the last f32
+# bit, gradient norms within 1.1e-7. These norms are dominated by the decoder and heads, so a wrong
+# gradient of one of the cell's small leaves would not show here: phase_cell_training checks each of
+# the cell's six gradients against autograd of the plain version
+TOL_TRAIN_LOSS = 1e-5
+TOL_TRAIN_GRAD = 1e-4
+TRAIN_STEPS = 4
+CELL_LAUNCHES_PER_STEP = 65  # 50 posterior steps + 15 imagination steps
 CLIENTS, STEPS, SEED = 64, 16, 5
 N_ACTIONS = 9
 OBS = {"rgb": (3, 64, 64)}
@@ -166,6 +190,129 @@ def phase_kernels():
     return rows
 
 
+def sequence_bound(T: int, B: int, H: int, X: int, bias: bool, ln: bool):
+    """Least time for a whole sequence (``hafner_bound``'s convention): xs,
+    h0, W and the vectors read once and hs written once, or T steps of
+    operations at the f32 peak, whichever is larger."""
+    n_vec = 3 * H * (int(bias) + 2 * int(ln))
+    bytes_ = 4.0 * (B * H + T * B * X + (H + X) * 3 * H + n_vec + T * B * H)
+    flops = T * (2.0 * B * (H + X) * 3 * H + (8.0 * B * 3 * H if ln else 0.0) + 10.0 * B * H)
+    t_bytes, t_ops = bytes_ / PEAK_HBM_BYTES, flops / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _grad_rel_err(got, want) -> float:
+    """Largest abs difference of any gradient over that gradient's largest
+    magnitude (gradients of W sum over the batch, so their scale grows with B)."""
+    return max(((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item() for g, w in zip(got, want))
+
+
+def _operands(shape_seed: int, B: int, H: int, X: int, bias: bool, ln: bool, T: int = 0):
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(shape_seed)
+    t = lambda *shape, scale=1.0, shift=0.0: torch.from_numpy(
+        (shift + scale * rng.randn(*shape)).astype(np.float32)
+    ).cuda()
+    h = t(B, H)
+    x = t(T, B, X) if T else t(B, X)
+    w = t(H + X, 3 * H, scale=0.05)
+    b = t(3 * H, scale=0.1) if bias else None
+    s = t(3 * H, scale=0.1, shift=1.0) if ln else None
+    lb = t(3 * H, scale=0.1) if ln else None
+    cot = t(T, B, H) if T else t(B, H)  # the output cotangent of the gradient check
+    return (h, x, w, b, s, lb), cot
+
+
+def _vjp(fn, args, cot):
+    """Gradients of <fn(*args), cot> with respect to every operand given."""
+    import torch
+
+    leaves = [a.detach().requires_grad_(True) if a is not None else None for a in args]
+    out = fn(*leaves)
+    present = [a for a in leaves if a is not None]
+    return out.detach(), torch.autograd.grad(out, present, cot)
+
+
+def phase_cell_training():
+    """The cell at the training batch sizes (posterior B=32, an odd B, the
+    imagination's B=1600): forward against the plain version, the hand VJP's
+    six gradients against autograd of the plain version, both on the card."""
+    import torch
+
+    from sheeprl_tpu_torch.kernels import ops, reference
+
+    rows = []
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for B in (32, 801, 1600):
+            H, X = 600, 400
+            args, cot = _operands(B + 7, B, H, X, True, True)
+            kernel = lambda *a: ops.hafner_gru_cell(*a, eps=1e-5)
+            plain = lambda *a: reference.hafner_cell(*a, eps=1e-5)
+            out, grads = _vjp(kernel, args, cot)
+            p_out, p_grads = _vjp(plain, args, cot)
+            torch.cuda.synchronize()
+            err = (out - p_out).abs().max().item()
+            grad_err = _grad_rel_err(grads, p_grads)
+            bound_ms, bound_by = hafner_bound(B, H, X, True, True)
+            leaves = [a.detach().requires_grad_(True) for a in args]
+            row = dict(B=B, H=H, X=X, eps=1e-5, max_abs_err=err, tol=TOL_KERNEL, grad_rel_err=grad_err,
+                       grad_tol=TOL_GRAD, ms=device_ms(lambda: ops.hafner_cell_cuda(*args, eps=1e-5)),
+                       plain_ms=device_ms(lambda: reference.hafner_cell(*args, eps=1e-5)),
+                       fwd_bwd_ms=device_ms(lambda: torch.autograd.grad(kernel(*leaves), leaves, cot)),
+                       plain_fwd_bwd_ms=device_ms(lambda: torch.autograd.grad(plain(*leaves), leaves, cot)),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            print("[kernel] hafner_cell training " + json.dumps(row), flush=True)
+            rows.append(row)
+            if not (torch.isfinite(out).all() and err <= TOL_KERNEL and grad_err <= TOL_GRAD):
+                raise AssertionError(f"hafner_cell at B={B} disagrees with its plain version: {row}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    return rows
+
+
+def phase_sequence():
+    """The sequence kernel at the kernel bench's shape and at an odd one
+    (scalar copies, no bias, no LayerNorm): forward and gradients against
+    the plain loop, device time, bound and plain time."""
+    import torch
+
+    from sheeprl_tpu_torch.kernels import ops, reference
+
+    rows = []
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for T, B, H, X, bias, ln, eps in ((50, 16, 600, 400, True, True, 1e-3), (7, 5, 599, 37, False, False, 1e-3)):
+            args, cot = _operands(T + B + H, B, H, X, bias, ln, T=T)
+            kernel = lambda *a: ops.hafner_gru_sequence(*a, eps=eps)
+            plain = lambda *a: reference.hafner_sequence(*a, eps=eps)
+            before = ops.hafner_sequence_launches.count
+            out, grads = _vjp(kernel, args, cot)
+            p_out, p_grads = _vjp(plain, args, cot)
+            torch.cuda.synchronize()
+            if ops.hafner_sequence_launches.count != before + 1:
+                raise AssertionError("hafner_gru_sequence did not launch its kernel exactly once")
+            err = (out - p_out).abs().max().item()
+            grad_err = _grad_rel_err(grads, p_grads)
+            bound_ms, bound_by = sequence_bound(T, B, H, X, bias, ln)
+            row = dict(T=T, B=B, H=H, X=X, bias=bias, ln=ln, eps=eps, max_abs_err=err, tol=TOL_SEQUENCE,
+                       grad_rel_err=grad_err, grad_tol=TOL_GRAD,
+                       ms=device_ms(lambda: ops.hafner_sequence_cuda(*args, eps=eps)),
+                       plain_ms=device_ms(lambda: reference.hafner_sequence(*args, eps=eps)),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            print("[kernel] hafner_sequence " + json.dumps(row), flush=True)
+            rows.append(row)
+            if not (torch.isfinite(out).all() and err <= TOL_SEQUENCE and grad_err <= TOL_GRAD):
+                raise AssertionError(f"hafner_sequence disagrees with its plain loop: {row}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    return rows
+
+
 def serve_lockstep(model, frames, seed: int):
     """64 clients x STEPS lockstep requests through a fresh gateway; every
     step is one full batch, rows in client order. Returns actions [T, C],
@@ -225,8 +372,10 @@ def phase_slice(card: str):
     serve_lockstep(model, frames[:2], seed=SEED + 1)  # warm-up: cuDNN, allocator, kernel load
 
     ops.hafner_cell_launches.reset()
+    ops.hafner_sequence_launches.reset()
     actions, states, wall, status = serve_lockstep(model, frames, seed=SEED)
     launches = ops.hafner_cell_launches.count
+    seq_launches = ops.hafner_sequence_launches.count
 
     requests = CLIENTS * STEPS
     if status["failed_requests"] != 0 or status["requests"] != requests:
@@ -240,6 +389,8 @@ def phase_slice(card: str):
         raise AssertionError(f"{int(unchanged.sum())} client steps left the recurrent state unchanged")
     if launches != status["batches"] or launches == 0:
         raise AssertionError(f"hafner_cell launched {launches} times for {status['batches']} batches")
+    if seq_launches != 0:
+        raise AssertionError(f"the sequence kernel launched {seq_launches} times on the serving path")
 
     p_actions, p_states, _wall, p_status = serve_lockstep(plain, frames, seed=SEED)
     state_err = (states - p_states).abs().max().item()
@@ -259,6 +410,7 @@ def phase_slice(card: str):
         "act_latency_p99_ms": lat["p99_ms"],
         "device_dispatch_p50_ms": status["stage_latency"]["device_dispatch"]["p50_ms"],
         "hafner_cell_launches": launches,
+        "hafner_sequence_launches": seq_launches,
         "plain_replay_actions_equal": True,
         "plain_replay_state_max_abs_err": state_err,
         "state_tol": TOL_STATE,
@@ -266,7 +418,84 @@ def phase_slice(card: str):
         "card": card,
     }
     print("[slice] " + json.dumps(result), flush=True)
+    return {"hafner_cell": launches, "hafner_sequence": seq_launches}
+
+
+def phase_bench_kernels():
+    """The kernel bench's path: counts zeroed before it and read after it."""
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.tools import bench_kernels
+
+    ops.hafner_cell_launches.reset()
+    ops.hafner_sequence_launches.reset()
+    line = bench_kernels.run("cuda")
+    launches = {"hafner_sequence": ops.hafner_sequence_launches.count, "hafner_cell": ops.hafner_cell_launches.count}
+    print("[bench_kernels] " + json.dumps({**line, "launches": launches}), flush=True)
+    if launches["hafner_sequence"] == 0 or launches["hafner_cell"] != 0:
+        raise AssertionError(f"the kernel bench launched {launches}")
+    if line["max_abs_err"] > TOL_SEQUENCE or line["grad_rel_err"] > TOL_GRAD:
+        raise AssertionError(f"the kernel bench's kernel path disagrees with its plain path: {line}")
     return launches
+
+
+def _train_step_once(plain_cell: bool):
+    """One full-width step at fixed weights (seed 0) and fixed noise, at τ=1."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v2.agent import set_cell_impl
+    from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import draw_noise
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.tools import bench_dreamer
+
+    cfg, state, train_step, data = bench_dreamer.build_trainer("cuda", seed=0)
+    if plain_cell:
+        set_cell_impl(state["world_model"], "plain")
+    T, B = data["rewards"].shape[:2]
+    noise = draw_noise(cfg, bench_dreamer.ACTIONS, T, B, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    before = ops.hafner_cell_launches.count
+    metrics = {k: float(v) for k, v in train_step(state, data, noise=noise, tau=1.0).items()}
+    launches = ops.hafner_cell_launches.count - before
+    if launches != (0 if plain_cell else CELL_LAUNCHES_PER_STEP):
+        raise AssertionError(f"the {'plain-cell' if plain_cell else 'kernel'} train step launched the cell {launches} times")
+    del state, data, noise
+    torch.cuda.empty_cache()
+    return metrics, launches
+
+
+def phase_train(card: str):
+    import math
+
+    import torch
+
+    from sheeprl_tpu_torch.tools import bench_dreamer
+
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        (kernel_m, kernel_n), (plain_m, plain_n) = _train_step_once(False), _train_step_once(True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    rel = {k: abs(kernel_m[k] - plain_m[k]) / max(abs(plain_m[k]), 1e-6) for k in kernel_m}
+    bad = [k for k, r in rel.items() if r > (TOL_TRAIN_GRAD if k.startswith("Grads/") else TOL_TRAIN_LOSS)]
+    bad += [k for k, v in kernel_m.items() if not math.isfinite(v)]
+    print("[train] kernel vs plain cell, one step: " + json.dumps(
+        {"kernel": kernel_m, "plain": plain_m, "rel_diff": rel, "tol_loss": TOL_TRAIN_LOSS, "tol_grad": TOL_TRAIN_GRAD,
+         "cell_launches": {"kernel": kernel_n, "plain": plain_n}}
+    ), flush=True)
+    if bad:
+        raise AssertionError(f"kernel and plain-cell train steps disagree on {bad}")
+
+    result = bench_dreamer.run(steps=TRAIN_STEPS, device="cuda", profile=True)
+    result["card"] = card
+    print("[train] " + json.dumps(result), flush=True)
+    if not all(math.isfinite(v) for v in result["losses"].values()):
+        raise AssertionError(f"a loss is not finite: {result['losses']}")
+    if result["hafner_cell_launches"] != CELL_LAUNCHES_PER_STEP * TRAIN_STEPS:
+        raise AssertionError(f"the cell launched {result['hafner_cell_launches']} times in {TRAIN_STEPS} steps")
+    if result["hafner_sequence_launches"] != 0:
+        raise AssertionError("the sequence kernel ran on the train path")
+    launches = {"hafner_cell": result["hafner_cell_launches"], "hafner_sequence": result["hafner_sequence_launches"]}
+    return launches, max(rel.values())
 
 
 def main() -> int:
@@ -290,24 +519,47 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    kernel_rows = phase_kernels()
-    launches = phase_slice(card)
+    serve_rows = phase_kernels()
+    train_rows = phase_cell_training()
+    seq_rows = phase_sequence()
+    # launches per kernel, read on each path's run with the counts zeroed just before it
+    by_path = {"serve": phase_slice(card), "bench_kernels": phase_bench_kernels()}
+    by_path["train"], train_rel_diff = phase_train(card)
 
-    main_row = next(r for r in kernel_rows if (r["B"], r["H"], r["X"]) == (64, 600, 400))
+    cell_row = next(r for r in train_rows if r["B"] == 1600)
+    seq_row = seq_rows[0]
     kernels = [
         {
             "name": "hafner_cell",
             "route": "cuda",
             "source": "sheeprl_tpu_torch/kernels/csrc/hafner_gru.cu",
             "replaces": "sheeprl_tpu/kernels/pallas_tpu.py:67",
-            "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
-            "ms": main_row["ms"],
-            "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"],
+            "launches": by_path["train"]["hafner_cell"],
+            "max_abs_err": max(r["max_abs_err"] for r in serve_rows + train_rows),
+            "ms": cell_row["ms"],
+            "plain_ms": cell_row["plain_ms"],
+            "bound_ms": cell_row["bound_ms"],
+            "bound_by": cell_row["bound_by"],
             "library_ms": None,
-        }
+            "shape": "B=1600 H=600 X=400 (imagination)",
+            "launches_by_path": {path: counts["hafner_cell"] for path, counts in by_path.items()},
+            "train_step_rel_diff_vs_plain": train_rel_diff,
+        },
+        {
+            "name": "hafner_sequence",
+            "route": "cuda",
+            "source": "sheeprl_tpu_torch/kernels/csrc/hafner_gru.cu",
+            "replaces": "sheeprl_tpu/kernels/pallas_tpu.py:79",
+            "launches": by_path["bench_kernels"]["hafner_sequence"],
+            "max_abs_err": max(r["max_abs_err"] for r in seq_rows),
+            "ms": seq_row["ms"],
+            "plain_ms": seq_row["plain_ms"],
+            "bound_ms": seq_row["bound_ms"],
+            "bound_by": seq_row["bound_by"],
+            "library_ms": None,
+            "shape": "T=50 B=16 H=600 X=400 (kernel bench)",
+            "launches_by_path": {path: counts["hafner_sequence"] for path, counts in by_path.items()},
+        },
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,12 +1,16 @@
-"""DreamerV2 agent, serving path (counterpart of
-``sheeprl_tpu/algos/dreamer_v2/agent.py``).
+"""DreamerV2 agent (counterpart of ``sheeprl_tpu/algos/dreamer_v2/agent.py``).
 
-What is here: the encoders, the RSSM's single-step methods the player uses
-(``recurrent_model``, ``_representation``, ``_transition``), a world model
-with ``encode`` / ``recurrent_step`` / ``representation``, the seeded
-Xavier-normal ``build_agent`` and the player's ``init_states`` /
-``reset_states`` / ``greedy_action``. The decoders, the reward and continue
-heads, the critic and imagination come with the training slice.
+What is here: the encoders and decoders, the reward, continue and critic
+heads, the RSSM's single steps (the player's ``recurrent_model`` /
+``_representation`` / ``_transition``, and training's ``dynamic_posterior``
+with its ``is_first`` masks, ``prior_logits`` batched over any leading shape
+and ``imagination``), a world model with the player's and training's
+methods, the seeded Xavier-normal ``build_agent`` and the player's
+``init_states`` / ``reset_states`` / ``greedy_action``.
+
+A serving build (``build_agent(..., training=False)``) leaves out the
+decoders and the reward and continue heads; a training build has them and
+also returns the critic and its target copy.
 
 The recurrent core's LayerNorm-GRU step (``RecurrentModel.gru``) is the CUDA
 kernel ``kernels/csrc/hafner_gru.cu`` on the card.
@@ -14,6 +18,7 @@ kernel ``kernels/csrc/hafner_gru.cu`` on the card.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -23,25 +28,33 @@ from torch import nn
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     Actor,
+    actor_entropy,
     build_actor_dists,
     resolve_actor_distribution,
     sample_actor_actions,
 )
 from sheeprl_tpu_torch.device import resolve_device
 from sheeprl_tpu_torch.distributions import OneHotCategoricalStraightThrough
-from sheeprl_tpu_torch.models import CNN, MLP, LayerNormGRUCell
+from sheeprl_tpu_torch.models import CNN, MLP, DeCNN, LayerNormGRUCell
 
 __all__ = [
     "Actor",
+    "CNNDecoder",
     "CNNEncoder",
+    "MLPDecoder",
     "MLPEncoder",
+    "MLPHead",
     "RSSM",
     "RecurrentModel",
     "WorldModel",
+    "actor_entropy",
+    "build_actor_dists",
     "build_agent",
     "build_player_fns",
     "cnn_encoder_output_dim",
     "compute_stochastic_state",
+    "resolve_actor_distribution",
+    "sample_actor_actions",
     "set_cell_impl",
     "xavier_normal_initialization",
 ]
@@ -90,6 +103,63 @@ class MLPEncoder(nn.Module):
 
     def forward(self, obs: Mapping[str, torch.Tensor]) -> torch.Tensor:
         return self.mlp(torch.cat([obs[k] for k in self.keys], dim=-1))
+
+
+class CNNDecoder(nn.Module):
+    """Pixel decoder: a Linear projection of the latent to the encoder's flat
+    width, read as a 1×1 map, then four transposed convs (k=5,5,6,6, s=2) back
+    to ``[..., C, 64, 64]``."""
+
+    def __init__(
+        self, output_channels, channels_multiplier, latent_size, cnn_encoder_output_dim,
+        layer_norm=False, activation="elu", device=None,
+    ):
+        super().__init__()
+        self.linear = nn.Linear(latent_size, cnn_encoder_output_dim, device=device)
+        self.decnn = DeCNN(
+            cnn_encoder_output_dim,
+            [m * channels_multiplier for m in (4, 2, 1)] + [sum(int(c) for c in output_channels)],
+            kernel_sizes=[5, 5, 6, 6],
+            strides=2,
+            paddings=0,
+            activation=activation,
+            layer_norm=[layer_norm] * 3 + [False],
+            device=device,
+        )
+
+    def forward(self, latent: torch.Tensor) -> torch.Tensor:
+        x = self.linear(latent)
+        return self.decnn(x.reshape(x.shape + (1, 1)))
+
+
+class MLPDecoder(nn.Module):
+    """Vector decoder: a dense trunk and one Linear head per key."""
+
+    def __init__(self, keys, output_dims, latent_size, mlp_layers=4, dense_units=400, layer_norm=False,
+                 activation="elu", device=None):
+        super().__init__()
+        self.keys = list(keys)
+        self.mlp = MLP(latent_size, [dense_units] * mlp_layers, activation=activation, layer_norm=layer_norm,
+                       device=device)
+        self.heads = nn.ModuleDict({k: nn.Linear(dense_units, int(d), device=device) for k, d in zip(keys, output_dims)})
+
+    def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = self.mlp(latent)
+        return {k: self.heads[k](x) for k in self.keys}
+
+
+class MLPHead(nn.Module):
+    """Dense trunk and one Linear head: the reward, continue and critic heads."""
+
+    def __init__(self, input_dim, output_dim, mlp_layers, dense_units, layer_norm=False, activation="elu",
+                 device=None):
+        super().__init__()
+        self.mlp = MLP(input_dim, [dense_units] * mlp_layers, activation=activation, layer_norm=layer_norm,
+                       device=device)
+        self.head = nn.Linear(dense_units, output_dim, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(self.mlp(x))
 
 
 class RecurrentModel(nn.Module):
@@ -187,9 +257,32 @@ class RSSM(nn.Module):
         logits = self.representation_model(torch.cat([recurrent_state, embedded_obs], dim=-1))
         return logits, compute_stochastic_state(logits, self.discrete_size, generator, gumbel=gumbel)
 
+    def dynamic_posterior(self, posterior, recurrent_state, action, embedded_obs, is_first, gumbel=None,
+                          generator=None):
+        """One posterior step of training: an ``is_first`` row starts from
+        zeros (action, posterior and recurrent state), then recurrent →
+        posterior. Returns ``(recurrent_state, posterior, posterior_logits)``;
+        the prior logits are batched afterwards (:meth:`prior_logits`)."""
+        keep = 1.0 - is_first
+        action, posterior, recurrent_state = keep * action, keep * posterior, keep * recurrent_state
+        recurrent_state = self.recurrent_model(torch.cat([posterior, action], dim=-1), recurrent_state)
+        posterior_logits, posterior = self._representation(recurrent_state, embedded_obs, generator, gumbel=gumbel)
+        return recurrent_state, posterior, posterior_logits
+
+    def prior_logits(self, recurrent_states: torch.Tensor) -> torch.Tensor:
+        """Transition logits over any leading shape."""
+        return self.transition_model(recurrent_states)
+
+    def imagination(self, prior, recurrent_state, actions, gumbel=None, generator=None):
+        """One prior step in imagination: returns ``(prior, recurrent_state)``."""
+        recurrent_state = self.recurrent_model(torch.cat([prior, actions], dim=-1), recurrent_state)
+        _, imagined_prior = self._transition(recurrent_state, generator, gumbel=gumbel)
+        return imagined_prior, recurrent_state
+
 
 class WorldModel(nn.Module):
-    """Encoders plus the RSSM: what the player runs."""
+    """Encoders plus the RSSM (what the player runs), and with ``training``
+    the decoders and the reward and continue heads."""
 
     def __init__(
         self,
@@ -210,10 +303,18 @@ class WorldModel(nn.Module):
         layer_norm: bool = False,
         cnn_act: Any = "elu",
         dense_act: Any = "elu",
+        training: bool = False,
+        decoder_mlp_layers: int = 4,
+        reward_mlp_layers: int = 4,
+        reward_dense_units: int = 400,
+        continue_mlp_layers: int = 4,
+        continue_dense_units: int = 400,
+        use_continues: bool = False,
         device=None,
     ):
         super().__init__()
         self.cnn_keys, self.mlp_keys = list(cnn_keys), list(mlp_keys)
+        self.cnn_channels = [int(c) for c in cnn_channels]
         embed = 0
         self.cnn_encoder = self.mlp_encoder = None
         if self.cnn_keys:
@@ -232,6 +333,24 @@ class WorldModel(nn.Module):
             representation_hidden_size=representation_hidden_size,
             layer_norm=layer_norm, activation=dense_act, device=device,
         )
+        self.cnn_decoder = self.mlp_decoder = self.reward_model = self.continue_model = None
+        if not training:
+            return
+        latent = int(stochastic_size) * int(discrete_size) + int(recurrent_state_size)
+        if self.cnn_keys:
+            self.cnn_decoder = CNNDecoder(
+                cnn_channels, channels_multiplier, latent, cnn_encoder_output_dim(image_size, channels_multiplier),
+                layer_norm, cnn_act, device,
+            )
+        if self.mlp_keys:
+            self.mlp_decoder = MLPDecoder(
+                self.mlp_keys, mlp_dims, latent, decoder_mlp_layers, dense_units, layer_norm, dense_act, device
+            )
+        self.reward_model = MLPHead(latent, 1, reward_mlp_layers, reward_dense_units, layer_norm, dense_act, device)
+        if use_continues:
+            self.continue_model = MLPHead(
+                latent, 1, continue_mlp_layers, continue_dense_units, layer_norm, dense_act, device
+            )
 
     def encode(self, obs: Mapping[str, torch.Tensor]) -> torch.Tensor:
         feats = []
@@ -247,6 +366,23 @@ class WorldModel(nn.Module):
     def representation(self, recurrent_state, embedded_obs, generator=None, gumbel=None):
         return self.rssm._representation(recurrent_state, embedded_obs, generator, gumbel=gumbel)
 
+    def decode(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Reconstructions per key: ``[..., C, H, W]`` images split by the
+        keys' channels, ``[..., dim]`` vectors."""
+        out: Dict[str, torch.Tensor] = {}
+        if self.cnn_decoder is not None:
+            rec = self.cnn_decoder(latent)
+            out.update(zip(self.cnn_keys, torch.split(rec, self.cnn_channels, dim=-3)))
+        if self.mlp_decoder is not None:
+            out.update(self.mlp_decoder(latent))
+        return out
+
+    def reward(self, latent: torch.Tensor) -> torch.Tensor:
+        return self.reward_model(latent)
+
+    def continues(self, latent: torch.Tensor) -> torch.Tensor:
+        return self.continue_model(latent)
+
 
 # ---------------------------------------------------------------------------
 # build
@@ -258,8 +394,8 @@ def xavier_normal_initialization(module: nn.Module, generator: torch.Generator) 
     biases zero, LayerNorm affine left at ones/zeros (the JAX transform)."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d)):
-                w = m.weight  # [out, in(, kh, kw)]
+            if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+                w = m.weight  # [out, in(, kh, kw)]; [in, out, kh, kw] transposed (the sum is what counts)
                 space = int(np.prod(w.shape[2:])) if w.dim() > 2 else 1
                 fan_in, fan_out = w.shape[1] * space, w.shape[0] * space
             elif isinstance(m, LayerNormGRUCell):
@@ -284,11 +420,17 @@ def build_agent(
     observation_space: Mapping[str, Any],
     seed: Optional[int] = None,
     device=None,
-) -> Tuple[WorldModel, Actor]:
+    training: bool = False,
+):
     """World model and actor at ``cfg``'s widths, Xavier-normal initialized
     from ``seed`` (``cfg.seed`` when None) and placed on ``device``.
     ``observation_space`` maps each key to a space with ``.shape`` or to a
-    shape tuple."""
+    shape tuple.
+
+    Returns ``(world_model, actor)`` in eval mode. With ``training=True`` the
+    world model also has its decoders and heads, and the result is
+    ``(world_model, actor, critic, target_critic)`` in train mode, the target
+    a copy of the critic whose parameters take no gradient."""
     dev = resolve_device(device)
     wm_cfg = cfg.algo.world_model
     cnn_keys, mlp_keys = list(cfg.cnn_keys.encoder), list(cfg.mlp_keys.encoder)
@@ -313,6 +455,13 @@ def build_agent(
         layer_norm=bool(cfg.algo.layer_norm),
         cnn_act=cfg.algo.cnn_act,
         dense_act=cfg.algo.dense_act,
+        training=training,
+        decoder_mlp_layers=int(wm_cfg.observation_model.mlp_layers),
+        reward_mlp_layers=int(wm_cfg.reward_model.mlp_layers),
+        reward_dense_units=int(wm_cfg.reward_model.dense_units),
+        continue_mlp_layers=int(wm_cfg.discount_model.mlp_layers),
+        continue_dense_units=int(wm_cfg.discount_model.dense_units),
+        use_continues=bool(wm_cfg.use_continues),
     )
     latent = int(wm_cfg.stochastic_size) * int(wm_cfg.discrete_size) + int(
         wm_cfg.recurrent_model.recurrent_state_size
@@ -330,7 +479,16 @@ def build_agent(
     gen = torch.Generator().manual_seed(int(cfg.seed if seed is None else seed))
     xavier_normal_initialization(world_model, gen)
     xavier_normal_initialization(actor, gen)
-    return world_model.to(dev).eval(), actor.to(dev).eval()
+    if not training:
+        return world_model.to(dev).eval(), actor.to(dev).eval()
+    critic_cfg = cfg.algo.critic
+    critic = MLPHead(
+        latent, 1, int(critic_cfg.mlp_layers), int(critic_cfg.dense_units), bool(critic_cfg.layer_norm),
+        critic_cfg.dense_act,
+    )
+    xavier_normal_initialization(critic, gen)
+    target_critic = copy.deepcopy(critic).requires_grad_(False)
+    return world_model.to(dev).train(), actor.to(dev).train(), critic.to(dev).train(), target_critic.to(dev).train()
 
 
 def set_cell_impl(world_model: WorldModel, impl: str) -> None:

@@ -1,6 +1,7 @@
 """The DreamerV3 actor pieces that DreamerV2 shares (counterpart of
-``Actor``, ``resolve_actor_distribution``, ``build_actor_dists`` and
-``sample_actor_actions`` in ``sheeprl_tpu/algos/dreamer_v3/agent.py``).
+``Actor``, ``resolve_actor_distribution``, ``build_actor_dists``,
+``sample_actor_actions`` and ``actor_entropy`` in
+``sheeprl_tpu/algos/dreamer_v3/agent.py``).
 
 Discrete actions only: continuous actors (greedy best-of-100 sampling from a
 truncated normal) come in a later slice and raise here.
@@ -17,7 +18,7 @@ from torch import nn
 from sheeprl_tpu_torch.distributions import OneHotCategoricalStraightThrough
 from sheeprl_tpu_torch.models import MLP
 
-__all__ = ["Actor", "build_actor_dists", "resolve_actor_distribution", "sample_actor_actions"]
+__all__ = ["Actor", "actor_entropy", "build_actor_dists", "resolve_actor_distribution", "sample_actor_actions"]
 
 _CONTINUOUS = "continuous actions are not ported yet: only discrete actors are served"
 
@@ -101,10 +102,21 @@ def sample_actor_actions(
     is_continuous: bool,
     generator: Optional[torch.Generator] = None,
     is_training: bool = True,
+    gumbels: Optional[Sequence[torch.Tensor]] = None,
 ) -> List[torch.Tensor]:
-    """A straight-through sample per head when training, the mode otherwise."""
+    """A straight-through sample per head when training, the mode otherwise.
+    ``gumbels`` holds pre-drawn Gumbel(0,1) noise, one tensor per head shaped
+    like its logits (the JAX side draws it per head from ``split(key)``);
+    without it the noise comes from ``generator``."""
     if is_continuous:
         raise NotImplementedError(_CONTINUOUS)
-    if is_training:
+    if not is_training:
+        return [d.mode for d in dists]
+    if gumbels is None:
         return [d.rsample(generator) for d in dists]
-    return [d.mode for d in dists]
+    return [d.rsample(gumbel=g) for d, g in zip(dists, gumbels)]
+
+
+def actor_entropy(dists: Sequence[OneHotCategoricalStraightThrough]) -> torch.Tensor:
+    """Summed per-head entropy (the discrete actors' closed form)."""
+    return sum(d.entropy() for d in dists)

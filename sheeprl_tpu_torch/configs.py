@@ -1,10 +1,10 @@
-"""The DreamerV2 configuration the serving slice reads.
+"""The DreamerV2 configuration the serving and training slices read.
 
 Values are those of the JAX package's YAML tree: ``configs/algo/default.yaml``,
-``configs/algo/dreamer_v2.yaml`` and ``configs/exp/dreamer_v2_ms_pacman.yaml``
-(MsPacman, Atari 64x64 rgb). Only the fields that ``build_agent`` and
-``build_player_fns`` read are kept; the config engine and the YAML tree are
-not ported yet.
+``configs/algo/dreamer_v2.yaml``, ``configs/exp/dreamer_v2.yaml`` and
+``configs/exp/dreamer_v2_ms_pacman.yaml`` (MsPacman, Atari 64x64 rgb). Only
+the fields that ``build_agent``, ``build_player_fns`` and the train step
+read are kept; the config engine and the YAML tree are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,8 +34,13 @@ def _tree(r: Dict[str, Any]) -> Dict[str, Any]:
     def head():
         return {"dense_act": dense_act, "mlp_layers": layers, "layer_norm": ln, "dense_units": units}
 
+    def optimizer(lr):
+        return {"lr": lr, "eps": 1e-5, "weight_decay": 1e-6, "betas": [0.9, 0.999]}
+
     return {
         "seed": 5,
+        "per_rank_batch_size": 32,
+        "per_rank_sequence_length": 50,
         "env": {"id": "MsPacmanNoFrameskip-v0", "screen_size": 64},
         "cnn_keys": {"encoder": ["rgb"]},
         "mlp_keys": {"encoder": []},
@@ -47,10 +52,20 @@ def _tree(r: Dict[str, Any]) -> Dict[str, Any]:
             "mlp_layers": layers,
             "dense_act": dense_act,
             "cnn_act": cnn_act,
+            "gamma": 0.995,
+            "lmbda": 0.95,
+            "horizon": 15,
             "world_model": {
                 "discrete_size": 32,
                 "stochastic_size": 32,
+                "kl_balancing_alpha": 0.8,
+                "kl_free_nats": 0.0,
+                "kl_free_avg": True,
+                "kl_regularizer": 0.1,
+                "discount_scale_factor": 0.5,
                 "use_continues": True,
+                "clip_gradients": 100.0,
+                "optimizer": optimizer(2e-4),
                 "encoder": {
                     "cnn_channels_multiplier": mult,
                     "cnn_act": cnn_act,
@@ -78,8 +93,21 @@ def _tree(r: Dict[str, Any]) -> Dict[str, Any]:
                 "reward_model": head(),
                 "discount_model": {"learnable": True, **head()},
             },
-            "actor": {"min_std": 0.1, "init_std": 0.0, **head()},
-            "critic": head(),
+            "actor": {
+                "ent_coef": 1e-3,
+                "min_std": 0.1,
+                "init_std": 0.0,
+                "objective_mix": 1.0,
+                "clip_gradients": 100.0,
+                "optimizer": optimizer(4e-5),
+                **head(),
+            },
+            "critic": {
+                "target_network_update_freq": 100,
+                "clip_gradients": 100.0,
+                "optimizer": optimizer(1e-4),
+                **head(),
+            },
         },
     }
 

@@ -6,6 +6,15 @@ that fails: there is no quiet switch to the plain version); on a CPU tensor
 it runs the plain PyTorch version from :mod:`.reference`. Every launch adds
 one to the kernel's :class:`LaunchCounter`, so a run can show that its main
 path went through the kernel.
+
+Gradients. The JAX package has no backward kernel: its Pallas cell and
+sequence are ``jax.custom_vjp``s whose backward is ``jax.vjp`` of the XLA
+program (``pallas_tpu.py:149-160``, ``:200-232``). Here the backward is a
+hand-derived VJP in PyTorch operations, the same code on CPU and CUDA
+tensors: it recomputes ``z = [h|x]·W + b`` with ``torch.matmul`` (JAX's
+backward also computes this product outside any kernel), then
+differentiates the two-pass LayerNorm and the gates by hand. It never calls
+the plain forward.
 """
 
 from __future__ import annotations
@@ -18,7 +27,15 @@ import torch
 
 from sheeprl_tpu_torch.kernels import reference
 
-__all__ = ["LaunchCounter", "hafner_cell_cuda", "hafner_cell_launches", "hafner_gru_cell"]
+__all__ = [
+    "LaunchCounter",
+    "hafner_cell_cuda",
+    "hafner_cell_launches",
+    "hafner_gru_cell",
+    "hafner_gru_sequence",
+    "hafner_sequence_cuda",
+    "hafner_sequence_launches",
+]
 
 
 class LaunchCounter:
@@ -32,8 +49,10 @@ class LaunchCounter:
         self.count = 0
 
 
-#: launches of the ``hafner_gru.cu`` cell kernel in this process
+#: launches of the ``hafner_gru.cu`` cell (one per step)
 hafner_cell_launches = LaunchCounter("hafner_cell")
+#: launches of the ``hafner_gru.cu`` sequence (one per whole sequence)
+hafner_sequence_launches = LaunchCounter("hafner_sequence")
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,12 +60,14 @@ def _hafner_lib():
     from sheeprl_tpu_torch.kernels.build import load_library
 
     lib = load_library("hafner_gru")
-    ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    lib.hafner_cell_forward.argtypes = [ptr] * 8 + [c_int] * 4 + [ctypes.c_float, c_int, ptr]
+    ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.hafner_cell_forward.argtypes = [ptr] * 8 + [c_int] * 4 + [c_float, c_int, ptr]
     lib.hafner_cell_forward.restype = c_int
-    lib.hafner_cell_split_chunks.argtypes = [c_int] * 3
-    lib.hafner_cell_split_chunks.restype = c_int
-    lib.hafner_cell_chunk_rows.restype = c_int
+    lib.hafner_sequence_forward.argtypes = [ptr] * 9 + [c_int] * 6 + [c_float, c_int, ptr]
+    lib.hafner_sequence_forward.restype = c_int
+    lib.hafner_split_chunks.argtypes = [c_int] * 3
+    lib.hafner_split_chunks.restype = c_int
+    lib.hafner_chunk_rows.restype = c_int
     lib.hafner_cell_error_string.argtypes = [c_int]
     lib.hafner_cell_error_string.restype = ctypes.c_char_p
     return lib
@@ -63,6 +84,41 @@ def _check_operand(name: str, t: Optional[torch.Tensor], shape, device) -> None:
         raise ValueError(f"hafner_cell: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"hafner_cell: {name} must be contiguous")
+
+
+def _check_params(h, kernel, bias, ln_scale, ln_bias, H: int, X: int) -> None:
+    if (ln_scale is None) != (ln_bias is None):
+        raise ValueError("hafner_cell: ln_scale and ln_bias come together")
+    for name, t, shape in (
+        ("kernel", kernel, (H + X, 3 * H)),
+        ("bias", bias, (3 * H,)),
+        ("ln_scale", ln_scale, (3 * H,)),
+        ("ln_bias", ln_bias, (3 * H,)),
+    ):
+        _check_operand(name, t, shape, h.device)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _vec(H: int, X: int, *operands) -> int:
+    """16-byte copies: every width a multiple of 4 floats, every pointer aligned."""
+    return int(H % 4 == 0 and X % 4 == 0 and all(t is None or t.data_ptr() % 16 == 0 for t in operands))
+
+
+def _splits(lib, M: int, K: int, N: int, device) -> "tuple[int, int]":
+    """``(chunks per split, splits)`` of an ``[M, K]·[K, N]`` product."""
+    split_chunks = lib.hafner_split_chunks(M, K, N)
+    if split_chunks < 1:
+        raise RuntimeError(f"hafner_cell: cannot query {device}")
+    chunks = -(-K // lib.hafner_chunk_rows())
+    return split_chunks, -(-chunks // split_chunks)
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: {lib.hafner_cell_error_string(err).decode()}")
 
 
 def hafner_cell_cuda(
@@ -83,58 +139,174 @@ def hafner_cell_cuda(
         raise ValueError("hafner_cell: h and x must be [B, H] and [B, X]")
     B, H = h.shape
     X = x.shape[1]
-    if (ln_scale is None) != (ln_bias is None):
-        raise ValueError("hafner_cell: ln_scale and ln_bias come together")
-    for name, t, shape in (
-        ("h", h, (B, H)),
-        ("x", x, (B, X)),
-        ("kernel", kernel, (H + X, 3 * H)),
-        ("bias", bias, (3 * H,)),
-        ("ln_scale", ln_scale, (3 * H,)),
-        ("ln_bias", ln_bias, (3 * H,)),
-    ):
-        _check_operand(name, t, shape, h.device)
+    _check_operand("h", h, (B, H), h.device)
+    _check_operand("x", x, (B, X), h.device)
+    _check_params(h, kernel, bias, ln_scale, ln_bias, H, X)
     if B == 0:
         return torch.empty_like(h)
     lib = _hafner_lib()
     with torch.cuda.device(h.device):  # the launching thread's current device
-        split_chunks = lib.hafner_cell_split_chunks(B, H, X)
-        if split_chunks < 1:
-            raise RuntimeError(f"hafner_cell: cannot query {h.device}")
-        chunks = -(-(H + X) // lib.hafner_cell_chunk_rows())
-        splits = -(-chunks // split_chunks)
+        split_chunks, splits = _splits(lib, B, H + X, 3 * H, h.device)
         out = torch.empty_like(h)
         zpart = torch.empty((splits, B, 3 * H), dtype=torch.float32, device=h.device)
-        operands = (h, x, kernel, bias, ln_scale, ln_bias, zpart, out)
-        vec = int(H % 4 == 0 and X % 4 == 0 and all(t is None or t.data_ptr() % 16 == 0 for t in operands))
-
-        def ptr(t: Optional[torch.Tensor]):
-            return None if t is None else t.data_ptr()
-
+        vec = _vec(H, X, h, x, kernel, bias, ln_scale, ln_bias, zpart, out)
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = lib.hafner_cell_forward(
-            ptr(h), ptr(x), ptr(kernel), ptr(bias), ptr(ln_scale), ptr(ln_bias), ptr(zpart), ptr(out),
+            _ptr(h), _ptr(x), _ptr(kernel), _ptr(bias), _ptr(ln_scale), _ptr(ln_bias), _ptr(zpart), _ptr(out),
             B, H, X, split_chunks, float(eps), vec, stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"hafner_cell kernel launch failed (B={B}, H={H}, X={X}): "
-            f"{lib.hafner_cell_error_string(err).decode()}"
-        )
+    _raise_on(lib, err, f"hafner_cell (B={B}, H={H}, X={X})")
     hafner_cell_launches.count += 1
     return out
+
+
+def hafner_sequence_cuda(
+    h0: torch.Tensor,
+    xs: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    ln_scale: Optional[torch.Tensor],
+    ln_bias: Optional[torch.Tensor],
+    *,
+    eps: float,
+) -> torch.Tensor:
+    """Launch the CUDA sequence on CUDA tensors: ``h0 [B,H]``, ``xs [T,B,X]``
+    → ``hs [T,B,H]``; parameters as for :func:`hafner_cell_cuda`."""
+    if h0.device.type != "cuda":
+        raise ValueError(f"hafner_sequence_cuda needs CUDA tensors, got {h0.device}")
+    if h0.dim() != 2 or xs.dim() != 3:
+        raise ValueError("hafner_sequence: h0 and xs must be [B, H] and [T, B, X]")
+    B, H = h0.shape
+    T, X = xs.shape[0], xs.shape[2]
+    _check_operand("h0", h0, (B, H), h0.device)
+    _check_operand("xs", xs, (T, B, X), h0.device)
+    _check_params(h0, kernel, bias, ln_scale, ln_bias, H, X)
+    if T == 0 or B == 0:
+        return torch.empty((T, B, H), dtype=torch.float32, device=h0.device)
+    lib = _hafner_lib()
+    with torch.cuda.device(h0.device):
+        h_chunks, h_splits = _splits(lib, B, H, 3 * H, h0.device)
+        x_chunks, x_splits = _splits(lib, T * B, X, 3 * H, h0.device) if X > 0 else (0, 0)
+        hs = torch.empty((T, B, H), dtype=torch.float32, device=h0.device)
+        zx = torch.empty((x_splits, T, B, 3 * H), dtype=torch.float32, device=h0.device)
+        zpart = torch.empty((h_splits, B, 3 * H), dtype=torch.float32, device=h0.device)
+        vec = _vec(H, X, h0, xs, kernel, bias, ln_scale, ln_bias, zx, zpart, hs)
+        stream = torch.cuda.current_stream(h0.device).cuda_stream
+        err = lib.hafner_sequence_forward(
+            _ptr(h0), _ptr(xs), _ptr(kernel), _ptr(bias), _ptr(ln_scale), _ptr(ln_bias), _ptr(zx), _ptr(zpart),
+            _ptr(hs), T, B, H, X, x_chunks, h_chunks, float(eps), vec, stream,
+        )
+    _raise_on(lib, err, f"hafner_sequence (T={T}, B={B}, H={H}, X={X})")
+    hafner_sequence_launches.count += 1
+    return hs
+
+
+# ---------------------------------------------------------------------------
+# the hand-derived VJP
+# ---------------------------------------------------------------------------
+
+
+def _gates_vjp(z, h, ln_scale, ln_bias, eps: float, g):
+    """VJP of the LayerNorm (two-pass statistics, as ``models/norm.py``) and
+    the gates at the pre-activation ``z = [h|x]·W + b`` for the output
+    cotangent ``g``. Returns ``(dz, dh through the (1-u)·h term, dscale,
+    dlbias)``; the LayerNorm parameters' grads are None without LayerNorm."""
+    if ln_scale is not None:
+        mu = z.mean(dim=-1, keepdim=True)
+        d = z - mu
+        rstd = torch.rsqrt(d.square().mean(dim=-1, keepdim=True) + eps)
+        zhat = d * rstd
+        y = zhat * ln_scale + ln_bias
+    else:
+        y = z
+    y_r, y_c, y_u = torch.chunk(y, 3, dim=-1)
+    r = torch.sigmoid(y_r)
+    c = torch.tanh(r * y_c)
+    u = torch.sigmoid(y_u - 1)
+    d_pre_c = g * u * (1 - c * c)  # through h' = u·c + (1-u)·h, c = tanh(r·y_c)
+    dy = torch.cat([d_pre_c * y_c * r * (1 - r), d_pre_c * r, g * (c - h) * u * (1 - u)], dim=-1)
+    dh = g * (1 - u)
+    if ln_scale is None:
+        return dy, dh, None, None
+    rows = tuple(range(dy.dim() - 1))
+    dlbias = dy.sum(dim=rows)
+    dscale = (dy * zhat).sum(dim=rows)
+    gg = dy * ln_scale
+    dz = rstd * (gg - gg.mean(dim=-1, keepdim=True) - zhat * (gg * zhat).mean(dim=-1, keepdim=True))
+    return dz, dh, dscale, dlbias
 
 
 class _HafnerCell(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, x, kernel, bias, ln_scale, ln_bias, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(h, x, kernel, bias, ln_scale, ln_bias)
         if h.device.type == "cpu":
             return reference.hafner_cell(h, x, kernel, bias, ln_scale, ln_bias, eps=eps)
         return hafner_cell_cuda(h, x, kernel, bias, ln_scale, ln_bias, eps=eps)
 
     @staticmethod
-    def backward(ctx, grad_out):
-        raise NotImplementedError("backward kernel comes with the training slice")
+    def backward(ctx, g):
+        h, x, kernel, bias, ln_scale, ln_bias = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        H = h.shape[-1]
+        u = torch.cat([h, x], dim=-1)
+        z = u @ kernel
+        if bias is not None:
+            z = z + bias
+        dz, dh, dscale, dlbias = _gates_vjp(z, h, ln_scale, ln_bias, ctx.eps, g)
+        dh_out = dx = dkernel = dbias = None
+        if need[0] or need[1]:
+            du = dz @ kernel.t()
+            dh_out, dx = dh + du[:, :H], du[:, H:]
+        if need[2]:
+            dkernel = u.t() @ dz
+        if bias is not None and need[3]:
+            dbias = dz.sum(dim=0)
+        return dh_out, dx, dkernel, dbias, dscale, dlbias, None
+
+
+class _HafnerSequence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h0, xs, kernel, bias, ln_scale, ln_bias, eps):
+        if h0.device.type == "cpu":
+            hs = reference.hafner_sequence(h0, xs, kernel, bias, ln_scale, ln_bias, eps=eps)
+        else:
+            hs = hafner_sequence_cuda(h0, xs, kernel, bias, ln_scale, ln_bias, eps=eps)
+        ctx.eps = eps
+        ctx.save_for_backward(h0, xs, kernel, bias, ln_scale, ln_bias, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, g_hs):
+        """The cell's VJP in reverse over T from the saved ``hs``; the input
+        products for all T at once, as the JAX backward program hoists them
+        (``_xla_sequence_padded``)."""
+        h0, xs, kernel, bias, ln_scale, ln_bias, hs = ctx.saved_tensors
+        T, B, X = xs.shape
+        H = h0.shape[-1]
+        w_h, w_x = kernel[:H], kernel[H:]
+        zx = xs @ w_x
+        if bias is not None:
+            zx = zx + bias
+        h_prev = torch.cat([h0[None], hs[:-1]], dim=0)
+        dz_all = torch.empty_like(zx)
+        carry = torch.zeros_like(h0)
+        dscale = dlbias = None
+        for t in range(T - 1, -1, -1):
+            z = h_prev[t] @ w_h + zx[t]
+            dz, dh, ds, dlb = _gates_vjp(z, h_prev[t], ln_scale, ln_bias, ctx.eps, g_hs[t] + carry)
+            dz_all[t] = dz
+            if ds is not None:
+                dscale = ds if dscale is None else dscale + ds
+                dlbias = dlb if dlbias is None else dlbias + dlb
+            carry = dh + dz @ w_h.t()
+        dz_flat = dz_all.reshape(T * B, 3 * H)
+        dkernel = torch.cat(
+            [h_prev.reshape(T * B, H).t() @ dz_flat, xs.reshape(T * B, X).t() @ dz_flat], dim=0
+        )
+        dbias = dz_flat.sum(dim=0) if bias is not None else None
+        return carry, dz_all @ w_x.t(), dkernel, dbias, dscale, dlbias, None
 
 
 def hafner_gru_cell(
@@ -148,5 +320,21 @@ def hafner_gru_cell(
     eps: float,
 ) -> torch.Tensor:
     """One LayerNorm-GRU step: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+    version on CPU tensors; differentiable in all six operands."""
     return _HafnerCell.apply(h, x, kernel, bias, ln_scale, ln_bias, float(eps))
+
+
+def hafner_gru_sequence(
+    h0: torch.Tensor,
+    xs: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    ln_scale: Optional[torch.Tensor],
+    ln_bias: Optional[torch.Tensor],
+    *,
+    eps: float,
+) -> torch.Tensor:
+    """The step over ``xs [T,B,X]`` with h carried from ``h0 [B,H]`` →
+    ``hs [T,B,H]``: the CUDA kernel on CUDA tensors, the plain loop on CPU
+    tensors; differentiable in all six operands."""
+    return _HafnerSequence.apply(h0, xs, kernel, bias, ln_scale, ln_bias, float(eps))

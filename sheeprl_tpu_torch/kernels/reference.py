@@ -15,7 +15,7 @@ import torch
 
 from sheeprl_tpu_torch.models.norm import fast_layer_norm
 
-__all__ = ["dense_apply", "hafner_cell", "hafner_gates"]
+__all__ = ["dense_apply", "hafner_cell", "hafner_gates", "hafner_sequence"]
 
 
 def dense_apply(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -50,3 +50,23 @@ def hafner_cell(
     if ln_scale is not None:
         z = fast_layer_norm(z, ln_scale, ln_bias, float(eps))
     return hafner_gates(z, h)
+
+
+def hafner_sequence(
+    h0: torch.Tensor,
+    xs: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    ln_scale: Optional[torch.Tensor],
+    ln_bias: Optional[torch.Tensor],
+    *,
+    eps: float,
+) -> torch.Tensor:
+    """The cell under a loop over ``xs [T, B, X]`` with h carried from
+    ``h0 [B, H]``: returns ``hs [T, B, H]``."""
+    hs = []
+    h = h0
+    for x in xs:
+        h = hafner_cell(h, x, kernel, bias, ln_scale, ln_bias, eps=eps)
+        hs.append(h)
+    return torch.stack(hs) if hs else h0.new_empty((0,) + tuple(h0.shape))

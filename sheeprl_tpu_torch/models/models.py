@@ -18,7 +18,7 @@ from torch import nn
 from sheeprl_tpu_torch.kernels import ops, reference
 from sheeprl_tpu_torch.models.norm import FastLayerNorm
 
-__all__ = ["CNN", "MLP", "LayerNormGRUCell", "resolve_activation"]
+__all__ = ["CNN", "DeCNN", "MLP", "LayerNormGRUCell", "resolve_activation"]
 
 _ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "tanh": torch.tanh,
@@ -148,6 +148,62 @@ class CNN(nn.Module):
         if self.flatten:
             x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
             return x.reshape(lead + x.shape[1:])
+        return x.reshape(lead + x.shape[1:])
+
+
+class DeCNN(nn.Module):
+    """ConvTranspose2d stack on ``[..., C, H, W]`` (the JAX ``DeCNN``).
+
+    ``paddings`` are PyTorch-style transposed-conv paddings ``p`` (output
+    ``(in - 1)·s − 2p + k``), which is what the configs carry: the JAX module
+    turns ``p`` into flax's forward-conv padding ``k − 1 − p`` per side and
+    runs ``ConvTranspose(transpose_kernel=True)``, the gradient of a forward
+    convolution, as ``nn.ConvTranspose2d`` is. The activation follows every
+    layer but the last.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        channels: Sequence[int],
+        kernel_sizes: Union[int, Sequence[int]] = 3,
+        strides: Union[int, Sequence[int]] = 1,
+        paddings: Union[int, Sequence[int]] = 0,
+        activation: Union[str, Callable] = "relu",
+        layer_norm: Union[bool, Sequence[bool]] = False,
+        norm_eps: float = 1e-5,
+        bias: Union[bool, Sequence[bool]] = True,
+        device=None,
+    ):
+        super().__init__()
+        n = len(channels)
+        ks, st, pd = _broadcast(kernel_sizes, n), _broadcast(strides, n), _broadcast(paddings, n)
+        norms, biases = _broadcast(layer_norm, n), _broadcast(bias, n)
+        self.act = resolve_activation(activation)
+        convs, lns = [], []
+        c_in = int(in_channels)
+        for i, ch in enumerate(channels):
+            convs.append(
+                nn.ConvTranspose2d(
+                    c_in, int(ch), ks[i], stride=st[i], padding=int(pd[i]), bias=biases[i], device=device
+                )
+            )
+            lns.append(FastLayerNorm(int(ch), eps=norm_eps, device=device) if norms[i] else None)
+            c_in = int(ch)
+        self.convs = nn.ModuleList(convs)
+        self.norms = nn.ModuleList([m if m is not None else nn.Identity() for m in lns])
+        self._normed = [m is not None for m in lns]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-3]
+        x = x.reshape((-1,) + tuple(x.shape[-3:]))
+        last = len(self.convs) - 1
+        for i, (conv, norm, normed) in enumerate(zip(self.convs, self.norms, self._normed)):
+            x = conv(x)
+            if normed:  # LayerNorm over channels, as the JAX module's NHWC LN
+                x = norm(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            if i < last:
+                x = self.act(x)
         return x.reshape(lead + x.shape[1:])
 
 

@@ -6,8 +6,11 @@ installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerance: abs 1e-4 (float32 against float32 with another summation order
-over K = H + X; TF32 is off for the plain version's matmul).
+Tolerances: forward abs 1e-4 (float32 against float32 with another
+summation order over K = H + X; TF32 is off for the plain version's
+matmul); gradients 1e-4 of each gradient's largest magnitude (the hand VJP
+against autograd of the plain version: other summation orders, and
+gradients of W that sum over the batch).
 """
 
 import numpy as np
@@ -17,6 +20,7 @@ import torch
 from sheeprl_tpu_torch.kernels import ops, reference
 
 TOL = 1e-4
+GRAD_TOL = 1e-4
 
 
 @pytest.fixture
@@ -68,3 +72,41 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         ops.hafner_gru_cell(h, x, kernel.t().contiguous().t(), b, s, lb, eps=1e-5)
     with pytest.raises(ValueError, match="come together"):
         ops.hafner_gru_cell(h, x, kernel, b, s, None, eps=1e-5)
+
+
+def _grads(fn, args, cot):
+    leaves = [a.detach().requires_grad_(True) if a is not None else None for a in args]
+    out = fn(*leaves)
+    return out.detach(), torch.autograd.grad(out, [a for a in leaves if a is not None], cot)
+
+
+def _assert_grads_close(got, want):
+    for g, w in zip(got, want):
+        assert ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item() <= GRAD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [32, 801, 1600])
+def test_cell_at_training_batches_with_gradients(cuda, B):
+    args = _operands(B, 600, 400, bias=True, layer_norm=True, device=cuda, seed=B)
+    cot = torch.randn(B, 600, device=cuda, generator=torch.Generator(device=cuda).manual_seed(B))
+    out, got = _grads(lambda *a: ops.hafner_gru_cell(*a, eps=1e-5), args, cot)
+    plain, want = _grads(lambda *a: reference.hafner_cell(*a, eps=1e-5), args, cot)
+    assert (out - plain).abs().max().item() <= TOL
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H,X,bias,layer_norm", [(50, 16, 600, 400, True, True), (7, 5, 599, 37, False, False)])
+def test_sequence_kernel_matches_plain_loop(cuda, T, B, H, X, bias, layer_norm):
+    h0, x, kernel, b, s, lb = _operands(B, H, X, bias=bias, layer_norm=layer_norm, device=cuda, seed=T + H)
+    xs = torch.randn(T, B, X, device=cuda, generator=torch.Generator(device=cuda).manual_seed(T))
+    args = (h0, xs, kernel, b, s, lb)
+    cot = torch.randn(T, B, H, device=cuda, generator=torch.Generator(device=cuda).manual_seed(B))
+    before = ops.hafner_sequence_launches.count
+    hs, got = _grads(lambda *a: ops.hafner_gru_sequence(*a, eps=1e-3), args, cot)
+    assert ops.hafner_sequence_launches.count == before + 1
+    plain, want = _grads(lambda *a: reference.hafner_sequence(*a, eps=1e-3), args, cot)
+    assert hs.shape == (T, B, H) and torch.isfinite(hs).all()
+    assert (hs - plain).abs().max().item() <= TOL
+    _assert_grads_close(got, want)

@@ -189,7 +189,23 @@ def _leaves(tree, prefix=""):
     "exp,overrides",
     [
         ("dreamer_v2_ms_pacman", {}),
-        ("dreamer_v2", {"seed": 42, "env.id": "discrete_dummy", "algo.world_model.use_continues": False}),
+        (
+            "dreamer_v2",
+            {
+                "seed": 42,
+                "env.id": "discrete_dummy",
+                "per_rank_batch_size": 16,
+                "algo.gamma": 0.99,
+                "algo.world_model.use_continues": False,
+                "algo.world_model.kl_free_nats": 1.0,
+                "algo.world_model.kl_regularizer": 1.0,
+                "algo.world_model.discount_scale_factor": 1.0,
+                "algo.world_model.optimizer.lr": 3e-4,
+                "algo.actor.ent_coef": 1e-4,
+                "algo.actor.optimizer.lr": 8e-5,
+                "algo.critic.optimizer.lr": 8e-5,
+            },
+        ),
     ],
 )
 def test_config_matches_composed_yaml(exp, overrides):

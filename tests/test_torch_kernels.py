@@ -5,9 +5,13 @@ against the Pallas TPU kernel run in interpret mode (as the JAX package's own
 kernel tests run it) and against the JAX reference cell. Inputs are made
 with numpy from a seed and handed to both sides.
 
-Tolerance: forward rtol/atol 2e-5, the JAX kernel suite's own.
+Tolerances, the JAX kernel suite's own: forward rtol/atol 2e-5; gradients
+(the port's hand-derived VJP against the Pallas cell's ``jax.custom_vjp``,
+the VJP of its padded XLA program) rtol 2e-4, atol 2e-5.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -17,6 +21,7 @@ from sheeprl_tpu.kernels import reference as jax_reference
 from sheeprl_tpu_torch.kernels import build, ops, reference
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
 
 
 def _operands(B, H, X, *, bias, layer_norm, seed=0):
@@ -73,11 +78,36 @@ def test_cuda_launcher_refuses_cpu_tensors():
 
 
 def test_backward_raises_until_the_training_slice():
-    h, x, kernel, b, s, lb = _torch(*_operands(2, 8, 4, bias=True, layer_norm=True))
-    kernel.requires_grad_(True)
-    out = ops.hafner_gru_cell(h, x, kernel, b, s, lb, eps=1e-5)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+    """The training slice has come: the backward no longer raises, and gives
+    all six gradients as autograd of the plain version does."""
+    ops_t = _torch(*_operands(2, 8, 4, bias=True, layer_norm=True))
+    leaves = [t.clone().requires_grad_(True) for t in ops_t]
+    ops.hafner_gru_cell(*leaves, eps=1e-5).sum().backward()
+    plain = [t.clone().requires_grad_(True) for t in ops_t]
+    reference.hafner_cell(*plain, eps=1e-5).sum().backward()
+    for got, want in zip(leaves, plain):
+        torch.testing.assert_close(got.grad, want.grad, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("layer_norm", [True, False], ids=["ln", "no_ln"])
+@pytest.mark.parametrize("H,X", [(600, 400), (599, 37), (128, 64), (1, 37)])
+def test_cell_vjp_matches_pallas_custom_vjp(H, X, layer_norm):
+    ops_np = _operands(5, H, X, bias=True, layer_norm=layer_norm, seed=H + 3 * X)
+    present = [i for i, a in enumerate(ops_np) if a is not None]
+
+    def loss(*a):
+        full = list(ops_np)
+        for i, v in zip(present, a):
+            full[i] = v
+        return jnp.sum(jnp.tanh(pallas_tpu.hafner_cell(
+            *full, hidden_size=H, eps=1e-5, layer_norm=layer_norm, interpret=True)))
+
+    want = jax.jit(jax.grad(loss, argnums=tuple(range(len(present)))))(*[ops_np[i] for i in present])
+    leaves = [None if a is None else torch.from_numpy(a).requires_grad_(True) for a in ops_np]
+    out = ops.hafner_gru_cell(*leaves, eps=1e-5)
+    got = torch.autograd.grad(torch.tanh(out).sum(), [leaves[i] for i in present])
+    for i, g, w in zip(present, got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL, err_msg=f"operand {i}")
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -1,6 +1,7 @@
 """The port's building blocks against their flax counterparts after
-``convert_layers``: FastLayerNorm, MLP, CNN (NHWC flatten order) and
-LayerNormGRUCell. Inputs and weights come from numpy seeds.
+``convert_layers``: FastLayerNorm, MLP, CNN (NHWC flatten order), DeCNN
+(``transpose_kernel=True``, torch-style padding) and LayerNormGRUCell.
+Inputs and weights come from numpy seeds.
 
 Tolerance: rtol/atol 2e-5 (float32 on the CPU, different summation order).
 """
@@ -12,11 +13,12 @@ import pytest
 import torch
 
 from sheeprl_tpu.models import CNN as JaxCNN
+from sheeprl_tpu.models import DeCNN as JaxDeCNN
 from sheeprl_tpu.models import MLP as JaxMLP
 from sheeprl_tpu.models import LayerNormGRUCell as JaxCell
 from sheeprl_tpu.models.norm import FastLayerNorm as JaxLN
 from sheeprl_tpu_torch.convert import convert_layers
-from sheeprl_tpu_torch.models import CNN, MLP, FastLayerNorm, LayerNormGRUCell
+from sheeprl_tpu_torch.models import CNN, MLP, DeCNN, FastLayerNorm, LayerNormGRUCell
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -77,6 +79,41 @@ def test_cnn_flattens_in_nhwc_order(layer_norm):
     with torch.inference_mode():
         got = tm(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape == (2, 3, 8 * 6 * 6)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("padding", [0, 1])
+@pytest.mark.parametrize("kernel", [5, 6])
+def test_decnn_layer_matches_flax(kernel, padding):
+    """A transposed or unflipped kernel keeps every shape and shows only as
+    wrong pixels, so this compares values: one stride-2 layer at the
+    decoder's kernel sizes, non-square input, random (not symmetric) weights."""
+    x = np.random.RandomState(8 + kernel).randn(2, 5, 3, 4).astype(np.float32)
+    kw = dict(kernel_sizes=kernel, strides=2, paddings=padding, activation="elu")
+    jm = JaxDeCNN(channels=[7], **kw)
+    params = _init(jm, x, seed=9)
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    tm = DeCNN(5, [7], **kw)
+    tm.load_state_dict(convert_layers(params, "decnn"))
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 7, 2 * 2 + kernel - 2 * padding, 3 * 2 + kernel - 2 * padding)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_decnn_stack_matches_flax():
+    """The decoder's stack from a 1x1 map: k=5,5,6,6, s=2, activation between
+    layers only."""
+    x = np.random.RandomState(10).randn(3, 12, 1, 1).astype(np.float32)
+    kw = dict(kernel_sizes=[5, 5, 6, 6], strides=2, paddings=0, activation="elu")
+    jm = JaxDeCNN(channels=[8, 4, 2, 3], **kw)
+    params = _init(jm, x, seed=11)
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    tm = DeCNN(12, [8, 4, 2, 3], **kw)
+    tm.load_state_dict(convert_layers(params, "decnn"))
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (3, 3, 64, 64)
     np.testing.assert_allclose(got, want, **TOL)
 
 
