@@ -10,11 +10,16 @@ Phases, each fatal on failure:
 3. kernels: each kernel against its plain PyTorch version on the card, with
    TF32 off; error, tolerance, and device time per call (20 calls captured
    in one CUDA graph, CUDA events around each of 50 replays queued behind a
-   busy stream, median) beside the plain version's and the bound:
+   busy stream, median) beside the plain version's and the bound, and the
+   product variant each shape launches:
    - the cell at the serving shapes (also eager time per call: events
      around each of 200 calls, host launch gaps included);
    - the cell at the training shapes (B=32, 801, 1600), with the hand VJP's
      six gradients against autograd of the plain version;
+   - at B=32, 64 and 1600 the cell's time split into its product kernel and
+     its gate kernel (the profiler's kernel records, ``tools/bench_cell.py``)
+     beside cuBLAS's f32 SGEMM of the same product ``[h|x]·W``
+     (``torch.matmul``, TF32 off): the yardstick, never called by the port;
    - the sequence at the kernel bench's shape and an odd one, forward and
      gradients against the plain loop;
 4. slice: a DreamerV2 agent at the full MsPacman width (rgb 3x64x64,
@@ -34,9 +39,19 @@ Phases, each fatal on failure:
 
 Each path's launch counts are zeroed just before its run and read just
 after it: the served run (phase 4), the bench (phase 5) and the timed train
-steps (phase 6). The last lines are the card line, one JSON line with a
-record per kernel, and ``{"ok": true, "device": {...}}``. Exits non-zero,
-without that last line, when there is no CUDA device or any phase fails.
+steps (phase 6). The build phase also counts the tensor-core instructions
+(``HGMMA``, ``HMMA``) in the built library's SASS (``cuobjdump -sass``).
+
+Bounds: the least time of the same work on an H100 SXM, the larger of its
+bytes (each input read once, each output written once) at 3.35 TB/s and its
+operations, the product ``[h|x]·W`` at f32 accuracy on the tensor cores
+(three TF32 passes at 495 TFLOP/s) plus the LayerNorm and gates at the f32
+rate (67 TFLOP/s). ``bound_f32_simt_ms`` keeps the earlier convention (the
+whole product at 67 TFLOP/s), so that older rows stay comparable.
+
+The last lines are the card line, one JSON line with a record per kernel,
+and ``{"ok": true, "device": {...}}``. Exits non-zero, without that last
+line, when there is no CUDA device or any phase fails.
 """
 
 from __future__ import annotations
@@ -48,7 +63,7 @@ import subprocess
 import sys
 import time
 
-TOL_KERNEL = 1e-4  # abs: f32 against f32, another summation order over K=1000
+TOL_KERNEL = 1e-4  # abs: 3xTF32 on the tensor cores against f32, another summation order over K=1000
 TOL_STATE = 1e-3  # abs: recurrent state after 16 chained steps, kernel vs plain cell
 TOL_SEQUENCE = 1e-4  # abs: hs over T chained steps (the JAX suite's sequence tolerance is rtol 1e-4)
 TOL_GRAD = 1e-4  # relative to each gradient's largest magnitude: f32, other summation orders
@@ -64,8 +79,10 @@ CELL_LAUNCHES_PER_STEP = 65  # 50 posterior steps + 15 imagination steps
 CLIENTS, STEPS, SEED = 64, 16, 5
 N_ACTIONS = 9
 OBS = {"rgb": (3, 64, 64)}
-# NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth
+# NVIDIA H100 SXM data sheet: f32 outside the tensor cores, TF32 on them (dense), HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+TF32_PASSES = 3  # hi.hi + hi.lo + lo.hi: f32 accuracy from TF32 operands
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -137,14 +154,24 @@ def device_ms(fn, calls: int = 20, n: int = 50) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs) / calls
 
 
+def _bound(bytes_: float, product_flops: float, other_flops: float):
+    """``(bound_ms, bound_by, bound_f32_simt_ms)``: the larger of the bytes
+    at the HBM rate and the operations (the product in TF32_PASSES passes on
+    the tensor cores, the rest at the f32 rate); and the earlier convention,
+    every operation at the f32 rate."""
+    t_bytes = bytes_ / PEAK_HBM_BYTES
+    t_ops = TF32_PASSES * product_flops / PEAK_TF32_FLOPS + other_flops / PEAK_F32_FLOPS
+    t_simt = (product_flops + other_flops) / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), 1e3 * max(t_bytes, t_simt)
+
+
 def hafner_bound(B: int, H: int, X: int, bias: bool, ln: bool):
-    """Least time for one step: each input read once and the output written
-    once, or the operations at the f32 peak, whichever is larger."""
+    """Least time for one step (``_bound``): each input read once and the
+    output written once, or the operations."""
     n_vec = 3 * H * (int(bias) + 2 * int(ln))
     bytes_ = 4.0 * (B * H + B * X + (H + X) * 3 * H + n_vec + B * H)
-    flops = 2.0 * B * (H + X) * 3 * H + (8.0 * B * 3 * H if ln else 0.0) + 10.0 * B * H
-    t_bytes, t_ops = bytes_ / PEAK_HBM_BYTES, flops / PEAK_F32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    other = (8.0 * B * 3 * H if ln else 0.0) + 10.0 * B * H
+    return _bound(bytes_, 2.0 * B * (H + X) * 3 * H, other)
 
 
 def phase_kernels():
@@ -176,11 +203,14 @@ def phase_kernels():
             ok = bool(torch.isfinite(out).all().item()) and err <= TOL_KERNEL
             kernel = lambda: ops.hafner_cell_cuda(h, x, w, b, s, lb, eps=1e-5)
             plain_fn = lambda: reference.hafner_cell(h, x, w, b, s, lb, eps=1e-5)
-            bound_ms, bound_by = hafner_bound(B, H, X, bias, ln)
+            bound_ms, bound_by, simt_ms = hafner_bound(B, H, X, bias, ln)
             row = dict(B=B, H=H, X=X, bias=bias, ln=ln, max_abs_err=err, tol=TOL_KERNEL,
                        ms=device_ms(kernel), plain_ms=device_ms(plain_fn),
                        call_ms=call_ms(kernel), plain_call_ms=call_ms(plain_fn),
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       bound_ms=bound_ms, bound_by=bound_by, bound_f32_simt_ms=simt_ms,
+                       variant=ops.hafner_cell_variant(B, H, X))
+            if (B, H, X) == (64, 600, 400):
+                row.update(product_split((h, x, w, b, s, lb), B))
             print("[kernel] hafner_cell " + json.dumps(row), flush=True)
             rows.append(row)
             if not ok:
@@ -191,14 +221,51 @@ def phase_kernels():
 
 
 def sequence_bound(T: int, B: int, H: int, X: int, bias: bool, ln: bool):
-    """Least time for a whole sequence (``hafner_bound``'s convention): xs,
-    h0, W and the vectors read once and hs written once, or T steps of
-    operations at the f32 peak, whichever is larger."""
+    """Least time for a whole sequence (``_bound``): xs, h0, W and the
+    vectors read once and hs written once, or T steps of operations."""
     n_vec = 3 * H * (int(bias) + 2 * int(ln))
     bytes_ = 4.0 * (B * H + T * B * X + (H + X) * 3 * H + n_vec + T * B * H)
-    flops = T * (2.0 * B * (H + X) * 3 * H + (8.0 * B * 3 * H if ln else 0.0) + 10.0 * B * H)
-    t_bytes, t_ops = bytes_ / PEAK_HBM_BYTES, flops / PEAK_F32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    other = T * ((8.0 * B * 3 * H if ln else 0.0) + 10.0 * B * H)
+    return _bound(bytes_, T * 2.0 * B * (H + X) * 3 * H, other)
+
+
+def saved_z_error(args) -> dict:
+    """The pre-activation the cell keeps for its gradient against float64,
+    beside cuBLAS's f32 product of the same ``[h|x]·W + b`` (TF32 off): the
+    3xTF32 product's error next to an f32 FMA chain's."""
+    import torch
+
+    from sheeprl_tpu_torch.kernels import ops
+
+    h, x, w, b = args[:4]
+    _out, z = ops.hafner_cell_cuda(*args, eps=1e-5, save_z=True)
+    u = torch.cat([h, x], dim=-1)
+    z64 = u.double() @ w.double() + b.double()
+    return {
+        "z_max_abs": z64.abs().max().item(),
+        "z_err_vs_f64": (z.double() - z64).abs().max().item(),
+        "cublas_z_err_vs_f64": ((u @ w + b).double() - z64).abs().max().item(),
+    }
+
+
+def product_split(args, B: int) -> dict:
+    """The cell's device time split into its product and gate kernels (the
+    profiler's kernel records, as ``tools/bench_cell.py`` reads them), and
+    cuBLAS's f32 SGEMM of the same ``[h|x]·W`` (``torch.matmul``, TF32 off),
+    timed as every kernel here (``device_ms``). In ms."""
+    import torch
+
+    from sheeprl_tpu_torch.tools import bench_cell
+
+    split = bench_cell.cell_split(args)
+    u = torch.cat(args[:2], dim=-1)
+    return {
+        "product_ms": split["product_us"] / 1e3,
+        "gates_ms": split["gates_us"] / 1e3,
+        "cublas_product_ms": device_ms(lambda: torch.matmul(u, args[2])),
+        "cublas_product_profiler_ms": split["cublas_product_us"] / 1e3,
+        "product_tflops_tf32": TF32_PASSES * 2.0 * B * u.shape[1] * args[2].shape[1] / (split["product_us"] * 1e6),
+    }
 
 
 def _grad_rel_err(got, want) -> float:
@@ -257,14 +324,18 @@ def phase_cell_training():
             torch.cuda.synchronize()
             err = (out - p_out).abs().max().item()
             grad_err = _grad_rel_err(grads, p_grads)
-            bound_ms, bound_by = hafner_bound(B, H, X, True, True)
+            bound_ms, bound_by, simt_ms = hafner_bound(B, H, X, True, True)
             leaves = [a.detach().requires_grad_(True) for a in args]
             row = dict(B=B, H=H, X=X, eps=1e-5, max_abs_err=err, tol=TOL_KERNEL, grad_rel_err=grad_err,
                        grad_tol=TOL_GRAD, ms=device_ms(lambda: ops.hafner_cell_cuda(*args, eps=1e-5)),
                        plain_ms=device_ms(lambda: reference.hafner_cell(*args, eps=1e-5)),
                        fwd_bwd_ms=device_ms(lambda: torch.autograd.grad(kernel(*leaves), leaves, cot)),
                        plain_fwd_bwd_ms=device_ms(lambda: torch.autograd.grad(plain(*leaves), leaves, cot)),
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       bound_ms=bound_ms, bound_by=bound_by, bound_f32_simt_ms=simt_ms,
+                       variant=ops.hafner_cell_variant(B, H, X))
+            if B in (32, 1600):
+                row.update(product_split(args, B))
+            row.update(saved_z_error(args))
             print("[kernel] hafner_cell training " + json.dumps(row), flush=True)
             rows.append(row)
             if not (torch.isfinite(out).all() and err <= TOL_KERNEL and grad_err <= TOL_GRAD):
@@ -298,12 +369,12 @@ def phase_sequence():
                 raise AssertionError("hafner_gru_sequence did not launch its kernel exactly once")
             err = (out - p_out).abs().max().item()
             grad_err = _grad_rel_err(grads, p_grads)
-            bound_ms, bound_by = sequence_bound(T, B, H, X, bias, ln)
+            bound_ms, bound_by, simt_ms = sequence_bound(T, B, H, X, bias, ln)
             row = dict(T=T, B=B, H=H, X=X, bias=bias, ln=ln, eps=eps, max_abs_err=err, tol=TOL_SEQUENCE,
                        grad_rel_err=grad_err, grad_tol=TOL_GRAD,
                        ms=device_ms(lambda: ops.hafner_sequence_cuda(*args, eps=eps)),
                        plain_ms=device_ms(lambda: reference.hafner_sequence(*args, eps=eps)),
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       bound_ms=bound_ms, bound_by=bound_by, bound_f32_simt_ms=simt_ms)
             print("[kernel] hafner_sequence " + json.dumps(row), flush=True)
             rows.append(row)
             if not (torch.isfinite(out).all() and err <= TOL_SEQUENCE and grad_err <= TOL_GRAD):
@@ -519,6 +590,11 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
+    sass = build.tensor_core_instructions("hafner_gru")
+    print(f"[build] hafner_gru tensor-core instructions in SASS (cuobjdump -sass): {json.dumps(sass)}", flush=True)
+    if not any(form.startswith("HGMMA") for form in sass):
+        raise AssertionError("the built library has no HGMMA (wgmma) instruction")
+
     serve_rows = phase_kernels()
     train_rows = phase_cell_training()
     seq_rows = phase_sequence()
@@ -540,7 +616,13 @@ def main() -> int:
             "plain_ms": cell_row["plain_ms"],
             "bound_ms": cell_row["bound_ms"],
             "bound_by": cell_row["bound_by"],
-            "library_ms": None,
+            "library_ms": cell_row["cublas_product_ms"],
+            "library": "cuBLAS f32 SGEMM of the product [h|x].W alone (torch.matmul, TF32 off)",
+            "product_ms": cell_row["product_ms"],
+            "gates_ms": cell_row["gates_ms"],
+            "bound_f32_simt_ms": cell_row["bound_f32_simt_ms"],
+            "variant": cell_row["variant"]["product"],
+            "sass_tensor_core_instructions": sass,
             "shape": "B=1600 H=600 X=400 (imagination)",
             "launches_by_path": {path: counts["hafner_cell"] for path, counts in by_path.items()},
             "train_step_rel_diff_vs_plain": train_rel_diff,
@@ -557,6 +639,7 @@ def main() -> int:
             "bound_ms": seq_row["bound_ms"],
             "bound_by": seq_row["bound_by"],
             "library_ms": None,
+            "bound_f32_simt_ms": seq_row["bound_f32_simt_ms"],
             "shape": "T=50 B=16 H=600 X=400 (kernel bench)",
             "launches_by_path": {path: counts["hafner_sequence"] for path, counts in by_path.items()},
         },

@@ -19,13 +19,23 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "SOURCES", "build_all", "build_library", "load_library"]
+__all__ = [
+    "BUILD_DIR",
+    "CSRC",
+    "NVCC_FLAGS",
+    "SOURCES",
+    "build_all",
+    "build_library",
+    "load_library",
+    "tensor_core_instructions",
+]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
@@ -100,3 +110,17 @@ def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of one source, built first if needed."""
     path, _log = build_library(name)
     return ctypes.CDLL(str(path))
+
+
+def tensor_core_instructions(name: str) -> Dict[str, int]:
+    """The tensor-core instructions in the SASS of one built library, by
+    form (``HGMMA.64x128x8.F32.TF32``: Hopper's ``wgmma``; ``HMMA...``:
+    ``mma.sync``), each with its count of static occurrences, from
+    ``cuobjdump -sass`` (beside ``nvcc``)."""
+    path, _log = build_library(name)
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True, check=True).stdout
+    counts: Dict[str, int] = {}
+    for form in re.findall(r"\b(HG?MMA(?:\.[0-9A-Za-z]+)*)", sass):
+        counts[form] = counts.get(form, 0) + 1
+    return counts

@@ -11,10 +11,13 @@ Gradients. The JAX package has no backward kernel: its Pallas cell and
 sequence are ``jax.custom_vjp``s whose backward is ``jax.vjp`` of the XLA
 program (``pallas_tpu.py:149-160``, ``:200-232``). Here the backward is a
 hand-derived VJP in PyTorch operations, the same code on CPU and CUDA
-tensors: it recomputes ``z = [h|x]·W + b`` with ``torch.matmul`` (JAX's
-backward also computes this product outside any kernel), then
-differentiates the two-pass LayerNorm and the gates by hand. It never calls
-the plain forward.
+tensors. When an operand needs a gradient, the cell's forward keeps its
+pre-activation ``z = [h|x]·W + b`` (the CUDA gate kernel writes out the row
+it holds; the CPU path computes ``z`` once and runs the plain LayerNorm and
+gates on it), and the backward differentiates the two-pass LayerNorm and the
+gates by hand at that ``z``: no product is recomputed. The sequence's
+backward recomputes its steps' ``z`` with ``torch.matmul``, as JAX's
+backward program does. Neither calls the plain forward.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ __all__ = [
     "LaunchCounter",
     "hafner_cell_cuda",
     "hafner_cell_launches",
+    "hafner_cell_variant",
     "hafner_gru_cell",
     "hafner_gru_sequence",
     "hafner_sequence_cuda",
@@ -61,13 +65,15 @@ def _hafner_lib():
 
     lib = load_library("hafner_gru")
     ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.hafner_cell_forward.argtypes = [ptr] * 8 + [c_int] * 4 + [c_float, c_int, ptr]
+    lib.hafner_cell_forward.argtypes = [ptr] * 9 + [c_int] * 4 + [c_float, c_int, ptr]
     lib.hafner_cell_forward.restype = c_int
     lib.hafner_sequence_forward.argtypes = [ptr] * 9 + [c_int] * 6 + [c_float, c_int, ptr]
     lib.hafner_sequence_forward.restype = c_int
     lib.hafner_split_chunks.argtypes = [c_int] * 3
     lib.hafner_split_chunks.restype = c_int
     lib.hafner_chunk_rows.restype = c_int
+    lib.hafner_product_shape.argtypes = [c_int, c_int, ctypes.POINTER(c_int), ctypes.POINTER(c_int)]
+    lib.hafner_product_shape.restype = c_int
     lib.hafner_cell_error_string.argtypes = [c_int]
     lib.hafner_cell_error_string.restype = ctypes.c_char_p
     return lib
@@ -130,9 +136,12 @@ def hafner_cell_cuda(
     ln_bias: Optional[torch.Tensor],
     *,
     eps: float,
-) -> torch.Tensor:
+    save_z: bool = False,
+):
     """Launch the CUDA cell on CUDA tensors: ``h [B,H]``, ``x [B,X]``,
-    ``kernel [H+X, 3H]``, ``bias``/``ln_scale``/``ln_bias`` ``[3H]`` or None."""
+    ``kernel [H+X, 3H]``, ``bias``/``ln_scale``/``ln_bias`` ``[3H]`` or None.
+    Returns ``h'``, or ``(h', z)`` with the pre-LayerNorm ``z [B, 3H]`` when
+    ``save_z``."""
     if h.device.type != "cuda":
         raise ValueError(f"hafner_cell_cuda needs CUDA tensors, got {h.device}")
     if h.dim() != 2 or x.dim() != 2:
@@ -143,21 +152,46 @@ def hafner_cell_cuda(
     _check_operand("x", x, (B, X), h.device)
     _check_params(h, kernel, bias, ln_scale, ln_bias, H, X)
     if B == 0:
-        return torch.empty_like(h)
+        out = torch.empty_like(h)
+        return (out, h.new_empty((0, 3 * H))) if save_z else out
     lib = _hafner_lib()
     with torch.cuda.device(h.device):  # the launching thread's current device
         split_chunks, splits = _splits(lib, B, H + X, 3 * H, h.device)
         out = torch.empty_like(h)
         zpart = torch.empty((splits, B, 3 * H), dtype=torch.float32, device=h.device)
-        vec = _vec(H, X, h, x, kernel, bias, ln_scale, ln_bias, zpart, out)
+        # with one split the gate kernel writes z over the partial it reads
+        z = None if not save_z else (zpart[0] if splits == 1 else torch.empty_like(zpart[0]))
+        vec = _vec(H, X, h, x, kernel, bias, ln_scale, ln_bias, zpart, z, out)
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = lib.hafner_cell_forward(
-            _ptr(h), _ptr(x), _ptr(kernel), _ptr(bias), _ptr(ln_scale), _ptr(ln_bias), _ptr(zpart), _ptr(out),
-            B, H, X, split_chunks, float(eps), vec, stream,
+            _ptr(h), _ptr(x), _ptr(kernel), _ptr(bias), _ptr(ln_scale), _ptr(ln_bias), _ptr(zpart), _ptr(z),
+            _ptr(out), B, H, X, split_chunks, float(eps), vec, stream,
         )
     _raise_on(lib, err, f"hafner_cell (B={B}, H={H}, X={X})")
     hafner_cell_launches.count += 1
-    return out
+    return (out, z) if save_z else out
+
+
+def hafner_cell_variant(B: int, H: int, X: int, device="cuda") -> dict:
+    """Which hand-written product variant the cell launches at this shape:
+    batch rows per block (the wgmma N), warpgroups per block, K splits and
+    the grid."""
+    lib = _hafner_lib()
+    tile, wg = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        split_chunks, splits = _splits(lib, B, H + X, 3 * H, device)
+        err = lib.hafner_product_shape(B, 3 * H, ctypes.byref(tile), ctypes.byref(wg))
+    if err != 0:
+        raise RuntimeError(f"hafner_cell: cannot query {device}")
+    tile, wg = tile.value, wg.value
+    return {
+        "product": f"wgmma.m64n{tile}k8.f32.tf32 x3 (3xTF32), {wg} warpgroup(s) a block",
+        "tile_rows": tile,
+        "warpgroups": wg,
+        "splits": splits,
+        "chunks_per_split": split_chunks,
+        "grid": [-(-3 * H // (64 * wg)), -(-B // tile), splits],
+    }
 
 
 def hafner_sequence_cuda(
@@ -238,32 +272,35 @@ def _gates_vjp(z, h, ln_scale, ln_bias, eps: float, g):
 
 class _HafnerCell(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, x, kernel, bias, ln_scale, ln_bias, eps):
+    def forward(ctx, h, x, kernel, bias, ln_scale, ln_bias, eps, save_z):
+        """``save_z``: keep the pre-activation for the backward (the caller
+        knows whether a graph is recorded; inside ``forward`` grad mode is off)."""
         ctx.eps = eps
-        ctx.save_for_backward(h, x, kernel, bias, ln_scale, ln_bias)
-        if h.device.type == "cpu":
-            return reference.hafner_cell(h, x, kernel, bias, ln_scale, ln_bias, eps=eps)
-        return hafner_cell_cuda(h, x, kernel, bias, ln_scale, ln_bias, eps=eps)
+        if h.device.type == "cpu":  # reference.hafner_cell, with z kept
+            z = reference.dense_apply(torch.cat([h, x], dim=-1), kernel, bias)
+            out = reference.hafner_norm_gates(z, h, ln_scale, ln_bias, eps=eps)
+        elif save_z:
+            out, z = hafner_cell_cuda(h, x, kernel, bias, ln_scale, ln_bias, eps=eps, save_z=True)
+        else:
+            return hafner_cell_cuda(h, x, kernel, bias, ln_scale, ln_bias, eps=eps)
+        ctx.save_for_backward(h, x, kernel, bias, ln_scale, ln_bias, z)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        h, x, kernel, bias, ln_scale, ln_bias = ctx.saved_tensors
+        h, x, kernel, bias, ln_scale, ln_bias, z = ctx.saved_tensors
         need = ctx.needs_input_grad
         H = h.shape[-1]
-        u = torch.cat([h, x], dim=-1)
-        z = u @ kernel
-        if bias is not None:
-            z = z + bias
         dz, dh, dscale, dlbias = _gates_vjp(z, h, ln_scale, ln_bias, ctx.eps, g)
         dh_out = dx = dkernel = dbias = None
         if need[0] or need[1]:
             du = dz @ kernel.t()
             dh_out, dx = dh + du[:, :H], du[:, H:]
         if need[2]:
-            dkernel = u.t() @ dz
+            dkernel = torch.cat([h, x], dim=-1).t() @ dz
         if bias is not None and need[3]:
             dbias = dz.sum(dim=0)
-        return dh_out, dx, dkernel, dbias, dscale, dlbias, None
+        return dh_out, dx, dkernel, dbias, dscale, dlbias, None, None
 
 
 class _HafnerSequence(torch.autograd.Function):
@@ -320,8 +357,12 @@ def hafner_gru_cell(
     eps: float,
 ) -> torch.Tensor:
     """One LayerNorm-GRU step: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors; differentiable in all six operands."""
-    return _HafnerCell.apply(h, x, kernel, bias, ln_scale, ln_bias, float(eps))
+    version on CPU tensors; differentiable in all six operands. The
+    pre-activation is kept for the backward only when a graph is recorded."""
+    save_z = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (h, x, kernel, bias, ln_scale, ln_bias)
+    )
+    return _HafnerCell.apply(h, x, kernel, bias, ln_scale, ln_bias, float(eps), save_z)
 
 
 def hafner_gru_sequence(

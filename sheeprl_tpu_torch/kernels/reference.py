@@ -15,7 +15,7 @@ import torch
 
 from sheeprl_tpu_torch.models.norm import fast_layer_norm
 
-__all__ = ["dense_apply", "hafner_cell", "hafner_gates", "hafner_sequence"]
+__all__ = ["dense_apply", "hafner_cell", "hafner_gates", "hafner_norm_gates", "hafner_sequence"]
 
 
 def dense_apply(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -35,6 +35,21 @@ def hafner_gates(z: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return update * cand + (1 - update) * h
 
 
+def hafner_norm_gates(
+    z: torch.Tensor,
+    h: torch.Tensor,
+    ln_scale: Optional[torch.Tensor],
+    ln_bias: Optional[torch.Tensor],
+    *,
+    eps: float,
+) -> torch.Tensor:
+    """The cell after its product: LayerNorm (when ``ln_scale`` is given) and
+    gates on the pre-activation ``z = [h|x]·W + b``."""
+    if ln_scale is not None:
+        z = fast_layer_norm(z, ln_scale, ln_bias, float(eps))
+    return hafner_gates(z, h)
+
+
 def hafner_cell(
     h: torch.Tensor,
     x: torch.Tensor,
@@ -46,10 +61,7 @@ def hafner_cell(
     eps: float,
 ) -> torch.Tensor:
     """One LayerNorm-GRU step; ``ln_scale=None`` runs it without LayerNorm."""
-    z = dense_apply(torch.cat([h, x], dim=-1), kernel, bias)
-    if ln_scale is not None:
-        z = fast_layer_norm(z, ln_scale, ln_bias, float(eps))
-    return hafner_gates(z, h)
+    return hafner_norm_gates(dense_apply(torch.cat([h, x], dim=-1), kernel, bias), h, ln_scale, ln_bias, eps=eps)
 
 
 def hafner_sequence(

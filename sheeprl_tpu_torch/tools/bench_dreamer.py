@@ -86,6 +86,7 @@ def profile_steps(train_step, state, data, steps: int) -> Dict[str, Any]:
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and device_us(e) > 0]
     busy_us = sum(device_us(e) for e in events)
     cell_us = sum(device_us(e) for e in events if "hafner" in e.key)
+    product_us = sum(device_us(e) for e in events if "hafner_product" in e.key)
     top = sorted(events, key=device_us, reverse=True)[:12]
     return {
         "profiled_steps": steps,
@@ -93,6 +94,8 @@ def profile_steps(train_step, state, data, steps: int) -> Dict[str, Any]:
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
         "cell_kernels_ms_per_step": cell_us / 1e3 / steps,
+        "cell_product_ms_per_step": product_us / 1e3 / steps,
+        "cell_gates_ms_per_step": (cell_us - product_us) / 1e3 / steps,
         "cell_share_of_device_time": cell_us / busy_us if busy_us else None,
         "top_device_ms_per_step": {e.key[:90]: device_us(e) / 1e3 / steps for e in top},
     }

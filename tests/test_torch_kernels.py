@@ -123,3 +123,13 @@ def test_library_name_follows_source_and_flags(monkeypatch):
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-lineinfo"])
     assert build._library_path("hafner_gru") != path
 
+
+def test_variant_source_changes_one_constant():
+    from sheeprl_tpu_torch.tools.bench_variants import variant_source
+
+    source = build.SOURCES["hafner_gru"].read_text()
+    variant = variant_source(source, "kWideWG", "2")
+    changed = [(a, b) for a, b in zip(source.splitlines(), variant.splitlines()) if a != b]
+    assert len(changed) == 1 and changed[0][1].startswith("constexpr int kWideWG = 2;")
+    with pytest.raises(SystemExit, match="no constant"):
+        variant_source(source, "kNoSuchConstant", "1")
