@@ -15,9 +15,15 @@ tensors. When an operand needs a gradient, the cell's forward keeps its
 pre-activation ``z = [h|x]·W + b`` (the CUDA gate kernel writes out the row
 it holds; the CPU path computes ``z`` once and runs the plain LayerNorm and
 gates on it), and the backward differentiates the two-pass LayerNorm and the
-gates by hand at that ``z``: no product is recomputed. The sequence's
-backward recomputes its steps' ``z`` with ``torch.matmul``, as JAX's
-backward program does. Neither calls the plain forward.
+gates by hand at that ``z``: no product is recomputed. The sequence keeps
+its steps' ``z [T, B, 3H]`` the same way (both CUDA variants write it), and
+its backward runs the same VJP in reverse over T at the kept ``z``. Neither
+calls the plain forward.
+
+The sequence has two CUDA variants, chosen by a plan made before the launch
+(:func:`hafner_sequence_variant`): the persistent recurrence (one
+cooperative launch after the input projection) where its shape fits the
+card, else the multi-launch one (two launches a step).
 """
 
 from __future__ import annotations
@@ -39,23 +45,36 @@ __all__ = [
     "hafner_gru_sequence",
     "hafner_sequence_cuda",
     "hafner_sequence_launches",
+    "hafner_sequence_variant",
+    "hafner_sync_floor_cuda",
 ]
+
+#: the two CUDA variants of the sequence's recurrence
+SEQUENCE_VARIANTS = ("persistent", "multi_launch")
 
 
 class LaunchCounter:
-    """A plain count of kernel launches (``reset()`` before a measured run)."""
+    """A plain count of kernel launches (``reset()`` before a measured run),
+    and the same count by variant where a kernel has several."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self.by_variant: dict = {}
+
+    def add(self, variant: Optional[str] = None) -> None:
+        self.count += 1
+        if variant is not None:
+            self.by_variant[variant] = self.by_variant.get(variant, 0) + 1
 
     def reset(self) -> None:
         self.count = 0
+        self.by_variant = {}
 
 
 #: launches of the ``hafner_gru.cu`` cell (one per step)
 hafner_cell_launches = LaunchCounter("hafner_cell")
-#: launches of the ``hafner_gru.cu`` sequence (one per whole sequence)
+#: launches of the ``hafner_gru.cu`` sequence (one per whole sequence), by variant
 hafner_sequence_launches = LaunchCounter("hafner_sequence")
 
 
@@ -67,8 +86,12 @@ def _hafner_lib():
     ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hafner_cell_forward.argtypes = [ptr] * 9 + [c_int] * 4 + [c_float, c_int, ptr]
     lib.hafner_cell_forward.restype = c_int
-    lib.hafner_sequence_forward.argtypes = [ptr] * 9 + [c_int] * 6 + [c_float, c_int, ptr]
+    lib.hafner_sequence_forward.argtypes = [ptr] * 12 + [c_int] * 6 + [c_float, c_int, c_int, ptr]
     lib.hafner_sequence_forward.restype = c_int
+    lib.hafner_sequence_plan.argtypes = [c_int, c_int, ctypes.POINTER(c_int)]
+    lib.hafner_sequence_plan.restype = c_int
+    lib.hafner_sync_floor.argtypes = [c_int, c_int, c_int, ptr, ptr]
+    lib.hafner_sync_floor.restype = c_int
     lib.hafner_split_chunks.argtypes = [c_int] * 3
     lib.hafner_split_chunks.restype = c_int
     lib.hafner_chunk_rows.restype = c_int
@@ -168,7 +191,7 @@ def hafner_cell_cuda(
             _ptr(out), B, H, X, split_chunks, float(eps), vec, stream,
         )
     _raise_on(lib, err, f"hafner_cell (B={B}, H={H}, X={X})")
-    hafner_cell_launches.count += 1
+    hafner_cell_launches.add()
     return (out, z) if save_z else out
 
 
@@ -194,6 +217,85 @@ def hafner_cell_variant(B: int, H: int, X: int, device="cuda") -> dict:
     }
 
 
+# the persistent recurrence's partition, as ``hafner_gru.cu`` sets it: hidden
+# units per unit group (kUnits), K slices a cluster (kKSplit), the wgmma M
+# tile (kTileM), the partial tile's row stride and a warp's floats of h_{t-1}
+# (kPartStride, kHPad), unit groups a row's statistics merge (kMaxGroups), a block's
+# shared-memory ceiling (kMaxSmem)
+_UNITS, _KSPLIT, _TILE_M, _PART_STRIDE, _HPAD, _MAX_GROUPS, _MAX_SMEM = 21, 4, 64, 68, 32, 64, 232448
+
+
+def sequence_shape(B: int, H: int) -> dict:
+    """The persistent recurrence's shape for ``B`` batch rows and ``H``
+    hidden units (``sequence_shape`` and ``recurrence_warps`` in
+    ``hafner_gru.cu``): the wgmma N, the K rows a block holds, warps a
+    block, unit groups, blocks, shared memory a block, and
+    whether it fits at all (``B <= 64``, at most 64 unit groups, at most
+    227 KB a block). Whether every block is co-resident is the card's answer
+    (:func:`hafner_sequence_variant`)."""
+    cdiv = lambda a, b: -(-a // b)  # noqa: E731
+    nt = 8 if B <= 8 else 16 if B <= 16 else 32 if B <= 32 else 64
+    warps = max(8, nt // _KSPLIT)
+    k_align = 8 * (warps // 4)  # the k8 steps split evenly over the warpgroups
+    kq = k_align * cdiv(cdiv(H, _KSPLIT), k_align)
+    groups = cdiv(H, _UNITS)
+    floats = (2 * _TILE_M * kq + 2 * nt * kq + nt * _PART_STRIDE + (nt // _KSPLIT) * _TILE_M + warps * _HPAD
+              + 3 * _TILE_M)
+    smem = 4 * floats
+    return {"tile_rows": nt, "k_rows": kq, "warps": warps, "unit_groups": groups,
+            "blocks": groups * _KSPLIT,
+            "smem_bytes": smem, "fits": B <= 64 and groups <= _MAX_GROUPS and smem <= _MAX_SMEM}
+
+
+@functools.lru_cache(maxsize=None)
+def _sequence_plan(B: int, H: int, index: int) -> "tuple[int, ...]":
+    """``hafner_sequence_plan`` on device ``index``: (persistent, N, K rows,
+    unit groups, blocks, shared memory, co-resident clusters)."""
+    lib = _hafner_lib()
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(index):
+        err = lib.hafner_sequence_plan(B, H, out)
+    _raise_on(lib, err, f"hafner_sequence plan (B={B}, H={H})")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _barrier_word(index: int) -> torch.Tensor:
+    """The zeroed word the persistent recurrence's hand-written grid barrier
+    counts on, one per device, made on first use (outside any graph capture,
+    so that later captures and replays use a word that exists and is zero)."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("hafner_sequence: make the first persistent call on a device outside a CUDA-graph capture")
+    return torch.zeros(4, dtype=torch.int32, device=torch.device("cuda", index))
+
+
+def _device_index(device) -> int:
+    device = torch.device(device)
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def hafner_sequence_variant(T: int, B: int, H: int, X: int, device="cuda") -> dict:
+    """Which recurrence the sequence launches at this shape, from a plan made
+    before the launch: ``persistent`` (the input projection, then one
+    cooperative launch that keeps ``W[:H]`` on chip for all T steps) where
+    :func:`sequence_shape` fits and the card holds every block at once (the
+    occupancy query), else ``multi_launch`` (two launches a step). With the
+    device launches a call makes and the persistent kernel's shape."""
+    shape = sequence_shape(B, H)
+    plan = _sequence_plan(B, H, _device_index(device))
+    if plan[1:6] != (shape["tile_rows"], shape["k_rows"], shape["unit_groups"], shape["blocks"], shape["smem_bytes"]):
+        raise RuntimeError(f"sequence_shape disagrees with hafner_gru.cu's: {shape} against {plan}")
+    persistent = bool(plan[0])
+    return {
+        "variant": SEQUENCE_VARIANTS[0] if persistent else SEQUENCE_VARIANTS[1],
+        "device_launches_per_call": int(X > 0) + (1 if persistent else 2 * T),
+        "persistent_product": f"wgmma.m64n{shape['tile_rows']}k8.f32.tf32 x3 (3xTF32), both operands in shared memory",
+        "co_resident_clusters": plan[6],
+        "cluster_blocks": _KSPLIT,
+        **shape,
+    }
+
+
 def hafner_sequence_cuda(
     h0: torch.Tensor,
     xs: torch.Tensor,
@@ -203,36 +305,71 @@ def hafner_sequence_cuda(
     ln_bias: Optional[torch.Tensor],
     *,
     eps: float,
-) -> torch.Tensor:
+    save_z: bool = False,
+    variant: Optional[str] = None,
+):
     """Launch the CUDA sequence on CUDA tensors: ``h0 [B,H]``, ``xs [T,B,X]``
-    → ``hs [T,B,H]``; parameters as for :func:`hafner_cell_cuda`."""
+    → ``hs [T,B,H]``, or ``(hs, z)`` with the pre-LayerNorm ``z [T,B,3H]``
+    when ``save_z``; parameters as for :func:`hafner_cell_cuda`. ``variant``
+    None takes the plan's (:func:`hafner_sequence_variant`); naming one
+    launches it, and ``persistent`` raises where it does not fit."""
     if h0.device.type != "cuda":
         raise ValueError(f"hafner_sequence_cuda needs CUDA tensors, got {h0.device}")
     if h0.dim() != 2 or xs.dim() != 3:
         raise ValueError("hafner_sequence: h0 and xs must be [B, H] and [T, B, X]")
+    if variant is not None and variant not in SEQUENCE_VARIANTS:
+        raise ValueError(f"hafner_sequence: variant must be one of {SEQUENCE_VARIANTS}, got {variant!r}")
     B, H = h0.shape
     T, X = xs.shape[0], xs.shape[2]
     _check_operand("h0", h0, (B, H), h0.device)
     _check_operand("xs", xs, (T, B, X), h0.device)
     _check_params(h0, kernel, bias, ln_scale, ln_bias, H, X)
     if T == 0 or B == 0:
-        return torch.empty((T, B, H), dtype=torch.float32, device=h0.device)
+        hs = torch.empty((T, B, H), dtype=torch.float32, device=h0.device)
+        return (hs, hs.new_empty((T, B, 3 * H))) if save_z else hs
     lib = _hafner_lib()
     with torch.cuda.device(h0.device):
-        h_chunks, h_splits = _splits(lib, B, H, 3 * H, h0.device)
+        index = torch.cuda.current_device()
+        plan = hafner_sequence_variant(T, B, H, X, index)
+        variant = variant or plan["variant"]
+        persistent = variant == "persistent"
+        if persistent and plan["variant"] != "persistent":
+            raise ValueError(f"hafner_sequence: the persistent recurrence does not fit (B={B}, H={H}): {plan}")
+        f32 = dict(dtype=torch.float32, device=h0.device)
         x_chunks, x_splits = _splits(lib, T * B, X, 3 * H, h0.device) if X > 0 else (0, 0)
-        hs = torch.empty((T, B, H), dtype=torch.float32, device=h0.device)
-        zx = torch.empty((x_splits, T, B, 3 * H), dtype=torch.float32, device=h0.device)
-        zpart = torch.empty((h_splits, B, 3 * H), dtype=torch.float32, device=h0.device)
-        vec = _vec(H, X, h0, xs, kernel, bias, ln_scale, ln_bias, zx, zpart, hs)
+        zx = torch.empty((x_splits, T, B, 3 * H), **f32)
+        if persistent:
+            h_chunks, zpart = 0, None
+            stats = torch.empty((2, B, plan["unit_groups"], 2), **f32)
+            barrier = _barrier_word(index)
+        else:
+            h_chunks, h_splits = _splits(lib, B, H, 3 * H, h0.device)
+            zpart, stats, barrier = torch.empty((h_splits, B, 3 * H), **f32), None, None
+        hs = torch.empty((T, B, H), **f32)
+        z = torch.empty((T, B, 3 * H), **f32) if save_z else None
+        vec = _vec(H, X, h0, xs, kernel, bias, ln_scale, ln_bias, zx, zpart, hs, z)
         stream = torch.cuda.current_stream(h0.device).cuda_stream
         err = lib.hafner_sequence_forward(
             _ptr(h0), _ptr(xs), _ptr(kernel), _ptr(bias), _ptr(ln_scale), _ptr(ln_bias), _ptr(zx), _ptr(zpart),
-            _ptr(hs), T, B, H, X, x_chunks, h_chunks, float(eps), vec, stream,
+            _ptr(z), _ptr(stats), _ptr(barrier), _ptr(hs), T, B, H, X, x_chunks, h_chunks, float(eps), vec,
+            int(persistent), stream,
         )
-    _raise_on(lib, err, f"hafner_sequence (T={T}, B={B}, H={H}, X={X})")
-    hafner_sequence_launches.count += 1
-    return hs
+    _raise_on(lib, err, f"hafner_sequence {variant} (T={T}, B={B}, H={H}, X={X})")
+    hafner_sequence_launches.add(variant)
+    return (hs, z) if save_z else hs
+
+
+def hafner_sync_floor_cuda(B: int, H: int, iters: int, device="cuda") -> None:
+    """Launch, on the current stream, the persistent recurrence's
+    synchronisation alone at its grid for ``(B, H)``: ``iters`` x (a cluster
+    barrier and two grid barriers), the floor under a LayerNorm step. For
+    measurement; no path of the port calls it."""
+    lib = _hafner_lib()
+    with torch.cuda.device(device):
+        index = torch.cuda.current_device()
+        stream = torch.cuda.current_stream(index).cuda_stream
+        err = lib.hafner_sync_floor(B, H, iters, _ptr(_barrier_word(index)), stream)
+    _raise_on(lib, err, f"hafner_sync_floor (B={B}, H={H})")
 
 
 # ---------------------------------------------------------------------------
@@ -305,34 +442,34 @@ class _HafnerCell(torch.autograd.Function):
 
 class _HafnerSequence(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h0, xs, kernel, bias, ln_scale, ln_bias, eps):
-        if h0.device.type == "cpu":
-            hs = reference.hafner_sequence(h0, xs, kernel, bias, ln_scale, ln_bias, eps=eps)
-        else:
-            hs = hafner_sequence_cuda(h0, xs, kernel, bias, ln_scale, ln_bias, eps=eps)
+    def forward(ctx, h0, xs, kernel, bias, ln_scale, ln_bias, eps, save_z):
+        """``save_z``: keep the steps' pre-activations for the backward (as
+        for the cell)."""
         ctx.eps = eps
-        ctx.save_for_backward(h0, xs, kernel, bias, ln_scale, ln_bias, hs)
+        if h0.device.type == "cpu":
+            hs, z = reference.hafner_sequence_with_z(h0, xs, kernel, bias, ln_scale, ln_bias, eps=eps)
+        elif save_z:
+            hs, z = hafner_sequence_cuda(h0, xs, kernel, bias, ln_scale, ln_bias, eps=eps, save_z=True)
+        else:
+            return hafner_sequence_cuda(h0, xs, kernel, bias, ln_scale, ln_bias, eps=eps)
+        ctx.save_for_backward(h0, xs, kernel, bias, ln_scale, ln_bias, hs, z)
         return hs
 
     @staticmethod
     def backward(ctx, g_hs):
-        """The cell's VJP in reverse over T from the saved ``hs``; the input
-        products for all T at once, as the JAX backward program hoists them
-        (``_xla_sequence_padded``)."""
-        h0, xs, kernel, bias, ln_scale, ln_bias, hs = ctx.saved_tensors
+        """The cell's VJP in reverse over T at the kept ``z`` (no product
+        recomputed); the weight and input products for all T at once, as the
+        JAX backward program hoists them (``_xla_sequence_padded``)."""
+        h0, xs, kernel, bias, ln_scale, ln_bias, hs, z = ctx.saved_tensors
         T, B, X = xs.shape
         H = h0.shape[-1]
         w_h, w_x = kernel[:H], kernel[H:]
-        zx = xs @ w_x
-        if bias is not None:
-            zx = zx + bias
         h_prev = torch.cat([h0[None], hs[:-1]], dim=0)
-        dz_all = torch.empty_like(zx)
+        dz_all = torch.empty_like(z)
         carry = torch.zeros_like(h0)
         dscale = dlbias = None
         for t in range(T - 1, -1, -1):
-            z = h_prev[t] @ w_h + zx[t]
-            dz, dh, ds, dlb = _gates_vjp(z, h_prev[t], ln_scale, ln_bias, ctx.eps, g_hs[t] + carry)
+            dz, dh, ds, dlb = _gates_vjp(z[t], h_prev[t], ln_scale, ln_bias, ctx.eps, g_hs[t] + carry)
             dz_all[t] = dz
             if ds is not None:
                 dscale = ds if dscale is None else dscale + ds
@@ -343,7 +480,7 @@ class _HafnerSequence(torch.autograd.Function):
             [h_prev.reshape(T * B, H).t() @ dz_flat, xs.reshape(T * B, X).t() @ dz_flat], dim=0
         )
         dbias = dz_flat.sum(dim=0) if bias is not None else None
-        return carry, dz_all @ w_x.t(), dkernel, dbias, dscale, dlbias, None
+        return carry, dz_all @ w_x.t(), dkernel, dbias, dscale, dlbias, None, None
 
 
 def hafner_gru_cell(
@@ -376,6 +513,10 @@ def hafner_gru_sequence(
     eps: float,
 ) -> torch.Tensor:
     """The step over ``xs [T,B,X]`` with h carried from ``h0 [B,H]`` →
-    ``hs [T,B,H]``: the CUDA kernel on CUDA tensors, the plain loop on CPU
-    tensors; differentiable in all six operands."""
-    return _HafnerSequence.apply(h0, xs, kernel, bias, ln_scale, ln_bias, float(eps))
+    ``hs [T,B,H]``: the CUDA kernel on CUDA tensors (the variant its plan
+    picks), the plain loop on CPU tensors; differentiable in all six
+    operands. The pre-activations are kept only when a graph is recorded."""
+    save_z = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (h0, xs, kernel, bias, ln_scale, ln_bias)
+    )
+    return _HafnerSequence.apply(h0, xs, kernel, bias, ln_scale, ln_bias, float(eps), save_z)

@@ -15,7 +15,14 @@ import torch
 
 from sheeprl_tpu_torch.models.norm import fast_layer_norm
 
-__all__ = ["dense_apply", "hafner_cell", "hafner_gates", "hafner_norm_gates", "hafner_sequence"]
+__all__ = [
+    "dense_apply",
+    "hafner_cell",
+    "hafner_gates",
+    "hafner_norm_gates",
+    "hafner_sequence",
+    "hafner_sequence_with_z",
+]
 
 
 def dense_apply(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -76,9 +83,28 @@ def hafner_sequence(
 ) -> torch.Tensor:
     """The cell under a loop over ``xs [T, B, X]`` with h carried from
     ``h0 [B, H]``: returns ``hs [T, B, H]``."""
-    hs = []
+    return hafner_sequence_with_z(h0, xs, kernel, bias, ln_scale, ln_bias, eps=eps)[0]
+
+
+def hafner_sequence_with_z(
+    h0: torch.Tensor,
+    xs: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    ln_scale: Optional[torch.Tensor],
+    ln_bias: Optional[torch.Tensor],
+    *,
+    eps: float,
+) -> "tuple[torch.Tensor, torch.Tensor]":
+    """:func:`hafner_sequence` (each step :func:`hafner_cell`'s operations)
+    that also keeps each step's pre-activation: ``(hs [T,B,H], z [T,B,3H])``."""
+    hs, zs = [], []
     h = h0
     for x in xs:
-        h = hafner_cell(h, x, kernel, bias, ln_scale, ln_bias, eps=eps)
+        z = dense_apply(torch.cat([h, x], dim=-1), kernel, bias)
+        h = hafner_norm_gates(z, h, ln_scale, ln_bias, eps=eps)
         hs.append(h)
-    return torch.stack(hs) if hs else h0.new_empty((0,) + tuple(h0.shape))
+        zs.append(z)
+    if not hs:
+        return h0.new_empty((0,) + tuple(h0.shape)), h0.new_empty((0, h0.shape[0], 3 * h0.shape[1]))
+    return torch.stack(hs), torch.stack(zs)

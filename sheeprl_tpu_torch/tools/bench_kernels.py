@@ -16,9 +16,14 @@ same seeded operands and the same loss, ``sum(tanh(hs))``, differentiated in
 Each contender is timed once per round over ``--repeats`` interleaved rounds
 after a warm-up call, with the device synchronised around each call; the
 median counts. Prints one JSON line: cell-steps per second of the kernel
-path, both paths' seconds per call, the speedup, and the kernel's forward
-error and gradient error against the plain path (TF32 off for both).
+path, both paths' seconds per call, the speedup, the kernel's forward error
+and gradient error against the plain path (TF32 off for both), and the
+recurrence variant the kernel path ran (``ops.hafner_sequence_variant``).
 Runs on ``cuda`` unless given ``--device cpu`` (where both paths are plain).
+
+:func:`sequence_split` reads one variant's device launches per call and its
+time split into the input projection and the recurrence from the
+profiler's kernel records.
 """
 
 from __future__ import annotations
@@ -42,6 +47,54 @@ def _operands(device):
     ).to(device)
     return (t(B, H), t(T, B, X), t(H + X, 3 * H, scale=0.05), t(3 * H, scale=0.05),
             t(3 * H, scale=0.05, shift=1.0), t(3 * H, scale=0.05))
+
+
+def sequence_split(seq_operands, variant: str, eps: float = EPS, calls: int = 10) -> dict:
+    """One variant of ``ops.hafner_sequence_cuda`` under ``torch.profiler``
+    (``calls`` eager calls recorded after one warm-up call that a schedule
+    leaves out): device kernel launches per call, and the device ms per call
+    of the input projection (the product kernel launched once a call) and of
+    the recurrence (every other kernel), from CUPTI's kernel records, with
+    the share of records the profiler kept."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.tools.profile_serve import device_us
+
+    fn = lambda: ops.hafner_sequence_cuda(*seq_operands, eps=eps, variant=variant)  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    windows = []  # the recorded window's kernel records, handed over when it closes
+    on_ready = lambda p: windows.append([(e.key, e.count, device_us(e)) for e in p.key_averages()])  # noqa: E731
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=calls, repeat=1),
+                 on_trace_ready=on_ready) as prof:
+        for _ in range(calls + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    if len(windows) != 1:
+        raise RuntimeError(f"sequence_split: the profiler closed {len(windows)} windows, expected 1")
+    records = [r for r in windows[0] if r[2] > 0]
+    if not records:
+        raise RuntimeError("sequence_split: the profiler recorded no kernel")
+    # the profiler can drop a few of a window's records (one H100 run kept 7
+    # of 10): a kernel's launches a call are its kept records over the calls,
+    # rounded, and its time a launch the mean of the kept records
+    launches = {key: max(1, round(count / calls)) for key, count, _us in records}
+    mean_us = {key: us / count for key, count, us in records}
+    has_x = seq_operands[1].shape[2] > 0
+    projection = [key for key in launches if has_x and "hafner_product" in key and launches[key] == 1]
+    projection_us = mean_us[projection[0]] if len(projection) == 1 else None
+    total_us = sum(mean_us[key] * launches[key] for key in launches)
+    return {
+        "device_launches_per_call": sum(launches.values()),
+        "projection_ms": None if projection_us is None else projection_us / 1e3,
+        "recurrence_ms": (total_us - (projection_us or 0.0)) / 1e3 if projection_us is not None or not has_x else None,
+        "profiled_ms": total_us / 1e3,
+        "records_kept": sum(count for _key, count, _us in records) / (calls * max(1, sum(launches.values()))),
+        "kernels": {key[:80]: n for key, n in launches.items()},
+    }
 
 
 def run(device=None, repeats: int = 5):
@@ -88,6 +141,7 @@ def run(device=None, repeats: int = 5):
         "speedup_vs_plain": seconds["plain"] / seconds["kernel"],
         "max_abs_err": (hs - p_hs).abs().max().item(),
         "grad_rel_err": grad_err,
+        "variant": ops.hafner_sequence_variant(T, B, H, X, dev)["variant"] if cuda else "plain",
         "shape": {"B": B, "T": T, "H": H, "X": X, "eps": EPS},
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
         "protocol": (

@@ -107,17 +107,81 @@ def test_cell_at_training_batches_with_gradients(cuda, B):
     _assert_grads_close(got, want)
 
 
+#: the kernel bench's shape, an odd one (last unit group of 11 units, scalar
+#: copies, no bias, no LayerNorm), the widest batch the persistent
+#: recurrence takes, and one past its limits (W[:H] does not fit on chip)
+SEQUENCE_SHAPES = [
+    (50, 16, 600, 400, True, True),
+    (7, 5, 599, 37, False, False),
+    (50, 64, 600, 400, True, True),
+    (8, 16, 2048, 512, True, True),
+]
+
+
+def _sequence_args(T, B, H, X, bias, layer_norm, device):
+    h0, x, kernel, b, s, lb = _operands(B, H, X, bias=bias, layer_norm=layer_norm, device=device, seed=T + H)
+    xs = torch.randn(T, B, X, device=device, generator=torch.Generator(device=device).manual_seed(T))
+    return (h0, xs, kernel, b, s, lb)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,B,H,X,bias,layer_norm", [(50, 16, 600, 400, True, True), (7, 5, 599, 37, False, False)])
+@pytest.mark.parametrize("T,B,H,X,bias,layer_norm", SEQUENCE_SHAPES)
 def test_sequence_kernel_matches_plain_loop(cuda, T, B, H, X, bias, layer_norm):
-    h0, x, kernel, b, s, lb = _operands(B, H, X, bias=bias, layer_norm=layer_norm, device=cuda, seed=T + H)
-    xs = torch.randn(T, B, X, device=cuda, generator=torch.Generator(device=cuda).manual_seed(T))
-    args = (h0, xs, kernel, b, s, lb)
+    """The plan's variant: forward and the six gradients (the VJP at the
+    kept z) against the plain loop under autograd; the launch is counted
+    under the variant the plan names."""
+    args = _sequence_args(T, B, H, X, bias, layer_norm, cuda)
     cot = torch.randn(T, B, H, device=cuda, generator=torch.Generator(device=cuda).manual_seed(B))
+    plan = ops.hafner_sequence_variant(T, B, H, X)
+    assert plan["variant"] == ("multi_launch" if H == 2048 else "persistent")
     before = ops.hafner_sequence_launches.count
+    before_variant = ops.hafner_sequence_launches.by_variant.get(plan["variant"], 0)
     hs, got = _grads(lambda *a: ops.hafner_gru_sequence(*a, eps=1e-3), args, cot)
     assert ops.hafner_sequence_launches.count == before + 1
+    assert ops.hafner_sequence_launches.by_variant[plan["variant"]] == before_variant + 1
     plain, want = _grads(lambda *a: reference.hafner_sequence(*a, eps=1e-3), args, cot)
     assert hs.shape == (T, B, H) and torch.isfinite(hs).all()
     assert (hs - plain).abs().max().item() <= TOL
     _assert_grads_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H,X,bias,layer_norm", SEQUENCE_SHAPES)
+def test_sequence_variants_are_right_and_deterministic(cuda, T, B, H, X, bias, layer_norm):
+    """Each variant that fits, named explicitly: hs within 1e-4 of the plain
+    loop, the kept z within 1e-4 of the plain z's largest magnitude, and two
+    calls bit-identical (a fault in a grid barrier shows as a difference)."""
+    args = _sequence_args(T, B, H, X, bias, layer_norm, cuda)
+    plain, plain_z = reference.hafner_sequence_with_z(*args, eps=1e-3)
+    fits = ops.hafner_sequence_variant(T, B, H, X)["variant"] == "persistent"
+    for variant in ("persistent", "multi_launch") if fits else ("multi_launch",):
+        hs, z = ops.hafner_sequence_cuda(*args, eps=1e-3, save_z=True, variant=variant)
+        again = ops.hafner_sequence_cuda(*args, eps=1e-3, variant=variant)
+        torch.cuda.synchronize()
+        assert (hs - plain).abs().max().item() <= TOL, variant
+        assert ((z - plain_z).abs().max() / plain_z.abs().max()).item() <= GRAD_TOL, variant
+        assert torch.equal(hs, again), variant
+    if not fits:
+        with pytest.raises(ValueError, match="does not fit"):
+            ops.hafner_sequence_cuda(*args, eps=1e-3, variant="persistent")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H,X,bias,layer_norm", SEQUENCE_SHAPES[:2] + SEQUENCE_SHAPES[3:])
+def test_sequence_replays_from_a_cuda_graph(cuda, T, B, H, X, bias, layer_norm):
+    """The call captured in a CUDA graph (the persistent recurrence is a
+    cooperative cluster launch) and replayed gives the eager call's hs."""
+    args = _sequence_args(T, B, H, X, bias, layer_norm, cuda)
+    eager = ops.hafner_sequence_cuda(*args, eps=1e-3)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ops.hafner_sequence_cuda(*args, eps=1e-3)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ops.hafner_sequence_cuda(*args, eps=1e-3)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
