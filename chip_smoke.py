@@ -12,8 +12,9 @@ Phases, each fatal on failure:
    in one CUDA graph, CUDA events around each of 50 replays queued behind a
    busy stream, median) beside the plain version's and the bound, and the
    product variant each shape launches:
-   - the cell at the serving shapes (also eager time per call: events
-     around each of 200 calls, host launch gaps included);
+   - the cell at the serving and acting shapes, B=1, 4, 16, 64 (also eager
+     time per call: events around each of 200 calls, host launch gaps
+     included);
    - the cell at the training shapes (B=32, 801, 1600), with the hand VJP's
      six gradients against autograd of the plain version;
    - at B=32, 64 and 1600 the cell's time split into its product kernel and
@@ -39,11 +40,22 @@ Phases, each fatal on failure:
    on the plain-cell path, TF32 off, whose losses and gradient norms must
    agree; then one warm-up step and TRAIN_STEPS timed steps with every loss
    finite and exactly 65 cell launches a step (50 posterior steps at B=32,
-   15 imagination steps at B=1600), and a profiled window of as many steps.
+   15 imagination steps at B=1600), and a profiled window of as many steps;
+7. run: the port's main path, ``sheeprl_tpu_torch.cli.run`` with RUN_ARGS
+   (``exp=dreamer_v2_ms_pacman`` at its full width on the dummy env: 4 envs,
+   1024 policy steps, learning from step 512, a sequential buffer of 4096
+   rows): 256 updates, 128 acting steps of the player, 33 gradient steps,
+   a checkpoint at the last update and a greedy test episode. The cell must
+   launch exactly once per acting step, 65 times per gradient step and once
+   per test step, the sequence never; the checkpoint must validate
+   (manifest and every crc32); then ``load_gateway_model`` serves that
+   checkpoint to 16 clients x 8 lockstep requests, whose actions must equal
+   a plain-cell replay's. A second run of the same work under the profiler
+   gives the device's busy time.
 
 Each path's launch counts are zeroed just before its run and read just
-after it: the served run (phase 4), the bench (phase 5) and the timed train
-steps (phase 6). The build phase also counts the tensor-core instructions
+after it: the served run (phase 4), the bench (phase 5), the timed train
+steps (phase 6) and the training run (phase 7). The build phase also counts the tensor-core instructions
 (``HGMMA``, ``HMMA``) in the built library's SASS (``cuobjdump -sass``).
 
 Bounds: the least time of the same work on an H100 SXM, the larger of its
@@ -90,6 +102,15 @@ SEQUENCE_SHAPES = (
     (8, 16, 2048, 512, True, True, 1e-3, "multi_launch"),
 )
 SYNC_FLOOR_STEPS = 100
+# the run phase: the port's CLI at the full MsPacman width on the dummy env (2 actions, 5-step episodes),
+# a sequential buffer of 4096 rows, 1024 policy steps (256 updates of 4 envs), learning from step 512
+RUN_ARGS = (
+    "exp=dreamer_v2_ms_pacman", "env=dummy", "env.id=discrete_dummy", "env.num_envs=4", "env.sync_env=True",
+    "buffer.type=sequential", "buffer.size=4096", "buffer.memmap=True", "total_steps=1024",
+    "algo.learning_starts=512", "metric.log_level=0",
+)
+RUN_UPDATES, RUN_PLAYER_STEPS, RUN_GRADIENT_STEPS, RUN_TEST_STEPS = 256, 128, 33, 5
+RUN_CLIENTS, RUN_REQUESTS, RUN_ACTIONS = 16, 8, 2
 CLIENTS, STEPS, SEED = 64, 16, 5
 N_ACTIONS = 9
 OBS = {"rgb": (3, 64, 64)}
@@ -194,9 +215,10 @@ def phase_kernels():
 
     from sheeprl_tpu_torch.kernels import ops, reference
 
-    # the served widths at the batch sizes of one client, a part-filled and a
-    # full batch; then odd widths without bias and LayerNorm (scalar copies)
-    cases = [(B, 600, 400, True, True) for B in (1, 16, 64)] + [(B, 599, 37, False, False) for B in (1, 5, 64)]
+    # the served widths at the batch sizes of one client (and the run's test episode), the run's
+    # player (4 envs), a part-filled batch (the run's 16 served clients) and a full one; then odd
+    # widths without bias and LayerNorm (scalar copies)
+    cases = [(B, 600, 400, True, True) for B in (1, 4, 16, 64)] + [(B, 599, 37, False, False) for B in (1, 5, 64)]
     rows = []
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -429,19 +451,21 @@ def phase_sequence():
 
 
 def serve_lockstep(model, frames, seed: int):
-    """64 clients x STEPS lockstep requests through a fresh gateway; every
-    step is one full batch, rows in client order. Returns actions [T, C],
-    recurrent states [T, C, H] (host copies), wall seconds and the status."""
+    """C clients x T lockstep requests (``frames`` [T, C, ...]) through a
+    fresh gateway with ``max_batch=C``; every step is one full batch, rows in
+    client order. Returns actions [T, C], recurrent states [T, C, H] (host
+    copies), wall seconds and the status."""
     import numpy as np
     import torch
 
     from sheeprl_tpu_torch.serve import ServeClosed, ServeGateway
 
-    gateway = ServeGateway(model, max_batch=CLIENTS, deadline_s=0.25, seed=seed)
+    clients = frames.shape[1]
+    gateway = ServeGateway(model, max_batch=clients, deadline_s=0.25, seed=seed)
     try:
         batcher = gateway.batcher
-        ids = [gateway.client(f"client{c}").client_id for c in range(CLIENTS)]
-        actions = np.zeros((len(frames), CLIENTS), np.int64)
+        ids = [gateway.client(f"client{c}").client_id for c in range(clients)]
+        actions = np.zeros((len(frames), clients), np.int64)
         states = []
         t0 = time.perf_counter()
         for t, step in enumerate(frames):
@@ -617,6 +641,129 @@ def phase_train(card: str):
     return launches, max(rel.values())
 
 
+def _run_once(root: str, name: str):
+    """One training run through the CLI; returns (result, wall seconds)."""
+    import torch
+
+    from sheeprl_tpu_torch import cli
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = cli.run(list(RUN_ARGS) + [f"root_dir={root}", f"run_name={name}"])
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
+def phase_run(card: str):
+    """The port's main path: a DreamerV2 training run through
+    ``sheeprl_tpu_torch.cli.run`` at the full MsPacman width, its checkpoint
+    validated, and that checkpoint served (``load_gateway_model``) to
+    RUN_CLIENTS lockstep clients, against a plain-cell replay. The cell's
+    launches on the run must be the player steps + 65 per gradient step +
+    the test episode's steps. A second, profiled run (the same work) gives
+    the device's busy time; its idle share is read against the first run's
+    wall time."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sheeprl_tpu_torch.ckpt import validate_checkpoint
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.serve.model import load_gateway_model
+    from sheeprl_tpu_torch.tools.profile_serve import device_us
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as root:
+        torch.cuda.reset_peak_memory_stats()
+        ops.hafner_cell_launches.reset()
+        ops.hafner_sequence_launches.reset()
+        result, wall = _run_once(root, "run")
+        launches = {"hafner_cell": ops.hafner_cell_launches.count, "hafner_sequence": ops.hafner_sequence_launches.count}
+        peak = torch.cuda.max_memory_allocated()
+
+        counts = (result["updates"], result["player_steps"], result["gradient_steps"], result["test_steps"])
+        if counts != (RUN_UPDATES, RUN_PLAYER_STEPS, RUN_GRADIENT_STEPS, RUN_TEST_STEPS):
+            raise AssertionError(f"the run took (updates, player, gradient, test) steps {counts}")
+        predicted = result["player_steps"] + CELL_LAUNCHES_PER_STEP * result["gradient_steps"] + result["test_steps"]
+        if launches["hafner_cell"] != predicted:
+            raise AssertionError(f"hafner_cell launched {launches['hafner_cell']} times on the run, predicted {predicted}")
+        if launches["hafner_sequence"] != 0:
+            raise AssertionError(f"the sequence kernel launched {launches['hafner_sequence']} times on the run")
+
+        ckpt = result["checkpoint"]
+        if ckpt is None or not ckpt.endswith(f"ckpt_{result['policy_steps']}_0"):
+            raise AssertionError(f"the run's last checkpoint is {ckpt}")
+        manifest = validate_checkpoint(ckpt, deep=True)
+        ckpt_bytes = sum(manifest["files"].values())
+
+        t0 = time.perf_counter()
+        model, _cfg, _obs_space, _act_space = load_gateway_model(ckpt, device="cuda")
+        torch.cuda.synchronize()
+        cold_start_s = time.perf_counter() - t0
+        plain, *_ = load_gateway_model(ckpt, device="cuda", plain_cell=True)
+        rng = np.random.RandomState(SEED)
+        frames = rng.randint(0, 256, (RUN_REQUESTS, RUN_CLIENTS) + OBS["rgb"]).astype(np.uint8)
+        ops.hafner_cell_launches.reset()
+        actions, states, serve_wall, status = serve_lockstep(model, frames, seed=SEED)
+        served_launches = ops.hafner_cell_launches.count
+        p_actions, p_states, _w, p_status = serve_lockstep(plain, frames, seed=SEED)
+        requests = RUN_CLIENTS * RUN_REQUESTS
+        if status["failed_requests"] or p_status["failed_requests"] or status["requests"] != requests:
+            raise AssertionError(f"served {status['requests']} requests, {status['failed_requests']} failed")
+        if not ((actions >= 0) & (actions < RUN_ACTIONS)).all() or not torch.isfinite(states).all():
+            raise AssertionError("an action is out of range or a recurrent state is not finite")
+        if not np.array_equal(actions, p_actions):
+            raise AssertionError(f"the checkpoint's kernel and plain paths disagree on {(actions != p_actions).sum()} actions")
+        state_err = (states - p_states).abs().max().item()
+        if state_err > TOL_STATE:
+            raise AssertionError(f"recurrent state differs by {state_err} > {TOL_STATE}")
+        if served_launches != status["batches"]:
+            raise AssertionError(f"hafner_cell launched {served_launches} times for {status['batches']} batches")
+        del model, plain
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _result2, wall2 = _run_once(root, "profiled")
+        busy_us = sum(device_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+    seconds = result["seconds"]
+    stats = result["checkpoint_stats"]
+    line = {
+        "run_args": list(RUN_ARGS),
+        "updates": result["updates"],
+        "policy_steps": result["policy_steps"],
+        "player_steps": result["player_steps"],
+        "random_steps": result["random_steps"],
+        "gradient_steps": result["gradient_steps"],
+        "test_steps": result["test_steps"],
+        "wall_s": wall,
+        "policy_steps_per_s": result["policy_steps"] / wall,
+        "gradient_steps_per_s": result["gradient_steps"] / seconds["train"],
+        "seconds": seconds,
+        "prefetch": result["prefetch"],
+        "hafner_cell_launches": launches["hafner_cell"],
+        "hafner_cell_launches_predicted": predicted,
+        "hafner_sequence_launches": launches["hafner_sequence"],
+        "checkpoint_bytes": ckpt_bytes,
+        "checkpoint_write_ms": stats["write_ms"],
+        "checkpoint_blocked_ms": stats["blocked_ms"],
+        "load_gateway_model_cold_start_s": cold_start_s,
+        "served_requests": requests,
+        "served_failed_requests": status["failed_requests"],
+        "served_requests_per_s": requests / serve_wall,
+        "plain_replay_actions_equal": True,
+        "plain_replay_state_max_abs_err": state_err,
+        "peak_device_memory_bytes": peak,
+        "profiled_run_wall_s": wall2,
+        "device_busy_s": busy_us / 1e6,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "card": card,
+    }
+    print("[run] " + json.dumps(line), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -651,6 +798,7 @@ def main() -> int:
     by_path = {"serve": phase_slice(card)}
     by_path["bench_kernels"], bench_line = phase_bench_kernels()
     by_path["train"], train_rel_diff = phase_train(card)
+    by_path["run"] = phase_run(card)
 
     cell_row = next(r for r in train_rows if r["B"] == 1600)
     seq_row = seq_rows[0]
@@ -662,7 +810,7 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/kernels/csrc/hafner_gru.cu",
             "replaces": "sheeprl_tpu/kernels/pallas_tpu.py:67",
-            "launches": by_path["train"]["hafner_cell"],
+            "launches": by_path["run"]["hafner_cell"],
             "max_abs_err": max(r["max_abs_err"] for r in serve_rows + train_rows),
             "ms": cell_row["ms"],
             "plain_ms": cell_row["plain_ms"],

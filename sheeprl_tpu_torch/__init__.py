@@ -1,13 +1,26 @@
 """sheeprl_tpu_torch: the PyTorch/CUDA port of sheeprl_tpu for NVIDIA Hopper.
 
 The JAX package ``sheeprl_tpu`` is the reference; this package imports
-neither it nor JAX. Today it serves a DreamerV2 policy: ``ServeGateway`` →
-``RequestBatcher`` → ``GatewayModel`` → the DV2 player step, whose
-LayerNorm-GRU step is a hand-written CUDA kernel
+neither it nor JAX. It trains DreamerV2 from its CLI
+(``python -m sheeprl_tpu_torch exp=dreamer_v2 ...``: config engine and YAML
+tree, sync vector envs, sequential replay, manifest checkpoints) and serves
+a DreamerV2 policy from a checkpoint (``serve.load_gateway_model``). The
+LayerNorm-GRU step of both is a hand-written CUDA kernel
 (``kernels/csrc/hafner_gru.cu``). Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``.
+caller asks for the CPU (``device="cpu"``, ``fabric.accelerator=cpu``).
 """
 
 from sheeprl_tpu_torch.device import resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["register_algorithms", "resolve_device"]
+
+#: the modules whose entrypoints ``register_algorithms`` registers
+ALGORITHM_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",)
+
+
+def register_algorithms() -> None:
+    """Import the ported entrypoints so that they register (idempotent)."""
+    import importlib
+
+    for module in ALGORITHM_MODULES:
+        importlib.import_module(module)

@@ -6,7 +6,8 @@ heads, the RSSM's single steps (the player's ``recurrent_model`` /
 with its ``is_first`` masks, ``prior_logits`` batched over any leading shape
 and ``imagination``), a world model with the player's and training's
 methods, the seeded Xavier-normal ``build_agent`` and the player's
-``init_states`` / ``reset_states`` / ``greedy_action``.
+``init_states`` / ``reset_states`` / ``greedy_action`` /
+``exploration_action``.
 
 A serving build (``build_agent(..., training=False)``) leaves out the
 decoders and the reward and continue heads; a training build has them and
@@ -508,7 +509,9 @@ def build_player_fns(
 ) -> Dict[str, Any]:
     """Player functions over an explicit state dict
     ``{"actions", "recurrent", "stochastic"}`` of ``[n, ...]`` tensors on the
-    model's device, all zeros at the start of an episode."""
+    model's device, all zeros at the start of an episode: ``init_states``,
+    ``reset_states``, ``greedy_action`` (serving, the test episode) and
+    ``exploration_action`` (acting in training)."""
     distribution = resolve_actor_distribution(cfg.distribution.get("type", "auto"), is_continuous)
     init_std, min_std = float(cfg.algo.actor.init_std), float(cfg.algo.actor.min_std)
     wm_cfg = cfg.algo.world_model
@@ -546,4 +549,49 @@ def build_player_fns(
         new_state = {"actions": torch.cat(actions, dim=-1), "recurrent": recurrent, "stochastic": stochastic}
         return actions, new_state
 
-    return {"init_states": init_states, "reset_states": reset_states, "greedy_action": greedy_action}
+    @torch.inference_mode()
+    def exploration_action(
+        state: Dict[str, torch.Tensor],
+        obs: Mapping[str, torch.Tensor],
+        expl_amount: float,
+        generator: Optional[torch.Generator] = None,
+        gumbel: Optional[torch.Tensor] = None,
+        action_gumbels: Optional[Sequence[torch.Tensor]] = None,
+        expl_noise: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
+    ):
+        """One acting step of training (the JAX ``exploration_action``): the
+        posterior and each action head are sampled (from ``gumbel`` ``[n, S,
+        D]`` and ``action_gumbels`` ``[n, dim]`` each, or ``generator``),
+        then with probability ``expl_amount`` a row's action is replaced by a
+        uniform one (``add_exploration_noise``). ``expl_noise`` injects that
+        draw, per head ``(uniform_category [n], u [n, 1])``; without it the
+        draw comes from ``generator``, and it is skipped at ``expl_amount
+        <= 0``, where it cannot change an action. The carried action is the
+        one taken."""
+        embed = world_model.encode(obs)
+        recurrent = world_model.recurrent_step(state["stochastic"], state["actions"], state["recurrent"])
+        _, stochastic = world_model.representation(recurrent, embed, generator, gumbel=gumbel)
+        latent = torch.cat([stochastic, recurrent], dim=-1)
+        dists = build_actor_dists(actor(latent), is_continuous, distribution, init_std, min_std, unimix=0.0)
+        actions = sample_actor_actions(dists, is_continuous, generator, is_training=True, gumbels=action_gumbels)
+        if expl_noise is not None or expl_amount > 0:
+            noisy = []
+            for i, act in enumerate(actions):
+                n, dim = act.shape[0], act.shape[-1]
+                if expl_noise is None:
+                    category = torch.randint(0, dim, (n,), generator=generator, device=device)
+                    u = torch.rand((n, 1), generator=generator, device=device)
+                else:
+                    category, u = (x.to(device) for x in expl_noise[i])
+                rand = F.one_hot(category.long(), dim).to(act.dtype)
+                noisy.append(torch.where(u < expl_amount, rand, act))
+            actions = noisy
+        new_state = {"actions": torch.cat(actions, dim=-1), "recurrent": recurrent, "stochastic": stochastic}
+        return actions, new_state
+
+    return {
+        "init_states": init_states,
+        "reset_states": reset_states,
+        "greedy_action": greedy_action,
+        "exploration_action": exploration_action,
+    }

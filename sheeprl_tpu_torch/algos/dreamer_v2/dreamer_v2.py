@@ -1,5 +1,6 @@
-"""One DreamerV2 gradient step (counterpart of ``build_train_fn`` and
-``build_optimizers_and_state`` in ``sheeprl_tpu/algos/dreamer_v2/dreamer_v2.py``).
+"""DreamerV2 training (counterpart of ``sheeprl_tpu/algos/dreamer_v2/dreamer_v2.py``):
+the gradient step (``build_train_fn``, ``build_optimizers_and_state``) and
+the training run (:func:`main`, registered as ``dreamer_v2``).
 
 The step keeps the reference's order:
 
@@ -26,27 +27,64 @@ The JAX package runs the step as one SPMD program; here it is eager PyTorch
 on one device, and the state is updated in place. Sampling noise is passed
 in (``noise``, for parity with the JAX step's keys) or drawn from the
 state's ``torch.Generator``.
+
+The run (:func:`main`) keeps the JAX loop's order and bookkeeping: a
+zero-action ``is_first`` row after the first reset, the real next
+observation (``final_obs``) stored for an env that ended, a reset row for
+it and ``(1 - mask)`` on its player state, random actions up to
+``learning_starts``, training every ``train_every`` policy steps
+(``per_rank_pretrain_steps`` at ``learning_starts``), hard target copies
+every ``target_network_update_freq`` gradient steps, the polynomial decay
+of ``expl_amount``, the ``should_checkpoint`` cadence (``save_last`` on the
+final update) and a greedy test episode at the end. It acts one env step
+at a time, and runs a burst's gradient steps as a Python loop over the
+train step (the JAX package's fused bursts, host parameter mirrors and
+burst acting amortise TPU dispatches). In-run evaluation, TensorBoard
+logging and telemetry are not ported (ROADMAP queue A item 6): they need
+``metric.log_level=0`` and ``eval.every_n_steps=0``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import time
 from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v2.agent import (
     actor_entropy,
     build_actor_dists,
+    build_agent,
+    build_player_fns,
     resolve_actor_distribution,
     sample_actor_actions,
 )
 from sheeprl_tpu_torch.algos.dreamer_v2.loss import reconstruction_loss
-from sheeprl_tpu_torch.algos.dreamer_v2.utils import compute_lambda_values, normalize_obs_tensors
+from sheeprl_tpu_torch.algos.dreamer_v2.utils import compute_lambda_values, normalize_obs, normalize_obs_tensors
+from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs, test
+from sheeprl_tpu_torch.ckpt import preemption_requested, should_checkpoint, warn_checkpoint_rounding
+from sheeprl_tpu_torch.data.staging import make_replay_staging
 from sheeprl_tpu_torch.distributions import Bernoulli, Independent, Normal, gumbel_noise
+from sheeprl_tpu_torch.envs import spaces
+from sheeprl_tpu_torch.envs.vector import make_vector_env
+from sheeprl_tpu_torch.replay import make_replay_buffer
+from sheeprl_tpu_torch.utils.logger import get_log_dir
 from sheeprl_tpu_torch.utils.optim import Adam, clip_by_global_norm_
+from sheeprl_tpu_torch.utils.registry import register_algorithm
+from sheeprl_tpu_torch.utils.utils import polynomial_decay, save_configs
 
-__all__ = ["build_optimizers_and_state", "build_train_fn", "draw_noise"]
+__all__ = [
+    "agent_state_dict",
+    "build_optimizers_and_state",
+    "build_train_fn",
+    "draw_noise",
+    "load_agent_state",
+    "main",
+    "tau_schedule",
+]
 
 _MODULES = ("world_model", "actor", "critic")
 
@@ -257,3 +295,339 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool):
 
     return train_step
 
+
+
+# ---------------------------------------------------------------------------
+# the training run
+# ---------------------------------------------------------------------------
+
+
+def agent_state_dict(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The checkpoint's ``agent`` tree: each module's ``state_dict`` and each
+    optimizer's per-parameter state (its hyperparameters come from the
+    config on load)."""
+    out: Dict[str, Any] = {name: state[name].state_dict() for name in _MODULES + ("target_critic",)}
+    out["opt"] = {name: {"state": opt.state_dict()["state"]} for name, opt in state["opt"].items()}
+    return out
+
+
+def load_agent_state(state: Dict[str, Any], agent: Dict[str, Any]) -> None:
+    """Load an :func:`agent_state_dict` tree (numpy leaves, as a checkpoint
+    reads back) into ``state`` in place."""
+    for name in _MODULES + ("target_critic",):
+        state[name].load_state_dict({k: torch.as_tensor(v) for k, v in agent[name].items()})
+    for name, opt in state["opt"].items():
+        saved = {
+            int(i): {k: torch.as_tensor(v) for k, v in per_param.items()}
+            for i, per_param in agent["opt"][name]["state"].items()
+        }
+        opt.load_state_dict({"state": saved, "param_groups": opt.state_dict()["param_groups"]})
+
+
+def tau_schedule(n: int, start: int, every: int) -> np.ndarray:
+    """The target critic's update for gradient steps ``start..start+n-1``: a
+    hard copy (1.0) on every ``every``-th step, the first included, else 0."""
+    g = int(start) + np.arange(int(n))
+    return np.where(g % max(int(every), 1) == 0, 1.0, 0.0)
+
+
+def _unsupported(cfg) -> None:
+    """Raise for the options whose layers the port does not have yet."""
+    if int(cfg.metric.log_level) > 0:
+        raise NotImplementedError(
+            "metric.log_level>0: TensorBoard logging, metric spans and telemetry are ROADMAP queue A item 6; "
+            "pass metric.log_level=0"
+        )
+    if int((cfg.get("eval", {}) or {}).get("every_n_steps", 0) or 0) > 0:
+        raise NotImplementedError("eval.every_n_steps>0: in-run evaluation is ROADMAP queue A item 6")
+    if int(cfg.env.get("act_burst", 1) or 1) != 1:
+        raise NotImplementedError("env.act_burst>1: burst acting amortises TPU dispatches; the port acts per step")
+    if cfg.metric.get("profiler", False):
+        raise NotImplementedError("metric.profiler: trace capture is ROADMAP queue A item 6")
+
+
+@register_algorithm()
+def main(fabric, cfg) -> Dict[str, Any]:
+    """The DreamerV2 training run. Returns its loop counters and where its
+    host time went (seconds per phase; the train phase ends synchronised
+    with the device)."""
+    _unsupported(cfg)
+    world_size = fabric.world_size
+    generator, _ = fabric.seed_everything(cfg.seed)
+    device = fabric.device
+
+    # These arguments cannot be changed
+    cfg.env.screen_size = 64
+    cfg.env.frame_stack = 1
+
+    log_dir = get_log_dir(cfg)
+    if fabric.is_global_zero:
+        save_configs(cfg, log_dir)
+
+    n_envs = int(cfg.env.num_envs) * world_size
+    envs = make_vector_env(cfg, fabric, log_dir, restart_on_exception=True)
+    action_space = envs.single_action_space
+    observation_space = envs.single_observation_space
+    is_continuous = isinstance(action_space, spaces.Box)
+    is_multidiscrete = isinstance(action_space, spaces.MultiDiscrete)
+    actions_dim = tuple(
+        action_space.shape if is_continuous else (action_space.nvec.tolist() if is_multidiscrete else [action_space.n])
+    )
+    clip_rewards_fn = (lambda r: np.tanh(r)) if cfg.env.clip_rewards else (lambda r: r)
+    if not isinstance(observation_space, spaces.Dict):
+        raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {observation_space}")
+    if cfg.cnn_keys.encoder == [] and cfg.mlp_keys.encoder == []:
+        raise RuntimeError(
+            "You should specify at least one CNN keys or MLP keys from the cli: "
+            "`cnn_keys.encoder=[rgb]` or `mlp_keys.encoder=[state]`"
+        )
+    if (
+        len(set(cfg.cnn_keys.encoder).intersection(set(cfg.cnn_keys.decoder))) == 0
+        and len(set(cfg.mlp_keys.encoder).intersection(set(cfg.mlp_keys.decoder))) == 0
+    ):
+        raise RuntimeError("The CNN keys or the MLP keys of the encoder and decoder must not be disjointed")
+    if len(set(cfg.cnn_keys.decoder) - set(cfg.cnn_keys.encoder)) > 0:
+        raise RuntimeError("The CNN keys of the decoder must be contained in the encoder ones")
+    if len(set(cfg.mlp_keys.decoder) - set(cfg.mlp_keys.encoder)) > 0:
+        raise RuntimeError("The MLP keys of the decoder must be contained in the encoder ones")
+    cnn_keys, mlp_keys = list(cfg.cnn_keys.encoder), list(cfg.mlp_keys.encoder)
+    obs_keys = cnn_keys + mlp_keys
+
+    modules = build_agent(
+        cfg, actions_dim, is_continuous, observation_space.spaces, seed=cfg.seed, device=device, training=True
+    )
+    state = build_optimizers_and_state(cfg, *modules, generator=generator)
+
+    expl_decay_steps = 0
+    resumed = None
+    if cfg.checkpoint.resume_from:
+        from sheeprl_tpu_torch.ckpt import read_manifest
+
+        framework = read_manifest(cfg.checkpoint.resume_from).get("framework")
+        if framework != "torch":
+            raise ValueError(
+                f"checkpoint.resume_from={cfg.checkpoint.resume_from}: written by {framework or 'the JAX package'}; "
+                "the port resumes only from its own checkpoints (serve a JAX checkpoint with load_gateway_model)"
+            )
+        resumed = fabric.load(cfg.checkpoint.resume_from)
+        load_agent_state(state, resumed["agent"])
+        expl_decay_steps = int(resumed["expl_decay_steps"])
+        cfg.per_rank_batch_size = int(resumed["batch_size"]) // world_size
+
+    train_step = build_train_fn(cfg, actions_dim, is_continuous)
+    player_fns = build_player_fns(state["world_model"], state["actor"], cfg, actions_dim, is_continuous)
+
+    rb = make_replay_buffer(
+        cfg,
+        fabric,
+        log_dir,
+        n_envs=n_envs,
+        kind="dreamer",
+        obs_keys=obs_keys,
+        min_size=8,
+        dry_run_size=8,
+        sequence_length=int(cfg.per_rank_sequence_length),
+    )
+    if resumed is not None and cfg.buffer.get("checkpoint", False) and "rb" in resumed:
+        rb.load_state_dict(resumed["rb"])
+
+    train_steps = 0
+    start_step = int(resumed["update"]) // world_size if resumed is not None else 1
+    policy_step = int(resumed["update"]) * cfg.env.num_envs if resumed is not None else 0
+    last_log = int(resumed["last_log"]) if resumed is not None else 0
+    last_checkpoint = int(resumed["last_checkpoint"]) if resumed is not None else 0
+    policy_steps_per_update = int(n_envs)
+    updates_before_training = cfg.algo.train_every // policy_steps_per_update if not cfg.dry_run else 0
+    num_updates = int(cfg.total_steps // policy_steps_per_update) if not cfg.dry_run else 1
+    learning_starts = cfg.algo.learning_starts // policy_steps_per_update if not cfg.dry_run else 0
+    if cfg.checkpoint.resume_from and not cfg.buffer.checkpoint:
+        learning_starts += start_step
+    max_step_expl_decay = (
+        cfg.algo.actor.max_step_expl_decay // (cfg.algo.per_rank_gradient_steps * world_size)
+        if cfg.algo.actor.max_step_expl_decay
+        else 0
+    )
+    expl_amount = float(cfg.algo.actor.expl_amount)
+    if cfg.checkpoint.resume_from:
+        expl_amount = polynomial_decay(
+            expl_decay_steps,
+            initial=cfg.algo.actor.expl_amount,
+            final=cfg.algo.actor.expl_min,
+            max_decay_steps=max_step_expl_decay,
+        )
+    warn_checkpoint_rounding(cfg, policy_steps_per_update)
+
+    staging = make_replay_staging(cfg, fabric, rb, seed=cfg.seed)
+
+    # First observation: a zero-action is_first row
+    o = envs.reset(seed=cfg.seed)[0]
+    obs = prepare_obs(o, cnn_keys, mlp_keys, n_envs)
+    act_width = int(np.sum(actions_dim))
+    step_data = {k: obs[k][None] for k in obs_keys}
+    step_data["dones"] = np.zeros((1, n_envs, 1), np.float32)
+    step_data["actions"] = np.zeros((1, n_envs, act_width), np.float32)
+    step_data["rewards"] = np.zeros((1, n_envs, 1), np.float32)
+    step_data["is_first"] = np.ones((1, n_envs, 1), np.float32)
+    rb.add(step_data)
+    player_state = player_fns["init_states"](n_envs)
+
+    seconds = {"env": 0.0, "act": 0.0, "sample": 0.0, "train": 0.0, "checkpoint": 0.0, "test": 0.0}
+    counters = {"updates": 0, "player_steps": 0, "random_steps": 0, "gradient_steps": 0, "train_bursts": 0}
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
+    checkpoint_path = None
+
+    def env_step(actions: np.ndarray, real_actions: np.ndarray, player: Dict[str, torch.Tensor]):
+        """Step the envs, store the row, reset rows for envs that ended;
+        returns the player's next observation and state."""
+        nonlocal policy_step
+        t0 = time.perf_counter()
+        policy_step += n_envs
+        # The next row's is_first mirrors the previous dones
+        step_data["is_first"] = step_data["dones"].copy()
+        o, rewards, terminated, truncated, infos = envs.step(real_actions.reshape(envs.action_space.shape))
+        dones = np.logical_or(terminated, truncated).astype(np.float32)
+        if "restart_on_exception" in infos:
+            for i, env_roe in enumerate(infos["restart_on_exception"]):
+                if env_roe and not dones[i]:
+                    staging.force_done_last(i)
+                    step_data["is_first"][0, i] = 1.0
+
+        # Save the real next observation
+        dones_idxes = np.nonzero(dones.reshape(-1))[0].tolist()
+        real_next_obs = {k: np.array(v) for k, v in o.items()}
+        if "final_obs" in infos:
+            for idx in dones_idxes:
+                fo = infos["final_obs"][idx]
+                if fo is not None:
+                    for k in real_next_obs:
+                        if k in fo:
+                            real_next_obs[k][idx] = np.asarray(fo[k])
+
+        # Row t holds the action that led to observation t
+        obs_row = prepare_obs(real_next_obs, cnn_keys, mlp_keys, n_envs)
+        for k in obs_keys:
+            step_data[k] = obs_row[k][None]
+        step_data["dones"] = dones.reshape(1, n_envs, 1)
+        step_data["actions"] = actions.reshape(1, n_envs, -1).astype(np.float32)
+        step_data["rewards"] = clip_rewards_fn(np.asarray(rewards, np.float32).reshape(n_envs, 1))[None]
+        rb.add(step_data)
+
+        # The player continues from the autoreset observation
+        new_obs = prepare_obs(o, cnn_keys, mlp_keys, n_envs)
+        if dones_idxes:
+            reset_obs = prepare_obs({k: v[dones_idxes] for k, v in o.items()}, cnn_keys, mlp_keys, len(dones_idxes))
+            reset_data = {k: reset_obs[k][None] for k in obs_keys}
+            reset_data["dones"] = np.zeros((1, len(dones_idxes), 1), np.float32)
+            reset_data["actions"] = np.zeros((1, len(dones_idxes), act_width), np.float32)
+            reset_data["rewards"] = np.zeros((1, len(dones_idxes), 1), np.float32)
+            reset_data["is_first"] = np.ones_like(reset_data["dones"])
+            rb.add(reset_data, dones_idxes)
+            step_data["dones"][:, dones_idxes] = 0.0
+            reset_mask = np.zeros((n_envs, 1), np.float32)
+            reset_mask[dones_idxes] = 1.0
+            player = player_fns["reset_states"](player, torch.from_numpy(reset_mask))
+        seconds["env"] += time.perf_counter() - t0
+        return new_obs, player
+
+    update = start_step
+    while update <= num_updates:
+        if update <= learning_starts and not cfg.checkpoint.resume_from:
+            real_actions = actions = np.array(envs.action_space.sample())
+            if not is_continuous:
+                heads = actions.reshape(n_envs, len(actions_dim))
+                actions = np.concatenate(
+                    [np.eye(d, dtype=np.float32)[heads[:, j]] for j, d in enumerate(actions_dim)], axis=-1
+                )
+            counters["random_steps"] += 1
+        else:
+            t0 = time.perf_counter()
+            norm_obs = normalize_obs(obs, cnn_keys, device)
+            actions_t, player_state = player_fns["exploration_action"](
+                player_state, norm_obs, expl_amount, generator=generator
+            )
+            actions = np.concatenate([a.cpu().numpy() for a in actions_t], -1)
+            if is_continuous:
+                real_actions = actions
+            else:
+                real_actions = np.stack([a.argmax(dim=-1).cpu().numpy() for a in actions_t], axis=-1)
+            seconds["act"] += time.perf_counter() - t0
+            counters["player_steps"] += 1
+        obs, player_state = env_step(actions, real_actions, player_state)
+
+        update += 1
+        last = update - 1
+        counters["updates"] += 1
+        updates_before_training -= 1
+
+        # Train the agent
+        if last >= learning_starts and updates_before_training <= 0:
+            n_samples = cfg.algo.per_rank_pretrain_steps if last == learning_starts else cfg.algo.per_rank_gradient_steps
+            if n_samples > 0:
+                t0 = time.perf_counter()
+                local_data = staging.sample_device(
+                    cfg.per_rank_batch_size * world_size,
+                    sequence_length=cfg.per_rank_sequence_length,
+                    n_samples=n_samples,
+                )
+                t1 = time.perf_counter()
+                taus = tau_schedule(
+                    n_samples, counters["gradient_steps"], cfg.algo.critic.target_network_update_freq
+                )
+                for i in range(n_samples):
+                    train_step(state, {k: v[i] for k, v in local_data.items()}, tau=float(taus[i]))
+                sync()
+                seconds["sample"] += t1 - t0
+                seconds["train"] += time.perf_counter() - t1
+                counters["gradient_steps"] += n_samples
+                counters["train_bursts"] += 1
+                train_steps += world_size
+            updates_before_training = cfg.algo.train_every // policy_steps_per_update
+            if cfg.algo.actor.expl_decay:
+                expl_decay_steps += 1
+                expl_amount = polynomial_decay(
+                    expl_decay_steps,
+                    initial=cfg.algo.actor.expl_amount,
+                    final=cfg.algo.actor.expl_min,
+                    max_decay_steps=max_step_expl_decay,
+                )
+
+        # Checkpoint
+        if should_checkpoint(cfg, policy_step, last_checkpoint, last, num_updates):
+            t0 = time.perf_counter()
+            last_checkpoint = policy_step
+            ckpt_state = {
+                "agent": agent_state_dict(state),
+                "expl_decay_steps": expl_decay_steps,
+                "update": last * world_size,
+                "batch_size": cfg.per_rank_batch_size * world_size,
+                "last_log": last_log,
+                "last_checkpoint": last_checkpoint,
+            }
+            checkpoint_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_{fabric.global_rank}")
+            fabric.call(
+                "on_checkpoint_coupled",
+                ckpt_path=checkpoint_path,
+                state=ckpt_state,
+                replay_buffer=rb if cfg.buffer.get("checkpoint", False) else None,
+            )
+            seconds["checkpoint"] += time.perf_counter() - t0
+            if preemption_requested():
+                break
+
+    staging.close()
+    envs.close()
+    test_reward, test_steps = None, 0
+    if fabric.is_global_zero and cfg.algo.get("run_test", True) and not preemption_requested():
+        t0 = time.perf_counter()
+        test_reward, test_steps = test(player_fns, fabric, cfg, log_dir, normalize_fn=normalize_obs)
+        seconds["test"] = time.perf_counter() - t0
+    return {
+        **counters,
+        "policy_steps": policy_step,
+        "test_steps": test_steps,
+        "test_reward": test_reward,
+        "log_dir": log_dir,
+        "checkpoint": checkpoint_path,
+        "seconds": seconds,
+        "prefetch": {"hits": staging.prefetch_hits, "misses": staging.prefetch_misses},
+    }

@@ -1,0 +1,211 @@
+"""Command-line entry point (counterpart of ``run``, ``run_algorithm``,
+``check_configs``, ``resume_from_checkpoint`` and ``_load_run_config`` in
+``sheeprl_tpu/cli.py``).
+
+    python -m sheeprl_tpu_torch exp=dreamer_v2 env=dummy fabric.accelerator=cpu ...
+
+composes the config from the port's YAML tree, resolves
+``checkpoint.resume_from`` (``latest``, a run dir or a ``ckpt_*`` dir) and
+merges the checkpointed run's config, builds the
+:class:`~sheeprl_tpu_torch.fabric.Fabric` and calls the registered
+entrypoint. ``fabric.accelerator=auto`` means ``cuda``. The ``serve``,
+``eval`` and ``registration`` commands, multirun sweeps and
+``registry:best:`` refs are not ported (ROADMAP queue A item 6).
+"""
+
+from __future__ import annotations
+
+import importlib
+import os
+import sys
+import warnings
+from typing import Any, Optional, Sequence, Tuple
+
+from sheeprl_tpu_torch.config.engine import compose, yaml_load
+from sheeprl_tpu_torch.config.instantiate import instantiate
+from sheeprl_tpu_torch.config.yamlite import load as yaml_read
+from sheeprl_tpu_torch.utils import dotdict
+from sheeprl_tpu_torch.utils.metric import MetricAggregator
+from sheeprl_tpu_torch.utils.registry import find_algorithm, registered_algorithm_names
+from sheeprl_tpu_torch.utils.timer import timer
+from sheeprl_tpu_torch.utils.utils import print_config
+
+__all__ = ["check_configs", "load_run_config", "resume_from_checkpoint", "run", "run_algorithm"]
+
+_JAX_PREFIX, _PORT_PREFIX = "sheeprl_tpu.", "sheeprl_tpu_torch."
+
+
+def _port_targets(node: Any) -> Any:
+    """``_target_: sheeprl_tpu.X`` (a JAX run's config) → ``sheeprl_tpu_torch.X``."""
+    if isinstance(node, dict):
+        return {
+            k: (_PORT_PREFIX + v[len(_JAX_PREFIX):])
+            if k == "_target_" and isinstance(v, str) and v.startswith(_JAX_PREFIX)
+            else _port_targets(v)
+            for k, v in node.items()
+        }
+    if isinstance(node, list):
+        return [_port_targets(v) for v in node]
+    return node
+
+
+def load_run_config(ckpt_path: str) -> Tuple[dotdict, str]:
+    """The persisted config of the run that wrote a checkpoint
+    (``<log_dir>/checkpoint/ckpt_*`` with ``<log_dir>/.hydra/config.yaml``,
+    or a ``config.yaml`` beside the checkpoint), read with the port's YAML
+    reader, targets moved to the port. Returns ``(cfg, log_dir)``."""
+    ckpt_abs = os.path.abspath(ckpt_path)
+    log_dir = os.path.dirname(os.path.dirname(ckpt_abs))
+    candidates = [
+        (os.path.join(log_dir, ".hydra", "config.yaml"), log_dir),
+        (os.path.join(os.path.dirname(ckpt_abs), "config.yaml"), os.path.dirname(ckpt_abs)),
+    ]
+    for cfg_path, base in candidates:
+        if os.path.isfile(cfg_path):
+            with open(cfg_path) as f:
+                return dotdict(_port_targets(yaml_read(f.read()))), base
+    raise RuntimeError(
+        f"Cannot use checkpoint {ckpt_path}: missing persisted config at any of {[c for c, _ in candidates]}"
+    )
+
+
+def _set_existing_path(cfg, key: str, value, allow_new: bool = False) -> bool:
+    """Set dotted ``key`` only where its parent exists (and the key too,
+    unless ``allow_new``); never invents intermediate nodes."""
+    node = cfg
+    parts = key.split(".")
+    for p in parts[:-1]:
+        if not isinstance(node, dict) or p not in node or not isinstance(node[p], dict):
+            return False
+        node = node[p]
+    if not isinstance(node, dict) or (parts[-1] not in node and not allow_new):
+        return False
+    node[parts[-1]] = value
+    return True
+
+
+def resume_from_checkpoint(cfg, overrides: Optional[Sequence[str]] = None) -> Any:
+    """The checkpointed run's config, with the runtime keys (``root_dir``,
+    ``run_name``, ``fabric``, ``checkpoint.resume_from``) of this one and
+    every explicit ``key=value`` override of this command re-applied; an
+    override naming a key the stored config lacks raises."""
+    ckpt_path = cfg.checkpoint.resume_from
+    old_cfg, _ = load_run_config(ckpt_path)
+    if old_cfg.env.id != cfg.env.id:
+        raise ValueError(
+            f"This experiment is run with a different environment from the one of the checkpoint: "
+            f"got {cfg.env.id}, the checkpoint was trained on {old_cfg.env.id}"
+        )
+    if old_cfg.algo.name != cfg.algo.name:
+        raise ValueError(
+            f"This experiment is run with a different algorithm from the one of the checkpoint: "
+            f"got {cfg.algo.name}, the checkpoint was trained with {old_cfg.algo.name}"
+        )
+    old_cfg.checkpoint.resume_from = ckpt_path
+    old_cfg.root_dir = cfg.root_dir
+    old_cfg.run_name = cfg.run_name
+    old_cfg.fabric = cfg.fabric
+    reapplied, ignored, dropped = [], [], []
+    for o in overrides or []:
+        if o.startswith("~") or "=" not in o:
+            ignored.append(o)
+            continue
+        key, value = o.split("=", 1)
+        added = key.startswith("+")
+        key = key.lstrip("+")
+        if key in ("checkpoint.resume_from", "root_dir", "run_name") or key.startswith("fabric"):
+            continue
+        if key == "exp" or ("." not in key and isinstance(old_cfg.get(key, None), dict)):
+            ignored.append(o)
+            continue
+        if not _set_existing_path(old_cfg, key, yaml_load(value), allow_new=added):
+            dropped.append(o)
+            continue
+        reapplied.append(o)
+    if reapplied or ignored:
+        warnings.warn(
+            "resume_from_checkpoint: the restored config defines the experiment; "
+            f"re-applied {reapplied}, ignored {ignored} (deletions and group selections cannot be re-applied)"
+        )
+    if dropped:
+        raise ValueError(
+            f"resume_from_checkpoint: these overrides name keys absent from the checkpointed config: {dropped}"
+        )
+    return old_cfg
+
+
+def check_configs(cfg) -> None:
+    """The algorithm is registered; the strategy, devices and precision are
+    the port's (checked again by the Fabric)."""
+    algo_name = cfg.algo.name
+    entry = find_algorithm(algo_name)
+    if entry is None:
+        raise RuntimeError(
+            f"Given the algorithm named '{algo_name}', no algorithm has been found to be imported. "
+            f"Available algorithms: {registered_algorithm_names()}"
+        )
+    if entry["decoupled"]:
+        raise NotImplementedError(f"{algo_name}: the decoupled entrypoints are ROADMAP queue A item 5")
+    model_axis = int((cfg.get("parallel", None) or {}).get("model_axis", 1) or 1)
+    if model_axis > 1:
+        raise NotImplementedError(f"parallel.model_axis={model_axis}: parameter sharding is ROADMAP queue A item 7")
+    if int((cfg.get("plane", None) or {}).get("num_players", 0) or 0) > 0:
+        raise NotImplementedError("plane.num_players>0: the actor–learner plane is ROADMAP queue A item 6")
+
+
+def run_algorithm(cfg) -> Any:
+    """Registry lookup → Fabric → entrypoint; the checkpoint subsystem is
+    set up before and drained after. Returns the entrypoint's result, a
+    dict result with the run's checkpoint stats (bytes, write and blocked
+    time) added as ``checkpoint_stats``."""
+    from sheeprl_tpu_torch.ckpt import setup_checkpoint, teardown_checkpoint
+
+    entry = find_algorithm(cfg.algo.name)
+    module = importlib.import_module(entry["module"])
+    entrypoint = getattr(module, entry["entrypoint"])
+    fabric = instantiate(cfg.fabric)
+    MetricAggregator.disabled = cfg.metric.log_level == 0 or len(
+        cfg.metric.get("aggregator", {}).get("metrics", {})
+    ) == 0
+    timer.disabled = cfg.metric.log_level == 0 or cfg.metric.get("disable_timer", False)
+    setup_checkpoint(cfg)
+    try:
+        result = fabric.launch(entrypoint, cfg)
+    finally:
+        stats = teardown_checkpoint()
+    if isinstance(result, dict):
+        result["checkpoint_stats"] = stats
+    return result
+
+
+def run(args: Optional[Sequence[str]] = None) -> Any:
+    """Train entrypoint: compose, resume merge, checks, run."""
+    import sheeprl_tpu_torch
+
+    overrides = list(args) if args is not None else sys.argv[1:]
+    if "-m" in overrides or "--multirun" in overrides:
+        raise NotImplementedError("multirun sweeps are not ported (ROADMAP queue A item 6)")
+    cfg = compose("config", overrides=overrides)
+    sheeprl_tpu_torch.register_algorithms()
+    if cfg.checkpoint.resume_from:
+        from sheeprl_tpu_torch.ckpt import resolve_resume_from
+
+        cfg.checkpoint.resume_from = resolve_resume_from(cfg)
+        cfg = resume_from_checkpoint(cfg, overrides)
+    if cfg.metric.log_level > 0:
+        print_config(cfg)
+    check_configs(cfg)
+    return run_algorithm(cfg)
+
+
+def _not_ported(name: str):
+    def entry(args: Optional[Sequence[str]] = None):
+        raise NotImplementedError(f"the `{name}` command is not ported yet (ROADMAP queue A item 6)")
+
+    entry.__name__ = name
+    return entry
+
+
+evaluation = _not_ported("evaluation")
+serve = _not_ported("serve")
+registration = _not_ported("registration")

@@ -31,7 +31,9 @@ def dreamer_eval_policy(
 ) -> EvalPolicy:
     """One batched greedy policy over a dreamer-family player-fns dict.
     ``normalize_fn(obs, cnn_keys, device)`` copies the prepared observation
-    to ``device`` and scales its pixels (DV2: /255 − 0.5; default /255)."""
+    to ``device`` and scales its pixels (DV2: /255 − 0.5; default /255).
+    ``act(..., gumbel=)`` takes the posterior's Gumbel noise ``[n, S, D]``
+    instead of drawing it from ``generator`` (for parity tests)."""
     from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_obs, prepare_obs
 
     if normalize_fn is None:
@@ -40,10 +42,10 @@ def dreamer_eval_policy(
     mlp_keys = list(cfg.mlp_keys.encoder)
     greedy = player_fns["greedy_action"]
 
-    def act(obs, state, generator):
+    def act(obs, state, generator, gumbel=None):
         n = int(np.asarray(next(iter(obs.values()))).shape[0])
         norm = normalize_fn(prepare_obs(obs, cnn_keys, mlp_keys, n), cnn_keys, device)
-        actions, state = greedy(state, norm, generator)
+        actions, state = greedy(state, norm, generator, gumbel=gumbel)
         if is_continuous:
             real = np.concatenate([a.cpu().numpy() for a in actions], -1)
         else:

@@ -41,3 +41,15 @@ class dotdict(dict):
             del self[name]
         except KeyError as e:
             raise AttributeError(name) from e
+
+    def as_dict(self):
+        """Plain nested dicts and lists (for YAML dumps)."""
+        out = {}
+        for k, v in self.items():
+            if isinstance(v, dotdict):
+                out[k] = v.as_dict()
+            elif isinstance(v, (list, tuple)):
+                out[k] = type(v)(x.as_dict() if isinstance(x, dotdict) else x for x in v)
+            else:
+                out[k] = v
+        return out

@@ -185,3 +185,52 @@ def test_sequence_replays_from_a_cuda_graph(cuda, T, B, H, X, bias, layer_norm):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(captured, eager)
+
+
+# a short DreamerV2 run through the port's CLI at a small width on the dummy env: 16 updates of 2
+# envs, learning from update 8 (2 acting steps of the player's at B=2 before the last train burst)
+CLI_RUN = [
+    "exp=dreamer_v2", "env=dummy", "env.id=discrete_dummy", "env.num_envs=2", "env.sync_env=True",
+    "metric.log_level=0", "buffer.memmap=False", "buffer.size=256", "total_steps=32",
+    "algo.learning_starts=16", "algo.train_every=4", "algo.per_rank_pretrain_steps=2",
+    "per_rank_batch_size=4", "per_rank_sequence_length=8", "algo.horizon=4", "algo.dense_units=32",
+    "algo.mlp_layers=1", "algo.world_model.encoder.cnn_channels_multiplier=4",
+    "algo.world_model.recurrent_model.recurrent_state_size=64", "algo.world_model.transition_model.hidden_size=32",
+    "algo.world_model.representation_model.hidden_size=32", "algo.world_model.stochastic_size=4",
+    "algo.world_model.discrete_size=4", "run_name=card",
+]
+
+
+@pytest.mark.cuda
+def test_cli_run_on_the_card_launches_the_cell_and_round_trips_its_checkpoint(cuda, tmp_path):
+    """The CLI on ``cuda`` (``fabric.accelerator=auto``): the cell launches
+    once per acting and test step and (T + horizon) times per gradient step;
+    the checkpoint validates, resumes, and serves on the card what it serves
+    with the plain cell."""
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.ckpt import read_checkpoint, validate_checkpoint
+    from sheeprl_tpu_torch.serve.model import load_gateway_model
+
+    ops.hafner_cell_launches.reset()
+    result = cli.run(CLI_RUN + [f"root_dir={tmp_path}"])
+    per_step = 8 + 4
+    assert result["gradient_steps"] > 0 and result["player_steps"] > 0
+    assert ops.hafner_cell_launches.count == (
+        result["player_steps"] + per_step * result["gradient_steps"] + result["test_steps"]
+    )
+    ckpt = result["checkpoint"]
+    assert validate_checkpoint(ckpt, deep=True)["framework"] == "torch"
+    saved = read_checkpoint(ckpt)["agent"]["world_model"]["rssm.recurrent_model.gru.weight"]
+    assert saved.shape == (32 + 64, 3 * 64) and np.isfinite(saved).all()
+
+    resumed = cli.run(CLI_RUN + [f"root_dir={tmp_path}", f"checkpoint.resume_from={ckpt}", "total_steps=40"])
+    assert resumed["updates"] > 0
+
+    model, *_ = load_gateway_model(ckpt)
+    plain, *_ = load_gateway_model(ckpt, plain_cell=True)
+    assert model.device.type == "cuda"
+    frames = {"rgb": np.random.RandomState(0).randint(0, 256, (3, 3, 64, 64)).astype(np.uint8)}
+    got = model.act(frames, model.init_state_rows(3), torch.Generator(device="cuda").manual_seed(0))
+    want = plain.act(frames, plain.init_state_rows(3), torch.Generator(device="cuda").manual_seed(0))
+    np.testing.assert_array_equal(got[0], want[0])
+    torch.testing.assert_close(got[1]["recurrent"], want[1]["recurrent"], atol=TOL, rtol=0)

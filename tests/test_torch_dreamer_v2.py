@@ -185,6 +185,17 @@ def _leaves(tree, prefix=""):
     return out
 
 
+def _jax_names(value):
+    """``value`` with the port's ``_target_`` prefix renamed to the JAX package's."""
+    if isinstance(value, dict):
+        return {k: _jax_names(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_jax_names(v) for v in value]
+    if isinstance(value, str) and value.startswith("sheeprl_tpu_torch."):
+        return "sheeprl_tpu." + value[len("sheeprl_tpu_torch."):]
+    return value
+
+
 @pytest.mark.parametrize(
     "exp,overrides",
     [
@@ -209,16 +220,70 @@ def _leaves(tree, prefix=""):
     ],
 )
 def test_config_matches_composed_yaml(exp, overrides):
-    ours = _leaves(dreamer_v2_config(**overrides))
-    theirs = compose(overrides=[f"exp={exp}"])
+    """Every leaf of the port's composed preset equals the JAX package's
+    compose of the same experiment and overrides (targets renamed; the
+    clock-stamped run name aside)."""
+    ours = _leaves(dreamer_v2_config(exp=exp, **overrides))
+    theirs = _leaves(compose(overrides=[f"exp={exp}"] + [f"{k}={v}" for k, v in overrides.items()]))
+    assert ours.keys() == theirs.keys()
     for key, value in ours.items():
-        node = theirs
-        for part in key.split("."):
-            node = node[part]
-        want = list(node) if isinstance(node, (list, tuple)) else node
-        assert value == want, f"{key}: port {value!r} vs composed {want!r}"
+        want = theirs[key]
+        if key == "run_name":
+            continue
+        assert _jax_names(value) == want, f"{key}: port {value!r} vs composed {want!r}"
 
 
 def test_config_rejects_unknown_keys():
     with pytest.raises(KeyError):
         dreamer_v2_config(**{"algo.not_a_field": 1})
+
+
+@pytest.mark.parametrize("expl_amount", [0.0, 0.5, 1.0])
+def test_exploration_action_matches_jax_composition(agents, expl_amount):
+    """The training player's step at injected noise: the posterior and the
+    action sampled from the same Gumbel noise as the JAX composition, then
+    ``add_exploration_noise``'s mix (a uniform category where ``u <
+    expl_amount``) from the same injected draws."""
+    a = agents
+    S, D = SMALL["algo.world_model.stochastic_size"], SMALL["algo.world_model.discrete_size"]
+    fns = build_player_fns(a["twm"], a["tactor"], a["tcfg"], ACTIONS, False)
+    rng = np.random.RandomState(14)
+    frames = {"rgb": rng.randint(0, 256, (B, 3, 64, 64)).astype(np.uint8)}
+    gumbel = rng.gumbel(size=(B, S, D)).astype(np.float32)
+    action_gumbel = rng.gumbel(size=(B, ACTIONS[0])).astype(np.float32)
+    category = rng.randint(0, ACTIONS[0], size=B)
+    u = rng.uniform(size=(B, 1)).astype(np.float32)
+
+    tstate = fns["init_states"](B)
+    jstate = {k: jnp.asarray(v.numpy()) for k, v in tstate.items()}
+    p = {"params": a["params"]["world_model"]}
+    embed = a["wm"].apply(p, normalize_obs_jnp(frames, ["rgb"]), method=jax_agent.WorldModel.encode)
+    rec = a["wm"].apply(p, jstate["stochastic"], jstate["actions"], jstate["recurrent"],
+                        method=jax_agent.WorldModel.recurrent_step)
+    _, post = a["wm"].apply(p, rec, embed, None, jnp.asarray(gumbel),
+                            method=lambda m, r, e, k, g: m.rssm._representation(r, e, k, gumbel=g))
+    pre = a["actor"].apply({"params": a["params"]["actor"]}, jnp.concatenate([post, rec], -1))
+    logits = np.asarray(jax_actor_dists(pre, False, "discrete", unimix=0.0)[0].logits)
+    sampled = np.eye(ACTIONS[0], dtype=np.float32)[(logits + action_gumbel).argmax(-1)]
+    want = np.where(u < expl_amount, np.eye(ACTIONS[0], dtype=np.float32)[category], sampled)
+
+    actions, new_state = fns["exploration_action"](
+        tstate, normalize_obs(frames, ["rgb"], torch.device("cpu")), expl_amount,
+        gumbel=torch.from_numpy(gumbel), action_gumbels=[torch.from_numpy(action_gumbel)],
+        expl_noise=[(torch.from_numpy(category), torch.from_numpy(u))],
+    )
+    np.testing.assert_allclose(actions[0].numpy(), want, atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(new_state["actions"].numpy().argmax(-1), want.argmax(-1))
+    np.testing.assert_allclose(new_state["recurrent"].numpy(), np.asarray(rec), **TOL)
+    np.testing.assert_allclose(new_state["stochastic"].numpy(), np.asarray(post), **TOL)
+
+
+def test_exploration_action_draws_from_its_generator(agents):
+    fns = build_player_fns(agents["twm"], agents["tactor"], agents["tcfg"], ACTIONS, False)
+    obs = normalize_obs({"rgb": np.zeros((B, 3, 64, 64), np.uint8)}, ["rgb"], torch.device("cpu"))
+    runs = [
+        fns["exploration_action"](fns["init_states"](B), obs, 0.5, torch.Generator().manual_seed(3))[0][0]
+        for _ in range(2)
+    ]
+    torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=0)
+    assert torch.equal(runs[0].sum(-1), torch.ones(B))

@@ -88,3 +88,59 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
         )
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+CARD_PATH_FORBIDDEN = ("yaml", "gymnasium", "cv2", "tensorboardX", "jax", "sheeprl_tpu")
+TINY_RUN = [
+    "exp=dreamer_v2", "env=dummy", "env.id=discrete_dummy", "env.num_envs=2", "env.sync_env=True", "dry_run=True",
+    "metric.log_level=0", "buffer.memmap=False", "per_rank_batch_size=2", "per_rank_sequence_length=2",
+    "algo.horizon=2", "algo.dense_units=8", "algo.mlp_layers=1", "algo.per_rank_pretrain_steps=1",
+    "algo.world_model.encoder.cnn_channels_multiplier=2", "algo.world_model.recurrent_model.recurrent_state_size=8",
+    "algo.world_model.transition_model.hidden_size=8", "algo.world_model.representation_model.hidden_size=8",
+    "algo.world_model.stochastic_size=4", "algo.world_model.discrete_size=4", "run_name=isolation",
+]
+
+
+def test_no_target_of_the_yaml_tree_names_the_jax_package():
+    targets = [
+        line.split("_target_:", 1)[1].strip()
+        for path in sorted((PORT / "configs").rglob("*.yaml"))
+        for line in path.read_text().splitlines()
+        if "_target_:" in line
+    ]
+    assert len(targets) > 100
+    assert not [t for t in targets if t.startswith("sheeprl_tpu.") or t.startswith("sheeprl.")]
+
+
+def test_a_training_run_and_serving_load_none_of_the_card_path_exclusions(tmp_path):
+    """The CLI's DreamerV2 run on the dummy env, then ``load_gateway_model``
+    on its checkpoint, in a fresh interpreter: PyYAML, gymnasium, OpenCV,
+    tensorboardX, JAX and the JAX package are never imported."""
+    code = (
+        "import sys, glob\n"
+        "from sheeprl_tpu_torch import cli\n"
+        "from sheeprl_tpu_torch.serve.model import load_gateway_model\n"
+        f"result = cli.run({TINY_RUN!r} + ['root_dir={tmp_path}', 'fabric.accelerator=cpu'])\n"
+        "load_gateway_model(result['checkpoint'], device='cpu')\n"
+        f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {CARD_PATH_FORBIDDEN!r}))\n"
+        "print('loaded:', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert "loaded: []" in proc.stdout
+
+
+def test_the_cli_and_checkpoint_serving_raise_without_a_card(monkeypatch, tmp_path):
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.serve.model import load_gateway_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    for accelerator in ("auto", "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.run(TINY_RUN + [f"root_dir={tmp_path}", f"fabric.accelerator={accelerator}"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_gateway_model(str(tmp_path / "ckpt_1_0"))
+    assert not (tmp_path / "logs").exists()
