@@ -38,20 +38,34 @@ Phases, each fatal on failure:
 6. train: the DreamerV2 trainer at the full MsPacman width (B=32, T=50,
    horizon 15): one step at fixed weights and noise on the kernel path and
    on the plain-cell path, TF32 off, whose losses and gradient norms must
-   agree; then one warm-up step and TRAIN_STEPS timed steps with every loss
-   finite and exactly 65 cell launches a step (50 posterior steps at B=32,
-   15 imagination steps at B=1600), and a profiled window of as many steps;
+   agree; GRAPH_STEPS steps from one seed eager and graphed (the capture's
+   eager warm-up calls, the capture, then replays of the whole gradient
+   step from one CUDA graph), whose losses, gradient norms and parameters
+   must agree within TOL_GRAPHED with ``cudnn.deterministic`` (with cuDNN's
+   default algorithms, whose convolution weight gradients accumulate with
+   atomics, two eager runs differ too: printed beside it); then, on fresh trainers of the same seed,
+   one warm-up step and TRAIN_STEPS timed steps eager and as many graphed,
+   with every loss finite and exactly 65 cell launches a step in both (50
+   posterior steps at B=32, 15 imagination steps at B=1600), each with a
+   profiled window of as many steps;
 7. run: the port's main path, ``sheeprl_tpu_torch.cli.run`` with RUN_ARGS
-   (``exp=dreamer_v2_ms_pacman`` at its full width on the dummy env: 4 envs,
-   1024 policy steps, learning from step 512, a sequential buffer of 4096
-   rows): 256 updates, 128 acting steps of the player, 33 gradient steps,
-   a checkpoint at the last update and a greedy test episode. The cell must
-   launch exactly once per acting step, 65 times per gradient step and once
-   per test step, the sequence never; the checkpoint must validate
-   (manifest and every crc32); then ``load_gateway_model`` serves that
-   checkpoint to 16 clients x 8 lockstep requests, whose actions must equal
-   a plain-cell replay's. A second run of the same work under the profiler
-   gives the device's busy time.
+   (``exp=dreamer_v2_ms_pacman`` at its full width on the dummy env with
+   the preset's episode buffer, ``prioritize_ends`` and ``log_level=1``: 4
+   envs, 1088 policy steps, learning from step 544, a buffer of 4096 steps,
+   a log every 256 policy steps): 272 updates, 136 acting steps of the
+   player and 35 gradient steps, each replayed from its CUDA graph after
+   three eager warm-up calls, a checkpoint at the last update and a
+   129-step greedy test episode. The cell must launch exactly once per
+   acting step, 65 times per gradient step and once per test step, the
+   sequence never; the event file, read back with the port's reader, must
+   hold the preset's tags at the log boundaries with finite values; the
+   checkpoint must validate (manifest and every crc32) and its episode
+   buffer restore into a fresh buffer with an equal ``state_dict``; then
+   ``load_gateway_model`` serves that checkpoint to 16 clients x 8 lockstep
+   requests, whose actions must equal a plain-cell replay's. A second run
+   of the same work under the profiler gives the device's busy time, and
+   the cell's gate kernels in its trace must equal the counters' launches
+   of that run. The run's rates print beside PR 5's (PR5_RATES).
 
 Each path's launch counts are zeroed just before its run and read just
 after it: the served run (phase 4), the bench (phase 5), the timed train
@@ -102,14 +116,29 @@ SEQUENCE_SHAPES = (
     (8, 16, 2048, 512, True, True, 1e-3, "multi_launch"),
 )
 SYNC_FLOOR_STEPS = 100
-# the run phase: the port's CLI at the full MsPacman width on the dummy env (2 actions, 5-step episodes),
-# a sequential buffer of 4096 rows, 1024 policy steps (256 updates of 4 envs), learning from step 512
+# graphed against eager train steps, full width, from one seed: steps compared and the limit (relative to
+# each tensor's largest magnitude, losses, gradient norms and parameters)
+GRAPH_STEPS = 6
+TOL_GRAPHED = 1e-6
+# the run phase: the port's CLI with the preset's own buffer (episodes, prioritize_ends) and logging
+# (log_level 1) at the full MsPacman width on the dummy env (2 heads of 2 actions, 129-step episodes); cut:
+# 4 envs, a buffer of 4096 steps, 1088 policy steps (272 updates), learning from step 544 (136 updates, so
+# every env has closed an episode before the first burst), a log every 256 policy steps
 RUN_ARGS = (
-    "exp=dreamer_v2_ms_pacman", "env=dummy", "env.id=discrete_dummy", "env.num_envs=4", "env.sync_env=True",
-    "buffer.type=sequential", "buffer.size=4096", "buffer.memmap=True", "total_steps=1024",
-    "algo.learning_starts=512", "metric.log_level=0",
+    "exp=dreamer_v2_ms_pacman", "env=dummy", "env.id=multidiscrete_dummy", "env.num_envs=4", "env.sync_env=True",
+    "buffer.size=4096", "buffer.memmap=True", "total_steps=1088", "algo.learning_starts=544", "metric.log_every=256",
 )
-RUN_UPDATES, RUN_PLAYER_STEPS, RUN_GRADIENT_STEPS, RUN_TEST_STEPS = 256, 128, 33, 5
+RUN_UPDATES, RUN_PLAYER_STEPS, RUN_GRADIENT_STEPS, RUN_TEST_STEPS = 272, 136, 35, 129
+RUN_LOG_STEPS = (256, 512, 768, 1024, 1088)
+# the preset's tags: at every log boundary, and at the boundaries after learning starts
+RUN_TAGS_ALWAYS = ("Time/sps_env_interaction",)
+RUN_TAGS_TRAINING = (
+    "Loss/world_model_loss", "Loss/value_loss", "Loss/policy_loss", "Loss/observation_loss", "Loss/reward_loss",
+    "Loss/state_loss", "Loss/continue_loss", "State/post_entropy", "State/prior_entropy", "State/kl",
+    "Params/exploration_amount", "Grads/world_model", "Grads/actor", "Grads/critic", "Time/sps_train",
+)
+# PR 5's run, at its own cuts (sequential buffer, log_level 0, eager steps): policy and gradient steps/s
+PR5_RATES = {"policy_steps_per_s": 76.8, "gradient_steps_per_s": 3.03}
 RUN_CLIENTS, RUN_REQUESTS, RUN_ACTIONS = 16, 8, 2
 CLIENTS, STEPS, SEED = 64, 16, 5
 N_ACTIONS = 9
@@ -453,8 +482,8 @@ def phase_sequence():
 def serve_lockstep(model, frames, seed: int):
     """C clients x T lockstep requests (``frames`` [T, C, ...]) through a
     fresh gateway with ``max_batch=C``; every step is one full batch, rows in
-    client order. Returns actions [T, C], recurrent states [T, C, H] (host
-    copies), wall seconds and the status."""
+    client order. Returns actions [T, C, heads], recurrent states [T, C, H]
+    (host copies), wall seconds and the status."""
     import numpy as np
     import torch
 
@@ -465,14 +494,12 @@ def serve_lockstep(model, frames, seed: int):
     try:
         batcher = gateway.batcher
         ids = [gateway.client(f"client{c}").client_id for c in range(clients)]
-        actions = np.zeros((len(frames), clients), np.int64)
+        actions = []
         states = []
         t0 = time.perf_counter()
         for t, step in enumerate(frames):
             tickets = [batcher.submit(cid, {"rgb": step[c]}, reset=t == 0) for c, cid in enumerate(ids)]
-            for c, ticket in enumerate(tickets):
-                action, _version = batcher.wait(ticket, timeout=120.0)
-                actions[t, c] = int(np.asarray(action).reshape(-1)[0])
+            actions.append([np.asarray(batcher.wait(ticket, timeout=120.0)[0]).reshape(-1) for ticket in tickets])
             states.append(torch.cat([batcher.state_of(cid)["recurrent"] for cid in ids]).cpu())
         if model.device.type == "cuda":
             torch.cuda.synchronize()
@@ -484,7 +511,7 @@ def serve_lockstep(model, frames, seed: int):
             raise AssertionError("a drained gateway accepted a request")
         except ServeClosed:
             pass
-        return actions, torch.stack(states), wall, gateway.status()
+        return np.asarray(actions, np.int64), torch.stack(states), wall, gateway.status()
     finally:
         gateway.close()
 
@@ -605,6 +632,97 @@ def _train_step_once(plain_cell: bool):
     return metrics, launches
 
 
+def _rel(got, want) -> float:
+    import torch
+
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max().clamp_min(1e-30))
+
+
+def _train_steps(fused: bool) -> dict:
+    """GRAPH_STEPS full-width steps from seed 0 on one batch, each step's
+    noise from the trainer's own generator: eager (``run_train_burst(...,
+    fused=False)``) or graphed (one-sample bursts: the capture's eager
+    warm-up calls, the capture, then replays)."""
+    import torch
+
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.tools import bench_dreamer
+    from sheeprl_tpu_torch.train.burst import run_train_burst, tau_schedule
+
+    taus = tau_schedule(GRAPH_STEPS, 0, 4, tau=1.0, first_hard=False)
+    cfg, state, program, data = bench_dreamer.build_trainer("cuda", seed=0)
+    stack = {k: v[None] for k, v in data.items()}
+    before = ops.hafner_cell_launches.count
+    metrics = [run_train_burst(program, state, stack, taus[i : i + 1], fused=fused) for i in range(GRAPH_STEPS)]
+    torch.cuda.synchronize()
+    out = {
+        "metrics": metrics,
+        "params": {f"{name}.{k}": p.detach().cpu() for name in ("world_model", "actor", "critic", "target_critic")
+                   for k, p in state[name].named_parameters()},
+        "launches": ops.hafner_cell_launches.count - before,
+        "taus": taus.tolist(),
+    }
+    if fused:
+        (static,) = program.statics()
+        out["graph"] = {"eager_calls": static.step.eager_calls, "replays": static.step.replays,
+                        "captured": static.step.graph is not None}
+    del state, program, data, stack
+    torch.cuda.empty_cache()
+    return out
+
+
+def _steps_diff(got: dict, want: dict) -> dict:
+    import torch
+
+    return {
+        "metric_max_rel_err": max(abs(g[k] - e[k]) / max(abs(e[k]), 1e-30)
+                                  for g, e in zip(got["metrics"], want["metrics"]) for k in e),
+        "param_max_rel_err": max(_rel(got["params"][k], want["params"][k]) for k in want["params"]),
+        "bit_for_bit": all(g == e for g, e in zip(got["metrics"], want["metrics"]))
+        and all(torch.equal(got["params"][k], want["params"][k]) for k in want["params"]),
+    }
+
+
+def graphed_against_eager() -> dict:
+    """GRAPH_STEPS full-width steps from one seed, eager and graphed, every
+    step's losses and gradient norms and the final parameters compared
+    relative to each tensor's largest magnitude, and the cell's launches (65
+    a step on both). With cuDNN's default algorithms two eager runs are not
+    equal (the convolutions' weight gradients accumulate with atomics), so
+    the spread between two eager runs is printed beside graphed against
+    eager; the limit TOL_GRAPHED is held with ``cudnn.deterministic``."""
+    import torch
+
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    prev = torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.deterministic = False
+        eager_a, eager_b, graphed_default = _train_steps(False), _train_steps(False), _train_steps(True)
+        torch.backends.cudnn.deterministic = True
+        eager, graphed = _train_steps(False), _train_steps(True)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    held = _steps_diff(graphed, eager)
+    line = {"steps": GRAPH_STEPS, "taus": eager["taus"], "tol": TOL_GRAPHED,
+            "cudnn_deterministic": held,
+            "cudnn_default": {"eager_vs_eager": _steps_diff(eager_b, eager_a),
+                              "graphed_vs_eager": _steps_diff(graphed_default, eager_a)},
+            "launches": {"eager": eager["launches"], "graphed": graphed["launches"]}, "graph": graphed["graph"],
+            "last_losses": {"eager": eager["metrics"][-1], "graphed": graphed["metrics"][-1]}}
+    print("[train] graphed against eager: " + json.dumps(line), flush=True)
+    if held["metric_max_rel_err"] > TOL_GRAPHED or held["param_max_rel_err"] > TOL_GRAPHED:
+        raise AssertionError(f"graphed and eager steps disagree: {held} > {TOL_GRAPHED}")
+    for run in (eager_a, eager_b, graphed_default, eager, graphed):
+        if run["launches"] != CELL_LAUNCHES_PER_STEP * GRAPH_STEPS:
+            raise AssertionError(f"the cell launched {run['launches']} times in {GRAPH_STEPS} steps")
+    for run in (graphed_default, graphed):
+        if run["graph"] != {"eager_calls": WARMUP_CALLS, "replays": GRAPH_STEPS - WARMUP_CALLS, "captured": True}:
+            raise AssertionError(f"the graphed steps ran as {run['graph']}")
+    return {"metric_max_rel_err": held["metric_max_rel_err"], "param_max_rel_err": held["param_max_rel_err"],
+            "bit_for_bit": held["bit_for_bit"]}
+
+
 def phase_train(card: str):
     import math
 
@@ -616,6 +734,7 @@ def phase_train(card: str):
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         (kernel_m, kernel_n), (plain_m, plain_n) = _train_step_once(False), _train_step_once(True)
+        graph_line = graphed_against_eager()
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
     rel = {k: abs(kernel_m[k] - plain_m[k]) / max(abs(plain_m[k]), 1e-6) for k in kernel_m}
@@ -628,17 +747,21 @@ def phase_train(card: str):
     if bad:
         raise AssertionError(f"kernel and plain-cell train steps disagree on {bad}")
 
-    result = bench_dreamer.run(steps=TRAIN_STEPS, device="cuda", profile=True)
+    # eager and graphed in the same call, on fresh trainers of the same seed; the main path runs graphed
+    result = bench_dreamer.compare(steps=TRAIN_STEPS, device="cuda", profile=True)
     result["card"] = card
     print("[train] " + json.dumps(result), flush=True)
-    if not all(math.isfinite(v) for v in result["losses"].values()):
-        raise AssertionError(f"a loss is not finite: {result['losses']}")
-    if result["hafner_cell_launches"] != CELL_LAUNCHES_PER_STEP * TRAIN_STEPS:
-        raise AssertionError(f"the cell launched {result['hafner_cell_launches']} times in {TRAIN_STEPS} steps")
-    if result["hafner_sequence_launches"] != 0:
-        raise AssertionError("the sequence kernel ran on the train path")
-    launches = {"hafner_cell": result["hafner_cell_launches"], "hafner_sequence": result["hafner_sequence_launches"]}
-    return launches, max(rel.values())
+    for mode in ("eager", "graphed"):
+        line = result[mode]
+        if not all(math.isfinite(v) for v in line["losses"].values()):
+            raise AssertionError(f"a {mode} loss is not finite: {line['losses']}")
+        if line["hafner_cell_launches"] != CELL_LAUNCHES_PER_STEP * TRAIN_STEPS:
+            raise AssertionError(f"the {mode} cell launched {line['hafner_cell_launches']} times in {TRAIN_STEPS} steps")
+        if line["hafner_sequence_launches"] != 0:
+            raise AssertionError(f"the sequence kernel ran on the {mode} train path")
+    graphed = result["graphed"]
+    launches = {"hafner_cell": graphed["hafner_cell_launches"], "hafner_sequence": graphed["hafner_sequence_launches"]}
+    return launches, max(rel.values()), graph_line
 
 
 def _run_once(root: str, name: str):
@@ -654,15 +777,80 @@ def _run_once(root: str, name: str):
     return result, time.perf_counter() - t0
 
 
+def _check_events(result) -> dict:
+    """The run's event file, read back with the port's reader: the preset's
+    tags at the log boundaries, every value finite."""
+    import math
+
+    from sheeprl_tpu_torch.utils.tb_events import read_events
+
+    events = read_events(result["event_file"])
+    if events[0].get("file_version") != "brain.Event:2":
+        raise AssertionError("the event file does not start with its file_version event")
+    by_step = {}
+    for e in events[1:]:
+        for v in e.get("values", []):
+            by_step.setdefault(e["step"], {})[v["tag"]] = v.get("simple_value")
+    texts = by_step.pop(0, {})
+    if "hparams/text_summary" not in texts or "Test/cumulative_reward" not in texts:
+        raise AssertionError(f"the event file's step 0 holds {sorted(texts)}")
+    if tuple(sorted(by_step)) != RUN_LOG_STEPS:
+        raise AssertionError(f"the run logged at policy steps {sorted(by_step)}, expected {RUN_LOG_STEPS}")
+    learning_starts = int(dict(a.split("=", 1) for a in RUN_ARGS)["algo.learning_starts"])
+    for step, tags in by_step.items():
+        want = set(RUN_TAGS_ALWAYS) | (set(RUN_TAGS_TRAINING) if step > learning_starts else set())
+        if not want <= set(tags):
+            raise AssertionError(f"policy step {step} lacks the tags {sorted(want - set(tags))}")
+        bad = [t for t, v in tags.items() if v is None or not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"policy step {step}: tags {bad} are not finite")
+    episodes = [step for step, tags in by_step.items() if "Rewards/rew_avg" in tags and "Game/ep_len_avg" in tags]
+    if not episodes:
+        raise AssertionError("no log boundary holds the episodes' Rewards/rew_avg and Game/ep_len_avg")
+    return {"events": len(events), "log_steps": sorted(by_step), "tags_at_last_log": len(by_step[RUN_LOG_STEPS[-1]]),
+            "episode_metrics_at": episodes, "ep_len_avg": [by_step[s]["Game/ep_len_avg"] for s in episodes]}
+
+
+def _check_episode_buffer(ckpt) -> dict:
+    """The checkpoint's episode buffer, every crc32 verified, restored into
+    a fresh buffer whose ``state_dict`` equals the one read back."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.ckpt import read_checkpoint
+    from sheeprl_tpu_torch.data.buffers import EpisodeBuffer
+
+    opts = dict(a.split("=", 1) for a in RUN_ARGS)
+    n_envs = int(opts["env.num_envs"])
+    rb_state = read_checkpoint(ckpt, verify=True)["rb"]
+    fresh = EpisodeBuffer(int(opts["buffer.size"]) // n_envs, 50, n_envs=n_envs, obs_keys=("rgb",), prioritize_ends=True)
+    fresh.load_state_dict(rb_state)
+    restored = fresh.state_dict()
+    same = len(restored["buffer"]) == len(rb_state["buffer"]) and all(
+        np.array_equal(ep[k], want[k]) for ep, want in zip(restored["buffer"], rb_state["buffer"]) for k in want
+    ) and all(
+        len(a) == len(b) and all(np.array_equal(x[k], y[k]) for x, y in zip(a, b) for k in y)
+        for a, b in zip(restored["open_episodes"], rb_state["open_episodes"])
+    )
+    if not same or len(fresh) == 0:
+        raise AssertionError(f"the checkpoint's episode buffer ({len(fresh)} episodes) did not restore equal")
+    return {"episodes": len(fresh), "steps": int(sum(len(ep["dones"]) for ep in rb_state["buffer"])),
+            "open_steps": [int(sum(len(c["dones"]) for c in env)) for env in rb_state["open_episodes"]],
+            "restored_state_dict_equal": True}
+
+
 def phase_run(card: str):
     """The port's main path: a DreamerV2 training run through
-    ``sheeprl_tpu_torch.cli.run`` at the full MsPacman width, its checkpoint
-    validated, and that checkpoint served (``load_gateway_model``) to
-    RUN_CLIENTS lockstep clients, against a plain-cell replay. The cell's
-    launches on the run must be the player steps + 65 per gradient step +
-    the test episode's steps. A second, profiled run (the same work) gives
-    the device's busy time; its idle share is read against the first run's
-    wall time."""
+    ``sheeprl_tpu_torch.cli.run`` at the full MsPacman width with the
+    preset's episode buffer and logging, its gradient steps and acting
+    steps replayed from CUDA graphs; its event file read back, its
+    checkpoint validated (the episode buffer restored equal), and that
+    checkpoint served (``load_gateway_model``) to RUN_CLIENTS lockstep
+    clients, against a plain-cell replay. The cell's launches on the run
+    must be the player steps + 65 per gradient step + the test episode's
+    steps. A second, profiled run (the same work) gives the device's busy
+    time, its idle share read against the first run's wall time, and the
+    number of the cell's gate kernels the device ran, which must equal the
+    counters of that run."""
     import tempfile
 
     import numpy as np
@@ -674,6 +862,7 @@ def phase_run(card: str):
     from sheeprl_tpu_torch.kernels import ops
     from sheeprl_tpu_torch.serve.model import load_gateway_model
     from sheeprl_tpu_torch.tools.profile_serve import device_us
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as root:
         torch.cuda.reset_peak_memory_stats()
@@ -691,12 +880,21 @@ def phase_run(card: str):
             raise AssertionError(f"hafner_cell launched {launches['hafner_cell']} times on the run, predicted {predicted}")
         if launches["hafner_sequence"] != 0:
             raise AssertionError(f"the sequence kernel launched {launches['hafner_sequence']} times on the run")
+        graphs = result["graphs"]
+        want_graphs = {
+            "train": {"eager_calls": WARMUP_CALLS, "replays": RUN_GRADIENT_STEPS - WARMUP_CALLS, "captured": 1},
+            "act": {"eager_calls": WARMUP_CALLS, "replays": RUN_PLAYER_STEPS - WARMUP_CALLS, "captured": 1},
+        }
+        if {k: {n: v[n] for n in want_graphs[k]} for k, v in graphs.items()} != want_graphs:
+            raise AssertionError(f"the run's steps ran as {graphs}, expected {want_graphs}")
+        events = _check_events(result)
 
         ckpt = result["checkpoint"]
         if ckpt is None or not ckpt.endswith(f"ckpt_{result['policy_steps']}_0"):
             raise AssertionError(f"the run's last checkpoint is {ckpt}")
         manifest = validate_checkpoint(ckpt, deep=True)
         ckpt_bytes = sum(manifest["files"].values())
+        replay = _check_episode_buffer(ckpt)
 
         t0 = time.perf_counter()
         model, _cfg, _obs_space, _act_space = load_gateway_model(ckpt, device="cuda")
@@ -723,9 +921,18 @@ def phase_run(card: str):
             raise AssertionError(f"hafner_cell launched {served_launches} times for {status['batches']} batches")
         del model, plain
 
+        ops.hafner_cell_launches.reset()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _result2, wall2 = _run_once(root, "profiled")
-        busy_us = sum(device_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        profiled_launches = ops.hafner_cell_launches.count
+        averages = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(device_us(e) for e in averages)
+        gate_kernels = sum(e.count for e in averages if "hafner_gates_kernel" in e.key)
+        product_kernels = sum(e.count for e in averages if "hafner_product_kernel" in e.key)
+        if gate_kernels != profiled_launches:
+            raise AssertionError(
+                f"the trace holds {gate_kernels} hafner_gates_kernel runs, the counters {profiled_launches} launches"
+            )
 
     seconds = result["seconds"]
     stats = result["checkpoint_stats"]
@@ -737,15 +944,22 @@ def phase_run(card: str):
         "random_steps": result["random_steps"],
         "gradient_steps": result["gradient_steps"],
         "test_steps": result["test_steps"],
+        "graphs": graphs,
         "wall_s": wall,
         "policy_steps_per_s": result["policy_steps"] / wall,
         "gradient_steps_per_s": result["gradient_steps"] / seconds["train"],
+        "pr5_rates_at_its_cuts": PR5_RATES,
         "seconds": seconds,
         "prefetch": result["prefetch"],
         "hafner_cell_launches": launches["hafner_cell"],
         "hafner_cell_launches_predicted": predicted,
         "hafner_sequence_launches": launches["hafner_sequence"],
+        "profiled_run_cell_launches": profiled_launches,
+        "profiled_run_gate_kernels_in_trace": gate_kernels,
+        "profiled_run_product_kernels_in_trace": product_kernels,
+        "event_file": events,
         "checkpoint_bytes": ckpt_bytes,
+        "checkpoint_episode_buffer": replay,
         "checkpoint_write_ms": stats["write_ms"],
         "checkpoint_blocked_ms": stats["blocked_ms"],
         "load_gateway_model_cold_start_s": cold_start_s,
@@ -797,7 +1011,7 @@ def main() -> int:
     # launches per kernel, read on each path's run with the counts zeroed just before it
     by_path = {"serve": phase_slice(card)}
     by_path["bench_kernels"], bench_line = phase_bench_kernels()
-    by_path["train"], train_rel_diff = phase_train(card)
+    by_path["train"], train_rel_diff, graph_line = phase_train(card)
     by_path["run"] = phase_run(card)
 
     cell_row = next(r for r in train_rows if r["B"] == 1600)
@@ -826,6 +1040,7 @@ def main() -> int:
             "shape": "B=1600 H=600 X=400 (imagination)",
             "launches_by_path": {path: counts["hafner_cell"] for path, counts in by_path.items()},
             "train_step_rel_diff_vs_plain": train_rel_diff,
+            "graphed_vs_eager_train_steps_cudnn_deterministic": graph_line,
         },
         {
             "name": "hafner_sequence",

@@ -23,10 +23,12 @@ only), but autograd still runs back through the imagination's recurrent
 cells: with ``objective_mix = 1`` the dynamics term is multiplied by 0, as
 in the reference, and its backward is kept.
 
-The JAX package runs the step as one SPMD program; here it is eager PyTorch
-on one device, and the state is updated in place. Sampling noise is passed
-in (``noise``, for parity with the JAX step's keys) or drawn from the
-state's ``torch.Generator``.
+The JAX package runs the step as one SPMD program; here it is PyTorch on
+one device, updating the state in place, wrapped as a
+:class:`~sheeprl_tpu_torch.train.burst.TrainProgram`: eager when called,
+replayed from one CUDA graph a step in a burst on the card. Sampling noise
+is passed in (``noise``, for parity with the JAX step's keys) or drawn from
+the state's ``torch.Generator``.
 
 The run (:func:`main`) keeps the JAX loop's order and bookkeeping: a
 zero-action ``is_first`` row after the first reset, the real next
@@ -36,12 +38,16 @@ it and ``(1 - mask)`` on its player state, random actions up to
 (``per_rank_pretrain_steps`` at ``learning_starts``), hard target copies
 every ``target_network_update_freq`` gradient steps, the polynomial decay
 of ``expl_amount``, the ``should_checkpoint`` cadence (``save_last`` on the
-final update) and a greedy test episode at the end. It acts one env step
-at a time, and runs a burst's gradient steps as a Python loop over the
-train step (the JAX package's fused bursts, host parameter mirrors and
-burst acting amortise TPU dispatches). In-run evaluation, TensorBoard
-logging and telemetry are not ported (ROADMAP queue A item 6): they need
-``metric.log_level=0`` and ``eval.every_n_steps=0``.
+final update) and a greedy test episode at the end; the sequential or the
+episode buffer (``buffer.type``). At ``metric.log_level=1`` it logs as the
+JAX loop does, into a TensorBoard event file of the run directory: the
+episodes' ``Rewards/rew_avg`` and ``Game/ep_len_avg``, the train metrics
+(pulled from the device at most once a burst, behind ``metric_fetch_gate``),
+``Params/exploration_amount`` and the rates of ``log_sps_metrics`` at every
+log boundary, and ``Test/cumulative_reward``. It acts one env step at a
+time, each acting step one replay of :class:`ExplorationStep`'s graph on
+the card. In-run evaluation and telemetry are not ported (ROADMAP queue A
+items 6c and 6h).
 """
 
 from __future__ import annotations
@@ -49,12 +55,15 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+import warnings
+from types import SimpleNamespace
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v2.agent import (
+    ExplorationStep,
     actor_entropy,
     build_actor_dists,
     build_agent,
@@ -66,24 +75,36 @@ from sheeprl_tpu_torch.algos.dreamer_v2.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v2.utils import compute_lambda_values, normalize_obs, normalize_obs_tensors
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs, test
 from sheeprl_tpu_torch.ckpt import preemption_requested, should_checkpoint, warn_checkpoint_rounding
+from sheeprl_tpu_torch.config.instantiate import instantiate
+from sheeprl_tpu_torch.data.buffers import EpisodeBuffer
 from sheeprl_tpu_torch.data.staging import make_replay_staging
 from sheeprl_tpu_torch.distributions import Bernoulli, Independent, Normal, gumbel_noise
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.vector import make_vector_env
+from sheeprl_tpu_torch.obs.perf import log_sps_metrics
 from sheeprl_tpu_torch.replay import make_replay_buffer
-from sheeprl_tpu_torch.utils.logger import get_log_dir
+from sheeprl_tpu_torch.train.burst import (
+    TrainProgram,
+    build_train_burst,
+    metric_fetch_gate,
+    run_train_burst,
+    tau_schedule,
+)
+from sheeprl_tpu_torch.utils.logger import create_tensorboard_logger
+from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric
 from sheeprl_tpu_torch.utils.optim import Adam, clip_by_global_norm_
 from sheeprl_tpu_torch.utils.registry import register_algorithm
+from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import polynomial_decay, save_configs
 
 __all__ = [
     "agent_state_dict",
+    "build_losses",
     "build_optimizers_and_state",
     "build_train_fn",
     "draw_noise",
     "load_agent_state",
     "main",
-    "tau_schedule",
 ]
 
 _MODULES = ("world_model", "actor", "critic")
@@ -130,28 +151,33 @@ def _no_param_grads(*modules: torch.nn.Module):
             p.requires_grad_(True)
 
 
+def _prepare(state: Dict[str, Any]) -> None:
+    """Give every trained parameter a gradient once (zeros): a step zeroes
+    and fills the gradients in place, so their addresses never change (a
+    captured step keeps reading them), and a parameter the loss did not
+    reach keeps a zero gradient, as in JAX, so the optimizer still decays
+    it."""
+    for name in _MODULES:
+        for p in state[name].parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
 def _step(module: torch.nn.Module, optimizer: torch.optim.Optimizer, clip: float) -> torch.Tensor:
-    """Clip the module's gradients (optax's global-norm form) and step; a
-    parameter the loss did not reach gets a zero gradient, as in JAX, so the
-    optimizer still decays it. Returns the gradient norm before clipping."""
-    params = list(module.parameters())
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    norm = clip_by_global_norm_([p.grad for p in params], clip)
+    """Clip the module's gradients (optax's global-norm form) and step.
+    Returns the gradient norm before clipping."""
+    norm = clip_by_global_norm_([p.grad for p in module.parameters()], clip)
     optimizer.step()
     return norm
 
 
-def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool):
-    """Returns ``train_step(state, data, noise=None, tau=0.0) -> metrics``.
-
-    ``state`` comes from :func:`build_optimizers_and_state`; ``data`` holds
-    ``[T, B, ...]`` tensors on the modules' device: the observation keys
-    (uint8 pixels ``[T, B, C, H, W]``), ``actions`` (one-hot), ``rewards``,
-    ``dones`` and ``is_first`` (``[T, B, 1]``). ``noise`` is
-    :func:`draw_noise`'s dict. The metrics are 0-dim device tensors under the
-    JAX step's names."""
+def build_losses(cfg, actions_dim: Sequence[int], is_continuous: bool) -> SimpleNamespace:
+    """The step's three losses at ``cfg``'s settings: ``world_model_loss(wm,
+    data, posterior_gumbels) -> (loss, metrics, posteriors, recurrents)``,
+    ``actor_loss(wm, actor, target_critic, posteriors, recurrents,
+    true_continue, noise) -> (loss, aux)`` and ``critic_loss(critic,
+    trajectories, lambda_values, discount)``, with the clip norms
+    (``clips``) and the action heads' widths (``dims``)."""
     if is_continuous:
         raise NotImplementedError("continuous actions are not ported yet")
     cnn_keys, mlp_keys = list(cfg.cnn_keys.encoder), list(cfg.mlp_keys.encoder)
@@ -257,20 +283,43 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool):
         qv = Independent(Normal(critic(traj[:-1]), 1.0), 1)
         return -torch.mean(discount[:-1, ..., 0] * qv.log_prob(lambda_values))
 
-    def train_step(state: Dict[str, Any], data: Dict[str, torch.Tensor], noise=None, tau: float = 0.0):
+    return SimpleNamespace(
+        world_model_loss=world_model_loss, actor_loss=actor_loss, critic_loss=critic_loss, clips=clips, dims=dims
+    )
+
+
+def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> TrainProgram:
+    """The gradient step as a :class:`~sheeprl_tpu_torch.train.burst.TrainProgram`:
+    ``program(state, data, noise=None, tau=0.0) -> metrics`` is one eager
+    step, ``program.burst(state, data_stack, taus)`` the staged burst, each
+    step replayed from one CUDA graph on the card.
+
+    ``state`` comes from :func:`build_optimizers_and_state`; ``data`` holds
+    ``[T, B, ...]`` tensors on the modules' device: the observation keys
+    (uint8 pixels ``[T, B, C, H, W]``), ``actions`` (one-hot), ``rewards``,
+    ``dones`` and ``is_first`` (``[T, B, 1]``). ``noise`` is
+    :func:`draw_noise`'s dict. The metrics are 0-dim device tensors under the
+    JAX step's names.
+
+    The step's body has no host branch and no host synchronisation: the
+    target update is the lerp ``t ← τ·c + (1−τ)·t`` with ``τ`` a device
+    scalar, applied at every step (at ``τ`` ∈ {0, 1} it is the JAX step's
+    choice between keeping the target and copying the critic, for finite
+    values), the noise is an input, and the gradients and optimizer state
+    are updated in place."""
+    losses = build_losses(cfg, actions_dim, is_continuous)
+    world_model_loss, actor_loss, critic_loss = losses.world_model_loss, losses.actor_loss, losses.critic_loss
+    clips, dims = losses.clips, losses.dims
+
+    def body(state: Dict[str, Any], data: Dict[str, torch.Tensor], noise, tau: torch.Tensor):
         wm, actor, critic, target = state["world_model"], state["actor"], state["critic"], state["target_critic"]
         opt = state["opt"]
-        T, B = data["rewards"].shape[:2]
-        if noise is None:
-            noise = draw_noise(cfg, dims, T, B, state.get("generator"), data["rewards"].device)
-
         with torch.no_grad():  # the target chosen by tau before any update
-            if tau:
-                for t_p, c_p in zip(target.parameters(), critic.parameters()):
-                    t_p.copy_(tau * c_p + (1.0 - tau) * t_p)
+            target_params = list(target.parameters())
+            torch._foreach_mul_(target_params, 1.0 - tau)
+            torch._foreach_add_(target_params, torch._foreach_mul(list(critic.parameters()), tau))
+            torch._foreach_zero_([p.grad for name in _MODULES for p in state[name].parameters()])
 
-        for o in opt.values():
-            o.zero_grad(set_to_none=True)
         wm_loss, metrics, posteriors, recurrents = world_model_loss(wm, data, noise["posterior"])
         wm_loss.backward()
         grad_norms = {"world_model": _step(wm, opt["world_model"], clips["world_model"])}
@@ -293,8 +342,10 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool):
         metrics.update({f"Grads/{name}": norm for name, norm in grad_norms.items()})
         return metrics
 
-    return train_step
+    def noise_for(T: int, B: int, generator: Optional[torch.Generator], device):
+        return draw_noise(cfg, dims, T, B, generator, device)
 
+    return build_train_burst(body, noise_for, _prepare)
 
 
 # ---------------------------------------------------------------------------
@@ -324,33 +375,35 @@ def load_agent_state(state: Dict[str, Any], agent: Dict[str, Any]) -> None:
         opt.load_state_dict({"state": saved, "param_groups": opt.state_dict()["param_groups"]})
 
 
-def tau_schedule(n: int, start: int, every: int) -> np.ndarray:
-    """The target critic's update for gradient steps ``start..start+n-1``: a
-    hard copy (1.0) on every ``every``-th step, the first included, else 0."""
-    g = int(start) + np.arange(int(n))
-    return np.where(g % max(int(every), 1) == 0, 1.0, 0.0)
+def _graph_counts(steps) -> Dict[str, Any]:
+    """How captured steps ran: eager calls, replays, graphs captured and the
+    host seconds the captures took."""
+    return {
+        "eager_calls": sum(s.eager_calls for s in steps),
+        "replays": sum(s.replays for s in steps),
+        "captured": sum(s.graph is not None for s in steps),
+        "capture_s": sum(s.capture_s for s in steps),
+    }
 
 
 def _unsupported(cfg) -> None:
     """Raise for the options whose layers the port does not have yet."""
-    if int(cfg.metric.log_level) > 0:
-        raise NotImplementedError(
-            "metric.log_level>0: TensorBoard logging, metric spans and telemetry are ROADMAP queue A item 6; "
-            "pass metric.log_level=0"
-        )
     if int((cfg.get("eval", {}) or {}).get("every_n_steps", 0) or 0) > 0:
-        raise NotImplementedError("eval.every_n_steps>0: in-run evaluation is ROADMAP queue A item 6")
+        raise NotImplementedError("eval.every_n_steps>0: in-run evaluation is ROADMAP queue A item 6c")
     if int(cfg.env.get("act_burst", 1) or 1) != 1:
-        raise NotImplementedError("env.act_burst>1: burst acting amortises TPU dispatches; the port acts per step")
+        raise NotImplementedError(
+            "env.act_burst>1: burst acting amortises TPU dispatches; the port replays each acting step from a CUDA graph"
+        )
     if cfg.metric.get("profiler", False):
-        raise NotImplementedError("metric.profiler: trace capture is ROADMAP queue A item 6")
+        raise NotImplementedError("metric.profiler: trace capture is ROADMAP queue A item 6h")
 
 
 @register_algorithm()
 def main(fabric, cfg) -> Dict[str, Any]:
-    """The DreamerV2 training run. Returns its loop counters and where its
+    """The DreamerV2 training run. Returns its loop counters, where its
     host time went (seconds per phase; the train phase ends synchronised
-    with the device)."""
+    with the device) and how its steps ran on the card (eager warm-up calls
+    and graph replays)."""
     _unsupported(cfg)
     world_size = fabric.world_size
     generator, _ = fabric.seed_everything(cfg.seed)
@@ -360,7 +413,10 @@ def main(fabric, cfg) -> Dict[str, Any]:
     cfg.env.screen_size = 64
     cfg.env.frame_stack = 1
 
-    log_dir = get_log_dir(cfg)
+    logger, log_dir = create_tensorboard_logger(cfg)
+    fabric.logger = logger
+    if logger is not None:
+        logger.log_hyperparams(cfg.as_dict() if hasattr(cfg, "as_dict") else dict(cfg))
     if fabric.is_global_zero:
         save_configs(cfg, log_dir)
 
@@ -390,6 +446,11 @@ def main(fabric, cfg) -> Dict[str, Any]:
         raise RuntimeError("The CNN keys of the decoder must be contained in the encoder ones")
     if len(set(cfg.mlp_keys.decoder) - set(cfg.mlp_keys.encoder)) > 0:
         raise RuntimeError("The MLP keys of the decoder must be contained in the encoder ones")
+    if cfg.metric.log_level > 0:
+        fabric.print("Encoder CNN keys:", cfg.cnn_keys.encoder)
+        fabric.print("Encoder MLP keys:", cfg.mlp_keys.encoder)
+        fabric.print("Decoder CNN keys:", cfg.cnn_keys.decoder)
+        fabric.print("Decoder MLP keys:", cfg.mlp_keys.decoder)
     cnn_keys, mlp_keys = list(cfg.cnn_keys.encoder), list(cfg.mlp_keys.encoder)
     obs_keys = cnn_keys + mlp_keys
 
@@ -414,8 +475,12 @@ def main(fabric, cfg) -> Dict[str, Any]:
         expl_decay_steps = int(resumed["expl_decay_steps"])
         cfg.per_rank_batch_size = int(resumed["batch_size"]) // world_size
 
-    train_step = build_train_fn(cfg, actions_dim, is_continuous)
+    train_program = build_train_fn(cfg, actions_dim, is_continuous)
     player_fns = build_player_fns(state["world_model"], state["actor"], cfg, actions_dim, is_continuous)
+
+    aggregator = None
+    if not MetricAggregator.disabled:
+        aggregator = instantiate(cfg.metric.aggregator)
 
     rb = make_replay_buffer(
         cfg,
@@ -428,10 +493,12 @@ def main(fabric, cfg) -> Dict[str, Any]:
         dry_run_size=8,
         sequence_length=int(cfg.per_rank_sequence_length),
     )
+    episode_buffer = isinstance(rb, EpisodeBuffer)
     if resumed is not None and cfg.buffer.get("checkpoint", False) and "rb" in resumed:
         rb.load_state_dict(resumed["rb"])
 
-    train_steps = 0
+    train_step = 0
+    last_train = 0
     start_step = int(resumed["update"]) // world_size if resumed is not None else 1
     policy_step = int(resumed["update"]) * cfg.env.num_envs if resumed is not None else 0
     last_log = int(resumed["last_log"]) if resumed is not None else 0
@@ -455,6 +522,13 @@ def main(fabric, cfg) -> Dict[str, Any]:
             final=cfg.algo.actor.expl_min,
             max_decay_steps=max_step_expl_decay,
         )
+    if cfg.metric.log_level > 0 and cfg.metric.log_every % policy_steps_per_update != 0:
+        warnings.warn(
+            f"The metric.log_every parameter ({cfg.metric.log_every}) is not a multiple of the "
+            f"policy_steps_per_update value ({policy_steps_per_update}), so "
+            "the metrics will be logged at the nearest greater multiple of the "
+            "policy_steps_per_update value."
+        )
     warn_checkpoint_rounding(cfg, policy_steps_per_update)
 
     staging = make_replay_staging(cfg, fabric, rb, seed=cfg.seed)
@@ -469,28 +543,44 @@ def main(fabric, cfg) -> Dict[str, Any]:
     step_data["rewards"] = np.zeros((1, n_envs, 1), np.float32)
     step_data["is_first"] = np.ones((1, n_envs, 1), np.float32)
     rb.add(step_data)
-    player_state = player_fns["init_states"](n_envs)
+    # the acting step: the player state lives in its static buffers; an env
+    # that ended has its row zeroed at the next acting step
+    acting = ExplorationStep(player_fns, n_envs, {k: obs[k] for k in obs_keys}, cnn_keys, generator, device)
+    reset_mask = np.zeros((n_envs, 1), np.float32)
 
     seconds = {"env": 0.0, "act": 0.0, "sample": 0.0, "train": 0.0, "checkpoint": 0.0, "test": 0.0}
     counters = {"updates": 0, "player_steps": 0, "random_steps": 0, "gradient_steps": 0, "train_bursts": 0}
-    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
     checkpoint_path = None
 
-    def env_step(actions: np.ndarray, real_actions: np.ndarray, player: Dict[str, torch.Tensor]):
+    def env_step(actions: np.ndarray, real_actions: np.ndarray) -> Dict[str, np.ndarray]:
         """Step the envs, store the row, reset rows for envs that ended;
-        returns the player's next observation and state."""
+        returns the player's next observation and marks the ended envs in
+        ``reset_mask``."""
         nonlocal policy_step
         t0 = time.perf_counter()
         policy_step += n_envs
         # The next row's is_first mirrors the previous dones
         step_data["is_first"] = step_data["dones"].copy()
-        o, rewards, terminated, truncated, infos = envs.step(real_actions.reshape(envs.action_space.shape))
+        with timer("Time/env_interaction_time", SumMetric()):
+            o, rewards, terminated, truncated, infos = envs.step(real_actions.reshape(envs.action_space.shape))
         dones = np.logical_or(terminated, truncated).astype(np.float32)
         if "restart_on_exception" in infos:
             for i, env_roe in enumerate(infos["restart_on_exception"]):
                 if env_roe and not dones[i]:
-                    staging.force_done_last(i)
+                    if not episode_buffer:
+                        staging.force_done_last(i)
                     step_data["is_first"][0, i] = 1.0
+
+        if cfg.metric.log_level > 0 and "final_info" in infos:
+            fi = infos["final_info"]
+            if isinstance(fi, dict) and "episode" in fi:
+                for i in np.nonzero(np.asarray(fi.get("_episode", []), dtype=bool))[0]:
+                    ep_rew, ep_len = float(fi["episode"]["r"][i]), float(fi["episode"]["l"][i])
+                    if aggregator and "Rewards/rew_avg" in aggregator:
+                        aggregator.update("Rewards/rew_avg", ep_rew)
+                    if aggregator and "Game/ep_len_avg" in aggregator:
+                        aggregator.update("Game/ep_len_avg", ep_len)
+                    fabric.print(f"Rank-0: policy_step={policy_step}, reward_env_{i}={ep_rew}")
 
         # Save the real next observation
         dones_idxes = np.nonzero(dones.reshape(-1))[0].tolist()
@@ -523,11 +613,9 @@ def main(fabric, cfg) -> Dict[str, Any]:
             reset_data["is_first"] = np.ones_like(reset_data["dones"])
             rb.add(reset_data, dones_idxes)
             step_data["dones"][:, dones_idxes] = 0.0
-            reset_mask = np.zeros((n_envs, 1), np.float32)
             reset_mask[dones_idxes] = 1.0
-            player = player_fns["reset_states"](player, torch.from_numpy(reset_mask))
         seconds["env"] += time.perf_counter() - t0
-        return new_obs, player
+        return new_obs
 
     update = start_step
     while update <= num_updates:
@@ -541,10 +629,8 @@ def main(fabric, cfg) -> Dict[str, Any]:
             counters["random_steps"] += 1
         else:
             t0 = time.perf_counter()
-            norm_obs = normalize_obs(obs, cnn_keys, device)
-            actions_t, player_state = player_fns["exploration_action"](
-                player_state, norm_obs, expl_amount, generator=generator
-            )
+            actions_t = acting({k: obs[k] for k in obs_keys}, reset_mask, expl_amount)
+            reset_mask[:] = 0.0
             actions = np.concatenate([a.cpu().numpy() for a in actions_t], -1)
             if is_continuous:
                 real_actions = actions
@@ -552,7 +638,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
                 real_actions = np.stack([a.argmax(dim=-1).cpu().numpy() for a in actions_t], axis=-1)
             seconds["act"] += time.perf_counter() - t0
             counters["player_steps"] += 1
-        obs, player_state = env_step(actions, real_actions, player_state)
+        obs = env_step(actions, real_actions)
 
         update += 1
         last = update - 1
@@ -562,6 +648,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
         # Train the agent
         if last >= learning_starts and updates_before_training <= 0:
             n_samples = cfg.algo.per_rank_pretrain_steps if last == learning_starts else cfg.algo.per_rank_gradient_steps
+            metrics = None
             if n_samples > 0:
                 t0 = time.perf_counter()
                 local_data = staging.sample_device(
@@ -571,16 +658,29 @@ def main(fabric, cfg) -> Dict[str, Any]:
                 )
                 t1 = time.perf_counter()
                 taus = tau_schedule(
-                    n_samples, counters["gradient_steps"], cfg.algo.critic.target_network_update_freq
+                    n_samples, counters["gradient_steps"], cfg.algo.critic.target_network_update_freq,
+                    tau=1.0, first_hard=False,
                 )
-                for i in range(n_samples):
-                    train_step(state, {k: v[i] for k, v in local_data.items()}, tau=float(taus[i]))
-                sync()
+                fetch_metrics = metric_fetch_gate(
+                    cfg,
+                    aggregator,
+                    policy_step=policy_step,
+                    last_log=last_log,
+                    train_step=train_step,
+                    update=last,
+                    num_updates=num_updates,
+                    policy_steps_per_update=policy_steps_per_update,
+                    world_size=world_size,
+                )
+                with timer("Time/train_time", SumMetric(sync_on_compute=cfg.metric.sync_on_compute)):
+                    # one graph replay a gradient step on the card; the metrics (or one
+                    # pacing scalar) come back once a burst
+                    metrics = run_train_burst(train_program, state, local_data, taus, fetch_metrics=fetch_metrics)
                 seconds["sample"] += t1 - t0
                 seconds["train"] += time.perf_counter() - t1
                 counters["gradient_steps"] += n_samples
                 counters["train_bursts"] += 1
-                train_steps += world_size
+                train_step += world_size
             updates_before_training = cfg.algo.train_every // policy_steps_per_update
             if cfg.algo.actor.expl_decay:
                 expl_decay_steps += 1
@@ -590,6 +690,31 @@ def main(fabric, cfg) -> Dict[str, Any]:
                     final=cfg.algo.actor.expl_min,
                     max_decay_steps=max_step_expl_decay,
                 )
+            if aggregator and not aggregator.disabled:
+                if metrics is not None:
+                    for k, v in metrics.items():
+                        if k in aggregator:
+                            aggregator.update(k, v)
+                if "Params/exploration_amount" in aggregator:
+                    aggregator.update("Params/exploration_amount", expl_amount)
+
+        # Log metrics
+        if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or last == num_updates):
+            if aggregator and not aggregator.disabled:
+                if logger is not None:
+                    logger.log_metrics(aggregator.compute(), policy_step)
+                aggregator.reset()
+            log_sps_metrics(
+                logger,
+                policy_step=policy_step,
+                last_log=last_log,
+                train_step=train_step,
+                last_train=last_train,
+                world_size=world_size,
+                action_repeat=cfg.env.action_repeat,
+            )
+            last_log = policy_step
+            last_train = train_step
 
         # Checkpoint
         if should_checkpoint(cfg, policy_step, last_checkpoint, last, num_updates):
@@ -621,13 +746,21 @@ def main(fabric, cfg) -> Dict[str, Any]:
         t0 = time.perf_counter()
         test_reward, test_steps = test(player_fns, fabric, cfg, log_dir, normalize_fn=normalize_obs)
         seconds["test"] = time.perf_counter() - t0
+    if logger is not None:
+        logger.close()
+    train_steps = [s.step for s in train_program.statics()]
     return {
         **counters,
         "policy_steps": policy_step,
         "test_steps": test_steps,
         "test_reward": test_reward,
         "log_dir": log_dir,
+        "event_file": None if logger is None else logger.path,
         "checkpoint": checkpoint_path,
         "seconds": seconds,
         "prefetch": {"hits": staging.prefetch_hits, "misses": staging.prefetch_misses},
+        "graphs": {
+            "train": _graph_counts(train_steps),
+            "act": _graph_counts([acting.step]),
+        },
     }

@@ -48,13 +48,13 @@ def reconstruction_loss(
 
     lhs = categorical_kl(posteriors_logits.detach(), priors_logits)
     rhs = categorical_kl(posteriors_logits, priors_logits.detach())
-    free = torch.tensor(kl_free_nats, dtype=lhs.dtype, device=lhs.device)
+    free = float(kl_free_nats)  # a host scalar: no copy to the device inside a captured step
     if kl_free_avg:
-        loss_lhs = torch.maximum(lhs.mean(), free)
-        loss_rhs = torch.maximum(rhs.mean(), free)
+        loss_lhs = lhs.mean().clamp_min(free)
+        loss_rhs = rhs.mean().clamp_min(free)
     else:
-        loss_lhs = torch.maximum(lhs, free).mean()
-        loss_rhs = torch.maximum(rhs, free).mean()
+        loss_lhs = lhs.clamp_min(free).mean()
+        loss_rhs = rhs.clamp_min(free).mean()
     kl_loss = kl_balancing_alpha * loss_lhs + (1 - kl_balancing_alpha) * loss_rhs
 
     continue_loss = torch.zeros((), dtype=lhs.dtype, device=lhs.device)

@@ -1,5 +1,6 @@
-"""DreamerV2 helpers (counterpart of ``compute_lambda_values`` and
-``normalize_obs_jnp`` in ``sheeprl_tpu/algos/dreamer_v2/utils.py``)."""
+"""DreamerV2 helpers (counterpart of ``AGGREGATOR_KEYS``,
+``compute_lambda_values`` and ``normalize_obs_jnp`` in
+``sheeprl_tpu/algos/dreamer_v2/utils.py``)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,27 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-__all__ = ["compute_lambda_values", "normalize_obs", "normalize_obs_tensors"]
+__all__ = ["AGGREGATOR_KEYS", "compute_lambda_values", "normalize_obs", "normalize_obs_tensors"]
+
+#: the metrics the training run updates; the CLI drops any other aggregator key
+AGGREGATOR_KEYS = {
+    "Rewards/rew_avg",
+    "Game/ep_len_avg",
+    "Loss/world_model_loss",
+    "Loss/value_loss",
+    "Loss/policy_loss",
+    "Loss/observation_loss",
+    "Loss/reward_loss",
+    "Loss/state_loss",
+    "Loss/continue_loss",
+    "State/post_entropy",
+    "State/prior_entropy",
+    "State/kl",
+    "Params/exploration_amount",
+    "Grads/world_model",
+    "Grads/actor",
+    "Grads/critic",
+}
 
 
 def normalize_obs(

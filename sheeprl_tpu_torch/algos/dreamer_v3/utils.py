@@ -72,5 +72,7 @@ def test(
         cumulative_rew += float(reward)
         steps += 1
     fabric.print("Test - Reward:", cumulative_rew)
+    if cfg.metric.log_level > 0 and getattr(fabric, "logger", None) is not None:
+        fabric.logger.log_metrics({"Test/cumulative_reward": cumulative_rew}, 0)
     env.close()
     return cumulative_rew, steps

@@ -10,7 +10,7 @@ merges the checkpointed run's config, builds the
 :class:`~sheeprl_tpu_torch.fabric.Fabric` and calls the registered
 entrypoint. ``fabric.accelerator=auto`` means ``cuda``. The ``serve``,
 ``eval`` and ``registration`` commands, multirun sweeps and
-``registry:best:`` refs are not ported (ROADMAP queue A item 6).
+``registry:best:`` refs are not ported (ROADMAP queue A item 6c).
 """
 
 from __future__ import annotations
@@ -150,7 +150,22 @@ def check_configs(cfg) -> None:
     if model_axis > 1:
         raise NotImplementedError(f"parallel.model_axis={model_axis}: parameter sharding is ROADMAP queue A item 7")
     if int((cfg.get("plane", None) or {}).get("num_players", 0) or 0) > 0:
-        raise NotImplementedError("plane.num_players>0: the actor–learner plane is ROADMAP queue A item 6")
+        raise NotImplementedError("plane.num_players>0: the actor–learner plane is ROADMAP queue A item 6f")
+
+
+def _prune_metric_keys(cfg, algo_module: str) -> None:
+    """Drop the aggregator keys the algorithm never updates (its utils
+    module's ``AGGREGATOR_KEYS``)."""
+    try:
+        keys = getattr(importlib.import_module(f"{algo_module.rsplit('.', 1)[0]}.utils"), "AGGREGATOR_KEYS", None)
+    except ModuleNotFoundError:
+        keys = None
+    if keys is None:
+        return
+    metrics_cfg = cfg.metric.get("aggregator", {}).get("metrics", {})
+    for name in list(metrics_cfg.keys()):
+        if name not in keys:
+            metrics_cfg.pop(name)
 
 
 def run_algorithm(cfg) -> Any:
@@ -164,6 +179,7 @@ def run_algorithm(cfg) -> Any:
     module = importlib.import_module(entry["module"])
     entrypoint = getattr(module, entry["entrypoint"])
     fabric = instantiate(cfg.fabric)
+    _prune_metric_keys(cfg, entry["module"])
     MetricAggregator.disabled = cfg.metric.log_level == 0 or len(
         cfg.metric.get("aggregator", {}).get("metrics", {})
     ) == 0
@@ -184,7 +200,7 @@ def run(args: Optional[Sequence[str]] = None) -> Any:
 
     overrides = list(args) if args is not None else sys.argv[1:]
     if "-m" in overrides or "--multirun" in overrides:
-        raise NotImplementedError("multirun sweeps are not ported (ROADMAP queue A item 6)")
+        raise NotImplementedError("multirun sweeps are not ported (ROADMAP queue A item 6c)")
     cfg = compose("config", overrides=overrides)
     sheeprl_tpu_torch.register_algorithms()
     if cfg.checkpoint.resume_from:
@@ -200,7 +216,7 @@ def run(args: Optional[Sequence[str]] = None) -> Any:
 
 def _not_ported(name: str):
     def entry(args: Optional[Sequence[str]] = None):
-        raise NotImplementedError(f"the `{name}` command is not ported yet (ROADMAP queue A item 6)")
+        raise NotImplementedError(f"the `{name}` command is not ported yet (ROADMAP queue A item 6c)")
 
     entry.__name__ = name
     return entry

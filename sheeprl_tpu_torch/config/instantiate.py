@@ -29,11 +29,11 @@ _PREFIX_ALIASES = {"sheeprl.": "sheeprl_tpu_torch."}
 _PORT = "sheeprl_tpu_torch."
 # targets of the YAML tree that the port does not have yet → the ROADMAP item that ports them
 NOT_PORTED: Dict[str, str] = {
-    "sheeprl_tpu_torch.envs.crafter": "ROADMAP queue A item 6 (real-simulator env wrappers)",
-    "sheeprl_tpu_torch.envs.diambra": "ROADMAP queue A item 6 (real-simulator env wrappers)",
-    "sheeprl_tpu_torch.envs.dmc": "ROADMAP queue A item 6 (real-simulator env wrappers)",
-    "sheeprl_tpu_torch.envs.minedojo": "ROADMAP queue A item 6 (real-simulator env wrappers)",
-    "sheeprl_tpu_torch.envs.minerl": "ROADMAP queue A item 6 (real-simulator env wrappers)",
+    "sheeprl_tpu_torch.envs.crafter": "ROADMAP queue A item 6i (real-simulator env wrappers)",
+    "sheeprl_tpu_torch.envs.diambra": "ROADMAP queue A item 6i (real-simulator env wrappers)",
+    "sheeprl_tpu_torch.envs.dmc": "ROADMAP queue A item 6i (real-simulator env wrappers)",
+    "sheeprl_tpu_torch.envs.minedojo": "ROADMAP queue A item 6i (real-simulator env wrappers)",
+    "sheeprl_tpu_torch.envs.minerl": "ROADMAP queue A item 6i (real-simulator env wrappers)",
     "sheeprl_tpu_torch.utils.optim.AdamW": "ROADMAP queue A item 5 (the families that configure it)",
     "sheeprl_tpu_torch.utils.optim.SGD": "ROADMAP queue A item 5 (the families that configure it)",
 }

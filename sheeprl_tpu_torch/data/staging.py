@@ -2,16 +2,19 @@
 and ``make_replay_staging`` in ``sheeprl_tpu/data/staging.py``).
 
 ``sample_device(...)`` samples a burst ``[n_samples, T, B, ...]`` on the
-host, copies it into page-locked host memory (on a CUDA device) and from
-there to the device with ``non_blocking=True``, so the copy overlaps the
-host's next work. With ``buffer.prefetch=True`` a worker thread prepares the
+host (a per-env sequence buffer or the episode buffer, each through its own
+``sample`` arguments), copies it into page-locked host memory (on a CUDA
+device) and from there to the device with ``non_blocking=True``, so the
+copy overlaps the host's next work. The copy is enqueued on the producing
+thread's current stream; the caller's current stream waits for it (an
+event), so a consumer on any stream sees the whole burst. With ``buffer.prefetch=True`` a worker thread prepares the
 next burst of the same shape while the caller trains on the current one
 (sampling under a lock shared with the buffer's ``add``, cloning the rows);
 ``buffer.prefetch=False`` samples on the caller's thread, and then the draws
 are bitwise the JAX package's stream for the same adds and seed.
 
 ``buffer.device_ring=True`` (the TPU's device-resident mirror of the
-buffer, ``RingStaging``) is not ported and raises.
+buffer, ``RingStaging``) is not ported and raises (ROADMAP queue A item 6d).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer
+from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, EpisodeBuffer
 
 __all__ = ["HostStaging", "make_replay_staging"]
 
@@ -51,7 +54,7 @@ class HostStaging:
         self.prefetch_hits = 0
         self.prefetch_misses = 0
 
-    def _produce(self, spec: _Spec, clone: bool) -> Dict[str, torch.Tensor]:
+    def _produce(self, spec: _Spec, clone: bool) -> Tuple[Dict[str, torch.Tensor], Optional[torch.cuda.Event]]:
         batch_size, seq_len, n_samples, sample_next_obs = spec
         with self._lock:
             if self._seq:
@@ -65,7 +68,11 @@ class HostStaging:
             if pin:
                 host = host.pin_memory()
             out[k] = host.to(self.device, non_blocking=pin)
-        return out
+        copied = None
+        if pin:
+            copied = torch.cuda.Event()
+            copied.record(torch.cuda.current_stream(self.device))
+        return out, copied
 
     def sample_device(
         self,
@@ -78,21 +85,28 @@ class HostStaging:
         """The burst as device tensors, native dtypes (uint8 pixels)."""
         spec: _Spec = (int(batch_size), int(sequence_length or 0), int(n_samples), bool(sample_next_obs))
         if self._pool is None:
-            return self._produce(spec, clone=False)
+            return self._consume(self._produce(spec, clone=False))
         fut = self._pending.pop(spec, None)
-        batch = None
+        produced = None
         if fut is not None:
             try:
-                batch = fut.result()
+                produced = fut.result()
                 self.prefetch_hits += 1
             except Exception:
-                batch = None  # a genuine sampling error re-raises below, on this thread
-        if batch is None:
+                produced = None  # a genuine sampling error re-raises below, on this thread
+        if produced is None:
             self.prefetch_misses += 1
-            batch = self._produce(spec, clone=True)
+            produced = self._produce(spec, clone=True)
         self._spec_counts[spec] = self._spec_counts.get(spec, 0) + 1
         if self._spec_counts[spec] >= 2:
             self._pending[spec] = self._pool.submit(self._produce, spec, True)
+        return self._consume(produced)
+
+    def _consume(self, produced) -> Dict[str, torch.Tensor]:
+        """The caller's current stream waits for the burst's copy."""
+        batch, copied = produced
+        if copied is not None:
+            torch.cuda.current_stream(self.device).wait_event(copied)
         return batch
 
     def force_done_last(self, env: int) -> None:
@@ -119,14 +133,14 @@ def make_replay_staging(cfg: Any, fabric: Any, rb: Any, *, seed: Optional[int] =
     """Seed the buffer's sampler (``seed``) and stage it to ``fabric.device``."""
     if bool(cfg.buffer.get("device_ring", False)):
         raise NotImplementedError(
-            "buffer.device_ring=True mirrors the replay buffer in TPU memory; the port stages from the host "
-            "(pass buffer.device_ring=False)"
+            "buffer.device_ring=True mirrors the replay buffer in device memory: ROADMAP queue A item 6d; "
+            "the port stages from the host (pass buffer.device_ring=False)"
         )
     if seed is not None:
         rb.seed(int(seed))
     return HostStaging(
         rb,
         fabric.device,
-        sequence_mode=isinstance(rb, EnvIndependentReplayBuffer),
+        sequence_mode=isinstance(rb, (EnvIndependentReplayBuffer, EpisodeBuffer)),
         prefetch=bool(cfg.buffer.get("prefetch", True)),
     )

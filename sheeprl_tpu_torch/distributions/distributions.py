@@ -101,15 +101,18 @@ class OneHotCategoricalStraightThrough(OneHotCategorical):
 
 
 class Normal:
-    """Gaussian with ``loc`` and ``scale`` (tensors or floats)."""
+    """Gaussian with ``loc`` and ``scale`` (a tensor or a float; a float
+    stays on the host, so that no copy to the device is made, which a CUDA
+    graph capture refuses)."""
 
     def __init__(self, loc: torch.Tensor, scale):
         self.loc = loc
-        self.scale = torch.as_tensor(scale, dtype=loc.dtype, device=loc.device)
+        self.scale = scale if isinstance(scale, torch.Tensor) else float(scale)
 
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
         var = self.scale**2
-        return -((value - self.loc) ** 2) / (2 * var) - torch.log(self.scale) - _HALF_LOG_2PI
+        log_scale = torch.log(self.scale) if isinstance(self.scale, torch.Tensor) else math.log(self.scale)
+        return -((value - self.loc) ** 2) / (2 * var) - log_scale - _HALF_LOG_2PI
 
 
 class Bernoulli:

@@ -119,12 +119,12 @@ class SyncVectorEnv:
 def _check_plane(cfg) -> None:
     backend = str(cfg.env.get("backend", "python") or "python").lower()
     if backend != "python":
-        raise NotImplementedError(f"env.backend={backend}: the port steps Python envs only (ROADMAP queue A item 6)")
+        raise NotImplementedError(f"env.backend={backend}: the port steps Python envs only (ROADMAP queue A item 6d)")
     mode = resolve_vectorization(cfg)
     if mode != "sync":
         raise NotImplementedError(
             f"env.vectorization={mode}: the port has the sync vector env only; the worker-pool backends "
-            "are ROADMAP queue A item 6 (pass env.sync_env=True or env.vectorization=sync)"
+            "are ROADMAP queue A item 6e (pass env.sync_env=True or env.vectorization=sync)"
         )
 
 

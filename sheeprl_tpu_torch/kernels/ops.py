@@ -28,9 +28,10 @@ card, else the multi-launch one (two launches a step).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -38,6 +39,7 @@ from sheeprl_tpu_torch.kernels import reference
 
 __all__ = [
     "LaunchCounter",
+    "add_recorded_launches",
     "hafner_cell_cuda",
     "hafner_cell_launches",
     "hafner_cell_variant",
@@ -47,6 +49,7 @@ __all__ = [
     "hafner_sequence_launches",
     "hafner_sequence_variant",
     "hafner_sync_floor_cuda",
+    "launches_recorded",
 ]
 
 #: the two CUDA variants of the sequence's recurrence
@@ -76,6 +79,36 @@ class LaunchCounter:
 hafner_cell_launches = LaunchCounter("hafner_cell")
 #: launches of the ``hafner_gru.cu`` sequence (one per whole sequence), by variant
 hafner_sequence_launches = LaunchCounter("hafner_sequence")
+_COUNTERS = (hafner_cell_launches, hafner_sequence_launches)
+
+#: a block's launches per counter: (count, count by variant)
+Recorded = Dict[str, Tuple[int, Dict[str, int]]]
+
+
+@contextlib.contextmanager
+def launches_recorded() -> Iterator[Recorded]:
+    """Around a CUDA-graph capture: the wrappers count their launches while
+    the graph is recorded, but nothing runs then. The block's counts are
+    taken back off the counters and left in the yielded dict, which
+    :func:`add_recorded_launches` adds once for every replay of the graph."""
+    before = [(c.count, dict(c.by_variant)) for c in _COUNTERS]
+    recorded: Recorded = {}
+    try:
+        yield recorded
+    finally:
+        for c, (count, by_variant) in zip(_COUNTERS, before):
+            variants = {k: v - by_variant.get(k, 0) for k, v in c.by_variant.items() if v != by_variant.get(k, 0)}
+            recorded[c.name] = (c.count - count, variants)
+            c.count, c.by_variant = count, by_variant
+
+
+def add_recorded_launches(recorded: Recorded) -> None:
+    """Count one replay of a graph whose capture recorded ``recorded``."""
+    for c in _COUNTERS:
+        count, variants = recorded.get(c.name, (0, {}))
+        c.count += count
+        for variant, n in variants.items():
+            c.by_variant[variant] = c.by_variant.get(variant, 0) + n
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,12 +3,16 @@
 
 Ported: ``kind="dreamer"`` with ``buffer.type=sequential`` (one
 :class:`~sheeprl_tpu_torch.data.buffers.SequentialReplayBuffer` per env
-behind an :class:`~sheeprl_tpu_torch.data.buffers.EnvIndependentReplayBuffer`),
-and ``kind="transition"`` at one shard with uniform sampling (a plain
+behind an :class:`~sheeprl_tpu_torch.data.buffers.EnvIndependentReplayBuffer`)
+or ``buffer.type=episode`` (an
+:class:`~sheeprl_tpu_torch.data.buffers.EpisodeBuffer`), and
+``kind="transition"`` at one shard with uniform sampling (a plain
 :class:`~sheeprl_tpu_torch.data.buffers.ReplayBuffer`). Sizes are the JAX
 package's: ``buffer.size // n_envs`` rows per env (``dry_run_size`` under
-``dry_run``), floored at ``min_size``. The episode buffer, more than one
-shard and non-uniform strategies raise: ROADMAP queue A item 6.
+``dry_run``), floored at ``min_size``; the episode buffer holds that many
+steps in all, floored at the sequence length alone, never at ``min_size``.
+More than one shard and non-uniform strategies raise: ROADMAP queue A
+item 6f.
 """
 
 from __future__ import annotations
@@ -16,7 +20,12 @@ from __future__ import annotations
 import os
 from typing import Any, Optional, Sequence, Union
 
-from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, ReplayBuffer, SequentialReplayBuffer
+from sheeprl_tpu_torch.data.buffers import (
+    EnvIndependentReplayBuffer,
+    EpisodeBuffer,
+    ReplayBuffer,
+    SequentialReplayBuffer,
+)
 
 __all__ = ["make_replay_buffer"]
 
@@ -32,10 +41,9 @@ def make_replay_buffer(
     min_size: int = 1,
     dry_run_size: Optional[int] = None,
     sequence_length: Optional[int] = None,
-) -> Union[ReplayBuffer, EnvIndependentReplayBuffer]:
+) -> Union[ReplayBuffer, EnvIndependentReplayBuffer, EpisodeBuffer]:
     """Build the replay storage an entrypoint needs (see module docstring);
-    ``sequence_length`` is what the episode buffer would need and is only
-    checked."""
+    ``sequence_length`` is the episode buffer's."""
     if bool(cfg.dry_run) and dry_run_size is not None:
         base = int(dry_run_size)
     else:
@@ -49,13 +57,21 @@ def make_replay_buffer(
     if shards != 1 or strategy != "uniform":
         raise NotImplementedError(
             f"replay.shards={shards} replay.strategy={strategy}: sharded and prioritized replay are "
-            "ROADMAP queue A item 6"
+            "ROADMAP queue A item 6f"
         )
     if kind == "dreamer":
         buffer_type = str(cfg.buffer.get("type", "sequential")).lower()
         if buffer_type == "episode":
-            raise NotImplementedError(
-                "buffer.type=episode: the episode buffer is ROADMAP queue A item 6; pass buffer.type=sequential"
+            if sequence_length is None:
+                raise ValueError("episode replay needs a 'sequence_length'")
+            return EpisodeBuffer(
+                max(base, int(sequence_length)),
+                sequence_length=int(sequence_length),
+                n_envs=n_envs,
+                obs_keys=obs_keys,
+                prioritize_ends=bool(cfg.buffer.get("prioritize_ends", False)),
+                memmap=memmap,
+                memmap_dir=memmap_dir,
             )
         if buffer_type != "sequential":
             raise ValueError(

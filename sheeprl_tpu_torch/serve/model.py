@@ -9,7 +9,7 @@ batcher draws its noise on.
 :func:`load_gateway_model` builds one from a checkpoint directory written
 by the port or by the JAX package (``load_gateway_model`` in
 ``sheeprl_tpu/serve/model.py``). Registry refs and the swap watcher are not
-ported (ROADMAP queue A item 6).
+ported (ROADMAP queue A item 6c).
 """
 
 from __future__ import annotations
@@ -109,7 +109,7 @@ def load_gateway_model(checkpoint_path: str, device=None, plain_cell: bool = Fal
 
     dev = resolve_device(device)
     if str(checkpoint_path).startswith("registry:"):
-        raise NotImplementedError("registry refs are not ported yet (ROADMAP queue A item 6)")
+        raise NotImplementedError("registry refs are not ported yet (ROADMAP queue A item 6c)")
     manifest = read_manifest(checkpoint_path)
     cfg, _log_dir = load_run_config(checkpoint_path)
     cfg.env.capture_video = False

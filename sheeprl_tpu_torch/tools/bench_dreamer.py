@@ -1,7 +1,7 @@
 """The DreamerV2 trainer at the MsPacman width: a few gradient steps on a
 seeded synthetic batch (counterpart of ``bench_dreamer.py bench.family=dv2``).
 
-    python -m sheeprl_tpu_torch.tools.bench_dreamer [--steps 5] [--profile] [--device cuda]
+    python -m sheeprl_tpu_torch.tools.bench_dreamer [--steps 5] [--profile] [--device cuda] [--mode both]
 
 Builds the world model, actor, critic and target critic at
 ``exp=dreamer_v2_ms_pacman``'s widths with seeded random weights (``run``
@@ -12,13 +12,22 @@ episode ends). Takes one warm-up step at τ=1, then ``--steps`` timed steps
 at τ=0, and prints one JSON line: steps/s (host clock around the timed
 steps, the device synchronised at both ends), the last step's losses, the
 recurrent cell's launches per step and the sequence kernel's launches, and
-the trainer's peak device memory over the timed steps (weights, optimizer
-state, batch and activations; not what the caller held before ``run``).
+the trainer's peak device memory from its first step to its last
+(weights, optimizer state, batch and activations, and a graph's private
+pool, allocated at its capture; not what the caller held before ``run``)
+beside the memory the caching allocator holds at the end.
 ``--profile`` adds a ``torch.profiler`` window of
 the same number of steps: the device's busy time per step, its idle share
 in that window and over the timed steps' wall time (the profiler slows the
 host, not the device), its top operations and the cell kernels' share of
 device time. Runs on ``cuda`` unless given ``--device cpu``.
+
+``mode="eager"`` times the eager step (``program(state, data)``),
+``mode="graphed"`` the training run's path: one-sample bursts
+(``program.burst``), each step replayed from the captured graph after the
+capture's eager warm-up calls, which run before the timed steps. ``--mode
+both`` (the default) runs the two one after the other on fresh trainers of
+the same seed and prints one line with both.
 """
 
 from __future__ import annotations
@@ -49,8 +58,9 @@ def synthetic_batch(T: int, B: int, actions_dim: int, seed: int = 0) -> Dict[str
 
 
 def build_trainer(device=None, seed: int = 0, **overrides):
-    """``(cfg, state, train_step, data)`` at the MsPacman width (with
-    ``overrides``) on ``device``; the state's generator draws the noise."""
+    """``(cfg, state, program, data)`` at the MsPacman width (with
+    ``overrides``) on ``device``: ``program`` is the gradient step's
+    ``TrainProgram``; the state's generator draws the noise."""
     import torch
 
     from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent
@@ -67,9 +77,9 @@ def build_trainer(device=None, seed: int = 0, **overrides):
     return cfg, state, build_train_fn(cfg, ACTIONS, False), data
 
 
-def profile_steps(train_step, state, data, steps: int) -> Dict[str, Any]:
-    """Device busy time, idle share and top operations over ``steps`` steps
-    under ``torch.profiler`` (kernel and copy times from CUPTI)."""
+def profile_steps(step, steps: int) -> Dict[str, Any]:
+    """Device busy time, idle share and top operations over ``steps`` calls
+    of ``step()`` under ``torch.profiler`` (kernel and copy times from CUPTI)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -80,7 +90,7 @@ def profile_steps(train_step, state, data, steps: int) -> Dict[str, Any]:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            train_step(state, data, tau=0.0)
+            step()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and device_us(e) > 0]
@@ -101,34 +111,47 @@ def profile_steps(train_step, state, data, steps: int) -> Dict[str, Any]:
     }
 
 
-def run(steps: int = 5, device=None, profile: bool = False, seed: int = 0, **overrides) -> Dict[str, Any]:
-    """Warm-up at τ=1, ``steps`` timed steps at τ=0; returns the JSON line's dict."""
+def run(steps: int = 5, device=None, profile: bool = False, seed: int = 0, mode: str = "eager",
+        **overrides) -> Dict[str, Any]:
+    """Warm-up at τ=1, ``steps`` timed steps at τ=0 (eager, or one-sample
+    graphed bursts); returns the JSON line's dict."""
     import torch
 
     from sheeprl_tpu_torch.device import resolve_device
     from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
 
+    if mode not in ("eager", "graphed"):
+        raise ValueError(f"mode must be eager or graphed, got {mode!r}")
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     # what the caller already holds on the card is not the trainer's
     base_bytes = torch.cuda.memory_allocated(dev) if cuda else 0
-    cfg, state, train_step, data = build_trainer(dev, seed, **overrides)
+    cfg, state, program, data = build_trainer(dev, seed, **overrides)
     sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
-    metrics = train_step(state, data, tau=1.0)
-    sync()
-    if cuda:
+    if cuda:  # the peak covers the warm-up and the capture: a graph keeps its step's memory in its own pool
         torch.cuda.reset_peak_memory_stats(dev)
+    metrics = program(state, data, tau=1.0)
+    stack = {k: v[None] for k, v in data.items()}
+    if mode == "graphed":
+        step = lambda: program.burst(state, stack, [0.0])  # noqa: E731
+        for _ in range(WARMUP_CALLS + 1):  # the capture's eager warm-up calls, then the capture and one replay
+            step()
+    else:
+        step = lambda: program(state, data, tau=0.0)  # noqa: E731
+    sync()
     ops.hafner_cell_launches.reset()
     ops.hafner_sequence_launches.reset()
     t0 = time.perf_counter()
     for _ in range(steps):
-        metrics = train_step(state, data, tau=0.0)
+        metrics = step()
     sync()
     wall_s = time.perf_counter() - t0
     cell_launches, seq_launches = ops.hafner_cell_launches.count, ops.hafner_sequence_launches.count
     losses = {k: float(v) for k, v in metrics.items()}
     result: Dict[str, Any] = {
         "metric": "dv2_train_steps_per_s",
+        "mode": mode,
         "value": steps / wall_s,
         "unit": "steps/s",
         "steps": steps,
@@ -139,17 +162,33 @@ def run(steps: int = 5, device=None, profile: bool = False, seed: int = 0, **ove
         "hafner_cell_launches_per_step": cell_launches / steps,
         "hafner_sequence_launches": seq_launches,
         "peak_device_memory_bytes": torch.cuda.max_memory_allocated(dev) - base_bytes if cuda else None,
+        "reserved_device_memory_bytes": torch.cuda.memory_reserved(dev) if cuda else None,
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
     }
+    if mode == "graphed":
+        (static,) = program.statics()
+        result["graph"] = {"eager_calls": static.step.eager_calls, "replays": static.step.replays,
+                           "capture_s": static.step.capture_s}
     if profile:
         if not cuda:
             raise RuntimeError("--profile measures the device: it needs a CUDA card")
-        prof = profile_steps(train_step, state, data, steps)
+        prof = profile_steps(step, steps)
         # the profiler slows the host; the device's work is the same, so its
         # busy time over the unprofiled steps' wall time is the idle share those had
         prof["device_idle_share_of_timed_steps"] = 1.0 - prof["device_busy_ms_per_step"] / (1e3 * wall_s / steps)
         result.update(prof)
+    del state, program, data, stack
+    if cuda:
+        torch.cuda.empty_cache()
     return result
+
+
+def compare(steps: int = 5, device=None, profile: bool = False, seed: int = 0, **overrides) -> Dict[str, Any]:
+    """The eager and the graphed step in one call, each on a fresh trainer."""
+    eager = run(steps, device, profile, seed, mode="eager", **overrides)
+    graphed = run(steps, device, profile, seed, mode="graphed", **overrides)
+    return {"metric": "dv2_train_steps_per_s", "eager": eager, "graphed": graphed,
+            "graphed_over_eager": graphed["value"] / eager["value"]}
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -158,8 +197,13 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mode", choices=("both", "eager", "graphed"), default="both")
     args = ap.parse_args(argv)
-    print(json.dumps(run(args.steps, args.device, args.profile, args.seed)), flush=True)
+    if args.mode == "both":
+        line = compare(args.steps, args.device, args.profile, args.seed)
+    else:
+        line = run(args.steps, args.device, args.profile, args.seed, mode=args.mode)
+    print(json.dumps(line), flush=True)
     return 0
 
 

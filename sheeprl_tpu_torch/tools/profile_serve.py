@@ -22,7 +22,10 @@ import time
 
 def device_us(evt) -> float:
     """Self device time of a profiler event, in µs (the attribute was renamed
-    across PyTorch versions)."""
+    across PyTorch versions); 0 for a user-annotated range (such as
+    ``Optimizer.step#Adam.step``), which spans kernels counted on their own."""
+    if getattr(evt, "is_user_annotation", False):
+        return 0.0
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         value = getattr(evt, attr, None)
         if value is not None:

@@ -117,11 +117,11 @@ def make_env(
     def thunk() -> Env:
         if cfg.env.capture_video and rank == 0 and vector_env_idx == 0 and run_name is not None:
             raise NotImplementedError(
-                "env.capture_video=True: video capture is not ported (ROADMAP queue A item 6); "
-                "pass env.capture_video=False"
+                "env.capture_video=True: video capture is not ported and not queued: it needs moviepy "
+                "(ROADMAP queue A, after item 6i); pass env.capture_video=False"
             )
         if cfg.env.get("mask_velocities", False):
-            raise NotImplementedError("env.mask_velocities is not ported (ROADMAP queue A item 6)")
+            raise NotImplementedError("env.mask_velocities is not ported (ROADMAP queue A item 6i)")
         kwargs = {}
         if "seed" in cfg.env.wrapper:
             kwargs["seed"] = seed

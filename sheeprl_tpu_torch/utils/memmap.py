@@ -51,6 +51,15 @@ class MemmapArray:
             shape=self._shape,
         )
 
+    @classmethod
+    def from_array(cls, array: Union[np.ndarray, "MemmapArray"], filename: str, mode: str = "r+") -> "MemmapArray":
+        """A new file ``filename`` holding a copy of ``array``."""
+        array = np.asarray(array.array if isinstance(array, MemmapArray) else array)
+        out = cls(shape=array.shape, dtype=array.dtype, filename=filename, mode=mode)
+        out._array[...] = array
+        out._array.flush()
+        return out
+
     # -- core accessors ---------------------------------------------------
 
     @property

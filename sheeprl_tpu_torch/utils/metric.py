@@ -1,8 +1,9 @@
 """Metric aggregation (counterpart of ``sheeprl_tpu/utils/metric.py``).
 
 Host-side accumulators over Python floats: callers pass values they have
-already pulled from the device. One process, one device, so
-``sync_on_compute`` has nothing to reduce over and is only recorded.
+already pulled from the device (the training loop pulls a burst's metrics
+at most once, behind ``train.burst.metric_fetch_gate``). One process, one
+device, so ``sync_on_compute`` has nothing to reduce over: the identity.
 """
 
 from __future__ import annotations

@@ -1,9 +1,13 @@
 """Named-scope wall-clock timing (counterpart of ``sheeprl_tpu/utils/timer.py``).
 
 ``with timer("Time/train_time"): ...`` accumulates seconds into a global
-registry, disable-able as a whole; ``compute()`` returns the totals and
-resets. Device work is asynchronous: a timed block measures the device only
-where it synchronises.
+registry, disable-able as a whole (the CLI sets ``timer.disabled`` at
+``metric.log_level=0`` or ``metric.disable_timer``); ``compute()`` returns
+the totals and resets, once a log boundary (``obs.perf.log_sps_metrics``).
+A scope registers its name when it is made, and one that loses its entry
+to a reset while it runs registers a fresh one on exit. Device work is
+asynchronous: a timed block measures the device only where it
+synchronises.
 """
 
 from __future__ import annotations
@@ -11,7 +15,7 @@ from __future__ import annotations
 import threading
 import time
 from contextlib import ContextDecorator
-from typing import Dict
+from typing import Dict, Optional
 
 from sheeprl_tpu_torch.utils.metric import SumMetric
 
@@ -23,8 +27,13 @@ class timer(ContextDecorator):
     timers: Dict[str, SumMetric] = {}
     _lock = threading.Lock()
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, metric: Optional[SumMetric] = None):
         self.name = name
+        self._metric = metric
+        if not timer.disabled:
+            with timer._lock:
+                if name not in timer.timers:
+                    timer.timers[name] = metric if metric is not None else SumMetric()
 
     def __enter__(self):
         if not timer.disabled:
@@ -35,7 +44,10 @@ class timer(ContextDecorator):
         if not timer.disabled:
             elapsed = time.perf_counter() - self._start
             with timer._lock:
-                timer.timers.setdefault(self.name, SumMetric()).update(elapsed)
+                if self.name not in timer.timers:  # the registry was reset mid-scope
+                    # a fresh metric: the original may already have been computed
+                    timer.timers[self.name] = SumMetric(getattr(self._metric, "sync_on_compute", False))
+                timer.timers[self.name].update(elapsed)
         return False
 
     @classmethod

@@ -234,3 +234,121 @@ def test_cli_run_on_the_card_launches_the_cell_and_round_trips_its_checkpoint(cu
     want = plain.act(frames, plain.init_state_rows(3), torch.Generator(device="cuda").manual_seed(0))
     np.testing.assert_array_equal(got[0], want[0])
     torch.testing.assert_close(got[1]["recurrent"], want[1]["recurrent"], atol=TOL, rtol=0)
+
+
+# a small DreamerV2 trainer for the graph tests: the same code path as the full width, in seconds
+GRAPH_SMALL = {
+    "algo.dense_units": 32, "algo.mlp_layers": 1, "algo.world_model.encoder.cnn_channels_multiplier": 4,
+    "algo.world_model.recurrent_model.recurrent_state_size": 64, "algo.world_model.stochastic_size": 4,
+    "algo.world_model.discrete_size": 4, "algo.world_model.transition_model.hidden_size": 32,
+    "algo.world_model.representation_model.hidden_size": 32, "algo.horizon": 4,
+    "per_rank_batch_size": 4, "per_rank_sequence_length": 8,
+}
+GRAPH_REPLAYS = 5
+# relative to each tensor's largest magnitude, with cuDNN's deterministic algorithms: its default convolution
+# weight gradients accumulate with atomics, and then two eager runs already differ by more
+GRAPH_TOL = 1e-6
+
+
+def _trainer(device):
+    from sheeprl_tpu_torch.tools import bench_dreamer
+
+    return bench_dreamer.build_trainer(device, seed=0, **GRAPH_SMALL)
+
+
+@pytest.mark.cuda
+def test_graphed_train_burst_equals_the_eager_steps(cuda, monkeypatch):
+    """The same state, batches and noise through the eager steps and through
+    one burst (the capture's warm-up calls, the capture, then GRAPH_REPLAYS
+    replays): every step's losses and gradient norms, and the parameters
+    after the last step, with cuDNN's deterministic algorithms."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    from sheeprl_tpu_torch.train.burst import run_train_burst, tau_schedule
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+    from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import draw_noise
+
+    n = WARMUP_CALLS + GRAPH_REPLAYS
+    taus = tau_schedule(n, 0, 3, tau=1.0, first_hard=False)
+    cfg, _state, _program, data = _trainer(cuda)
+    T, B = data["rewards"].shape[:2]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    noise = [draw_noise(cfg, (9,), T, B, gen, cuda) for _ in range(n)]
+    stack = {k: torch.stack([torch.roll(v, i, dims=1) for i in range(n)]) for k, v in data.items()}
+    out = {}
+    for fused in (False, True):
+        _cfg, state, program, _data = _trainer(cuda)
+        before = ops.hafner_cell_launches.count
+        metrics = [run_train_burst(program, state, {k: v[i : i + 1] for k, v in stack.items()}, taus[i : i + 1],
+                                   noise=noise[i : i + 1], fused=fused) for i in range(n)]
+        launches = ops.hafner_cell_launches.count - before
+        params = [p.detach().clone() for name in ("world_model", "actor", "critic", "target_critic")
+                  for p in state[name].parameters()]
+        out[fused] = (metrics, params, launches)
+        if fused:
+            (static,) = program.statics()
+            assert (static.step.eager_calls, static.step.replays) == (WARMUP_CALLS, GRAPH_REPLAYS)
+            assert static.step.graph is not None
+    (em, ep, el), (gm, gp, gl) = out[False], out[True]
+    assert el == gl == n * (T + 4)
+    for g, e in zip(gm, em):
+        for k in e:
+            assert abs(g[k] - e[k]) <= GRAPH_TOL * max(abs(e[k]), 1e-30), (k, g[k], e[k])
+    for g, e in zip(gp, ep):
+        assert (g - e).abs().max() <= GRAPH_TOL * e.abs().max().clamp_min(1e-30)
+
+
+@pytest.mark.cuda
+def test_graphed_acting_step_equals_the_eager_one(cuda):
+    """16 acting steps at injected noise and random reset masks, through the
+    acting step's graph and through the eager ``exploration_action``."""
+    from sheeprl_tpu_torch.algos.dreamer_v2.agent import ExplorationStep, build_agent, build_player_fns
+    from sheeprl_tpu_torch.algos.dreamer_v2.utils import normalize_obs
+    from sheeprl_tpu_torch.configs import dreamer_v2_config
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    cfg = dreamer_v2_config(**GRAPH_SMALL)
+    wm, actor = build_agent(cfg, (3, 2), False, {"rgb": (3, 64, 64)}, seed=4, device=cuda)
+    fns = build_player_fns(wm, actor, cfg, (3, 2), False)
+    n, rng = 4, np.random.RandomState(5)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    acting = ExplorationStep(fns, n, {"rgb": np.zeros((n, 3, 64, 64), np.uint8)}, ["rgb"], None, cuda)
+    state = fns["init_states"](n)
+    for step in range(16):
+        obs = {"rgb": rng.randint(0, 256, (n, 3, 64, 64)).astype(np.uint8)}
+        mask = (rng.uniform(size=(n, 1)) < 0.25).astype(np.float32)
+        noise = fns["draw_exploration_noise"](n, gen)
+        got = [a.clone() for a in acting(obs, mask, step / 15, noise=noise)]
+        state = fns["reset_states"](state, torch.from_numpy(mask))
+        want, state = fns["exploration_action"](state, normalize_obs(obs, ["rgb"], cuda), step / 15,
+                                                gumbel=noise["gumbel"], action_gumbels=noise["action_gumbels"],
+                                                expl_noise=noise["expl_noise"])
+        for g, w in zip(got, want):
+            assert torch.equal(g.argmax(-1), w.argmax(-1)), step
+            torch.testing.assert_close(g, w, atol=TOL, rtol=0)
+        torch.testing.assert_close(acting.state["recurrent"], state["recurrent"], atol=TOL, rtol=0)
+    assert (acting.step.eager_calls, acting.step.replays) == (WARMUP_CALLS, 16 - WARMUP_CALLS)
+
+
+@pytest.mark.cuda
+def test_launch_counts_under_replay_equal_the_profiler_count(cuda):
+    """The counters a capture records and adds back on every replay against
+    the gate kernels the device ran, counted from a ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    cfg, state, program, data = _trainer(cuda)
+    stack = {k: v[None] for k, v in data.items()}
+    for _ in range(WARMUP_CALLS + 1):  # the warm-up calls, the capture and one replay
+        program.burst(state, stack, [0.0])
+    torch.cuda.synchronize()
+    ops.hafner_cell_launches.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            program.burst(state, stack, [0.0])
+        torch.cuda.synchronize()
+    gates = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "hafner_gates_kernel" in e.key)
+    T = data["rewards"].shape[0]
+    assert ops.hafner_cell_launches.count == 3 * (T + 4) == gates

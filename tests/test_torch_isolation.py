@@ -93,7 +93,7 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
 CARD_PATH_FORBIDDEN = ("yaml", "gymnasium", "cv2", "tensorboardX", "jax", "sheeprl_tpu")
 TINY_RUN = [
     "exp=dreamer_v2", "env=dummy", "env.id=discrete_dummy", "env.num_envs=2", "env.sync_env=True", "dry_run=True",
-    "metric.log_level=0", "buffer.memmap=False", "per_rank_batch_size=2", "per_rank_sequence_length=2",
+    "metric.log_level=1", "buffer.memmap=False", "per_rank_batch_size=2", "per_rank_sequence_length=2",
     "algo.horizon=2", "algo.dense_units=8", "algo.mlp_layers=1", "algo.per_rank_pretrain_steps=1",
     "algo.world_model.encoder.cnn_channels_multiplier=2", "algo.world_model.recurrent_model.recurrent_state_size=8",
     "algo.world_model.transition_model.hidden_size=8", "algo.world_model.representation_model.hidden_size=8",
@@ -113,14 +113,16 @@ def test_no_target_of_the_yaml_tree_names_the_jax_package():
 
 
 def test_a_training_run_and_serving_load_none_of_the_card_path_exclusions(tmp_path):
-    """The CLI's DreamerV2 run on the dummy env, then ``load_gateway_model``
-    on its checkpoint, in a fresh interpreter: PyYAML, gymnasium, OpenCV,
+    """The CLI's DreamerV2 run on the dummy env at ``metric.log_level=1``
+    (its TensorBoard event file written), then ``load_gateway_model`` on its
+    checkpoint, in a fresh interpreter: PyYAML, gymnasium, OpenCV,
     tensorboardX, JAX and the JAX package are never imported."""
     code = (
         "import sys, glob\n"
         "from sheeprl_tpu_torch import cli\n"
         "from sheeprl_tpu_torch.serve.model import load_gateway_model\n"
         f"result = cli.run({TINY_RUN!r} + ['root_dir={tmp_path}', 'fabric.accelerator=cpu'])\n"
+        "assert glob.glob(result['log_dir'] + '/events.out.tfevents.*') == [result['event_file']]\n"
         "load_gateway_model(result['checkpoint'], device='cpu')\n"
         f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {CARD_PATH_FORBIDDEN!r}))\n"
         "print('loaded:', bad)\n"

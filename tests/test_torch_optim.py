@@ -50,11 +50,19 @@ def test_adam_and_clip_match_optax(weight_decay):
 
 
 def test_weight_decay_is_decoupled():
-    """With weight decay the factory is AdamW: ``torch.optim.Adam``'s L2 term
-    would go through the moment normalisation and give another step."""
+    """With weight decay the step is AdamW's: ``p ← p − lr·(adam + wd·p)``.
+    ``torch.optim.Adam``'s L2 term would go through the moment normalisation
+    and give another step. On a first step the Adam direction is
+    ``g / (|g| + eps)``."""
     p = torch.nn.Parameter(torch.ones(3))
-    assert isinstance(Adam([p], weight_decay=0.1), torch.optim.AdamW)
-    assert type(Adam([p], weight_decay=0.0)) is torch.optim.Adam
+    p.grad = torch.tensor([1.0, -1.0, 2.0])
+    Adam([p], lr=0.1, eps=1e-8, weight_decay=0.1).step()
+    g = np.array([1.0, -1.0, 2.0])
+    np.testing.assert_allclose(p.detach().numpy(), 1.0 - 0.1 * (g / (np.abs(g) + 1e-8) + 0.1), rtol=1e-6)
+    l2 = torch.nn.Parameter(torch.ones(3))
+    l2.grad = torch.tensor([1.0, -1.0, 2.0])
+    torch.optim.Adam([l2], lr=0.1, eps=1e-8, weight_decay=0.1).step()
+    assert not torch.allclose(l2, p)
 
 
 def test_clip_leaves_small_gradients_alone():

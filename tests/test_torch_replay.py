@@ -107,15 +107,6 @@ def test_state_dict_round_trips_across_packages(kind, tmp_path):
         _assert_same(want, _sample(b, kind))
 
 
-def test_episode_buffer_is_not_ported(tmp_path):
-    from sheeprl_tpu_torch.fabric import Fabric
-    from sheeprl_tpu_torch.replay import make_replay_buffer
-
-    cfg = compose(overrides=["exp=dreamer_v2_ms_pacman", "env=dummy"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_replay_buffer(cfg, Fabric(accelerator="cpu"), str(tmp_path), n_envs=2, kind="dreamer")
-
-
 @pytest.mark.parametrize("prefetch", [False, True], ids=["sync", "prefetch"])
 def test_host_staging_draws_the_jax_stream(prefetch):
     jax_buf, buf = _pair("env_independent", 32, None, False)

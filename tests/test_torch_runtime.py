@@ -140,12 +140,12 @@ def test_fabric_is_one_device_and_raises_for_the_rest(monkeypatch):
 @pytest.mark.parametrize(
     "overrides,match",
     [
-        (["metric.log_level=1"], "log_level"),
+        (["metric.profiler=true"], "item 6h"),
         (["eval.every_n_steps=10"], "in-run evaluation"),
         (["env.act_burst=4"], "act_burst"),
         (["env.vectorization=async"], "sync vector env"),
         (["buffer.device_ring=True"], "device_ring"),
-        (["buffer.type=episode"], "episode buffer"),
+        (["env.backend=jax"], "item 6d"),
     ],
 )
 def test_the_run_raises_for_layers_not_ported(tmp_path, overrides, match):
