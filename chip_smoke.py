@@ -43,8 +43,10 @@ Phases, each fatal on failure:
    step from one CUDA graph), whose losses, gradient norms and parameters
    must agree within TOL_GRAPHED with ``cudnn.deterministic`` (with cuDNN's
    default algorithms, whose convolution weight gradients accumulate with
-   atomics, two eager runs differ too: printed beside it); then, on fresh trainers of the same seed,
-   one warm-up step and TRAIN_STEPS timed steps eager and as many graphed,
+   atomics, two eager runs differ too, and graphed against eager must stay
+   within GRAPHED_DEFAULT_SPREADS times their spread); then, on fresh
+   trainers of the same seed, one warm-up step and TRAIN_STEPS timed steps
+   eager and as many graphed,
    with every loss finite and exactly 65 cell launches a step in both (50
    posterior steps at B=32, 15 imagination steps at B=1600), each with a
    profiled window of as many steps;
@@ -120,6 +122,11 @@ SYNC_FLOOR_STEPS = 100
 # each tensor's largest magnitude, losses, gradient norms and parameters)
 GRAPH_STEPS = 6
 TOL_GRAPHED = 1e-6
+# with cuDNN's default algorithms (the run's), where two eager runs already differ: graphed against eager
+# within this multiple of the spread between two eager runs in the same call (never below TOL_GRAPHED). That
+# spread is one draw of the atomics' rounding: on an H100 graphed against eager has read 0.46-5.0 times it on
+# losses and parameters over four runs; with cudnn.deterministic the same steps are held to TOL_GRAPHED
+GRAPHED_DEFAULT_SPREADS = 10.0
 # the run phase: the port's CLI with the preset's own buffer (episodes, prioritize_ends) and logging
 # (log_level 1) at the full MsPacman width on the dummy env (2 heads of 2 actions, 129-step episodes); cut:
 # 4 envs, a buffer of 4096 steps, 1088 policy steps (272 updates), learning from step 544 (136 updates, so
@@ -663,9 +670,8 @@ def _train_steps(fused: bool) -> dict:
         "taus": taus.tolist(),
     }
     if fused:
-        (static,) = program.statics()
-        out["graph"] = {"eager_calls": static.step.eager_calls, "replays": static.step.replays,
-                        "captured": static.step.graph is not None}
+        step = program.static.step
+        out["graph"] = {"eager_calls": step.eager_calls, "replays": step.replays, "captured": step.graph is not None}
     del state, program, data, stack
     torch.cuda.empty_cache()
     return out
@@ -689,8 +695,9 @@ def graphed_against_eager() -> dict:
     relative to each tensor's largest magnitude, and the cell's launches (65
     a step on both). With cuDNN's default algorithms two eager runs are not
     equal (the convolutions' weight gradients accumulate with atomics), so
-    the spread between two eager runs is printed beside graphed against
-    eager; the limit TOL_GRAPHED is held with ``cudnn.deterministic``."""
+    graphed against eager is held there within GRAPHED_DEFAULT_SPREADS
+    times the spread between two eager runs (at least TOL_GRAPHED); the limit
+    TOL_GRAPHED is held with ``cudnn.deterministic``."""
     import torch
 
     from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
@@ -704,15 +711,19 @@ def graphed_against_eager() -> dict:
     finally:
         torch.backends.cudnn.deterministic = prev
     held = _steps_diff(graphed, eager)
+    spread, default = _steps_diff(eager_b, eager_a), _steps_diff(graphed_default, eager_a)
+    default_tol = {k: max(GRAPHED_DEFAULT_SPREADS * spread[k], TOL_GRAPHED)
+                   for k in ("metric_max_rel_err", "param_max_rel_err")}
     line = {"steps": GRAPH_STEPS, "taus": eager["taus"], "tol": TOL_GRAPHED,
             "cudnn_deterministic": held,
-            "cudnn_default": {"eager_vs_eager": _steps_diff(eager_b, eager_a),
-                              "graphed_vs_eager": _steps_diff(graphed_default, eager_a)},
+            "cudnn_default": {"eager_vs_eager": spread, "graphed_vs_eager": default, "tol": default_tol},
             "launches": {"eager": eager["launches"], "graphed": graphed["launches"]}, "graph": graphed["graph"],
             "last_losses": {"eager": eager["metrics"][-1], "graphed": graphed["metrics"][-1]}}
     print("[train] graphed against eager: " + json.dumps(line), flush=True)
     if held["metric_max_rel_err"] > TOL_GRAPHED or held["param_max_rel_err"] > TOL_GRAPHED:
         raise AssertionError(f"graphed and eager steps disagree: {held} > {TOL_GRAPHED}")
+    if any(default[k] > tol for k, tol in default_tol.items()):
+        raise AssertionError(f"with cuDNN's defaults graphed and eager steps disagree: {default} > {default_tol}")
     for run in (eager_a, eager_b, graphed_default, eager, graphed):
         if run["launches"] != CELL_LAUNCHES_PER_STEP * GRAPH_STEPS:
             raise AssertionError(f"the cell launched {run['launches']} times in {GRAPH_STEPS} steps")
@@ -936,6 +947,13 @@ def phase_run(card: str):
 
     seconds = result["seconds"]
     stats = result["checkpoint_stats"]
+    # the run's host time by phase, the graphed phases split into their warm-up calls, capture and replays,
+    # ranked; set-up and drain is the wall time no phase holds (config, envs, buffer, logger, writer join)
+    host_s = {k: v for k, v in seconds.items() if k not in graphs}
+    for phase, counts in graphs.items():
+        host_s.update({f"{phase}_warmup": counts["warmup_s"], f"{phase}_capture": counts["capture_s"],
+                       f"{phase}_replays": seconds[phase] - counts["warmup_s"] - counts["capture_s"]})
+    host_s["setup_and_drain"] = wall - sum(seconds.values())
     line = {
         "run_args": list(RUN_ARGS),
         "updates": result["updates"],
@@ -950,6 +968,7 @@ def phase_run(card: str):
         "gradient_steps_per_s": result["gradient_steps"] / seconds["train"],
         "pr5_rates_at_its_cuts": PR5_RATES,
         "seconds": seconds,
+        "host_seconds_ranked": sorted(host_s.items(), key=lambda kv: -kv[1]),
         "prefetch": result["prefetch"],
         "hafner_cell_launches": launches["hafner_cell"],
         "hafner_cell_launches_predicted": predicted,

@@ -377,11 +377,12 @@ def load_agent_state(state: Dict[str, Any], agent: Dict[str, Any]) -> None:
 
 def _graph_counts(steps) -> Dict[str, Any]:
     """How captured steps ran: eager calls, replays, graphs captured and the
-    host seconds the captures took."""
+    host seconds the eager warm-up calls and the captures took."""
     return {
         "eager_calls": sum(s.eager_calls for s in steps),
         "replays": sum(s.replays for s in steps),
         "captured": sum(s.graph is not None for s in steps),
+        "warmup_s": sum(s.warmup_s for s in steps),
         "capture_s": sum(s.capture_s for s in steps),
     }
 
@@ -748,7 +749,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
         seconds["test"] = time.perf_counter() - t0
     if logger is not None:
         logger.close()
-    train_steps = [s.step for s in train_program.statics()]
+    train_steps = [] if train_program.static is None else [train_program.static.step]
     return {
         **counters,
         "policy_steps": policy_step,

@@ -1,33 +1,32 @@
 """The DreamerV2 trainer at the MsPacman width: a few gradient steps on a
 seeded synthetic batch (counterpart of ``bench_dreamer.py bench.family=dv2``).
 
-    python -m sheeprl_tpu_torch.tools.bench_dreamer [--steps 5] [--profile] [--device cuda] [--mode both]
+    python -m sheeprl_tpu_torch.tools.bench_dreamer [--steps 5] [--profile] [--device cuda]
 
 Builds the world model, actor, critic and target critic at
-``exp=dreamer_v2_ms_pacman``'s widths with seeded random weights (``run``
-takes ``dreamer_v2_config`` overrides, which the tests use to shrink it),
-and the seeded uint8 batch of the JAX bench
-(B=32 × T=50 frames of 3×64×64, 9 one-hot actions, Gaussian rewards, no
-episode ends). Takes one warm-up step at τ=1, then ``--steps`` timed steps
-at τ=0, and prints one JSON line: steps/s (host clock around the timed
+``exp=dreamer_v2_ms_pacman``'s widths with seeded random weights
+(``compare`` takes ``dreamer_v2_config`` overrides, which the tests use to
+shrink it), and the seeded uint8 batch of the JAX bench (B=32 × T=50 frames
+of 3×64×64, 9 one-hot actions, Gaussian rewards, no episode ends). Times
+the step eager and graphed in one call, each on a fresh trainer of the same
+seed: one warm-up step at τ=1, then ``--steps`` timed steps at τ=0. Prints
+one JSON line with, for each side, steps/s (host clock around the timed
 steps, the device synchronised at both ends), the last step's losses, the
 recurrent cell's launches per step and the sequence kernel's launches, and
-the trainer's peak device memory from its first step to its last
-(weights, optimizer state, batch and activations, and a graph's private
-pool, allocated at its capture; not what the caller held before ``run``)
-beside the memory the caching allocator holds at the end.
-``--profile`` adds a ``torch.profiler`` window of
-the same number of steps: the device's busy time per step, its idle share
-in that window and over the timed steps' wall time (the profiler slows the
-host, not the device), its top operations and the cell kernels' share of
-device time. Runs on ``cuda`` unless given ``--device cpu``.
+the trainer's peak device memory from its first step to its last (weights,
+optimizer state, batch and activations, and a graph's private pool,
+allocated at its capture; not what the caller held before) beside the
+memory the caching allocator holds at the end. ``--profile`` adds a
+``torch.profiler`` window of the same number of steps: the device's busy
+time per step, its idle share in that window and over the timed steps' wall
+time (the profiler slows the host, not the device), its top operations and
+the cell kernels' share of device time. Runs on ``cuda`` unless given
+``--device cpu``.
 
-``mode="eager"`` times the eager step (``program(state, data)``),
-``mode="graphed"`` the training run's path: one-sample bursts
-(``program.burst``), each step replayed from the captured graph after the
-capture's eager warm-up calls, which run before the timed steps. ``--mode
-both`` (the default) runs the two one after the other on fresh trainers of
-the same seed and prints one line with both.
+The eager side times ``program(state, data)``; the graphed side the
+training run's path: one-sample bursts (``program.burst``), each step
+replayed from the captured graph after the capture's eager warm-up calls,
+which run before the timed steps.
 """
 
 from __future__ import annotations
@@ -113,8 +112,8 @@ def profile_steps(step, steps: int) -> Dict[str, Any]:
 
 def run(steps: int = 5, device=None, profile: bool = False, seed: int = 0, mode: str = "eager",
         **overrides) -> Dict[str, Any]:
-    """Warm-up at τ=1, ``steps`` timed steps at τ=0 (eager, or one-sample
-    graphed bursts); returns the JSON line's dict."""
+    """Warm-up at τ=1, ``steps`` timed steps at τ=0 (``mode`` eager, or
+    graphed: one-sample bursts); returns one side of :func:`compare`."""
     import torch
 
     from sheeprl_tpu_torch.device import resolve_device
@@ -166,9 +165,9 @@ def run(steps: int = 5, device=None, profile: bool = False, seed: int = 0, mode:
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
     }
     if mode == "graphed":
-        (static,) = program.statics()
-        result["graph"] = {"eager_calls": static.step.eager_calls, "replays": static.step.replays,
-                           "capture_s": static.step.capture_s}
+        graph = program.static.step
+        result["graph"] = {"eager_calls": graph.eager_calls, "replays": graph.replays,
+                           "warmup_s": graph.warmup_s, "capture_s": graph.capture_s}
     if profile:
         if not cuda:
             raise RuntimeError("--profile measures the device: it needs a CUDA card")
@@ -197,13 +196,8 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--mode", choices=("both", "eager", "graphed"), default="both")
     args = ap.parse_args(argv)
-    if args.mode == "both":
-        line = compare(args.steps, args.device, args.profile, args.seed)
-    else:
-        line = run(args.steps, args.device, args.profile, args.seed, mode=args.mode)
-    print(json.dumps(line), flush=True)
+    print(json.dumps(compare(args.steps, args.device, args.profile, args.seed)), flush=True)
     return 0
 
 

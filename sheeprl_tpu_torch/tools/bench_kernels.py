@@ -49,13 +49,18 @@ def _operands(device):
             t(3 * H, scale=0.05, shift=1.0), t(3 * H, scale=0.05))
 
 
+#: profiled windows ``sequence_split`` takes at most: CUPTI can drop every record of one (one H100 run did)
+WINDOWS = 3
+
+
 def sequence_split(seq_operands, variant: str, eps: float = EPS, calls: int = 10) -> dict:
     """One variant of ``ops.hafner_sequence_cuda`` under ``torch.profiler``
     (``calls`` eager calls recorded after one warm-up call that a schedule
     leaves out): device kernel launches per call, and the device ms per call
     of the input projection (the product kernel launched once a call) and of
     the recurrence (every other kernel), from CUPTI's kernel records, with
-    the share of records the profiler kept."""
+    the share of records the profiler kept; a window that kept none is
+    taken again, up to WINDOWS windows."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -65,19 +70,22 @@ def sequence_split(seq_operands, variant: str, eps: float = EPS, calls: int = 10
     fn = lambda: ops.hafner_sequence_cuda(*seq_operands, eps=eps, variant=variant)  # noqa: E731
     fn()
     torch.cuda.synchronize()
-    windows = []  # the recorded window's kernel records, handed over when it closes
-    on_ready = lambda p: windows.append([(e.key, e.count, device_us(e)) for e in p.key_averages()])  # noqa: E731
-    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=calls, repeat=1),
-                 on_trace_ready=on_ready) as prof:
-        for _ in range(calls + 1):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    if len(windows) != 1:
-        raise RuntimeError(f"sequence_split: the profiler closed {len(windows)} windows, expected 1")
-    records = [r for r in windows[0] if r[2] > 0]
-    if not records:
-        raise RuntimeError("sequence_split: the profiler recorded no kernel")
+    for window in range(1, WINDOWS + 1):
+        windows = []  # the recorded window's kernel records, handed over when it closes
+        on_ready = lambda p: windows.append([(e.key, e.count, device_us(e)) for e in p.key_averages()])  # noqa: E731
+        with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=calls, repeat=1),
+                     on_trace_ready=on_ready) as prof:
+            for _ in range(calls + 1):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        if len(windows) != 1:
+            raise RuntimeError(f"sequence_split: the profiler closed {len(windows)} windows, expected 1")
+        records = [r for r in windows[0] if r[2] > 0]
+        if records:
+            break
+    else:
+        raise RuntimeError(f"sequence_split: the profiler recorded no kernel in {WINDOWS} windows")
     # the profiler can drop a few of a window's records (one H100 run kept 7
     # of 10): a kernel's launches a call are its kept records over the calls,
     # rounded, and its time a launch the mean of the kept records
@@ -93,6 +101,7 @@ def sequence_split(seq_operands, variant: str, eps: float = EPS, calls: int = 10
         "recurrence_ms": (total_us - (projection_us or 0.0)) / 1e3 if projection_us is not None or not has_x else None,
         "profiled_ms": total_us / 1e3,
         "records_kept": sum(count for _key, count, _us in records) / (calls * max(1, sum(launches.values()))),
+        "profiled_windows": window,
         "kernels": {key[:80]: n for key, n in launches.items()},
     }
 

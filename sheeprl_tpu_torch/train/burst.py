@@ -1,8 +1,8 @@
 """Train bursts (counterpart of ``sheeprl_tpu/train/burst.py``).
 
 A *train burst* is one replay-staged block of ``n_samples`` gradient steps.
-:func:`build_train_burst` wraps the body of one gradient step into a
-:class:`TrainProgram`. Calling the program is the eager step. Its
+:func:`build_train_burst` (the JAX package's name for the
+:class:`TrainProgram` constructor) wraps the body of one gradient step. Calling the program is the eager step. Its
 ``.burst`` runs the block with the whole gradient step replayed from one
 CUDA graph per sample (:class:`~sheeprl_tpu_torch.train.graphs.CapturedStep`):
 the program holds static inputs for the batch, the step's noise and the
@@ -25,7 +25,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS, CapturedStep
+from sheeprl_tpu_torch.train.graphs import CapturedStep
 
 __all__ = ["TrainProgram", "build_train_burst", "metric_fetch_gate", "run_train_burst", "tau_schedule"]
 
@@ -38,17 +38,18 @@ def _noise_tensors(noise: Noise) -> List[torch.Tensor]:
 
 
 class _Static:
-    """One captured step over static buffers for one agent state and one
-    batch shape."""
+    """The captured step over static buffers, for the one agent state and
+    the one batch shape its program bursts on."""
 
     def __init__(self, program: "TrainProgram", state: Dict[str, Any], example: Batch):
+        self.state = state
         self.data = {k: torch.zeros_like(v) for k, v in example.items()}
         T, B = example["rewards"].shape[:2]
         device = example["rewards"].device
         self.noise = program._draw_noise(T, B, None, device)
         self.tau = torch.zeros((), dtype=torch.float32, device=device)
         program.prepare(state)
-        self.step = CapturedStep(lambda: program._body(state, self.data, self.noise, self.tau), device, program.warmup)
+        self.step = CapturedStep(lambda: program._body(state, self.data, self.noise, self.tau), device)
 
     def set_noise(self, noise: Noise) -> None:
         for dst, src in zip(_noise_tensors(self.noise), _noise_tensors(noise), strict=True):
@@ -61,20 +62,30 @@ class TrainProgram:
     ``len(taus)`` steps over ``data_stack[k][i]``, each replayed from the
     captured step on the card. ``noise`` is None (drawn from
     ``state["generator"]``) or, for the burst, one noise dict a sample.
-    Both return the (last) step's metrics as 0-dim device tensors."""
+    Both return the (last) step's metrics as 0-dim device tensors.
+
+    ``body(state, data, noise, tau)`` runs one gradient step on ``state``
+    in place and returns its metrics as 0-dim device tensors; it reads its
+    inputs only through its arguments and the state's tensors, and makes no
+    host branch on device values and no host synchronisation, so that one
+    capture of it is every step. ``draw_noise(T, B, generator, device)``
+    gives one step's noise; ``prepare(state)`` allocates what the body
+    updates in place (the gradients) before the first call.
+
+    A program bursts on one agent state at one batch shape: ``.static``, the
+    captured step and its buffers, is made by the first burst (None before)
+    and a later burst on another state or shape raises."""
 
     def __init__(
         self,
         body: Callable[[Dict[str, Any], Batch, Noise, torch.Tensor], Dict[str, torch.Tensor]],
         draw_noise: Callable[[int, int, Optional[torch.Generator], Any], Noise],
         prepare: Callable[[Dict[str, Any]], None],
-        warmup: int = WARMUP_CALLS,
     ):
         self._body = body
         self._draw_noise = draw_noise
         self.prepare = prepare
-        self.warmup = warmup
-        self._statics: Dict[tuple, _Static] = {}
+        self.static: Optional[_Static] = None
 
     def __call__(self, state: Dict[str, Any], data: Batch, noise: Optional[Noise] = None, tau: float = 0.0):
         T, B = data["rewards"].shape[:2]
@@ -84,16 +95,17 @@ class TrainProgram:
         self.prepare(state)
         return self._body(state, data, noise, torch.tensor(float(tau), dtype=torch.float32, device=device))
 
-    def statics(self) -> List["_Static"]:
-        """The captured steps made so far (one per agent state and batch shape)."""
-        return list(self._statics.values())
-
-    def static_for(self, state: Dict[str, Any], data_stack: Batch) -> _Static:
-        """The captured step for ``state`` at ``data_stack``'s shapes (made on first use)."""
-        key = (id(state),) + tuple((k, tuple(v.shape[1:]), v.dtype, str(v.device)) for k, v in sorted(data_stack.items()))
-        if key not in self._statics:
-            self._statics[key] = _Static(self, state, {k: v[0] for k, v in data_stack.items()})
-        return self._statics[key]
+    def _static_for(self, state: Dict[str, Any], data_stack: Batch) -> _Static:
+        if self.static is None:
+            self.static = _Static(self, state, {k: v[0] for k, v in data_stack.items()})
+        static = self.static
+        same = static.state is state and static.data.keys() == data_stack.keys() and all(
+            v.shape == data_stack[k].shape[1:] and v.dtype == data_stack[k].dtype and v.device == data_stack[k].device
+            for k, v in static.data.items()
+        )
+        if not same:
+            raise ValueError("a TrainProgram bursts on one agent state at one batch shape, dtype and device")
+        return static
 
     def burst(
         self,
@@ -102,7 +114,7 @@ class TrainProgram:
         taus: Sequence[float],
         noise: Optional[Sequence[Noise]] = None,
     ) -> Dict[str, torch.Tensor]:
-        static = self.static_for(state, data_stack)
+        static = self._static_for(state, data_stack)
         T, B = static.data["rewards"].shape[:2]
         device = static.tau.device
         taus_dev = torch.as_tensor(np.asarray(taus, dtype=np.float32)).to(device, non_blocking=True)
@@ -116,17 +128,7 @@ class TrainProgram:
         return metrics
 
 
-def build_train_burst(body, draw_noise, prepare, warmup: int = WARMUP_CALLS) -> TrainProgram:
-    """Wrap one gradient step's body into a :class:`TrainProgram`.
-
-    ``body(state, data, noise, tau)`` runs one gradient step on ``state``
-    in place and returns its metrics as 0-dim device tensors; it reads its
-    inputs only through its arguments and the state's tensors, and makes no
-    host branch on device values and no host synchronisation, so that one
-    capture of it is every step. ``draw_noise(T, B, generator, device)``
-    gives one step's noise; ``prepare(state)`` allocates what the body
-    updates in place (the gradients) before the first call."""
-    return TrainProgram(body, draw_noise, prepare, warmup)
+build_train_burst = TrainProgram
 
 
 def tau_schedule(n: int, start: int, every: int, *, tau: float = 1.0, first_hard: bool = True) -> np.ndarray:

@@ -4,9 +4,10 @@ package's one-dispatch programs (``jax.jit`` of a whole step or burst).
 A :class:`CapturedStep` wraps a function of no arguments that reads and
 writes only tensors whose addresses do not change (static inputs, the
 modules' parameters, their gradients and the optimizers' state). On the
-card its first ``warmup`` calls run eagerly on a side stream, as a capture
-needs (cuBLAS and cuDNN workspaces, autograd's device threads); they are
-real calls, counted like any other. The next call captures the function
+card its first ``WARMUP_CALLS`` calls run eagerly on a side stream, as a
+capture needs (cuBLAS and cuDNN workspaces, autograd's device threads);
+they are real calls, counted like any other, and each is waited for, so
+that ``warmup_s`` holds their own time. The next call captures the function
 into one graph, and every call from then on replays it on the current
 stream, so the host launches the whole step once instead of kernel by
 kernel. The function's outputs at capture are the graph's static outputs:
@@ -36,24 +37,25 @@ WARMUP_CALLS = 3
 
 
 class CapturedStep:
-    def __init__(self, fn: Callable[[], Any], device, warmup: int = WARMUP_CALLS):
+    def __init__(self, fn: Callable[[], Any], device):
         self._fn = fn
         self.device = torch.device(device)
-        self.warmup = int(warmup)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._out: Any = None
         self._recorded: Optional[ops.Recorded] = None
         self._side: Optional[torch.cuda.Stream] = None
-        #: eager calls (all calls on the CPU), replays, and the host seconds the capture took
+        #: eager calls (all calls on the CPU), replays, and the host seconds the
+        #: warm-up calls (each waited for on the device) and the capture took
         self.eager_calls = 0
         self.replays = 0
+        self.warmup_s = 0.0
         self.capture_s = 0.0
 
     def __call__(self) -> Any:
         if self.device.type != "cuda":
             self.eager_calls += 1
             return self._fn()
-        if self.graph is None and self.eager_calls < self.warmup:
+        if self.graph is None and self.eager_calls < WARMUP_CALLS:
             return self._warm_up()
         if self.graph is None:
             self._capture()
@@ -63,6 +65,7 @@ class CapturedStep:
         return self._out
 
     def _warm_up(self) -> Any:
+        t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         if self._side is None:
             self._side = torch.cuda.Stream(self.device)
@@ -70,7 +73,9 @@ class CapturedStep:
         with torch.cuda.stream(self._side):
             out = self._fn()
         current.wait_stream(self._side)
+        self._side.synchronize()
         self.eager_calls += 1
+        self.warmup_s += time.perf_counter() - t0
         return out
 
     def _capture(self) -> None:

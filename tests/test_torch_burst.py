@@ -56,7 +56,7 @@ from sheeprl_tpu_torch.configs import dreamer_v2_config
 from sheeprl_tpu_torch.convert import convert_dreamer_v2
 from sheeprl_tpu_torch.kernels import ops
 from sheeprl_tpu_torch.train.burst import metric_fetch_gate, run_train_burst, tau_schedule
-from sheeprl_tpu_torch.train.graphs import CapturedStep
+from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS, CapturedStep
 from sheeprl_tpu_torch.utils import dotdict
 from sheeprl_tpu_torch.utils.optim import Adam, clip_by_global_norm_
 from test_torch_dreamer_v2_train import (  # noqa: F401  (jax_side is a fixture)
@@ -266,12 +266,27 @@ def test_burst_equals_the_eager_step_bit_for_bit():
     fused = run_train_burst(program, state, stack, taus, noise=noise)
     eager = run_train_burst(program, twin, stack, taus, noise=noise, fused=False)
     assert fused == eager
-    (static,) = program.statics()
-    assert static.step.eager_calls == STEPS and static.step.graph is None  # the CPU runs the body, never a graph
+    assert program.static.step.eager_calls == STEPS and program.static.step.graph is None  # the CPU never graphs
     for name in ("world_model", "actor", "critic", "target_critic"):
         for p, q in zip(state[name].parameters(), twin[name].parameters()):
             torch.testing.assert_close(p, q, rtol=0, atol=0)
     assert run_train_burst(program, state, stack, taus[:1], noise=noise[:1], fetch_metrics=False) is None
+
+
+def test_a_program_bursts_on_one_state_at_one_shape():
+    cfg, state = _states()
+    program = build_train_fn(cfg, ACTIONS, False)
+    assert program.static is None
+    batches, noise = _inputs(cfg, 2)
+    stack = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    run_train_burst(program, state, stack, [0.0, 0.0], noise=noise)
+    static = program.static
+    run_train_burst(program, state, {k: v[:1] for k, v in stack.items()}, [0.0], noise=noise[:1])
+    assert program.static is static and static.step.eager_calls == 3
+    with pytest.raises(ValueError, match="one agent state"):
+        program.burst(copy.deepcopy(state), stack, [0.0, 0.0], noise)
+    with pytest.raises(ValueError, match="one agent state"):
+        program.burst(state, {k: v[:, :-1] for k, v in stack.items()}, [0.0, 0.0], noise)
 
 
 @pytest.mark.parametrize("tau", [0.0, 1.0])
@@ -322,9 +337,9 @@ def test_recorded_launches_are_added_back_on_every_replay():
 
 def test_captured_step_runs_eagerly_on_the_cpu():
     calls = []
-    step = CapturedStep(lambda: calls.append(1) or len(calls), "cpu", warmup=1)
-    assert [step() for _ in range(4)] == [1, 2, 3, 4]
-    assert (step.eager_calls, step.replays, step.graph) == (4, 0, None)
+    step = CapturedStep(lambda: calls.append(1) or len(calls), "cpu")
+    assert [step() for _ in range(WARMUP_CALLS + 2)] == list(range(1, WARMUP_CALLS + 3))
+    assert (step.eager_calls, step.replays, step.graph, step.warmup_s) == (WARMUP_CALLS + 2, 0, None, 0.0)
 
 
 def test_acting_step_equals_the_eager_exploration_action():
@@ -366,6 +381,6 @@ def test_the_trainer_bench_times_eager_and_graphed_on_the_cpu():
     line = bench_dreamer.compare(steps=1, device="cpu", **SMALL)
     assert line["eager"]["mode"] == "eager" and line["graphed"]["mode"] == "graphed"
     # on the CPU the burst runs its body eagerly: the capture's warm-up calls and the timed step
-    assert line["graphed"]["graph"] == {"eager_calls": 5, "replays": 0, "capture_s": 0.0}
+    assert line["graphed"]["graph"] == {"eager_calls": 5, "replays": 0, "warmup_s": 0.0, "capture_s": 0.0}
     for mode in ("eager", "graphed"):
         assert all(np.isfinite(v) for v in line[mode]["losses"].values())

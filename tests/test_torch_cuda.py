@@ -285,9 +285,9 @@ def test_graphed_train_burst_equals_the_eager_steps(cuda, monkeypatch):
                   for p in state[name].parameters()]
         out[fused] = (metrics, params, launches)
         if fused:
-            (static,) = program.statics()
-            assert (static.step.eager_calls, static.step.replays) == (WARMUP_CALLS, GRAPH_REPLAYS)
-            assert static.step.graph is not None
+            step = program.static.step
+            assert (step.eager_calls, step.replays) == (WARMUP_CALLS, GRAPH_REPLAYS)
+            assert step.graph is not None and step.warmup_s > 0
     (em, ep, el), (gm, gp, gl) = out[False], out[True]
     assert el == gl == n * (T + 4)
     for g, e in zip(gm, em):
