@@ -69,9 +69,30 @@ Phases, each fatal on failure:
    the cell's gate kernels in its trace must equal the counters' launches
    of that run. The run's rates print beside PR 5's (PR5_RATES).
 
+DreamerV3 (PR 7), at the 100k MsPacman preset's full width (rgb 3x64x64,
+encoder channels 32/64/128/256, dense 512 x 2, recurrent 512, 32x32
+latent, 255-bin two-hot reward and critic, B=16 x T=64, horizon 15, f32):
+
+- dv3 kernels (after phase 3's training shapes): the cell at H = X = 512,
+  no bias, eps 1e-3, at B=1, 16 and 1024 (acting and test, posterior,
+  imagination), forward and the five gradients against the plain version,
+  device time, bound and cuBLAS's product (``phase_cell_dv3``);
+- train_dv3 (after phase 6): one step kernel against plain cell (TF32
+  off), GRAPH_STEPS steps graphed against eager with
+  ``cudnn.deterministic``, then DV3_TRAIN_STEPS timed steps eager and
+  graphed with a profiled window, 79 cell launches a step (64 posterior
+  steps at B=16, 15 imagination steps at B=1024);
+- run_dv3 (after phase 7): ``cli.run`` with RUN_DV3_ARGS
+  (``exp=dreamer_v3_100k_ms_pacman`` on ``discrete_dummy``: 1152 policy
+  steps, learning from the preset's 1024, 128 acting steps, 129 gradient
+  steps, a 5-step test episode that samples its actions), the same checks
+  as phase 7 with the sequential buffer restored equal from the
+  checkpoint, and 128 + 79 x 129 + 5 cell launches.
+
 Each path's launch counts are zeroed just before its run and read just
 after it: the served run (phase 4), the bench (phase 5), the timed train
-steps (phase 6) and the training run (phase 7). The build phase also counts the tensor-core instructions
+steps (phases 6 and train_dv3) and the training runs (phases 7 and
+run_dv3). The ``kernels`` line's cell ``launches`` is the two runs' sum. The build phase also counts the tensor-core instructions
 (``HGMMA``, ``HMMA``) in the built library's SASS (``cuobjdump -sass``).
 
 Bounds: the least time of the same work on an H100 SXM, the larger of its
@@ -147,6 +168,23 @@ RUN_TAGS_TRAINING = (
 # PR 5's run, at its own cuts (sequential buffer, log_level 0, eager steps): policy and gradient steps/s
 PR5_RATES = {"policy_steps_per_s": 76.8, "gradient_steps_per_s": 3.03}
 RUN_CLIENTS, RUN_REQUESTS, RUN_ACTIONS = 16, 8, 2
+# DreamerV3 (PR 7): the cell at the 100k MsPacman preset's shapes (H = X = 512, no bias, LayerNorm, eps 1e-3) at the
+# batches of its paths: acting and the test episode (1 env), the posterior (B=16), the imagination (16 x 64)
+DV3_CELL_BATCHES = (1, 16, 1024)
+DV3_H = DV3_X = 512
+DV3_EPS = 1e-3
+DV3_CELL_LAUNCHES_PER_STEP = 79  # 64 posterior steps + 15 imagination steps
+DV3_TRAIN_STEPS = 4
+# the DV3 run: the port's CLI with exp=dreamer_v3_100k_ms_pacman at its full width (its sequential buffer checkpointed,
+# log_level 1, learning from the preset's 1024, one gradient step a policy step) on the dummy env (1 head of 2
+# actions, 5-step episodes); cut: a buffer of 4096 steps, 1152 policy steps (129 gradient steps: the pretrain step at
+# 1024 and one a step after it), a log every 256 policy steps
+RUN_DV3_ARGS = (
+    "exp=dreamer_v3_100k_ms_pacman", "env=dummy", "env.id=discrete_dummy", "env.sync_env=True", "buffer.size=4096",
+    "total_steps=1152", "metric.log_every=256",
+)
+RUN_DV3_UPDATES, RUN_DV3_PLAYER_STEPS, RUN_DV3_GRADIENT_STEPS, RUN_DV3_TEST_STEPS = 1152, 128, 129, 5
+RUN_DV3_LOG_STEPS = (256, 512, 768, 1024, 1152)
 CLIENTS, STEPS, SEED = 64, 16, 5
 N_ACTIONS = 9
 OBS = {"rgb": (3, 64, 64)}
@@ -417,6 +455,54 @@ def phase_cell_training():
     return rows
 
 
+def phase_cell_dv3():
+    """The cell at DreamerV3's shapes (H = X = 512, no bias, LayerNorm, eps
+    1e-3) at the batches of its paths (DV3_CELL_BATCHES): forward against
+    the plain version, the hand VJP's five gradients (no bias) against
+    autograd of the plain version, the variant the plan launches, device
+    time beside the plain version's, the bound and cuBLAS's f32 SGEMM of the
+    same product; at B=1024 also the time split into product and gates."""
+    import torch
+
+    from sheeprl_tpu_torch.kernels import ops, reference
+
+    rows = []
+    H, X, eps = DV3_H, DV3_X, DV3_EPS
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for B in DV3_CELL_BATCHES:
+            args, cot = _operands(B + 11, B, H, X, False, True)
+            kernel = lambda *a: ops.hafner_gru_cell(*a, eps=eps)
+            plain = lambda *a: reference.hafner_cell(*a, eps=eps)
+            out, grads = _vjp(kernel, args, cot)
+            p_out, p_grads = _vjp(plain, args, cot)
+            torch.cuda.synchronize()
+            err = (out - p_out).abs().max().item()
+            grad_err = _grad_rel_err(grads, p_grads)
+            bound_ms, bound_by, simt_ms = hafner_bound(B, H, X, bias=False, ln=True)
+            u = torch.cat(args[:2], dim=-1)
+            row = dict(B=B, H=H, X=X, bias=False, ln=True, eps=eps, max_abs_err=err, tol=TOL_KERNEL,
+                       grad_rel_err=grad_err, grad_tol=TOL_GRAD, gradients=len(grads),
+                       ms=device_ms(lambda: ops.hafner_cell_cuda(*args, eps=eps)),
+                       plain_ms=device_ms(lambda: reference.hafner_cell(*args, eps=eps)),
+                       cublas_product_ms=device_ms(lambda: torch.matmul(u, args[2])),
+                       bound_ms=bound_ms, bound_by=bound_by, bound_f32_simt_ms=simt_ms,
+                       variant=ops.hafner_cell_variant(B, H, X))
+            if B == max(DV3_CELL_BATCHES):
+                row.update(product_split(args, B))
+            print("[kernel] hafner_cell dv3 " + json.dumps(row), flush=True)
+            rows.append(row)
+            grid = row["variant"]["grid"]
+            if len(grads) != 5 or grid[1] * row["variant"]["tile_rows"] < B or grid[0] * 64 * row["variant"]["warpgroups"] < 3 * H:
+                raise AssertionError(f"the cell at B={B} returned {len(grads)} gradients, variant {row['variant']}")
+            if not (torch.isfinite(out).all() and err <= TOL_KERNEL and grad_err <= TOL_GRAD):
+                raise AssertionError(f"hafner_cell at DV3's B={B} disagrees with its plain version: {row}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    return rows
+
+
 def phase_sequence():
     """The sequence kernel at SEQUENCE_SHAPES: the variant its plan picks,
     forward and gradients against the plain loop under autograd, device
@@ -615,24 +701,28 @@ def phase_bench_kernels():
     return launches, line
 
 
-def _train_step_once(plain_cell: bool):
-    """One full-width step at fixed weights (seed 0) and fixed noise, at τ=1."""
+def _train_step_once(plain_cell: bool, algo: str = "dreamer_v2"):
+    """One full-width step of ``algo`` at fixed weights (seed 0) and fixed noise, at τ=1."""
+    import importlib
+
     import torch
 
-    from sheeprl_tpu_torch.algos.dreamer_v2.agent import set_cell_impl
-    from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import draw_noise
     from sheeprl_tpu_torch.kernels import ops
     from sheeprl_tpu_torch.tools import bench_dreamer
 
-    cfg, state, train_step, data = bench_dreamer.build_trainer("cuda", seed=0)
+    agent_module, train_module, _ = bench_dreamer.ALGOS[algo]
+    cfg, state, train_step, data = bench_dreamer.build_trainer("cuda", seed=0, algo=algo)
     if plain_cell:
-        set_cell_impl(state["world_model"], "plain")
+        importlib.import_module(agent_module).set_cell_impl(state["world_model"], "plain")
     T, B = data["rewards"].shape[:2]
-    noise = draw_noise(cfg, bench_dreamer.ACTIONS, T, B, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    noise = importlib.import_module(train_module).draw_noise(
+        cfg, bench_dreamer.ACTIONS, T, B, torch.Generator(device="cuda").manual_seed(SEED), "cuda"
+    )
     before = ops.hafner_cell_launches.count
     metrics = {k: float(v) for k, v in train_step(state, data, noise=noise, tau=1.0).items()}
     launches = ops.hafner_cell_launches.count - before
-    if launches != (0 if plain_cell else CELL_LAUNCHES_PER_STEP):
+    per_step = DV3_CELL_LAUNCHES_PER_STEP if algo == "dreamer_v3" else CELL_LAUNCHES_PER_STEP
+    if launches != (0 if plain_cell else per_step):
         raise AssertionError(f"the {'plain-cell' if plain_cell else 'kernel'} train step launched the cell {launches} times")
     del state, data, noise
     torch.cuda.empty_cache()
@@ -645,19 +735,24 @@ def _rel(got, want) -> float:
     return float((got.double() - want.double()).abs().max() / want.double().abs().max().clamp_min(1e-30))
 
 
-def _train_steps(fused: bool) -> dict:
-    """GRAPH_STEPS full-width steps from seed 0 on one batch, each step's
-    noise from the trainer's own generator: eager (``run_train_burst(...,
-    fused=False)``) or graphed (one-sample bursts: the capture's eager
-    warm-up calls, the capture, then replays)."""
+def _train_steps(fused: bool, algo: str = "dreamer_v2") -> dict:
+    """GRAPH_STEPS full-width steps of ``algo`` from seed 0 on one batch,
+    each step's noise from the trainer's own generator: eager
+    (``run_train_burst(..., fused=False)``) or graphed (one-sample bursts:
+    the capture's eager warm-up calls, the capture, then replays). The
+    target updates as the run's: DV2 a hard copy every 4 steps, DV3 τ =
+    0.02 every step after a hard first one."""
     import torch
 
     from sheeprl_tpu_torch.kernels import ops
     from sheeprl_tpu_torch.tools import bench_dreamer
     from sheeprl_tpu_torch.train.burst import run_train_burst, tau_schedule
 
-    taus = tau_schedule(GRAPH_STEPS, 0, 4, tau=1.0, first_hard=False)
-    cfg, state, program, data = bench_dreamer.build_trainer("cuda", seed=0)
+    if algo == "dreamer_v3":
+        taus = tau_schedule(GRAPH_STEPS, 0, 1, tau=0.02, first_hard=True)
+    else:
+        taus = tau_schedule(GRAPH_STEPS, 0, 4, tau=1.0, first_hard=False)
+    cfg, state, program, data = bench_dreamer.build_trainer("cuda", seed=0, algo=algo)
     stack = {k: v[None] for k, v in data.items()}
     before = ops.hafner_cell_launches.count
     metrics = [run_train_burst(program, state, stack, taus[i : i + 1], fused=fused) for i in range(GRAPH_STEPS)]
@@ -775,7 +870,71 @@ def phase_train(card: str):
     return launches, max(rel.values()), graph_line
 
 
-def _run_once(root: str, name: str):
+def phase_train_dv3(card: str):
+    """The DreamerV3 trainer at the full 100k MsPacman width (B=16, T=64,
+    horizon 15): one step at fixed weights and noise on the kernel path and
+    on the plain-cell path (TF32 off: losses within TOL_TRAIN_LOSS, gradient
+    norms within TOL_TRAIN_GRAD, relative); GRAPH_STEPS steps from one seed
+    eager and graphed with ``cudnn.deterministic`` (losses, gradient norms
+    and parameters bit for bit); then DV3_TRAIN_STEPS timed steps
+    eager and as many graphed, each with a profiled window (device busy
+    time, idle share, top operations), 79 cell launches a step."""
+    import math
+
+    import torch
+
+    from sheeprl_tpu_torch.tools import bench_dreamer
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    algo = "dreamer_v3"
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        (kernel_m, kernel_n), (plain_m, plain_n) = _train_step_once(False, algo), _train_step_once(True, algo)
+        torch.backends.cudnn.deterministic = True
+        eager, graphed = _train_steps(False, algo), _train_steps(True, algo)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = prev
+    rel = {k: abs(kernel_m[k] - plain_m[k]) / max(abs(plain_m[k]), 1e-6) for k in kernel_m}
+    # losses at TOL_TRAIN_LOSS; gradient norms and the other metrics (the User/ means of returns, advantages
+    # and predictions, near 0 at random weights) at TOL_TRAIN_GRAD
+    bad = [k for k, r in rel.items() if r > (TOL_TRAIN_LOSS if k.startswith("Loss/") else TOL_TRAIN_GRAD)]
+    bad += [k for k, v in kernel_m.items() if not math.isfinite(v)]
+    held = _steps_diff(graphed, eager)
+    line = {"kernel_vs_plain": {"kernel": kernel_m, "plain": plain_m, "rel_diff": rel, "tol_loss": TOL_TRAIN_LOSS,
+                                "tol_grad": TOL_TRAIN_GRAD, "cell_launches": {"kernel": kernel_n, "plain": plain_n}},
+            "graphed_vs_eager": {"steps": GRAPH_STEPS, "taus": eager["taus"],
+                                 "cudnn_deterministic": held, "graph": graphed["graph"],
+                                 "launches": {"eager": eager["launches"], "graphed": graphed["launches"]}}}
+    print("[train_dv3] " + json.dumps(line), flush=True)
+    if bad:
+        raise AssertionError(f"DV3 kernel and plain-cell train steps disagree on {bad}")
+    if not held["bit_for_bit"]:
+        raise AssertionError(f"graphed and eager DV3 steps are not bit for bit with cudnn.deterministic: {held}")
+    for run in (eager, graphed):
+        if run["launches"] != DV3_CELL_LAUNCHES_PER_STEP * GRAPH_STEPS:
+            raise AssertionError(f"the DV3 cell launched {run['launches']} times in {GRAPH_STEPS} steps")
+    if graphed["graph"] != {"eager_calls": WARMUP_CALLS, "replays": GRAPH_STEPS - WARMUP_CALLS, "captured": True}:
+        raise AssertionError(f"the graphed DV3 steps ran as {graphed['graph']}")
+
+    result = bench_dreamer.compare(steps=DV3_TRAIN_STEPS, device="cuda", profile=True, algo=algo)
+    result["card"] = card
+    print("[train_dv3] " + json.dumps(result), flush=True)
+    for mode in ("eager", "graphed"):
+        side = result[mode]
+        if not all(math.isfinite(v) for v in side["losses"].values()):
+            raise AssertionError(f"a DV3 {mode} loss is not finite: {side['losses']}")
+        if side["hafner_cell_launches"] != DV3_CELL_LAUNCHES_PER_STEP * DV3_TRAIN_STEPS or side["hafner_sequence_launches"]:
+            raise AssertionError(f"the DV3 {mode} steps launched the cell {side['hafner_cell_launches']} times "
+                                 f"and the sequence {side['hafner_sequence_launches']} times")
+    launches = {"hafner_cell": result["graphed"]["hafner_cell_launches"],
+                "hafner_sequence": result["graphed"]["hafner_sequence_launches"]}
+    return launches, max(rel.values()), {k: held[k] for k in ("metric_max_rel_err", "param_max_rel_err", "bit_for_bit")}
+
+
+def _run_once(root: str, name: str, args=RUN_ARGS):
     """One training run through the CLI; returns (result, wall seconds)."""
     import torch
 
@@ -783,14 +942,47 @@ def _run_once(root: str, name: str):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    result = cli.run(list(RUN_ARGS) + [f"root_dir={root}", f"run_name={name}"])
+    result = cli.run(list(args) + [f"root_dir={root}", f"run_name={name}"])
     torch.cuda.synchronize()
     return result, time.perf_counter() - t0
 
 
-def _check_events(result) -> dict:
+def trace_summary(prof, names) -> tuple:
+    """``(device busy µs, {name: count})`` of a ``torch.profiler`` window:
+    every device event's time (a user-annotated range spans kernels counted
+    on their own), and the device events whose name holds each of
+    ``names``. Read from the profiler's raw events: building its function
+    events and averages takes minutes on a run of 10^5-10^6 kernels."""
+    from torch.autograd import DeviceType
+
+    from sheeprl_tpu_torch.tools.profile_serve import device_us
+
+    counts = dict.fromkeys(names, 0)
+    busy = 0.0
+    try:
+        events = prof.profiler.kineto_results.events()
+    except AttributeError:  # a PyTorch without the raw events: the averages
+        events = None
+    if events is None:
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                busy += device_us(e)
+                for n in names:
+                    counts[n] += e.count if n in e.key else 0
+        return busy, counts
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        busy += e.duration_ns() / 1e3 if hasattr(e, "duration_ns") else e.duration_us()
+        name = e.name()
+        for n in names:
+            counts[n] += n in name
+    return busy, counts
+
+
+def _check_events(result, spec) -> dict:
     """The run's event file, read back with the port's reader: the preset's
-    tags at the log boundaries, every value finite."""
+    tags at the log boundaries (``spec["log_steps"]``), every value finite."""
     import math
 
     from sheeprl_tpu_torch.utils.tb_events import read_events
@@ -805,9 +997,9 @@ def _check_events(result) -> dict:
     texts = by_step.pop(0, {})
     if "hparams/text_summary" not in texts or "Test/cumulative_reward" not in texts:
         raise AssertionError(f"the event file's step 0 holds {sorted(texts)}")
-    if tuple(sorted(by_step)) != RUN_LOG_STEPS:
-        raise AssertionError(f"the run logged at policy steps {sorted(by_step)}, expected {RUN_LOG_STEPS}")
-    learning_starts = int(dict(a.split("=", 1) for a in RUN_ARGS)["algo.learning_starts"])
+    if tuple(sorted(by_step)) != spec["log_steps"]:
+        raise AssertionError(f"the run logged at policy steps {sorted(by_step)}, expected {spec['log_steps']}")
+    learning_starts = spec["learning_starts"]
     for step, tags in by_step.items():
         want = set(RUN_TAGS_ALWAYS) | (set(RUN_TAGS_TRAINING) if step > learning_starts else set())
         if not want <= set(tags):
@@ -818,7 +1010,7 @@ def _check_events(result) -> dict:
     episodes = [step for step, tags in by_step.items() if "Rewards/rew_avg" in tags and "Game/ep_len_avg" in tags]
     if not episodes:
         raise AssertionError("no log boundary holds the episodes' Rewards/rew_avg and Game/ep_len_avg")
-    return {"events": len(events), "log_steps": sorted(by_step), "tags_at_last_log": len(by_step[RUN_LOG_STEPS[-1]]),
+    return {"events": len(events), "log_steps": sorted(by_step), "tags_at_last_log": len(by_step[spec["log_steps"][-1]]),
             "episode_metrics_at": episodes, "ep_len_avg": [by_step[s]["Game/ep_len_avg"] for s in episodes]}
 
 
@@ -849,64 +1041,105 @@ def _check_episode_buffer(ckpt) -> dict:
             "restored_state_dict_equal": True}
 
 
-def phase_run(card: str):
-    """The port's main path: a DreamerV2 training run through
-    ``sheeprl_tpu_torch.cli.run`` at the full MsPacman width with the
-    preset's episode buffer and logging, its gradient steps and acting
+def _check_sequential_buffer(ckpt) -> dict:
+    """The checkpoint's sequential buffer, every crc32 verified, restored
+    into a fresh buffer whose ``state_dict`` equals the one read back."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.ckpt import read_checkpoint
+    from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
+
+    opts = dict(a.split("=", 1) for a in RUN_DV3_ARGS)
+    rb_state = read_checkpoint(ckpt, verify=True)["rb"]
+    fresh = EnvIndependentReplayBuffer(int(opts["buffer.size"]), n_envs=1, obs_keys=("rgb",),
+                                       buffer_cls=SequentialReplayBuffer)
+    fresh.load_state_dict(rb_state)
+    restored = fresh.state_dict()["buffers"]
+    same = len(restored) == len(rb_state["buffers"]) and all(
+        a["pos"] == b["pos"] and a["full"] == b["full"] and a["buffer"].keys() == b["buffer"].keys()
+        and all(np.array_equal(a["buffer"][k], b["buffer"][k]) for k in b["buffer"])
+        for a, b in zip(restored, rb_state["buffers"])
+    )
+    steps = int(rb_state["buffers"][0]["pos"])
+    if not same or steps == 0:
+        raise AssertionError(f"the checkpoint's sequential buffer ({steps} steps) did not restore equal")
+    return {"steps": steps, "full": bool(rb_state["buffers"][0]["full"]),
+            "keys": sorted(rb_state["buffers"][0]["buffer"]), "restored_state_dict_equal": True}
+
+
+#: the training runs through the CLI: the DV2 preset's (PR 5–6) and the DV3 100k preset's (PR 7)
+RUN_SPECS = {
+    "run": dict(args=RUN_ARGS, counts=(RUN_UPDATES, RUN_PLAYER_STEPS, RUN_GRADIENT_STEPS, RUN_TEST_STEPS),
+                per_step=CELL_LAUNCHES_PER_STEP, log_steps=RUN_LOG_STEPS, learning_starts=544,
+                buffer=_check_episode_buffer),
+    "run_dv3": dict(args=RUN_DV3_ARGS,
+                    counts=(RUN_DV3_UPDATES, RUN_DV3_PLAYER_STEPS, RUN_DV3_GRADIENT_STEPS, RUN_DV3_TEST_STEPS),
+                    per_step=DV3_CELL_LAUNCHES_PER_STEP, log_steps=RUN_DV3_LOG_STEPS, learning_starts=1024,
+                    buffer=_check_sequential_buffer),
+}
+
+
+def phase_run(card: str, name: str = "run"):
+    """A main path: a training run through ``sheeprl_tpu_torch.cli.run``
+    (``RUN_SPECS[name]``: the DreamerV2 MsPacman preset with its episode
+    buffer, or the DreamerV3 100k MsPacman preset with its sequential
+    buffer, both at full width with logging), its gradient steps and acting
     steps replayed from CUDA graphs; its event file read back, its
-    checkpoint validated (the episode buffer restored equal), and that
-    checkpoint served (``load_gateway_model``) to RUN_CLIENTS lockstep
-    clients, against a plain-cell replay. The cell's launches on the run
-    must be the player steps + 65 per gradient step + the test episode's
-    steps. A second, profiled run (the same work) gives the device's busy
-    time, its idle share read against the first run's wall time, and the
-    number of the cell's gate kernels the device ran, which must equal the
-    counters of that run."""
+    checkpoint validated (its buffer restored equal), and that checkpoint
+    served (``load_gateway_model``) to RUN_CLIENTS lockstep clients,
+    against a plain-cell replay. The cell's launches on the run must be the
+    player steps + the cell steps of each gradient step (65 DV2, 79 DV3) +
+    the test episode's steps. A second, profiled run (the same work) gives
+    the device's busy time, its idle share read against the first run's
+    wall time, and the number of the cell's gate kernels the device ran,
+    which must equal the counters of that run."""
     import tempfile
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from sheeprl_tpu_torch.ckpt import validate_checkpoint
     from sheeprl_tpu_torch.kernels import ops
     from sheeprl_tpu_torch.serve.model import load_gateway_model
-    from sheeprl_tpu_torch.tools.profile_serve import device_us
     from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
 
+    spec = RUN_SPECS[name]
+    stamps = [("start", time.perf_counter())]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as root:
         torch.cuda.reset_peak_memory_stats()
         ops.hafner_cell_launches.reset()
         ops.hafner_sequence_launches.reset()
-        result, wall = _run_once(root, "run")
+        result, wall = _run_once(root, name, spec["args"])
         launches = {"hafner_cell": ops.hafner_cell_launches.count, "hafner_sequence": ops.hafner_sequence_launches.count}
         peak = torch.cuda.max_memory_allocated()
 
         counts = (result["updates"], result["player_steps"], result["gradient_steps"], result["test_steps"])
-        if counts != (RUN_UPDATES, RUN_PLAYER_STEPS, RUN_GRADIENT_STEPS, RUN_TEST_STEPS):
-            raise AssertionError(f"the run took (updates, player, gradient, test) steps {counts}")
-        predicted = result["player_steps"] + CELL_LAUNCHES_PER_STEP * result["gradient_steps"] + result["test_steps"]
+        if counts != spec["counts"]:
+            raise AssertionError(f"the {name} took (updates, player, gradient, test) steps {counts}")
+        predicted = result["player_steps"] + spec["per_step"] * result["gradient_steps"] + result["test_steps"]
         if launches["hafner_cell"] != predicted:
             raise AssertionError(f"hafner_cell launched {launches['hafner_cell']} times on the run, predicted {predicted}")
         if launches["hafner_sequence"] != 0:
             raise AssertionError(f"the sequence kernel launched {launches['hafner_sequence']} times on the run")
         graphs = result["graphs"]
         want_graphs = {
-            "train": {"eager_calls": WARMUP_CALLS, "replays": RUN_GRADIENT_STEPS - WARMUP_CALLS, "captured": 1},
-            "act": {"eager_calls": WARMUP_CALLS, "replays": RUN_PLAYER_STEPS - WARMUP_CALLS, "captured": 1},
+            "train": {"eager_calls": WARMUP_CALLS, "replays": spec["counts"][2] - WARMUP_CALLS, "captured": 1},
+            "act": {"eager_calls": WARMUP_CALLS, "replays": spec["counts"][1] - WARMUP_CALLS, "captured": 1},
         }
         if {k: {n: v[n] for n in want_graphs[k]} for k, v in graphs.items()} != want_graphs:
             raise AssertionError(f"the run's steps ran as {graphs}, expected {want_graphs}")
-        events = _check_events(result)
+        stamps.append(("run", time.perf_counter()))
+        events = _check_events(result, spec)
 
         ckpt = result["checkpoint"]
         if ckpt is None or not ckpt.endswith(f"ckpt_{result['policy_steps']}_0"):
             raise AssertionError(f"the run's last checkpoint is {ckpt}")
         manifest = validate_checkpoint(ckpt, deep=True)
         ckpt_bytes = sum(manifest["files"].values())
-        replay = _check_episode_buffer(ckpt)
+        replay = spec["buffer"](ckpt)
 
+        stamps.append(("checks", time.perf_counter()))
         t0 = time.perf_counter()
         model, _cfg, _obs_space, _act_space = load_gateway_model(ckpt, device="cuda")
         torch.cuda.synchronize()
@@ -931,15 +1164,16 @@ def phase_run(card: str):
         if served_launches != status["batches"]:
             raise AssertionError(f"hafner_cell launched {served_launches} times for {status['batches']} batches")
         del model, plain
+        stamps.append(("serve", time.perf_counter()))
 
         ops.hafner_cell_launches.reset()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _result2, wall2 = _run_once(root, "profiled")
+            _result2, wall2 = _run_once(root, "profiled", spec["args"])
         profiled_launches = ops.hafner_cell_launches.count
-        averages = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_us = sum(device_us(e) for e in averages)
-        gate_kernels = sum(e.count for e in averages if "hafner_gates_kernel" in e.key)
-        product_kernels = sum(e.count for e in averages if "hafner_product_kernel" in e.key)
+        stamps.append(("profiled_run", time.perf_counter()))
+        busy_us, found = trace_summary(prof, ("hafner_gates_kernel", "hafner_product_kernel"))
+        stamps.append(("trace_read", time.perf_counter()))
+        gate_kernels, product_kernels = found["hafner_gates_kernel"], found["hafner_product_kernel"]
         if gate_kernels != profiled_launches:
             raise AssertionError(
                 f"the trace holds {gate_kernels} hafner_gates_kernel runs, the counters {profiled_launches} launches"
@@ -955,7 +1189,7 @@ def phase_run(card: str):
                        f"{phase}_replays": seconds[phase] - counts["warmup_s"] - counts["capture_s"]})
     host_s["setup_and_drain"] = wall - sum(seconds.values())
     line = {
-        "run_args": list(RUN_ARGS),
+        "run_args": list(spec["args"]),
         "updates": result["updates"],
         "policy_steps": result["policy_steps"],
         "player_steps": result["player_steps"],
@@ -966,7 +1200,7 @@ def phase_run(card: str):
         "wall_s": wall,
         "policy_steps_per_s": result["policy_steps"] / wall,
         "gradient_steps_per_s": result["gradient_steps"] / seconds["train"],
-        "pr5_rates_at_its_cuts": PR5_RATES,
+        "pr5_rates_at_its_cuts": PR5_RATES if name == "run" else None,
         "seconds": seconds,
         "host_seconds_ranked": sorted(host_s.items(), key=lambda kv: -kv[1]),
         "prefetch": result["prefetch"],
@@ -978,7 +1212,7 @@ def phase_run(card: str):
         "profiled_run_product_kernels_in_trace": product_kernels,
         "event_file": events,
         "checkpoint_bytes": ckpt_bytes,
-        "checkpoint_episode_buffer": replay,
+        "checkpoint_buffer": replay,
         "checkpoint_write_ms": stats["write_ms"],
         "checkpoint_blocked_ms": stats["blocked_ms"],
         "load_gateway_model_cold_start_s": cold_start_s,
@@ -989,11 +1223,13 @@ def phase_run(card: str):
         "plain_replay_state_max_abs_err": state_err,
         "peak_device_memory_bytes": peak,
         "profiled_run_wall_s": wall2,
+        # the phase's own seconds, part by part (the profiled run's includes stopping the profiler)
+        "phase_seconds": {k: t - stamps[i][1] for i, (k, t) in enumerate(stamps[1:])},
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "card": card,
     }
-    print("[run] " + json.dumps(line), flush=True)
+    print(f"[{name}] " + json.dumps(line), flush=True)
     return launches
 
 
@@ -1026,12 +1262,15 @@ def main() -> int:
 
     serve_rows = phase_kernels()
     train_rows = phase_cell_training()
+    dv3_rows = phase_cell_dv3()
     seq_rows = phase_sequence()
     # launches per kernel, read on each path's run with the counts zeroed just before it
     by_path = {"serve": phase_slice(card)}
     by_path["bench_kernels"], bench_line = phase_bench_kernels()
     by_path["train"], train_rel_diff, graph_line = phase_train(card)
-    by_path["run"] = phase_run(card)
+    by_path["train_dv3"], dv3_rel_diff, dv3_graph_line = phase_train_dv3(card)
+    by_path["run"] = phase_run(card, "run")
+    by_path["run_dv3"] = phase_run(card, "run_dv3")
 
     cell_row = next(r for r in train_rows if r["B"] == 1600)
     seq_row = seq_rows[0]
@@ -1043,8 +1282,9 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/kernels/csrc/hafner_gru.cu",
             "replaces": "sheeprl_tpu/kernels/pallas_tpu.py:67",
-            "launches": by_path["run"]["hafner_cell"],
-            "max_abs_err": max(r["max_abs_err"] for r in serve_rows + train_rows),
+            # the main paths' runs: the DV2 preset's (PR 5-6) and the DV3 100k preset's (PR 7)
+            "launches": by_path["run"]["hafner_cell"] + by_path["run_dv3"]["hafner_cell"],
+            "max_abs_err": max(r["max_abs_err"] for r in serve_rows + train_rows + dv3_rows),
             "ms": cell_row["ms"],
             "plain_ms": cell_row["plain_ms"],
             "bound_ms": cell_row["bound_ms"],
@@ -1060,6 +1300,14 @@ def main() -> int:
             "launches_by_path": {path: counts["hafner_cell"] for path, counts in by_path.items()},
             "train_step_rel_diff_vs_plain": train_rel_diff,
             "graphed_vs_eager_train_steps_cudnn_deterministic": graph_line,
+            "dv3_shapes": [
+                {k: r[k] for k in ("B", "H", "X", "bias", "eps", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "cublas_product_ms", "max_abs_err", "grad_rel_err")}
+                | {"variant": r["variant"]["product"], "product_ms": r.get("product_ms"), "gates_ms": r.get("gates_ms")}
+                for r in dv3_rows
+            ],
+            "dv3_train_step_rel_diff_vs_plain": dv3_rel_diff,
+            "dv3_graphed_vs_eager_train_steps_cudnn_deterministic": dv3_graph_line,
         },
         {
             "name": "hafner_sequence",

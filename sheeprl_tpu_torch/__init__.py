@@ -1,11 +1,12 @@
 """sheeprl_tpu_torch: the PyTorch/CUDA port of sheeprl_tpu for NVIDIA Hopper.
 
 The JAX package ``sheeprl_tpu`` is the reference; this package imports
-neither it nor JAX. It trains DreamerV2 from its CLI
-(``python -m sheeprl_tpu_torch exp=dreamer_v2 ...``: config engine and YAML
-tree, sync vector envs, sequential replay, manifest checkpoints) and serves
-a DreamerV2 policy from a checkpoint (``serve.load_gateway_model``). The
-LayerNorm-GRU step of both is a hand-written CUDA kernel
+neither it nor JAX. It trains DreamerV2 and DreamerV3 (discrete actions,
+float32) from its CLI (``python -m sheeprl_tpu_torch exp=dreamer_v3 ...``:
+config engine and YAML tree, sync vector envs, replay, manifest
+checkpoints) and serves either policy from a checkpoint
+(``serve.load_gateway_model``). The LayerNorm-GRU step of both is a
+hand-written CUDA kernel
 (``kernels/csrc/hafner_gru.cu``). Entry points run on ``cuda`` unless the
 caller asks for the CPU (``device="cpu"``, ``fabric.accelerator=cpu``).
 """
@@ -15,7 +16,10 @@ from sheeprl_tpu_torch.device import resolve_device
 __all__ = ["register_algorithms", "resolve_device"]
 
 #: the modules whose entrypoints ``register_algorithms`` registers
-ALGORITHM_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",)
+ALGORITHM_MODULES = (
+    "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",
+    "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
+)
 
 
 def register_algorithms() -> None:

@@ -5,10 +5,10 @@ heads, the RSSM's single steps (the player's ``recurrent_model`` /
 ``_representation`` / ``_transition``, and training's ``dynamic_posterior``
 with its ``is_first`` masks, ``prior_logits`` batched over any leading shape
 and ``imagination``), a world model with the player's and training's
-methods, the seeded Xavier-normal ``build_agent``, the player's
-``init_states`` / ``reset_states`` / ``greedy_action`` /
-``exploration_action``, and the training loop's acting step
-(:class:`ExplorationStep`, a CUDA graph on the card).
+methods, the seeded Xavier-normal ``build_agent``, and the player
+(``build_player_fns``: DreamerV3's ``dreamer_player_fns`` with all-zero
+fresh states, no uniform mix on the actor and pixels in [-0.5, 0.5]; the
+training loop's acting step, :class:`ExplorationStep`, is DreamerV3's too).
 
 A serving build (``build_agent(..., training=False)``) leaves out the
 decoders and the reward and continue heads; a training build has them and
@@ -25,21 +25,21 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     Actor,
+    ExplorationStep,
     actor_entropy,
     build_actor_dists,
+    compute_stochastic_state,
+    dreamer_player_fns,
     resolve_actor_distribution,
     sample_actor_actions,
 )
 from sheeprl_tpu_torch.algos.dreamer_v2.utils import normalize_obs_tensors
 from sheeprl_tpu_torch.device import resolve_device
-from sheeprl_tpu_torch.distributions import OneHotCategoricalStraightThrough, gumbel_noise
 from sheeprl_tpu_torch.models import CNN, MLP, DeCNN, LayerNormGRUCell
-from sheeprl_tpu_torch.train.graphs import CapturedStep
 
 __all__ = [
     "Actor",
@@ -193,28 +193,6 @@ class _StochasticModel(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.mlp(x))
-
-
-def compute_stochastic_state(
-    logits: torch.Tensor,
-    discrete: int,
-    generator: Optional[torch.Generator] = None,
-    sample: bool = True,
-    gumbel: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Straight-through sample (or mode) of the categorical latent. ``logits``
-    flat ``[..., S*D]`` → flat state ``[..., S*D]``. ``gumbel`` ``[..., S, D]``
-    is pre-drawn Gumbel(0,1) noise; without it the noise comes from
-    ``generator``."""
-    shape = logits.shape
-    logits = logits.reshape(shape[:-1] + (-1, discrete))
-    if sample and gumbel is not None:
-        one = F.one_hot((logits + gumbel).argmax(dim=-1), discrete).to(logits.dtype)
-        probs = F.softmax(logits, dim=-1)
-        return (one + probs - probs.detach()).reshape(shape)
-    dist = OneHotCategoricalStraightThrough(logits=logits)
-    state = dist.rsample(generator) if sample else dist.mode
-    return state.reshape(shape)
 
 
 class RSSM(nn.Module):
@@ -511,172 +489,10 @@ def set_cell_impl(world_model: WorldModel, impl: str) -> None:
 def build_player_fns(
     world_model: WorldModel, actor: Actor, cfg, actions_dim: Sequence[int], is_continuous: bool
 ) -> Dict[str, Any]:
-    """Player functions over an explicit state dict
-    ``{"actions", "recurrent", "stochastic"}`` of ``[n, ...]`` tensors on the
-    model's device, all zeros at the start of an episode: ``init_states``,
-    ``reset_states``, ``greedy_action`` (serving, the test episode) and
-    ``exploration_action`` (acting in training)."""
-    distribution = resolve_actor_distribution(cfg.distribution.get("type", "auto"), is_continuous)
-    init_std, min_std = float(cfg.algo.actor.init_std), float(cfg.algo.actor.min_std)
-    wm_cfg = cfg.algo.world_model
-    rec_size = int(wm_cfg.recurrent_model.recurrent_state_size)
-    stoch, discrete = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
-    act_dim = int(np.sum(actions_dim))
-    dims = [int(d) for d in actions_dim]
-    device = next(world_model.parameters()).device
-
-    def init_states(n: int) -> Dict[str, torch.Tensor]:
-        return {
-            "actions": torch.zeros((n, act_dim), device=device),
-            "recurrent": torch.zeros((n, rec_size), device=device),
-            "stochastic": torch.zeros((n, stoch * discrete), device=device),
-        }
-
-    def reset_states(state: Dict[str, torch.Tensor], reset_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
-        keep = 1.0 - reset_mask.to(device=device, dtype=torch.float32).reshape(-1, 1)
-        return {k: keep * v for k, v in state.items()}
-
-    @torch.inference_mode()
-    def greedy_action(
-        state: Dict[str, torch.Tensor],
-        obs: Mapping[str, torch.Tensor],
-        generator: Optional[torch.Generator] = None,
-        gumbel: Optional[torch.Tensor] = None,
-    ):
-        """One greedy step: the posterior is still sampled (from ``gumbel``
-        ``[n, S, D]`` or ``generator``), the action is the actor's mode."""
-        embed = world_model.encode(obs)
-        recurrent = world_model.recurrent_step(state["stochastic"], state["actions"], state["recurrent"])
-        _, stochastic = world_model.representation(recurrent, embed, generator, gumbel=gumbel)
-        latent = torch.cat([stochastic, recurrent], dim=-1)
-        dists = build_actor_dists(actor(latent), is_continuous, distribution, init_std, min_std, unimix=0.0)
-        actions = sample_actor_actions(dists, is_continuous, generator, is_training=False)
-        new_state = {"actions": torch.cat(actions, dim=-1), "recurrent": recurrent, "stochastic": stochastic}
-        return actions, new_state
-
-    def draw_exploration_noise(n: int, generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-        """One acting step's noise, in the order the step draws it: the
-        posterior's Gumbels ``[n, S, D]``, each action head's Gumbels ``[n,
-        dim]``, then per head the exploration draw ``(uniform_category [n],
-        u [n, 1])``."""
-        return {
-            "gumbel": gumbel_noise((n, stoch, discrete), generator, device),
-            "action_gumbels": [gumbel_noise((n, d), generator, device) for d in dims],
-            "expl_noise": [
-                (torch.randint(0, d, (n,), generator=generator, device=device),
-                 torch.rand((n, 1), generator=generator, device=device))
-                for d in dims
-            ],
-        }
-
-    def explore(state, obs, expl_amount: torch.Tensor, gumbel, action_gumbels, expl_noise):
-        """The acting step over given noise and a device ``expl_amount``: no
-        host branch, so that it replays from a CUDA graph. A row's sampled
-        action becomes the uniform category where ``u < expl_amount``
-        (``add_exploration_noise``); at ``expl_amount = 0`` none does."""
-        embed = world_model.encode(obs)
-        recurrent = world_model.recurrent_step(state["stochastic"], state["actions"], state["recurrent"])
-        _, stochastic = world_model.representation(recurrent, embed, gumbel=gumbel)
-        latent = torch.cat([stochastic, recurrent], dim=-1)
-        dists = build_actor_dists(actor(latent), is_continuous, distribution, init_std, min_std, unimix=0.0)
-        actions = sample_actor_actions(dists, is_continuous, is_training=True, gumbels=action_gumbels)
-        noisy = []
-        for act, (category, u) in zip(actions, expl_noise):
-            rand = F.one_hot(category.to(device=device, dtype=torch.long), act.shape[-1]).to(act.dtype)
-            noisy.append(torch.where(u.to(device) < expl_amount, rand, act))
-        new_state = {"actions": torch.cat(noisy, dim=-1), "recurrent": recurrent, "stochastic": stochastic}
-        return noisy, new_state
-
-    @torch.inference_mode()
-    def exploration_action(
-        state: Dict[str, torch.Tensor],
-        obs: Mapping[str, torch.Tensor],
-        expl_amount: float,
-        generator: Optional[torch.Generator] = None,
-        gumbel: Optional[torch.Tensor] = None,
-        action_gumbels: Optional[Sequence[torch.Tensor]] = None,
-        expl_noise: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
-    ):
-        """One acting step of training (the JAX ``exploration_action``): the
-        posterior and each action head are sampled (from ``gumbel`` ``[n, S,
-        D]`` and ``action_gumbels`` ``[n, dim]`` each), then with
-        probability ``expl_amount`` a row's action is replaced by a uniform
-        one (``add_exploration_noise``; ``expl_noise`` per head
-        ``(uniform_category [n], u [n, 1])``). Noise not given is drawn from
-        ``generator`` (:func:`draw_exploration_noise`'s order), the
-        exploration draw at every ``expl_amount``. The carried action is the
-        one taken."""
-        n = state["recurrent"].shape[0]
-        drawn = draw_exploration_noise(n, generator) if None in (gumbel, action_gumbels, expl_noise) else {}
-        amount = torch.as_tensor(expl_amount, dtype=torch.float32).to(device)
-        return explore(
-            state, obs, amount,
-            drawn["gumbel"] if gumbel is None else gumbel.to(device),
-            drawn["action_gumbels"] if action_gumbels is None else [g.to(device) for g in action_gumbels],
-            drawn["expl_noise"] if expl_noise is None else expl_noise,
-        )
-
-    return {
-        "init_states": init_states,
-        "reset_states": reset_states,
-        "greedy_action": greedy_action,
-        "exploration_action": exploration_action,
-        "explore": explore,
-        "draw_exploration_noise": draw_exploration_noise,
-    }
-
-
-class ExplorationStep:
-    """The training loop's acting step at B = ``n``: ``reset_states`` with
-    the envs that ended since the last step, then the exploration action, as
-    one function over static buffers (the raw observation, the reset mask,
-    ``expl_amount``, the noise and the player state, which it updates in
-    place), replayed from a CUDA graph on the card
-    (:class:`~sheeprl_tpu_torch.train.graphs.CapturedStep`). The graph reads
-    the world model's and the actor's parameters where they are, so the
-    optimizers' in-place updates reach it. Each call copies the observation
-    and the mask in and draws the noise from ``generator`` (or copies the
-    given noise) before the replay."""
-
-    def __init__(self, player_fns: Dict[str, Any], n: int, obs_example: Mapping[str, np.ndarray],
-                 cnn_keys: Sequence[str], generator: Optional[torch.Generator], device):
-        self.device = resolve_device(device)
-        self._fns = player_fns
-        self._generator = generator
-        self._cnn_keys = list(cnn_keys)
-        self.n = int(n)
-        self.state = player_fns["init_states"](self.n)
-        self.obs = {k: torch.zeros(np.shape(v), dtype=torch.from_numpy(np.asarray(v)).dtype, device=self.device)
-                    for k, v in obs_example.items()}
-        self.reset_mask = torch.zeros((self.n, 1), dtype=torch.float32, device=self.device)
-        self.expl_amount = torch.zeros((), dtype=torch.float32, device=self.device)
-        self.noise = player_fns["draw_exploration_noise"](self.n, None)
-        self.step = CapturedStep(self._body, self.device)
-
-    @torch.no_grad()
-    def _body(self) -> list:
-        state = self._fns["reset_states"](self.state, self.reset_mask)
-        obs = normalize_obs_tensors(self.obs, self._cnn_keys)
-        actions, new_state = self._fns["explore"](
-            state, obs, self.expl_amount, self.noise["gumbel"], self.noise["action_gumbels"], self.noise["expl_noise"]
-        )
-        for k, v in new_state.items():
-            self.state[k].copy_(v)
-        return actions
-
-    def __call__(self, obs: Mapping[str, np.ndarray], reset_mask: np.ndarray, expl_amount: float,
-                 noise: Optional[Dict[str, Any]] = None) -> list:
-        """The actions (one ``[n, dim]`` tensor a head) for ``obs``, after
-        zeroing the state rows where ``reset_mask`` ``[n, 1]`` is 1."""
-        for k, v in obs.items():
-            self.obs[k].copy_(torch.from_numpy(np.ascontiguousarray(v)))
-        self.reset_mask.copy_(torch.from_numpy(np.asarray(reset_mask, dtype=np.float32).reshape(self.n, 1)))
-        self.expl_amount.fill_(float(expl_amount))
-        drawn = noise if noise is not None else self._fns["draw_exploration_noise"](self.n, self._generator)
-        for dst, src in zip(_flat(self.noise), _flat(drawn), strict=True):
-            dst.copy_(src)
-        return self.step()
-
-
-def _flat(noise: Dict[str, Any]) -> list:
-    return [noise["gumbel"], *noise["action_gumbels"], *(t for pair in noise["expl_noise"] for t in pair)]
+    """DreamerV2's player (:func:`~sheeprl_tpu_torch.algos.dreamer_v3.agent.dreamer_player_fns`):
+    a fresh state is all zeros, the actor's categoricals take no uniform
+    mix, pixels are scaled to [-0.5, 0.5]."""
+    return dreamer_player_fns(
+        world_model, actor, cfg, actions_dim, is_continuous, unimix=0.0, initial_posterior=None,
+        normalize=normalize_obs_tensors,
+    )

@@ -1,1 +1,1 @@
-"""DreamerV3: the actor pieces DreamerV2 shares."""
+"""DreamerV3: the agent and its player (which DreamerV2 shares), the training run and serving."""

@@ -36,11 +36,12 @@ _JAX_PREFIX, _PORT_PREFIX = "sheeprl_tpu.", "sheeprl_tpu_torch."
 
 
 def _port_targets(node: Any) -> Any:
-    """``_target_: sheeprl_tpu.X`` (a JAX run's config) → ``sheeprl_tpu_torch.X``."""
+    """``_target_: sheeprl_tpu.X`` and ``cls: sheeprl_tpu.X`` (a JAX run's
+    config) → ``sheeprl_tpu_torch.X``."""
     if isinstance(node, dict):
         return {
             k: (_PORT_PREFIX + v[len(_JAX_PREFIX):])
-            if k == "_target_" and isinstance(v, str) and v.startswith(_JAX_PREFIX)
+            if k in ("_target_", "cls") and isinstance(v, str) and v.startswith(_JAX_PREFIX)
             else _port_targets(v)
             for k, v in node.items()
         }

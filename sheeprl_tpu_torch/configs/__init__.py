@@ -1,6 +1,6 @@
 """The port's config tree (``configs/**/*.yaml``, composed by
-:func:`sheeprl_tpu_torch.config.compose`) and the DreamerV2 preset the
-serving and training slices read."""
+:func:`sheeprl_tpu_torch.config.compose`) and the DreamerV2 and DreamerV3
+presets the serving and training slices read."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ from typing import Any
 
 from sheeprl_tpu_torch.utils import dotdict
 
-__all__ = ["dreamer_v2_config"]
+__all__ = ["dreamer_v2_config", "dreamer_v3_config"]
 
 
 def dreamer_v2_config(exp: str = "dreamer_v2_ms_pacman", **overrides: Any) -> dotdict:
@@ -26,6 +26,12 @@ def dreamer_v2_config(exp: str = "dreamer_v2_ms_pacman", **overrides: Any) -> do
         node = tree
         for part in key.split("."):
             if not isinstance(node, dict) or part not in node:
-                raise KeyError(f"dreamer_v2_config: unknown key {key!r}")
+                raise KeyError(f"{exp}: unknown key {key!r}")
             node = node[part]
     return compose(overrides=base + [f"{k}={flow(v)}" for k, v in overrides.items()])
+
+
+def dreamer_v3_config(exp: str = "dreamer_v3_100k_ms_pacman", **overrides: Any) -> dotdict:
+    """:func:`dreamer_v2_config` for the DreamerV3 presets (the Atari-100K
+    MsPacman one by default)."""
+    return dreamer_v2_config(exp, **overrides)

@@ -1,8 +1,9 @@
-"""Carry DreamerV2 weights across from the JAX package.
+"""Carry DreamerV2 and DreamerV3 weights across from the JAX package.
 
-:func:`convert_dreamer_v2` turns the JAX package's DV2 param trees
-(``{"world_model": ..., "actor": ...}`` as nested dicts of numpy arrays,
-e.g. from ``jax.device_get``) into the port's ``state_dict``s:
+:func:`convert_dreamer_v2` and :func:`convert_dreamer_v3` turn the JAX
+package's param trees (``{"world_model": ..., "actor": ...}`` as nested
+dicts of numpy arrays, e.g. from ``jax.device_get``) into the port's
+``state_dict``s:
 
 - a Dense ``kernel [in, out]`` becomes a Linear ``weight [out, in]``;
 - a Conv ``kernel`` HWIO becomes OIHW;
@@ -12,7 +13,10 @@ e.g. from ``jax.device_get``) into the port's ``state_dict``s:
   with no spatial flip;
 - the GRU's joint ``Dense_0/kernel [H+X, 3H]`` stays as it is: it is the
   layout the CUDA kernel and the plain version both read;
-- ``FastLayerNorm`` ``scale``/``bias`` become ``weight``/``bias``.
+- ``FastLayerNorm`` ``scale``/``bias`` become ``weight``/``bias``;
+- DreamerV3's posterior trunk ``trunk_kernel [H+E, hidden]`` becomes the
+  ``trunk`` Linear's weight (and a checkpoint of the earlier layout, an
+  ``MLP_0`` under ``representation_model``, converts the same way).
 
 Every leaf is either consumed or listed as skipped. A training conversion
 (``training=True``) consumes every leaf of the four trees; a serving one
@@ -28,7 +32,7 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["SKIPPED_PREFIXES", "convert_dreamer_v2", "convert_layers"]
+__all__ = ["SKIPPED_PREFIXES", "convert_dreamer_v2", "convert_dreamer_v3", "convert_layers"]
 
 #: parameters of parts that training needs and serving does not (per tree)
 SKIPPED_PREFIXES: Dict[str, Tuple[str, ...]] = {
@@ -38,37 +42,88 @@ SKIPPED_PREFIXES: Dict[str, Tuple[str, ...]] = {
 SKIPPED_TREES = ("critic", "target_critic")
 _TREES = ("world_model", "actor", "critic", "target_critic")
 
-# JAX module path → port module path, for the layer containers that hold
-# Dense/Conv/LayerNorm leaves
-_MLP_SCOPES = {
-    "world_model": {
-        "mlp_encoder/MLP_0": "mlp_encoder.mlp",
-        "rssm/recurrent_model/MLP_0": "rssm.recurrent_model.mlp",
-        "rssm/representation_model/MLP_0": "rssm.representation_model.mlp",
-        "rssm/transition_model/MLP_0": "rssm.transition_model.mlp",
-        "mlp_decoder/MLP_0": "mlp_decoder.mlp",
-        "reward_model/MLP_0": "reward_model.mlp",
-        "continue_model/MLP_0": "continue_model.mlp",
-    },
-    "actor": {"MLP_0": "mlp"},
-    "critic": {"MLP_0": "mlp"},
-}
-_CNN_SCOPES = {"world_model": {"cnn_encoder/CNN_0": "cnn_encoder.cnn"}}
-_DECNN_SCOPES = {"world_model": {"cnn_decoder/DeCNN_0": "cnn_decoder.decnn"}}
-_LINEAR_LEAVES = {
-    "world_model": {
-        "rssm/representation_model/head": "rssm.representation_model.head",
-        "rssm/transition_model/head": "rssm.transition_model.head",
-        "cnn_decoder/Dense_0": "cnn_decoder.linear",
-        "reward_model/head": "reward_model.head",
-        "continue_model/head": "continue_model.head",
-    },
-    "critic": {"head": "head"},
-}
-#: per-key Linear heads: JAX ``<scope>/head_<key>`` → port ``<module>.<key>``
-_KEYED_HEADS = {"world_model": ("mlp_decoder/head_", "mlp_decoder.heads."), "actor": ("head_", "heads.")}
 _HWIO_TO_OIHW = (3, 2, 0, 1)
 _GRU = "rssm/recurrent_model/gru"
+_T = lambda k: k.T  # noqa: E731
+_SAME = lambda a: a  # noqa: E731
+#: the GRU cell's leaves, as the kernel reads them (no transpose)
+_GRU_LEAVES = {
+    f"{_GRU}/Dense_0/kernel": ("rssm.recurrent_model.gru.weight", _SAME),
+    f"{_GRU}/Dense_0/bias": ("rssm.recurrent_model.gru.bias", _SAME),
+    f"{_GRU}/LayerNorm_0/scale": ("rssm.recurrent_model.gru.norm.weight", _SAME),
+    f"{_GRU}/LayerNorm_0/bias": ("rssm.recurrent_model.gru.norm.bias", _SAME),
+}
+_REPR = "rssm/representation_model"
+_TRUNK = "rssm.representation_model.trunk"
+
+# Per family and tree, JAX module path → port module path: ``mlp`` (MLP
+# containers of Dense/LayerNorm leaves), ``cnn``/``decnn`` (Conv /
+# ConvTranspose stacks), ``linear`` (one Dense), ``keyed`` (``<scope>/head_<key>``
+# → ``<module>.<key>``) and ``leaves`` (single leaves with their transform).
+_LAYOUTS: Dict[str, Dict[str, Dict[str, Any]]] = {
+    "dreamer_v2": {
+        "world_model": {
+            "mlp": {
+                "mlp_encoder/MLP_0": "mlp_encoder.mlp",
+                "rssm/recurrent_model/MLP_0": "rssm.recurrent_model.mlp",
+                "rssm/representation_model/MLP_0": "rssm.representation_model.mlp",
+                "rssm/transition_model/MLP_0": "rssm.transition_model.mlp",
+                "mlp_decoder/MLP_0": "mlp_decoder.mlp",
+                "reward_model/MLP_0": "reward_model.mlp",
+                "continue_model/MLP_0": "continue_model.mlp",
+            },
+            "cnn": {"cnn_encoder/CNN_0": "cnn_encoder.cnn"},
+            "decnn": {"cnn_decoder/DeCNN_0": "cnn_decoder.decnn"},
+            "linear": {
+                "rssm/representation_model/head": "rssm.representation_model.head",
+                "rssm/transition_model/head": "rssm.transition_model.head",
+                "cnn_decoder/Dense_0": "cnn_decoder.linear",
+                "reward_model/head": "reward_model.head",
+                "continue_model/head": "continue_model.head",
+            },
+            "keyed": ("mlp_decoder/head_", "mlp_decoder.heads."),
+            "leaves": _GRU_LEAVES,
+        },
+        "actor": {"mlp": {"MLP_0": "mlp"}, "keyed": ("head_", "heads.")},
+        "critic": {"mlp": {"MLP_0": "mlp"}, "linear": {"head": "head"}},
+    },
+    "dreamer_v3": {
+        "world_model": {
+            "mlp": {
+                "encoder/mlp_encoder/MLP_0": "mlp_encoder.mlp",
+                "rssm/recurrent_model/MLP_0": "rssm.recurrent_model.mlp",
+                "rssm/transition_model/MLP_0": "rssm.transition_model.mlp",
+                "mlp_decoder/MLP_0": "mlp_decoder.mlp",
+                "reward_model/MLP_0": "reward_model.mlp",
+                "continue_model/MLP_0": "continue_model.mlp",
+            },
+            "cnn": {"encoder/cnn_encoder/CNN_0": "cnn_encoder.cnn"},
+            "decnn": {"cnn_decoder/DeCNN_0": "cnn_decoder.decnn", "cnn_decoder/head": "cnn_decoder.head"},
+            "linear": {
+                "rssm/representation_model/head": "rssm.representation_model.head",
+                "rssm/transition_model/head": "rssm.transition_model.head",
+                "cnn_decoder/Dense_0": "cnn_decoder.linear",
+                "reward_model/head": "reward_model.head",
+                "continue_model/head": "continue_model.head",
+            },
+            "keyed": ("mlp_decoder/head_", "mlp_decoder.heads."),
+            "leaves": {
+                **_GRU_LEAVES,
+                f"{_REPR}/trunk_kernel": (f"{_TRUNK}.weight", _T),
+                f"{_REPR}/trunk_bias": (f"{_TRUNK}.bias", _SAME),
+                f"{_REPR}/trunk_ln/scale": (f"{_TRUNK}_ln.weight", _SAME),
+                f"{_REPR}/trunk_ln/bias": (f"{_TRUNK}_ln.bias", _SAME),
+                # the layout before the trunk was split (``migrate_dv3_checkpoint`` in the JAX package)
+                f"{_REPR}/MLP_0/Dense_0/kernel": (f"{_TRUNK}.weight", _T),
+                f"{_REPR}/MLP_0/Dense_0/bias": (f"{_TRUNK}.bias", _SAME),
+                f"{_REPR}/MLP_0/LayerNorm_0/scale": (f"{_TRUNK}_ln.weight", _SAME),
+                f"{_REPR}/MLP_0/LayerNorm_0/bias": (f"{_TRUNK}_ln.bias", _SAME),
+            },
+        },
+        "actor": {"mlp": {"MLP_0": "mlp"}, "keyed": ("head_", "heads.")},
+        "critic": {"mlp": {"MLP_0": "mlp"}, "linear": {"head": "head"}},
+    },
+}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -121,49 +176,44 @@ def _convert_stack(flat, scope, torch_scope, layer, block_fmt, norm_fmt, weight_
             used.add(f"{scope}/LayerNorm_{j}/{leaf}")
 
 
-def _convert_tree(name: str, flat: Dict[str, np.ndarray], training: bool) -> Tuple[Dict[str, torch.Tensor], List[str]]:
-    """One JAX tree → its ``state_dict`` and the paths it skipped. ``name``
-    is ``world_model``, ``actor`` or ``critic`` (the target critic's layout)."""
+def _convert_tree(
+    family: str, name: str, flat: Dict[str, np.ndarray], training: bool
+) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """One JAX tree of ``family`` → its ``state_dict`` and the paths it
+    skipped. ``name`` is ``world_model``, ``actor`` or ``critic`` (the
+    target critic's layout)."""
+    layout = _LAYOUTS[family][name]
     skipped = [] if training else [p for p in flat if p.startswith(SKIPPED_PREFIXES.get(name, ()))]
     flat = {p: a for p, a in flat.items() if p not in set(skipped)}
     sd: Dict[str, torch.Tensor] = {}
     used: set = set()
-    for scope, torch_scope in _MLP_SCOPES.get(name, {}).items():
+    for scope, torch_scope in layout.get("mlp", {}).items():
         _convert_stack(
-            flat, scope, torch_scope, "Dense", "{scope}.blocks.{i}.linear", "{scope}.blocks.{i}.norm",
-            lambda k: k.T, sd, used,
+            flat, scope, torch_scope, "Dense", "{scope}.blocks.{i}.linear", "{scope}.blocks.{i}.norm", _T, sd, used,
         )
-    for scopes, layer in ((_CNN_SCOPES, "Conv"), (_DECNN_SCOPES, "ConvTranspose")):
-        for scope, torch_scope in scopes.get(name, {}).items():
+    for kind, layer in (("cnn", "Conv"), ("decnn", "ConvTranspose")):
+        for scope, torch_scope in layout.get(kind, {}).items():
             _convert_stack(
                 flat, scope, torch_scope, layer, "{scope}.convs.{i}", "{scope}.norms.{i}",
                 lambda k: k.transpose(*_HWIO_TO_OIHW), sd, used,
             )
-    linears = dict(_LINEAR_LEAVES.get(name, {}))
-    if name in _KEYED_HEADS:
-        prefix, torch_prefix = _KEYED_HEADS[name]
+    linears = dict(layout.get("linear", {}))
+    if "keyed" in layout:
+        prefix, torch_prefix = layout["keyed"]
         linears.update(
             {p.rsplit("/", 1)[0]: torch_prefix + p.rsplit("/", 1)[0][len(prefix):] for p in flat if p.startswith(prefix)}
         )
+    leaves = dict(layout.get("leaves", {}))
     for scope, torch_scope in linears.items():
-        for leaf, torch_leaf, fn in (("kernel", "weight", lambda k: k.T), ("bias", "bias", lambda b: b)):
-            path = f"{scope}/{leaf}"
-            if path in flat:
-                sd[f"{torch_scope}.{torch_leaf}"] = _t(fn(flat[path]))
-                used.add(path)
-    if name == "world_model":
-        for path, key in (
-            (f"{_GRU}/Dense_0/kernel", "rssm.recurrent_model.gru.weight"),
-            (f"{_GRU}/Dense_0/bias", "rssm.recurrent_model.gru.bias"),
-            (f"{_GRU}/LayerNorm_0/scale", "rssm.recurrent_model.gru.norm.weight"),
-            (f"{_GRU}/LayerNorm_0/bias", "rssm.recurrent_model.gru.norm.bias"),
-        ):
-            if path in flat:
-                sd[key] = _t(flat[path])
-                used.add(path)
+        leaves[f"{scope}/kernel"] = (f"{torch_scope}.weight", _T)
+        leaves[f"{scope}/bias"] = (f"{torch_scope}.bias", _SAME)
+    for path, (key, fn) in leaves.items():
+        if path in flat:
+            sd[key] = _t(fn(flat[path]))
+            used.add(path)
     unknown = sorted(set(flat) - used)
     if unknown:
-        raise KeyError(f"convert_dreamer_v2: unknown {name} parameters {unknown}")
+        raise KeyError(f"convert_{family}: unknown {name} parameters {unknown}")
     return sd, [f"{name}/{p}" for p in sorted(skipped)]
 
 
@@ -205,6 +255,26 @@ def convert_layers(tree: Mapping[str, Any], kind: str) -> Dict[str, torch.Tensor
     return sd
 
 
+def _convert(
+    family: str, params: Mapping[str, Mapping[str, Any]], training: bool
+) -> Tuple[Dict[str, Dict[str, torch.Tensor]], List[str]]:
+    state_dicts: Dict[str, Dict[str, torch.Tensor]] = {}
+    skipped: List[str] = []
+    for name, tree in params.items():
+        if name not in _TREES:
+            raise KeyError(f"convert_{family}: unknown param tree {name!r}")
+        flat = _flatten(tree)
+        if name in SKIPPED_TREES and not training:
+            skipped += [f"{name}/{p}" for p in sorted(flat)]
+            continue
+        state_dicts[name], dropped = _convert_tree(family, "critic" if name == "target_critic" else name, flat, training)
+        skipped += dropped
+    for name in _TREES if training else ("world_model", "actor"):
+        if name not in state_dicts:
+            raise KeyError(f"convert_{family}: the {name!r} tree is missing")
+    return state_dicts, skipped
+
+
 def convert_dreamer_v2(
     params: Mapping[str, Mapping[str, Any]],
     training: bool = False,
@@ -213,18 +283,14 @@ def convert_dreamer_v2(
     skipped leaf paths)`` for a serving build, or with ``training=True``
     ``{"world_model", "actor", "critic", "target_critic"}`` state dicts for a
     training build (nothing skipped). Raises on a leaf it does not know."""
-    state_dicts: Dict[str, Dict[str, torch.Tensor]] = {}
-    skipped: List[str] = []
-    for name, tree in params.items():
-        if name not in _TREES:
-            raise KeyError(f"convert_dreamer_v2: unknown param tree {name!r}")
-        flat = _flatten(tree)
-        if name in SKIPPED_TREES and not training:
-            skipped += [f"{name}/{p}" for p in sorted(flat)]
-            continue
-        state_dicts[name], dropped = _convert_tree("critic" if name == "target_critic" else name, flat, training)
-        skipped += dropped
-    for name in _TREES if training else ("world_model", "actor"):
-        if name not in state_dicts:
-            raise KeyError(f"convert_dreamer_v2: the {name!r} tree is missing")
-    return state_dicts, skipped
+    return _convert("dreamer_v2", params, training)
+
+
+def convert_dreamer_v3(
+    params: Mapping[str, Mapping[str, Any]],
+    training: bool = False,
+) -> Tuple[Dict[str, Dict[str, torch.Tensor]], List[str]]:
+    """JAX DV3 params (``agent.params`` of a checkpoint: world model, actor,
+    critic, target critic) → the port's state dicts, as
+    :func:`convert_dreamer_v2` does for DV2."""
+    return _convert("dreamer_v3", params, training)

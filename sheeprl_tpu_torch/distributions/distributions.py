@@ -1,6 +1,8 @@
-"""Distributions of the DreamerV2 slice (counterpart of ``Normal``,
-``Independent``, ``Bernoulli``, the categorical family and ``kl_divergence``
-in ``sheeprl_tpu/distributions/distributions.py``).
+"""Distributions of the Dreamer slices (counterpart of ``symlog``/``symexp``,
+``Normal``, ``Independent``, ``Bernoulli``, the categorical family,
+``kl_divergence`` and DreamerV3's ``SymlogDistribution``,
+``MSEDistribution`` and ``TwoHotEncodingDistribution`` in
+``sheeprl_tpu/distributions/distributions.py``).
 
 A categorical sample is ``one_hot(argmax(logits + gumbel))``, the form
 ``jax.random.categorical`` takes, so a test can hand both sides the same
@@ -25,14 +27,27 @@ import torch.nn.functional as F
 __all__ = [
     "Bernoulli",
     "Independent",
+    "MSEDistribution",
     "Normal",
     "OneHotCategorical",
     "OneHotCategoricalStraightThrough",
+    "SymlogDistribution",
+    "TwoHotEncodingDistribution",
     "gumbel_noise",
     "kl_divergence",
+    "symexp",
+    "symlog",
 ]
 
 _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
+
+
+def symlog(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * torch.log1p(torch.abs(x))
+
+
+def symexp(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * (torch.exp(torch.abs(x)) - 1.0)
 
 
 def gumbel_noise(
@@ -122,6 +137,10 @@ class Bernoulli:
     def __init__(self, logits: torch.Tensor):
         self.logits = logits
 
+    @property
+    def mode(self) -> torch.Tensor:
+        return (self.logits > 0).to(self.logits.dtype)
+
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
         return -(F.softplus(-self.logits) * value + F.softplus(self.logits) * (1.0 - value))
 
@@ -154,3 +173,99 @@ def kl_divergence(p, q) -> torch.Tensor:
     if isinstance(p, OneHotCategorical) and isinstance(q, OneHotCategorical):
         return (torch.exp(p.logits) * (p.logits - q.logits)).sum(dim=-1)
     raise NotImplementedError(f"KL not implemented for {type(p).__name__} / {type(q).__name__}")
+
+
+def _sum_last(x: torch.Tensor, dims: int, agg: str = "sum") -> torch.Tensor:
+    axes = tuple(range(-dims, 0))
+    return x.sum(dim=axes) if agg == "sum" else x.mean(dim=axes)
+
+
+class SymlogDistribution:
+    """``log_prob`` is minus the squared (``dist="mse"``) or absolute error in
+    symlog space, summed (or averaged) over the last ``dims`` axes; the mode
+    is ``symexp`` of the prediction. The DreamerV3 vector decoder's head."""
+
+    def __init__(self, mode: torch.Tensor, dims: int = 1, dist: str = "mse", agg: str = "sum"):
+        if dist not in ("mse", "abs"):
+            raise ValueError(f"Unknown distance '{dist}'")
+        self._mode, self._dims, self._dist, self._agg = mode, int(dims), dist, agg
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return symexp(self._mode)
+
+    mean = mode
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        diff = self._mode - symlog(value)
+        distance = diff.square() if self._dist == "mse" else diff.abs()
+        return -_sum_last(distance, self._dims, self._agg)
+
+
+class MSEDistribution:
+    """``log_prob`` is minus the squared error over the last ``dims`` axes:
+    the DreamerV3 pixel decoder's head."""
+
+    def __init__(self, mode: torch.Tensor, dims: int = 3, agg: str = "sum"):
+        self._mode, self._dims, self._agg = mode, int(dims), agg
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self._mode
+
+    mean = mode
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        return -_sum_last((self._mode - value).square(), self._dims, self._agg)
+
+
+class TwoHotEncodingDistribution:
+    """``n`` bins uniform in symlog space on ``[low, high]`` (DreamerV3's
+    reward head and critic, 255 bins on ±20). ``mean`` and ``mode`` are
+    ``symexp`` of the expected bin, ``[..., 1]``; ``log_prob`` of a value
+    ``[..., 1]`` is the cross-entropy against the two-hot encoding of its
+    symlog, summed over the last ``dims`` axes.
+
+    The encoding is the JAX package's index arithmetic, not a search:
+    ``pos = (clip(x) − low) / step``, ``above = clip(ceil(pos), 1, n−1)``,
+    ``below = above − 1``, the weight on ``above`` ``clip(pos − below, 0,
+    1)``. At a value on a bin ``k ≥ 1`` the whole weight sits on ``k`` as
+    the upper bin; at ``low`` on bin 0 as the lower one."""
+
+    def __init__(self, logits: torch.Tensor, dims: int = 1, low: float = -20.0, high: float = 20.0):
+        n = logits.shape[-1]
+        if n < 2:
+            raise ValueError(
+                f"TwoHotEncodingDistribution needs at least 2 bins to place probability mass between bin edges, got {n}"
+            )
+        self.logits = logits
+        self._dims = int(dims)
+        self._low, self._high = float(low), float(high)
+        self._step = (self._high - self._low) / (n - 1)
+        self.bins = torch.linspace(self._low, self._high, n, dtype=logits.dtype, device=logits.device)
+
+    @property
+    def probs(self) -> torch.Tensor:
+        return F.softmax(self.logits, dim=-1)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return symexp((self.probs * self.bins).sum(dim=-1, keepdim=True))
+
+    mode = mean
+
+    def two_hot(self, x: torch.Tensor) -> torch.Tensor:
+        """The two-hot target ``[..., n]`` of symlog-space values ``x [...]``."""
+        n = self.logits.shape[-1]
+        pos = (x.clamp(self._low, self._high) - self._low) / self._step
+        above = torch.ceil(pos).to(torch.long).clamp(1, n - 1)
+        below = above - 1
+        w_above = (pos - below.to(x.dtype)).clamp(0.0, 1.0)
+        return F.one_hot(below, n).to(x.dtype) * (1.0 - w_above)[..., None] + F.one_hot(above, n).to(
+            x.dtype
+        ) * w_above[..., None]
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        target = self.two_hot(symlog(value)[..., 0])
+        ll = (target * F.log_softmax(self.logits, dim=-1)).sum(dim=-1, keepdim=True)
+        return _sum_last(ll, self._dims) if self._dims else ll

@@ -28,24 +28,32 @@ def dreamer_eval_policy(
     is_continuous: bool,
     device,
     normalize_fn: Optional[Callable] = None,
+    sample_actions: bool = False,
 ) -> EvalPolicy:
-    """One batched greedy policy over a dreamer-family player-fns dict.
+    """One batched policy over a dreamer-family player-fns dict: greedy, or
+    with ``sample_actions`` the exploration step at zero exploration (the
+    action sampled from the actor: DreamerV3's).
     ``normalize_fn(obs, cnn_keys, device)`` copies the prepared observation
     to ``device`` and scales its pixels (DV2: /255 − 0.5; default /255).
-    ``act(..., gumbel=)`` takes the posterior's Gumbel noise ``[n, S, D]``
-    instead of drawing it from ``generator`` (for parity tests)."""
+    ``act(..., gumbel=, action_gumbels=)`` takes the posterior's Gumbel
+    noise ``[n, S, D]`` (and with ``sample_actions`` each action head's
+    ``[n, dim]``) instead of drawing it from ``generator`` (for parity
+    tests)."""
     from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_obs, prepare_obs
 
     if normalize_fn is None:
         normalize_fn = normalize_obs
     cnn_keys = list(cfg.cnn_keys.encoder)
     mlp_keys = list(cfg.mlp_keys.encoder)
-    greedy = player_fns["greedy_action"]
-
-    def act(obs, state, generator, gumbel=None):
+    def act(obs, state, generator, gumbel=None, action_gumbels=None):
         n = int(np.asarray(next(iter(obs.values()))).shape[0])
         norm = normalize_fn(prepare_obs(obs, cnn_keys, mlp_keys, n), cnn_keys, device)
-        actions, state = greedy(state, norm, generator, gumbel=gumbel)
+        if sample_actions:
+            actions, state = player_fns["exploration_action"](
+                state, norm, 0.0, generator, gumbel=gumbel, action_gumbels=action_gumbels
+            )
+        else:
+            actions, state = player_fns["greedy_action"](state, norm, generator, gumbel=gumbel)
         if is_continuous:
             real = np.concatenate([a.cpu().numpy() for a in actions], -1)
         else:

@@ -11,7 +11,7 @@ reads a global seed. Checkpoints go through ``fabric.call`` into the
 
 More than one device, ``strategy=ddp``/``fsdp`` and any precision but
 ``32-true`` raise: multi-device training is ROADMAP queue A item 7, and
-mixed precision is consumed only by the DreamerV3 family (item 5).
+bf16 needs a bf16 operand path for the recurrent cell (queue B item 3).
 """
 
 from __future__ import annotations
@@ -56,8 +56,8 @@ class Fabric:
             )
         if str(precision or "32-true").lower() not in ("32-true", "32"):
             raise NotImplementedError(
-                f"fabric.precision={precision}: the port trains in float32; mixed precision arrives with "
-                "the DreamerV3 family, ROADMAP queue A item 5"
+                f"fabric.precision={precision}: the port trains in float32; bf16-mixed waits for a bf16 operand "
+                "path of the recurrent cell, ROADMAP queue B item 3 (and the L/XL presets, queue A item 5a)"
             )
         # prng_impl selects the JAX package's key implementation; torch has one generator kind
         del prng_impl

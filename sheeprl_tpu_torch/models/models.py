@@ -159,7 +159,7 @@ class DeCNN(nn.Module):
     turns ``p`` into flax's forward-conv padding ``k − 1 − p`` per side and
     runs ``ConvTranspose(transpose_kernel=True)``, the gradient of a forward
     convolution, as ``nn.ConvTranspose2d`` is. The activation follows every
-    layer but the last.
+    layer but the last, which ``final_activation`` follows (none by default).
     """
 
     def __init__(
@@ -173,6 +173,7 @@ class DeCNN(nn.Module):
         layer_norm: Union[bool, Sequence[bool]] = False,
         norm_eps: float = 1e-5,
         bias: Union[bool, Sequence[bool]] = True,
+        final_activation: Union[str, Callable, None] = None,
         device=None,
     ):
         super().__init__()
@@ -180,6 +181,7 @@ class DeCNN(nn.Module):
         ks, st, pd = _broadcast(kernel_sizes, n), _broadcast(strides, n), _broadcast(paddings, n)
         norms, biases = _broadcast(layer_norm, n), _broadcast(bias, n)
         self.act = resolve_activation(activation)
+        self.final_act = resolve_activation(final_activation)
         convs, lns = [], []
         c_in = int(in_channels)
         for i, ch in enumerate(channels):
@@ -202,8 +204,7 @@ class DeCNN(nn.Module):
             x = conv(x)
             if normed:  # LayerNorm over channels, as the JAX module's NHWC LN
                 x = norm(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-            if i < last:
-                x = self.act(x)
+            x = self.act(x) if i < last else self.final_act(x)
         return x.reshape(lead + x.shape[1:])
 
 

@@ -1,10 +1,11 @@
 """The one place entrypoints get replay storage from (counterpart of
 ``make_replay_buffer`` in ``sheeprl_tpu/replay/factory.py``).
 
-Ported: ``kind="dreamer"`` with ``buffer.type=sequential`` (one
+Ported: ``kind="sequential"`` (DreamerV3's: one
 :class:`~sheeprl_tpu_torch.data.buffers.SequentialReplayBuffer` per env
-behind an :class:`~sheeprl_tpu_torch.data.buffers.EnvIndependentReplayBuffer`)
-or ``buffer.type=episode`` (an
+behind an :class:`~sheeprl_tpu_torch.data.buffers.EnvIndependentReplayBuffer`,
+whatever ``buffer.type`` says), ``kind="dreamer"`` with
+``buffer.type=sequential`` (the same) or ``buffer.type=episode`` (an
 :class:`~sheeprl_tpu_torch.data.buffers.EpisodeBuffer`), and
 ``kind="transition"`` at one shard with uniform sampling (a plain
 :class:`~sheeprl_tpu_torch.data.buffers.ReplayBuffer`). Sizes are the JAX
@@ -59,8 +60,8 @@ def make_replay_buffer(
             f"replay.shards={shards} replay.strategy={strategy}: sharded and prioritized replay are "
             "ROADMAP queue A item 6f"
         )
-    if kind == "dreamer":
-        buffer_type = str(cfg.buffer.get("type", "sequential")).lower()
+    if kind in ("dreamer", "sequential"):
+        buffer_type = "sequential" if kind == "sequential" else str(cfg.buffer.get("type", "sequential")).lower()
         if buffer_type == "episode":
             if sequence_length is None:
                 raise ValueError("episode replay needs a 'sequence_length'")
@@ -86,5 +87,5 @@ def make_replay_buffer(
             buffer_cls=SequentialReplayBuffer,
         )
     if kind != "transition":
-        raise ValueError(f"Unknown replay kind {kind!r}: must be `transition` or `dreamer`")
+        raise ValueError(f"Unknown replay kind {kind!r}: must be `transition`, `sequential` or `dreamer`")
     return ReplayBuffer(buffer_size, n_envs, obs_keys=obs_keys, memmap=memmap, memmap_dir=memmap_dir)

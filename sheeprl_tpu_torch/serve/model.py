@@ -1,7 +1,7 @@
 """Servable models (counterpart of ``GatewayModel`` in
 ``sheeprl_tpu/serve/model.py``).
 
-A :class:`GatewayModel` wraps one :class:`~sheeprl_tpu_torch.evals.service.EvalPolicy`
+A :class:`GatewayModel` wraps one DreamerV2 or DreamerV3 :class:`~sheeprl_tpu_torch.evals.service.EvalPolicy`
 with what serving adds: a version stamped on every response, a per-row state
 contract for the batcher's server-side recurrent state, and the device the
 batcher draws its noise on.
@@ -51,18 +51,19 @@ class GatewayModel:
         version: int = 0,
         plain_cell: bool = False,
     ) -> "GatewayModel":
-        """A DreamerV2 policy from the port's state dicts
-        ``{"world_model": ..., "actor": ...}`` (``convert.py`` turns the JAX
-        package's param trees into them)."""
-        from sheeprl_tpu_torch.algos.dreamer_v2.evaluate import dreamer_v2_eval_policy
-
-        if str(cfg.algo.name) != "dreamer_v2":
-            raise NotImplementedError(f"only dreamer_v2 is served by the port, not {cfg.algo.name}")
+        """A DreamerV2 or DreamerV3 policy (``cfg.algo.name``) from the
+        port's state dicts ``{"world_model": ..., "actor": ...}``
+        (``convert.py`` turns the JAX package's param trees into them)."""
+        algo = str(cfg.algo.name)
+        if algo == "dreamer_v2":
+            from sheeprl_tpu_torch.algos.dreamer_v2.evaluate import dreamer_v2_eval_policy as build
+        elif algo == "dreamer_v3":
+            from sheeprl_tpu_torch.algos.dreamer_v3.evaluate import dreamer_v3_eval_policy as build
+        else:
+            raise NotImplementedError(f"only dreamer_v2 and dreamer_v3 are served by the port, not {algo}")
         dev = resolve_device(device)
-        policy = dreamer_v2_eval_policy(
-            cfg, params, observation_space, actions_dim, is_continuous, device=dev, plain_cell=plain_cell
-        )
-        return cls(policy, version=version, algo="dreamer_v2", env_id=str(cfg.env.id), device=dev)
+        policy = build(cfg, params, observation_space, actions_dim, is_continuous, device=dev, plain_cell=plain_cell)
+        return cls(policy, version=version, algo=algo, env_id=str(cfg.env.id), device=dev)
 
     def act(self, obs, state, generator: torch.Generator):
         """Batched obs/state in, ``(actions, new_state)`` out."""
@@ -75,10 +76,11 @@ class GatewayModel:
         return self.policy.init_state(int(n))
 
 
-def _serving_params(state: Dict[str, Any], framework: Any) -> Dict[str, Dict[str, torch.Tensor]]:
+def _serving_params(state: Dict[str, Any], framework: Any, algo: str) -> Dict[str, Dict[str, torch.Tensor]]:
     """``{"world_model", "actor"}`` state dicts of a serving build from a
     checkpoint's tree: the port's own layout (``framework == "torch"``), or
-    the JAX package's ``agent.params`` through ``convert_dreamer_v2``."""
+    the JAX package's ``agent.params`` through ``convert_dreamer_v2`` or
+    ``convert_dreamer_v3`` (``algo``)."""
     if framework == "torch":
         agent = state["agent"]
         return {
@@ -89,14 +91,15 @@ def _serving_params(state: Dict[str, Any], framework: Any) -> Dict[str, Dict[str
         }
     if framework is not None:
         raise ValueError(f"checkpoint written by an unknown framework {framework!r}")
-    from sheeprl_tpu_torch.convert import convert_dreamer_v2
+    from sheeprl_tpu_torch.convert import convert_dreamer_v2, convert_dreamer_v3
 
-    params, _skipped = convert_dreamer_v2(state["agent"]["params"])
+    convert = convert_dreamer_v3 if algo == "dreamer_v3" else convert_dreamer_v2
+    params, _skipped = convert(state["agent"]["params"])
     return params
 
 
 def load_gateway_model(checkpoint_path: str, device=None, plain_cell: bool = False) -> Tuple[GatewayModel, Any, Any, Any]:
-    """A servable DreamerV2 model from a checkpoint directory, on ``device``
+    """A servable DreamerV2 or DreamerV3 model from a checkpoint directory, on ``device``
     (``cuda`` when None). Every array of the model state is checksummed
     against the manifest (a replay buffer saved beside it is not read);
     the architecture comes from the run's persisted ``.hydra/config.yaml``,
@@ -117,7 +120,7 @@ def load_gateway_model(checkpoint_path: str, device=None, plain_cell: bool = Fal
     observation_space, action_space = probe_spaces(cfg)
     actions_dim, is_continuous = actions_dim_of(action_space)
     model = GatewayModel.from_params(
-        _serving_params(state, manifest.get("framework")),
+        _serving_params(state, manifest.get("framework"), str(cfg.algo.name)),
         cfg,
         observation_space.spaces,
         actions_dim,

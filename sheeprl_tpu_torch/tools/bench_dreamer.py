@@ -1,13 +1,16 @@
-"""The DreamerV2 trainer at the MsPacman width: a few gradient steps on a
-seeded synthetic batch (counterpart of ``bench_dreamer.py bench.family=dv2``).
+"""The Dreamer trainer at a preset's width: a few gradient steps on a seeded
+synthetic batch (counterpart of ``bench_dreamer.py bench.family=dv2`` and
+``bench.family=dv3``).
 
-    python -m sheeprl_tpu_torch.tools.bench_dreamer [--steps 5] [--profile] [--device cuda]
+    python -m sheeprl_tpu_torch.tools.bench_dreamer [--algo dreamer_v3] [--steps 5] [--profile] [--device cuda]
 
-Builds the world model, actor, critic and target critic at
-``exp=dreamer_v2_ms_pacman``'s widths with seeded random weights
-(``compare`` takes ``dreamer_v2_config`` overrides, which the tests use to
-shrink it), and the seeded uint8 batch of the JAX bench (B=32 × T=50 frames
-of 3×64×64, 9 one-hot actions, Gaussian rewards, no episode ends). Times
+Builds the world model, actor, critic and target critic at the widths of
+``exp=dreamer_v2_ms_pacman`` (``--algo dreamer_v2``, the default) or
+``exp=dreamer_v3_100k_ms_pacman`` (``--algo dreamer_v3``) with seeded
+random weights (``compare`` takes config overrides, which the tests use to
+shrink it), and the seeded uint8 batch of the JAX bench at the preset's
+``B × T`` (DV2: 32 × 50, DV3: 16 × 64 frames of 3×64×64, 9 one-hot
+actions, Gaussian rewards, no episode ends). Times
 the step eager and graphed in one call, each on a fresh trainer of the same
 seed: one warm-up step at τ=1, then ``--steps`` timed steps at τ=0. Prints
 one JSON line with, for each side, steps/s (host clock around the timed
@@ -38,6 +41,13 @@ from typing import Any, Dict, Optional
 
 ACTIONS = (9,)
 OBS = {"rgb": (3, 64, 64)}
+#: ``--algo`` → (the agent module, the training module, the config helper in ``configs``)
+ALGOS = {
+    "dreamer_v2": ("sheeprl_tpu_torch.algos.dreamer_v2.agent", "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",
+                   "dreamer_v2_config"),
+    "dreamer_v3": ("sheeprl_tpu_torch.algos.dreamer_v3.agent", "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
+                   "dreamer_v3_config"),
+}
 
 
 def synthetic_batch(T: int, B: int, actions_dim: int, seed: int = 0) -> Dict[str, np.ndarray]:
@@ -56,24 +66,30 @@ def synthetic_batch(T: int, B: int, actions_dim: int, seed: int = 0) -> Dict[str
     }
 
 
-def build_trainer(device=None, seed: int = 0, **overrides):
-    """``(cfg, state, program, data)`` at the MsPacman width (with
-    ``overrides``) on ``device``: ``program`` is the gradient step's
-    ``TrainProgram``; the state's generator draws the noise."""
+def build_trainer(device=None, seed: int = 0, algo: str = "dreamer_v2", **overrides):
+    """``(cfg, state, program, data)`` of ``algo`` at its MsPacman preset's
+    width (with ``overrides``) on ``device``: ``program`` is the gradient
+    step's ``TrainProgram``; the state's generator draws the noise."""
+    import importlib
+
     import torch
 
-    from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent
-    from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import build_optimizers_and_state, build_train_fn
-    from sheeprl_tpu_torch.configs import dreamer_v2_config
+    from sheeprl_tpu_torch import configs
     from sheeprl_tpu_torch.device import resolve_device
 
+    agent_module, train_module, config_fn = ALGOS[algo]
+    agent, train = importlib.import_module(agent_module), importlib.import_module(train_module)
     dev = resolve_device(device)
-    cfg = dreamer_v2_config(**overrides)
-    modules = build_agent(cfg, ACTIONS, False, OBS, seed=seed, device=dev, training=True)
-    state = build_optimizers_and_state(cfg, *modules, generator=torch.Generator(device=dev).manual_seed(seed))
+    cfg = getattr(configs, config_fn)(**overrides)
+    modules = agent.build_agent(cfg, ACTIONS, False, OBS, seed=seed, device=dev, training=True)
+    state = train.build_optimizers_and_state(cfg, *modules, generator=torch.Generator(device=dev).manual_seed(seed))
     T, B = int(cfg.per_rank_sequence_length), int(cfg.per_rank_batch_size)
     data = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(T, B, ACTIONS[0], seed=seed).items()}
-    return cfg, state, build_train_fn(cfg, ACTIONS, False), data
+    return cfg, state, train.build_train_fn(cfg, ACTIONS, False), data
+
+
+def _metric(algo: str) -> str:
+    return f"dv{algo[-1]}_train_steps_per_s"
 
 
 def profile_steps(step, steps: int) -> Dict[str, Any]:
@@ -111,7 +127,7 @@ def profile_steps(step, steps: int) -> Dict[str, Any]:
 
 
 def run(steps: int = 5, device=None, profile: bool = False, seed: int = 0, mode: str = "eager",
-        **overrides) -> Dict[str, Any]:
+        algo: str = "dreamer_v2", **overrides) -> Dict[str, Any]:
     """Warm-up at τ=1, ``steps`` timed steps at τ=0 (``mode`` eager, or
     graphed: one-sample bursts); returns one side of :func:`compare`."""
     import torch
@@ -126,7 +142,7 @@ def run(steps: int = 5, device=None, profile: bool = False, seed: int = 0, mode:
     cuda = dev.type == "cuda"
     # what the caller already holds on the card is not the trainer's
     base_bytes = torch.cuda.memory_allocated(dev) if cuda else 0
-    cfg, state, program, data = build_trainer(dev, seed, **overrides)
+    cfg, state, program, data = build_trainer(dev, seed, algo, **overrides)
     sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
     if cuda:  # the peak covers the warm-up and the capture: a graph keeps its step's memory in its own pool
         torch.cuda.reset_peak_memory_stats(dev)
@@ -149,7 +165,7 @@ def run(steps: int = 5, device=None, profile: bool = False, seed: int = 0, mode:
     cell_launches, seq_launches = ops.hafner_cell_launches.count, ops.hafner_sequence_launches.count
     losses = {k: float(v) for k, v in metrics.items()}
     result: Dict[str, Any] = {
-        "metric": "dv2_train_steps_per_s",
+        "metric": _metric(algo),
         "mode": mode,
         "value": steps / wall_s,
         "unit": "steps/s",
@@ -182,11 +198,12 @@ def run(steps: int = 5, device=None, profile: bool = False, seed: int = 0, mode:
     return result
 
 
-def compare(steps: int = 5, device=None, profile: bool = False, seed: int = 0, **overrides) -> Dict[str, Any]:
+def compare(steps: int = 5, device=None, profile: bool = False, seed: int = 0, algo: str = "dreamer_v2",
+            **overrides) -> Dict[str, Any]:
     """The eager and the graphed step in one call, each on a fresh trainer."""
-    eager = run(steps, device, profile, seed, mode="eager", **overrides)
-    graphed = run(steps, device, profile, seed, mode="graphed", **overrides)
-    return {"metric": "dv2_train_steps_per_s", "eager": eager, "graphed": graphed,
+    eager = run(steps, device, profile, seed, mode="eager", algo=algo, **overrides)
+    graphed = run(steps, device, profile, seed, mode="graphed", algo=algo, **overrides)
+    return {"metric": _metric(algo), "eager": eager, "graphed": graphed,
             "graphed_over_eager": graphed["value"] / eager["value"]}
 
 
@@ -196,8 +213,9 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--algo", default="dreamer_v2", choices=sorted(ALGOS))
     args = ap.parse_args(argv)
-    print(json.dumps(compare(args.steps, args.device, args.profile, args.seed)), flush=True)
+    print(json.dumps(compare(args.steps, args.device, args.profile, args.seed, args.algo)), flush=True)
     return 0
 
 

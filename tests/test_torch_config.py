@@ -57,7 +57,9 @@ def test_the_tree_is_the_jax_tree_with_port_targets():
     assert [p.relative_to(TREE) for p in FILES] == sorted(p.relative_to(jax_tree) for p in jax_tree.rglob("*.yaml"))
     assert len(FILES) == 74
     for path in FILES:
-        ours = path.read_text().replace("_target_: sheeprl_tpu_torch.", "_target_: sheeprl_tpu.")
+        ours = path.read_text().replace("_target_: sheeprl_tpu_torch.", "_target_: sheeprl_tpu.").replace(
+            "cls: sheeprl_tpu_torch.", "cls: sheeprl_tpu."
+        )
         assert ours == (jax_tree / path.relative_to(TREE)).read_text(), path
 
 

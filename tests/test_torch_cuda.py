@@ -352,3 +352,139 @@ def test_launch_counts_under_replay_equal_the_profiler_count(cuda):
                 if e.device_type == DeviceType.CUDA and "hafner_gates_kernel" in e.key)
     T = data["rewards"].shape[0]
     assert ops.hafner_cell_launches.count == 3 * (T + 4) == gates
+
+
+# ---------------------------------------------------------------------------
+# DreamerV3: the cell at the 100k preset's shapes, graphed steps, the CLI run
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16, 1024])
+def test_cell_at_dreamer_v3_shapes_with_gradients(cuda, B):
+    """H = X = 512, no bias, LayerNorm with eps 1e-3, at the batches of the
+    DV3 paths (acting, posterior, imagination): the forward, and the five
+    gradients (none for the missing bias) against autograd of the plain
+    version."""
+    args = _operands(B, 512, 512, bias=False, layer_norm=True, device=cuda, seed=B + 3)
+    variant = ops.hafner_cell_variant(B, 512, 512)
+    assert variant["grid"][1] * variant["tile_rows"] >= B and variant["grid"][0] * 64 * variant["warpgroups"] >= 3 * 512
+    cot = torch.randn(B, 512, device=cuda, generator=torch.Generator(device=cuda).manual_seed(B))
+    before = ops.hafner_cell_launches.count
+    out, got = _grads(lambda *a: ops.hafner_gru_cell(*a, eps=1e-3), args, cot)
+    assert ops.hafner_cell_launches.count == before + 1
+    plain, want = _grads(lambda *a: reference.hafner_cell(*a, eps=1e-3), args, cot)
+    assert len(got) == len(want) == 5
+    assert (out - plain).abs().max().item() <= TOL
+    _assert_grads_close(got, want)
+
+
+GRAPH_SMALL_DV3 = {
+    "algo.dense_units": 32, "algo.mlp_layers": 1, "algo.world_model.encoder.cnn_channels_multiplier": 4,
+    "algo.world_model.recurrent_model.recurrent_state_size": 64, "algo.world_model.stochastic_size": 4,
+    "algo.world_model.discrete_size": 4, "algo.world_model.transition_model.hidden_size": 32,
+    "algo.world_model.representation_model.hidden_size": 32, "algo.horizon": 4,
+    "per_rank_batch_size": 4, "per_rank_sequence_length": 8,
+}
+
+
+@pytest.mark.cuda
+def test_graphed_dv3_train_burst_equals_the_eager_steps(cuda, monkeypatch):
+    """The DV3 step as the DV2 one above: eager steps against one burst of
+    replays at the same state, batches, noise and τ schedule (hard first,
+    then 0.02), with cuDNN's deterministic algorithms; (T + horizon) cell
+    launches a step on both."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import draw_noise
+    from sheeprl_tpu_torch.tools import bench_dreamer
+    from sheeprl_tpu_torch.train.burst import run_train_burst, tau_schedule
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    n = WARMUP_CALLS + GRAPH_REPLAYS
+    taus = tau_schedule(n, 0, 1, tau=0.02, first_hard=True)
+    build = lambda: bench_dreamer.build_trainer(cuda, seed=0, algo="dreamer_v3", **GRAPH_SMALL_DV3)  # noqa: E731
+    cfg, _state, _program, data = build()
+    T, B = data["rewards"].shape[:2]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    noise = [draw_noise(cfg, (9,), T, B, gen, cuda) for _ in range(n)]
+    stack = {k: torch.stack([torch.roll(v, i, dims=1) for i in range(n)]) for k, v in data.items()}
+    out = {}
+    for fused in (False, True):
+        _cfg, state, program, _data = build()
+        before = ops.hafner_cell_launches.count
+        metrics = [run_train_burst(program, state, {k: v[i : i + 1] for k, v in stack.items()}, taus[i : i + 1],
+                                   noise=noise[i : i + 1], fused=fused) for i in range(n)]
+        launches = ops.hafner_cell_launches.count - before
+        params = [p.detach().clone() for name in ("world_model", "actor", "critic", "target_critic")
+                  for p in state[name].parameters()] + [v.clone() for v in state["moments"].values()]
+        out[fused] = (metrics, params, launches)
+    (em, ep, el), (gm, gp, gl) = out[False], out[True]
+    assert el == gl == n * (T + 4)
+    for g, e in zip(gm, em):
+        for k in e:
+            assert abs(g[k] - e[k]) <= GRAPH_TOL * max(abs(e[k]), 1e-30), (k, g[k], e[k])
+    for g, e in zip(gp, ep):
+        assert (g - e).abs().max() <= GRAPH_TOL * e.abs().max().clamp_min(1e-30)
+
+
+@pytest.mark.cuda
+def test_graphed_dv3_acting_step_equals_the_eager_one(cuda):
+    """16 DV3 acting steps at injected noise through the acting step's graph
+    (resets outside it, as the run makes them) and through the eager
+    ``exploration_action``."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import ExplorationStep, build_agent, build_player_fns
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_obs
+    from sheeprl_tpu_torch.configs import dreamer_v3_config
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    cfg = dreamer_v3_config(**GRAPH_SMALL_DV3)
+    wm, actor = build_agent(cfg, (9,), False, {"rgb": (3, 64, 64)}, seed=4, device=cuda)
+    fns = build_player_fns(wm, actor, cfg, (9,), False)
+    n, rng = 4, np.random.RandomState(5)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    acting = ExplorationStep(fns, n, {"rgb": np.zeros((n, 3, 64, 64), np.uint8)}, ["rgb"], None, cuda,
+                             reset_in_step=False)
+    state = fns["init_states"](n)
+    for step in range(16):
+        obs = {"rgb": rng.randint(0, 256, (n, 3, 64, 64)).astype(np.uint8)}
+        mask = (rng.uniform(size=(n, 1)) < 0.25).astype(np.float32)
+        acting.reset(mask)
+        state = fns["reset_states"](state, torch.from_numpy(mask))
+        noise = fns["draw_exploration_noise"](n, gen)
+        got = [a.clone() for a in acting(obs, None, 0.0, noise=noise)]
+        want, state = fns["exploration_action"](state, normalize_obs(obs, ["rgb"], cuda), 0.0,
+                                                gumbel=noise["gumbel"], action_gumbels=noise["action_gumbels"],
+                                                expl_noise=noise["expl_noise"])
+        for g, w in zip(got, want):
+            assert torch.equal(g.argmax(-1), w.argmax(-1)), step
+            torch.testing.assert_close(g, w, atol=TOL, rtol=0)
+        torch.testing.assert_close(acting.state["stochastic"], state["stochastic"], atol=TOL, rtol=0)
+    assert (acting.step.eager_calls, acting.step.replays) == (WARMUP_CALLS, 16 - WARMUP_CALLS)
+
+
+@pytest.mark.cuda
+def test_dv3_cli_run_on_the_card_launches_the_cell_and_serves_its_checkpoint(cuda, tmp_path):
+    """The DV3 CLI on ``cuda``: the cell launches once per acting and test
+    step and (T + horizon) times per gradient step; the checkpoint serves on
+    the card what it serves with the plain cell."""
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.serve.model import load_gateway_model
+
+    run = [
+        "exp=dreamer_v3", "env=dummy", "env.id=discrete_dummy", "env.num_envs=2", "env.sync_env=True",
+        "metric.log_level=0", "buffer.memmap=False", "buffer.size=256", "total_steps=48", "algo.learning_starts=16",
+        "algo.train_every=2", "per_rank_batch_size=4", "per_rank_sequence_length=8", "run_name=card_dv3",
+        f"root_dir={tmp_path}",
+    ] + [f"{k}={v}" for k, v in GRAPH_SMALL_DV3.items() if not k.startswith("per_rank")]
+    ops.hafner_cell_launches.reset()
+    result = cli.run(run)
+    assert result["gradient_steps"] > 3 and result["player_steps"] > 3
+    assert ops.hafner_cell_launches.count == result["player_steps"] + 12 * result["gradient_steps"] + result[
+        "test_steps"]
+    model, *_ = load_gateway_model(result["checkpoint"])
+    plain, *_ = load_gateway_model(result["checkpoint"], plain_cell=True)
+    frames = {"rgb": np.random.RandomState(0).randint(0, 256, (3, 3, 64, 64)).astype(np.uint8)}
+    got = model.act(frames, model.init_state_rows(3), torch.Generator(device="cuda").manual_seed(0))
+    want = plain.act(frames, plain.init_state_rows(3), torch.Generator(device="cuda").manual_seed(0))
+    np.testing.assert_array_equal(got[0], want[0])
+    torch.testing.assert_close(got[1]["recurrent"], want[1]["recurrent"], atol=TOL, rtol=0)

@@ -112,6 +112,63 @@ def test_no_target_of_the_yaml_tree_names_the_jax_package():
     assert not [t for t in targets if t.startswith("sheeprl_tpu.") or t.startswith("sheeprl.")]
 
 
+def test_no_string_of_the_yaml_tree_names_the_jax_package():
+    """No value anywhere in the port's configs (``_target_``, ``cls`` or any
+    other) names a module of the JAX package."""
+    from sheeprl_tpu_torch.config import yamlite
+
+    def strings(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                yield from strings(v)
+        elif isinstance(node, list):
+            for v in node:
+                yield from strings(v)
+        elif isinstance(node, str):
+            yield node
+
+    found = [
+        (str(path.relative_to(PORT)), value)
+        for path in sorted((PORT / "configs").rglob("*.yaml"))
+        for value in strings(yamlite.load(path.read_text()))
+        if "sheeprl_tpu." in value or value.startswith("sheeprl.")
+    ]
+    assert not found
+
+
+TINY_RUN_DV3 = [
+    "exp=dreamer_v3", "env=dummy", "env.id=discrete_dummy", "env.num_envs=2", "env.sync_env=True", "dry_run=True",
+    "metric.log_level=1", "buffer.memmap=False", "per_rank_batch_size=2", "per_rank_sequence_length=1",
+    "algo.horizon=2", "algo.dense_units=8", "algo.mlp_layers=1", "algo.learning_starts=0",
+    "algo.world_model.encoder.cnn_channels_multiplier=2", "algo.world_model.recurrent_model.recurrent_state_size=8",
+    "algo.world_model.transition_model.hidden_size=8", "algo.world_model.representation_model.hidden_size=8",
+    "algo.world_model.stochastic_size=4", "algo.world_model.discrete_size=4", "run_name=isolation_dv3",
+]
+
+
+def test_a_dreamer_v3_run_and_serving_load_none_of_the_card_path_exclusions(tmp_path):
+    """The CLI's DreamerV3 run on the dummy env at ``metric.log_level=1``,
+    then ``load_gateway_model`` on its checkpoint, in a fresh interpreter:
+    PyYAML, gymnasium, OpenCV, tensorboardX, JAX and the JAX package are
+    never imported."""
+    code = (
+        "import sys, glob\n"
+        "from sheeprl_tpu_torch import cli\n"
+        "from sheeprl_tpu_torch.serve.model import load_gateway_model\n"
+        f"result = cli.run({TINY_RUN_DV3!r} + ['root_dir={tmp_path}', 'fabric.accelerator=cpu'])\n"
+        "assert result['gradient_steps'] == 1 and result['event_file']\n"
+        "model = load_gateway_model(result['checkpoint'], device='cpu')[0]\n"
+        "assert model.algo == 'dreamer_v3'\n"
+        f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {CARD_PATH_FORBIDDEN!r}))\n"
+        "print('loaded:', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert "loaded: []" in proc.stdout
+
+
 def test_a_training_run_and_serving_load_none_of_the_card_path_exclusions(tmp_path):
     """The CLI's DreamerV2 run on the dummy env at ``metric.log_level=1``
     (its TensorBoard event file written), then ``load_gateway_model`` on its
