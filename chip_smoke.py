@@ -89,10 +89,35 @@ latent, 255-bin two-hot reward and critic, B=16 x T=64, horizon 15, f32):
   as phase 7 with the sequential buffer restored equal from the
   checkpoint, and 128 + 79 x 129 + 5 cell launches.
 
+Continuous actions: DreamerV3's DMC walker_walk preset at full width
+(rgb 3x64x64 plus the 24-wide ``state`` vector, channels 32/64/128/256, an
+MLP encoder and decoder on ``state``, dense 512 x 2, recurrent 512, 32x32
+latent, 6 actions through a ``trunc_normal`` actor that learns by dynamics
+backprop, so its gradient runs back through the 15 imagination cell steps):
+
+- the dv3 kernel rows gain the cell's VJP at B=1024 as the walker's
+  imagination runs it (dh and dx, the kernel frozen) and with the weight
+  gradient, beside the forward and their bounds (``dv3_walker_vjp``), and
+  at the posterior's B=16 (``dv3_posterior_vjp``);
+- train_walker (after train_dv3): one step kernel against plain cell (TF32
+  off), GRAPH_STEPS steps graphed against eager bit for bit with
+  ``cudnn.deterministic``, the actor loss's forward and backward device
+  times apart, then DV3_TRAIN_STEPS timed steps eager and graphed with a
+  profiled window and the peak memory, 79 cell launches a step;
+- train_dv2_continuous: GRAPH_STEPS DreamerV2 steps at ``exp=dreamer_v2``'s
+  width on a 2-wide Box of actions, graphed against eager;
+- run_walker (after run_dv3): ``cli.run`` with RUN_WALKER_ARGS on
+  ``walker_stand_in`` (dm_control's walker spaces; the card has no
+  dm_control), the same checks as run_dv3 with the float actions served
+  (kernel against plain cell within TOL_CONTINUOUS_ACTION) and the greedy
+  best-of-100 actions of the checkpoint's weights against a plain-cell
+  replay at the same injected noise; 128 + 79 x 65 + 1000 cell launches.
+
 Each path's launch counts are zeroed just before its run and read just
 after it: the served run (phase 4), the bench (phase 5), the timed train
-steps (phases 6 and train_dv3) and the training runs (phases 7 and
-run_dv3). The ``kernels`` line's cell ``launches`` is the two runs' sum. The build phase also counts the tensor-core instructions
+steps (phases 6, train_dv3, train_walker) and the graphed steps
+(train_dv2_continuous), and the training runs (phases 7, run_dv3 and
+run_walker). The ``kernels`` line's cell ``launches`` is the three runs' sum. The build phase also counts the tensor-core instructions
 (``HGMMA``, ``HMMA``) in the built library's SASS (``cuobjdump -sass``).
 
 Bounds: the least time of the same work on an H100 SXM, the larger of its
@@ -185,6 +210,23 @@ RUN_DV3_ARGS = (
 )
 RUN_DV3_UPDATES, RUN_DV3_PLAYER_STEPS, RUN_DV3_GRADIENT_STEPS, RUN_DV3_TEST_STEPS = 1152, 128, 129, 5
 RUN_DV3_LOG_STEPS = (256, 512, 768, 1024, 1152)
+# the walker: the DV3 DMC walker_walk preset at its full width (rgb and a 24-wide state, 6 continuous actions)
+WALKER_OBS = {"rgb": (3, 64, 64), "state": (24,)}
+WALKER_ACTIONS = 6
+# the walker run: the port's CLI with exp=dreamer_v3_dmc_walker_walk at its full width (1 env, train_every 2, the memmap
+# sequential buffer checkpointed, log_level 1) on walker_stand_in; cut: a buffer of 4096 steps in place of 1e5, learning
+# from 1024 in place of 8000, 1152 policy steps (65 gradient steps: the pretrain step at 1024 and one every 2 after
+# it), a log every 256 policy steps; the envs stepped in the process (sync) and no video capture (not ported)
+RUN_WALKER_ARGS = (
+    "exp=dreamer_v3_dmc_walker_walk", "env.wrapper._target_=chip_smoke.walker_stand_in", "env.sync_env=True",
+    "env.capture_video=False", "buffer.size=4096", "algo.learning_starts=1024", "total_steps=1152",
+    "metric.log_every=256",
+)
+RUN_WALKER_UPDATES, RUN_WALKER_PLAYER_STEPS, RUN_WALKER_GRADIENT_STEPS, RUN_WALKER_TEST_STEPS = 1152, 128, 65, 1000
+RUN_WALKER_LOG_STEPS = (256, 512, 768, 1024, 1152)
+# served float actions, kernel against plain cell: the cell's outputs differ by ~1e-5, the actions by as much
+TOL_CONTINUOUS_ACTION = 1e-3
+WALKER_GREEDY_STEPS = 4
 CLIENTS, STEPS, SEED = 64, 16, 5
 N_ACTIONS = 9
 OBS = {"rgb": (3, 64, 64)}
@@ -201,6 +243,52 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def walker_stand_in(id="walker_walk", from_pixels=True, from_vectors=True, height=64, width=64, seed=None, **_):
+    """A stand-in for dm_control's ``walker_walk`` (the card's machine has no
+    dm_control), made by the walker run's env config
+    (``env.wrapper._target_``) with the DMC wrapper's arguments: its spaces
+    (``rgb`` uint8 3 x height x width; ``state`` f32 24: orientations 14,
+    height 1, velocity 9; actions Box(-1, 1, (6,))), seeded random frames
+    and states, rewards in [0, 1], no termination (the preset's TimeLimit
+    truncates at 1000 steps). An action outside the Box raises."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.envs.wrappers import Env
+
+    class WalkerStandIn(Env):
+        def __init__(self):
+            obs = {}
+            if from_pixels:
+                obs["rgb"] = spaces.Box(0, 255, (3, height, width), np.uint8)
+            if from_vectors:
+                obs["state"] = spaces.Box(-np.inf, np.inf, (WALKER_OBS["state"][0],), np.float32)
+            self.observation_space = spaces.Dict(obs)
+            self.action_space = spaces.Box(-1.0, 1.0, (WALKER_ACTIONS,), np.float32)
+            self._rng = np.random.default_rng(seed)
+
+        def _obs(self):
+            out = {}
+            if "rgb" in self.observation_space:
+                out["rgb"] = self._rng.integers(0, 256, self.observation_space["rgb"].shape, dtype=np.uint8)
+            if "state" in self.observation_space:
+                out["state"] = self._rng.normal(size=self.observation_space["state"].shape).astype(np.float32)
+            return out
+
+        def reset(self, *, seed=None, options=None):
+            if seed is not None:
+                self._rng = np.random.default_rng(seed)
+            return self._obs(), {}
+
+        def step(self, action):
+            action = np.asarray(action)
+            if action.shape != (WALKER_ACTIONS,) or not np.isfinite(action).all() or np.abs(action).max() > 1.0:
+                raise ValueError(f"the walker stand-in got an action outside Box(-1, 1, (6,)): {action}")
+            return self._obs(), float(self._rng.random()), False, False, {"discount": 1.0}
+
+    return WalkerStandIn()
 
 
 def _median_event_ms(run, n: int) -> float:
@@ -491,6 +579,8 @@ def phase_cell_dv3():
                        variant=ops.hafner_cell_variant(B, H, X))
             if B == max(DV3_CELL_BATCHES):
                 row.update(product_split(args, B))
+            if B > 1:  # the posterior's (B=16, with the weight gradient) and the imagination's (B=1024, without)
+                row["vjp"] = vjp_times(args, cot)
             print("[kernel] hafner_cell dv3 " + json.dumps(row), flush=True)
             rows.append(row)
             grid = row["variant"]["grid"]
@@ -501,6 +591,47 @@ def phase_cell_dv3():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
     return rows
+
+
+def vjp_bound(B: int, H: int, X: int, weight_grad: bool):
+    """Least time of the cell's VJP without bias (``_bound``): z, h, the
+    cotangent, W and the LayerNorm vectors read once, dh, dx and the
+    LayerNorm gradients written once (with the weight gradient also x read
+    and dW written); the input product ``dz·Wᵀ`` (and ``[h|x]ᵀ·dz``) at f32
+    accuracy on the tensor cores, and at the f32 rate the LayerNorm
+    recomputed from z (8 operations an element of z, as the forward counts
+    it), its backward (10 an element of z) and the gates' backward (20 an
+    element of h)."""
+    vectors = 2 * 3 * H
+    bytes_ = 4.0 * (B * 3 * H + 2 * B * H + (H + X) * 3 * H + vectors + B * H + B * X + vectors)
+    product = 2.0 * B * (H + X) * 3 * H
+    if weight_grad:
+        bytes_ += 4.0 * (B * X + (H + X) * 3 * H)
+        product *= 2
+    return _bound(bytes_, product, 18.0 * B * 3 * H + 20.0 * B * H)
+
+
+def vjp_times(args, cot) -> dict:
+    """The cell's hand VJP (``ops.hafner_cell_vjp``, plain PyTorch
+    operations) at the kernel's kept pre-activation: as DreamerV3's
+    continuous imagination runs it (dh and dx: the world model is frozen
+    while the actor's loss is differentiated) and with the weight gradient
+    (the posterior's), device time beside the kernel forward's and the
+    bounds."""
+    from sheeprl_tpu_torch.kernels import ops
+
+    h, x, w, b, s, lb = args
+    B, H, X = h.shape[0], h.shape[1], x.shape[1]
+    _out, z = ops.hafner_cell_cuda(h, x, w, b, s, lb, eps=DV3_EPS, save_z=True)
+    inputs = lambda: ops.hafner_cell_vjp(h, x, w, b, s, lb, z, cot, DV3_EPS, need=(True, True, False, False))
+    full = lambda: ops.hafner_cell_vjp(h, x, w, b, s, lb, z, cot, DV3_EPS)
+    bound_ms, bound_by, simt_ms = vjp_bound(B, H, X, weight_grad=False)
+    full_bound_ms, full_bound_by, _ = vjp_bound(B, H, X, weight_grad=True)
+    return {"B": B, "H": H, "X": X, "bias": b is not None,
+            "forward_ms": device_ms(lambda: ops.hafner_cell_cuda(h, x, w, b, s, lb, eps=DV3_EPS)),
+            "ms": device_ms(inputs), "bound_ms": bound_ms, "bound_by": bound_by, "bound_f32_simt_ms": simt_ms,
+            "with_weight_grad_ms": device_ms(full), "with_weight_grad_bound_ms": full_bound_ms,
+            "with_weight_grad_bound_by": full_bound_by}
 
 
 def phase_sequence():
@@ -573,16 +704,17 @@ def phase_sequence():
 
 
 def serve_lockstep(model, frames, seed: int):
-    """C clients x T lockstep requests (``frames`` [T, C, ...]) through a
-    fresh gateway with ``max_batch=C``; every step is one full batch, rows in
-    client order. Returns actions [T, C, heads], recurrent states [T, C, H]
+    """C clients x T lockstep requests (``frames``: each observation key's
+    ``[T, C, ...]``) through a fresh gateway with ``max_batch=C``; every step
+    is one full batch, rows in client order. Returns actions [T, C, heads]
+    (indices, or floats for continuous actions), recurrent states [T, C, H]
     (host copies), wall seconds and the status."""
     import numpy as np
     import torch
 
     from sheeprl_tpu_torch.serve import ServeClosed, ServeGateway
 
-    clients = frames.shape[1]
+    steps, clients = next(iter(frames.values())).shape[:2]
     gateway = ServeGateway(model, max_batch=clients, deadline_s=0.25, seed=seed)
     try:
         batcher = gateway.batcher
@@ -590,8 +722,9 @@ def serve_lockstep(model, frames, seed: int):
         actions = []
         states = []
         t0 = time.perf_counter()
-        for t, step in enumerate(frames):
-            tickets = [batcher.submit(cid, {"rgb": step[c]}, reset=t == 0) for c, cid in enumerate(ids)]
+        for t in range(steps):
+            tickets = [batcher.submit(cid, {k: v[t, c] for k, v in frames.items()}, reset=t == 0)
+                       for c, cid in enumerate(ids)]
             actions.append([np.asarray(batcher.wait(ticket, timeout=120.0)[0]).reshape(-1) for ticket in tickets])
             states.append(torch.cat([batcher.state_of(cid)["recurrent"] for cid in ids]).cpu())
         if model.device.type == "cuda":
@@ -600,11 +733,11 @@ def serve_lockstep(model, frames, seed: int):
         if not gateway.drain(timeout=60.0):
             raise AssertionError("gateway did not drain")
         try:
-            batcher.submit(ids[0], {"rgb": frames[0][0]})
+            batcher.submit(ids[0], {k: v[0, 0] for k, v in frames.items()})
             raise AssertionError("a drained gateway accepted a request")
         except ServeClosed:
             pass
-        return np.asarray(actions, np.int64), torch.stack(states), wall, gateway.status()
+        return np.asarray(actions), torch.stack(states), wall, gateway.status()
     finally:
         gateway.close()
 
@@ -627,8 +760,8 @@ def phase_slice(card: str):
         params, cfg, OBS, (N_ACTIONS,), False, device="cuda", version=1, plain_cell=True
     )
     rng = np.random.RandomState(SEED)
-    frames = rng.randint(0, 256, (STEPS, CLIENTS) + OBS["rgb"]).astype(np.uint8)
-    serve_lockstep(model, frames[:2], seed=SEED + 1)  # warm-up: cuDNN, allocator, kernel load
+    frames = {"rgb": rng.randint(0, 256, (STEPS, CLIENTS) + OBS["rgb"]).astype(np.uint8)}
+    serve_lockstep(model, {"rgb": frames["rgb"][:2]}, seed=SEED + 1)  # warm-up: cuDNN, allocator, kernel load
 
     ops.hafner_cell_launches.reset()
     ops.hafner_sequence_launches.reset()
@@ -701,27 +834,34 @@ def phase_bench_kernels():
     return launches, line
 
 
-def _train_step_once(plain_cell: bool, algo: str = "dreamer_v2"):
-    """One full-width step of ``algo`` at fixed weights (seed 0) and fixed noise, at τ=1."""
+def _trainer_modules(algo: str):
+    """``(agent module, training module, actions, continuous)`` of a bench preset."""
     import importlib
 
+    from sheeprl_tpu_torch.tools import bench_dreamer
+
+    family, _exp, _obs, actions, continuous = bench_dreamer.PRESETS[algo]
+    agent_module, train_module = bench_dreamer.ALGOS[family]
+    return importlib.import_module(agent_module), importlib.import_module(train_module), actions, continuous
+
+
+def _train_step_once(plain_cell: bool, algo: str = "dreamer_v2"):
+    """One full-width step of the bench preset ``algo`` at fixed weights (seed 0) and fixed noise, at τ=1."""
     import torch
 
     from sheeprl_tpu_torch.kernels import ops
     from sheeprl_tpu_torch.tools import bench_dreamer
 
-    agent_module, train_module, _ = bench_dreamer.ALGOS[algo]
+    agent, train, actions, continuous = _trainer_modules(algo)
     cfg, state, train_step, data = bench_dreamer.build_trainer("cuda", seed=0, algo=algo)
     if plain_cell:
-        importlib.import_module(agent_module).set_cell_impl(state["world_model"], "plain")
+        agent.set_cell_impl(state["world_model"], "plain")
     T, B = data["rewards"].shape[:2]
-    noise = importlib.import_module(train_module).draw_noise(
-        cfg, bench_dreamer.ACTIONS, T, B, torch.Generator(device="cuda").manual_seed(SEED), "cuda"
-    )
+    noise = train.draw_noise(cfg, actions, T, B, torch.Generator(device="cuda").manual_seed(SEED), "cuda", continuous)
     before = ops.hafner_cell_launches.count
     metrics = {k: float(v) for k, v in train_step(state, data, noise=noise, tau=1.0).items()}
     launches = ops.hafner_cell_launches.count - before
-    per_step = DV3_CELL_LAUNCHES_PER_STEP if algo == "dreamer_v3" else CELL_LAUNCHES_PER_STEP
+    per_step = T + int(cfg.algo.horizon)
     if launches != (0 if plain_cell else per_step):
         raise AssertionError(f"the {'plain-cell' if plain_cell else 'kernel'} train step launched the cell {launches} times")
     del state, data, noise
@@ -736,7 +876,7 @@ def _rel(got, want) -> float:
 
 
 def _train_steps(fused: bool, algo: str = "dreamer_v2") -> dict:
-    """GRAPH_STEPS full-width steps of ``algo`` from seed 0 on one batch,
+    """GRAPH_STEPS full-width steps of the bench preset ``algo`` from seed 0 on one batch,
     each step's noise from the trainer's own generator: eager
     (``run_train_burst(..., fused=False)``) or graphed (one-sample bursts:
     the capture's eager warm-up calls, the capture, then replays). The
@@ -748,7 +888,7 @@ def _train_steps(fused: bool, algo: str = "dreamer_v2") -> dict:
     from sheeprl_tpu_torch.tools import bench_dreamer
     from sheeprl_tpu_torch.train.burst import run_train_burst, tau_schedule
 
-    if algo == "dreamer_v3":
+    if algo.startswith("dreamer_v3"):
         taus = tau_schedule(GRAPH_STEPS, 0, 1, tau=0.02, first_hard=True)
     else:
         taus = tau_schedule(GRAPH_STEPS, 0, 4, tau=1.0, first_hard=False)
@@ -870,15 +1010,54 @@ def phase_train(card: str):
     return launches, max(rel.values()), graph_line
 
 
-def phase_train_dv3(card: str):
-    """The DreamerV3 trainer at the full 100k MsPacman width (B=16, T=64,
-    horizon 15): one step at fixed weights and noise on the kernel path and
-    on the plain-cell path (TF32 off: losses within TOL_TRAIN_LOSS, gradient
-    norms within TOL_TRAIN_GRAD, relative); GRAPH_STEPS steps from one seed
-    eager and graphed with ``cudnn.deterministic`` (losses, gradient norms
-    and parameters bit for bit); then DV3_TRAIN_STEPS timed steps
-    eager and as many graphed, each with a profiled window (device busy
-    time, idle share, top operations), 79 cell launches a step."""
+def imagination_split(algo: str = "dreamer_v3_walker") -> dict:
+    """Device time of the actor loss at full width, fixed weights and noise:
+    its forward (the horizon's imagination with autograd, the critic and the
+    heads over the trajectories, the λ-returns) and its forward and backward
+    into the actor (the backward runs through every imagined cell step's
+    VJP), each captured and replayed (``device_ms``); the backward is their
+    difference."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import _no_param_grads, _prepare
+    from sheeprl_tpu_torch.tools import bench_dreamer
+
+    _agent, train, actions, continuous = _trainer_modules(algo)
+    cfg, state, _program, data = bench_dreamer.build_trainer("cuda", seed=0, algo=algo)
+    _prepare(state)
+    losses = train.build_losses(cfg, actions, continuous)
+    T, B = data["rewards"].shape[:2]
+    noise = train.draw_noise(cfg, actions, T, B, torch.Generator(device="cuda").manual_seed(SEED), "cuda", continuous)
+    wm, actor, critic = state["world_model"], state["actor"], state["critic"]
+    with torch.no_grad():
+        _loss, _metrics, posteriors, recurrents = losses.world_model_loss(wm, data, noise["posterior"])
+    args = (wm, actor, critic, state["moments"], posteriors, recurrents, (1.0 - data["dones"]).reshape(-1, 1), noise)
+
+    def forward():
+        with _no_param_grads(wm, critic):
+            losses.actor_loss(*args)
+
+    fwd_ms = device_ms(forward, calls=2, n=10)
+    both_ms = device_ms(lambda: losses.actor_loss_backward(*args), calls=2, n=10)
+    del state, data, noise, args
+    torch.cuda.empty_cache()
+    return {"actor_loss_forward_ms": fwd_ms, "actor_loss_forward_backward_ms": both_ms,
+            "actor_loss_backward_ms": both_ms - fwd_ms}
+
+
+def phase_train_dv3(card: str, algo: str = "dreamer_v3"):
+    """A DreamerV3 trainer at full width (B=16, T=64, horizon 15): the 100k
+    MsPacman preset (``dreamer_v3``) or the DMC walker preset
+    (``dreamer_v3_walker``: rgb and state, 6 continuous actions, the actor's
+    gradient through the imagination). One step at fixed weights and noise
+    on the kernel path and on the plain-cell path (TF32 off: losses within
+    TOL_TRAIN_LOSS, gradient norms within TOL_TRAIN_GRAD, relative);
+    GRAPH_STEPS steps from one seed eager and graphed with
+    ``cudnn.deterministic`` (losses, gradient norms and parameters bit for
+    bit); for the walker the actor loss's forward and backward apart
+    (``imagination_split``); then DV3_TRAIN_STEPS timed steps eager and as
+    many graphed, each with a profiled window (device busy time, idle share,
+    top operations) and the peak memory, 79 cell launches a step."""
     import math
 
     import torch
@@ -886,7 +1065,7 @@ def phase_train_dv3(card: str):
     from sheeprl_tpu_torch.tools import bench_dreamer
     from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
 
-    algo = "dreamer_v3"
+    tag = "train_dv3" if algo == "dreamer_v3" else "train_walker"
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
             torch.backends.cudnn.deterministic)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -908,30 +1087,71 @@ def phase_train_dv3(card: str):
             "graphed_vs_eager": {"steps": GRAPH_STEPS, "taus": eager["taus"],
                                  "cudnn_deterministic": held, "graph": graphed["graph"],
                                  "launches": {"eager": eager["launches"], "graphed": graphed["launches"]}}}
-    print("[train_dv3] " + json.dumps(line), flush=True)
+    print(f"[{tag}] " + json.dumps(line), flush=True)
     if bad:
-        raise AssertionError(f"DV3 kernel and plain-cell train steps disagree on {bad}")
+        raise AssertionError(f"{tag}: kernel and plain-cell train steps disagree on {bad}")
     if not held["bit_for_bit"]:
-        raise AssertionError(f"graphed and eager DV3 steps are not bit for bit with cudnn.deterministic: {held}")
+        raise AssertionError(f"{tag}: graphed and eager steps are not bit for bit with cudnn.deterministic: {held}")
     for run in (eager, graphed):
         if run["launches"] != DV3_CELL_LAUNCHES_PER_STEP * GRAPH_STEPS:
-            raise AssertionError(f"the DV3 cell launched {run['launches']} times in {GRAPH_STEPS} steps")
+            raise AssertionError(f"{tag}: the cell launched {run['launches']} times in {GRAPH_STEPS} steps")
     if graphed["graph"] != {"eager_calls": WARMUP_CALLS, "replays": GRAPH_STEPS - WARMUP_CALLS, "captured": True}:
-        raise AssertionError(f"the graphed DV3 steps ran as {graphed['graph']}")
+        raise AssertionError(f"{tag}: the graphed steps ran as {graphed['graph']}")
+    split = imagination_split(algo) if algo != "dreamer_v3" else None
 
     result = bench_dreamer.compare(steps=DV3_TRAIN_STEPS, device="cuda", profile=True, algo=algo)
     result["card"] = card
-    print("[train_dv3] " + json.dumps(result), flush=True)
+    if split is not None:
+        result["actor_loss_split"] = split
+    print(f"[{tag}] " + json.dumps(result), flush=True)
     for mode in ("eager", "graphed"):
         side = result[mode]
         if not all(math.isfinite(v) for v in side["losses"].values()):
-            raise AssertionError(f"a DV3 {mode} loss is not finite: {side['losses']}")
+            raise AssertionError(f"{tag}: a {mode} loss is not finite: {side['losses']}")
         if side["hafner_cell_launches"] != DV3_CELL_LAUNCHES_PER_STEP * DV3_TRAIN_STEPS or side["hafner_sequence_launches"]:
-            raise AssertionError(f"the DV3 {mode} steps launched the cell {side['hafner_cell_launches']} times "
+            raise AssertionError(f"{tag}: the {mode} steps launched the cell {side['hafner_cell_launches']} times "
                                  f"and the sequence {side['hafner_sequence_launches']} times")
     launches = {"hafner_cell": result["graphed"]["hafner_cell_launches"],
                 "hafner_sequence": result["graphed"]["hafner_sequence_launches"]}
     return launches, max(rel.values()), {k: held[k] for k in ("metric_max_rel_err", "param_max_rel_err", "bit_for_bit")}
+
+
+def phase_train_dv2_continuous(card: str):
+    """DreamerV2 at ``exp=dreamer_v2``'s width (B=16, T=50, horizon 15) on a
+    2-wide Box of actions (the continuous dummy env's): GRAPH_STEPS steps
+    from one seed eager and graphed with ``cudnn.deterministic``, held to
+    TOL_GRAPHED, 65 cell launches a step. The counts are zeroed before the
+    graphed steps and read after them."""
+    import torch
+
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    algo = "dreamer_v2_continuous"
+    prev = torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.deterministic = True
+        eager = _train_steps(False, algo)
+        ops.hafner_cell_launches.reset()
+        ops.hafner_sequence_launches.reset()
+        graphed = _train_steps(True, algo)
+        launches = {"hafner_cell": ops.hafner_cell_launches.count,
+                    "hafner_sequence": ops.hafner_sequence_launches.count}
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    held = _steps_diff(graphed, eager)
+    line = {"steps": GRAPH_STEPS, "taus": eager["taus"], "tol": TOL_GRAPHED, "cudnn_deterministic": held,
+            "graph": graphed["graph"], "launches": {"eager": eager["launches"], "graphed": graphed["launches"]},
+            "last_losses": {"eager": eager["metrics"][-1], "graphed": graphed["metrics"][-1]}, "card": card}
+    print("[train_dv2_continuous] " + json.dumps(line), flush=True)
+    if held["metric_max_rel_err"] > TOL_GRAPHED or held["param_max_rel_err"] > TOL_GRAPHED:
+        raise AssertionError(f"graphed and eager continuous DV2 steps disagree: {held} > {TOL_GRAPHED}")
+    for run in (eager, graphed):
+        if run["launches"] != CELL_LAUNCHES_PER_STEP * GRAPH_STEPS:
+            raise AssertionError(f"the continuous DV2 cell launched {run['launches']} times in {GRAPH_STEPS} steps")
+    if graphed["graph"] != {"eager_calls": WARMUP_CALLS, "replays": GRAPH_STEPS - WARMUP_CALLS, "captured": True}:
+        raise AssertionError(f"the graphed continuous DV2 steps ran as {graphed['graph']}")
+    return launches, held
 
 
 def _run_once(root: str, name: str, args=RUN_ARGS):
@@ -1041,7 +1261,7 @@ def _check_episode_buffer(ckpt) -> dict:
             "restored_state_dict_equal": True}
 
 
-def _check_sequential_buffer(ckpt) -> dict:
+def _check_sequential_buffer(ckpt, args=RUN_DV3_ARGS, obs_keys=("rgb",)) -> dict:
     """The checkpoint's sequential buffer, every crc32 verified, restored
     into a fresh buffer whose ``state_dict`` equals the one read back."""
     import numpy as np
@@ -1049,9 +1269,9 @@ def _check_sequential_buffer(ckpt) -> dict:
     from sheeprl_tpu_torch.ckpt import read_checkpoint
     from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 
-    opts = dict(a.split("=", 1) for a in RUN_DV3_ARGS)
+    opts = dict(a.split("=", 1) for a in args)
     rb_state = read_checkpoint(ckpt, verify=True)["rb"]
-    fresh = EnvIndependentReplayBuffer(int(opts["buffer.size"]), n_envs=1, obs_keys=("rgb",),
+    fresh = EnvIndependentReplayBuffer(int(opts["buffer.size"]), n_envs=1, obs_keys=tuple(obs_keys),
                                        buffer_cls=SequentialReplayBuffer)
     fresh.load_state_dict(rb_state)
     restored = fresh.state_dict()["buffers"]
@@ -1067,27 +1287,94 @@ def _check_sequential_buffer(ckpt) -> dict:
             "keys": sorted(rb_state["buffers"][0]["buffer"]), "restored_state_dict_equal": True}
 
 
-#: the training runs through the CLI: the DV2 preset's (PR 5–6) and the DV3 100k preset's (PR 7)
+def _greedy_against_plain(ckpt) -> dict:
+    """The walker checkpoint's weights acting greedily (the best of
+    GREEDY_SAMPLES samples by ``log_prob``) for RUN_CLIENTS rows over
+    WALKER_GREEDY_STEPS chained steps of seeded observations: the kernel
+    path against a plain-cell replay at the same injected noise (the
+    posterior's Gumbels and the samples' uniforms, drawn once a step)."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import GREEDY_SAMPLES, build_agent, build_player_fns, set_cell_impl
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_obs
+    from sheeprl_tpu_torch.ckpt import read_checkpoint
+    from sheeprl_tpu_torch.cli import load_run_config
+    from sheeprl_tpu_torch.distributions import gumbel_noise, truncated_uniform_noise
+
+    cfg, _log_dir = load_run_config(ckpt)
+    agent = read_checkpoint(ckpt, with_rb=False)["agent"]
+    players = []
+    for impl in ("auto", "plain"):
+        wm, actor, _critic, _target = build_agent(cfg, (WALKER_ACTIONS,), True, WALKER_OBS, device="cuda",
+                                                  training=True)
+        wm.load_state_dict({k: torch.as_tensor(v) for k, v in agent["world_model"].items()})
+        actor.load_state_dict({k: torch.as_tensor(v) for k, v in agent["actor"].items()})
+        set_cell_impl(wm, impl)
+        players.append(build_player_fns(wm, actor, cfg, (WALKER_ACTIONS,), True))
+    S, D = int(cfg.algo.world_model.stochastic_size), int(cfg.algo.world_model.discrete_size)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.RandomState(SEED)
+    states = [p["init_states"](RUN_CLIENTS) for p in players]
+    action_err = state_err = 0.0
+    for _ in range(WALKER_GREEDY_STEPS):
+        obs = {"rgb": rng.randint(0, 256, (RUN_CLIENTS,) + WALKER_OBS["rgb"]).astype(np.uint8),
+               "state": rng.randn(RUN_CLIENTS, *WALKER_OBS["state"]).astype(np.float32)}
+        norm = normalize_obs(obs, ["rgb"], torch.device("cuda"))
+        gumbel = gumbel_noise((RUN_CLIENTS, S, D), gen, "cuda")
+        uniforms = truncated_uniform_noise((GREEDY_SAMPLES, RUN_CLIENTS, WALKER_ACTIONS), gen, "cuda")
+        actions = []
+        for i, player in enumerate(players):
+            out, states[i] = player["greedy_action"](states[i], norm, gumbel=gumbel, action_noise=[uniforms])
+            actions.append(out[0])
+        if not torch.isfinite(actions[0]).all() or actions[0].abs().max().item() > 1.0:
+            raise AssertionError("a greedy walker action is not finite or outside [-1, 1]")
+        action_err = max(action_err, (actions[0] - actions[1]).abs().max().item())
+        state_err = max(state_err, (states[0]["recurrent"] - states[1]["recurrent"]).abs().max().item())
+    if action_err > TOL_CONTINUOUS_ACTION or state_err > TOL_STATE:
+        raise AssertionError(f"greedy walker actions: kernel against plain cell differ by {action_err} "
+                             f"(tol {TOL_CONTINUOUS_ACTION}), states by {state_err} (tol {TOL_STATE})")
+    return {"rows": RUN_CLIENTS, "steps": WALKER_GREEDY_STEPS, "samples": GREEDY_SAMPLES,
+            "plain_replay_action_max_abs_err": action_err, "plain_replay_state_max_abs_err": state_err}
+
+
+def _serve_frames(obs_shapes, rng) -> dict:
+    """RUN_REQUESTS x RUN_CLIENTS seeded observations: uint8 frames, Gaussian vectors."""
+    import numpy as np
+
+    return {k: rng.randint(0, 256, (RUN_REQUESTS, RUN_CLIENTS) + shape).astype(np.uint8) if len(shape) == 3
+            else rng.randn(RUN_REQUESTS, RUN_CLIENTS, *shape).astype(np.float32) for k, shape in obs_shapes.items()}
+
+
+#: the training runs through the CLI: the DV2 MsPacman preset's, the DV3 100k preset's and the DV3 walker preset's
 RUN_SPECS = {
     "run": dict(args=RUN_ARGS, counts=(RUN_UPDATES, RUN_PLAYER_STEPS, RUN_GRADIENT_STEPS, RUN_TEST_STEPS),
                 per_step=CELL_LAUNCHES_PER_STEP, log_steps=RUN_LOG_STEPS, learning_starts=544,
-                buffer=_check_episode_buffer),
+                buffer=_check_episode_buffer, obs=OBS, continuous=False),
     "run_dv3": dict(args=RUN_DV3_ARGS,
                     counts=(RUN_DV3_UPDATES, RUN_DV3_PLAYER_STEPS, RUN_DV3_GRADIENT_STEPS, RUN_DV3_TEST_STEPS),
                     per_step=DV3_CELL_LAUNCHES_PER_STEP, log_steps=RUN_DV3_LOG_STEPS, learning_starts=1024,
-                    buffer=_check_sequential_buffer),
+                    buffer=_check_sequential_buffer, obs=OBS, continuous=False),
+    "run_walker": dict(args=RUN_WALKER_ARGS,
+                       counts=(RUN_WALKER_UPDATES, RUN_WALKER_PLAYER_STEPS, RUN_WALKER_GRADIENT_STEPS,
+                               RUN_WALKER_TEST_STEPS),
+                       per_step=DV3_CELL_LAUNCHES_PER_STEP, log_steps=RUN_WALKER_LOG_STEPS, learning_starts=1024,
+                       buffer=lambda ckpt: _check_sequential_buffer(ckpt, RUN_WALKER_ARGS, tuple(WALKER_OBS)),
+                       obs=WALKER_OBS, continuous=True),
 }
 
 
 def phase_run(card: str, name: str = "run"):
     """A main path: a training run through ``sheeprl_tpu_torch.cli.run``
     (``RUN_SPECS[name]``: the DreamerV2 MsPacman preset with its episode
-    buffer, or the DreamerV3 100k MsPacman preset with its sequential
-    buffer, both at full width with logging), its gradient steps and acting
-    steps replayed from CUDA graphs; its event file read back, its
-    checkpoint validated (its buffer restored equal), and that checkpoint
-    served (``load_gateway_model``) to RUN_CLIENTS lockstep clients,
-    against a plain-cell replay. The cell's launches on the run must be the
+    buffer, the DreamerV3 100k MsPacman preset or the DreamerV3 DMC walker
+    preset with its sequential buffer, each at full width with logging), its
+    gradient steps and acting steps replayed from CUDA graphs; its event
+    file read back, its checkpoint validated (its buffer restored equal),
+    and that checkpoint served (``load_gateway_model``) to RUN_CLIENTS
+    lockstep clients, against a plain-cell replay (the walker's float
+    actions within TOL_CONTINUOUS_ACTION, and its greedy best-of-100 actions
+    too, ``_greedy_against_plain``). The cell's launches on the run must be the
     player steps + the cell steps of each gradient step (65 DV2, 79 DV3) +
     the test episode's steps. A second, profiled run (the same work) gives
     the device's busy time, its idle share read against the first run's
@@ -1145,8 +1432,7 @@ def phase_run(card: str, name: str = "run"):
         torch.cuda.synchronize()
         cold_start_s = time.perf_counter() - t0
         plain, *_ = load_gateway_model(ckpt, device="cuda", plain_cell=True)
-        rng = np.random.RandomState(SEED)
-        frames = rng.randint(0, 256, (RUN_REQUESTS, RUN_CLIENTS) + OBS["rgb"]).astype(np.uint8)
+        frames = _serve_frames(spec["obs"], np.random.RandomState(SEED))
         ops.hafner_cell_launches.reset()
         actions, states, serve_wall, status = serve_lockstep(model, frames, seed=SEED)
         served_launches = ops.hafner_cell_launches.count
@@ -1154,10 +1440,19 @@ def phase_run(card: str, name: str = "run"):
         requests = RUN_CLIENTS * RUN_REQUESTS
         if status["failed_requests"] or p_status["failed_requests"] or status["requests"] != requests:
             raise AssertionError(f"served {status['requests']} requests, {status['failed_requests']} failed")
-        if not ((actions >= 0) & (actions < RUN_ACTIONS)).all() or not torch.isfinite(states).all():
+        if spec["continuous"]:
+            in_range = np.isfinite(actions).all() and np.abs(actions).max() <= 1.0
+            action_err = float(np.abs(actions - p_actions).max())
+            agree = action_err <= TOL_CONTINUOUS_ACTION
+        else:
+            in_range = ((actions >= 0) & (actions < RUN_ACTIONS)).all()
+            action_err = float((actions != p_actions).sum())
+            agree = action_err == 0
+        if not in_range or not torch.isfinite(states).all():
             raise AssertionError("an action is out of range or a recurrent state is not finite")
-        if not np.array_equal(actions, p_actions):
-            raise AssertionError(f"the checkpoint's kernel and plain paths disagree on {(actions != p_actions).sum()} actions")
+        if not agree:
+            raise AssertionError(f"the checkpoint's kernel and plain paths disagree on the actions: {action_err}")
+        greedy = _greedy_against_plain(ckpt) if spec["continuous"] else None
         state_err = (states - p_states).abs().max().item()
         if state_err > TOL_STATE:
             raise AssertionError(f"recurrent state differs by {state_err} > {TOL_STATE}")
@@ -1219,8 +1514,10 @@ def phase_run(card: str, name: str = "run"):
         "served_requests": requests,
         "served_failed_requests": status["failed_requests"],
         "served_requests_per_s": requests / serve_wall,
-        "plain_replay_actions_equal": True,
+        "plain_replay_actions_equal": not spec["continuous"],
+        "plain_replay_action_max_abs_err" if spec["continuous"] else "plain_replay_actions_differing": action_err,
         "plain_replay_state_max_abs_err": state_err,
+        "greedy_best_of_samples": greedy,
         "peak_device_memory_bytes": peak,
         "profiled_run_wall_s": wall2,
         # the phase's own seconds, part by part (the profiled run's includes stopping the profiler)
@@ -1269,8 +1566,11 @@ def main() -> int:
     by_path["bench_kernels"], bench_line = phase_bench_kernels()
     by_path["train"], train_rel_diff, graph_line = phase_train(card)
     by_path["train_dv3"], dv3_rel_diff, dv3_graph_line = phase_train_dv3(card)
+    by_path["train_walker"], walker_rel_diff, walker_graph_line = phase_train_dv3(card, "dreamer_v3_walker")
+    by_path["train_dv2_continuous"], dv2_continuous_graph_line = phase_train_dv2_continuous(card)
     by_path["run"] = phase_run(card, "run")
     by_path["run_dv3"] = phase_run(card, "run_dv3")
+    by_path["run_walker"] = phase_run(card, "run_walker")
 
     cell_row = next(r for r in train_rows if r["B"] == 1600)
     seq_row = seq_rows[0]
@@ -1282,8 +1582,8 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/kernels/csrc/hafner_gru.cu",
             "replaces": "sheeprl_tpu/kernels/pallas_tpu.py:67",
-            # the main paths' runs: the DV2 preset's (PR 5-6) and the DV3 100k preset's (PR 7)
-            "launches": by_path["run"]["hafner_cell"] + by_path["run_dv3"]["hafner_cell"],
+            # the main paths' runs: the DV2 MsPacman preset's, the DV3 100k preset's and the DV3 walker preset's
+            "launches": sum(by_path[run]["hafner_cell"] for run in RUN_SPECS),
             "max_abs_err": max(r["max_abs_err"] for r in serve_rows + train_rows + dv3_rows),
             "ms": cell_row["ms"],
             "plain_ms": cell_row["plain_ms"],
@@ -1308,6 +1608,12 @@ def main() -> int:
             ],
             "dv3_train_step_rel_diff_vs_plain": dv3_rel_diff,
             "dv3_graphed_vs_eager_train_steps_cudnn_deterministic": dv3_graph_line,
+            # the VJP (plain PyTorch operations) at the walker's imagination shape, beside the kernel's forward
+            "dv3_walker_vjp": next(r["vjp"] for r in dv3_rows if r["B"] == max(DV3_CELL_BATCHES)),
+            "dv3_posterior_vjp": next(r["vjp"] for r in dv3_rows if r["B"] == 16),
+            "walker_train_step_rel_diff_vs_plain": walker_rel_diff,
+            "walker_graphed_vs_eager_train_steps_cudnn_deterministic": walker_graph_line,
+            "dv2_continuous_graphed_vs_eager_cudnn_deterministic": dv2_continuous_graph_line,
         },
         {
             "name": "hafner_sequence",

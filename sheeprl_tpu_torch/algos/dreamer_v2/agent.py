@@ -31,6 +31,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     Actor,
     ExplorationStep,
     actor_entropy,
+    actor_noise,
     build_actor_dists,
     compute_stochastic_state,
     dreamer_player_fns,
@@ -52,6 +53,7 @@ __all__ = [
     "RecurrentModel",
     "WorldModel",
     "actor_entropy",
+    "actor_noise",
     "build_actor_dists",
     "build_agent",
     "build_player_fns",

@@ -65,6 +65,7 @@ import torch
 from sheeprl_tpu_torch.algos.dreamer_v2.agent import (
     ExplorationStep,
     actor_entropy,
+    actor_noise,
     build_actor_dists,
     build_agent,
     build_player_fns,
@@ -124,17 +125,21 @@ def build_optimizers_and_state(cfg, world_model, actor, critic, target_critic, g
     return {**modules, "target_critic": target_critic, "opt": opt, "generator": generator}
 
 
-def draw_noise(cfg, actions_dim: Sequence[int], T: int, B: int, generator: Optional[torch.Generator], device):
-    """Gumbel(0,1) noise for one step: the posterior samples ``[T, B, S, D]``,
-    the imagined priors ``[horizon, T·B, S, D]`` and each action head's
-    samples ``[horizon, T·B, dim]``."""
+def draw_noise(cfg, actions_dim: Sequence[int], T: int, B: int, generator: Optional[torch.Generator], device,
+               is_continuous: bool = False):
+    """The noise of one step: the posterior's Gumbels ``[T, B, S, D]``, the
+    imagined priors' ``[horizon, T·B, S, D]`` and each action head's samples'
+    ``[horizon, T·B, dim]``: Gumbels for a categorical head, the continuous
+    actor's base noise (``actor_noise``) for its one head of width
+    ``Σdims``."""
     wm_cfg = cfg.algo.world_model
     S, D, horizon = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size), int(cfg.algo.horizon)
-    draw = lambda *shape: gumbel_noise(shape, generator, device=device)
+    distribution = resolve_actor_distribution(cfg.distribution.get("type", "auto"), is_continuous)
+    heads = [int(np.sum(actions_dim))] if is_continuous else [int(d) for d in actions_dim]
     return {
-        "posterior": draw(T, B, S, D),
-        "prior": draw(horizon, T * B, S, D),
-        "actions": [draw(horizon, T * B, int(d)) for d in actions_dim],
+        "posterior": gumbel_noise((T, B, S, D), generator, device=device),
+        "prior": gumbel_noise((horizon, T * B, S, D), generator, device=device),
+        "actions": [actor_noise(distribution, (horizon, T * B, d), generator, device) for d in heads],
     }
 
 
@@ -177,9 +182,7 @@ def build_losses(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Simple
     ``actor_loss(wm, actor, target_critic, posteriors, recurrents,
     true_continue, noise) -> (loss, aux)`` and ``critic_loss(critic,
     trajectories, lambda_values, discount)``, with the clip norms
-    (``clips``) and the action heads' widths (``dims``)."""
-    if is_continuous:
-        raise NotImplementedError("continuous actions are not ported yet")
+    (``clips``)."""
     cnn_keys, mlp_keys = list(cfg.cnn_keys.encoder), list(cfg.mlp_keys.encoder)
     wm_cfg = cfg.algo.world_model
     S, D = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
@@ -226,7 +229,7 @@ def build_losses(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Simple
         )
         return loss, metrics, posteriors.detach(), recurrents.detach()
 
-    def imagination(wm, actor, posteriors, recurrents, prior_gumbels, action_gumbels):
+    def imagination(wm, actor, posteriors, recurrents, prior_gumbels, action_noise):
         """``(trajectories [H+1, TB, L], actions [H+1, TB, A])`` with
         ``actions[0] = 0``; the action is computed inside the loop."""
         prior = posteriors.reshape(-1, stoch_flat)
@@ -236,7 +239,7 @@ def build_losses(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Simple
         for i in range(horizon):
             dists = build_actor_dists(actor(latent.detach()), is_continuous, distribution, init_std, min_std, 0.0)
             action = torch.cat(
-                sample_actor_actions(dists, is_continuous, is_training=True, gumbels=[g[i] for g in action_gumbels]),
+                sample_actor_actions(dists, is_continuous, is_training=True, noise=[n[i] for n in action_noise]),
                 dim=-1,
             )
             prior, recurrent = wm.rssm.imagination(prior, recurrent, action, gumbel=prior_gumbels[i])
@@ -268,7 +271,7 @@ def build_losses(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Simple
         ]
         reinforce = sum(per_head) * advantage
         objective = objective_mix * reinforce + (1 - objective_mix) * dynamics
-        entropy = ent_coef * actor_entropy(policies)
+        entropy = ent_coef * actor_entropy(policies, distribution)
         policy_loss = -torch.mean(discount[:-2] * (objective + entropy[..., None]))
         aux = {
             "trajectories": traj.detach(),
@@ -284,7 +287,7 @@ def build_losses(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Simple
         return -torch.mean(discount[:-1, ..., 0] * qv.log_prob(lambda_values))
 
     return SimpleNamespace(
-        world_model_loss=world_model_loss, actor_loss=actor_loss, critic_loss=critic_loss, clips=clips, dims=dims
+        world_model_loss=world_model_loss, actor_loss=actor_loss, critic_loss=critic_loss, clips=clips
     )
 
 
@@ -309,7 +312,7 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
     are updated in place."""
     losses = build_losses(cfg, actions_dim, is_continuous)
     world_model_loss, actor_loss, critic_loss = losses.world_model_loss, losses.actor_loss, losses.critic_loss
-    clips, dims = losses.clips, losses.dims
+    clips = losses.clips
 
     def body(state: Dict[str, Any], data: Dict[str, torch.Tensor], noise, tau: torch.Tensor):
         wm, actor, critic, target = state["world_model"], state["actor"], state["critic"], state["target_critic"]
@@ -343,7 +346,7 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
         return metrics
 
     def noise_for(T: int, B: int, generator: Optional[torch.Generator], device):
-        return draw_noise(cfg, dims, T, B, generator, device)
+        return draw_noise(cfg, actions_dim, T, B, generator, device, is_continuous)
 
     return build_train_burst(body, noise_for, _prepare)
 

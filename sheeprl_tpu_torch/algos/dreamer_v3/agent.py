@@ -17,8 +17,11 @@ with eps 1e-3; on the card it is the CUDA kernel
 
 A serving build (``build_agent(..., training=False)``) leaves out the
 decoders and the reward and continue heads; a training build has them and
-also returns the critic and its target copy. Continuous actors (greedy
-best-of-100 sampling from a truncated normal) are not ported and raise.
+also returns the critic and its target copy. A continuous actor has one head
+of width ``2·Σdims`` (mean and std) read as a ``trunc_normal`` (the
+default), ``normal`` or ``tanh_normal``; it samples with ``rsample`` when
+acting and in training, and greedily as the best of 100 samples by
+``log_prob``.
 """
 
 from __future__ import annotations
@@ -35,7 +38,16 @@ from torch import nn
 
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_obs_tensors
 from sheeprl_tpu_torch.device import resolve_device
-from sheeprl_tpu_torch.distributions import OneHotCategoricalStraightThrough, gumbel_noise, symlog
+from sheeprl_tpu_torch.distributions import (
+    Independent,
+    Normal,
+    OneHotCategoricalStraightThrough,
+    TanhNormal,
+    TruncatedNormal,
+    gumbel_noise,
+    symlog,
+    truncated_uniform_noise,
+)
 from sheeprl_tpu_torch.models.models import CNN, MLP, DeCNN, LayerNormGRUCell, resolve_activation
 from sheeprl_tpu_torch.models.norm import FastLayerNorm
 from sheeprl_tpu_torch.train.graphs import CapturedStep
@@ -52,6 +64,8 @@ __all__ = [
     "RecurrentModel",
     "WorldModel",
     "actor_entropy",
+    "actor_noise",
+    "add_exploration_noise",
     "build_actor_dists",
     "build_agent",
     "build_player_fns",
@@ -65,8 +79,9 @@ __all__ = [
     "uniform_mix",
 ]
 
-_CONTINUOUS = "continuous actions are not ported yet: only discrete actors are served"
 _EPS = 1e-3  # every LayerNorm of the DreamerV3 modules
+#: samples a continuous actor's greedy action is the best of (by log_prob)
+GREEDY_SAMPLES = 100
 
 
 # ---------------------------------------------------------------------------
@@ -75,8 +90,9 @@ _EPS = 1e-3  # every LayerNorm of the DreamerV3 modules
 
 
 class Actor(nn.Module):
-    """Dense trunk plus one Linear head per discrete sub-action. Returns the
-    raw head outputs (logits), one tensor per head."""
+    """Dense trunk plus one Linear head per discrete sub-action, or one head
+    of width ``2·Σdims`` (mean and std) for continuous actions. Returns the
+    raw head outputs, one tensor per head."""
 
     def __init__(
         self,
@@ -91,8 +107,6 @@ class Actor(nn.Module):
         device=None,
     ):
         super().__init__()
-        if is_continuous:
-            raise NotImplementedError(_CONTINUOUS)
         self.actions_dim = tuple(int(d) for d in actions_dim)
         self.distribution = distribution
         self.mlp = MLP(
@@ -104,9 +118,8 @@ class Actor(nn.Module):
             bias=not layer_norm,
             device=device,
         )
-        self.heads = nn.ModuleList(
-            nn.Linear(self.mlp.output_dim, dim, device=device) for dim in self.actions_dim
-        )
+        widths = (2 * sum(self.actions_dim),) if is_continuous else self.actions_dim
+        self.heads = nn.ModuleList(nn.Linear(self.mlp.output_dim, dim, device=device) for dim in widths)
 
     def forward(self, state: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = self.mlp(state)
@@ -134,11 +147,26 @@ def build_actor_dists(
     init_std: float = 0.0,
     min_std: float = 0.1,
     unimix: float = 0.01,
-) -> List[OneHotCategoricalStraightThrough]:
-    """Head outputs → one straight-through categorical per sub-action, with
-    an optional uniform mix of the probabilities."""
+) -> list:
+    """Head outputs → the actor's distributions: one straight-through
+    categorical per sub-action, with an optional uniform mix of the
+    probabilities; or for continuous actions one :class:`Independent` over
+    the single head's ``(mean, std)`` halves: ``trunc_normal`` on [−1, 1] at
+    ``tanh(mean)`` with std ``2·sigmoid((std + init_std)/2) + min_std``,
+    ``normal`` as it is, ``tanh_normal`` at ``5·tanh(mean/5)`` with std
+    ``softplus(std + init_std) + min_std``."""
     if is_continuous:
-        raise NotImplementedError(_CONTINUOUS)
+        mean, std = torch.chunk(pre_dist[0], 2, dim=-1)
+        if distribution == "tanh_normal":
+            mean = 5.0 * torch.tanh(mean / 5.0)
+            std = F.softplus(std + init_std) + min_std
+            return [Independent(TanhNormal(mean, std), 1)]
+        if distribution == "normal":
+            return [Independent(Normal(mean, std), 1)]
+        if distribution == "trunc_normal":
+            std = 2.0 * torch.sigmoid((std + init_std) / 2.0) + min_std
+            return [Independent(TruncatedNormal(torch.tanh(mean), std, -1.0, 1.0), 1)]
+        raise ValueError(f"Unknown continuous distribution '{distribution}'")
     dists = []
     for logits in pre_dist:
         probs = F.softmax(logits, dim=-1)
@@ -148,29 +176,78 @@ def build_actor_dists(
     return dists
 
 
+def actor_noise(distribution: str, shape, generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
+    """Pre-drawn noise for one head's samples of shape ``shape``: Gumbels for
+    a categorical (``discrete``), uniforms on ``[1e-6, 1 − 1e-6]`` for a
+    ``trunc_normal`` (its inverse cdf's), standard normals for a ``normal``
+    or ``tanh_normal``."""
+    if distribution == "discrete":
+        return gumbel_noise(shape, generator, device)
+    if distribution == "trunc_normal":
+        return truncated_uniform_noise(shape, generator, device)
+    return torch.randn(shape, generator=generator, device=device)
+
+
 def sample_actor_actions(
-    dists: Sequence[OneHotCategoricalStraightThrough],
+    dists: Sequence[Any],
     is_continuous: bool,
     generator: Optional[torch.Generator] = None,
     is_training: bool = True,
-    gumbels: Optional[Sequence[torch.Tensor]] = None,
+    noise: Optional[Sequence[torch.Tensor]] = None,
 ) -> List[torch.Tensor]:
-    """A straight-through sample per head when training, the mode otherwise.
-    ``gumbels`` holds pre-drawn Gumbel(0,1) noise, one tensor per head shaped
-    like its logits (the JAX side draws it per head from ``split(key)``);
-    without it the noise comes from ``generator``."""
-    if is_continuous:
-        raise NotImplementedError(_CONTINUOUS)
-    if not is_training:
-        return [d.mode for d in dists]
-    if gumbels is None:
-        return [d.rsample(generator) for d in dists]
-    return [d.rsample(gumbel=g) for d, g in zip(dists, gumbels)]
+    """A (straight-through or reparameterized) sample per distribution when
+    training; greedily the mode of a categorical, or for continuous actions
+    the best of GREEDY_SAMPLES samples by ``log_prob`` (the first of equal
+    ones, as ``argmax`` takes it). ``noise`` holds pre-drawn noise, one
+    tensor per distribution (:func:`actor_noise`, shaped like its actions,
+    with a leading axis of GREEDY_SAMPLES for a greedy continuous action;
+    the JAX side draws it per head from ``split(key)``); without it the
+    noise comes from ``generator``."""
+    if not is_continuous:
+        if not is_training:
+            return [d.mode for d in dists]
+        if noise is None:
+            return [d.rsample(generator) for d in dists]
+        return [d.rsample(gumbel=g) for d, g in zip(dists, noise)]
+    noise = [None] * len(dists) if noise is None else noise
+    if is_training:
+        return [d.rsample(generator=generator, noise=n) for d, n in zip(dists, noise)]
+    actions = []
+    for d, n in zip(dists, noise):
+        samples = d.sample((GREEDY_SAMPLES,), generator, noise=n)
+        best = d.log_prob(samples).argmax(dim=0)
+        actions.append(samples.gather(0, best[None, ..., None].expand((1,) + samples.shape[1:]))[0])
+    return actions
 
 
-def actor_entropy(dists: Sequence[OneHotCategoricalStraightThrough]) -> torch.Tensor:
-    """Summed per-head entropy (the discrete actors' closed form)."""
+def actor_entropy(dists: Sequence[Any], distribution: str = "discrete") -> torch.Tensor:
+    """Summed per-head entropy; ``tanh_normal`` has no closed form and gives
+    zeros."""
+    if distribution == "tanh_normal":
+        loc = dists[0].base.base.loc
+        return torch.zeros(loc.shape[:-1], dtype=loc.dtype, device=loc.device)
     return sum(d.entropy() for d in dists)
+
+
+def add_exploration_noise(
+    actions: Sequence[torch.Tensor], expl_amount: torch.Tensor, is_continuous: bool, noise: Sequence[Any]
+) -> List[torch.Tensor]:
+    """Exploration on sampled actions, selected by the device scalar
+    ``expl_amount`` (no host branch, so that it replays from a CUDA graph).
+    Continuous: ``clip(a + expl_amount·ε, −1, 1)`` where ``expl_amount > 0``,
+    ``noise`` one standard normal ``ε`` shaped like the concatenated
+    actions. Discrete: a row's action becomes the uniform category where ``u
+    < expl_amount``, ``noise`` per head ``(uniform_category [n], u [n,
+    1])``."""
+    if is_continuous:
+        cat = torch.cat(list(actions), dim=-1)
+        noisy = (cat + expl_amount * noise[0].to(cat.device)).clamp(-1.0, 1.0)
+        return [torch.where(expl_amount > 0.0, noisy, cat)]
+    out = []
+    for act, (category, u) in zip(actions, noise):
+        rand = F.one_hot(category.to(device=act.device, dtype=torch.long), act.shape[-1]).to(act.dtype)
+        out.append(torch.where(u.to(act.device) < expl_amount, rand, act))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -763,7 +840,8 @@ def dreamer_player_fns(
     :class:`ExplorationStep` ``explore``, ``draw_exploration_noise`` and
     ``normalize``. A fresh state has zero actions and recurrent state and
     the stochastic state ``initial_posterior(recurrent)`` (zeros when None);
-    the actor's categoricals take the ``unimix`` mix."""
+    the actor's categoricals take the ``unimix`` mix. A continuous action is
+    the float vector itself."""
     distribution = resolve_actor_distribution(cfg.distribution.get("type", "auto"), is_continuous)
     init_std, min_std = float(cfg.algo.actor.init_std), float(cfg.algo.actor.min_std)
     wm_cfg = cfg.algo.world_model
@@ -771,6 +849,7 @@ def dreamer_player_fns(
     stoch, discrete = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
     act_dim = int(np.sum(actions_dim))
     dims = [int(d) for d in actions_dim]
+    heads = [act_dim] if is_continuous else dims
     device = next(world_model.parameters()).device
 
     @torch.no_grad()
@@ -797,46 +876,52 @@ def dreamer_player_fns(
         obs: Mapping[str, torch.Tensor],
         generator: Optional[torch.Generator] = None,
         gumbel: Optional[torch.Tensor] = None,
+        action_noise: Optional[Sequence[torch.Tensor]] = None,
     ):
         """One greedy step: the posterior is still sampled (from ``gumbel``
-        ``[n, S, D]`` or ``generator``), the action is the actor's mode."""
+        ``[n, S, D]`` or ``generator``), the action is the actor's mode, or
+        for continuous actions the best of GREEDY_SAMPLES samples (their
+        noise ``action_noise``, one ``[GREEDY_SAMPLES, n, A]`` tensor, or
+        from ``generator``)."""
         embed = world_model.encode(obs)
         recurrent = world_model.recurrent_step(state["stochastic"], state["actions"], state["recurrent"])
         _, stochastic = world_model.representation(recurrent, embed, generator, gumbel=gumbel)
+        noise = None if action_noise is None else [t.to(device) for t in action_noise]
         actions = sample_actor_actions(_policy(torch.cat([stochastic, recurrent], dim=-1)), is_continuous,
-                                       generator, is_training=False)
+                                       generator, is_training=False, noise=noise)
         new_state = {"actions": torch.cat(actions, dim=-1), "recurrent": recurrent, "stochastic": stochastic}
         return actions, new_state
 
     def draw_exploration_noise(n: int, generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """One acting step's noise, in the order the step draws it: the
-        posterior's Gumbels ``[n, S, D]``, each action head's Gumbels ``[n,
-        dim]``, then per head the exploration draw ``(uniform_category [n],
-        u [n, 1])``."""
-        return {
-            "gumbel": gumbel_noise((n, stoch, discrete), generator, device),
-            "action_gumbels": [gumbel_noise((n, d), generator, device) for d in dims],
-            "expl_noise": [
+        posterior's Gumbels ``[n, S, D]``, each action head's sampling noise
+        (:func:`actor_noise`: Gumbels ``[n, dim]`` a categorical head, the
+        continuous head's ``[n, A]``), then the exploration draw: per
+        categorical head ``(uniform_category [n], u [n, 1])``, or one
+        standard normal ``[n, A]`` for continuous actions."""
+        gumbel = gumbel_noise((n, stoch, discrete), generator, device)
+        action_noise = [actor_noise(distribution, (n, d), generator, device) for d in heads]
+        if is_continuous:
+            expl = [torch.randn((n, act_dim), generator=generator, device=device)]
+        else:
+            expl = [
                 (torch.randint(0, d, (n,), generator=generator, device=device),
                  torch.rand((n, 1), generator=generator, device=device))
                 for d in dims
-            ],
-        }
+            ]
+        return {"gumbel": gumbel, "action_gumbels": action_noise, "expl_noise": expl}
 
     def explore(state, obs, expl_amount: torch.Tensor, gumbel, action_gumbels, expl_noise):
         """The acting step over given noise and a device ``expl_amount``: no
-        host branch, so that it replays from a CUDA graph. A row's sampled
-        action becomes the uniform category where ``u < expl_amount``
-        (``add_exploration_noise``); at ``expl_amount = 0`` none does."""
+        host branch, so that it replays from a CUDA graph
+        (:func:`add_exploration_noise`: at ``expl_amount = 0`` the sampled
+        action is kept)."""
         embed = world_model.encode(obs)
         recurrent = world_model.recurrent_step(state["stochastic"], state["actions"], state["recurrent"])
         _, stochastic = world_model.representation(recurrent, embed, gumbel=gumbel)
         actions = sample_actor_actions(_policy(torch.cat([stochastic, recurrent], dim=-1)), is_continuous,
-                                       is_training=True, gumbels=action_gumbels)
-        noisy = []
-        for act, (category, u) in zip(actions, expl_noise):
-            rand = F.one_hot(category.to(device=device, dtype=torch.long), act.shape[-1]).to(act.dtype)
-            noisy.append(torch.where(u.to(device) < expl_amount, rand, act))
+                                       is_training=True, noise=action_gumbels)
+        noisy = add_exploration_noise(actions, expl_amount, is_continuous, expl_noise)
         new_state = {"actions": torch.cat(noisy, dim=-1), "recurrent": recurrent, "stochastic": stochastic}
         return noisy, new_state
 
@@ -848,17 +933,15 @@ def dreamer_player_fns(
         generator: Optional[torch.Generator] = None,
         gumbel: Optional[torch.Tensor] = None,
         action_gumbels: Optional[Sequence[torch.Tensor]] = None,
-        expl_noise: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
+        expl_noise: Optional[Sequence[Any]] = None,
     ):
         """One acting step of training (the JAX ``exploration_action``): the
         posterior and each action head are sampled (from ``gumbel`` ``[n, S,
-        D]`` and ``action_gumbels`` ``[n, dim]`` each), then with
-        probability ``expl_amount`` a row's action is replaced by a uniform
-        one (``add_exploration_noise``; ``expl_noise`` per head
-        ``(uniform_category [n], u [n, 1])``). Noise not given is drawn from
-        ``generator`` (:func:`draw_exploration_noise`'s order), the
-        exploration draw at every ``expl_amount``. The carried action is the
-        one taken."""
+        D]`` and ``action_gumbels``, each head's noise), then exploration
+        noise is added (``add_exploration_noise``, its draw ``expl_noise``).
+        Noise not given is drawn from ``generator``
+        (:func:`draw_exploration_noise`'s order), the exploration draw at
+        every ``expl_amount``. The carried action is the one taken."""
         n = state["recurrent"].shape[0]
         drawn = draw_exploration_noise(n, generator) if None in (gumbel, action_gumbels, expl_noise) else {}
         amount = torch.as_tensor(expl_amount, dtype=torch.float32).to(device)
@@ -963,4 +1046,5 @@ class ExplorationStep:
 
 
 def _flat(noise: Dict[str, Any]) -> list:
-    return [noise["gumbel"], *noise["action_gumbels"], *(t for pair in noise["expl_noise"] for t in pair)]
+    expl = [t for item in noise["expl_noise"] for t in (item if isinstance(item, (tuple, list)) else (item,))]
+    return [noise["gumbel"], *noise["action_gumbels"], *expl]

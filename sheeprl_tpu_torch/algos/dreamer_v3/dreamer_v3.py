@@ -18,14 +18,22 @@ The step keeps the JAX step's order:
    latent and each next one from the new latent, the critic's and the
    reward head's two-hot means, the continue head's mode, λ-returns, the
    5%/95% return percentiles' EMA (``Moments``) scaling the advantage, and
-   the REINFORCE loss with entropy; its update;
+   the REINFORCE loss (discrete actions) or the scaled advantage itself
+   (continuous actions: dynamics backprop) with entropy; its update;
 4. the critic, two-hot, against the λ-returns and the target critic's
    values on the same trajectories; its update.
 
 With discrete actions nothing of the actor loss's gradient passes through
 the imagination (the JAX loss stops the gradient at the trajectories, the
 actions and the advantage), so the imagination runs without autograd; its
-15 cell steps launch the kernel all the same.
+15 cell steps launch the kernel all the same. With continuous actions the
+objective is the advantage, so the gradient flows from the critic's and the
+reward head's values back through every imagined latent, each cell step's
+VJP and the reparameterized actions into the actor; the actor sees each
+latent detached, as the JAX ``sg(latent)``. JAX differentiates the actor
+loss in the actor's parameters alone: here the world model and the critic
+take no gradient while the actor's loss is formed and differentiated, so
+that their ``.grad`` (and the cell's weight gradient) is never computed.
 
 The JAX package runs the step as one SPMD program; here it is PyTorch on
 one device, updating the state in place (parameters, the optimizers' state,
@@ -65,7 +73,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import _graph_counts, _prepare, _step
+from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import _graph_counts, _no_param_grads, _prepare, _step
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import _unsupported as _dv2_unsupported
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import agent_state_dict as _modules_state_dict
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import build_optimizers_and_state as _build_optimizers
@@ -74,6 +82,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     Actor,
     ExplorationStep,
     actor_entropy,
+    actor_noise,
     build_actor_dists,
     build_agent,
     build_player_fns,
@@ -140,18 +149,22 @@ def build_optimizers_and_state(cfg, world_model, actor, critic, target_critic, g
     return state
 
 
-def draw_noise(cfg, actions_dim: Sequence[int], T: int, B: int, generator: Optional[torch.Generator], device):
-    """Gumbel(0,1) noise for one step: the posterior samples ``[T, B, S, D]``,
-    the imagined priors ``[horizon, T·B, S, D]`` and each action head's
-    samples ``[horizon + 1, T·B, dim]`` (the starting latent's action, then
-    one a step)."""
+def draw_noise(cfg, actions_dim: Sequence[int], T: int, B: int, generator: Optional[torch.Generator], device,
+               is_continuous: bool = False):
+    """The noise of one step: the posterior's Gumbels ``[T, B, S, D]``, the
+    imagined priors' ``[horizon, T·B, S, D]`` and each action head's samples'
+    ``[horizon + 1, T·B, dim]`` (the starting latent's action, then one a
+    step): Gumbels for a categorical head, the continuous actor's base noise
+    (``actor_noise``: uniforms for ``trunc_normal``) for its one head of
+    width ``Σdims``."""
     wm_cfg = cfg.algo.world_model
     S, D, horizon = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size), int(cfg.algo.horizon)
-    draw = lambda *shape: gumbel_noise(shape, generator, device=device)  # noqa: E731
+    distribution = resolve_actor_distribution(cfg.distribution.get("type", "auto"), is_continuous)
+    heads = [int(np.sum(actions_dim))] if is_continuous else [int(d) for d in actions_dim]
     return {
-        "posterior": draw(T, B, S, D),
-        "prior": draw(horizon, T * B, S, D),
-        "actions": [draw(horizon + 1, T * B, int(d)) for d in actions_dim],
+        "posterior": gumbel_noise((T, B, S, D), generator, device=device),
+        "prior": gumbel_noise((horizon, T * B, S, D), generator, device=device),
+        "actions": [actor_noise(distribution, (horizon + 1, T * B, d), generator, device) for d in heads],
     }
 
 
@@ -161,10 +174,8 @@ def build_losses(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Simple
     ``actor_loss(wm, actor, critic, moments, posteriors, recurrents,
     true_continue, noise) -> (loss, aux)`` (``aux["moments"]`` the updated
     ``Moments`` state) and ``critic_loss(critic, target, trajectories,
-    lambda_values, discount)``, with the clip norms (``clips``) and the
-    action heads' widths (``dims``)."""
-    if is_continuous:
-        raise NotImplementedError("continuous actions are not ported yet")
+    lambda_values, discount)``, with the clip norms (``clips``). The actor
+    loss is differentiated in the actor alone (``actor_loss_backward``)."""
     cnn_keys, mlp_keys = list(cfg.cnn_keys.encoder), list(cfg.mlp_keys.encoder)
     cnn_dec_keys, mlp_dec_keys = list(cfg.cnn_keys.decoder), list(cfg.mlp_keys.decoder)
     wm_cfg = cfg.algo.world_model
@@ -219,19 +230,17 @@ def build_losses(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Simple
         )
         return loss, metrics, posteriors.detach(), recurrents.detach()
 
-    @torch.no_grad()
-    def imagination(wm, actor, posteriors, recurrents, prior_gumbels, action_gumbels):
+    def imagination(wm, actor, posteriors, recurrents, prior_gumbels, action_noise):
         """``(trajectories [H+1, TB, L], actions [H+1, TB, A])``: the action
-        of each latent, the starting one's first."""
+        of each latent, the starting one's first. Autograd runs through it
+        only for continuous actions, the actor seeing each latent detached."""
         prior = posteriors.reshape(-1, stoch_flat)
         recurrent = recurrents.reshape(-1, rec_size)
         latent = torch.cat([prior, recurrent], dim=-1)
         latents, actions = [latent], []
         for i in range(horizon + 1):
-            action = torch.cat(
-                sample_actor_actions(policy(actor, latent), is_continuous, gumbels=[g[i] for g in action_gumbels]),
-                dim=-1,
-            )
+            dists = policy(actor, latent.detach())
+            action = torch.cat(sample_actor_actions(dists, is_continuous, noise=[n[i] for n in action_noise]), dim=-1)
             actions.append(action)
             if i == horizon:
                 break
@@ -241,8 +250,8 @@ def build_losses(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Simple
         return torch.stack(latents), torch.stack(actions)
 
     def actor_loss(wm, actor, critic, moments, posteriors, recurrents, true_continue, noise):
-        traj, imagined_actions = imagination(wm, actor, posteriors, recurrents, noise["prior"], noise["actions"])
-        with torch.no_grad():
+        with torch.set_grad_enabled(is_continuous):
+            traj, imagined_actions = imagination(wm, actor, posteriors, recurrents, noise["prior"], noise["actions"])
             predicted_values = TwoHotEncodingDistribution(critic(traj), dims=1).mean
             predicted_rewards = TwoHotEncodingDistribution(wm.reward_logits(traj), dims=1).mean
             continues = continue_distribution(wm.continue_logits(traj)).base.mode
@@ -254,24 +263,35 @@ def build_losses(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Simple
             new_moments, offset, invscale = update_moments(moments, lambda_values, *moments_args)
             baseline = predicted_values[:-1]
             advantage = (lambda_values - offset) / invscale - (baseline - offset) / invscale
-        policies = policy(actor, traj)
-        per_head = [
-            p.log_prob(a)[..., None][:-1] for p, a in zip(policies, torch.split(imagined_actions, dims, dim=-1))
-        ]
-        objective = sum(per_head) * advantage
-        entropy = ent_coef * actor_entropy(policies)
+        policies = policy(actor, traj.detach())
+        if is_continuous:
+            objective = advantage
+        else:
+            per_head = [
+                p.log_prob(a)[..., None][:-1] for p, a in zip(policies, torch.split(imagined_actions, dims, dim=-1))
+            ]
+            objective = sum(per_head) * advantage
+        entropy = ent_coef * actor_entropy(policies, distribution)
         policy_loss = -torch.mean(discount[:-1] * (objective + entropy[..., None][:-1]))
         aux = {
-            "trajectories": traj,
-            "lambda_values": lambda_values,
+            "trajectories": traj.detach(),
+            "lambda_values": lambda_values.detach(),
             "discount": discount,
             "moments": new_moments,
-            "User/LambdaValues": lambda_values.mean(),
-            "User/Advantages": advantage.mean(),
+            "User/LambdaValues": lambda_values.detach().mean(),
+            "User/Advantages": advantage.detach().mean(),
             "User/Entropy": entropy.detach().mean(),
-            "User/PredictedRewards": predicted_rewards.mean(),
-            "User/PredictedValues": predicted_values.mean(),
+            "User/PredictedRewards": predicted_rewards.detach().mean(),
+            "User/PredictedValues": predicted_values.detach().mean(),
         }
+        return policy_loss, aux
+
+    def actor_loss_backward(wm, actor, critic, moments, posteriors, recurrents, true_continue, noise):
+        """:func:`actor_loss` and its backward into the actor's ``.grad``
+        alone: the world model and the critic take no gradient meanwhile."""
+        with _no_param_grads(wm, critic):
+            policy_loss, aux = actor_loss(wm, actor, critic, moments, posteriors, recurrents, true_continue, noise)
+            policy_loss.backward()
         return policy_loss, aux
 
     def critic_loss(critic, target, traj, lambda_values, discount):
@@ -282,7 +302,8 @@ def build_losses(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Simple
         return torch.mean(value_loss * discount[:-1, ..., 0])
 
     return SimpleNamespace(
-        world_model_loss=world_model_loss, actor_loss=actor_loss, critic_loss=critic_loss, clips=clips, dims=dims
+        world_model_loss=world_model_loss, actor_loss=actor_loss, actor_loss_backward=actor_loss_backward,
+        critic_loss=critic_loss, clips=clips,
     )
 
 
@@ -294,8 +315,9 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
 
     ``state`` comes from :func:`build_optimizers_and_state`; ``data`` holds
     ``[T, B, ...]`` tensors on the modules' device: the observation keys
-    (uint8 pixels ``[T, B, C, H, W]``), ``actions`` (one-hot, the action
-    taken at each row's observation), ``rewards``, ``dones`` and
+    (uint8 pixels ``[T, B, C, H, W]``), ``actions`` (one-hot, or the float
+    vector of continuous actions: the action taken at each row's
+    observation), ``rewards``, ``dones`` and
     ``is_first`` (``[T, B, 1]``). ``noise`` is :func:`draw_noise`'s dict.
     The metrics are 0-dim device tensors under the JAX step's names.
 
@@ -305,8 +327,10 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
     optimizers' state, the target and the ``Moments`` state are updated in
     place."""
     losses = build_losses(cfg, actions_dim, is_continuous)
-    world_model_loss, actor_loss, critic_loss = losses.world_model_loss, losses.actor_loss, losses.critic_loss
-    clips, dims = losses.clips, losses.dims
+    world_model_loss, actor_loss_backward, critic_loss = (
+        losses.world_model_loss, losses.actor_loss_backward, losses.critic_loss
+    )
+    clips = losses.clips
 
     def body(state: Dict[str, Any], data: Dict[str, torch.Tensor], noise, tau: torch.Tensor):
         wm, actor, critic, target = state["world_model"], state["actor"], state["critic"], state["target_critic"]
@@ -322,10 +346,9 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
         grad_norms = {"world_model": _step(wm, opt["world_model"], clips["world_model"])}
 
         true_continue = (1.0 - data["dones"]).reshape(-1, 1)
-        policy_loss, aux = actor_loss(
+        policy_loss, aux = actor_loss_backward(
             wm, actor, critic, state["moments"], posteriors, recurrents, true_continue, noise
         )
-        policy_loss.backward()
         grad_norms["actor"] = _step(actor, opt["actor"], clips["actor"])
         with torch.no_grad():
             for k, v in aux.pop("moments").items():
@@ -343,7 +366,7 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
         return metrics
 
     def noise_for(T: int, B: int, generator: Optional[torch.Generator], device):
-        return draw_noise(cfg, dims, T, B, generator, device)
+        return draw_noise(cfg, actions_dim, T, B, generator, device, is_continuous)
 
     return build_train_burst(body, noise_for, _prepare)
 
@@ -403,7 +426,10 @@ def main(fabric, cfg) -> Dict[str, Any]:
     and graph replays)."""
     _unsupported(cfg)
     if resolve_actor_cls(cfg.algo.actor.cls) is not Actor:
-        raise NotImplementedError(f"algo.actor.cls={cfg.algo.actor.cls}: only the discrete Actor is ported")
+        raise NotImplementedError(
+            f"algo.actor.cls={cfg.algo.actor.cls}: only the discrete Actor and its continuous form (the port's Actor) "
+            "are ported"
+        )
     world_size = fabric.world_size
     generator, _ = fabric.seed_everything(cfg.seed)
     device = fabric.device

@@ -171,9 +171,11 @@ def _prune_metric_keys(cfg, algo_module: str) -> None:
 
 def run_algorithm(cfg) -> Any:
     """Registry lookup → Fabric → entrypoint; the checkpoint subsystem is
-    set up before and drained after. Returns the entrypoint's result, a
-    dict result with the run's checkpoint stats (bytes, write and blocked
-    time) added as ``checkpoint_stats``."""
+    set up before and drained after; the metric aggregator's and the
+    timer's on/off switches follow ``metric.log_level`` for the run and are
+    put back after it. Returns the entrypoint's result, a dict result with
+    the run's checkpoint stats (bytes, write and blocked time) added as
+    ``checkpoint_stats``."""
     from sheeprl_tpu_torch.ckpt import setup_checkpoint, teardown_checkpoint
 
     entry = find_algorithm(cfg.algo.name)
@@ -181,6 +183,7 @@ def run_algorithm(cfg) -> Any:
     entrypoint = getattr(module, entry["entrypoint"])
     fabric = instantiate(cfg.fabric)
     _prune_metric_keys(cfg, entry["module"])
+    switches = MetricAggregator.disabled, timer.disabled
     MetricAggregator.disabled = cfg.metric.log_level == 0 or len(
         cfg.metric.get("aggregator", {}).get("metrics", {})
     ) == 0
@@ -190,6 +193,7 @@ def run_algorithm(cfg) -> Any:
         result = fabric.launch(entrypoint, cfg)
     finally:
         stats = teardown_checkpoint()
+        MetricAggregator.disabled, timer.disabled = switches
     if isinstance(result, dict):
         result["checkpoint_stats"] = stats
     return result

@@ -31,7 +31,6 @@ _PORT = "sheeprl_tpu_torch."
 NOT_PORTED: Dict[str, str] = {
     "sheeprl_tpu_torch.envs.crafter": "ROADMAP queue A item 6i (real-simulator env wrappers)",
     "sheeprl_tpu_torch.envs.diambra": "ROADMAP queue A item 6i (real-simulator env wrappers)",
-    "sheeprl_tpu_torch.envs.dmc": "ROADMAP queue A item 6i (real-simulator env wrappers)",
     "sheeprl_tpu_torch.envs.minedojo": "ROADMAP queue A item 6i (real-simulator env wrappers)",
     "sheeprl_tpu_torch.envs.minerl": "ROADMAP queue A item 6i (real-simulator env wrappers)",
     "sheeprl_tpu_torch.utils.optim.AdamW": "ROADMAP queue A item 5 (the families that configure it)",

@@ -8,11 +8,14 @@ from sheeprl_tpu_torch.distributions.distributions import (
     OneHotCategorical,
     OneHotCategoricalStraightThrough,
     SymlogDistribution,
+    TanhNormal,
+    TruncatedNormal,
     TwoHotEncodingDistribution,
     gumbel_noise,
     kl_divergence,
     symexp,
     symlog,
+    truncated_uniform_noise,
 )
 
 __all__ = [
@@ -23,9 +26,12 @@ __all__ = [
     "OneHotCategorical",
     "OneHotCategoricalStraightThrough",
     "SymlogDistribution",
+    "TanhNormal",
+    "TruncatedNormal",
     "TwoHotEncodingDistribution",
     "gumbel_noise",
     "kl_divergence",
     "symexp",
     "symlog",
+    "truncated_uniform_noise",
 ]

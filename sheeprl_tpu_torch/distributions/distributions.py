@@ -1,13 +1,17 @@
 """Distributions of the Dreamer slices (counterpart of ``symlog``/``symexp``,
-``Normal``, ``Independent``, ``Bernoulli``, the categorical family,
-``kl_divergence`` and DreamerV3's ``SymlogDistribution``,
-``MSEDistribution`` and ``TwoHotEncodingDistribution`` in
-``sheeprl_tpu/distributions/distributions.py``).
+``Normal``, ``TanhNormal``, ``TruncatedNormal``, ``Independent``,
+``Bernoulli``, the categorical family, ``kl_divergence`` and DreamerV3's
+``SymlogDistribution``, ``MSEDistribution`` and
+``TwoHotEncodingDistribution`` in ``sheeprl_tpu/distributions/distributions.py``).
 
 A categorical sample is ``one_hot(argmax(logits + gumbel))``, the form
 ``jax.random.categorical`` takes, so a test can hand both sides the same
-Gumbel noise. The noise comes from an explicit ``torch.Generator`` or is
-passed in.
+Gumbel noise. A continuous sample is a function of its base noise, drawn by
+``draw_noise`` or passed in: a standard normal for ``Normal`` and
+``TanhNormal`` (``loc + scale·ε``), a uniform on ``[1e-6, 1 − 1e-6]`` for
+``TruncatedNormal`` (its inverse cdf, then clipped to the bounds), as the
+JAX samplers draw it. The noise comes from an explicit ``torch.Generator``
+or is passed in.
 
 These are the port's own classes, not ``torch.distributions``: the
 continue head's targets are ``(1 - done)·γ`` (0.995 for MsPacman), which
@@ -32,14 +36,19 @@ __all__ = [
     "OneHotCategorical",
     "OneHotCategoricalStraightThrough",
     "SymlogDistribution",
+    "TanhNormal",
+    "TruncatedNormal",
     "TwoHotEncodingDistribution",
     "gumbel_noise",
     "kl_divergence",
     "symexp",
     "symlog",
+    "truncated_uniform_noise",
 ]
 
 _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
+_LOG_2 = math.log(2.0)
+_SQRT_2 = math.sqrt(2.0)
 
 
 def symlog(x: torch.Tensor) -> torch.Tensor:
@@ -115,19 +124,167 @@ class OneHotCategoricalStraightThrough(OneHotCategorical):
         return s + probs - probs.detach()
 
 
+def _noise_shape(sample_shape, *params) -> tuple:
+    shapes = (p.shape for p in params if isinstance(p, torch.Tensor))
+    return tuple(sample_shape) + tuple(torch.broadcast_shapes(*shapes))
+
+
 class Normal:
     """Gaussian with ``loc`` and ``scale`` (a tensor or a float; a float
     stays on the host, so that no copy to the device is made, which a CUDA
-    graph capture refuses)."""
+    graph capture refuses). Its base noise is a standard normal ``ε``:
+    ``rsample = loc + scale·ε``."""
 
     def __init__(self, loc: torch.Tensor, scale):
         self.loc = loc
         self.scale = scale if isinstance(scale, torch.Tensor) else float(scale)
 
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.loc
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self.loc
+
+    @property
+    def stddev(self):
+        return self.scale
+
+    def draw_noise(self, sample_shape=(), generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Standard normal noise of shape ``sample_shape + batch shape``."""
+        return torch.randn(_noise_shape(sample_shape, self.loc, self.scale), generator=generator,
+                           device=self.loc.device, dtype=self.loc.dtype)
+
+    def rsample(self, sample_shape=(), generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if noise is None:
+            noise = self.draw_noise(sample_shape, generator)
+        return self.loc + self.scale * noise
+
+    def sample(self, sample_shape=(), generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.rsample(sample_shape, generator, noise).detach()
+
+    def _log_scale(self):
+        return torch.log(self.scale) if isinstance(self.scale, torch.Tensor) else math.log(self.scale)
+
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
         var = self.scale**2
-        log_scale = torch.log(self.scale) if isinstance(self.scale, torch.Tensor) else math.log(self.scale)
-        return -((value - self.loc) ** 2) / (2 * var) - log_scale - _HALF_LOG_2PI
+        return -((value - self.loc) ** 2) / (2 * var) - self._log_scale() - _HALF_LOG_2PI
+
+    def entropy(self) -> torch.Tensor:
+        return torch.zeros_like(self.loc) + (0.5 + _HALF_LOG_2PI + self._log_scale())
+
+
+class TanhNormal:
+    """A tanh-squashed :class:`Normal`. ``log_prob`` subtracts the
+    log-determinant in the stable form ``2·(log 2 − u − softplus(−2u))`` at
+    ``u = atanh(clip(value, −1 + 1e-6, 1 − 1e-6))``. It has no closed-form
+    entropy (the Dreamer actors report zeros for it)."""
+
+    def __init__(self, loc: torch.Tensor, scale):
+        self.base = Normal(loc, scale)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return torch.tanh(self.base.mean)
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return torch.tanh(self.base.mode)
+
+    def rsample(self, sample_shape=(), generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return torch.tanh(self.base.rsample(sample_shape, generator, noise))
+
+    def sample(self, sample_shape=(), generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.rsample(sample_shape, generator, noise).detach()
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        u = torch.atanh(value.clamp(-1.0 + 1e-6, 1.0 - 1e-6))
+        return self.base.log_prob(u) - 2.0 * (_LOG_2 - u - F.softplus(-2.0 * u))
+
+
+def _std_normal_cdf(x: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (1 + torch.erf(x / _SQRT_2))
+
+
+def _std_normal_icdf(p: torch.Tensor) -> torch.Tensor:
+    return _SQRT_2 * torch.erfinv(2 * p - 1)
+
+
+def _std_normal_pdf(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp(-0.5 * x * x) / math.sqrt(2 * math.pi)
+
+
+def truncated_uniform_noise(
+    shape, generator: Optional[torch.Generator] = None, device=None, dtype=torch.float32
+) -> torch.Tensor:
+    """Uniforms on ``[1e-6, 1 − 1e-6]``, where a truncated normal's inverse
+    cdf is drawn (JAX's ``uniform(minval=1e-6, maxval=1 - 1e-6)``)."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+    return 1e-6 + (1.0 - 2e-6) * u
+
+
+class TruncatedNormal:
+    """``Normal(loc, scale)`` truncated to ``[low, high]`` (floats): analytic
+    ``cdf``, ``icdf``, ``mean``, ``log_prob`` (−inf outside the bounds) and
+    ``entropy``; ``Z = Φ(β) − Φ(α)`` clipped at 1e-8. Its base noise is a
+    uniform ``p`` on ``[1e-6, 1 − 1e-6]``: ``rsample = clip(icdf(p), low,
+    high)``, differentiable in ``loc`` and ``scale``. The Dreamer
+    continuous actors' distribution."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, low: float = -1.0, high: float = 1.0):
+        self.loc, self.scale = loc, scale
+        self.low, self.high = float(low), float(high)
+        self.alpha = (self.low - loc) / scale
+        self.beta = (self.high - loc) / scale
+        self.cdf_alpha = _std_normal_cdf(self.alpha)
+        self.Z = (_std_normal_cdf(self.beta) - self.cdf_alpha).clamp(min=1e-8)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.loc + self.scale * (_std_normal_pdf(self.alpha) - _std_normal_pdf(self.beta)) / self.Z
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self.loc.clamp(self.low, self.high)
+
+    def cdf(self, value: torch.Tensor) -> torch.Tensor:
+        xi = (value - self.loc) / self.scale
+        return ((_std_normal_cdf(xi) - self.cdf_alpha) / self.Z).clamp(0.0, 1.0)
+
+    def icdf(self, p: torch.Tensor) -> torch.Tensor:
+        return self.loc + self.scale * _std_normal_icdf(self.cdf_alpha + p * self.Z)
+
+    def draw_noise(self, sample_shape=(), generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """:func:`truncated_uniform_noise` of shape ``sample_shape + batch shape``."""
+        return truncated_uniform_noise(_noise_shape(sample_shape, self.loc, self.scale), generator,
+                                       self.loc.device, self.loc.dtype)
+
+    def rsample(self, sample_shape=(), generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if noise is None:
+            noise = self.draw_noise(sample_shape, generator)
+        return self.icdf(noise).clamp(self.low, self.high)
+
+    def sample(self, sample_shape=(), generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.rsample(sample_shape, generator, noise).detach()
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        xi = (value - self.loc) / self.scale
+        log_p = -0.5 * xi * xi - _HALF_LOG_2PI - torch.log(self.scale) - torch.log(self.Z)
+        inside = (value >= self.low) & (value <= self.high)
+        return torch.where(inside, log_p, torch.full_like(log_p, -math.inf))
+
+    def entropy(self) -> torch.Tensor:
+        # lim x→±inf x·pdf(x) = 0
+        a_term = torch.where(torch.isfinite(self.alpha), self.alpha * _std_normal_pdf(self.alpha), 0.0)
+        b_term = torch.where(torch.isfinite(self.beta), self.beta * _std_normal_pdf(self.beta), 0.0)
+        return 0.5 + _HALF_LOG_2PI + torch.log(self.scale * self.Z) + (a_term - b_term) / (2 * self.Z)
 
 
 class Bernoulli:
@@ -146,7 +303,8 @@ class Bernoulli:
 
 
 class Independent:
-    """Sums ``log_prob`` and ``entropy`` over the last ``reinterpreted_batch_ndims`` dims."""
+    """Sums ``log_prob`` and ``entropy`` over the last ``reinterpreted_batch_ndims`` dims;
+    means, modes and samples are the base's."""
 
     def __init__(self, base, reinterpreted_batch_ndims: int = 1):
         self.base = base
@@ -154,6 +312,22 @@ class Independent:
 
     def _reduce(self, x: torch.Tensor) -> torch.Tensor:
         return x.sum(dim=tuple(range(-self.ndims, 0))) if self.ndims else x
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.base.mean
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self.base.mode
+
+    def rsample(self, sample_shape=(), generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.base.rsample(sample_shape, generator, noise)
+
+    def sample(self, sample_shape=(), generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.base.sample(sample_shape, generator, noise)
 
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
         return self._reduce(self.base.log_prob(value))

@@ -43,6 +43,7 @@ __all__ = [
     "hafner_cell_cuda",
     "hafner_cell_launches",
     "hafner_cell_variant",
+    "hafner_cell_vjp",
     "hafner_gru_cell",
     "hafner_gru_sequence",
     "hafner_sequence_cuda",
@@ -440,6 +441,25 @@ def _gates_vjp(z, h, ln_scale, ln_bias, eps: float, g):
     return dz, dh, dscale, dlbias
 
 
+def hafner_cell_vjp(h, x, kernel, bias, ln_scale, ln_bias, z, g, eps: float, need=(True, True, True, True)):
+    """The cell's VJP at the kept pre-activation ``z`` for the output
+    cotangent ``g``: ``(dh, dx, dkernel, dbias, dscale, dlbias)``. ``need``
+    says which of ``(h, x, kernel, bias)`` take a gradient (None for the
+    others): with a frozen kernel, as in DreamerV3's continuous imagination,
+    only the input product ``dz·Wᵀ`` runs."""
+    H = h.shape[-1]
+    dz, dh, dscale, dlbias = _gates_vjp(z, h, ln_scale, ln_bias, eps, g)
+    dh_out = dx = dkernel = dbias = None
+    if need[0] or need[1]:
+        du = dz @ kernel.t()
+        dh_out, dx = dh + du[:, :H], du[:, H:]
+    if need[2]:
+        dkernel = torch.cat([h, x], dim=-1).t() @ dz
+    if bias is not None and need[3]:
+        dbias = dz.sum(dim=0)
+    return dh_out, dx, dkernel, dbias, dscale, dlbias
+
+
 class _HafnerCell(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, x, kernel, bias, ln_scale, ln_bias, eps, save_z):
@@ -459,18 +479,8 @@ class _HafnerCell(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         h, x, kernel, bias, ln_scale, ln_bias, z = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        H = h.shape[-1]
-        dz, dh, dscale, dlbias = _gates_vjp(z, h, ln_scale, ln_bias, ctx.eps, g)
-        dh_out = dx = dkernel = dbias = None
-        if need[0] or need[1]:
-            du = dz @ kernel.t()
-            dh_out, dx = dh + du[:, :H], du[:, H:]
-        if need[2]:
-            dkernel = torch.cat([h, x], dim=-1).t() @ dz
-        if bias is not None and need[3]:
-            dbias = dz.sum(dim=0)
-        return dh_out, dx, dkernel, dbias, dscale, dlbias, None, None
+        grads = hafner_cell_vjp(h, x, kernel, bias, ln_scale, ln_bias, z, g, ctx.eps, ctx.needs_input_grad[:4])
+        return (*grads, None, None)
 
 
 class _HafnerSequence(torch.autograd.Function):

@@ -2,15 +2,19 @@
 synthetic batch (counterpart of ``bench_dreamer.py bench.family=dv2`` and
 ``bench.family=dv3``).
 
-    python -m sheeprl_tpu_torch.tools.bench_dreamer [--algo dreamer_v3] [--steps 5] [--profile] [--device cuda]
+    python -m sheeprl_tpu_torch.tools.bench_dreamer [--algo dreamer_v3_walker] [--steps 5] [--profile] [--device cuda]
 
-Builds the world model, actor, critic and target critic at the widths of
-``exp=dreamer_v2_ms_pacman`` (``--algo dreamer_v2``, the default) or
-``exp=dreamer_v3_100k_ms_pacman`` (``--algo dreamer_v3``) with seeded
-random weights (``compare`` takes config overrides, which the tests use to
-shrink it), and the seeded uint8 batch of the JAX bench at the preset's
-``B × T`` (DV2: 32 × 50, DV3: 16 × 64 frames of 3×64×64, 9 one-hot
-actions, Gaussian rewards, no episode ends). Times
+Builds the world model, actor, critic and target critic at the widths of a
+preset (``--algo``, PRESETS): ``exp=dreamer_v2_ms_pacman`` (``dreamer_v2``,
+the default), ``exp=dreamer_v3_100k_ms_pacman`` (``dreamer_v3``),
+``exp=dreamer_v3_dmc_walker_walk`` (``dreamer_v3_walker``: rgb and a
+24-wide ``state``, 6 continuous actions) or ``exp=dreamer_v2`` on a 2-wide
+Box of actions (``dreamer_v2_continuous``), with seeded random weights
+(``compare`` takes config overrides, which the tests use to shrink it), and
+the seeded batch of the JAX bench at the preset's ``B × T`` (DV2: 32 × 50,
+DV3: 16 × 64 uint8 frames of 3×64×64; 9 one-hot actions, or uniform
+continuous ones in [−1, 1]; a Gaussian ``state``; Gaussian rewards, no
+episode ends). Times
 the step eager and graphed in one call, each on a fresh trainer of the same
 seed: one warm-up step at τ=1, then ``--steps`` timed steps at τ=0. Prints
 one JSON line with, for each side, steps/s (host clock around the timed
@@ -41,35 +45,53 @@ from typing import Any, Dict, Optional
 
 ACTIONS = (9,)
 OBS = {"rgb": (3, 64, 64)}
-#: ``--algo`` → (the agent module, the training module, the config helper in ``configs``)
+#: the agent and training modules of each family
 ALGOS = {
-    "dreamer_v2": ("sheeprl_tpu_torch.algos.dreamer_v2.agent", "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",
-                   "dreamer_v2_config"),
-    "dreamer_v3": ("sheeprl_tpu_torch.algos.dreamer_v3.agent", "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
-                   "dreamer_v3_config"),
+    "dreamer_v2": ("sheeprl_tpu_torch.algos.dreamer_v2.agent", "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2"),
+    "dreamer_v3": ("sheeprl_tpu_torch.algos.dreamer_v3.agent", "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3"),
+}
+#: ``--algo`` → (family, ``exp=``, observation shapes, actions, continuous)
+PRESETS = {
+    "dreamer_v2": ("dreamer_v2", "dreamer_v2_ms_pacman", OBS, ACTIONS, False),
+    "dreamer_v3": ("dreamer_v3", "dreamer_v3_100k_ms_pacman", OBS, ACTIONS, False),
+    "dreamer_v3_walker": ("dreamer_v3", "dreamer_v3_dmc_walker_walk", {"rgb": (3, 64, 64), "state": (24,)}, (6,), True),
+    "dreamer_v2_continuous": ("dreamer_v2", "dreamer_v2", OBS, (2,), True),
 }
 
 
-def synthetic_batch(T: int, B: int, actions_dim: int, seed: int = 0) -> Dict[str, np.ndarray]:
+def synthetic_batch(T: int, B: int, actions_dim: int, seed: int = 0, continuous: bool = False,
+                    obs=None) -> Dict[str, np.ndarray]:
     """A seeded synthetic replay batch on the host, as the JAX
-    ``bench_dreamer.py`` makes it: uint8 frames ``[T, B, 3, 64, 64]``,
-    one-hot actions, Gaussian rewards, no episode ends."""
+    ``bench_dreamer.py`` makes it: uint8 frames ``[T, B, 3, 64, 64]`` (and a
+    Gaussian float vector for each other key of ``obs``), one-hot actions
+    (uniform in [−1, 1] when ``continuous``), Gaussian rewards, no episode
+    ends."""
     import numpy as np
 
+    obs = OBS if obs is None else obs
     rng = np.random.default_rng(seed)
-    return {
-        "rgb": rng.integers(0, 256, size=(T, B, 3, 64, 64)).astype(np.uint8),
-        "actions": np.eye(actions_dim, dtype=np.float32)[rng.integers(0, actions_dim, (T, B))],
-        "rewards": rng.normal(size=(T, B, 1)).astype(np.float32),
-        "dones": np.zeros((T, B, 1), np.float32),
-        "is_first": np.zeros((T, B, 1), np.float32),
+    batch = {
+        k: rng.integers(0, 256, size=(T, B) + tuple(shape)).astype(np.uint8) if len(shape) == 3
+        else rng.normal(size=(T, B) + tuple(shape)).astype(np.float32)
+        for k, shape in obs.items()
     }
+    if continuous:
+        batch["actions"] = rng.uniform(-1.0, 1.0, (T, B, actions_dim)).astype(np.float32)
+    else:
+        batch["actions"] = np.eye(actions_dim, dtype=np.float32)[rng.integers(0, actions_dim, (T, B))]
+    batch.update(
+        rewards=rng.normal(size=(T, B, 1)).astype(np.float32),
+        dones=np.zeros((T, B, 1), np.float32),
+        is_first=np.zeros((T, B, 1), np.float32),
+    )
+    return batch
 
 
 def build_trainer(device=None, seed: int = 0, algo: str = "dreamer_v2", **overrides):
-    """``(cfg, state, program, data)`` of ``algo`` at its MsPacman preset's
-    width (with ``overrides``) on ``device``: ``program`` is the gradient
-    step's ``TrainProgram``; the state's generator draws the noise."""
+    """``(cfg, state, program, data)`` of the preset ``algo`` (PRESETS) at
+    its width (with ``overrides``) on ``device``: ``program`` is the
+    gradient step's ``TrainProgram``; the state's generator draws the
+    noise."""
     import importlib
 
     import torch
@@ -77,19 +99,21 @@ def build_trainer(device=None, seed: int = 0, algo: str = "dreamer_v2", **overri
     from sheeprl_tpu_torch import configs
     from sheeprl_tpu_torch.device import resolve_device
 
-    agent_module, train_module, config_fn = ALGOS[algo]
+    family, exp, obs, actions, continuous = PRESETS[algo]
+    agent_module, train_module = ALGOS[family]
     agent, train = importlib.import_module(agent_module), importlib.import_module(train_module)
     dev = resolve_device(device)
-    cfg = getattr(configs, config_fn)(**overrides)
-    modules = agent.build_agent(cfg, ACTIONS, False, OBS, seed=seed, device=dev, training=True)
+    cfg = getattr(configs, f"{family}_config")(exp, **overrides)
+    modules = agent.build_agent(cfg, actions, continuous, obs, seed=seed, device=dev, training=True)
     state = train.build_optimizers_and_state(cfg, *modules, generator=torch.Generator(device=dev).manual_seed(seed))
     T, B = int(cfg.per_rank_sequence_length), int(cfg.per_rank_batch_size)
-    data = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(T, B, ACTIONS[0], seed=seed).items()}
-    return cfg, state, train.build_train_fn(cfg, ACTIONS, False), data
+    batch = synthetic_batch(T, B, int(sum(actions)), seed=seed, continuous=continuous, obs=obs)
+    data = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    return cfg, state, train.build_train_fn(cfg, actions, continuous), data
 
 
 def _metric(algo: str) -> str:
-    return f"dv{algo[-1]}_train_steps_per_s"
+    return f"{algo.replace('dreamer_v', 'dv')}_train_steps_per_s"
 
 
 def profile_steps(step, steps: int) -> Dict[str, Any]:
@@ -213,7 +237,7 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--algo", default="dreamer_v2", choices=sorted(ALGOS))
+    ap.add_argument("--algo", default="dreamer_v2", choices=sorted(PRESETS))
     args = ap.parse_args(argv)
     print(json.dumps(compare(args.steps, args.device, args.profile, args.seed, args.algo)), flush=True)
     return 0

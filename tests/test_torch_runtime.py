@@ -86,7 +86,7 @@ def test_registry_finds_the_ported_entrypoint():
 @pytest.mark.parametrize(
     "target,match",
     [
-        ("sheeprl_tpu_torch.envs.dmc.DMCWrapper", "item 6"),
+        ("sheeprl_tpu_torch.envs.crafter.CrafterWrapper", "item 6"),
         ("sheeprl_tpu_torch.utils.optim.SGD", "item 5"),
         ("sheeprl_tpu_torch.not_a_module.X", "queue A"),
     ],
