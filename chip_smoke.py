@@ -74,8 +74,8 @@ encoder channels 32/64/128/256, dense 512 x 2, recurrent 512, 32x32
 latent, 255-bin two-hot reward and critic, B=16 x T=64, horizon 15, f32):
 
 - dv3 kernels (after phase 3's training shapes): the cell at H = X = 512,
-  no bias, eps 1e-3, at B=1, 16 and 1024 (acting and test, posterior,
-  imagination), forward and the five gradients against the plain version,
+  no bias, eps 1e-3, at B=1, 10, 16, 64 and 1024 (acting and test, the eval
+  pool, posterior, a serving batch, imagination), forward and the five gradients against the plain version,
   device time, bound and cuBLAS's product (``phase_cell_dv3``);
 - train_dv3 (after phase 6): one step kernel against plain cell (TF32
   off), GRAPH_STEPS steps graphed against eager with
@@ -113,11 +113,35 @@ backprop, so its gradient runs back through the 15 imagination cell steps):
   best-of-100 actions of the checkpoint's weights against a plain-cell
   replay at the same injected noise; 128 + 79 x 65 + 1000 cell launches.
 
+Evaluation, registration and serving, eval_serve (after run_walker,
+on run_dv3's and run_walker's checkpoints; the dv3 kernel rows gain B=10,
+the eval pool's batch, and B=64, a full serving batch):
+
+- ``cli.evaluation`` of each checkpoint at ``eval.episodes=10``: eval.json
+  with the JAX package's keys, one registry line, one cell launch a pool
+  step, and every pool step's actions against a plain-cell evaluation at
+  the same seeds (equal; the walker's within TOL_CONTINUOUS_ACTION);
+- ``cli.registration`` of the DV3 checkpoint, the cold start of
+  ``ServeGateway.from_checkpoint("registry:best:dreamer_v3:<env>")``, and
+  ``rescore_through_gateway`` of that ref: returns, lengths and every step's
+  actions bit for bit the evaluation's, one cell launch a batch;
+- the ``serve`` command in a subprocess, its ring driven by SERVE_CLIENTS
+  spawned clients (``serve/loadgen.py``); once all have had an answer, a
+  publication of perturbed weights into the watched ``poll_root`` mid-load,
+  the clients stopped, then SIGTERM: no failed request, versions monotone for every client, at
+  least one swap, ``drained=clean`` and exit 0, one cell launch a batch;
+  requests/s, latency p50/p99, publication-to-new-version and drain time;
+- in-run evaluation on a DV3 run at the 100k width (INRUN_ARGS): the
+  sidecar's curve, the spawned CPU child never initialising CUDA, and the
+  trainer's launches still the player steps + 79 a gradient step + the test
+  steps.
+
 Each path's launch counts are zeroed just before its run and read just
 after it: the served run (phase 4), the bench (phase 5), the timed train
 steps (phases 6, train_dv3, train_walker) and the graphed steps
-(train_dv2_continuous), and the training runs (phases 7, run_dv3 and
-run_walker). The ``kernels`` line's cell ``launches`` is the three runs' sum. The build phase also counts the tensor-core instructions
+(train_dv2_continuous), the training runs (phases 7, run_dv3 and
+run_walker), and eval_serve's evaluations, rescore, serve command and
+in-run run (``launches_by_path``). The ``kernels`` line's cell ``launches`` is the three runs' sum. The build phase also counts the tensor-core instructions
 (``HGMMA``, ``HMMA``) in the built library's SASS (``cuobjdump -sass``).
 
 Bounds: the least time of the same work on an H100 SXM, the larger of its
@@ -194,8 +218,9 @@ RUN_TAGS_TRAINING = (
 PR5_RATES = {"policy_steps_per_s": 76.8, "gradient_steps_per_s": 3.03}
 RUN_CLIENTS, RUN_REQUESTS, RUN_ACTIONS = 16, 8, 2
 # DreamerV3 (PR 7): the cell at the 100k MsPacman preset's shapes (H = X = 512, no bias, LayerNorm, eps 1e-3) at the
-# batches of its paths: acting and the test episode (1 env), the posterior (B=16), the imagination (16 x 64)
-DV3_CELL_BATCHES = (1, 16, 1024)
+# batches of its paths: acting and the test episode (1 env), the eval pool (eval.episodes=10), the posterior (B=16),
+# a full serving batch (64), the imagination (16 x 64)
+DV3_CELL_BATCHES = (1, 10, 16, 64, 1024)
 DV3_H = DV3_X = 512
 DV3_EPS = 1e-3
 DV3_CELL_LAUNCHES_PER_STEP = 79  # 64 posterior steps + 15 imagination steps
@@ -706,7 +731,7 @@ def phase_sequence():
 def serve_lockstep(model, frames, seed: int):
     """C clients x T lockstep requests (``frames``: each observation key's
     ``[T, C, ...]``) through a fresh gateway with ``max_batch=C``; every step
-    is one full batch, rows in client order. Returns actions [T, C, heads]
+    is one full batch, rows in client order (checked). Returns actions [T, C, heads]
     (indices, or floats for continuous actions), recurrent states [T, C, H]
     (host copies), wall seconds and the status."""
     import numpy as np
@@ -715,7 +740,9 @@ def serve_lockstep(model, frames, seed: int):
     from sheeprl_tpu_torch.serve import ServeClosed, ServeGateway
 
     steps, clients = next(iter(frames.values())).shape[:2]
-    gateway = ServeGateway(model, max_batch=clients, deadline_s=0.25, seed=seed)
+    # a deadline far past a step's submissions: each step dispatches as one full batch once its last row is in,
+    # whatever pauses the submitting thread (a partial batch would shift every later draw of the noise)
+    gateway = ServeGateway(model, max_batch=clients, deadline_s=60.0, seed=seed)
     try:
         batcher = gateway.batcher
         ids = [gateway.client(f"client{c}").client_id for c in range(clients)]
@@ -732,6 +759,8 @@ def serve_lockstep(model, frames, seed: int):
         wall = time.perf_counter() - t0
         if not gateway.drain(timeout=60.0):
             raise AssertionError("gateway did not drain")
+        if gateway.status()["batches"] != steps:
+            raise AssertionError(f"{steps} lockstep steps ran as {gateway.status()['batches']} batches")
         try:
             batcher.submit(ids[0], {k: v[0, 0] for k, v in frames.items()})
             raise AssertionError("a drained gateway accepted a request")
@@ -1364,7 +1393,7 @@ RUN_SPECS = {
 }
 
 
-def phase_run(card: str, name: str = "run"):
+def phase_run(card: str, name: str = "run", keep_root=None):
     """A main path: a training run through ``sheeprl_tpu_torch.cli.run``
     (``RUN_SPECS[name]``: the DreamerV2 MsPacman preset with its episode
     buffer, the DreamerV3 100k MsPacman preset or the DreamerV3 DMC walker
@@ -1379,7 +1408,9 @@ def phase_run(card: str, name: str = "run"):
     the test episode's steps. A second, profiled run (the same work) gives
     the device's busy time, its idle share read against the first run's
     wall time, and the number of the cell's gate kernels the device ran,
-    which must equal the counters of that run."""
+    which must equal the counters of that run. The run writes under
+    ``keep_root`` when given (its checkpoint outlives the phase). Returns
+    the run's launches and its checkpoint."""
     import tempfile
 
     import numpy as np
@@ -1393,7 +1424,8 @@ def phase_run(card: str, name: str = "run"):
 
     spec = RUN_SPECS[name]
     stamps = [("start", time.perf_counter())]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as root:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as tmp:
+        root = keep_root or tmp
         torch.cuda.reset_peak_memory_stats()
         ops.hafner_cell_launches.reset()
         ops.hafner_sequence_launches.reset()
@@ -1527,7 +1559,346 @@ def phase_run(card: str, name: str = "run"):
         "card": card,
     }
     print(f"[{name}] " + json.dumps(line), flush=True)
-    return launches
+    return launches, ckpt
+
+
+# the eval_serve phase: the port's evaluation, registration and serve commands on run_dv3's and run_walker's
+# checkpoints, then in-run evaluation on a short DV3 run at the 100k preset's full width
+EVAL_EPISODES, EVAL_SEED0 = 10, 1000  # eval.episodes and eval.seed0 as shipped (configs/eval/default.yaml)
+# the keys of the JAX package's eval result (sheeprl_tpu/evals/service.py EvalService.run); its eval.json has all but "path"
+EVAL_JSON_KEYS = {"schema", "algo", "env", "run", "checkpoint", "config_hash", "policy_version", "protocol", "n",
+                  "seed0", "seeds", "returns", "lengths", "mean", "std", "iqm", "min", "max", "path"}
+# the serve command's load: SERVE_CLIENTS spawned ring clients; once every one has an answer, the weights are published
+# SERVE_PUBLISH_AFTER_S later and the clients stopped SERVE_STOP_AFTER_S after that (SERVE_CLIENT_CAP_S caps a client)
+SERVE_CLIENTS, SERVE_PUBLISH_AFTER_S, SERVE_STOP_AFTER_S, SERVE_CLIENT_CAP_S = 64, 2.0, 4.0, 90.0
+SERVE_VERSION_STEP = 1000  # the published version: the checkpoint's step + this
+# the in-run run: RUN_DV3_ARGS cut to 160 policy steps, learning from 128 (33 gradient steps), a publication every 16
+INRUN_ARGS = tuple(a for a in RUN_DV3_ARGS if not a.startswith(("total_steps=", "buffer.size="))) + (
+    "buffer.size=1024", "algo.learning_starts=128", "total_steps=160", "eval.every_n_steps=16", "eval.inrun_episodes=2",
+)
+
+
+class _RecordingBuilder:
+    """Within the block, the registered eval builder of ``algo`` keeps each
+    act's actions and host time (``steps``) and, with ``plain_cell``, builds
+    the policy on the cell's plain version."""
+
+    def __init__(self, algo: str, plain_cell: bool = False):
+        self.algo, self.plain_cell, self.steps = algo, plain_cell, []
+
+    def __enter__(self):
+        import numpy as np
+
+        import sheeprl_tpu_torch
+        from sheeprl_tpu_torch.evals import service
+
+        sheeprl_tpu_torch.register_algorithms()
+        self._service = service
+        self._original = service._EVAL_BUILDERS[self.algo]
+
+        def build(*args, **kwargs):
+            policy = self._original(*args, plain_cell=self.plain_cell, **kwargs)
+
+            def act(obs, state, generator):
+                actions, state = policy.act(obs, state, generator)
+                self.steps.append((time.perf_counter(), np.asarray(actions).copy()))
+                return actions, state
+
+            return service.EvalPolicy(act=act, init_state=policy.init_state, device=policy.device)
+
+        service._EVAL_BUILDERS[self.algo] = build
+        return self
+
+    def __exit__(self, *exc):
+        self._service._EVAL_BUILDERS[self.algo] = self._original
+        return False
+
+    def actions(self):
+        import numpy as np
+
+        return np.stack([a for _t, a in self.steps])
+
+    def steps_per_s(self) -> float:
+        """Pool steps a second from the first act to the last."""
+        return (len(self.steps) - 1) / (self.steps[-1][0] - self.steps[0][0])
+
+
+def _registry_lines(reg: str) -> int:
+    path = os.path.join(reg, "registry.jsonl")
+    if not os.path.exists(path):
+        return 0
+    with open(path) as f:
+        return sum(1 for line in f if line.strip())
+
+
+def _eval_command(name: str, ckpt: str, algo: str, reg: str, continuous: bool) -> dict:
+    """``cli.evaluation`` of ``ckpt`` at eval.episodes=10 on the card: eval.json
+    with the JAX keys, one registry line, cell launches equal to the pool
+    steps, and every pool step's actions against a plain-cell evaluation at
+    the same seeds (equal; continuous ones within TOL_CONTINUOUS_ACTION)."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.evals.service import evaluate_checkpoint
+    from sheeprl_tpu_torch.kernels import ops
+
+    lines = _registry_lines(reg)
+    with _RecordingBuilder(algo) as kernel:
+        ops.hafner_cell_launches.reset()
+        ops.hafner_sequence_launches.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = cli.evaluation([f"checkpoint_path={ckpt}", f"eval.episodes={EVAL_EPISODES}",
+                                 f"eval.seed0={EVAL_SEED0}", f"eval.registry_dir={reg}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"hafner_cell": ops.hafner_cell_launches.count,
+                    "hafner_sequence": ops.hafner_sequence_launches.count}
+    with _RecordingBuilder(algo, plain_cell=True) as plain:
+        p_result = evaluate_checkpoint(ckpt, episodes=EVAL_EPISODES, seed0=EVAL_SEED0, write_registry=False)
+    with open(result["path"]) as f:
+        written = json.load(f)
+    if set(result) != EVAL_JSON_KEYS or set(written) != EVAL_JSON_KEYS - {"path"} or written["returns"] != result["returns"]:
+        raise AssertionError(f"{name}: eval.json holds {sorted(written)}, the JAX package's {sorted(EVAL_JSON_KEYS)}")
+    if _registry_lines(reg) != lines + 1:
+        raise AssertionError(f"{name}: the registry went from {lines} to {_registry_lines(reg)} lines, not one more")
+    steps = len(kernel.steps)
+    if steps != max(result["lengths"]) or launches["hafner_cell"] != steps or launches["hafner_sequence"]:
+        raise AssertionError(f"{name}: {steps} pool steps, longest episode {max(result['lengths'])}, "
+                             f"cell launches {launches}")
+    actions, p_actions = kernel.actions(), plain.actions()
+    if actions.shape != p_actions.shape or not np.isfinite(actions).all():
+        raise AssertionError(f"{name}: actions {actions.shape} against the plain cell's {p_actions.shape}")
+    err = float(np.abs(actions - p_actions).max()) if continuous else float((actions != p_actions).sum())
+    if err > (TOL_CONTINUOUS_ACTION if continuous else 0):
+        raise AssertionError(f"{name}: the kernel and plain-cell evaluations' actions differ by {err}")
+    if not continuous and (result["returns"] != p_result["returns"] or result["lengths"] != p_result["lengths"]):
+        raise AssertionError(f"{name}: the kernel and plain-cell evaluations' returns differ")
+    row = {"checkpoint": ckpt, "n": result["n"], "returns": result["returns"], "lengths": result["lengths"],
+           "mean": result["mean"], "iqm": result["iqm"], "policy_version": result["policy_version"],
+           "config_hash": result["config_hash"], "pool_steps": steps, "hafner_cell_launches": launches["hafner_cell"],
+           "pool_steps_per_s": kernel.steps_per_s(), "plain_cell_pool_steps_per_s": plain.steps_per_s(),
+           "command_wall_s": wall,
+           "plain_cell_action_max_abs_err" if continuous else "plain_cell_actions_differing": err}
+    return {"row": row, "launches": launches, "actions": actions, "result": result}
+
+
+def _serve_command(ckpt_ref: str, reg: str, base_ckpt: str, work: str) -> dict:
+    """The serve command in a subprocess (``cli.serve`` with serve.duration_s
+    as a limit), its ring driven by SERVE_CLIENTS spawned seeded clients.
+    Once every client has had an answer, the steady window starts;
+    SERVE_PUBLISH_AFTER_S seconds into it perturbed weights are published
+    into the watched ``poll_root``, SERVE_STOP_AFTER_S seconds later the
+    clients are stopped (a stop file), and once every client has written its
+    record the command gets SIGTERM. Requests/s and latency are read over the
+    steady window."""
+    import signal
+    import threading
+
+    import numpy as np
+
+    from sheeprl_tpu_torch.ckpt import read_checkpoint
+    from sheeprl_tpu_torch.evals.service import policy_version_of
+    from sheeprl_tpu_torch.plane.publish import PolicyPublisher
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    pol, out = os.path.join(work, "policies"), os.path.join(work, "clients")
+    base = policy_version_of(base_ckpt)
+    cmd = [sys.executable, "-c", "import sys; from sheeprl_tpu_torch.cli import serve; serve(sys.argv[1:])",
+           f"checkpoint_path={ckpt_ref}", f"serve.registry_dir={reg}", "serve.duration_s=150",
+           f"serve.max_clients={SERVE_CLIENTS}", f"serve.poll_root={pol}", "serve.poll_interval_s=0.2",
+           f"serve.clients.n={SERVE_CLIENTS}", "serve.clients.entry=sheeprl_tpu_torch.serve.loadgen:seeded_client",
+           f"serve.clients.spec.duration_s={SERVE_CLIENT_CAP_S}", f"serve.clients.spec.out_dir={out}",
+           f"serve.clients.spec.stop_file={os.path.join(out, 'stop')}", f"serve.clients.spec.seed={SEED}"]
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, up = [], threading.Event()
+
+    def pump():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if "[serve] gateway up" in line:
+                up.set()
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        if not up.wait(180.0):
+            raise AssertionError("the serve command did not come up: " + " | ".join(lines[-20:]))
+        t_up, t_up_wall = time.perf_counter(), time.time()
+        agent = read_checkpoint(base_ckpt, with_rb=False)["agent"]
+        rng = np.random.default_rng(SEED)
+        actor = {k: v + 0.01 * rng.standard_normal(v.shape).astype(v.dtype) if v.dtype.kind == "f" else v
+                 for k, v in agent["actor"].items()}
+        def wait_for(suffix: str, what: str):
+            deadline = time.perf_counter() + 120.0
+            while len([f for f in os.listdir(out) if f.endswith(suffix)] if os.path.isdir(out) else []) < SERVE_CLIENTS:
+                if time.perf_counter() > deadline or proc.poll() is not None:
+                    raise AssertionError(f"the serve clients did not all {what}: " + " | ".join(lines[-20:]))
+                time.sleep(0.05)
+
+        wait_for(".started", "start")
+        t_all = time.time()
+        time.sleep(SERVE_PUBLISH_AFTER_S)
+        new_version = base + SERVE_VERSION_STEP
+        PolicyPublisher(pol, algo="dreamer_v3").publish(
+            new_version, {"agent": {"world_model": agent["world_model"], "actor": actor}})
+        t_publish = time.time()
+        time.sleep(SERVE_STOP_AFTER_S)
+        t_stop = time.time()
+        open(os.path.join(out, "stop"), "w").close()
+        wait_for(".json", "finish")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120.0)
+        reader.join(timeout=10.0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30.0)
+    finals = [line for line in lines if line.startswith("[serve] final ")]
+    if rc != 0 or not finals or not any("drained=clean" in line for line in lines):
+        raise AssertionError(f"the serve command exited {rc}: " + " | ".join(lines[-30:]))
+    final = json.loads(finals[-1][len("[serve] final "):])
+    records = []
+    for slot in range(SERVE_CLIENTS):
+        with open(os.path.join(out, f"client_{slot}.json")) as f:
+            records.append(json.load(f))
+    errors = [e for r in records for e in r["errors"]]
+    versions_ok = all(r["versions"] == sorted(r["versions"]) and r["versions"] for r in records)
+    requests = sum(len(r["versions"]) for r in records)
+    if errors or final["failed_requests"] or requests != final["requests"] or not versions_ok:
+        raise AssertionError(f"serve: {len(errors)} client errors ({errors[:3]}), {final['failed_requests']} failed, "
+                             f"{requests} answered of {final['requests']}, versions monotone {versions_ok}")
+    if final["swaps"] < 1 or final["versions_served"] != [base, new_version]:
+        raise AssertionError(f"serve: {final['swaps']} swaps, versions served {final['versions_served']}")
+    if any(r["torch_loaded"] for r in records):
+        raise AssertionError("a ring client process loaded torch")
+    launches = final["kernel_launches"]
+    if launches["hafner_cell"] != final["batches"] or launches["hafner_sequence"]:
+        raise AssertionError(f"serve: cell launches {launches} for {final['batches']} batches")
+    steady = [(t, x) for r in records for t, x in zip(r["answered_at"], r["latency_s"]) if t_all <= t <= t_stop]
+    latency_ms = 1e3 * np.array([x for _t, x in steady])
+    new_at = [t for r in records for t, v in zip(r["answered_at"], r["versions"]) if v == new_version]
+    row = {"clients": SERVE_CLIENTS, "steady_window_s": t_stop - t_all, "requests": requests,
+           "steady_requests": len(steady), "requests_per_s": len(steady) / (t_stop - t_all),
+           "act_latency_p50_ms": float(np.percentile(latency_ms, 50)),
+           "act_latency_p99_ms": float(np.percentile(latency_ms, 99)),
+           "batches": final["batches"], "mean_batch_occupancy": final["mean_batch_occupancy"],
+           "deadline_misses": final["deadline_misses"], "swaps": final["swaps"],
+           "versions_served": final["versions_served"],
+           "publish_to_first_new_version_s": min(new_at) - t_publish,
+           "requests_at_new_version": len(new_at), "drain_s": final["drain_s"], "serving_s": final["serving_s"],
+           "server_act_latency": final["act_latency"], "server_stage_latency": final["stage_latency"],
+           "hafner_cell_launches": launches["hafner_cell"], "start_to_up_s": t_up - t_start,
+           "up_to_all_clients_answered_s": t_all - t_up_wall}
+    return {"row": row, "launches": launches}
+
+
+def phase_eval_serve(card: str, work: str, dv3_ckpt: str, walker_ckpt: str):
+    """The eval and serve paths: the evaluation command on run_dv3's and
+    run_walker's checkpoints (``_eval_command``), the registration command
+    and the gateway-path rescore of ``registry:best:dreamer_v3:<env>``
+    (returns, lengths and every step's actions bit for bit the evaluation's,
+    one cell launch a batch), the cold start through that ref, the serve
+    command under load with a hot-swap and a SIGTERM drain
+    (``_serve_command``), and in-run evaluation on a short DV3 run
+    (INRUN_ARGS: the sidecar's curve, the spawned CPU child never opening a
+    CUDA context, the trainer's launches still player steps + 79 a gradient
+    step + test steps). Returns each path's launches."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.serve import ServeGateway, rescore_through_gateway
+    from sheeprl_tpu_torch.utils.model_manager import ModelManager
+
+    stamps = [("start", time.perf_counter())]
+    reg = os.path.join(work, "registry")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        dv3 = _eval_command("eval_dv3", dv3_ckpt, "dreamer_v3", reg, continuous=False)
+        walker = _eval_command("eval_walker", walker_ckpt, "dreamer_v3", reg, continuous=True)
+        stamps.append(("evaluation", time.perf_counter()))
+
+        models = os.path.join(work, "models")
+        version = cli.registration([f"checkpoint_path={dv3_ckpt}", "model_name=dv3_100k", f"registry_dir={models}"])
+        meta = ModelManager(models).get_metadata("dv3_100k")
+        if version != 1 or meta["source_checkpoint"] != os.path.abspath(dv3_ckpt):
+            raise AssertionError(f"registration gave version {version}, metadata {meta}")
+        ref = f"registry:best:dreamer_v3:{dv3['result']['env']}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gateway = ServeGateway.from_checkpoint(ref, registry_dir=reg)
+        torch.cuda.synchronize()
+        cold_start_s = time.perf_counter() - t0
+        if gateway.status()["checkpoint"] != os.path.abspath(dv3_ckpt):
+            raise AssertionError(f"{ref} resolved to {gateway.status()['checkpoint']}")
+        gateway.close()
+        steps = []
+        ops.hafner_cell_launches.reset()
+        ops.hafner_sequence_launches.reset()
+        gated = rescore_through_gateway(ref, episodes=EVAL_EPISODES, seed0=EVAL_SEED0, registry_dir=reg,
+                                        on_step=lambda a: steps.append(a.copy()))
+        rescore_launches = {"hafner_cell": ops.hafner_cell_launches.count,
+                            "hafner_sequence": ops.hafner_sequence_launches.count}
+        direct = dv3["result"]
+        if gated["returns"] != direct["returns"] or gated["lengths"] != direct["lengths"]:
+            raise AssertionError(f"rescore: returns {gated['returns']} lengths {gated['lengths']} against the "
+                                 f"evaluation's {direct['returns']} {direct['lengths']}")
+        if not np.array_equal(np.stack(steps).reshape(dv3["actions"].shape), dv3["actions"]):
+            raise AssertionError("rescore: the per-step actions differ from the evaluation's")
+        if gated["failed_requests"] or not rescore_launches["hafner_cell"] == gated["batches"] == len(steps):
+            raise AssertionError(f"rescore: {gated['batches']} batches, {len(steps)} steps, launches {rescore_launches}")
+        stamps.append(("registration_rescore", time.perf_counter()))
+
+        serve = _serve_command(ref, reg, dv3_ckpt, work)
+        stamps.append(("serve", time.perf_counter()))
+
+        ops.hafner_cell_launches.reset()
+        ops.hafner_sequence_launches.reset()
+        result, wall = _run_once(work, "inrun", INRUN_ARGS)
+        inrun_launches = {"hafner_cell": ops.hafner_cell_launches.count,
+                          "hafner_sequence": ops.hafner_sequence_launches.count}
+        predicted = result["player_steps"] + DV3_CELL_LAUNCHES_PER_STEP * result["gradient_steps"] + result["test_steps"]
+        if inrun_launches["hafner_cell"] != predicted or inrun_launches["hafner_sequence"]:
+            raise AssertionError(f"the in-run eval run launched {inrun_launches}, predicted {predicted} cell launches")
+        with open(os.path.join(result["log_dir"], "telemetry", "sidecar_evalproc.json")) as f:
+            curve = json.load(f)
+        published = sorted(os.listdir(os.path.join(result["log_dir"], "inrun_policies")))
+        if (result["inrun_publishes"] < 2 or not curve["points"] or curve["cuda_initialized"]
+                or f"policy_{curve['last_policy_version']:08d}" != published[-1]
+                or not all(np.isfinite(p["mean"]) for p in curve["points"])):
+            raise AssertionError(f"in-run eval: {result['inrun_publishes']} publications, kept {published}, "
+                                 f"sidecar {curve}")
+        stamps.append(("inrun", time.perf_counter()))
+    finally:
+        os.chdir(cwd)
+    line = {
+        "eval_dv3": dv3["row"],
+        "eval_walker": walker["row"],
+        "registration_version": version,
+        "registry_ref": ref,
+        "from_checkpoint_registry_ref_cold_start_s": cold_start_s,
+        "rescore": {"returns_lengths_actions_bitwise_equal": True, "versions_served": gated["versions_served"],
+                    "batches": gated["batches"], "mean_batch_occupancy": gated["mean_batch_occupancy"],
+                    "hafner_cell_launches": rescore_launches["hafner_cell"],
+                    "cudnn_deterministic": torch.backends.cudnn.deterministic},
+        "serve": serve["row"],
+        "inrun": {"run_args": list(INRUN_ARGS), "wall_s": wall, "player_steps": result["player_steps"],
+                  "gradient_steps": result["gradient_steps"], "test_steps": result["test_steps"],
+                  "hafner_cell_launches": inrun_launches["hafner_cell"], "predicted": predicted,
+                  "publishes": result["inrun_publishes"], "sidecar_points": curve["points"],
+                  "child_cuda_initialized": curve["cuda_initialized"]},
+        "phase_seconds": {k: t - stamps[i][1] for i, (k, t) in enumerate(stamps[1:])},
+        "card": card,
+    }
+    print("[eval_serve] " + json.dumps(line), flush=True)
+    return {"eval_dv3": dv3["launches"], "eval_walker": walker["launches"], "rescore": rescore_launches,
+            "serve_command": serve["launches"], "inrun_run": inrun_launches}
 
 
 def main() -> int:
@@ -1568,9 +1939,13 @@ def main() -> int:
     by_path["train_dv3"], dv3_rel_diff, dv3_graph_line = phase_train_dv3(card)
     by_path["train_walker"], walker_rel_diff, walker_graph_line = phase_train_dv3(card, "dreamer_v3_walker")
     by_path["train_dv2_continuous"], dv2_continuous_graph_line = phase_train_dv2_continuous(card)
-    by_path["run"] = phase_run(card, "run")
-    by_path["run_dv3"] = phase_run(card, "run_dv3")
-    by_path["run_walker"] = phase_run(card, "run_walker")
+    by_path["run"], _ckpt = phase_run(card, "run")
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_serve_") as work:
+        by_path["run_dv3"], dv3_ckpt = phase_run(card, "run_dv3", keep_root=os.path.join(work, "run_dv3"))
+        by_path["run_walker"], walker_ckpt = phase_run(card, "run_walker", keep_root=os.path.join(work, "run_walker"))
+        by_path.update(phase_eval_serve(card, work, dv3_ckpt, walker_ckpt))
 
     cell_row = next(r for r in train_rows if r["B"] == 1600)
     seq_row = seq_rows[0]

@@ -4,21 +4,24 @@ The JAX package ``sheeprl_tpu`` is the reference; this package imports
 neither it nor JAX. It trains DreamerV2 and DreamerV3 (discrete actions,
 float32) from its CLI (``python -m sheeprl_tpu_torch exp=dreamer_v3 ...``:
 config engine and YAML tree, sync vector envs, replay, manifest
-checkpoints) and serves either policy from a checkpoint
-(``serve.load_gateway_model``). The LayerNorm-GRU step of both is a
-hand-written CUDA kernel
+checkpoints), evaluates checkpoints (``cli.evaluation``, the model registry
+in ``evals/``) and serves either policy (``cli.serve``, ``serve/``). The
+LayerNorm-GRU step of both is a hand-written CUDA kernel
 (``kernels/csrc/hafner_gru.cu``). Entry points run on ``cuda`` unless the
 caller asks for the CPU (``device="cpu"``, ``fabric.accelerator=cpu``).
-"""
 
-from sheeprl_tpu_torch.device import resolve_device
+Importing the package loads no torch (``resolve_device`` is loaded on first
+use), so a spawned serve client that imports the ring transport stays light.
+"""
 
 __all__ = ["register_algorithms", "resolve_device"]
 
-#: the modules whose entrypoints ``register_algorithms`` registers
+#: the modules whose entrypoints ``register_algorithms`` registers: training, then evaluation
 ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",
     "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
+    "sheeprl_tpu_torch.algos.dreamer_v2.evaluate",
+    "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
 )
 
 
@@ -28,3 +31,11 @@ def register_algorithms() -> None:
 
     for module in ALGORITHM_MODULES:
         importlib.import_module(module)
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from sheeprl_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -46,8 +46,9 @@ episodes' ``Rewards/rew_avg`` and ``Game/ep_len_avg``, the train metrics
 ``Params/exploration_amount`` and the rates of ``log_sps_metrics`` at every
 log boundary, and ``Test/cumulative_reward``. It acts one env step at a
 time, each acting step one replay of :class:`ExplorationStep`'s graph on
-the card. In-run evaluation and telemetry are not ported (ROADMAP queue A
-items 6c and 6h).
+the card. With ``eval.every_n_steps`` it publishes the acting modules for
+in-run evaluation (``evals/inrun.py``); telemetry is not ported (ROADMAP
+queue A item 6h).
 """
 
 from __future__ import annotations
@@ -82,6 +83,7 @@ from sheeprl_tpu_torch.data.staging import make_replay_staging
 from sheeprl_tpu_torch.distributions import Bernoulli, Independent, Normal, gumbel_noise
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.vector import make_vector_env
+from sheeprl_tpu_torch.evals.inrun import maybe_start_inrun_eval
 from sheeprl_tpu_torch.obs.perf import log_sps_metrics
 from sheeprl_tpu_torch.replay import make_replay_buffer
 from sheeprl_tpu_torch.train.burst import (
@@ -392,8 +394,6 @@ def _graph_counts(steps) -> Dict[str, Any]:
 
 def _unsupported(cfg) -> None:
     """Raise for the options whose layers the port does not have yet."""
-    if int((cfg.get("eval", {}) or {}).get("every_n_steps", 0) or 0) > 0:
-        raise NotImplementedError("eval.every_n_steps>0: in-run evaluation is ROADMAP queue A item 6c")
     if int(cfg.env.get("act_burst", 1) or 1) != 1:
         raise NotImplementedError(
             "env.act_burst>1: burst acting amortises TPU dispatches; the port replays each acting step from a CUDA graph"
@@ -621,6 +621,10 @@ def main(fabric, cfg) -> Dict[str, Any]:
         seconds["env"] += time.perf_counter() - t0
         return new_obs
 
+    # in-run eval: the acting modules are published every eval.every_n_steps and scored by a separate
+    # process on the CPU, so nothing below waits for an eval episode
+    inrun = maybe_start_inrun_eval(fabric, cfg, log_dir)
+
     update = start_step
     while update <= num_updates:
         if update <= learning_starts and not cfg.checkpoint.resume_from:
@@ -702,6 +706,10 @@ def main(fabric, cfg) -> Dict[str, Any]:
                 if "Params/exploration_amount" in aggregator:
                     aggregator.update("Params/exploration_amount", expl_amount)
 
+        if inrun is not None and last >= learning_starts and inrun.due(policy_step):
+            # after the burst: run_train_burst has waited for its stream, so the copy reads settled weights
+            inrun.maybe_publish(policy_step, {"agent": {k: state[k].state_dict() for k in ("world_model", "actor")}})
+
         # Log metrics
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or last == num_updates):
             if aggregator and not aggregator.disabled:
@@ -743,6 +751,8 @@ def main(fabric, cfg) -> Dict[str, Any]:
             if preemption_requested():
                 break
 
+    if inrun is not None:
+        inrun.close()
     staging.close()
     envs.close()
     test_reward, test_steps = None, 0
@@ -756,6 +766,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
     return {
         **counters,
         "policy_steps": policy_step,
+        "inrun_publishes": 0 if inrun is None else inrun.publishes,
         "test_steps": test_steps,
         "test_reward": test_reward,
         "log_dir": log_dir,

@@ -58,8 +58,9 @@ the polynomial decay of ``expl_amount``, the ``should_checkpoint`` cadence
 TensorBoard event file, and a test episode at the end that samples its
 actions at zero exploration. Each acting step is one replay of
 :class:`~sheeprl_tpu_torch.algos.dreamer_v3.agent.ExplorationStep`'s graph
-on the card. In-run evaluation, telemetry, the profiler, burst acting and
-the actor–learner plane are not ported and raise.
+on the card. With ``eval.every_n_steps`` it publishes the acting modules for
+in-run evaluation (``evals/inrun.py``). Telemetry, the profiler, burst
+acting and the actor–learner plane are not ported and raise.
 """
 
 from __future__ import annotations
@@ -109,6 +110,7 @@ from sheeprl_tpu_torch.distributions import (
 )
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.vector import make_vector_env
+from sheeprl_tpu_torch.evals.inrun import maybe_start_inrun_eval
 from sheeprl_tpu_torch.obs.perf import log_sps_metrics
 from sheeprl_tpu_torch.replay import make_replay_buffer
 from sheeprl_tpu_torch.train.burst import (
@@ -633,6 +635,10 @@ def main(fabric, cfg) -> Dict[str, Any]:
         seconds["env"] += time.perf_counter() - t0
         return new_obs
 
+    # in-run eval: the acting modules are published every eval.every_n_steps and scored by a separate
+    # process on the CPU, so nothing below waits for an eval episode
+    inrun = maybe_start_inrun_eval(fabric, cfg, log_dir)
+
     update = start_step
     while update <= num_updates:
         if update <= learning_starts and not cfg.checkpoint.resume_from:
@@ -712,6 +718,10 @@ def main(fabric, cfg) -> Dict[str, Any]:
                 if "Params/exploration_amount" in aggregator:
                     aggregator.update("Params/exploration_amount", expl_amount)
 
+        if inrun is not None and last >= learning_starts and inrun.due(policy_step):
+            # after the burst: run_train_burst has waited for its stream, so the copy reads settled weights
+            inrun.maybe_publish(policy_step, {"agent": {k: state[k].state_dict() for k in ("world_model", "actor")}})
+
         # Log metrics
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or last == num_updates):
             if aggregator and not aggregator.disabled:
@@ -753,6 +763,8 @@ def main(fabric, cfg) -> Dict[str, Any]:
             if preemption_requested():
                 break
 
+    if inrun is not None:
+        inrun.close()
     staging.close()
     envs.close()
     test_reward, test_steps = None, 0
@@ -766,6 +778,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
     return {
         **counters,
         "policy_steps": policy_step,
+        "inrun_publishes": 0 if inrun is None else inrun.publishes,
         "test_steps": test_steps,
         "test_reward": test_reward,
         "log_dir": log_dir,

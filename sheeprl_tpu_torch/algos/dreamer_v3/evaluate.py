@@ -1,15 +1,18 @@
-"""DreamerV3 eval-policy builder (counterpart of ``dreamer_v3_eval_policy`` in
-``sheeprl_tpu/algos/dreamer_v3/evaluate.py``)."""
+"""DreamerV3 evaluation (counterpart of
+``sheeprl_tpu/algos/dreamer_v3/evaluate.py``): the eval-policy builder,
+registered for the eval service, the serving gateway and the in-run
+evaluator, and the evaluation entrypoint of ``cli.evaluation``."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Sequence
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent, build_player_fns, set_cell_impl
-from sheeprl_tpu_torch.evals.builders import dreamer_eval_policy
-from sheeprl_tpu_torch.evals.service import EvalPolicy
+from sheeprl_tpu_torch.evals.builders import actions_dim_of, dreamer_eval_policy, serving_params
+from sheeprl_tpu_torch.evals.service import EvalPolicy, register_eval_builder, run_eval_entrypoint
+from sheeprl_tpu_torch.utils.registry import register_evaluation
 
-__all__ = ["dreamer_v3_eval_policy"]
+__all__ = ["dreamer_v3_eval_builder", "dreamer_v3_eval_policy", "evaluate_dreamer_v3"]
 
 
 def dreamer_v3_eval_policy(
@@ -40,3 +43,29 @@ def dreamer_v3_eval_policy(
     player_fns = build_player_fns(world_model, actor, cfg, actions_dim, is_continuous)
     device = next(world_model.parameters()).device
     return dreamer_eval_policy(player_fns, cfg, is_continuous, device, sample_actions=True)
+
+
+@register_eval_builder(algorithms=["dreamer_v3"])
+def dreamer_v3_eval_builder(
+    fabric, cfg, state, observation_space, action_space, device=None, plain_cell: bool = False
+) -> EvalPolicy:
+    """The registered builder: a checkpoint's or a publication's ``state``
+    (the port's layout or the JAX package's) → the policy on ``device``
+    (``fabric.device`` when None)."""
+    if device is None:
+        device = fabric.device if fabric is not None else None
+    actions_dim, is_continuous = actions_dim_of(action_space)
+    return dreamer_v3_eval_policy(
+        cfg,
+        serving_params(state, "dreamer_v3"),
+        observation_space.spaces,
+        actions_dim,
+        is_continuous,
+        device=device,
+        plain_cell=plain_cell,
+    )
+
+
+@register_evaluation(algorithms=["dreamer_v3"])
+def evaluate_dreamer_v3(fabric, cfg: Dict[str, Any], state: Dict[str, Any]):
+    return run_eval_entrypoint(fabric, cfg, state)

@@ -1,16 +1,19 @@
-"""Command-line entry point (counterpart of ``run``, ``run_algorithm``,
-``check_configs``, ``resume_from_checkpoint`` and ``_load_run_config`` in
-``sheeprl_tpu/cli.py``).
+"""Command-line entry points (counterpart of ``sheeprl_tpu/cli.py``).
 
     python -m sheeprl_tpu_torch exp=dreamer_v2 env=dummy fabric.accelerator=cpu ...
+    sheeprl-tpu-torch-eval checkpoint_path=<ckpt dir | registry:best:<algo>:<env id>>
+    sheeprl-tpu-torch-serve checkpoint_path=<ckpt dir | registry:best:...> serve.duration_s=60
+    sheeprl-tpu-torch-model-manager checkpoint_path=<ckpt dir> model_name=<name>
 
-composes the config from the port's YAML tree, resolves
+``run`` composes the config from the port's YAML tree, resolves
 ``checkpoint.resume_from`` (``latest``, a run dir or a ``ckpt_*`` dir) and
 merges the checkpointed run's config, builds the
 :class:`~sheeprl_tpu_torch.fabric.Fabric` and calls the registered
-entrypoint. ``fabric.accelerator=auto`` means ``cuda``. The ``serve``,
-``eval`` and ``registration`` commands, multirun sweeps and
-``registry:best:`` refs are not ported (ROADMAP queue A item 6c).
+entrypoint; ``-m`` runs a sweep's jobs one after another in the process.
+``evaluation`` scores a checkpoint with the eval service, ``serve`` serves
+it through the gateway, ``registration`` copies it into the filesystem
+model registry. ``fabric.accelerator=auto`` means ``cuda``; the CPU runs
+only when ``fabric.accelerator=cpu`` asks for it.
 """
 
 from __future__ import annotations
@@ -21,16 +24,26 @@ import sys
 import warnings
 from typing import Any, Optional, Sequence, Tuple
 
-from sheeprl_tpu_torch.config.engine import compose, yaml_load
+from sheeprl_tpu_torch.config.engine import compose, expand_multirun, yaml_load
 from sheeprl_tpu_torch.config.instantiate import instantiate
 from sheeprl_tpu_torch.config.yamlite import load as yaml_read
 from sheeprl_tpu_torch.utils import dotdict
 from sheeprl_tpu_torch.utils.metric import MetricAggregator
-from sheeprl_tpu_torch.utils.registry import find_algorithm, registered_algorithm_names
+from sheeprl_tpu_torch.utils.registry import find_algorithm, find_evaluation, registered_algorithm_names
 from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import print_config
 
-__all__ = ["check_configs", "load_run_config", "resume_from_checkpoint", "run", "run_algorithm"]
+__all__ = [
+    "check_configs",
+    "eval_algorithm",
+    "evaluation",
+    "load_run_config",
+    "registration",
+    "resume_from_checkpoint",
+    "run",
+    "run_algorithm",
+    "serve",
+]
 
 _JAX_PREFIX, _PORT_PREFIX = "sheeprl_tpu.", "sheeprl_tpu_torch."
 
@@ -200,12 +213,22 @@ def run_algorithm(cfg) -> Any:
 
 
 def run(args: Optional[Sequence[str]] = None) -> Any:
-    """Train entrypoint: compose, resume merge, checks, run."""
+    """Train entrypoint: compose, resume merge, checks, run. With ``-m`` (or
+    ``--multirun``) comma-separated override values expand to their
+    cartesian product (``config.engine.expand_multirun``) and the jobs run
+    one after another in this process; their results come back as a list."""
     import sheeprl_tpu_torch
 
     overrides = list(args) if args is not None else sys.argv[1:]
     if "-m" in overrides or "--multirun" in overrides:
-        raise NotImplementedError("multirun sweeps are not ported (ROADMAP queue A item 6c)")
+        overrides = [o for o in overrides if o not in ("-m", "--multirun")]
+        jobs = expand_multirun(overrides)
+        if len(jobs) > 1:
+            results = []
+            for i, job in enumerate(jobs):
+                print(f"[multirun] job {i + 1}/{len(jobs)}: {' '.join(job)}", flush=True)
+                results.append(run(job))
+            return results
     cfg = compose("config", overrides=overrides)
     sheeprl_tpu_torch.register_algorithms()
     if cfg.checkpoint.resume_from:
@@ -219,14 +242,95 @@ def run(args: Optional[Sequence[str]] = None) -> Any:
     return run_algorithm(cfg)
 
 
-def _not_ported(name: str):
-    def entry(args: Optional[Sequence[str]] = None):
-        raise NotImplementedError(f"the `{name}` command is not ported yet (ROADMAP queue A item 6c)")
-
-    entry.__name__ = name
-    return entry
+def _missing(value) -> bool:
+    return not value or value == "???"
 
 
-evaluation = _not_ported("evaluation")
-serve = _not_ported("serve")
-registration = _not_ported("registration")
+def eval_algorithm(cfg) -> Any:
+    """Read the checkpoint (every array checksummed; no replay buffer) and
+    call the algorithm's registered evaluation on a one-device Fabric."""
+    from sheeprl_tpu_torch.ckpt.resume import read_checkpoint
+
+    entry = find_evaluation(cfg.algo.name)
+    if entry is None:
+        raise RuntimeError(f"Given the algorithm named '{cfg.algo.name}', no evaluation function has been found")
+    entrypoint = getattr(importlib.import_module(entry["module"]), entry["entrypoint"])
+    cfg.fabric.devices = 1
+    fabric = instantiate(cfg.fabric)
+    state = read_checkpoint(cfg.checkpoint_path, with_rb=False)
+    return fabric.launch(entrypoint, cfg, state)
+
+
+def evaluation(args: Optional[Sequence[str]] = None) -> Any:
+    """Eval entrypoint: compose ``eval_config`` (``checkpoint_path`` a
+    checkpoint directory or ``registry:best:<algo>:<env id>``), re-read the
+    run's persisted config, force one env and one device, keep the run's
+    seed, and score the checkpoint with the eval service (``eval.*``: the
+    composed group, shipped defaults for missing keys). Returns the result."""
+    import numpy as np
+
+    import sheeprl_tpu_torch
+    from sheeprl_tpu_torch.evals.registry import resolve_checkpoint_ref
+    from sheeprl_tpu_torch.evals.service import eval_settings, single_device_fabric_cfg
+
+    sheeprl_tpu_torch.register_algorithms()
+    overrides = list(args) if args is not None else sys.argv[1:]
+    eval_cfg = compose("eval_config", overrides=overrides, allow_missing=("checkpoint_path",))
+    ckpt_path = eval_cfg.get("checkpoint_path")
+    if _missing(ckpt_path):
+        raise ValueError("You must specify the checkpoint path: checkpoint_path=/path/to/ckpt")
+    settings = eval_settings(eval_cfg)
+    ckpt_path, record = resolve_checkpoint_ref(ckpt_path, str(settings.registry_dir))
+    if record is not None:
+        print(
+            f"[registry] best {record.get('algo')} on {record.get('env')}: {ckpt_path} "
+            f"(mean {record.get('metrics', {}).get('mean')})"
+        )
+    cfg, log_dir = load_run_config(ckpt_path)
+    cfg["eval"] = settings
+    cfg.run_name = os.path.join(os.path.basename(log_dir), f"evaluation_{np.random.randint(0, 2**16)}")
+    cfg.env.num_envs = 1
+    capture = bool((eval_cfg.get("env", None) or {}).get("capture_video", False))
+    if capture and not any(o.split("=", 1)[0].lstrip("+") == "env.capture_video" for o in overrides):
+        # eval_config's default asks for a video of episode 0, which the port cannot record (it needs moviepy);
+        # asked for on the command line, the env factory raises instead
+        warnings.warn("env.capture_video: the port records no video; the evaluation runs without it")
+        capture = False
+    cfg.env.capture_video = capture
+    cfg.fabric = single_device_fabric_cfg(cfg, (eval_cfg.get("fabric", None) or {}).get("accelerator", "auto"))
+    cfg.checkpoint_path = ckpt_path
+    return eval_algorithm(cfg)
+
+
+def serve(args: Optional[Sequence[str]] = None) -> Any:
+    """Serving entrypoint: compose ``serve_config`` and serve the checkpoint
+    (or ``registry:best:`` ref) through the gateway, with request
+    coalescing, the shared-memory ring, hot-swap and a SIGTERM drain
+    (``serve.gateway.run_serve_entrypoint``). Returns the final status."""
+    import sheeprl_tpu_torch
+    from sheeprl_tpu_torch.serve.gateway import run_serve_entrypoint
+
+    sheeprl_tpu_torch.register_algorithms()
+    overrides = list(args) if args is not None else sys.argv[1:]
+    serve_cfg = compose("serve_config", overrides=overrides, allow_missing=("checkpoint_path",))
+    if _missing(serve_cfg.get("checkpoint_path")):
+        raise ValueError("You must specify the checkpoint path: checkpoint_path=/path/to/ckpt")
+    return run_serve_entrypoint(serve_cfg)
+
+
+def registration(args: Optional[Sequence[str]] = None) -> int:
+    """Model-registration entrypoint: copy a training checkpoint into the
+    filesystem model registry (``utils.model_manager``) as the next version
+    of ``model_name``. Returns the version."""
+    from sheeprl_tpu_torch.utils.model_manager import ModelManager
+
+    overrides = list(args) if args is not None else sys.argv[1:]
+    cfg = compose("model_manager_config", overrides=overrides, allow_missing=("checkpoint_path", "model_name"))
+    if _missing(cfg.get("checkpoint_path")):
+        raise ValueError("You must specify the checkpoint path: checkpoint_path=/path/to/ckpt")
+    if _missing(cfg.get("model_name")):
+        raise ValueError("You must specify the model name: model_name=my_agent")
+    manager = ModelManager(cfg.get("registry_dir", "models"))
+    version = manager.register_model(cfg.model_name, cfg.checkpoint_path, description=cfg.get("description", ""))
+    print(f"Registered '{cfg.model_name}' v{version} in {manager.registry_dir}")
+    return version

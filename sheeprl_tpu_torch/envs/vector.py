@@ -86,8 +86,16 @@ class SyncVectorEnv:
     def _stack(self, obs: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
         return {k: np.stack([np.asarray(o[k]) for o in obs]) for k in obs[0]}
 
-    def reset(self, *, seed: Optional[int] = None, options: Optional[Dict[str, Any]] = None):
-        seeds = [None] * self.num_envs if seed is None else [int(seed) + i for i in range(self.num_envs)]
+    def reset(self, *, seed=None, options: Optional[Dict[str, Any]] = None):
+        """``seed``: None, an int (env ``i`` gets ``seed + i``) or one seed an env."""
+        if seed is None:
+            seeds = [None] * self.num_envs
+        elif isinstance(seed, (list, tuple)):
+            if len(seed) != self.num_envs:
+                raise ValueError(f"{len(seed)} seeds for {self.num_envs} envs")
+            seeds = [None if s is None else int(s) for s in seed]
+        else:
+            seeds = [int(seed) + i for i in range(self.num_envs)]
         obs, infos = [], {}
         for i, (env, s) in enumerate(zip(self.envs, seeds)):
             o, info = env.reset(seed=s, options=options)

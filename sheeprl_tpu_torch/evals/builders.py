@@ -1,14 +1,27 @@
-"""Eval-policy builders (counterpart of ``sheeprl_tpu/evals/builders.py``)."""
+"""Eval-policy builder helpers (counterpart of ``sheeprl_tpu/evals/builders.py``).
+
+The dreamer families share one player-fns contract (``init_states(n)``,
+``greedy_action``, ``exploration_action`` over a dict of state tensors with
+the rows on axis 0), so their builders collapse onto
+:func:`dreamer_eval_policy` and differ in agent construction and pixel
+scaling. :func:`serving_params` reads the actor and world model out of a
+checkpoint's or a publication's state, in the port's layout or the JAX
+package's.
+"""
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from sheeprl_tpu_torch.evals.service import EvalPolicy
 
-__all__ = ["actions_dim_of", "dreamer_eval_policy"]
+__all__ = ["actions_dim_of", "dreamer_eval_policy", "serving_params"]
+
+#: parts of the port's training world model that a serving build has not
+_TRAINING_ONLY = ("cnn_decoder.", "mlp_decoder.", "reward_model.", "continue_model.")
 
 
 def actions_dim_of(action_space) -> Tuple[Tuple[int, ...], bool]:
@@ -60,4 +73,25 @@ def dreamer_eval_policy(
             real = np.stack([a.argmax(dim=-1).cpu().numpy() for a in actions], axis=-1)
         return real, state
 
-    return EvalPolicy(act=act, init_state=player_fns["init_states"])
+    return EvalPolicy(act=act, init_state=player_fns["init_states"], device=torch.device(device))
+
+
+def serving_params(state: Dict[str, Any], algo: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{"world_model", "actor"}`` state dicts of a serving build from a
+    checkpoint's (or a publication's) ``state``: the port's layout
+    (``state["agent"]`` holds each module's state dict), or the JAX
+    package's (``state["agent"]["params"]``, converted by
+    ``convert_dreamer_v2`` or ``convert_dreamer_v3`` after ``algo``)."""
+    agent = state["agent"]
+    if "params" not in agent:
+        return {
+            "world_model": {
+                k: torch.as_tensor(v) for k, v in agent["world_model"].items() if not k.startswith(_TRAINING_ONLY)
+            },
+            "actor": {k: torch.as_tensor(v) for k, v in agent["actor"].items()},
+        }
+    from sheeprl_tpu_torch.convert import convert_dreamer_v2, convert_dreamer_v3
+
+    convert = convert_dreamer_v3 if algo == "dreamer_v3" else convert_dreamer_v2
+    params, _skipped = convert(agent["params"])
+    return params

@@ -7,16 +7,22 @@ request's deadline (``deadline_s``) has passed, whichever comes first.
 
 Determinism: rows are stacked in submission order, and every dispatch draws
 its noise from one ``torch.Generator`` on the model's device, seeded with
-``seed`` (the JAX batcher splits a ``PRNGKey(seed)`` once per dispatch). Two
-gateways with the same seed, fed the same batches, draw the same noise.
+``seed`` (the JAX batcher splits a ``PRNGKey(seed)`` once per dispatch):
+the eval service's schedule (``evals/service.py``). A caller that routes
+each row of an eval pool through its own client, one full batch a pool
+step, reproduces the service's returns bit for bit at matched seeds.
 
 Recurrent state stays on the server, per client, as device tensors: the
 rows of a batch are concatenated for the dispatch and the new state is split
 back afterwards. ``reset=True`` starts a client from a fresh state row.
 
-``swap`` replaces the model between dispatches; a dispatch that raises fails
-only its own requests; ``drain`` refuses new requests, finishes the queue
-and stops the thread.
+``swap`` replaces the model between dispatches: a batch in flight finishes
+on the model it started with, whose actions are on the host before the
+batch's requests are answered, and every response carries the version that
+produced it. A cancelled request is dropped at dispatch; a dispatch that
+raises fails only its own requests; ``drain`` refuses new requests,
+finishes the queue, waits for the device and stops the thread, and fails
+loudly whatever is still queued at its timeout.
 """
 
 from __future__ import annotations
@@ -94,6 +100,7 @@ class RequestBatcher:
         self._states: Dict[str, Dict[str, torch.Tensor]] = {}
         self._draining = False
         self._stopped = False
+        self._abandoned = False
         self._latency = StreamingHist()
         self._stage_hists = {name: StreamingHist() for name in STAGE_NAMES}
         self._occupancy = StreamingHist()
@@ -105,6 +112,8 @@ class RequestBatcher:
         self._failed = 0
         self._swaps = 0
         self._versions_served: List[int] = []
+        self._per_version: Dict[int, Dict[str, Any]] = {}
+        self._last_deadline_miss: Optional[Dict[str, float]] = None
         self._thread = threading.Thread(target=self._run, name="serve-batcher", daemon=True)
         self._thread.start()
 
@@ -154,6 +163,13 @@ class RequestBatcher:
     def model(self):
         return self._model
 
+    def attach_ops(self, ops) -> None:
+        """Install the request-path observability sink. The port has none
+        yet (tracing, access log, SLO feed: ROADMAP queue A items 6g/6h), so
+        only None (no sink) is taken."""
+        if ops is not None:
+            raise NotImplementedError("the serving ops surface is ROADMAP queue A items 6g/6h")
+
     def swap(self, model) -> int:
         """Install ``model`` for every later dispatch; a batch in flight
         finishes on the old one. Returns the new version."""
@@ -163,8 +179,10 @@ class RequestBatcher:
         return int(model.version)
 
     def drain(self, timeout: float = 30.0) -> bool:
-        """Refuse new requests, finish every queued one, stop the dispatcher.
-        Returns True when the queue drained in time."""
+        """Refuse new requests, finish the queued ones, stop the dispatcher
+        and wait for the device. A request still queued after ``timeout``
+        fails with :class:`ServeClosed` there and then (the batch in flight
+        finishes). Returns True when the queue drained in time."""
         with self._cv:
             self._draining = True
             self._cv.notify_all()
@@ -174,15 +192,19 @@ class RequestBatcher:
                 if not self._queue:
                     break
             time.sleep(0.005)
-        self.close()
         with self._cv:
+            self._abandoned = True  # the dispatcher takes no further batch
             leftovers = list(self._queue)
             self._queue.clear()
-        for p in leftovers:  # only on timeout: fail loud, never hang clients
+        for p in leftovers:  # fail loud, never hang clients
             p.error = ServeClosed("gateway stopped before this request dispatched")
             p.event.set()
         with self._stats_lock:
             self._failed += len(leftovers)
+        self.close()
+        device = getattr(self._model, "device", None)
+        if device is not None and torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
         return not leftovers
 
     def close(self) -> None:
@@ -198,6 +220,7 @@ class RequestBatcher:
         occupancy_dist = {
             "count": occ.n,
             "p50": round(occ.quantile(0.5) or 0.0, 3),
+            "p95": round(occ.quantile(0.95) or 0.0, 3),
             "p99": round(occ.quantile(0.99) or 0.0, 3),
             "max": round(occ.max, 3),
         }
@@ -215,6 +238,11 @@ class RequestBatcher:
                 "act_latency": self._latency.percentiles(),
                 "stage_latency": stage_latency,
                 "batch_occupancy": occupancy_dist,
+                "versions": {
+                    str(v): {"requests": rec["requests"], **rec["latency"].percentiles()}
+                    for v, rec in sorted(self._per_version.items())
+                },
+                "last_deadline_miss": self._last_deadline_miss,
             }
 
     # ------------------------------------------------------------- dispatcher
@@ -224,6 +252,8 @@ class RequestBatcher:
         Returns [] only when stopped with an empty queue."""
         with self._cv:
             while True:
+                if self._abandoned:
+                    return []
                 while not self._queue:
                     if self._stopped or self._draining:
                         return []
@@ -296,7 +326,11 @@ class RequestBatcher:
             p.version = version
             p.event.set()
         t_end = time.perf_counter()
+        with self._stats_lock:
+            ver_rec = self._per_version.setdefault(version, {"requests": 0, "latency": StreamingHist()})
+            ver_rec["requests"] += len(live)
         for p in live:
+            ver_rec["latency"].record(t_end - p.t_submit)
             self._latency.record(t_end - p.t_submit)
             self._stage_hists["queue_wait"].record(t_collect - p.t_submit)
             self._stage_hists["batch_assembly"].record(t_model - t_collect)
@@ -309,3 +343,15 @@ class RequestBatcher:
             self._deadline_misses += int(deadline_miss)
             if not self._versions_served or self._versions_served[-1] != version:
                 self._versions_served.append(version)
+        if deadline_miss:
+            self._flag_deadline_miss(len(live), lateness)
+
+    def _flag_deadline_miss(self, rows: int, lateness_s: float) -> None:
+        """Keep the latest late launch for ``stats`` (the JAX batcher arms its
+        run's flight recorder here; the port's is ROADMAP queue A item 6h)."""
+        with self._stats_lock:
+            self._last_deadline_miss = {
+                "rows": int(rows),
+                "lateness_ms": round(lateness_s * 1e3, 3),
+                "deadline_ms": round(self.deadline_s * 1e3, 3),
+            }

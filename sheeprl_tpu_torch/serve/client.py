@@ -1,6 +1,7 @@
-"""In-process serve client (counterpart of ``LocalServeClient`` in
-``sheeprl_tpu/serve/client.py``; the cross-process ring client is not ported
-yet).
+"""Serve clients (counterpart of ``sheeprl_tpu/serve/client.py``): the
+in-process :class:`LocalServeClient` and the cross-process
+:class:`RingServeClient` over one slot of an
+:class:`~sheeprl_tpu_torch.serve.rings.ActSlabRing`.
 
 A client never sees the model: it hands an observation row to the gateway
 and gets ``(action_row, version)`` back. ``reset=True`` marks an episode
@@ -15,7 +16,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["LocalServeClient"]
+__all__ = ["LocalServeClient", "RingServeClient"]
 
 _client_counter = itertools.count()
 _counter_lock = threading.Lock()
@@ -58,3 +59,25 @@ class LocalServeClient:
         if pending is not None:
             self._batcher.cancel(pending)
         self._batcher.forget_client(self.client_id)
+
+
+class RingServeClient:
+    """A client in another process, bound to one slot of an ``ActSlabRing``.
+    Made in the parent and sent to a spawned child (the ring pickles), or
+    made in the child from the ring it got. One request in flight at most:
+    the client owns its slot. It imports no torch."""
+
+    def __init__(self, ring, slot: int):
+        self._ring = ring
+        self.slot = int(slot)
+        self.client_id = f"ring{self.slot}"
+        self._seq = 0
+
+    def act(self, obs_row: Dict[str, np.ndarray], reset: bool = False, timeout: float = 30.0) -> Tuple[np.ndarray, int]:
+        self._seq += 1
+        self._ring.request(self.slot, obs_row, self._seq, reset)
+        return self._ring.wait_response(self.slot, self._seq, timeout=timeout)
+
+    def close(self) -> None:
+        """Nothing to release: the slot is the client's for the ring's life,
+        and an unread response is dropped by the next ``act``'s seq check."""

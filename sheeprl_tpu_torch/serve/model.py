@@ -7,24 +7,24 @@ contract for the batcher's server-side recurrent state, and the device the
 batcher draws its noise on.
 
 :func:`load_gateway_model` builds one from a checkpoint directory written
-by the port or by the JAX package (``load_gateway_model`` in
-``sheeprl_tpu/serve/model.py``). Registry refs and the swap watcher are not
-ported (ROADMAP queue A item 6c).
+by the port or by the JAX package, or from a ``registry:best:`` ref;
+:class:`PolicySwapper` rebuilds one from each new version of a policy
+publication channel and swaps it in (``load_gateway_model`` and
+``PolicySwapper`` in ``sheeprl_tpu/serve/model.py``).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping, Sequence, Tuple
+import threading
+import warnings
+from typing import Any, Callable, Dict, Mapping, Sequence, Tuple
 
 import torch
 
 from sheeprl_tpu_torch.device import resolve_device
 
-__all__ = ["GatewayModel", "load_gateway_model"]
-
-#: parts of the port's training world model that a serving build has not
-_TRAINING_ONLY = ("cnn_decoder.", "mlp_decoder.", "reward_model.", "continue_model.")
+__all__ = ["GatewayModel", "PolicySwapper", "load_gateway_model"]
 
 
 class GatewayModel:
@@ -70,57 +70,44 @@ class GatewayModel:
         return self.policy.act(obs, state, generator)
 
     def init_state_rows(self, n: int):
-        """Fresh recurrent state for ``n`` rows (None: stateless family)."""
+        """Fresh recurrent state for ``n`` rows (None: stateless family), one
+        row repeated as the eval service builds it."""
         if self.policy.init_state is None:
             return None
-        return self.policy.init_state(int(n))
+        from sheeprl_tpu_torch.evals.service import fresh_state
+
+        return fresh_state(self.policy.init_state, int(n))
 
 
-def _serving_params(state: Dict[str, Any], framework: Any, algo: str) -> Dict[str, Dict[str, torch.Tensor]]:
-    """``{"world_model", "actor"}`` state dicts of a serving build from a
-    checkpoint's tree: the port's own layout (``framework == "torch"``), or
-    the JAX package's ``agent.params`` through ``convert_dreamer_v2`` or
-    ``convert_dreamer_v3`` (``algo``)."""
-    if framework == "torch":
-        agent = state["agent"]
-        return {
-            "world_model": {
-                k: torch.as_tensor(v) for k, v in agent["world_model"].items() if not k.startswith(_TRAINING_ONLY)
-            },
-            "actor": {k: torch.as_tensor(v) for k, v in agent["actor"].items()},
-        }
-    if framework is not None:
-        raise ValueError(f"checkpoint written by an unknown framework {framework!r}")
-    from sheeprl_tpu_torch.convert import convert_dreamer_v2, convert_dreamer_v3
-
-    convert = convert_dreamer_v3 if algo == "dreamer_v3" else convert_dreamer_v2
-    params, _skipped = convert(state["agent"]["params"])
-    return params
-
-
-def load_gateway_model(checkpoint_path: str, device=None, plain_cell: bool = False) -> Tuple[GatewayModel, Any, Any, Any]:
-    """A servable DreamerV2 or DreamerV3 model from a checkpoint directory, on ``device``
-    (``cuda`` when None). Every array of the model state is checksummed
-    against the manifest (a replay buffer saved beside it is not read);
-    the architecture comes from the run's persisted ``.hydra/config.yaml``,
-    the spaces from one probe env, the version from the manifest's step.
-    Returns ``(model, cfg, observation_space, action_space)``."""
+def load_gateway_model(
+    checkpoint_ref: str, device=None, plain_cell: bool = False, registry_dir: str = "logs/registry"
+) -> Tuple[GatewayModel, Any, Any, Any]:
+    """A servable DreamerV2 or DreamerV3 model from a checkpoint directory or
+    a ``registry:best:<algo>:<env id>`` ref (resolved in ``registry_dir``),
+    on ``device`` (``cuda`` when None). Every array of the model state is
+    checksummed against the manifest (a replay buffer saved beside it is not
+    read); the architecture comes from the run's persisted
+    ``.hydra/config.yaml``, the spaces from one probe env, the version from
+    the manifest's step. Returns ``(model, cfg, observation_space,
+    action_space)``: the rest is what a swap rebuilds against."""
     from sheeprl_tpu_torch.ckpt import read_checkpoint, read_manifest
     from sheeprl_tpu_torch.cli import load_run_config
-    from sheeprl_tpu_torch.evals.builders import actions_dim_of
+    from sheeprl_tpu_torch.evals.builders import actions_dim_of, serving_params
+    from sheeprl_tpu_torch.evals.registry import resolve_checkpoint_ref
     from sheeprl_tpu_torch.evals.service import policy_version_of, probe_spaces
 
     dev = resolve_device(device)
-    if str(checkpoint_path).startswith("registry:"):
-        raise NotImplementedError("registry refs are not ported yet (ROADMAP queue A item 6c)")
-    manifest = read_manifest(checkpoint_path)
+    checkpoint_path, _record = resolve_checkpoint_ref(checkpoint_ref, registry_dir)
+    framework = read_manifest(checkpoint_path).get("framework")
+    if framework not in (None, "torch"):
+        raise ValueError(f"checkpoint written by an unknown framework {framework!r}")
     cfg, _log_dir = load_run_config(checkpoint_path)
     cfg.env.capture_video = False
     state = read_checkpoint(checkpoint_path, with_rb=False)
     observation_space, action_space = probe_spaces(cfg)
     actions_dim, is_continuous = actions_dim_of(action_space)
     model = GatewayModel.from_params(
-        _serving_params(state, manifest.get("framework"), str(cfg.algo.name)),
+        serving_params(state, str(cfg.algo.name)),
         cfg,
         observation_space.spaces,
         actions_dim,
@@ -131,3 +118,77 @@ def load_gateway_model(checkpoint_path: str, device=None, plain_cell: bool = Fal
     )
     model.checkpoint = os.path.abspath(checkpoint_path)
     return model, cfg, observation_space, action_space
+
+
+class PolicySwapper:
+    """Watcher thread: newly published policy versions → swaps.
+
+    Polls a :class:`~sheeprl_tpu_torch.plane.publish.PolicyPoller` channel
+    for versions past the serving model's, rebuilds the policy with the
+    family's eval builder on the serving model's device, and calls
+    ``swap_fn(new_model)``. The rebuild runs on this thread, off the
+    dispatch path; the batcher takes the new model at its next batch, and a
+    batch in flight keeps its own reference to the old one until its actions
+    are on the host. A torn or bad publication is skipped and the old model
+    keeps serving (it is tried again at each poll); ``swaps`` counts the swaps
+    made, ``refused`` holds the versions refused.
+    """
+
+    def __init__(
+        self,
+        policy_root: str,
+        cfg,
+        observation_space,
+        action_space,
+        swap_fn: Callable[[GatewayModel], Any],
+        base_model: GatewayModel,
+        poll_interval_s: float = 0.2,
+    ):
+        from sheeprl_tpu_torch.evals.service import _builder_for
+        from sheeprl_tpu_torch.plane.publish import PolicyPoller
+
+        self._poller = PolicyPoller(str(policy_root), poll_interval_s=poll_interval_s)
+        self._cfg = cfg
+        self._obs_space = observation_space
+        self._act_space = action_space
+        self._swap_fn = swap_fn
+        self._builder = _builder_for(cfg.algo.name)
+        self._algo = base_model.algo
+        self._env_id = base_model.env_id
+        self._device = base_model.device
+        self._last_version = int(base_model.version)
+        self._stop = threading.Event()
+        self.swaps = 0
+        self.refused: set = set()
+        self._thread = threading.Thread(target=self._run, name="serve-policy-swapper", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._poller.poll_interval_s):
+            self.poll_once()
+
+    def poll_once(self) -> bool:
+        """One poll (also the tests' hook): swap in a newer valid version.
+        Returns True on a swap."""
+        latest = self._poller.latest_version()
+        if latest is None or latest <= self._last_version:
+            return False
+        state = self._poller.load(latest)
+        try:
+            if state is None:
+                raise ValueError(f"publication {latest} is torn or fails its checksums")
+            policy = self._builder(None, self._cfg, state, self._obs_space, self._act_space, device=self._device)
+        except Exception as exc:  # a bad publication never takes serving down
+            if latest not in self.refused:
+                self.refused.add(int(latest))
+                warnings.warn(f"policy swap to version {latest} refused; the serving model stays: {exc}")
+            return False
+        model = GatewayModel(policy, version=latest, algo=self._algo, env_id=self._env_id, device=self._device)
+        self._swap_fn(model)
+        self._last_version = int(latest)
+        self.swaps += 1
+        return True
+
+    def close(self, timeout: float = 10.0) -> None:
+        self._stop.set()
+        self._thread.join(timeout=timeout)

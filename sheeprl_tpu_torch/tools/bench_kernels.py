@@ -49,8 +49,9 @@ def _operands(device):
             t(3 * H, scale=0.05, shift=1.0), t(3 * H, scale=0.05))
 
 
-#: profiled windows ``sequence_split`` takes at most: CUPTI can drop every record of one (one H100 run did)
-WINDOWS = 3
+#: profiled windows ``sequence_split`` takes at most: CUPTI can drop every record of one (one H100 run did),
+#: or a few (another kept 15 of a window's 17 launches a call)
+WINDOWS = 6
 
 
 def sequence_split(seq_operands, variant: str, eps: float = EPS, calls: int = 10) -> dict:
@@ -70,6 +71,7 @@ def sequence_split(seq_operands, variant: str, eps: float = EPS, calls: int = 10
     fn = lambda: ops.hafner_sequence_cuda(*seq_operands, eps=eps, variant=variant)  # noqa: E731
     fn()
     torch.cuda.synchronize()
+    records = []
     for window in range(1, WINDOWS + 1):
         windows = []  # the recorded window's kernel records, handed over when it closes
         on_ready = lambda p: windows.append([(e.key, e.count, device_us(e)) for e in p.key_averages()])  # noqa: E731
@@ -81,14 +83,19 @@ def sequence_split(seq_operands, variant: str, eps: float = EPS, calls: int = 10
                 prof.step()
         if len(windows) != 1:
             raise RuntimeError(f"sequence_split: the profiler closed {len(windows)} windows, expected 1")
-        records = [r for r in windows[0] if r[2] > 0]
-        if records:
+        kept = [r for r in windows[0] if r[2] > 0]
+        if sum(r[1] for r in kept) > sum(r[1] for r in records):
+            records = kept  # the window that kept the most records
+        # a window kept every record when each kernel's count is a whole number of calls
+        if records and all(count % calls == 0 for _key, count, _us in records):
             break
-    else:
+    if not records:
         raise RuntimeError(f"sequence_split: the profiler recorded no kernel in {WINDOWS} windows")
     # the profiler can drop a few of a window's records (one H100 run kept 7
-    # of 10): a kernel's launches a call are its kept records over the calls,
-    # rounded, and its time a launch the mean of the kept records
+    # of 10; another dropped enough that a kernel launched 8 times a call
+    # rounded to 7): windows are taken again, up to WINDOWS, until one keeps
+    # them all; a kernel's launches a call are the kept records over the
+    # calls, rounded, and its time a launch the mean of the kept records
     launches = {key: max(1, round(count / calls)) for key, count, _us in records}
     mean_us = {key: us / count for key, count, us in records}
     has_x = seq_operands[1].shape[2] > 0

@@ -1,6 +1,8 @@
 """Algorithm registry (counterpart of ``sheeprl_tpu/utils/registry.py``).
 
-Decorating an entrypoint registers it under its defining module;
+Decorating an entrypoint registers it under its defining module: a
+training ``main(fabric, cfg)`` with :func:`register_algorithm`, an
+``evaluate(fabric, cfg, state)`` with :func:`register_evaluation`.
 :func:`sheeprl_tpu_torch.register_algorithms` imports the ported
 entrypoints so that they register.
 """
@@ -9,10 +11,20 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional
 
-__all__ = ["algorithm_registry", "find_algorithm", "register_algorithm", "registered_algorithm_names"]
+__all__ = [
+    "algorithm_registry",
+    "evaluation_registry",
+    "find_algorithm",
+    "find_evaluation",
+    "register_algorithm",
+    "register_evaluation",
+    "registered_algorithm_names",
+]
 
 # {module_name: [{"name": algo_name, "entrypoint": fn_name, "decoupled": bool}]}
 algorithm_registry: Dict[str, List[Dict[str, Any]]] = {}
+# {module_name: [{"name": algo_name, "entrypoint": fn_name}]}
+evaluation_registry: Dict[str, List[Dict[str, Any]]] = {}
 
 
 def register_algorithm(decoupled: bool = False) -> Callable:
@@ -29,6 +41,30 @@ def register_algorithm(decoupled: bool = False) -> Callable:
         return fn
 
     return inner
+
+
+def register_evaluation(algorithms: Any) -> Callable:
+    """Decorator: register an ``evaluate(fabric, cfg, state)`` entrypoint for
+    one algorithm name or a list of them."""
+    names = [algorithms] if isinstance(algorithms, str) else list(algorithms)
+
+    def inner(fn: Callable) -> Callable:
+        evals = evaluation_registry.setdefault(fn.__module__, [])
+        for name in names:
+            if not any(e["name"] == name for e in evals):
+                evals.append({"name": name, "entrypoint": fn.__name__})
+        return fn
+
+    return inner
+
+
+def find_evaluation(name: str) -> Optional[Dict[str, Any]]:
+    """Look up a registered evaluation by algorithm name → {module, entrypoint}."""
+    for module, evals in evaluation_registry.items():
+        for ev in evals:
+            if ev["name"] == name:
+                return {"module": module, **ev}
+    return None
 
 
 def find_algorithm(name: str) -> Optional[Dict[str, Any]]:

@@ -488,3 +488,67 @@ def test_dv3_cli_run_on_the_card_launches_the_cell_and_serves_its_checkpoint(cud
     want = plain.act(frames, plain.init_state_rows(3), torch.Generator(device="cuda").manual_seed(0))
     np.testing.assert_array_equal(got[0], want[0])
     torch.testing.assert_close(got[1]["recurrent"], want[1]["recurrent"], atol=TOL, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def card_dv3_checkpoint(tmp_path_factory):
+    """A tiny DV3 run on the card (the dummy env, random actions only): its checkpoint."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from sheeprl_tpu_torch import cli
+
+    root = tmp_path_factory.mktemp("card_eval")
+    run = [
+        "exp=dreamer_v3", "env=dummy", "env.id=discrete_dummy", "env.num_envs=1", "env.sync_env=True",
+        "metric.log_level=0", "buffer.memmap=False", "total_steps=16", "algo.learning_starts=100",
+        "algo.run_test=False", "run_name=card_eval", f"root_dir={root}",
+    ] + [f"{k}={v}" for k, v in GRAPH_SMALL_DV3.items() if not k.startswith("per_rank")]
+    return cli.run(run)["checkpoint"]
+
+
+@pytest.mark.cuda
+def test_rescore_through_gateway_on_the_card_is_bitwise_the_evaluation(cuda, card_dv3_checkpoint):
+    """On the card, the gateway-path rescore gives the eval service's returns
+    and lengths bit for bit at matched seeds, with one cell launch a pool
+    step (and a batch) on each path."""
+    from sheeprl_tpu_torch.evals.service import evaluate_checkpoint
+    from sheeprl_tpu_torch.serve import rescore_through_gateway
+
+    ops.hafner_cell_launches.reset()
+    direct = evaluate_checkpoint(card_dv3_checkpoint, episodes=4, seed0=3, write_registry=False)
+    assert ops.hafner_cell_launches.count == max(direct["lengths"])
+    ops.hafner_cell_launches.reset()
+    gated = rescore_through_gateway(card_dv3_checkpoint, episodes=4, seed0=3)
+    assert ops.hafner_cell_launches.count == gated["batches"] == max(direct["lengths"])
+    assert gated["returns"] == direct["returns"] and gated["lengths"] == direct["lengths"]
+
+
+@pytest.mark.cuda
+def test_the_ring_and_the_drain_on_the_card(cuda, card_dv3_checkpoint, tmp_path):
+    """Spawned ring clients served from the card; the drain then finishes
+    the queued requests and refuses later ones."""
+    import json
+
+    from sheeprl_tpu_torch.serve import ServeClosed, ServeGateway
+    from sheeprl_tpu_torch.serve.gateway import spawn_clients
+
+    gateway = ServeGateway.from_checkpoint(card_dv3_checkpoint, max_batch=4, deadline_s=0.002)
+    try:
+        ring = gateway.start_ring(2)
+        spec = {"requests": 5, "seed": 1, "out_dir": str(tmp_path / "clients")}
+        for p in spawn_clients(ring, 2, "sheeprl_tpu_torch.serve.loadgen:seeded_client", spec):
+            p.join(timeout=120)
+            assert p.exitcode == 0
+        for slot in range(2):
+            with open(tmp_path / "clients" / f"client_{slot}.json") as f:
+                seen = json.load(f)
+            assert seen["errors"] == [] and len(seen["versions"]) == 5 and not seen["torch_loaded"]
+        rows = {k: np.zeros(s.shape, s.dtype) for k, s in gateway.observation_space.spaces.items()}
+        tickets = [gateway.batcher.submit(f"c{i}", rows) for i in range(6)]
+        assert gateway.drain(timeout=30.0) is True
+        assert all(gateway.batcher.wait(t, timeout=1.0)[0] is not None for t in tickets)
+        with pytest.raises(ServeClosed):
+            gateway.client().act(rows)
+        assert gateway.status()["failed_requests"] == 0 and gateway.status()["requests"] == 16
+    finally:
+        gateway.close()

@@ -174,7 +174,7 @@ def test_the_port_cli_trains_checkpoints_resumes_and_serves(tmp_path, monkeypatc
 @pytest.mark.parametrize(
     "overrides,match",
     [
-        (["eval.every_n_steps=10"], "6c"),
+        (["parallel.model_axis=2"], "item 7"),
         (["env.act_burst=4"], "act_burst"),
         (["metric.profiler=true"], "6h"),
         (["metric.telemetry.enabled=true", "metric.telemetry.learn.enabled=true"], "learn probes"),

@@ -45,7 +45,9 @@ def test_no_forbidden_import_in_source(path):
 
 def test_importing_every_module_loads_no_forbidden_module():
     modules = [m.name for m in pkgutil.walk_packages(sheeprl_tpu_torch.__path__, "sheeprl_tpu_torch.")]
-    assert "sheeprl_tpu_torch.serve.gateway" in modules
+    for name in ("serve.gateway", "serve.rings", "serve.loadgen", "evals.inrun", "evals.registry", "plane.publish",
+                 "obs.dist.aggregate", "utils.model_manager"):
+        assert f"sheeprl_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
@@ -203,3 +205,35 @@ def test_the_cli_and_checkpoint_serving_raise_without_a_card(monkeypatch, tmp_pa
     with pytest.raises(RuntimeError, match="CUDA"):
         load_gateway_model(str(tmp_path / "ckpt_1_0"))
     assert not (tmp_path / "logs").exists()
+
+
+def test_a_spawned_ring_client_loads_no_torch():
+    """What a ring client process imports (the ring, the client, the gateway
+    module that holds its entry point, the load generator) loads no torch."""
+    code = (
+        "import sys\n"
+        "import sheeprl_tpu_torch.serve.gateway, sheeprl_tpu_torch.serve.client\n"
+        "import sheeprl_tpu_torch.serve.rings, sheeprl_tpu_torch.serve.loadgen\n"
+        "print(sorted(m for m in sys.modules if m == 'torch' or m.startswith('torch.')))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stdout + proc.stderr
+
+
+def test_the_eval_and_serve_commands_raise_without_a_card(monkeypatch, tmp_path):
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.evals.service import evaluate_checkpoint
+    from sheeprl_tpu_torch.serve import ServeGateway, rescore_through_gateway
+
+    monkeypatch.chdir(tmp_path)
+    ckpt = cli.run(TINY_RUN + [f"root_dir={tmp_path}", "fabric.accelerator=cpu", "metric.log_level=0"])["checkpoint"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for accelerator in ("auto", "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.evaluation([f"checkpoint_path={ckpt}", f"fabric.accelerator={accelerator}", "eval.write_registry=False"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.serve([f"checkpoint_path={ckpt}", f"fabric.accelerator={accelerator}", "serve.duration_s=1"])
+    for call in (evaluate_checkpoint, rescore_through_gateway, ServeGateway.from_checkpoint):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call(ckpt)

@@ -141,7 +141,7 @@ def test_fabric_is_one_device_and_raises_for_the_rest(monkeypatch):
     "overrides,match",
     [
         (["metric.profiler=true"], "item 6h"),
-        (["eval.every_n_steps=10"], "in-run evaluation"),
+        (["plane.num_players=1"], "item 6f"),
         (["env.act_burst=4"], "act_burst"),
         (["env.vectorization=async"], "sync vector env"),
         (["buffer.device_ring=True"], "device_ring"),
