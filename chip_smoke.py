@@ -136,12 +136,42 @@ the eval pool's batch, and B=64, a full serving batch):
   trainer's launches still the player steps + 79 a gradient step + the test
   steps.
 
+Plan2Explore, at its presets' full widths (P2E-DV3: DreamerV3's
+default algo width, dense 256 x 1, CNN multiplier 24, recurrent 256 without
+bias, 32x32 latent, an 8-member ensemble, an intrinsic and an extrinsic
+exploration critic, B=16 x T=64; P2E-DV2: dense 400 x 4, recurrent 400 with
+bias, a 10-member ensemble, B=16 x T=50; both horizon 15):
+
+- p2e kernels (after the dv3 rows): the cell at P2E_CELL_SHAPES (H = X =
+  256 without bias; H = X = 400 with bias, eps 1e-5) at B = 4, 10, 16, 64
+  and the imagination's 1024 or 800, forward and gradients against the plain
+  version, device time, bound, cuBLAS's product, the VJP at the posterior's
+  and the imagination's batches (``phase_cell_p2e``);
+- train_p2e_dv3, train_p2e_dv3_continuous, train_p2e_dv2 (after
+  train_dv2_continuous): one exploration step (six updates) kernel against
+  plain cell (TF32 off), GRAPH_STEPS steps graphed against eager within
+  TOL_GRAPHED with ``cudnn.deterministic``, then P2E_TRAIN_STEPS timed steps
+  eager and graphed with a profiled window, P2E_STEP_LAUNCHES (94, 94, 80)
+  cell launches a step (two imaginations a step);
+- run_p2e_dv3, run_p2e_dv2 (after eval_serve): ``cli.run`` of the
+  exploration preset, then of the finetuning preset from its checkpoint
+  (RUN_P2E_SPECS, cuts listed there), whose player switches from the
+  exploration actor to the task actor inside the run; each run's counters,
+  cell launches (as predicted), graphs (one captured acting step per actor),
+  event tags and deep-validated checkpoint; a profiled exploration run whose
+  gate kernels equal its counters; the evaluation command on the finetuning
+  checkpoint against a plain-cell evaluation; and its task actor served to
+  lockstep clients, equal to a plain-cell replay (``phase_run_p2e``).
+
 Each path's launch counts are zeroed just before its run and read just
 after it: the served run (phase 4), the bench (phase 5), the timed train
 steps (phases 6, train_dv3, train_walker) and the graphed steps
 (train_dv2_continuous), the training runs (phases 7, run_dv3 and
 run_walker), and eval_serve's evaluations, rescore, serve command and
-in-run run (``launches_by_path``). The ``kernels`` line's cell ``launches`` is the three runs' sum. The build phase also counts the tensor-core instructions
+in-run run (``launches_by_path``), and the P2E trainers, runs, evaluations and
+serving. The ``kernels`` line's cell ``launches`` is the training runs'
+sum (the three Dreamer runs and the four P2E runs); its ``p2e_shapes`` and
+``p2e_train`` keys carry the P2E rows. The build phase also counts the tensor-core instructions
 (``HGMMA``, ``HMMA``) in the built library's SASS (``cuobjdump -sass``).
 
 Bounds: the least time of the same work on an H100 SXM, the larger of its
@@ -252,6 +282,40 @@ RUN_WALKER_LOG_STEPS = (256, 512, 768, 1024, 1152)
 # served float actions, kernel against plain cell: the cell's outputs differ by ~1e-5, the actions by as much
 TOL_CONTINUOUS_ACTION = 1e-3
 WALKER_GREEDY_STEPS = 4
+# Plan2Explore: the cell at its presets' shapes, (H, X, bias, eps, the batches of its paths: 4 acting envs, the
+# eval pool's 10, the posterior's 16, a serving batch of 64, the imagination's B x T): P2E-DV3 at DreamerV3's default
+# algo width (recurrent 256 without bias, eps 1e-3; 16 x 64) and P2E-DV2 at its own (recurrent 400 with bias, DV2's
+# eps 1e-5; 16 x 50)
+P2E_CELL_SHAPES = {
+    "p2e_dv3": (256, 256, False, 1e-3, (4, 10, 16, 64, 1024)),
+    "p2e_dv2": (400, 400, True, 1e-5, (4, 10, 16, 64, 800)),
+}
+# cell launches a gradient step, read from the code: the posterior's T steps, then the imagination's horizon (15) once
+# (DreamerV2, DreamerV3, finetuning) or twice (the P2E exploration step: the exploration and the task actor)
+P2E_STEP_LAUNCHES = {"p2e_dv3": 64 + 15 + 15, "p2e_dv3_continuous": 64 + 15 + 15, "p2e_dv2": 50 + 15 + 15}
+P2E_FINETUNING_STEP_LAUNCHES = {"p2e_dv3": 64 + 15, "p2e_dv2": 50 + 15}
+P2E_TRAIN_STEPS = 4
+# the P2E runs: the port's CLI at each preset's full width on the discrete dummy env (2 actions, 5-step episodes), 4
+# envs, the sequential buffer, log_level 1; exploration, then finetuning from its checkpoint, the finetuning player
+# acting with the exploration actor until learning_starts and with the task actor after it, inside the run. Cuts:
+# a buffer of 4096 steps (1e6 and 5e6), 1024 and 512 policy steps (P2E-DV3; 5e6 and 1e6) and 512 and 256 (P2E-DV2),
+# learning from 512 and 320 (P2E-DV3; 65536 both) and 256 and 224 (P2E-DV2; 1000 both), a log every 256 (5000)
+P2E_ENV_ARGS = ("env=dummy", "env.id=discrete_dummy", "env.sync_env=True", "buffer.size=4096", "metric.log_every=256")
+RUN_P2E_SPECS = {
+    "p2e_dv3": dict(
+        exploration=("exp=p2e_dv3_exploration", "total_steps=1024", "algo.learning_starts=512") + P2E_ENV_ARGS,
+        finetuning=("exp=p2e_dv3_finetuning", "total_steps=512", "algo.learning_starts=320") + P2E_ENV_ARGS,
+        # (updates, random, player steps by actor, gradient steps, test steps, the update of the switch)
+        exploration_counts=(256, 128, [128], 33, 5, None),
+        finetuning_counts=(128, 0, [79, 49], 13, 5, 80),
+    ),
+    "p2e_dv2": dict(
+        exploration=("exp=p2e_dv2_exploration", "total_steps=512", "algo.learning_starts=256") + P2E_ENV_ARGS,
+        finetuning=("exp=p2e_dv2_finetuning", "total_steps=256", "algo.learning_starts=224") + P2E_ENV_ARGS,
+        exploration_counts=(128, 64, [64], 164, 5, None),
+        finetuning_counts=(64, 0, [55, 9], 108, 5, 56),
+    ),
+}
 CLIENTS, STEPS, SEED = 64, 16, 5
 N_ACTIONS = 9
 OBS = {"rgb": (3, 64, 64)}
@@ -568,24 +632,24 @@ def phase_cell_training():
     return rows
 
 
-def phase_cell_dv3():
-    """The cell at DreamerV3's shapes (H = X = 512, no bias, LayerNorm, eps
-    1e-3) at the batches of its paths (DV3_CELL_BATCHES): forward against
-    the plain version, the hand VJP's five gradients (no bias) against
-    autograd of the plain version, the variant the plan launches, device
-    time beside the plain version's, the bound and cuBLAS's f32 SGEMM of the
-    same product; at B=1024 also the time split into product and gates."""
+def _cell_shape_rows(label: str, H: int, X: int, bias: bool, eps: float, batches, vjp_batches, split_batch: int):
+    """The cell at one model's shapes (H, X, bias, LayerNorm, eps) at the
+    batches of its paths: forward against the plain version, the hand VJP's
+    gradients (five without bias, six with) against autograd of the plain
+    version, the variant the plan launches, device time beside the plain
+    version's, the bound and cuBLAS's f32 SGEMM of the same product; at
+    ``split_batch`` also the time split into product and gates, and at
+    ``vjp_batches`` the VJP's times (``vjp_times``)."""
     import torch
 
     from sheeprl_tpu_torch.kernels import ops, reference
 
     rows = []
-    H, X, eps = DV3_H, DV3_X, DV3_EPS
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for B in DV3_CELL_BATCHES:
-            args, cot = _operands(B + 11, B, H, X, False, True)
+        for B in batches:
+            args, cot = _operands(B + 11, B, H, X, bias, True)
             kernel = lambda *a: ops.hafner_gru_cell(*a, eps=eps)
             plain = lambda *a: reference.hafner_cell(*a, eps=eps)
             out, grads = _vjp(kernel, args, cot)
@@ -593,29 +657,48 @@ def phase_cell_dv3():
             torch.cuda.synchronize()
             err = (out - p_out).abs().max().item()
             grad_err = _grad_rel_err(grads, p_grads)
-            bound_ms, bound_by, simt_ms = hafner_bound(B, H, X, bias=False, ln=True)
+            bound_ms, bound_by, simt_ms = hafner_bound(B, H, X, bias=bias, ln=True)
             u = torch.cat(args[:2], dim=-1)
-            row = dict(B=B, H=H, X=X, bias=False, ln=True, eps=eps, max_abs_err=err, tol=TOL_KERNEL,
+            row = dict(B=B, H=H, X=X, bias=bias, ln=True, eps=eps, max_abs_err=err, tol=TOL_KERNEL,
                        grad_rel_err=grad_err, grad_tol=TOL_GRAD, gradients=len(grads),
                        ms=device_ms(lambda: ops.hafner_cell_cuda(*args, eps=eps)),
                        plain_ms=device_ms(lambda: reference.hafner_cell(*args, eps=eps)),
                        cublas_product_ms=device_ms(lambda: torch.matmul(u, args[2])),
                        bound_ms=bound_ms, bound_by=bound_by, bound_f32_simt_ms=simt_ms,
                        variant=ops.hafner_cell_variant(B, H, X))
-            if B == max(DV3_CELL_BATCHES):
+            if B == split_batch:
                 row.update(product_split(args, B))
-            if B > 1:  # the posterior's (B=16, with the weight gradient) and the imagination's (B=1024, without)
-                row["vjp"] = vjp_times(args, cot)
-            print("[kernel] hafner_cell dv3 " + json.dumps(row), flush=True)
+            if B in vjp_batches:
+                row["vjp"] = vjp_times(args, cot, eps)
+            print(f"[kernel] hafner_cell {label} " + json.dumps(row), flush=True)
             rows.append(row)
             grid = row["variant"]["grid"]
-            if len(grads) != 5 or grid[1] * row["variant"]["tile_rows"] < B or grid[0] * 64 * row["variant"]["warpgroups"] < 3 * H:
+            if len(grads) != 5 + int(bias) or grid[1] * row["variant"]["tile_rows"] < B or grid[0] * 64 * row["variant"]["warpgroups"] < 3 * H:
                 raise AssertionError(f"the cell at B={B} returned {len(grads)} gradients, variant {row['variant']}")
             if not (torch.isfinite(out).all() and err <= TOL_KERNEL and grad_err <= TOL_GRAD):
-                raise AssertionError(f"hafner_cell at DV3's B={B} disagrees with its plain version: {row}")
+                raise AssertionError(f"hafner_cell at {label}'s B={B} disagrees with its plain version: {row}")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
     return rows
+
+
+def phase_cell_dv3():
+    """The cell at DreamerV3's shapes (H = X = 512, no bias, LayerNorm, eps
+    1e-3) at the batches of its paths (DV3_CELL_BATCHES), with the VJP at
+    the posterior's B=16 (with the weight gradient) and the imagination's
+    B=1024 (without), and the product and gates apart at B=1024."""
+    return _cell_shape_rows("dv3", DV3_H, DV3_X, False, DV3_EPS, DV3_CELL_BATCHES,
+                            [B for B in DV3_CELL_BATCHES if B > 1], max(DV3_CELL_BATCHES))
+
+
+def phase_cell_p2e():
+    """The cell at Plan2Explore's presets' shapes (P2E_CELL_SHAPES: P2E-DV3 at
+    H = X = 256 without bias, eps 1e-3; P2E-DV2 at H = X = 400 with bias,
+    eps 1e-5) at the batches of their paths, with the VJP at the posterior's
+    and the imagination's batches and the product and gates apart at the
+    imagination's. Returns the rows by preset."""
+    return {name: _cell_shape_rows(name, H, X, bias, eps, batches, (16, max(batches)), max(batches))
+            for name, (H, X, bias, eps, batches) in P2E_CELL_SHAPES.items()}
 
 
 def vjp_bound(B: int, H: int, X: int, weight_grad: bool):
@@ -636,7 +719,7 @@ def vjp_bound(B: int, H: int, X: int, weight_grad: bool):
     return _bound(bytes_, product, 18.0 * B * 3 * H + 20.0 * B * H)
 
 
-def vjp_times(args, cot) -> dict:
+def vjp_times(args, cot, eps: float = DV3_EPS) -> dict:
     """The cell's hand VJP (``ops.hafner_cell_vjp``, plain PyTorch
     operations) at the kernel's kept pre-activation: as DreamerV3's
     continuous imagination runs it (dh and dx: the world model is frozen
@@ -647,13 +730,13 @@ def vjp_times(args, cot) -> dict:
 
     h, x, w, b, s, lb = args
     B, H, X = h.shape[0], h.shape[1], x.shape[1]
-    _out, z = ops.hafner_cell_cuda(h, x, w, b, s, lb, eps=DV3_EPS, save_z=True)
-    inputs = lambda: ops.hafner_cell_vjp(h, x, w, b, s, lb, z, cot, DV3_EPS, need=(True, True, False, False))
-    full = lambda: ops.hafner_cell_vjp(h, x, w, b, s, lb, z, cot, DV3_EPS)
+    _out, z = ops.hafner_cell_cuda(h, x, w, b, s, lb, eps=eps, save_z=True)
+    inputs = lambda: ops.hafner_cell_vjp(h, x, w, b, s, lb, z, cot, eps, need=(True, True, False, False))
+    full = lambda: ops.hafner_cell_vjp(h, x, w, b, s, lb, z, cot, eps)
     bound_ms, bound_by, simt_ms = vjp_bound(B, H, X, weight_grad=False)
     full_bound_ms, full_bound_by, _ = vjp_bound(B, H, X, weight_grad=True)
     return {"B": B, "H": H, "X": X, "bias": b is not None,
-            "forward_ms": device_ms(lambda: ops.hafner_cell_cuda(h, x, w, b, s, lb, eps=DV3_EPS)),
+            "forward_ms": device_ms(lambda: ops.hafner_cell_cuda(h, x, w, b, s, lb, eps=eps)),
             "ms": device_ms(inputs), "bound_ms": bound_ms, "bound_by": bound_by, "bound_f32_simt_ms": simt_ms,
             "with_weight_grad_ms": device_ms(full), "with_weight_grad_bound_ms": full_bound_ms,
             "with_weight_grad_bound_by": full_bound_by}
@@ -869,9 +952,89 @@ def _trainer_modules(algo: str):
 
     from sheeprl_tpu_torch.tools import bench_dreamer
 
-    family, _exp, _obs, actions, continuous = bench_dreamer.PRESETS[algo]
+    family, _exp, _obs, actions, continuous, *_ = bench_dreamer.PRESETS[algo]
     agent_module, train_module = bench_dreamer.ALGOS[family]
     return importlib.import_module(agent_module), importlib.import_module(train_module), actions, continuous
+
+
+class _PinnedSamples:
+    """Within the block, every straight-through categorical sample a train
+    step draws (each imagined discrete action and each posterior and prior
+    stochastic state, through the module names the losses call) is recorded
+    (the first pass) or, on the second pass (``replay``), replaced by the
+    first pass's choice at the same call, its straight-through gradient
+    kept. The kernel and the plain-cell paths then take the same discrete
+    decisions, so their losses compare; a choice that float rounding flipped
+    between them (a near-tie of logits plus Gumbel noise) is counted
+    (``flips`` of ``samples``) instead of sending the two steps down
+    different trajectories."""
+
+    _TARGETS = (("sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2", "sample_actor_actions"),
+                ("sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3", "sample_actor_actions"),
+                ("sheeprl_tpu_torch.algos.dreamer_v2.agent", "compute_stochastic_state"),
+                ("sheeprl_tpu_torch.algos.dreamer_v3.agent", "compute_stochastic_state"))
+
+    def __init__(self):
+        self.choices, self.replay, self.index, self.flips, self.samples = [], False, 0, 0, 0
+
+    def _pin(self, out, width: int):
+        import torch.nn.functional as F
+
+        shaped = out.reshape(out.shape[:-1] + (-1, width))
+        own = shaped.detach().argmax(-1)
+        if not self.replay:
+            self.choices.append(own)
+            return out
+        chosen = self.choices[self.index]
+        self.index += 1
+        flipped = int((chosen != own).sum())
+        self.flips += flipped
+        self.samples += own.numel()
+        if not flipped:
+            return out
+        return (shaped + (F.one_hot(chosen, width) - F.one_hot(own, width)).to(out.dtype)).reshape(out.shape)
+
+    def __enter__(self):
+        import importlib
+
+        self._saved = []
+        for module_name, attr in self._TARGETS:
+            module = importlib.import_module(module_name)
+            original = getattr(module, attr)
+            self._saved.append((module, attr, original))
+            if attr == "sample_actor_actions":
+                def actions(dists, is_continuous, *args, _original=original, **kwargs):
+                    out = _original(dists, is_continuous, *args, **kwargs)
+                    training = kwargs.get("is_training", args[1] if len(args) > 1 else True)
+                    return out if is_continuous or not training else [self._pin(o, o.shape[-1]) for o in out]
+
+                setattr(module, attr, actions)
+            else:
+                def states(logits, discrete, *args, _original=original, **kwargs):
+                    return self._pin(_original(logits, discrete, *args, **kwargs), discrete)
+
+                setattr(module, attr, states)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, original in self._saved:
+            setattr(module, attr, original)
+        return False
+
+
+def _train_steps_kernel_and_plain(algo: str):
+    """``_train_step_once`` on the kernel path, then on the plain-cell path
+    with the kernel path's discrete choices (``_PinnedSamples``). Returns
+    ``((kernel metrics, launches), (plain metrics, launches), {"samples",
+    "flips"})``."""
+    pins = _PinnedSamples()
+    with pins:
+        kernel = _train_step_once(False, algo)
+        pins.replay = True
+        plain = _train_step_once(True, algo)
+    if pins.index != len(pins.choices):
+        raise AssertionError(f"{algo}: the plain-cell step drew {pins.index} samples, the kernel step {len(pins.choices)}")
+    return kernel, plain, {"samples": pins.samples, "flips": pins.flips}
 
 
 def _train_step_once(plain_cell: bool, algo: str = "dreamer_v2"):
@@ -890,7 +1053,7 @@ def _train_step_once(plain_cell: bool, algo: str = "dreamer_v2"):
     before = ops.hafner_cell_launches.count
     metrics = {k: float(v) for k, v in train_step(state, data, noise=noise, tau=1.0).items()}
     launches = ops.hafner_cell_launches.count - before
-    per_step = T + int(cfg.algo.horizon)
+    per_step = P2E_STEP_LAUNCHES.get(algo, T + int(cfg.algo.horizon))
     if launches != (0 if plain_cell else per_step):
         raise AssertionError(f"the {'plain-cell' if plain_cell else 'kernel'} train step launched the cell {launches} times")
     del state, data, noise
@@ -917,7 +1080,7 @@ def _train_steps(fused: bool, algo: str = "dreamer_v2") -> dict:
     from sheeprl_tpu_torch.tools import bench_dreamer
     from sheeprl_tpu_torch.train.burst import run_train_burst, tau_schedule
 
-    if algo.startswith("dreamer_v3"):
+    if algo.startswith(("dreamer_v3", "p2e_dv3")):
         taus = tau_schedule(GRAPH_STEPS, 0, 1, tau=0.02, first_hard=True)
     else:
         taus = tau_schedule(GRAPH_STEPS, 0, 4, tau=1.0, first_hard=False)
@@ -928,8 +1091,8 @@ def _train_steps(fused: bool, algo: str = "dreamer_v2") -> dict:
     torch.cuda.synchronize()
     out = {
         "metrics": metrics,
-        "params": {f"{name}.{k}": p.detach().cpu() for name in ("world_model", "actor", "critic", "target_critic")
-                   for k, p in state[name].named_parameters()},
+        "params": {f"{name}.{k}": p.detach().cpu() for name, module in _modules_of(state).items()
+                   for k, p in module.named_parameters()},
         "launches": ops.hafner_cell_launches.count - before,
         "taus": taus.tolist(),
     }
@@ -938,6 +1101,17 @@ def _train_steps(fused: bool, algo: str = "dreamer_v2") -> dict:
         out["graph"] = {"eager_calls": step.eager_calls, "replays": step.replays, "captured": step.graph is not None}
     del state, program, data, stack
     torch.cuda.empty_cache()
+    return out
+
+
+def _modules_of(state) -> dict:
+    """Every module of a trainer's state by name, each P2E-DV3 exploration
+    critic and its target as ``critics_exploration.<name>.{module,target}``."""
+    import torch
+
+    out = {name: m for name, m in state.items() if isinstance(m, torch.nn.Module)}
+    for k, pair in state.get("critics_exploration", {}).items():
+        out.update({f"critics_exploration.{k}.{part}": m for part, m in pair.items()})
     return out
 
 
@@ -1008,7 +1182,7 @@ def phase_train(card: str):
     prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        (kernel_m, kernel_n), (plain_m, plain_n) = _train_step_once(False), _train_step_once(True)
+        (kernel_m, kernel_n), (plain_m, plain_n), pinned = _train_steps_kernel_and_plain("dreamer_v2")
         graph_line = graphed_against_eager()
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
@@ -1017,7 +1191,7 @@ def phase_train(card: str):
     bad += [k for k, v in kernel_m.items() if not math.isfinite(v)]
     print("[train] kernel vs plain cell, one step: " + json.dumps(
         {"kernel": kernel_m, "plain": plain_m, "rel_diff": rel, "tol_loss": TOL_TRAIN_LOSS, "tol_grad": TOL_TRAIN_GRAD,
-         "cell_launches": {"kernel": kernel_n, "plain": plain_n}}
+         "cell_launches": {"kernel": kernel_n, "plain": plain_n}, "pinned_samples": pinned}
     ), flush=True)
     if bad:
         raise AssertionError(f"kernel and plain-cell train steps disagree on {bad}")
@@ -1099,7 +1273,7 @@ def phase_train_dv3(card: str, algo: str = "dreamer_v3"):
             torch.backends.cudnn.deterministic)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        (kernel_m, kernel_n), (plain_m, plain_n) = _train_step_once(False, algo), _train_step_once(True, algo)
+        (kernel_m, kernel_n), (plain_m, plain_n), pinned = _train_steps_kernel_and_plain(algo)
         torch.backends.cudnn.deterministic = True
         eager, graphed = _train_steps(False, algo), _train_steps(True, algo)
     finally:
@@ -1112,7 +1286,8 @@ def phase_train_dv3(card: str, algo: str = "dreamer_v3"):
     bad += [k for k, v in kernel_m.items() if not math.isfinite(v)]
     held = _steps_diff(graphed, eager)
     line = {"kernel_vs_plain": {"kernel": kernel_m, "plain": plain_m, "rel_diff": rel, "tol_loss": TOL_TRAIN_LOSS,
-                                "tol_grad": TOL_TRAIN_GRAD, "cell_launches": {"kernel": kernel_n, "plain": plain_n}},
+                                "tol_grad": TOL_TRAIN_GRAD, "cell_launches": {"kernel": kernel_n, "plain": plain_n},
+                                "pinned_samples": pinned},
             "graphed_vs_eager": {"steps": GRAPH_STEPS, "taus": eager["taus"],
                                  "cudnn_deterministic": held, "graph": graphed["graph"],
                                  "launches": {"eager": eager["launches"], "graphed": graphed["launches"]}}}
@@ -1181,6 +1356,76 @@ def phase_train_dv2_continuous(card: str):
     if graphed["graph"] != {"eager_calls": WARMUP_CALLS, "replays": GRAPH_STEPS - WARMUP_CALLS, "captured": True}:
         raise AssertionError(f"the graphed continuous DV2 steps ran as {graphed['graph']}")
     return launches, held
+
+
+def phase_train_p2e(card: str, algo: str):
+    """A Plan2Explore exploration trainer at its preset's full width
+    (bench_dreamer's ``p2e_dv3``: B=16 x T=64, an 8-member ensemble, two
+    exploration critics; ``p2e_dv3_continuous``: the same on the walker's
+    observations and 6 continuous actions, both actors' gradients through
+    their imaginations; ``p2e_dv2``: B=16 x T=50, 10 members). One step at
+    fixed weights and noise on the kernel path and on the plain-cell path
+    (TF32 off: losses within TOL_TRAIN_LOSS, the six updates' gradient norms
+    and the other metrics within TOL_TRAIN_GRAD, relative); GRAPH_STEPS
+    steps from one seed eager and graphed with ``cudnn.deterministic``
+    (losses, gradient norms and every module's parameters within
+    TOL_GRAPHED); then P2E_TRAIN_STEPS timed steps eager and as many graphed,
+    each with a profiled window and the peak memory; P2E_STEP_LAUNCHES cell
+    launches a step. The counts are read on the graphed timed steps."""
+    import math
+
+    import torch
+
+    from sheeprl_tpu_torch.tools import bench_dreamer
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    tag = f"train_{algo}"
+    per_step = P2E_STEP_LAUNCHES[algo]
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        (kernel_m, kernel_n), (plain_m, plain_n), pinned = _train_steps_kernel_and_plain(algo)
+        torch.backends.cudnn.deterministic = True
+        eager, graphed = _train_steps(False, algo), _train_steps(True, algo)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = prev
+    rel = {k: abs(kernel_m[k] - plain_m[k]) / max(abs(plain_m[k]), 1e-6) for k in kernel_m}
+    bad = [k for k, r in rel.items() if r > (TOL_TRAIN_LOSS if k.startswith("Loss/") else TOL_TRAIN_GRAD)]
+    bad += [k for k, v in kernel_m.items() if not math.isfinite(v)]
+    held = _steps_diff(graphed, eager)
+    line = {"kernel_vs_plain": {"kernel": kernel_m, "plain": plain_m, "rel_diff": rel, "tol_loss": TOL_TRAIN_LOSS,
+                                "tol_grad": TOL_TRAIN_GRAD, "cell_launches": {"kernel": kernel_n, "plain": plain_n},
+                                "pinned_samples": pinned},
+            "graphed_vs_eager": {"steps": GRAPH_STEPS, "taus": eager["taus"], "tol": TOL_GRAPHED,
+                                 "cudnn_deterministic": held, "graph": graphed["graph"],
+                                 "launches": {"eager": eager["launches"], "graphed": graphed["launches"]}},
+            "card": card}
+    print(f"[{tag}] " + json.dumps(line), flush=True)
+    if bad:
+        raise AssertionError(f"{tag}: kernel and plain-cell train steps disagree on {bad}")
+    if held["metric_max_rel_err"] > TOL_GRAPHED or held["param_max_rel_err"] > TOL_GRAPHED:
+        raise AssertionError(f"{tag}: graphed and eager steps disagree: {held} > {TOL_GRAPHED}")
+    for run in (eager, graphed):
+        if run["launches"] != per_step * GRAPH_STEPS:
+            raise AssertionError(f"{tag}: the cell launched {run['launches']} times in {GRAPH_STEPS} steps")
+    if graphed["graph"] != {"eager_calls": WARMUP_CALLS, "replays": GRAPH_STEPS - WARMUP_CALLS, "captured": True}:
+        raise AssertionError(f"{tag}: the graphed steps ran as {graphed['graph']}")
+
+    result = bench_dreamer.compare(steps=P2E_TRAIN_STEPS, device="cuda", profile=True, algo=algo)
+    result["card"] = card
+    print(f"[{tag}] " + json.dumps(result), flush=True)
+    for mode in ("eager", "graphed"):
+        side = result[mode]
+        if not all(math.isfinite(v) for v in side["losses"].values()):
+            raise AssertionError(f"{tag}: a {mode} loss is not finite: {side['losses']}")
+        if side["hafner_cell_launches"] != per_step * P2E_TRAIN_STEPS or side["hafner_sequence_launches"]:
+            raise AssertionError(f"{tag}: the {mode} steps launched the cell {side['hafner_cell_launches']} times "
+                                 f"and the sequence {side['hafner_sequence_launches']} times")
+    launches = {"hafner_cell": result["graphed"]["hafner_cell_launches"],
+                "hafner_sequence": result["graphed"]["hafner_sequence_launches"]}
+    return launches, max(rel.values()), {k: held[k] for k in ("metric_max_rel_err", "param_max_rel_err", "bit_for_bit")}
 
 
 def _run_once(root: str, name: str, args=RUN_ARGS):
@@ -1901,6 +2146,155 @@ def phase_eval_serve(card: str, work: str, dv3_ckpt: str, walker_ckpt: str):
             "serve_command": serve["launches"], "inrun_run": inrun_launches}
 
 
+# tags the P2E runs' last log boundary must hold (each run's own metrics; every value finite)
+P2E_TAGS = {
+    "p2e_dv3_exploration": ("Loss/world_model_loss", "Loss/ensemble_loss", "Loss/policy_loss_exploration",
+                            "Loss/value_loss_exploration_intrinsic", "Loss/value_loss_exploration_extrinsic",
+                            "Loss/policy_loss_task", "Loss/value_loss_task", "Rewards/intrinsic_intrinsic",
+                            "Grads/ensemble", "Grads/actor_exploration"),
+    "p2e_dv2_exploration": ("Loss/world_model_loss", "Loss/ensemble_loss", "Loss/policy_loss_exploration",
+                            "Loss/value_loss_exploration", "Loss/policy_loss_task", "Loss/value_loss_task",
+                            "Rewards/intrinsic", "Grads/ensemble", "Grads/critic_exploration"),
+    "p2e_dv3_finetuning": ("Loss/world_model_loss", "Loss/policy_loss", "Loss/value_loss", "Grads/actor"),
+    "p2e_dv2_finetuning": ("Loss/world_model_loss", "Loss/policy_loss", "Loss/value_loss", "Grads/actor"),
+}
+
+
+def _check_p2e_run(tag: str, result, counts, per_step: int) -> dict:
+    """A P2E run's counters against ``counts`` (updates, random steps, player
+    steps by actor, gradient steps, test steps, the update of the actor
+    switch), its cell launches against the prediction, its graphs (one
+    captured acting step per actor), its event file's tags (finite) and its
+    checkpoint (deep-validated)."""
+    import math
+
+    from sheeprl_tpu_torch.ckpt import validate_checkpoint
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+    from sheeprl_tpu_torch.utils.tb_events import read_events
+
+    updates, random_steps, by_actor, gradient, test, switch = counts
+    got = (result["updates"], result["random_steps"], result["player_steps_by_actor"], result["gradient_steps"],
+           result["test_steps"], result["actor_switched_at"])
+    if got != tuple(counts):
+        raise AssertionError(f"{tag}: (updates, random, by actor, gradient, test, switch) {got}, expected {counts}")
+    predicted = sum(by_actor) + per_step * gradient + test
+    want_graphs = {
+        "train": {"eager_calls": WARMUP_CALLS, "replays": gradient - WARMUP_CALLS, "captured": 1},
+        "act": {"eager_calls": WARMUP_CALLS * len(by_actor), "replays": sum(by_actor) - WARMUP_CALLS * len(by_actor),
+                "captured": len(by_actor)},
+    }
+    graphs = {k: {n: v[n] for n in want_graphs[k]} for k, v in result["graphs"].items()}
+    if graphs != want_graphs:
+        raise AssertionError(f"{tag}: the steps ran as {result['graphs']}, expected {want_graphs}")
+    last = {}
+    for e in read_events(result["event_file"])[1:]:
+        for v in e.get("values", []):
+            if e["step"] > 0 and v.get("simple_value") is not None:
+                if not math.isfinite(v["simple_value"]):
+                    raise AssertionError(f"{tag}: {v['tag']} at policy step {e['step']} is not finite")
+                if e["step"] == result["policy_steps"]:
+                    last[v["tag"]] = v["simple_value"]
+    missing = [t for t in P2E_TAGS[tag] if t not in last]
+    if missing:
+        raise AssertionError(f"{tag}: the last log boundary lacks {missing}")
+    ckpt = result["checkpoint"]
+    manifest = validate_checkpoint(ckpt, deep=True)
+    return {"predicted_cell_launches": predicted, "graphs": result["graphs"], "checkpoint": ckpt,
+            "checkpoint_bytes": sum(manifest["files"].values()), "tags_at_last_log": len(last),
+            "last_losses": {t: last[t] for t in P2E_TAGS[tag]}}
+
+
+def phase_run_p2e(card: str, family: str, work: str):
+    """Plan2Explore's main path through ``sheeprl_tpu_torch.cli.run`` at the
+    preset's full width (RUN_P2E_SPECS[family]): the exploration run, then
+    the finetuning run from its checkpoint, whose player switches from the
+    exploration actor to the task actor inside the run; each run's cell
+    launches equal to its counters' prediction (acting steps, P2E_STEP_LAUNCHES
+    or P2E_FINETUNING_STEP_LAUNCHES a gradient step, test steps), checked
+    one run at a time, and a second, profiled exploration run whose trace
+    holds as many gate kernels as its counters. Then the ``evaluation``
+    command on the finetuning checkpoint (``_eval_command``: actions equal
+    to a plain-cell evaluation's) and ``load_gateway_model`` serving its task
+    actor to RUN_CLIENTS lockstep clients, equal to a plain-cell replay.
+    Returns the launches by path."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.serve.model import load_gateway_model
+
+    spec = RUN_P2E_SPECS[family]
+    root = os.path.join(work, f"run_{family}")
+    by_path, lines = {}, {}
+    ckpt = None
+    for phase in ("exploration", "finetuning"):
+        tag = f"{family}_{phase}"
+        args = spec[phase] + (() if ckpt is None else (f"checkpoint.exploration_ckpt_path={ckpt}",))
+        per_step = P2E_STEP_LAUNCHES[family] if phase == "exploration" else P2E_FINETUNING_STEP_LAUNCHES[family]
+        torch.cuda.reset_peak_memory_stats()
+        ops.hafner_cell_launches.reset()
+        ops.hafner_sequence_launches.reset()
+        result, wall = _run_once(root, tag, args)
+        launches = {"hafner_cell": ops.hafner_cell_launches.count, "hafner_sequence": ops.hafner_sequence_launches.count}
+        line = _check_p2e_run(tag, result, spec[f"{phase}_counts"], per_step)
+        if launches != {"hafner_cell": line["predicted_cell_launches"], "hafner_sequence": 0}:
+            raise AssertionError(f"{tag}: launches {launches}, predicted {line['predicted_cell_launches']} of the cell")
+        ckpt = result["checkpoint"]
+        by_path[f"run_{tag}"] = launches
+        line.update(run_args=list(args), wall_s=wall, policy_steps_per_s=result["policy_steps"] / wall,
+                    gradient_steps_per_s=result["gradient_steps"] / result["seconds"]["train"],
+                    seconds=result["seconds"], player_steps_by_actor=result["player_steps_by_actor"],
+                    actor_switched_at=result["actor_switched_at"], hafner_cell_launches=launches["hafner_cell"],
+                    peak_device_memory_bytes=torch.cuda.max_memory_allocated(), prefetch=result["prefetch"])
+        lines[phase] = line
+
+    ops.hafner_cell_launches.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _result, profiled_wall = _run_once(root, f"{family}_exploration_profiled", spec["exploration"])
+    profiled_launches = ops.hafner_cell_launches.count
+    busy_us, found = trace_summary(prof, ("hafner_gates_kernel", "hafner_product_kernel"))
+    if found["hafner_gates_kernel"] != profiled_launches:
+        raise AssertionError(f"{family}: the trace holds {found['hafner_gates_kernel']} gate kernels, the counters "
+                             f"{profiled_launches} launches")
+    lines["exploration"].update(
+        profiled_run_cell_launches=profiled_launches, profiled_run_gate_kernels_in_trace=found["hafner_gates_kernel"],
+        profiled_run_wall_s=profiled_wall, device_busy_s=busy_us / 1e6,
+        device_idle_share=1.0 - busy_us / 1e6 / lines["exploration"]["wall_s"],
+    )
+
+    evaluated = _eval_command(f"{family}_finetuning eval", ckpt, f"{family}_finetuning", os.path.join(work, "registry"),
+                              False)
+    by_path[f"eval_{family}"] = evaluated["launches"]
+
+    model, cfg, *_ = load_gateway_model(ckpt, device="cuda")
+    plain, *_ = load_gateway_model(ckpt, device="cuda", plain_cell=True)
+    frames = _serve_frames(OBS, np.random.RandomState(SEED))
+    ops.hafner_cell_launches.reset()
+    ops.hafner_sequence_launches.reset()
+    actions, states, serve_wall, status = serve_lockstep(model, frames, seed=SEED)
+    by_path[f"serve_{family}"] = {"hafner_cell": ops.hafner_cell_launches.count,
+                                  "hafner_sequence": ops.hafner_sequence_launches.count}
+    p_actions, p_states, _w, p_status = serve_lockstep(plain, frames, seed=SEED)
+    differing = int((actions != p_actions).sum())
+    state_err = (states - p_states).abs().max().item()
+    if status["failed_requests"] or p_status["failed_requests"] or status["requests"] != RUN_CLIENTS * RUN_REQUESTS:
+        raise AssertionError(f"{family}: served {status['requests']} requests, {status['failed_requests']} failed")
+    if differing or state_err > TOL_STATE or not ((actions >= 0) & (actions < RUN_ACTIONS)).all():
+        raise AssertionError(f"{family}: served actions differ from a plain-cell replay in {differing}, state {state_err}")
+    if by_path[f"serve_{family}"]["hafner_cell"] != status["batches"] or model.algo != f"{family}_finetuning":
+        raise AssertionError(f"{family}: served {model.algo}, cell launches {by_path[f'serve_{family}']} "
+                             f"for {status['batches']} batches")
+    del model, plain
+    line = {**lines, "eval": evaluated["row"],
+            "serve": {"algo": f"{family}_finetuning", "requests": status["requests"], "batches": status["batches"],
+                      "requests_per_s": status["requests"] / serve_wall, "plain_replay_actions_differing": differing,
+                      "plain_replay_state_max_abs_err": state_err},
+            "card": card}
+    print(f"[run_{family}] " + json.dumps(line), flush=True)
+    return by_path, line
+
+
 def main() -> int:
     import torch
 
@@ -1931,6 +2325,7 @@ def main() -> int:
     serve_rows = phase_kernels()
     train_rows = phase_cell_training()
     dv3_rows = phase_cell_dv3()
+    p2e_rows = phase_cell_p2e()
     seq_rows = phase_sequence()
     # launches per kernel, read on each path's run with the counts zeroed just before it
     by_path = {"serve": phase_slice(card)}
@@ -1939,6 +2334,10 @@ def main() -> int:
     by_path["train_dv3"], dv3_rel_diff, dv3_graph_line = phase_train_dv3(card)
     by_path["train_walker"], walker_rel_diff, walker_graph_line = phase_train_dv3(card, "dreamer_v3_walker")
     by_path["train_dv2_continuous"], dv2_continuous_graph_line = phase_train_dv2_continuous(card)
+    p2e_train = {}
+    for algo in ("p2e_dv3", "p2e_dv3_continuous", "p2e_dv2"):
+        by_path[f"train_{algo}"], rel_diff, graphed = phase_train_p2e(card, algo)
+        p2e_train[algo] = {"train_step_rel_diff_vs_plain": rel_diff, "graphed_vs_eager_cudnn_deterministic": graphed}
     by_path["run"], _ckpt = phase_run(card, "run")
     import tempfile
 
@@ -1946,6 +2345,9 @@ def main() -> int:
         by_path["run_dv3"], dv3_ckpt = phase_run(card, "run_dv3", keep_root=os.path.join(work, "run_dv3"))
         by_path["run_walker"], walker_ckpt = phase_run(card, "run_walker", keep_root=os.path.join(work, "run_walker"))
         by_path.update(phase_eval_serve(card, work, dv3_ckpt, walker_ckpt))
+        for family in RUN_P2E_SPECS:
+            paths, _line = phase_run_p2e(card, family, work)
+            by_path.update(paths)
 
     cell_row = next(r for r in train_rows if r["B"] == 1600)
     seq_row = seq_rows[0]
@@ -1957,9 +2359,13 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/kernels/csrc/hafner_gru.cu",
             "replaces": "sheeprl_tpu/kernels/pallas_tpu.py:67",
-            # the main paths' runs: the DV2 MsPacman preset's, the DV3 100k preset's and the DV3 walker preset's
-            "launches": sum(by_path[run]["hafner_cell"] for run in RUN_SPECS),
-            "max_abs_err": max(r["max_abs_err"] for r in serve_rows + train_rows + dv3_rows),
+            # the main paths' runs: the DV2 MsPacman preset's, the DV3 100k preset's, the DV3 walker preset's and
+            # the P2E presets' exploration and finetuning runs
+            "launches": sum(by_path[run]["hafner_cell"] for run in RUN_SPECS)
+            + sum(by_path[f"run_{family}_{phase}"]["hafner_cell"] for family in RUN_P2E_SPECS
+                  for phase in ("exploration", "finetuning")),
+            "max_abs_err": max(r["max_abs_err"] for r in serve_rows + train_rows + dv3_rows
+                               + [row for rows in p2e_rows.values() for row in rows]),
             "ms": cell_row["ms"],
             "plain_ms": cell_row["plain_ms"],
             "bound_ms": cell_row["bound_ms"],
@@ -1989,6 +2395,16 @@ def main() -> int:
             "walker_train_step_rel_diff_vs_plain": walker_rel_diff,
             "walker_graphed_vs_eager_train_steps_cudnn_deterministic": walker_graph_line,
             "dv2_continuous_graphed_vs_eager_cudnn_deterministic": dv2_continuous_graph_line,
+            # Plan2Explore's presets' shapes (P2E-DV3: H = X = 256, no bias; P2E-DV2: H = X = 400, bias, eps 1e-5)
+            "p2e_shapes": {
+                name: [{k: r[k] for k in ("B", "H", "X", "bias", "eps", "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "cublas_product_ms", "max_abs_err", "grad_rel_err")}
+                       | {"variant": r["variant"]["product"], "product_ms": r.get("product_ms"),
+                          "gates_ms": r.get("gates_ms"), "vjp": r.get("vjp")}
+                       for r in rows]
+                for name, rows in p2e_rows.items()
+            },
+            "p2e_train": p2e_train,
         },
         {
             "name": "hafner_sequence",

@@ -1,8 +1,9 @@
 """sheeprl_tpu_torch: the PyTorch/CUDA port of sheeprl_tpu for NVIDIA Hopper.
 
 The JAX package ``sheeprl_tpu`` is the reference; this package imports
-neither it nor JAX. It trains DreamerV2 and DreamerV3 (discrete actions,
-float32) from its CLI (``python -m sheeprl_tpu_torch exp=dreamer_v3 ...``:
+neither it nor JAX. It trains DreamerV2 and DreamerV3 and Plan2Explore on
+both (exploration, then finetuning; discrete or continuous actions, float32)
+from its CLI (``python -m sheeprl_tpu_torch exp=dreamer_v3 ...``:
 config engine and YAML tree, sync vector envs, replay, manifest
 checkpoints), evaluates checkpoints (``cli.evaluation``, the model registry
 in ``evals/``) and serves either policy (``cli.serve``, ``serve/``). The
@@ -20,8 +21,14 @@ __all__ = ["register_algorithms", "resolve_device"]
 ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",
     "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
+    "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration",
+    "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_finetuning",
+    "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration",
+    "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning",
     "sheeprl_tpu_torch.algos.dreamer_v2.evaluate",
     "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
+    "sheeprl_tpu_torch.algos.p2e_dv2.evaluate",
+    "sheeprl_tpu_torch.algos.p2e_dv3.evaluate",
 )
 
 

@@ -58,7 +58,7 @@ import os
 import time
 import warnings
 from types import SimpleNamespace
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -101,13 +101,19 @@ from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import polynomial_decay, save_configs
 
 __all__ = [
+    "adam_for",
     "agent_state_dict",
     "build_losses",
     "build_optimizers_and_state",
     "build_train_fn",
     "draw_noise",
+    "give_zero_grads",
     "load_agent_state",
+    "load_optimizer_state",
     "main",
+    "open_run",
+    "read_resume_checkpoint",
+    "train_loop",
 ]
 
 _MODULES = ("world_model", "actor", "critic")
@@ -119,12 +125,14 @@ def build_optimizers_and_state(cfg, world_model, actor, critic, target_critic, g
     decoupled decay) and the generator noise is drawn from when the step is
     given none."""
     modules = {"world_model": world_model, "actor": actor, "critic": critic}
-    opt = {}
-    for name, module in modules.items():
-        o = cfg.algo[name].optimizer
-        opt[name] = Adam(module.parameters(), lr=float(o.lr), betas=tuple(o.betas), eps=float(o.eps),
-                         weight_decay=float(o.weight_decay))
+    opt = {name: adam_for(module, cfg.algo[name].optimizer) for name, module in modules.items()}
     return {**modules, "target_critic": target_critic, "opt": opt, "generator": generator}
+
+
+def adam_for(module: torch.nn.Module, o) -> Adam:
+    """The port's ``Adam`` over ``module`` at an ``optimizer`` config node."""
+    return Adam(module.parameters(), lr=float(o.lr), betas=tuple(o.betas), eps=float(o.eps),
+                weight_decay=float(o.weight_decay))
 
 
 def draw_noise(cfg, actions_dim: Sequence[int], T: int, B: int, generator: Optional[torch.Generator], device,
@@ -159,13 +167,18 @@ def _no_param_grads(*modules: torch.nn.Module):
 
 
 def _prepare(state: Dict[str, Any]) -> None:
-    """Give every trained parameter a gradient once (zeros): a step zeroes
-    and fills the gradients in place, so their addresses never change (a
-    captured step keeps reading them), and a parameter the loss did not
+    """:func:`give_zero_grads` to the trained modules."""
+    give_zero_grads(state[name] for name in _MODULES)
+
+
+def give_zero_grads(modules) -> None:
+    """Give every parameter of ``modules`` a gradient once (zeros): a step
+    zeroes and fills the gradients in place, so their addresses never change
+    (a captured step keeps reading them), and a parameter the loss did not
     reach keeps a zero gradient, as in JAX, so the optimizer still decays
     it."""
-    for name in _MODULES:
-        for p in state[name].parameters():
+    for module in modules:
+        for p in module.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
 
@@ -184,7 +197,8 @@ def build_losses(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Simple
     ``actor_loss(wm, actor, target_critic, posteriors, recurrents,
     true_continue, noise) -> (loss, aux)`` and ``critic_loss(critic,
     trajectories, lambda_values, discount)``, with the clip norms
-    (``clips``)."""
+    (``clips``) and the actor loss's ``imagination(wm, actor, posteriors,
+    recurrents, prior_gumbels, action_noise)``."""
     cnn_keys, mlp_keys = list(cfg.cnn_keys.encoder), list(cfg.mlp_keys.encoder)
     wm_cfg = cfg.algo.world_model
     S, D = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
@@ -289,7 +303,8 @@ def build_losses(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Simple
         return -torch.mean(discount[:-1, ..., 0] * qv.log_prob(lambda_values))
 
     return SimpleNamespace(
-        world_model_loss=world_model_loss, actor_loss=actor_loss, critic_loss=critic_loss, clips=clips
+        world_model_loss=world_model_loss, imagination=imagination, actor_loss=actor_loss, critic_loss=critic_loss,
+        clips=clips,
     )
 
 
@@ -373,11 +388,16 @@ def load_agent_state(state: Dict[str, Any], agent: Dict[str, Any]) -> None:
     for name in _MODULES + ("target_critic",):
         state[name].load_state_dict({k: torch.as_tensor(v) for k, v in agent[name].items()})
     for name, opt in state["opt"].items():
-        saved = {
-            int(i): {k: torch.as_tensor(v) for k, v in per_param.items()}
-            for i, per_param in agent["opt"][name]["state"].items()
-        }
-        opt.load_state_dict({"state": saved, "param_groups": opt.state_dict()["param_groups"]})
+        load_optimizer_state(opt, agent["opt"][name])
+
+
+def load_optimizer_state(opt: torch.optim.Optimizer, saved: Dict[str, Any]) -> None:
+    """Load a checkpoint's ``{"state": {index: {...}}}`` (numpy leaves) into
+    ``opt`` in place; its hyperparameters stay the config's."""
+    per_index = {
+        int(i): {k: torch.as_tensor(v) for k, v in per_param.items()} for i, per_param in saved["state"].items()
+    }
+    opt.load_state_dict({"state": per_index, "param_groups": opt.state_dict()["param_groups"]})
 
 
 def _graph_counts(steps) -> Dict[str, Any]:
@@ -402,21 +422,13 @@ def _unsupported(cfg) -> None:
         raise NotImplementedError("metric.profiler: trace capture is ROADMAP queue A item 6h")
 
 
-@register_algorithm()
-def main(fabric, cfg) -> Dict[str, Any]:
-    """The DreamerV2 training run. Returns its loop counters, where its
-    host time went (seconds per phase; the train phase ends synchronised
-    with the device) and how its steps ran on the card (eager warm-up calls
-    and graph replays)."""
-    _unsupported(cfg)
-    world_size = fabric.world_size
+def open_run(fabric, cfg) -> SimpleNamespace:
+    """What every Dreamer run opens before its agent: the seeded generator,
+    the logger and the saved config, the vector env and its spaces, and the
+    encoder and decoder keys checked against each other (the JAX loops'
+    preamble). The caller fixes ``cfg.env``'s frame and screen settings
+    first."""
     generator, _ = fabric.seed_everything(cfg.seed)
-    device = fabric.device
-
-    # These arguments cannot be changed
-    cfg.env.screen_size = 64
-    cfg.env.frame_stack = 1
-
     logger, log_dir = create_tensorboard_logger(cfg)
     fabric.logger = logger
     if logger is not None:
@@ -424,7 +436,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
     if fabric.is_global_zero:
         save_configs(cfg, log_dir)
 
-    n_envs = int(cfg.env.num_envs) * world_size
+    n_envs = int(cfg.env.num_envs) * fabric.world_size
     envs = make_vector_env(cfg, fabric, log_dir, restart_on_exception=True)
     action_space = envs.single_action_space
     observation_space = envs.single_observation_space
@@ -433,7 +445,6 @@ def main(fabric, cfg) -> Dict[str, Any]:
     actions_dim = tuple(
         action_space.shape if is_continuous else (action_space.nvec.tolist() if is_multidiscrete else [action_space.n])
     )
-    clip_rewards_fn = (lambda r: np.tanh(r)) if cfg.env.clip_rewards else (lambda r: r)
     if not isinstance(observation_space, spaces.Dict):
         raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {observation_space}")
     if cfg.cnn_keys.encoder == [] and cfg.mlp_keys.encoder == []:
@@ -456,31 +467,78 @@ def main(fabric, cfg) -> Dict[str, Any]:
         fabric.print("Decoder CNN keys:", cfg.cnn_keys.decoder)
         fabric.print("Decoder MLP keys:", cfg.mlp_keys.decoder)
     cnn_keys, mlp_keys = list(cfg.cnn_keys.encoder), list(cfg.mlp_keys.encoder)
-    obs_keys = cnn_keys + mlp_keys
-
-    modules = build_agent(
-        cfg, actions_dim, is_continuous, observation_space.spaces, seed=cfg.seed, device=device, training=True
+    return SimpleNamespace(
+        generator=generator, device=fabric.device, logger=logger, log_dir=log_dir, envs=envs, n_envs=n_envs,
+        actions_dim=actions_dim, is_continuous=is_continuous, observation_space=observation_space,
+        cnn_keys=cnn_keys, mlp_keys=mlp_keys, obs_keys=cnn_keys + mlp_keys,
     )
-    state = build_optimizers_and_state(cfg, *modules, generator=generator)
 
-    expl_decay_steps = 0
-    resumed = None
-    if cfg.checkpoint.resume_from:
-        from sheeprl_tpu_torch.ckpt import read_manifest
 
-        framework = read_manifest(cfg.checkpoint.resume_from).get("framework")
-        if framework != "torch":
-            raise ValueError(
-                f"checkpoint.resume_from={cfg.checkpoint.resume_from}: written by {framework or 'the JAX package'}; "
-                "the port resumes only from its own checkpoints (serve a JAX checkpoint with load_gateway_model)"
-            )
-        resumed = fabric.load(cfg.checkpoint.resume_from)
-        load_agent_state(state, resumed["agent"])
-        expl_decay_steps = int(resumed["expl_decay_steps"])
-        cfg.per_rank_batch_size = int(resumed["batch_size"]) // world_size
+def read_resume_checkpoint(fabric, cfg) -> Optional[Dict[str, Any]]:
+    """``checkpoint.resume_from``'s tree (None without one); the port resumes
+    only from its own checkpoints. Sets ``per_rank_batch_size`` from it."""
+    if not cfg.checkpoint.resume_from:
+        return None
+    from sheeprl_tpu_torch.ckpt import read_manifest
 
-    train_program = build_train_fn(cfg, actions_dim, is_continuous)
-    player_fns = build_player_fns(state["world_model"], state["actor"], cfg, actions_dim, is_continuous)
+    framework = read_manifest(cfg.checkpoint.resume_from).get("framework")
+    if framework != "torch":
+        raise ValueError(
+            f"checkpoint.resume_from={cfg.checkpoint.resume_from}: written by {framework or 'the JAX package'}; "
+            "the port resumes only from its own checkpoints (serve a JAX checkpoint with load_gateway_model)"
+        )
+    resumed = fabric.load(cfg.checkpoint.resume_from)
+    cfg.per_rank_batch_size = int(resumed["batch_size"]) // fabric.world_size
+    return resumed
+
+
+def acting_order(players: Sequence[Any], switch_at_learning_starts: bool, learning_starts: int):
+    """``actor_for(update)``: the index of the player that acts at ``update``:
+    the first, or with ``switch_at_learning_starts`` the second from
+    ``learning_starts`` on (P2E finetuning's switch from the exploration
+    actor to the task actor)."""
+    if switch_at_learning_starts and len(players) != 2:
+        raise ValueError("the actor switch needs two players: the exploration actor's, then the task actor's")
+    if not switch_at_learning_starts and len(players) != 1:
+        raise ValueError("a run without the actor switch acts with one player")
+    return lambda update: int(switch_at_learning_starts and update >= learning_starts)
+
+
+def train_loop(
+    fabric,
+    cfg,
+    run: SimpleNamespace,
+    state: Dict[str, Any],
+    train_program: TrainProgram,
+    resumed: Optional[Dict[str, Any]],
+    *,
+    players: Sequence[Dict[str, Any]],
+    checkpoint_state: Callable[[], Dict[str, Any]],
+    publish: Callable[[], Dict[str, Any]],
+    test_player: Dict[str, Any],
+    buffer_kind: str = "dreamer",
+    random_prefill: bool = True,
+    switch_at_learning_starts: bool = False,
+    expl_decay_steps: Optional[int] = None,
+    replay_state: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
+    """The DreamerV2 loop over an agent built by the caller (:func:`main`,
+    the P2E entrypoints): ``players`` are the acting player-fns (one, or the
+    exploration and task actors' with ``switch_at_learning_starts``), each
+    replayed from its own captured acting step, the player state carried
+    over at the switch; ``checkpoint_state()`` gives the checkpoint's
+    entries besides the loop's counters (``agent`` and any other),
+    ``publish()`` the in-run evaluation's ``agent`` tree; ``test_player``
+    plays the final test episode. ``random_prefill=False`` acts with the
+    first player from the first step (finetuning). ``replay_state`` is a
+    buffer state to restore (resumed, or the exploration run's)."""
+    world_size = fabric.world_size
+    generator, device, logger, log_dir, envs = run.generator, run.device, run.logger, run.log_dir, run.envs
+    n_envs, actions_dim, is_continuous = run.n_envs, run.actions_dim, run.is_continuous
+    cnn_keys, mlp_keys, obs_keys = run.cnn_keys, run.mlp_keys, run.obs_keys
+    clip_rewards_fn = (lambda r: np.tanh(r)) if cfg.env.clip_rewards else (lambda r: r)
+    if expl_decay_steps is None:
+        expl_decay_steps = int(resumed["expl_decay_steps"]) if resumed is not None else 0
 
     aggregator = None
     if not MetricAggregator.disabled:
@@ -491,15 +549,15 @@ def main(fabric, cfg) -> Dict[str, Any]:
         fabric,
         log_dir,
         n_envs=n_envs,
-        kind="dreamer",
+        kind=buffer_kind,
         obs_keys=obs_keys,
         min_size=8,
         dry_run_size=8,
         sequence_length=int(cfg.per_rank_sequence_length),
     )
     episode_buffer = isinstance(rb, EpisodeBuffer)
-    if resumed is not None and cfg.buffer.get("checkpoint", False) and "rb" in resumed:
-        rb.load_state_dict(resumed["rb"])
+    if replay_state is not None:
+        rb.load_state_dict(replay_state)
 
     train_step = 0
     last_train = 0
@@ -534,6 +592,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
             "policy_steps_per_update value."
         )
     warn_checkpoint_rounding(cfg, policy_steps_per_update)
+    actor_for = acting_order(players, switch_at_learning_starts, learning_starts)
 
     staging = make_replay_staging(cfg, fabric, rb, seed=cfg.seed)
 
@@ -547,13 +606,19 @@ def main(fabric, cfg) -> Dict[str, Any]:
     step_data["rewards"] = np.zeros((1, n_envs, 1), np.float32)
     step_data["is_first"] = np.ones((1, n_envs, 1), np.float32)
     rb.add(step_data)
-    # the acting step: the player state lives in its static buffers; an env
+    # the acting steps: the player state lives in their static buffers; an env
     # that ended has its row zeroed at the next acting step
-    acting = ExplorationStep(player_fns, n_envs, {k: obs[k] for k in obs_keys}, cnn_keys, generator, device)
+    actings = [
+        ExplorationStep(player_fns, n_envs, {k: obs[k] for k in obs_keys}, cnn_keys, generator, device)
+        for player_fns in players
+    ]
+    acting_index = actor_for(start_step)
     reset_mask = np.zeros((n_envs, 1), np.float32)
 
     seconds = {"env": 0.0, "act": 0.0, "sample": 0.0, "train": 0.0, "checkpoint": 0.0, "test": 0.0}
     counters = {"updates": 0, "player_steps": 0, "random_steps": 0, "gradient_steps": 0, "train_bursts": 0}
+    player_steps_by_actor = [0] * len(players)
+    switched_at = None
     checkpoint_path = None
 
     def env_step(actions: np.ndarray, real_actions: np.ndarray) -> Dict[str, np.ndarray]:
@@ -627,7 +692,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
 
     update = start_step
     while update <= num_updates:
-        if update <= learning_starts and not cfg.checkpoint.resume_from:
+        if random_prefill and update <= learning_starts and not cfg.checkpoint.resume_from:
             real_actions = actions = np.array(envs.action_space.sample())
             if not is_continuous:
                 heads = actions.reshape(n_envs, len(actions_dim))
@@ -637,7 +702,13 @@ def main(fabric, cfg) -> Dict[str, Any]:
             counters["random_steps"] += 1
         else:
             t0 = time.perf_counter()
-            actions_t = acting({k: obs[k] for k in obs_keys}, reset_mask, expl_amount)
+            index = actor_for(update)
+            if index != acting_index:
+                # the switch: the next actor's step carries on from the player state as it stands
+                for k, v in actings[acting_index].state.items():
+                    actings[index].state[k].copy_(v)
+                acting_index, switched_at = index, update
+            actions_t = actings[index]({k: obs[k] for k in obs_keys}, reset_mask, expl_amount)
             reset_mask[:] = 0.0
             actions = np.concatenate([a.cpu().numpy() for a in actions_t], -1)
             if is_continuous:
@@ -646,6 +717,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
                 real_actions = np.stack([a.argmax(dim=-1).cpu().numpy() for a in actions_t], axis=-1)
             seconds["act"] += time.perf_counter() - t0
             counters["player_steps"] += 1
+            player_steps_by_actor[index] += 1
         obs = env_step(actions, real_actions)
 
         update += 1
@@ -708,7 +780,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
 
         if inrun is not None and last >= learning_starts and inrun.due(policy_step):
             # after the burst: run_train_burst has waited for its stream, so the copy reads settled weights
-            inrun.maybe_publish(policy_step, {"agent": {k: state[k].state_dict() for k in ("world_model", "actor")}})
+            inrun.maybe_publish(policy_step, publish())
 
         # Log metrics
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or last == num_updates):
@@ -733,7 +805,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
             t0 = time.perf_counter()
             last_checkpoint = policy_step
             ckpt_state = {
-                "agent": agent_state_dict(state),
+                **checkpoint_state(),
                 "expl_decay_steps": expl_decay_steps,
                 "update": last * world_size,
                 "batch_size": cfg.per_rank_batch_size * world_size,
@@ -758,14 +830,27 @@ def main(fabric, cfg) -> Dict[str, Any]:
     test_reward, test_steps = None, 0
     if fabric.is_global_zero and cfg.algo.get("run_test", True) and not preemption_requested():
         t0 = time.perf_counter()
-        test_reward, test_steps = test(player_fns, fabric, cfg, log_dir, normalize_fn=normalize_obs)
+        test_reward, test_steps = test(test_player, fabric, cfg, log_dir, normalize_fn=normalize_obs)
         seconds["test"] = time.perf_counter() - t0
     if logger is not None:
         logger.close()
+    return _run_result(
+        counters, policy_step, inrun, test_steps, test_reward, log_dir, logger, checkpoint_path, seconds, staging,
+        train_program, actings, player_steps_by_actor, switched_at,
+    )
+
+
+def _run_result(counters, policy_step, inrun, test_steps, test_reward, log_dir, logger, checkpoint_path, seconds,
+                staging, train_program, actings, player_steps_by_actor, switched_at) -> Dict[str, Any]:
+    """A run's result: its loop counters, where its host time went, how its
+    steps ran on the card and, with two actors, each one's acting steps and
+    the update at which the second took over."""
     train_steps = [] if train_program.static is None else [train_program.static.step]
     return {
         **counters,
         "policy_steps": policy_step,
+        "player_steps_by_actor": player_steps_by_actor,
+        "actor_switched_at": switched_at,
         "inrun_publishes": 0 if inrun is None else inrun.publishes,
         "test_steps": test_steps,
         "test_reward": test_reward,
@@ -776,6 +861,36 @@ def main(fabric, cfg) -> Dict[str, Any]:
         "prefetch": {"hits": staging.prefetch_hits, "misses": staging.prefetch_misses},
         "graphs": {
             "train": _graph_counts(train_steps),
-            "act": _graph_counts([acting.step]),
+            "act": _graph_counts([a.step for a in actings]),
         },
     }
+
+
+@register_algorithm()
+def main(fabric, cfg) -> Dict[str, Any]:
+    """The DreamerV2 training run (:func:`train_loop`). Returns its loop
+    counters, where its host time went (seconds per phase; the train phase
+    ends synchronised with the device) and how its steps ran on the card
+    (eager warm-up calls and graph replays)."""
+    _unsupported(cfg)
+    # These arguments cannot be changed
+    cfg.env.screen_size = 64
+    cfg.env.frame_stack = 1
+    run = open_run(fabric, cfg)
+    modules = build_agent(
+        cfg, run.actions_dim, run.is_continuous, run.observation_space.spaces, seed=cfg.seed, device=run.device,
+        training=True,
+    )
+    state = build_optimizers_and_state(cfg, *modules, generator=run.generator)
+    resumed = read_resume_checkpoint(fabric, cfg)
+    if resumed is not None:
+        load_agent_state(state, resumed["agent"])
+    player_fns = build_player_fns(state["world_model"], state["actor"], cfg, run.actions_dim, run.is_continuous)
+    return train_loop(
+        fabric, cfg, run, state, build_train_fn(cfg, run.actions_dim, run.is_continuous), resumed,
+        players=[player_fns],
+        checkpoint_state=lambda: {"agent": agent_state_dict(state)},
+        publish=lambda: {"agent": {k: state[k].state_dict() for k in ("world_model", "actor")}},
+        test_player=player_fns,
+        replay_state=resumed.get("rb") if resumed is not None and cfg.buffer.get("checkpoint", False) else None,
+    )

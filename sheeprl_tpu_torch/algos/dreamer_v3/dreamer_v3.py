@@ -69,12 +69,20 @@ import os
 import time
 import warnings
 from types import SimpleNamespace
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import _graph_counts, _no_param_grads, _prepare, _step
+from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import (
+    _no_param_grads,
+    _prepare,
+    _run_result,
+    _step,
+    acting_order,
+    open_run,
+    read_resume_checkpoint,
+)
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import _unsupported as _dv2_unsupported
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import agent_state_dict as _modules_state_dict
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import build_optimizers_and_state as _build_optimizers
@@ -108,8 +116,6 @@ from sheeprl_tpu_torch.distributions import (
     TwoHotEncodingDistribution,
     gumbel_noise,
 )
-from sheeprl_tpu_torch.envs import spaces
-from sheeprl_tpu_torch.envs.vector import make_vector_env
 from sheeprl_tpu_torch.evals.inrun import maybe_start_inrun_eval
 from sheeprl_tpu_torch.obs.perf import log_sps_metrics
 from sheeprl_tpu_torch.replay import make_replay_buffer
@@ -120,21 +126,23 @@ from sheeprl_tpu_torch.train.burst import (
     run_train_burst,
     tau_schedule,
 )
-from sheeprl_tpu_torch.utils.logger import create_tensorboard_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 from sheeprl_tpu_torch.utils.timer import timer
-from sheeprl_tpu_torch.utils.utils import polynomial_decay, save_configs
+from sheeprl_tpu_torch.utils.utils import polynomial_decay
 
 __all__ = [
     "agent_state_dict",
     "build_losses",
     "build_optimizers_and_state",
     "build_train_fn",
+    "check_actor_cls",
     "draw_noise",
     "load_agent_state",
     "main",
+    "open_dv3_run",
     "resolve_actor_cls",
+    "train_loop",
 ]
 
 _MODULES = ("world_model", "actor", "critic")
@@ -304,8 +312,8 @@ def build_losses(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Simple
         return torch.mean(value_loss * discount[:-1, ..., 0])
 
     return SimpleNamespace(
-        world_model_loss=world_model_loss, actor_loss=actor_loss, actor_loss_backward=actor_loss_backward,
-        critic_loss=critic_loss, clips=clips,
+        world_model_loss=world_model_loss, imagination=imagination, actor_loss=actor_loss,
+        actor_loss_backward=actor_loss_backward, critic_loss=critic_loss, clips=clips,
     )
 
 
@@ -420,91 +428,47 @@ def _unsupported(cfg) -> None:
         raise NotImplementedError("metric.telemetry.learn: the learn probes are ROADMAP queue A item 6h")
 
 
-@register_algorithm()
-def main(fabric, cfg) -> Dict[str, Any]:
-    """The DreamerV3 training run. Returns its loop counters, where its
-    host time went (seconds per phase; the train phase ends synchronised
-    with the device) and how its steps ran on the card (eager warm-up calls
-    and graph replays)."""
-    _unsupported(cfg)
+def check_actor_cls(cfg) -> None:
+    """Only the port's DreamerV3 ``Actor`` (discrete, or its continuous form) is ported."""
     if resolve_actor_cls(cfg.algo.actor.cls) is not Actor:
         raise NotImplementedError(
             f"algo.actor.cls={cfg.algo.actor.cls}: only the discrete Actor and its continuous form (the port's Actor) "
             "are ported"
         )
+
+
+def train_loop(
+    fabric,
+    cfg,
+    run: SimpleNamespace,
+    state: Dict[str, Any],
+    train_program: TrainProgram,
+    resumed: Optional[Dict[str, Any]],
+    *,
+    players: Sequence[Dict[str, Any]],
+    checkpoint_state: Callable[[], Dict[str, Any]],
+    publish: Callable[[], Dict[str, Any]],
+    test_player: Dict[str, Any],
+    random_prefill: bool = True,
+    switch_at_learning_starts: bool = False,
+    expl_decay_steps: Optional[int] = None,
+    replay_state: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
+    """The DreamerV3 loop over an agent built by the caller (:func:`main`,
+    the P2E entrypoints), with the hooks of
+    :func:`~sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2.train_loop`: the
+    acting ``players`` (one, or the exploration and task actors' with
+    ``switch_at_learning_starts``, each replayed from its own captured acting
+    step, the player state carried over at the switch), the checkpoint's
+    entries, the in-run publication, the test player, ``random_prefill`` and
+    a buffer state to restore."""
     world_size = fabric.world_size
-    generator, _ = fabric.seed_everything(cfg.seed)
-    device = fabric.device
-
-    # These arguments cannot be changed
-    cfg.env.frame_stack = -1
-    if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
-        raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
-
-    logger, log_dir = create_tensorboard_logger(cfg)
-    fabric.logger = logger
-    if logger is not None:
-        logger.log_hyperparams(cfg.as_dict() if hasattr(cfg, "as_dict") else dict(cfg))
-    if fabric.is_global_zero:
-        save_configs(cfg, log_dir)
-
-    n_envs = int(cfg.env.num_envs) * world_size
-    envs = make_vector_env(cfg, fabric, log_dir, restart_on_exception=True)
-    action_space = envs.single_action_space
-    observation_space = envs.single_observation_space
-    is_continuous = isinstance(action_space, spaces.Box)
-    is_multidiscrete = isinstance(action_space, spaces.MultiDiscrete)
-    actions_dim = tuple(
-        action_space.shape if is_continuous else (action_space.nvec.tolist() if is_multidiscrete else [action_space.n])
-    )
+    generator, device, logger, log_dir, envs = run.generator, run.device, run.logger, run.log_dir, run.envs
+    n_envs, actions_dim, is_continuous = run.n_envs, run.actions_dim, run.is_continuous
+    cnn_keys, mlp_keys, obs_keys = run.cnn_keys, run.mlp_keys, run.obs_keys
     clip_rewards_fn = (lambda r: np.tanh(r)) if cfg.env.clip_rewards else (lambda r: r)
-    if not isinstance(observation_space, spaces.Dict):
-        raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {observation_space}")
-    if cfg.cnn_keys.encoder == [] and cfg.mlp_keys.encoder == []:
-        raise RuntimeError(
-            "You should specify at least one CNN keys or MLP keys from the cli: "
-            "`cnn_keys.encoder=[rgb]` or `mlp_keys.encoder=[state]`"
-        )
-    if (
-        len(set(cfg.cnn_keys.encoder).intersection(set(cfg.cnn_keys.decoder))) == 0
-        and len(set(cfg.mlp_keys.encoder).intersection(set(cfg.mlp_keys.decoder))) == 0
-    ):
-        raise RuntimeError("The CNN keys or the MLP keys of the encoder and decoder must not be disjointed")
-    if len(set(cfg.cnn_keys.decoder) - set(cfg.cnn_keys.encoder)) > 0:
-        raise RuntimeError("The CNN keys of the decoder must be contained in the encoder ones")
-    if len(set(cfg.mlp_keys.decoder) - set(cfg.mlp_keys.encoder)) > 0:
-        raise RuntimeError("The MLP keys of the decoder must be contained in the encoder ones")
-    if cfg.metric.log_level > 0:
-        fabric.print("Encoder CNN keys:", cfg.cnn_keys.encoder)
-        fabric.print("Encoder MLP keys:", cfg.mlp_keys.encoder)
-        fabric.print("Decoder CNN keys:", cfg.cnn_keys.decoder)
-        fabric.print("Decoder MLP keys:", cfg.mlp_keys.decoder)
-    cnn_keys, mlp_keys = list(cfg.cnn_keys.encoder), list(cfg.mlp_keys.encoder)
-    obs_keys = cnn_keys + mlp_keys
-
-    modules = build_agent(
-        cfg, actions_dim, is_continuous, observation_space.spaces, seed=cfg.seed, device=device, training=True
-    )
-    state = build_optimizers_and_state(cfg, *modules, generator=generator)
-
-    expl_decay_steps = 0
-    resumed = None
-    if cfg.checkpoint.resume_from:
-        from sheeprl_tpu_torch.ckpt import read_manifest
-
-        framework = read_manifest(cfg.checkpoint.resume_from).get("framework")
-        if framework != "torch":
-            raise ValueError(
-                f"checkpoint.resume_from={cfg.checkpoint.resume_from}: written by {framework or 'the JAX package'}; "
-                "the port resumes only from its own checkpoints (serve a JAX checkpoint with load_gateway_model)"
-            )
-        resumed = fabric.load(cfg.checkpoint.resume_from)
-        load_agent_state(state, resumed["agent"])
-        expl_decay_steps = int(resumed["expl_decay_steps"])
-        cfg.per_rank_batch_size = int(resumed["batch_size"]) // world_size
-
-    train_program = build_train_fn(cfg, actions_dim, is_continuous)
-    player_fns = build_player_fns(state["world_model"], state["actor"], cfg, actions_dim, is_continuous)
+    if expl_decay_steps is None:
+        expl_decay_steps = int(resumed["expl_decay_steps"]) if resumed is not None else 0
 
     aggregator = None
     if not MetricAggregator.disabled:
@@ -513,8 +477,8 @@ def main(fabric, cfg) -> Dict[str, Any]:
     rb = make_replay_buffer(
         cfg, fabric, log_dir, n_envs=n_envs, kind="sequential", obs_keys=obs_keys, min_size=4, dry_run_size=4
     )
-    if resumed is not None and cfg.buffer.get("checkpoint", False) and "rb" in resumed:
-        rb.load_state_dict(resumed["rb"])
+    if replay_state is not None:
+        rb.load_state_dict(replay_state)
 
     train_step = 0
     last_train = 0
@@ -549,6 +513,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
             "policy_steps_per_update value."
         )
     warn_checkpoint_rounding(cfg, policy_steps_per_update)
+    actor_for = acting_order(players, switch_at_learning_starts, learning_starts)
 
     staging = make_replay_staging(cfg, fabric, rb, seed=cfg.seed)
 
@@ -559,14 +524,19 @@ def main(fabric, cfg) -> Dict[str, Any]:
     step_data["dones"] = np.zeros((1, n_envs, 1), np.float32)
     step_data["rewards"] = np.zeros((1, n_envs, 1), np.float32)
     step_data["is_first"] = np.ones((1, n_envs, 1), np.float32)
-    # the acting step: the player state lives in its static buffers; an env that ends has its row
+    # the acting steps: the player state lives in their static buffers; an env that ends has its row
     # reset right after its env step (the fresh state depends on the weights of that moment)
-    acting = ExplorationStep(
-        player_fns, n_envs, {k: obs[k] for k in obs_keys}, cnn_keys, generator, device, reset_in_step=False
-    )
+    actings = [
+        ExplorationStep(player_fns, n_envs, {k: obs[k] for k in obs_keys}, cnn_keys, generator, device,
+                        reset_in_step=False)
+        for player_fns in players
+    ]
+    acting_index = actor_for(start_step)
 
     seconds = {"env": 0.0, "act": 0.0, "sample": 0.0, "train": 0.0, "checkpoint": 0.0, "test": 0.0}
     counters = {"updates": 0, "player_steps": 0, "random_steps": 0, "gradient_steps": 0, "train_bursts": 0}
+    player_steps_by_actor = [0] * len(players)
+    switched_at = None
     checkpoint_path = None
 
     def env_step(actions: np.ndarray, real_actions: np.ndarray) -> Dict[str, np.ndarray]:
@@ -631,7 +601,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
             step_data["is_first"][:, dones_idxes] = 1.0
             reset_mask = np.zeros((n_envs, 1), np.float32)
             reset_mask[dones_idxes] = 1.0
-            acting.reset(reset_mask)
+            actings[acting_index].reset(reset_mask)
         seconds["env"] += time.perf_counter() - t0
         return new_obs
 
@@ -641,7 +611,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
 
     update = start_step
     while update <= num_updates:
-        if update <= learning_starts and not cfg.checkpoint.resume_from:
+        if random_prefill and update <= learning_starts and not cfg.checkpoint.resume_from:
             real_actions = actions = np.array(envs.action_space.sample())
             if not is_continuous:
                 heads = actions.reshape(n_envs, len(actions_dim))
@@ -651,7 +621,13 @@ def main(fabric, cfg) -> Dict[str, Any]:
             counters["random_steps"] += 1
         else:
             t0 = time.perf_counter()
-            actions_t = acting({k: obs[k] for k in obs_keys}, None, expl_amount)
+            index = actor_for(update)
+            if index != acting_index:
+                # the switch: the next actor's step carries on from the player state as it stands
+                for k, v in actings[acting_index].state.items():
+                    actings[index].state[k].copy_(v)
+                acting_index, switched_at = index, update
+            actions_t = actings[index]({k: obs[k] for k in obs_keys}, None, expl_amount)
             actions = np.concatenate([a.cpu().numpy() for a in actions_t], -1)
             if is_continuous:
                 real_actions = actions
@@ -659,6 +635,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
                 real_actions = np.stack([a.argmax(dim=-1).cpu().numpy() for a in actions_t], axis=-1)
             seconds["act"] += time.perf_counter() - t0
             counters["player_steps"] += 1
+            player_steps_by_actor[index] += 1
         obs = env_step(actions, real_actions)
 
         update += 1
@@ -720,7 +697,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
 
         if inrun is not None and last >= learning_starts and inrun.due(policy_step):
             # after the burst: run_train_burst has waited for its stream, so the copy reads settled weights
-            inrun.maybe_publish(policy_step, {"agent": {k: state[k].state_dict() for k in ("world_model", "actor")}})
+            inrun.maybe_publish(policy_step, publish())
 
         # Log metrics
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or last == num_updates):
@@ -745,7 +722,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
             t0 = time.perf_counter()
             last_checkpoint = policy_step
             ckpt_state = {
-                "agent": agent_state_dict(state),
+                **checkpoint_state(),
                 "expl_decay_steps": expl_decay_steps,
                 "update": last * world_size,
                 "batch_size": cfg.per_rank_batch_size * world_size,
@@ -770,24 +747,49 @@ def main(fabric, cfg) -> Dict[str, Any]:
     test_reward, test_steps = None, 0
     if fabric.is_global_zero and cfg.algo.get("run_test", True) and not preemption_requested():
         t0 = time.perf_counter()
-        test_reward, test_steps = test(player_fns, fabric, cfg, log_dir, sample_actions=True)
+        test_reward, test_steps = test(test_player, fabric, cfg, log_dir, sample_actions=True)
         seconds["test"] = time.perf_counter() - t0
     if logger is not None:
         logger.close()
-    train_steps = [] if train_program.static is None else [train_program.static.step]
-    return {
-        **counters,
-        "policy_steps": policy_step,
-        "inrun_publishes": 0 if inrun is None else inrun.publishes,
-        "test_steps": test_steps,
-        "test_reward": test_reward,
-        "log_dir": log_dir,
-        "event_file": None if logger is None else logger.path,
-        "checkpoint": checkpoint_path,
-        "seconds": seconds,
-        "prefetch": {"hits": staging.prefetch_hits, "misses": staging.prefetch_misses},
-        "graphs": {
-            "train": _graph_counts(train_steps),
-            "act": _graph_counts([acting.step]),
-        },
-    }
+    return _run_result(
+        counters, policy_step, inrun, test_steps, test_reward, log_dir, logger, checkpoint_path, seconds, staging,
+        train_program, actings, player_steps_by_actor, switched_at,
+    )
+
+
+def open_dv3_run(fabric, cfg) -> SimpleNamespace:
+    """:func:`~sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2.open_run` with
+    DreamerV3's fixed env settings: no frame stack, a power-of-2 screen."""
+    # These arguments cannot be changed
+    cfg.env.frame_stack = -1
+    if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
+        raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
+    return open_run(fabric, cfg)
+
+
+@register_algorithm()
+def main(fabric, cfg) -> Dict[str, Any]:
+    """The DreamerV3 training run (:func:`train_loop`). Returns its loop
+    counters, where its host time went (seconds per phase; the train phase
+    ends synchronised with the device) and how its steps ran on the card
+    (eager warm-up calls and graph replays)."""
+    _unsupported(cfg)
+    check_actor_cls(cfg)
+    run = open_dv3_run(fabric, cfg)
+    modules = build_agent(
+        cfg, run.actions_dim, run.is_continuous, run.observation_space.spaces, seed=cfg.seed, device=run.device,
+        training=True,
+    )
+    state = build_optimizers_and_state(cfg, *modules, generator=run.generator)
+    resumed = read_resume_checkpoint(fabric, cfg)
+    if resumed is not None:
+        load_agent_state(state, resumed["agent"])
+    player_fns = build_player_fns(state["world_model"], state["actor"], cfg, run.actions_dim, run.is_continuous)
+    return train_loop(
+        fabric, cfg, run, state, build_train_fn(cfg, run.actions_dim, run.is_continuous), resumed,
+        players=[player_fns],
+        checkpoint_state=lambda: {"agent": agent_state_dict(state)},
+        publish=lambda: {"agent": {k: state[k].state_dict() for k in ("world_model", "actor")}},
+        test_player=player_fns,
+        replay_state=resumed.get("rb") if resumed is not None and cfg.buffer.get("checkpoint", False) else None,
+    )

@@ -57,7 +57,7 @@ def dreamer_v3_eval_builder(
     actions_dim, is_continuous = actions_dim_of(action_space)
     return dreamer_v3_eval_policy(
         cfg,
-        serving_params(state, "dreamer_v3"),
+        serving_params(state, str(cfg.algo.name)),
         observation_space.spaces,
         actions_dim,
         is_continuous,

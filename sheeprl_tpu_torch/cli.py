@@ -37,6 +37,7 @@ __all__ = [
     "check_configs",
     "eval_algorithm",
     "evaluation",
+    "load_exploration_cfg",
     "load_run_config",
     "registration",
     "resume_from_checkpoint",
@@ -182,9 +183,38 @@ def _prune_metric_keys(cfg, algo_module: str) -> None:
             metrics_cfg.pop(name)
 
 
+#: the env keys a P2E finetuning run takes from its exploration run
+EXPLORATION_ENV_KEYS = ("frame_stack", "screen_size", "action_repeat", "grayscale", "clip_rewards",
+                        "frame_stack_dilation", "max_episode_steps", "reward_as_observation")
+
+
+def load_exploration_cfg(cfg) -> dotdict:
+    """P2E finetuning: the persisted config of the exploration run that wrote
+    ``checkpoint.exploration_ckpt_path`` (the port's or the JAX package's);
+    its env keys (EXPLORATION_ENV_KEYS) are copied into ``cfg``. A different
+    ``env.id`` raises."""
+    ckpt_path = cfg.checkpoint.get("exploration_ckpt_path", None)
+    if _missing(ckpt_path):
+        raise ValueError(
+            "P2E finetuning requires checkpoint.exploration_ckpt_path pointing at an exploration-phase checkpoint"
+        )
+    exploration_cfg, _ = load_run_config(ckpt_path)
+    if exploration_cfg.env.id != cfg.env.id:
+        raise ValueError(
+            "This experiment is run with a different environment from the one of the exploration you want to "
+            f"finetune. Got '{cfg.env.id}', but the environment used during exploration was "
+            f"{exploration_cfg.env.id}. Set properly the environment for finetuning the experiment."
+        )
+    for k in EXPLORATION_ENV_KEYS:
+        if k in exploration_cfg.env:
+            cfg.env[k] = exploration_cfg.env[k]
+    return exploration_cfg
+
+
 def run_algorithm(cfg) -> Any:
-    """Registry lookup → Fabric → entrypoint; the checkpoint subsystem is
-    set up before and drained after; the metric aggregator's and the
+    """Registry lookup → Fabric → entrypoint (a P2E finetuning entrypoint also
+    gets its exploration run's config, ``load_exploration_cfg``); the
+    checkpoint subsystem is set up before and drained after; the metric aggregator's and the
     timer's on/off switches follow ``metric.log_level`` for the run and are
     put back after it. Returns the entrypoint's result, a dict result with
     the run's checkpoint stats (bytes, write and blocked time) added as
@@ -194,6 +224,9 @@ def run_algorithm(cfg) -> Any:
     entry = find_algorithm(cfg.algo.name)
     module = importlib.import_module(entry["module"])
     entrypoint = getattr(module, entry["entrypoint"])
+    kwargs = {}
+    if "finetuning" in cfg.algo.name and "p2e" in entry["module"]:
+        kwargs["exploration_cfg"] = load_exploration_cfg(cfg)
     fabric = instantiate(cfg.fabric)
     _prune_metric_keys(cfg, entry["module"])
     switches = MetricAggregator.disabled, timer.disabled
@@ -203,7 +236,7 @@ def run_algorithm(cfg) -> Any:
     timer.disabled = cfg.metric.log_level == 0 or cfg.metric.get("disable_timer", False)
     setup_checkpoint(cfg)
     try:
-        result = fabric.launch(entrypoint, cfg)
+        result = fabric.launch(entrypoint, cfg, **kwargs)
     finally:
         stats = teardown_checkpoint()
         MetricAggregator.disabled, timer.disabled = switches

@@ -16,7 +16,11 @@ dicts of numpy arrays, e.g. from ``jax.device_get``) into the port's
 - ``FastLayerNorm`` ``scale``/``bias`` become ``weight``/``bias``;
 - DreamerV3's posterior trunk ``trunk_kernel [H+E, hidden]`` becomes the
   ``trunk`` Linear's weight (and a checkpoint of the earlier layout, an
-  ``MLP_0`` under ``representation_model``, converts the same way).
+  ``MLP_0`` under ``representation_model``, converts the same way);
+- Plan2Explore's stacked ensemble (:func:`convert_p2e_dv3`,
+  :func:`convert_p2e_dv2`): a Dense kernel ``[N, in, out]`` keeps its layout
+  with the member axis first (``StackedLinear.weight``), its bias and the
+  LayerNorm vectors ``[N, out]`` too.
 
 Every leaf is either consumed or listed as skipped. A training conversion
 (``training=True``) consumes every leaf of the four trees; a serving one
@@ -32,7 +36,14 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["SKIPPED_PREFIXES", "convert_dreamer_v2", "convert_dreamer_v3", "convert_layers"]
+__all__ = [
+    "SKIPPED_PREFIXES",
+    "convert_dreamer_v2",
+    "convert_dreamer_v3",
+    "convert_layers",
+    "convert_p2e_dv2",
+    "convert_p2e_dv3",
+]
 
 #: parameters of parts that training needs and serving does not (per tree)
 SKIPPED_PREFIXES: Dict[str, Tuple[str, ...]] = {
@@ -126,6 +137,30 @@ _LAYOUTS: Dict[str, Dict[str, Dict[str, Any]]] = {
 }
 
 
+#: Plan2Explore's ensemble (``p2e_dv3.agent.Ensemble``): stacked kernels keep their ``[N, in, out]`` layout
+_ENSEMBLE_LAYOUT = {"mlp": {"MLP_0": "mlp"}, "linear": {"head": "head"}, "stacked": True}
+for _family in _LAYOUTS.values():
+    _family["ensembles"] = _ENSEMBLE_LAYOUT
+#: a P2E tree → the layout it has; the task and exploration actors and critics are the family's own
+_P2E_TREES = {
+    "world_model": "world_model",
+    "actor_task": "actor",
+    "actor_exploration": "actor",
+    "critic_task": "critic",
+    "target_critic_task": "critic",
+    "critic_exploration": "critic",
+    "target_critic_exploration": "critic",
+    "ensembles": "ensembles",
+}
+#: the trees a P2E training conversion must find
+_P2E_REQUIRED = {
+    "p2e_dv3": ("world_model", "actor_task", "critic_task", "target_critic_task", "actor_exploration",
+                "critics_exploration", "ensembles"),
+    "p2e_dv2": ("world_model", "actor_task", "critic_task", "target_critic_task", "actor_exploration",
+                "critic_exploration", "target_critic_exploration", "ensembles"),
+}
+
+
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     flat = {}
     for k, v in tree.items():
@@ -187,9 +222,11 @@ def _convert_tree(
     flat = {p: a for p, a in flat.items() if p not in set(skipped)}
     sd: Dict[str, torch.Tensor] = {}
     used: set = set()
+    kernel_fn = _SAME if layout.get("stacked") else _T
     for scope, torch_scope in layout.get("mlp", {}).items():
         _convert_stack(
-            flat, scope, torch_scope, "Dense", "{scope}.blocks.{i}.linear", "{scope}.blocks.{i}.norm", _T, sd, used,
+            flat, scope, torch_scope, "Dense", "{scope}.blocks.{i}.linear", "{scope}.blocks.{i}.norm", kernel_fn, sd,
+            used,
         )
     for kind, layer in (("cnn", "Conv"), ("decnn", "ConvTranspose")):
         for scope, torch_scope in layout.get(kind, {}).items():
@@ -205,7 +242,7 @@ def _convert_tree(
         )
     leaves = dict(layout.get("leaves", {}))
     for scope, torch_scope in linears.items():
-        leaves[f"{scope}/kernel"] = (f"{torch_scope}.weight", _T)
+        leaves[f"{scope}/kernel"] = (f"{torch_scope}.weight", kernel_fn)
         leaves[f"{scope}/bias"] = (f"{torch_scope}.bias", _SAME)
     for path, (key, fn) in leaves.items():
         if path in flat:
@@ -294,3 +331,60 @@ def convert_dreamer_v3(
     critic, target critic) → the port's state dicts, as
     :func:`convert_dreamer_v2` does for DV2."""
     return _convert("dreamer_v3", params, training)
+
+
+def _convert_p2e(
+    algo: str, params: Mapping[str, Mapping[str, Any]], training: bool
+) -> Tuple[Dict[str, Any], List[str]]:
+    family = {"p2e_dv3": "dreamer_v3", "p2e_dv2": "dreamer_v2"}[algo]
+    state_dicts: Dict[str, Any] = {}
+    skipped: List[str] = []
+    for name, tree in params.items():
+        serving = name in ("world_model", "actor_task")
+        if not training and not serving:
+            skipped += [f"{name}/{p}" for p in sorted(_flatten(tree))]
+            continue
+        if name == "critics_exploration" and algo == "p2e_dv3":
+            state_dicts[name] = {}
+            for key, pair in tree.items():
+                if set(pair) != {"module", "target"}:
+                    raise KeyError(f"convert_{algo}: critics_exploration/{key} holds {sorted(pair)}, not module and target")
+                state_dicts[name][key] = {
+                    part: _convert_tree(family, "critic", _flatten(pair[part]), training)[0] for part in pair
+                }
+            continue
+        if name not in _P2E_TREES or (algo, name) in (("p2e_dv3", "critic_exploration"),
+                                                      ("p2e_dv3", "target_critic_exploration")):
+            raise KeyError(f"convert_{algo}: unknown param tree {name!r}")
+        state_dicts[name], dropped = _convert_tree(family, _P2E_TREES[name], _flatten(tree), training)
+        skipped += dropped
+    for name in _P2E_REQUIRED[algo] if training else ("world_model", "actor_task"):
+        if name not in state_dicts:
+            raise KeyError(f"convert_{algo}: the {name!r} tree is missing")
+    return state_dicts, skipped
+
+
+def convert_p2e_dv3(
+    params: Mapping[str, Mapping[str, Any]],
+    training: bool = False,
+) -> Tuple[Dict[str, Any], List[str]]:
+    """JAX P2E-DV3 params (``agent.params`` of an exploration checkpoint:
+    ``world_model``, ``actor_task``, ``critic_task``, ``target_critic_task``,
+    ``actor_exploration``, ``critics_exploration.<name>.{module,target}``,
+    ``ensembles``) → the port's state dicts under the same names
+    (``critics_exploration`` a ``{name: {"module", "target"}}`` dict of
+    them) for a training build; a serving one keeps ``world_model`` (without
+    its training-only parts) and ``actor_task`` and lists every other leaf as
+    skipped. Raises on a tree or a leaf it does not know."""
+    return _convert_p2e("p2e_dv3", params, training)
+
+
+def convert_p2e_dv2(
+    params: Mapping[str, Mapping[str, Any]],
+    training: bool = False,
+) -> Tuple[Dict[str, Any], List[str]]:
+    """JAX P2E-DV2 params (``world_model``, ``actor_task``, ``critic_task``,
+    ``target_critic_task``, ``actor_exploration``, ``critic_exploration``,
+    ``target_critic_exploration``, ``ensembles``) → the port's state dicts,
+    as :func:`convert_p2e_dv3` does for P2E-DV3."""
+    return _convert_p2e("p2e_dv2", params, training)

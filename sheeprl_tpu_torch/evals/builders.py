@@ -18,7 +18,7 @@ import torch
 
 from sheeprl_tpu_torch.evals.service import EvalPolicy
 
-__all__ = ["actions_dim_of", "dreamer_eval_policy", "serving_params"]
+__all__ = ["actions_dim_of", "dreamer_eval_policy", "family_of", "serving_params"]
 
 #: parts of the port's training world model that a serving build has not
 _TRAINING_ONLY = ("cnn_decoder.", "mlp_decoder.", "reward_model.", "continue_model.")
@@ -76,22 +76,38 @@ def dreamer_eval_policy(
     return EvalPolicy(act=act, init_state=player_fns["init_states"], device=torch.device(device))
 
 
+def family_of(algo: str) -> str:
+    """``dreamer_v2`` or ``dreamer_v3``: the family whose player serves
+    ``algo`` (Plan2Explore's phases serve their family's task actor)."""
+    algo = str(algo)
+    for family, p2e in (("dreamer_v3", "p2e_dv3_"), ("dreamer_v2", "p2e_dv2_")):
+        if algo == family or algo.startswith(p2e):
+            return family
+    raise NotImplementedError(f"only the DreamerV2 and DreamerV3 families are served by the port, not {algo}")
+
+
 def serving_params(state: Dict[str, Any], algo: str) -> Dict[str, Dict[str, torch.Tensor]]:
     """``{"world_model", "actor"}`` state dicts of a serving build from a
     checkpoint's (or a publication's) ``state``: the port's layout
     (``state["agent"]`` holds each module's state dict), or the JAX
-    package's (``state["agent"]["params"]``, converted by
-    ``convert_dreamer_v2`` or ``convert_dreamer_v3`` after ``algo``)."""
+    package's (``state["agent"]["params"]``, converted after ``algo``'s
+    family). The actor is the task actor: ``actor_task`` in a P2E
+    exploration checkpoint, ``actor`` in any other."""
     agent = state["agent"]
     if "params" not in agent:
         return {
             "world_model": {
                 k: torch.as_tensor(v) for k, v in agent["world_model"].items() if not k.startswith(_TRAINING_ONLY)
             },
-            "actor": {k: torch.as_tensor(v) for k, v in agent["actor"].items()},
+            "actor": {k: torch.as_tensor(v) for k, v in agent.get("actor_task", agent.get("actor")).items()},
         }
-    from sheeprl_tpu_torch.convert import convert_dreamer_v2, convert_dreamer_v3
+    from sheeprl_tpu_torch.convert import convert_dreamer_v2, convert_dreamer_v3, convert_p2e_dv2, convert_p2e_dv3
 
-    convert = convert_dreamer_v3 if algo == "dreamer_v3" else convert_dreamer_v2
+    family = family_of(algo)
+    if "actor_task" in agent["params"]:
+        convert = convert_p2e_dv3 if family == "dreamer_v3" else convert_p2e_dv2
+        trees, _skipped = convert(agent["params"])
+        return {"world_model": trees["world_model"], "actor": trees["actor_task"]}
+    convert = convert_dreamer_v3 if family == "dreamer_v3" else convert_dreamer_v2
     params, _skipped = convert(agent["params"])
     return params

@@ -1,7 +1,8 @@
 """Servable models (counterpart of ``GatewayModel`` in
 ``sheeprl_tpu/serve/model.py``).
 
-A :class:`GatewayModel` wraps one DreamerV2 or DreamerV3 :class:`~sheeprl_tpu_torch.evals.service.EvalPolicy`
+A :class:`GatewayModel` wraps one DreamerV2 or DreamerV3 (or Plan2Explore task actor)
+:class:`~sheeprl_tpu_torch.evals.service.EvalPolicy`
 with what serving adds: a version stamped on every response, a per-row state
 contract for the batcher's server-side recurrent state, and the device the
 batcher draws its noise on.
@@ -51,16 +52,17 @@ class GatewayModel:
         version: int = 0,
         plain_cell: bool = False,
     ) -> "GatewayModel":
-        """A DreamerV2 or DreamerV3 policy (``cfg.algo.name``) from the
-        port's state dicts ``{"world_model": ..., "actor": ...}``
-        (``convert.py`` turns the JAX package's param trees into them)."""
+        """A DreamerV2 or DreamerV3 policy (``cfg.algo.name``'s family:
+        Plan2Explore's phases serve their family's player) from the port's
+        state dicts ``{"world_model": ..., "actor": ...}`` (``convert.py``
+        turns the JAX package's param trees into them)."""
+        from sheeprl_tpu_torch.evals.builders import family_of
+
         algo = str(cfg.algo.name)
-        if algo == "dreamer_v2":
+        if family_of(algo) == "dreamer_v2":
             from sheeprl_tpu_torch.algos.dreamer_v2.evaluate import dreamer_v2_eval_policy as build
-        elif algo == "dreamer_v3":
-            from sheeprl_tpu_torch.algos.dreamer_v3.evaluate import dreamer_v3_eval_policy as build
         else:
-            raise NotImplementedError(f"only dreamer_v2 and dreamer_v3 are served by the port, not {algo}")
+            from sheeprl_tpu_torch.algos.dreamer_v3.evaluate import dreamer_v3_eval_policy as build
         dev = resolve_device(device)
         policy = build(cfg, params, observation_space, actions_dim, is_continuous, device=dev, plain_cell=plain_cell)
         return cls(policy, version=version, algo=algo, env_id=str(cfg.env.id), device=dev)

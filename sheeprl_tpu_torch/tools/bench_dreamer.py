@@ -8,11 +8,14 @@ Builds the world model, actor, critic and target critic at the widths of a
 preset (``--algo``, PRESETS): ``exp=dreamer_v2_ms_pacman`` (``dreamer_v2``,
 the default), ``exp=dreamer_v3_100k_ms_pacman`` (``dreamer_v3``),
 ``exp=dreamer_v3_dmc_walker_walk`` (``dreamer_v3_walker``: rgb and a
-24-wide ``state``, 6 continuous actions) or ``exp=dreamer_v2`` on a 2-wide
-Box of actions (``dreamer_v2_continuous``), with seeded random weights
+24-wide ``state``, 6 continuous actions), ``exp=dreamer_v2`` on a 2-wide
+Box of actions (``dreamer_v2_continuous``), or Plan2Explore's exploration
+step (``p2e_dv3``, ``exp=p2e_dv3_exploration``, also on the walker's
+observations and actions as ``p2e_dv3_continuous``; ``p2e_dv2``,
+``exp=p2e_dv2_exploration``), with seeded random weights
 (``compare`` takes config overrides, which the tests use to shrink it), and
 the seeded batch of the JAX bench at the preset's ``B × T`` (DV2: 32 × 50,
-DV3: 16 × 64 uint8 frames of 3×64×64; 9 one-hot actions, or uniform
+DV3 and P2E-DV3: 16 × 64, P2E-DV2: 16 × 50 uint8 frames of 3×64×64; 9 one-hot actions, or uniform
 continuous ones in [−1, 1]; a Gaussian ``state``; Gaussian rewards, no
 episode ends). Times
 the step eager and graphed in one call, each on a fresh trainer of the same
@@ -45,17 +48,27 @@ from typing import Any, Dict, Optional
 
 ACTIONS = (9,)
 OBS = {"rgb": (3, 64, 64)}
+WALKER_OBS = {"rgb": (3, 64, 64), "state": (24,)}
 #: the agent and training modules of each family
 ALGOS = {
     "dreamer_v2": ("sheeprl_tpu_torch.algos.dreamer_v2.agent", "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2"),
     "dreamer_v3": ("sheeprl_tpu_torch.algos.dreamer_v3.agent", "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3"),
+    "p2e_dv2": ("sheeprl_tpu_torch.algos.p2e_dv2.agent", "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration"),
+    "p2e_dv3": ("sheeprl_tpu_torch.algos.p2e_dv3.agent", "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration"),
 }
-#: ``--algo`` → (family, ``exp=``, observation shapes, actions, continuous)
+#: ``--algo`` → (family, ``exp=``, observation shapes, actions, continuous[, config overrides])
 PRESETS = {
     "dreamer_v2": ("dreamer_v2", "dreamer_v2_ms_pacman", OBS, ACTIONS, False),
     "dreamer_v3": ("dreamer_v3", "dreamer_v3_100k_ms_pacman", OBS, ACTIONS, False),
-    "dreamer_v3_walker": ("dreamer_v3", "dreamer_v3_dmc_walker_walk", {"rgb": (3, 64, 64), "state": (24,)}, (6,), True),
+    "dreamer_v3_walker": ("dreamer_v3", "dreamer_v3_dmc_walker_walk", WALKER_OBS, (6,), True),
     "dreamer_v2_continuous": ("dreamer_v2", "dreamer_v2", OBS, (2,), True),
+    # Plan2Explore's exploration step at its presets' widths: DV3's default (dense 256, recurrent 256, 32x32
+    # latent, B=16 x T=64, an 8-member ensemble, two exploration critics) and DV2's (dense 400 x 4, recurrent
+    # 400, B=16 x T=50, 10 members); the DV3 one also on the walker's observations and 6 continuous actions
+    "p2e_dv3": ("p2e_dv3", "p2e_dv3_exploration", OBS, ACTIONS, False),
+    "p2e_dv3_continuous": ("p2e_dv3", "p2e_dv3_exploration", WALKER_OBS, (6,), True,
+                           {"mlp_keys.encoder": ["state"], "mlp_keys.decoder": ["state"]}),
+    "p2e_dv2": ("p2e_dv2", "p2e_dv2_exploration", OBS, ACTIONS, False),
 }
 
 
@@ -99,11 +112,11 @@ def build_trainer(device=None, seed: int = 0, algo: str = "dreamer_v2", **overri
     from sheeprl_tpu_torch import configs
     from sheeprl_tpu_torch.device import resolve_device
 
-    family, exp, obs, actions, continuous = PRESETS[algo]
+    family, exp, obs, actions, continuous, *preset_overrides = PRESETS[algo]
     agent_module, train_module = ALGOS[family]
     agent, train = importlib.import_module(agent_module), importlib.import_module(train_module)
     dev = resolve_device(device)
-    cfg = getattr(configs, f"{family}_config")(exp, **overrides)
+    cfg = configs.dreamer_v2_config(exp, **{**(preset_overrides[0] if preset_overrides else {}), **overrides})
     modules = agent.build_agent(cfg, actions, continuous, obs, seed=seed, device=dev, training=True)
     state = train.build_optimizers_and_state(cfg, *modules, generator=torch.Generator(device=dev).manual_seed(seed))
     T, B = int(cfg.per_rank_sequence_length), int(cfg.per_rank_batch_size)

@@ -552,3 +552,101 @@ def test_the_ring_and_the_drain_on_the_card(cuda, card_dv3_checkpoint, tmp_path)
         assert gateway.status()["failed_requests"] == 0 and gateway.status()["requests"] == 16
     finally:
         gateway.close()
+
+
+# Plan2Explore: the cell at its presets' shapes, (H, X, bias, eps): P2E-DV3 at DreamerV3's default algo width,
+# P2E-DV2 at its own with DreamerV2's eps
+P2E_CELLS = [(256, 256, False, 1e-3), (400, 400, True, 1e-5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,X,bias,eps", P2E_CELLS)
+@pytest.mark.parametrize("B", [4, 10, 16, 64, 800, 1024])
+def test_cell_at_p2e_shapes_with_gradients(cuda, B, H, X, bias, eps):
+    """The forward and the hand VJP's gradients (five without bias, six
+    with) against autograd of the plain version at P2E's shapes."""
+    args = _operands(B, H, X, bias=bias, layer_norm=True, device=cuda, seed=B + H)
+    leaves = [a.detach().requires_grad_(True) if a is not None else None for a in args]
+    plain_leaves = [a.detach().requires_grad_(True) if a is not None else None for a in args]
+    out = ops.hafner_gru_cell(*leaves, eps=eps)
+    want = reference.hafner_cell(*plain_leaves, eps=eps)
+    assert (out - want).abs().max().item() <= TOL
+    cot = torch.randn_like(out)
+    got = torch.autograd.grad(out, [a for a in leaves if a is not None], cot)
+    exp = torch.autograd.grad(want, [a for a in plain_leaves if a is not None], cot)
+    assert len(got) == 5 + int(bias)
+    for g, e in zip(got, exp):
+        assert (g - e).abs().max().item() <= GRAD_TOL * e.abs().max().clamp_min(1e-30).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,per_step", [("p2e_dv3", 8 + 2 * 4), ("p2e_dv3_continuous", 8 + 2 * 4),
+                                           ("p2e_dv2", 8 + 2 * 4)])
+def test_graphed_p2e_train_burst_equals_the_eager_steps(cuda, monkeypatch, algo, per_step):
+    """The P2E exploration step (six updates) as the DV2 and DV3 ones above:
+    eager steps against one burst of replays at the same state, batches,
+    noise and τ schedule, with cuDNN's deterministic algorithms; T + 2 ×
+    horizon cell launches a step on both (two imaginations)."""
+    import importlib
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    from sheeprl_tpu_torch.tools import bench_dreamer
+    from sheeprl_tpu_torch.train.burst import run_train_burst, tau_schedule
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    family, _exp, _obs, actions, continuous, *_ = bench_dreamer.PRESETS[algo]
+    train = importlib.import_module(bench_dreamer.ALGOS[family][1])
+    n = WARMUP_CALLS + GRAPH_REPLAYS
+    taus = tau_schedule(n, 0, 1, tau=0.02, first_hard=True) if "dv3" in algo else tau_schedule(n, 0, 3)
+    small = {**GRAPH_SMALL_DV3, "algo.ensembles.n": 3}
+    build = lambda: bench_dreamer.build_trainer(cuda, seed=0, algo=algo, **small)  # noqa: E731
+    cfg, _state, _program, data = build()
+    T, B = data["rewards"].shape[:2]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    noise = [train.draw_noise(cfg, actions, T, B, gen, cuda, continuous) for _ in range(n)]
+    stack = {k: torch.stack([torch.roll(v, i, dims=1) for i in range(n)]) for k, v in data.items()}
+    out = {}
+    for fused in (False, True):
+        _cfg, state, program, _data = build()
+        before = ops.hafner_cell_launches.count
+        metrics = [run_train_burst(program, state, {k: v[i : i + 1] for k, v in stack.items()}, taus[i : i + 1],
+                                   noise=noise[i : i + 1], fused=fused) for i in range(n)]
+        launches = ops.hafner_cell_launches.count - before
+        params = [p.detach().clone() for m in state.values() if isinstance(m, torch.nn.Module) for p in m.parameters()]
+        out[fused] = (metrics, params, launches)
+    (em, ep, el), (gm, gp, gl) = out[False], out[True]
+    assert el == gl == n * per_step
+    for g, e in zip(gm, em):
+        for k in e:
+            assert abs(g[k] - e[k]) <= GRAPH_TOL * max(abs(e[k]), 1e-30), (k, g[k], e[k])
+    for g, e in zip(gp, ep):
+        assert (g - e).abs().max() <= GRAPH_TOL * e.abs().max().clamp_min(1e-30)
+
+
+@pytest.mark.cuda
+def test_p2e_finetuning_on_the_card_switches_between_two_captured_acting_steps(cuda, tmp_path):
+    """A tiny P2E-DV3 exploration run and its finetuning through the CLI on
+    the card: the finetuning player's two actors each replay their own
+    captured acting step, and the cell launches once an acting step, T +
+    horizon a gradient step and once a test step."""
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    tiny = [
+        "env=dummy", "env.id=discrete_dummy", "env.num_envs=2", "env.sync_env=True", "metric.log_level=0",
+        "buffer.memmap=False", "per_rank_batch_size=2", "per_rank_sequence_length=4", "algo.horizon=2",
+        "algo.dense_units=8", "algo.mlp_layers=1", "algo.train_every=2", "algo.ensembles.n=2",
+        "algo.world_model.encoder.cnn_channels_multiplier=2", "algo.world_model.recurrent_model.recurrent_state_size=8",
+        "algo.world_model.transition_model.hidden_size=8", "algo.world_model.representation_model.hidden_size=8",
+        "algo.world_model.stochastic_size=4", "algo.world_model.discrete_size=4", "buffer.size=64",
+        f"root_dir={tmp_path}",
+    ]
+    expl = cli.run(tiny + ["exp=p2e_dv3_exploration", "total_steps=24", "algo.learning_starts=12", "run_name=e"])
+    before = ops.hafner_cell_launches.count
+    fntn = cli.run(tiny + ["exp=p2e_dv3_finetuning", "total_steps=32", "algo.learning_starts=16", "run_name=f",
+                           f"checkpoint.exploration_ckpt_path={expl['checkpoint']}"])
+    launches = ops.hafner_cell_launches.count - before
+    assert fntn["player_steps_by_actor"] == [7, 9] and fntn["actor_switched_at"] == 8
+    assert fntn["graphs"]["act"]["captured"] == 2
+    assert fntn["graphs"]["act"]["eager_calls"] == 2 * WARMUP_CALLS
+    assert launches == 16 + (4 + 2) * fntn["gradient_steps"] + fntn["test_steps"]

@@ -237,3 +237,52 @@ def test_the_eval_and_serve_commands_raise_without_a_card(monkeypatch, tmp_path)
     for call in (evaluate_checkpoint, rescore_through_gateway, ServeGateway.from_checkpoint):
         with pytest.raises(RuntimeError, match="CUDA"):
             call(ckpt)
+
+
+TINY_P2E = [
+    "env=dummy", "env.id=discrete_dummy", "env.num_envs=2", "env.sync_env=True", "metric.log_level=1",
+    "buffer.memmap=False", "per_rank_batch_size=2", "per_rank_sequence_length=2", "algo.horizon=2",
+    "algo.dense_units=8", "algo.mlp_layers=1", "algo.train_every=2", "algo.per_rank_pretrain_steps=1",
+    "algo.world_model.encoder.cnn_channels_multiplier=2", "algo.world_model.recurrent_model.recurrent_state_size=8",
+    "algo.world_model.transition_model.hidden_size=8", "algo.world_model.representation_model.hidden_size=8",
+    "algo.world_model.stochastic_size=4", "algo.world_model.discrete_size=4", "algo.ensembles.n=2",
+    "total_steps=8", "algo.learning_starts=4", "buffer.size=32",
+]
+
+
+@pytest.mark.parametrize("family", ["dv3", "dv2"])
+def test_a_p2e_exploration_finetuning_and_serving_load_none_of_the_card_path_exclusions(tmp_path, family):
+    """Plan2Explore through the CLI in a fresh interpreter: an exploration
+    run, finetuning from its checkpoint, then ``load_gateway_model`` on the
+    finetuning checkpoint: PyYAML, gymnasium, OpenCV, tensorboardX, JAX and
+    the JAX package are never imported."""
+    code = (
+        "import sys\n"
+        "from sheeprl_tpu_torch import cli\n"
+        "from sheeprl_tpu_torch.serve.model import load_gateway_model\n"
+        f"base = {TINY_P2E!r} + ['root_dir={tmp_path}', 'fabric.accelerator=cpu']\n"
+        f"expl = cli.run(base + ['exp=p2e_{family}_exploration', 'run_name=expl'])\n"
+        f"fntn = cli.run(base + ['exp=p2e_{family}_finetuning', 'run_name=fntn',\n"
+        "                        'checkpoint.exploration_ckpt_path=' + expl['checkpoint']])\n"
+        "assert fntn['actor_switched_at'] == 2, fntn\n"
+        "model = load_gateway_model(fntn['checkpoint'], device='cpu')[0]\n"
+        f"assert model.algo == 'p2e_{family}_finetuning'\n"
+        f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {CARD_PATH_FORBIDDEN!r}))\n"
+        "print('loaded:', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert "loaded: []" in proc.stdout
+
+
+def test_the_p2e_builds_raise_without_a_card(monkeypatch):
+    from sheeprl_tpu_torch.algos.p2e_dv2.agent import build_agent as build_p2e_dv2
+    from sheeprl_tpu_torch.algos.p2e_dv3.agent import build_agent as build_p2e_dv3
+    from sheeprl_tpu_torch.configs import dreamer_v2_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build, exp in ((build_p2e_dv3, "p2e_dv3_exploration"), (build_p2e_dv2, "p2e_dv2_exploration")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(dreamer_v2_config(exp), (9,), False, {"rgb": (3, 64, 64)})
