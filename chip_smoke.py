@@ -64,10 +64,11 @@ Phases, each fatal on failure:
    checkpoint must validate (manifest and every crc32) and its episode
    buffer restore into a fresh buffer with an equal ``state_dict``; then
    ``load_gateway_model`` serves that checkpoint to 16 clients x 8 lockstep
-   requests, whose actions must equal a plain-cell replay's. A second run
-   of the same work under the profiler gives the device's busy time, and
-   the cell's gate kernels in its trace must equal the counters' launches
-   of that run. The run's rates print beside PR 5's (PR5_RATES).
+   requests, whose actions must equal a plain-cell replay's. The run is
+   traced (CUDA activity only, so its rates are read under the profiler):
+   the trace gives the device's busy time, and the cell's gate kernels in
+   it must equal the run's counters. The run's rates print beside
+   PR5_RATES.
 
 DreamerV3 (PR 7), at the 100k MsPacman preset's full width (rgb 3x64x64,
 encoder channels 32/64/128/256, dense 512 x 2, recurrent 512, 32x32
@@ -158,10 +159,36 @@ bias, a 10-member ensemble, B=16 x T=50; both horizon 15):
   (RUN_P2E_SPECS, cuts listed there), whose player switches from the
   exploration actor to the task actor inside the run; each run's counters,
   cell launches (as predicted), graphs (one captured acting step per actor),
-  event tags and deep-validated checkpoint; a profiled exploration run whose
-  gate kernels equal its counters; the evaluation command on the finetuning
+  event tags and deep-validated checkpoint; the exploration run traced, its
+  gate kernels equal to its counters; the evaluation command on the finetuning
   checkpoint against a plain-cell evaluation; and its task actor served to
   lockstep clients, equal to a plain-cell replay (``phase_run_p2e``).
+
+DreamerV3 at the L and XL widths in f32 and under bf16-mixed: the
+L DIAMBRA preset (``exp=dreamer_v3_L_doapp``: recurrent 2048, dense 768 x 4,
+CNN multiplier 64, 8 envs), the XL Crafter preset
+(``exp=dreamer_v3_XL_crafter``: recurrent 4096, dense 1024 x 5, CNN
+multiplier 96) and P2E-DV3's L DIAMBRA presets at their ``bf16-mixed``
+(recurrent 1024, dense 768 x 4, CNN multiplier 48, grey frames, 16 envs), on
+``doapp_stand_in`` and ``crafter_stand_in`` (the DIAMBRA and Crafter wrappers'
+spaces; the card has neither simulator):
+
+- cell_l_xl and cell_bf16 kernels (after the P2E rows): the cell at
+  LARGE_CELL_SHAPES in f32 (forward and gradients against the plain
+  version, the VJP, cuBLAS's product, the bound; ``phase_cell_large``), and
+  its bf16 operand path at BF16_CELL_SHAPES against the plain bf16 cell
+  (``hafner_bound_bf16``: one bf16 pass at 989 TFLOP/s, or the bytes the
+  kernel reads; cuBLAS's GEMM on bf16 operands; ``phase_cell_bf16``);
+- train_p2e_dv3_L_bf16, train_dv3_L, train_dv3_XL (after the P2E
+  trainers): as train_p2e_dv3 and train_dv3, the bf16 trainer's kernel
+  against plain cell within TOL_TRAIN_BF16, the large ones' metrics and
+  policy loss within TOL_TRAIN_GRAD scaled by K = H + X (the readings behind
+  that limit: ``python3 chip_smoke.py --train-gaps``), every launch on the
+  expected operand path;
+- run_p2e_dv3_L_bf16 (after the P2E runs) and run_dv3_L, run_dv3_XL (last):
+  the presets through the CLI at full width, 9 gradient steps each, the
+  same checks as the runs before them, and every floating array of each
+  checkpoint's agent f32 (``_f32_parameters``).
 
 Each path's launch counts are zeroed just before its run and read just
 after it: the served run (phase 4), the bench (phase 5), the timed train
@@ -169,8 +196,9 @@ steps (phases 6, train_dv3, train_walker) and the graphed steps
 (train_dv2_continuous), the training runs (phases 7, run_dv3 and
 run_walker), and eval_serve's evaluations, rescore, serve command and
 in-run run (``launches_by_path``), and the P2E trainers, runs, evaluations and
-serving. The ``kernels`` line's cell ``launches`` is the training runs'
-sum (the three Dreamer runs and the four P2E runs); its ``p2e_shapes`` and
+serving. The ``kernels`` line's cell ``launches`` is the f32 training runs'
+sum (the five Dreamer runs and the four f32 P2E runs; the bf16 P2E runs'
+are ``hafner_cell_bf16``'s); its ``p2e_shapes`` and
 ``p2e_train`` keys carry the P2E rows. The build phase also counts the tensor-core instructions
 (``HGMMA``, ``HMMA``) in the built library's SASS (``cuobjdump -sass``).
 
@@ -181,13 +209,16 @@ operations, the product ``[h|x]·W`` at f32 accuracy on the tensor cores
 rate (67 TFLOP/s). ``bound_f32_simt_ms`` keeps the earlier convention (the
 whole product at 67 TFLOP/s), so that older rows stay comparable.
 
-The last lines are the card line, one JSON line with a record per kernel,
-and ``{"ok": true, "device": {...}}``. Exits non-zero, without that last
+The last lines are the ``[timing]`` line (each phase's seconds), the card
+line, one JSON line with a record per kernel (``hafner_cell``, its bf16
+operand path ``hafner_cell_bf16``, ``hafner_sequence``), and ``{"ok": true,
+"device": {...}}``. Exits non-zero, without that last
 line, when there is no CUDA device or any phase fails.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -279,6 +310,47 @@ RUN_WALKER_ARGS = (
 )
 RUN_WALKER_UPDATES, RUN_WALKER_PLAYER_STEPS, RUN_WALKER_GRADIENT_STEPS, RUN_WALKER_TEST_STEPS = 1152, 128, 65, 1000
 RUN_WALKER_LOG_STEPS = (256, 512, 768, 1024, 1152)
+# DIAMBRA's Dead or Alive++ as diambra.arena gives it with the env config's flattened, role-relative wrappers: the
+# raw space of each key, ("box", low, high) of shape (1,) int32 or ("discrete", n), which the DIAMBRA wrapper
+# (sheeprl_tpu/envs/diambra.py:93-106) keeps as a Box or turns into a 1-wide int32 Box of [0, n - 1]. The P2E L
+# presets name the role-relative keys; the L preset names the legacy ones (verbatim from its reference recipe); the
+# stand-in offers both. 11 characters; 16 combo-discrete actions (9 moves + 8 attack-button combinations - 1 shared
+# no-op), also the last action's key
+DOAPP_ACTIONS = 16
+DOAPP_RAW_KEYS = {
+    **{f"{side}_{k}": v for side in ("own", "opp") for k, v in (
+        ("character", ("discrete", 11)), ("health", ("box", 0, 208)), ("side", ("discrete", 2)),
+        ("wins", ("box", 0, 2)))},
+    "stage": ("box", 1, 8), "timer": ("box", 0, 40), "action": ("discrete", DOAPP_ACTIONS),
+    **{f"P1_{side}{k}": v for side in ("own", "opp") for k, v in (
+        ("Char", ("discrete", 11)), ("Health", ("box", 0, 208)), ("Side", ("discrete", 2)), ("Wins", ("box", 0, 2)))},
+    "P1_actions_move": ("discrete", 9), "P1_actions_attack": ("discrete", 8),
+}
+CRAFTER_ACTIONS = 17
+# a stand-in's episodes end after this many steps (a round, a Crafter life): the runs' test episodes stay short
+STAND_IN_EPISODE = 32
+# the L and XL runs: the port's CLI with exp=dreamer_v3_L_doapp (8 envs, train_every 8) and exp=dreamer_v3_XL_crafter
+# (1 env, train_every 2) at full width in f32 on doapp_stand_in and crafter_stand_in (DIAMBRA's and Crafter's spaces;
+# the card has neither), the sequential buffer checkpointed, log_level 1. Cuts: a buffer of 4096 steps (5e6 and 1e6),
+# learning from 1024 and 128 policy steps (65536 and 1024: 128 steps an env, two sequences of 64), 1088 and 144 policy
+# steps (5e6 and 1e6): 9 gradient steps each (the pretrain step and 8), a log every 256 and 64 policy steps
+RUN_L_ARGS = (
+    "exp=dreamer_v3_L_doapp", "env.wrapper._target_=chip_smoke.doapp_stand_in", "env.sync_env=True",
+    "env.capture_video=False", "buffer.size=4096", "algo.learning_starts=1024", "total_steps=1088",
+    "metric.log_every=256",
+)
+RUN_XL_ARGS = (
+    "exp=dreamer_v3_XL_crafter", "env.wrapper._target_=chip_smoke.crafter_stand_in", "env.sync_env=True",
+    "env.capture_video=False", "buffer.size=4096", "algo.learning_starts=128", "total_steps=144",
+    "metric.log_every=64",
+)
+DOAPP_L_OBS = {"frame": (3, 64, 64), **{k: (1,) for k in (
+    "P1_actions_attack", "P1_actions_move", "P1_oppChar", "P1_oppHealth", "P1_oppSide", "P1_oppWins", "P1_ownChar",
+    "P1_ownHealth", "P1_ownSide", "P1_ownWins", "stage")}}
+DOAPP_P2E_OBS = {"frame": (1, 64, 64), **{k: (1,) for k in (
+    "own_character", "own_health", "own_side", "own_wins", "opp_character", "opp_health", "opp_side", "opp_wins",
+    "stage", "timer", "action", "reward")}}
+CRAFTER_OBS = {"rgb": (3, 64, 64), "reward": (1,)}
 # served float actions, kernel against plain cell: the cell's outputs differ by ~1e-5, the actions by as much
 TOL_CONTINUOUS_ACTION = 1e-3
 WALKER_GREEDY_STEPS = 4
@@ -292,8 +364,9 @@ P2E_CELL_SHAPES = {
 }
 # cell launches a gradient step, read from the code: the posterior's T steps, then the imagination's horizon (15) once
 # (DreamerV2, DreamerV3, finetuning) or twice (the P2E exploration step: the exploration and the task actor)
-P2E_STEP_LAUNCHES = {"p2e_dv3": 64 + 15 + 15, "p2e_dv3_continuous": 64 + 15 + 15, "p2e_dv2": 50 + 15 + 15}
-P2E_FINETUNING_STEP_LAUNCHES = {"p2e_dv3": 64 + 15, "p2e_dv2": 50 + 15}
+P2E_STEP_LAUNCHES = {"p2e_dv3": 64 + 15 + 15, "p2e_dv3_continuous": 64 + 15 + 15, "p2e_dv2": 50 + 15 + 15,
+                     "p2e_dv3_L_bf16": 64 + 15 + 15}
+P2E_FINETUNING_STEP_LAUNCHES = {"p2e_dv3": 64 + 15, "p2e_dv2": 50 + 15, "p2e_dv3_L_bf16": 64 + 15}
 P2E_TRAIN_STEPS = 4
 # the P2E runs: the port's CLI at each preset's full width on the discrete dummy env (2 actions, 5-step episodes), 4
 # envs, the sequential buffer, log_level 1; exploration, then finetuning from its checkpoint, the finetuning player
@@ -301,6 +374,8 @@ P2E_TRAIN_STEPS = 4
 # a buffer of 4096 steps (1e6 and 5e6), 1024 and 512 policy steps (P2E-DV3; 5e6 and 1e6) and 512 and 256 (P2E-DV2),
 # learning from 512 and 320 (P2E-DV3; 65536 both) and 256 and 224 (P2E-DV2; 1000 both), a log every 256 (5000)
 P2E_ENV_ARGS = ("env=dummy", "env.id=discrete_dummy", "env.sync_env=True", "buffer.size=4096", "metric.log_every=256")
+P2E_L_ENV_ARGS = ("env.wrapper._target_=chip_smoke.doapp_stand_in", "env.sync_env=True", "env.capture_video=False",
+                  "buffer.size=4096", "metric.log_every=256")
 RUN_P2E_SPECS = {
     "p2e_dv3": dict(
         exploration=("exp=p2e_dv3_exploration", "total_steps=1024", "algo.learning_starts=512") + P2E_ENV_ARGS,
@@ -315,6 +390,19 @@ RUN_P2E_SPECS = {
         exploration_counts=(128, 64, [64], 164, 5, None),
         finetuning_counts=(64, 0, [55, 9], 108, 5, 56),
     ),
+    # P2E-DV3's L DIAMBRA presets under their bf16-mixed on doapp_stand_in (grey frames, the reward as an observation,
+    # 16 envs, train_every 1, B=4 and 16 x T=64). Cuts: a buffer of 4096 steps (1e6), 1152 policy steps each (2e7 and
+    # 5e6), learning from 1024 (131072 and 65536: 64 steps an env, one sequence), a log every 256 (10000): 9 gradient
+    # steps each, the finetuning player switching actors at update 64
+    "p2e_dv3_L_bf16": dict(
+        exploration=("exp=p2e_dv3_expl_L_doapp_128px_gray_combo_discrete_15Mexpl_20Mstps", "total_steps=1152",
+                     "algo.learning_starts=1024") + P2E_L_ENV_ARGS,
+        finetuning=("exp=p2e_dv3_fntn_L_doapp_64px_gray_combo_discrete_5Mstps", "total_steps=1152",
+                    "algo.learning_starts=1024") + P2E_L_ENV_ARGS,
+        exploration_counts=(72, 64, [8], 9, STAND_IN_EPISODE, None),
+        finetuning_counts=(72, 0, [63, 9], 9, STAND_IN_EPISODE, 64),
+        obs=DOAPP_P2E_OBS, actions=DOAPP_ACTIONS, bf16=True, algo="p2e_dv3",
+    ),
 }
 CLIENTS, STEPS, SEED = 64, 16, 5
 N_ACTIONS = 9
@@ -324,6 +412,38 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 TF32_PASSES = 3  # hi.hi + hi.lo + lo.hi: f32 accuracy from TF32 operands
 PEAK_HBM_BYTES = 3.35e12
+PEAK_BF16_FLOPS = 989e12  # bf16 on the tensor cores, dense, f32 accumulation
+# the L and XL widths in f32 (no bias, LayerNorm, eps 1e-3): DreamerV3's DIAMBRA L preset (recurrent 2048 after a
+# 768-wide pre-layer; its acting envs 8, the eval pool 10, the posterior 16, a serving batch 64, the imagination
+# 16 x 64) and its Crafter XL preset (recurrent 4096, pre-layer 1024; 1 acting env)
+LARGE_CELL_SHAPES = {
+    "dv3_L": (2048, 768, (8, 10, 16, 64, 1024)),
+    "dv3_XL": (4096, 1024, (1, 10, 16, 64, 1024)),
+}
+# the cell's bf16 operand path (fabric.precision=bf16-mixed): P2E-DV3's L DIAMBRA presets (recurrent 1024, pre-layer
+# 768; acting 16 envs, the exploration posterior 4 and finetuning's 16, their imaginations 4 x 64 and 16 x 64, the eval
+# pool 10, a serving batch 64) and DreamerV3 100k's width under bf16
+# device_ms at the L and XL shapes: 5 calls a graph, 20 replays (a call at B=1024 reads 90-250 MB of W)
+LARGE_TIMING = {"calls": 5, "n": 20}
+BF16_CELL_SHAPES = {
+    "p2e_dv3_L": (1024, 768, (4, 10, 16, 64, 256, 1024)),
+    "dv3": (512, 512, (1, 16, 1024)),
+}
+# bf16 against the plain bf16 cell: both round h, x and W alike and accumulate in f32, so the outputs differ by the
+# f32 summation order only (TOL_KERNEL); what flows back through a rounding to bf16 (dx, the product's part of dh, dW)
+# can land one bf16 ulp apart, at most 2^-7 of the value: gradients within 2^-7 of their largest magnitude (read on
+# an H100: 3.85e-3 at most). A bf16 train step, kernel
+# against plain cell: the same 1e-6-sized differences now and then land on the other side of a bf16 rounding in the
+# layers after the cell, and every later layer rounds again (about 1 in 800 straight-through samples is a near-tie
+# that flips, pinned by _PinnedSamples), so losses, gradient norms and metrics within four bf16 roundings, 4 x 2^-8,
+# relative (read on an H100: 3.9e-3 at most on a loss, 5.5e-3 on a near-zero mean of returns)
+TOL_GRAD_BF16 = 2.0**-7
+TOL_TRAIN_BF16 = 4 * 2.0**-8
+# a bf16 checkpoint evaluated and served, kernel against plain cell: the plain path takes the kernel path's posterior
+# samples and greedy actions (_PinnedSamples), whose near-ties bf16 rounding may flip (1 in 800 samples in training):
+# at most 1% of them may; the recurrent states within one bf16 ulp at 1, 2^-7
+TOL_FLIPS_BF16 = 0.01
+TOL_STATE_BF16 = 2.0**-7
 
 
 def card_line() -> str:
@@ -380,6 +500,92 @@ def walker_stand_in(id="walker_walk", from_pixels=True, from_vectors=True, heigh
     return WalkerStandIn()
 
 
+def _stand_in_env(obs_spaces, action_n: int, seed):
+    """A seeded env of the port's spaces: random frames and vector keys in
+    their boxes, rewards in [0, 1), an episode terminated every
+    STAND_IN_EPISODE steps; a discrete action outside ``[0, action_n)``
+    raises."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.envs.wrappers import Env
+
+    class StandIn(Env):
+        def __init__(self):
+            self.observation_space = spaces.Dict(obs_spaces)
+            self.action_space = spaces.Discrete(action_n)
+            self._rng = np.random.default_rng(seed)
+            self._t = 0
+
+        def _obs(self):
+            out = {}
+            for k, space in self.observation_space.spaces.items():
+                lo, hi = np.broadcast_to(space.low, space.shape), np.broadcast_to(space.high, space.shape)
+                out[k] = self._rng.integers(lo, hi, endpoint=True, dtype=np.int64).astype(space.dtype)
+            return out
+
+        def reset(self, *, seed=None, options=None):
+            if seed is not None:
+                self._rng = np.random.default_rng(seed)
+            self._t = 0
+            return self._obs(), {}
+
+        def step(self, action):
+            a = np.asarray(action)
+            if a.size != 1 or not 0 <= int(a.reshape(())) < action_n:
+                raise ValueError(f"the stand-in got an action outside Discrete({action_n}): {action}")
+            self._t += 1
+            return self._obs(), float(self._rng.random()), self._t >= STAND_IN_EPISODE, False, {}
+
+    return StandIn()
+
+
+def doapp_spaces(screen_size=64, grayscale=False):
+    """The DIAMBRA wrapper's observation spaces for Dead or Alive++
+    (DOAPP_RAW_KEYS, and the frame ``(H, W, 1)`` grey or ``(H, W, 3)``
+    uint8, as the engine resizes it), as the port's spaces."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.envs import spaces
+
+    size = (screen_size, screen_size) if isinstance(screen_size, int) else tuple(screen_size)
+    out = {"frame": spaces.Box(0, 255, size + (1 if grayscale else 3,), np.uint8)}
+    for k, (kind, *args) in DOAPP_RAW_KEYS.items():
+        low, high = (0, args[0] - 1) if kind == "discrete" else args
+        out[k] = spaces.Box(low, high, (1,), np.int32)
+    return out
+
+
+def doapp_stand_in(id="doapp", action_space="diambra.arena.SpaceTypes.DISCRETE", screen_size=64, grayscale=False,
+                   rank=None, seed=None, **_):
+    """A stand-in for DIAMBRA's Dead or Alive++ (the card's machine has no
+    diambra), made by the DIAMBRA runs' env config (``env.wrapper._target_``)
+    with the DIAMBRA wrapper's arguments: its spaces (``doapp_spaces``) and
+    the combo-discrete action, Discrete(DOAPP_ACTIONS); seeded from the env's
+    rank."""
+    if not str(action_space).endswith("DISCRETE") or str(action_space).endswith("MULTI_DISCRETE"):
+        raise ValueError(f"the doapp stand-in has the combo-discrete action space only, got {action_space}")
+    return _stand_in_env(doapp_spaces(screen_size, grayscale), DOAPP_ACTIONS, seed if seed is not None else rank)
+
+
+def crafter_spaces(screen_size=64):
+    """The Crafter wrapper's observation space (sheeprl_tpu/envs/crafter.py:29-32:
+    ``rgb``, crafter's ``(H, W, 3)`` uint8 frame), as the port's spaces."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.envs import spaces
+
+    size = (screen_size, screen_size) if isinstance(screen_size, int) else tuple(screen_size)
+    return {"rgb": spaces.Box(0, 255, size + (3,), np.uint8)}
+
+
+def crafter_stand_in(id="crafter_reward", screen_size=64, seed=None, **_):
+    """A stand-in for Crafter (the card's machine has no crafter), made by
+    the Crafter runs' env config with the Crafter wrapper's arguments: its
+    spaces (``crafter_spaces``) and Discrete(CRAFTER_ACTIONS)."""
+    return _stand_in_env(crafter_spaces(screen_size), CRAFTER_ACTIONS, seed)
+
+
 def _median_event_ms(run, n: int) -> float:
     import torch
 
@@ -420,8 +626,10 @@ def device_ms(fn, calls: int = 20, n: int = 50) -> float:
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(stream)
+    from sheeprl_tpu_torch.train.graphs import capture_guard
+
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capture_guard(), torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
     for _ in range(3):
@@ -538,21 +746,30 @@ def saved_z_error(args) -> dict:
 def product_split(args, B: int) -> dict:
     """The cell's device time split into its product and gate kernels (the
     profiler's kernel records, as ``tools/bench_cell.py`` reads them), and
-    cuBLAS's f32 SGEMM of the same ``[h|x]·W`` (``torch.matmul``, TF32 off),
+    cuBLAS's f32 SGEMM of the same ``[h|x]·W`` (``torch.matmul``, TF32 off;
+    on the bf16 operand path its GEMM on bf16 operands),
     timed as every kernel here (``device_ms``). In ms."""
     import torch
 
     from sheeprl_tpu_torch.tools import bench_cell
 
     split = bench_cell.cell_split(args)
-    u = torch.cat(args[:2], dim=-1)
-    return {
+    h, x, w = args[:3]
+    if x.dtype == torch.bfloat16:  # the bf16 operand path: cuBLAS's GEMM on bf16 operands, one pass
+        h, w = h.to(torch.bfloat16), w.to(torch.bfloat16)
+    u = torch.cat([h, x], dim=-1)
+    flops = 2.0 * B * u.shape[1] * w.shape[1]
+    out = {
         "product_ms": split["product_us"] / 1e3,
         "gates_ms": split["gates_us"] / 1e3,
-        "cublas_product_ms": device_ms(lambda: torch.matmul(u, args[2])),
+        "cublas_product_ms": device_ms(lambda: torch.matmul(u, w)),
         "cublas_product_profiler_ms": split["cublas_product_us"] / 1e3,
-        "product_tflops_tf32": TF32_PASSES * 2.0 * B * u.shape[1] * args[2].shape[1] / (split["product_us"] * 1e6),
     }
+    if x.dtype == torch.bfloat16:
+        out["product_tflops_bf16"] = flops / (split["product_us"] * 1e6)
+    else:
+        out["product_tflops_tf32"] = TF32_PASSES * flops / (split["product_us"] * 1e6)
+    return out
 
 
 def _grad_rel_err(got, want) -> float:
@@ -632,14 +849,16 @@ def phase_cell_training():
     return rows
 
 
-def _cell_shape_rows(label: str, H: int, X: int, bias: bool, eps: float, batches, vjp_batches, split_batch: int):
+def _cell_shape_rows(label: str, H: int, X: int, bias: bool, eps: float, batches, vjp_batches, split_batch: int,
+                     timing=None):
     """The cell at one model's shapes (H, X, bias, LayerNorm, eps) at the
     batches of its paths: forward against the plain version, the hand VJP's
     gradients (five without bias, six with) against autograd of the plain
     version, the variant the plan launches, device time beside the plain
     version's, the bound and cuBLAS's f32 SGEMM of the same product; at
     ``split_batch`` also the time split into product and gates, and at
-    ``vjp_batches`` the VJP's times (``vjp_times``)."""
+    ``vjp_batches`` the VJP's times (``vjp_times``). ``timing`` overrides
+    ``device_ms``'s calls a graph and replays."""
     import torch
 
     from sheeprl_tpu_torch.kernels import ops, reference
@@ -661,15 +880,15 @@ def _cell_shape_rows(label: str, H: int, X: int, bias: bool, eps: float, batches
             u = torch.cat(args[:2], dim=-1)
             row = dict(B=B, H=H, X=X, bias=bias, ln=True, eps=eps, max_abs_err=err, tol=TOL_KERNEL,
                        grad_rel_err=grad_err, grad_tol=TOL_GRAD, gradients=len(grads),
-                       ms=device_ms(lambda: ops.hafner_cell_cuda(*args, eps=eps)),
-                       plain_ms=device_ms(lambda: reference.hafner_cell(*args, eps=eps)),
-                       cublas_product_ms=device_ms(lambda: torch.matmul(u, args[2])),
+                       ms=device_ms(lambda: ops.hafner_cell_cuda(*args, eps=eps), **timing or {}),
+                       plain_ms=device_ms(lambda: reference.hafner_cell(*args, eps=eps), **timing or {}),
+                       cublas_product_ms=device_ms(lambda: torch.matmul(u, args[2]), **timing or {}),
                        bound_ms=bound_ms, bound_by=bound_by, bound_f32_simt_ms=simt_ms,
                        variant=ops.hafner_cell_variant(B, H, X))
             if B == split_batch:
                 row.update(product_split(args, B))
             if B in vjp_batches:
-                row["vjp"] = vjp_times(args, cot, eps)
+                row["vjp"] = vjp_times(args, cot, eps, timing)
             print(f"[kernel] hafner_cell {label} " + json.dumps(row), flush=True)
             rows.append(row)
             grid = row["variant"]["grid"]
@@ -701,6 +920,93 @@ def phase_cell_p2e():
             for name, (H, X, bias, eps, batches) in P2E_CELL_SHAPES.items()}
 
 
+def phase_cell_large():
+    """The cell at the L and XL widths in f32 (LARGE_CELL_SHAPES: H = 2048, X
+    = 768 and H = 4096, X = 1024, no bias, eps 1e-3) at the batches of their
+    paths, with the VJP at the posterior's B=16 and the imagination's B=1024
+    and the product and gates apart at B=1024. Returns the rows by preset."""
+    return {name: _cell_shape_rows(name, H, X, False, DV3_EPS, batches, (16, max(batches)), max(batches),
+                                   timing=LARGE_TIMING)
+            for name, (H, X, batches) in LARGE_CELL_SHAPES.items()}
+
+
+def hafner_bound_bf16(B: int, H: int, X: int, bias: bool, ln: bool):
+    """Least time for one step on the bf16 operand path: the bytes the kernel
+    reads and writes (h, W and the vectors in f32, x in bf16, the new h in
+    f32) at the HBM rate, or the product in one bf16 pass on the tensor cores
+    plus the LayerNorm and gates at the f32 rate."""
+    n_vec = 3 * H * (int(bias) + 2 * int(ln))
+    bytes_ = 4.0 * (B * H + (H + X) * 3 * H + n_vec + B * H) + 2.0 * B * X
+    other = (8.0 * B * 3 * H if ln else 0.0) + 10.0 * B * H
+    t_bytes = bytes_ / PEAK_HBM_BYTES
+    t_ops = 2.0 * B * (H + X) * 3 * H / PEAK_BF16_FLOPS + other / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _cell_bf16_rows(label: str, H: int, X: int, batches, vjp_batches, split_batch: int):
+    """The cell's bf16 operand path at one preset's shapes (no bias,
+    LayerNorm, eps 1e-3; x in bf16) at the batches of its paths: forward
+    against the plain bf16 cell (TOL_KERNEL), the hand VJP's five gradients
+    against autograd of the plain bf16 cell (TOL_GRAD_BF16), the variant,
+    device time beside the plain version's, the bound (``hafner_bound_bf16``)
+    and cuBLAS's GEMM of the same product on bf16 operands (``torch.matmul``);
+    the product and gates apart at ``split_batch``, the VJP's times at
+    ``vjp_batches``."""
+    import torch
+
+    from sheeprl_tpu_torch.kernels import ops, reference
+
+    bf = torch.bfloat16
+    rows = []
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for B in batches:
+            (h, x, w, b, s, lb), cot = _operands(B + 13, B, H, X, False, True)
+            args = (h, x.to(bf), w, b, s, lb)
+            kernel = lambda *a: ops.hafner_gru_cell(*a, eps=DV3_EPS)
+            plain = lambda *a: reference.hafner_cell(*a, eps=DV3_EPS)
+            before = ops.hafner_cell_launches.by_variant.get("bf16", 0)
+            out, grads = _vjp(kernel, args, cot)
+            if ops.hafner_cell_launches.by_variant.get("bf16", 0) != before + 1:
+                raise AssertionError(f"the bf16 cell at B={B} did not launch its bf16 variant")
+            p_out, p_grads = _vjp(plain, args, cot)
+            torch.cuda.synchronize()
+            err = (out - p_out).abs().max().item()
+            grad_err = _grad_rel_err([g.float() for g in grads], [g.float() for g in p_grads])
+            bound_ms, bound_by = hafner_bound_bf16(B, H, X, bias=False, ln=True)
+            ub, wb = torch.cat([h.to(bf), args[1]], dim=-1), w.to(bf)  # cuBLAS's product on bf16 operands
+            row = dict(B=B, H=H, X=X, bias=False, ln=True, eps=DV3_EPS, operands="bf16", max_abs_err=err,
+                       tol=TOL_KERNEL, grad_rel_err=grad_err, grad_tol=TOL_GRAD_BF16, gradients=len(grads),
+                       dx_dtype=str(grads[1].dtype), out_dtype=str(out.dtype),
+                       ms=device_ms(lambda: ops.hafner_cell_cuda(*args, eps=DV3_EPS)),
+                       plain_ms=device_ms(lambda: reference.hafner_cell(*args, eps=DV3_EPS)),
+                       cublas_product_ms=device_ms(lambda: torch.matmul(ub, wb)),
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       variant=ops.hafner_cell_variant(B, H, X, dtype=bf))
+            if B == split_batch:
+                row.update(product_split(args, B))
+            if B in vjp_batches:
+                row["vjp"] = vjp_times(args, cot, DV3_EPS)
+            print(f"[kernel] hafner_cell bf16 {label} " + json.dumps(row), flush=True)
+            rows.append(row)
+            if len(grads) != 5 or out.dtype != torch.float32 or grads[1].dtype != bf or "bf16" not in row["variant"]["product"]:
+                raise AssertionError(f"the bf16 cell at B={B}: {len(grads)} gradients, {row}")
+            if not (torch.isfinite(out).all() and err <= TOL_KERNEL and grad_err <= TOL_GRAD_BF16):
+                raise AssertionError(f"the bf16 cell at {label}'s B={B} disagrees with the plain bf16 cell: {row}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    return rows
+
+
+def phase_cell_bf16():
+    """The cell's bf16 operand path at BF16_CELL_SHAPES, the VJP at the
+    posterior's B=16 and the largest imagination batch, the product and
+    gates apart there. Returns the rows by preset."""
+    return {name: _cell_bf16_rows(name, H, X, batches, (16, max(batches)), max(batches))
+            for name, (H, X, batches) in BF16_CELL_SHAPES.items()}
+
+
 def vjp_bound(B: int, H: int, X: int, weight_grad: bool):
     """Least time of the cell's VJP without bias (``_bound``): z, h, the
     cotangent, W and the LayerNorm vectors read once, dh, dx and the
@@ -719,7 +1025,7 @@ def vjp_bound(B: int, H: int, X: int, weight_grad: bool):
     return _bound(bytes_, product, 18.0 * B * 3 * H + 20.0 * B * H)
 
 
-def vjp_times(args, cot, eps: float = DV3_EPS) -> dict:
+def vjp_times(args, cot, eps: float = DV3_EPS, timing=None) -> dict:
     """The cell's hand VJP (``ops.hafner_cell_vjp``, plain PyTorch
     operations) at the kernel's kept pre-activation: as DreamerV3's
     continuous imagination runs it (dh and dx: the world model is frozen
@@ -735,10 +1041,12 @@ def vjp_times(args, cot, eps: float = DV3_EPS) -> dict:
     full = lambda: ops.hafner_cell_vjp(h, x, w, b, s, lb, z, cot, eps)
     bound_ms, bound_by, simt_ms = vjp_bound(B, H, X, weight_grad=False)
     full_bound_ms, full_bound_by, _ = vjp_bound(B, H, X, weight_grad=True)
+    timing = timing or {}
     return {"B": B, "H": H, "X": X, "bias": b is not None,
-            "forward_ms": device_ms(lambda: ops.hafner_cell_cuda(h, x, w, b, s, lb, eps=eps)),
-            "ms": device_ms(inputs), "bound_ms": bound_ms, "bound_by": bound_by, "bound_f32_simt_ms": simt_ms,
-            "with_weight_grad_ms": device_ms(full), "with_weight_grad_bound_ms": full_bound_ms,
+            "forward_ms": device_ms(lambda: ops.hafner_cell_cuda(h, x, w, b, s, lb, eps=eps), **timing),
+            "ms": device_ms(inputs, **timing), "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_f32_simt_ms": simt_ms, "with_weight_grad_ms": device_ms(full, **timing),
+            "with_weight_grad_bound_ms": full_bound_ms,
             "with_weight_grad_bound_by": full_bound_by}
 
 
@@ -974,8 +1282,12 @@ class _PinnedSamples:
                 ("sheeprl_tpu_torch.algos.dreamer_v2.agent", "compute_stochastic_state"),
                 ("sheeprl_tpu_torch.algos.dreamer_v3.agent", "compute_stochastic_state"))
 
-    def __init__(self):
+    def __init__(self, greedy: bool = False):
+        """``greedy``: also the player's greedy discrete actions (the
+        evaluation's and the server's, ``dreamer_v3.agent``'s
+        ``sample_actor_actions``)."""
         self.choices, self.replay, self.index, self.flips, self.samples = [], False, 0, 0, 0
+        self.greedy = greedy
 
     def _pin(self, out, width: int):
         import torch.nn.functional as F
@@ -998,7 +1310,9 @@ class _PinnedSamples:
         import importlib
 
         self._saved = []
-        for module_name, attr in self._TARGETS:
+        targets = self._TARGETS + ((("sheeprl_tpu_torch.algos.dreamer_v3.agent", "sample_actor_actions"),)
+                                   if self.greedy else ())
+        for module_name, attr in targets:
             module = importlib.import_module(module_name)
             original = getattr(module, attr)
             self._saved.append((module, attr, original))
@@ -1006,7 +1320,9 @@ class _PinnedSamples:
                 def actions(dists, is_continuous, *args, _original=original, **kwargs):
                     out = _original(dists, is_continuous, *args, **kwargs)
                     training = kwargs.get("is_training", args[1] if len(args) > 1 else True)
-                    return out if is_continuous or not training else [self._pin(o, o.shape[-1]) for o in out]
+                    if is_continuous or not (training or self.greedy):
+                        return out
+                    return [self._pin(o, o.shape[-1]) for o in out]
 
                 setattr(module, attr, actions)
             else:
@@ -1022,34 +1338,99 @@ class _PinnedSamples:
         return False
 
 
-def _train_steps_kernel_and_plain(algo: str):
+def _trainer_width(algo: str) -> int:
+    """K = H + X of a bench preset's recurrent cell (recurrent state and its pre-layer's width)."""
+    from sheeprl_tpu_torch import configs
+    from sheeprl_tpu_torch.tools import bench_dreamer
+
+    _family, exp, *_ = bench_dreamer.PRESETS[algo]
+    cfg = configs.dreamer_v2_config(exp)
+    rm = cfg.algo.world_model.recurrent_model
+    return int(rm.recurrent_state_size) + int(rm.get("dense_units", cfg.algo.dense_units))
+
+
+def _train_steps_kernel_and_plain(algo: str, seed: int = 0, f64_cell: bool = False):
     """``_train_step_once`` on the kernel path, then on the plain-cell path
-    with the kernel path's discrete choices (``_PinnedSamples``). Returns
-    ``((kernel metrics, launches), (plain metrics, launches), {"samples",
-    "flips"})``."""
+    with the kernel path's discrete choices (``_PinnedSamples``), and with
+    ``f64_cell`` once more with the cell computed in f64 (``_f64_cell``), the
+    same choices pinned. Returns ``((kernel metrics, launches), (plain
+    metrics, launches), {"samples", "flips"})``, the f64 cell's metrics under
+    ``"f64_cell"`` of the last."""
     pins = _PinnedSamples()
+    f64 = None
     with pins:
-        kernel = _train_step_once(False, algo)
+        kernel = _train_step_once(False, algo, seed)
         pins.replay = True
-        plain = _train_step_once(True, algo)
-    if pins.index != len(pins.choices):
-        raise AssertionError(f"{algo}: the plain-cell step drew {pins.index} samples, the kernel step {len(pins.choices)}")
-    return kernel, plain, {"samples": pins.samples, "flips": pins.flips}
+        plain = _train_step_once(True, algo, seed)
+        if pins.index != len(pins.choices):
+            raise AssertionError(f"{algo}: the plain-cell step drew {pins.index} samples, the kernel step "
+                                 f"{len(pins.choices)}")
+        if f64_cell:
+            pins.index = 0
+            with _cell_in_f64():
+                f64, _ = _train_step_once(True, algo, seed)
+            if pins.index != len(pins.choices):
+                raise AssertionError(f"{algo}: the f64-cell step drew {pins.index} samples, the kernel step "
+                                     f"{len(pins.choices)}")
+    pinned = {"samples": pins.samples, "flips": pins.flips}
+    if f64_cell:
+        pinned["f64_cell"] = f64
+    return kernel, plain, pinned
 
 
-def _train_step_once(plain_cell: bool, algo: str = "dreamer_v2"):
-    """One full-width step of the bench preset ``algo`` at fixed weights (seed 0) and fixed noise, at τ=1."""
+@contextlib.contextmanager
+def _cell_in_f64():
+    """Within the block the plain cell (``kernels.reference.hafner_cell``) is ``_f64_cell``."""
+    from sheeprl_tpu_torch.kernels import reference
+
+    plain = reference.hafner_cell
+    reference.hafner_cell = _f64_cell
+    try:
+        yield
+    finally:
+        reference.hafner_cell = plain
+
+
+# the step's metrics in reward and return units (normalized advantages, returns, predictions, the entropy term),
+# means near 0 at random weights
+UNIT_METRICS = ("Loss/policy_loss", "User/LambdaValues", "User/Advantages", "User/PredictedRewards",
+                "User/PredictedValues", "User/Entropy")
+
+
+def _train_step_gaps(kernel_m: dict, plain_m: dict, algo: str):
+    """The kernel step's relative gap to the plain-cell step on each metric,
+    and each one's limit: losses TOL_TRAIN_LOSS, gradient norms and the other
+    metrics TOL_TRAIN_GRAD. At the L and XL widths the 3xTF32 product's error
+    against f32 grows with K = H + X, so the metrics' limit grows with K over
+    DreamerV3 100k's; and the policy loss and the User/ means (UNIT_METRICS),
+    means of O(1) terms that nearly cancel at random weights, are held in
+    their units: the gap over max(|plain|, 1). A near-zero mean amplifies any
+    rounding of the cell, f32's too (``python3 chip_smoke.py
+    --train-gaps``). Returns ``(gaps, limits)``."""
+    large = algo in ("dreamer_v3_L", "dreamer_v3_XL")
+    K = int(_trainer_width(algo))
+    tol_metric = TOL_TRAIN_GRAD * (max(1.0, K / (DV3_H + DV3_X)) if large else 1.0)
+    floor = {k: (1.0 if large and k in UNIT_METRICS else 1e-6) for k in kernel_m}
+    gaps = {k: abs(kernel_m[k] - plain_m[k]) / max(abs(plain_m[k]), floor[k]) for k in kernel_m}
+    limits = {k: TOL_TRAIN_LOSS if k.startswith("Loss/") else tol_metric for k in kernel_m}
+    return gaps, limits
+
+
+def _train_step_once(plain_cell: bool, algo: str = "dreamer_v2", seed: int = 0):
+    """One full-width step of the bench preset ``algo`` at fixed weights (``seed``) and fixed noise (SEED +
+    ``seed``), at τ=1."""
     import torch
 
     from sheeprl_tpu_torch.kernels import ops
     from sheeprl_tpu_torch.tools import bench_dreamer
 
     agent, train, actions, continuous = _trainer_modules(algo)
-    cfg, state, train_step, data = bench_dreamer.build_trainer("cuda", seed=0, algo=algo)
+    cfg, state, train_step, data = bench_dreamer.build_trainer("cuda", seed=seed, algo=algo)
     if plain_cell:
         agent.set_cell_impl(state["world_model"], "plain")
     T, B = data["rewards"].shape[:2]
-    noise = train.draw_noise(cfg, actions, T, B, torch.Generator(device="cuda").manual_seed(SEED), "cuda", continuous)
+    noise = train.draw_noise(cfg, actions, T, B, torch.Generator(device="cuda").manual_seed(SEED + seed), "cuda",
+                             continuous)
     before = ops.hafner_cell_launches.count
     metrics = {k: float(v) for k, v in train_step(state, data, noise=noise, tau=1.0).items()}
     launches = ops.hafner_cell_launches.count - before
@@ -1268,7 +1649,7 @@ def phase_train_dv3(card: str, algo: str = "dreamer_v3"):
     from sheeprl_tpu_torch.tools import bench_dreamer
     from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
 
-    tag = "train_dv3" if algo == "dreamer_v3" else "train_walker"
+    tag = {"dreamer_v3": "train_dv3", "dreamer_v3_walker": "train_walker"}.get(algo, f"train_{algo.replace('dreamer_v', 'dv')}")
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
             torch.backends.cudnn.deterministic)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -1279,15 +1660,13 @@ def phase_train_dv3(card: str, algo: str = "dreamer_v3"):
     finally:
         (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
          torch.backends.cudnn.deterministic) = prev
-    rel = {k: abs(kernel_m[k] - plain_m[k]) / max(abs(plain_m[k]), 1e-6) for k in kernel_m}
-    # losses at TOL_TRAIN_LOSS; gradient norms and the other metrics (the User/ means of returns, advantages
-    # and predictions, near 0 at random weights) at TOL_TRAIN_GRAD
-    bad = [k for k, r in rel.items() if r > (TOL_TRAIN_LOSS if k.startswith("Loss/") else TOL_TRAIN_GRAD)]
+    rel, limits = _train_step_gaps(kernel_m, plain_m, algo)
+    bad = [k for k, r in rel.items() if r > limits[k]]
     bad += [k for k, v in kernel_m.items() if not math.isfinite(v)]
     held = _steps_diff(graphed, eager)
-    line = {"kernel_vs_plain": {"kernel": kernel_m, "plain": plain_m, "rel_diff": rel, "tol_loss": TOL_TRAIN_LOSS,
-                                "tol_grad": TOL_TRAIN_GRAD, "cell_launches": {"kernel": kernel_n, "plain": plain_n},
-                                "pinned_samples": pinned},
+    line = {"kernel_vs_plain": {"kernel": kernel_m, "plain": plain_m, "rel_diff": rel, "limits": limits,
+                                "cell_K": int(_trainer_width(algo)),
+                                "cell_launches": {"kernel": kernel_n, "plain": plain_n}, "pinned_samples": pinned},
             "graphed_vs_eager": {"steps": GRAPH_STEPS, "taus": eager["taus"],
                                  "cudnn_deterministic": held, "graph": graphed["graph"],
                                  "launches": {"eager": eager["launches"], "graphed": graphed["launches"]}}}
@@ -1301,7 +1680,7 @@ def phase_train_dv3(card: str, algo: str = "dreamer_v3"):
             raise AssertionError(f"{tag}: the cell launched {run['launches']} times in {GRAPH_STEPS} steps")
     if graphed["graph"] != {"eager_calls": WARMUP_CALLS, "replays": GRAPH_STEPS - WARMUP_CALLS, "captured": True}:
         raise AssertionError(f"{tag}: the graphed steps ran as {graphed['graph']}")
-    split = imagination_split(algo) if algo != "dreamer_v3" else None
+    split = imagination_split(algo) if algo == "dreamer_v3_walker" else None
 
     result = bench_dreamer.compare(steps=DV3_TRAIN_STEPS, device="cuda", profile=True, algo=algo)
     result["card"] = card
@@ -1315,6 +1694,9 @@ def phase_train_dv3(card: str, algo: str = "dreamer_v3"):
         if side["hafner_cell_launches"] != DV3_CELL_LAUNCHES_PER_STEP * DV3_TRAIN_STEPS or side["hafner_sequence_launches"]:
             raise AssertionError(f"{tag}: the {mode} steps launched the cell {side['hafner_cell_launches']} times "
                                  f"and the sequence {side['hafner_sequence_launches']} times")
+        if side["hafner_cell_launches_by_operand_dtype"] != {"f32": side["hafner_cell_launches"]}:
+            raise AssertionError(f"{tag}: the {mode} cell launches by operand dtype "
+                                 f"{side['hafner_cell_launches_by_operand_dtype']}")
     launches = {"hafner_cell": result["graphed"]["hafner_cell_launches"],
                 "hafner_sequence": result["graphed"]["hafner_sequence_launches"]}
     return launches, max(rel.values()), {k: held[k] for k in ("metric_max_rel_err", "param_max_rel_err", "bit_for_bit")}
@@ -1392,11 +1774,13 @@ def phase_train_p2e(card: str, algo: str):
         (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
          torch.backends.cudnn.deterministic) = prev
     rel = {k: abs(kernel_m[k] - plain_m[k]) / max(abs(plain_m[k]), 1e-6) for k in kernel_m}
-    bad = [k for k, r in rel.items() if r > (TOL_TRAIN_LOSS if k.startswith("Loss/") else TOL_TRAIN_GRAD)]
+    bf16 = algo.endswith("_bf16")
+    tol_loss, tol_grad = (TOL_TRAIN_BF16, TOL_TRAIN_BF16) if bf16 else (TOL_TRAIN_LOSS, TOL_TRAIN_GRAD)
+    bad = [k for k, r in rel.items() if r > (tol_loss if k.startswith("Loss/") else tol_grad)]
     bad += [k for k, v in kernel_m.items() if not math.isfinite(v)]
     held = _steps_diff(graphed, eager)
-    line = {"kernel_vs_plain": {"kernel": kernel_m, "plain": plain_m, "rel_diff": rel, "tol_loss": TOL_TRAIN_LOSS,
-                                "tol_grad": TOL_TRAIN_GRAD, "cell_launches": {"kernel": kernel_n, "plain": plain_n},
+    line = {"kernel_vs_plain": {"kernel": kernel_m, "plain": plain_m, "rel_diff": rel, "tol_loss": tol_loss,
+                                "tol_grad": tol_grad, "cell_launches": {"kernel": kernel_n, "plain": plain_n},
                                 "pinned_samples": pinned},
             "graphed_vs_eager": {"steps": GRAPH_STEPS, "taus": eager["taus"], "tol": TOL_GRAPHED,
                                  "cudnn_deterministic": held, "graph": graphed["graph"],
@@ -1423,6 +1807,9 @@ def phase_train_p2e(card: str, algo: str):
         if side["hafner_cell_launches"] != per_step * P2E_TRAIN_STEPS or side["hafner_sequence_launches"]:
             raise AssertionError(f"{tag}: the {mode} steps launched the cell {side['hafner_cell_launches']} times "
                                  f"and the sequence {side['hafner_sequence_launches']} times")
+        if side["hafner_cell_launches_by_operand_dtype"] != {"bf16" if bf16 else "f32": side["hafner_cell_launches"]}:
+            raise AssertionError(f"{tag}: the {mode} cell launches by operand dtype "
+                                 f"{side['hafner_cell_launches_by_operand_dtype']}")
     launches = {"hafner_cell": result["graphed"]["hafner_cell_launches"],
                 "hafner_sequence": result["graphed"]["hafner_sequence_launches"]}
     return launches, max(rel.values()), {k: held[k] for k in ("metric_max_rel_err", "param_max_rel_err", "bit_for_bit")}
@@ -1543,9 +1930,10 @@ def _check_sequential_buffer(ckpt, args=RUN_DV3_ARGS, obs_keys=("rgb",)) -> dict
     from sheeprl_tpu_torch.ckpt import read_checkpoint
     from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 
-    opts = dict(a.split("=", 1) for a in args)
+    del args  # the envs and each one's size come from the checkpoint
     rb_state = read_checkpoint(ckpt, verify=True)["rb"]
-    fresh = EnvIndependentReplayBuffer(int(opts["buffer.size"]), n_envs=1, obs_keys=tuple(obs_keys),
+    per_env = next(iter(rb_state["buffers"][0]["buffer"].values())).shape[0]
+    fresh = EnvIndependentReplayBuffer(per_env, n_envs=len(rb_state["buffers"]), obs_keys=tuple(obs_keys),
                                        buffer_cls=SequentialReplayBuffer)
     fresh.load_state_dict(rb_state)
     restored = fresh.state_dict()["buffers"]
@@ -1557,8 +1945,34 @@ def _check_sequential_buffer(ckpt, args=RUN_DV3_ARGS, obs_keys=("rgb",)) -> dict
     steps = int(rb_state["buffers"][0]["pos"])
     if not same or steps == 0:
         raise AssertionError(f"the checkpoint's sequential buffer ({steps} steps) did not restore equal")
-    return {"steps": steps, "full": bool(rb_state["buffers"][0]["full"]),
+    return {"steps": steps, "envs": len(rb_state["buffers"]), "full": bool(rb_state["buffers"][0]["full"]),
             "keys": sorted(rb_state["buffers"][0]["buffer"]), "restored_state_dict_equal": True}
+
+
+def _f32_parameters(ckpt) -> dict:
+    """Every floating array of the checkpoint's agent (the modules'
+    parameters, the optimizers' state) is f32, at any precision: bf16-mixed
+    computes in bf16 and keeps its parameters in f32. Returns the counts."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.ckpt import read_checkpoint
+
+    dtypes = {}
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        elif isinstance(node, np.ndarray) and np.issubdtype(node.dtype, np.floating):
+            dtypes[str(node.dtype)] = dtypes.get(str(node.dtype), 0) + 1
+
+    walk(read_checkpoint(ckpt, with_rb=False)["agent"])
+    if set(dtypes) != {"float32"}:
+        raise AssertionError(f"the checkpoint's agent holds floating arrays of {dtypes}")
+    return {"float32_arrays": dtypes["float32"]}
 
 
 def _greedy_against_plain(ckpt) -> dict:
@@ -1635,6 +2049,16 @@ RUN_SPECS = {
                        per_step=DV3_CELL_LAUNCHES_PER_STEP, log_steps=RUN_WALKER_LOG_STEPS, learning_starts=1024,
                        buffer=lambda ckpt: _check_sequential_buffer(ckpt, RUN_WALKER_ARGS, tuple(WALKER_OBS)),
                        obs=WALKER_OBS, continuous=True),
+    # (updates, player steps, gradient steps, test steps) read off the loop's counters, as for run_dv3; the test
+    # episode is one stand-in episode
+    "run_dv3_L": dict(args=RUN_L_ARGS, counts=(136, 8, 9, STAND_IN_EPISODE), per_step=DV3_CELL_LAUNCHES_PER_STEP,
+                      log_steps=(256, 512, 768, 1024, 1088), learning_starts=1024,
+                      buffer=lambda ckpt: _check_sequential_buffer(ckpt, RUN_L_ARGS, tuple(DOAPP_L_OBS)),
+                      obs=DOAPP_L_OBS, continuous=False, actions=DOAPP_ACTIONS),
+    "run_dv3_XL": dict(args=RUN_XL_ARGS, counts=(144, 16, 9, STAND_IN_EPISODE), per_step=DV3_CELL_LAUNCHES_PER_STEP,
+                       log_steps=(64, 128, 144), learning_starts=128,
+                       buffer=lambda ckpt: _check_sequential_buffer(ckpt, RUN_XL_ARGS, tuple(CRAFTER_OBS)),
+                       obs=CRAFTER_OBS, continuous=False, actions=CRAFTER_ACTIONS),
 }
 
 
@@ -1650,10 +2074,11 @@ def phase_run(card: str, name: str = "run", keep_root=None):
     actions within TOL_CONTINUOUS_ACTION, and its greedy best-of-100 actions
     too, ``_greedy_against_plain``). The cell's launches on the run must be the
     player steps + the cell steps of each gradient step (65 DV2, 79 DV3) +
-    the test episode's steps. A second, profiled run (the same work) gives
-    the device's busy time, its idle share read against the first run's
-    wall time, and the number of the cell's gate kernels the device ran,
-    which must equal the counters of that run. The run writes under
+    the test episode's steps. The run is traced (``torch.profiler``, CUDA
+    activity only), so its rates are read under the profiler: the trace
+    gives the device's busy time, its idle share over the run's wall time,
+    and the number of the cell's gate kernels the device ran, which must
+    equal the run's counters. The run writes under
     ``keep_root`` when given (its checkpoint outlives the phase). Returns
     the run's launches and its checkpoint."""
     import tempfile
@@ -1674,7 +2099,8 @@ def phase_run(card: str, name: str = "run", keep_root=None):
         torch.cuda.reset_peak_memory_stats()
         ops.hafner_cell_launches.reset()
         ops.hafner_sequence_launches.reset()
-        result, wall = _run_once(root, name, spec["args"])
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            result, wall = _run_once(root, name, spec["args"])
         launches = {"hafner_cell": ops.hafner_cell_launches.count, "hafner_sequence": ops.hafner_sequence_launches.count}
         peak = torch.cuda.max_memory_allocated()
 
@@ -1702,6 +2128,7 @@ def phase_run(card: str, name: str = "run", keep_root=None):
         manifest = validate_checkpoint(ckpt, deep=True)
         ckpt_bytes = sum(manifest["files"].values())
         replay = spec["buffer"](ckpt)
+        f32_parameters = _f32_parameters(ckpt)
 
         stamps.append(("checks", time.perf_counter()))
         t0 = time.perf_counter()
@@ -1722,7 +2149,7 @@ def phase_run(card: str, name: str = "run", keep_root=None):
             action_err = float(np.abs(actions - p_actions).max())
             agree = action_err <= TOL_CONTINUOUS_ACTION
         else:
-            in_range = ((actions >= 0) & (actions < RUN_ACTIONS)).all()
+            in_range = ((actions >= 0) & (actions < spec.get("actions", RUN_ACTIONS))).all()
             action_err = float((actions != p_actions).sum())
             agree = action_err == 0
         if not in_range or not torch.isfinite(states).all():
@@ -1738,17 +2165,12 @@ def phase_run(card: str, name: str = "run", keep_root=None):
         del model, plain
         stamps.append(("serve", time.perf_counter()))
 
-        ops.hafner_cell_launches.reset()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _result2, wall2 = _run_once(root, "profiled", spec["args"])
-        profiled_launches = ops.hafner_cell_launches.count
-        stamps.append(("profiled_run", time.perf_counter()))
         busy_us, found = trace_summary(prof, ("hafner_gates_kernel", "hafner_product_kernel"))
         stamps.append(("trace_read", time.perf_counter()))
         gate_kernels, product_kernels = found["hafner_gates_kernel"], found["hafner_product_kernel"]
-        if gate_kernels != profiled_launches:
+        if gate_kernels != launches["hafner_cell"]:
             raise AssertionError(
-                f"the trace holds {gate_kernels} hafner_gates_kernel runs, the counters {profiled_launches} launches"
+                f"the trace holds {gate_kernels} hafner_gates_kernel runs, the counters {launches['hafner_cell']} launches"
             )
 
     seconds = result["seconds"]
@@ -1779,12 +2201,12 @@ def phase_run(card: str, name: str = "run", keep_root=None):
         "hafner_cell_launches": launches["hafner_cell"],
         "hafner_cell_launches_predicted": predicted,
         "hafner_sequence_launches": launches["hafner_sequence"],
-        "profiled_run_cell_launches": profiled_launches,
-        "profiled_run_gate_kernels_in_trace": gate_kernels,
-        "profiled_run_product_kernels_in_trace": product_kernels,
+        "gate_kernels_in_trace": gate_kernels,
+        "product_kernels_in_trace": product_kernels,
         "event_file": events,
         "checkpoint_bytes": ckpt_bytes,
         "checkpoint_buffer": replay,
+        "checkpoint_parameters": f32_parameters,
         "checkpoint_write_ms": stats["write_ms"],
         "checkpoint_blocked_ms": stats["blocked_ms"],
         "load_gateway_model_cold_start_s": cold_start_s,
@@ -1796,11 +2218,13 @@ def phase_run(card: str, name: str = "run", keep_root=None):
         "plain_replay_state_max_abs_err": state_err,
         "greedy_best_of_samples": greedy,
         "peak_device_memory_bytes": peak,
-        "profiled_run_wall_s": wall2,
-        # the phase's own seconds, part by part (the profiled run's includes stopping the profiler)
+        # the phase's own seconds, part by part (the run's includes stopping the profiler)
         "phase_seconds": {k: t - stamps[i][1] for i, (k, t) in enumerate(stamps[1:])},
         "device_busy_s": busy_us / 1e6,
+        # over the traced run's wall time (the profiler adds host time, so this share is an upper bound on an
+        # untraced run's)
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "rates_under_profiler": True,
         "card": card,
     }
     print(f"[{name}] " + json.dumps(line), flush=True)
@@ -1876,11 +2300,14 @@ def _registry_lines(reg: str) -> int:
         return sum(1 for line in f if line.strip())
 
 
-def _eval_command(name: str, ckpt: str, algo: str, reg: str, continuous: bool) -> dict:
+def _eval_command(name: str, ckpt: str, algo: str, reg: str, continuous: bool, pinned: bool = False) -> dict:
     """``cli.evaluation`` of ``ckpt`` at eval.episodes=10 on the card: eval.json
     with the JAX keys, one registry line, cell launches equal to the pool
     steps, and every pool step's actions against a plain-cell evaluation at
-    the same seeds (equal; continuous ones within TOL_CONTINUOUS_ACTION)."""
+    the same seeds (equal; continuous ones within TOL_CONTINUOUS_ACTION).
+    ``pinned`` (a bf16 checkpoint): the plain evaluation takes the kernel
+    one's posterior samples and greedy actions (``_PinnedSamples``), at most
+    TOL_FLIPS_BF16 of which its own scores would have flipped."""
     import numpy as np
     import torch
 
@@ -1889,7 +2316,8 @@ def _eval_command(name: str, ckpt: str, algo: str, reg: str, continuous: bool) -
     from sheeprl_tpu_torch.kernels import ops
 
     lines = _registry_lines(reg)
-    with _RecordingBuilder(algo) as kernel:
+    pins = _PinnedSamples(greedy=True) if pinned else contextlib.nullcontext()
+    with pins, _RecordingBuilder(algo) as kernel:
         ops.hafner_cell_launches.reset()
         ops.hafner_sequence_launches.reset()
         torch.cuda.synchronize()
@@ -1900,8 +2328,13 @@ def _eval_command(name: str, ckpt: str, algo: str, reg: str, continuous: bool) -
         wall = time.perf_counter() - t0
         launches = {"hafner_cell": ops.hafner_cell_launches.count,
                     "hafner_sequence": ops.hafner_sequence_launches.count}
-    with _RecordingBuilder(algo, plain_cell=True) as plain:
+    if pinned:
+        pins.replay = True
+    with pins, _RecordingBuilder(algo, plain_cell=True) as plain:
         p_result = evaluate_checkpoint(ckpt, episodes=EVAL_EPISODES, seed0=EVAL_SEED0, write_registry=False)
+    flips = {"samples": pins.samples, "flips": pins.flips} if pinned else None
+    if pinned and (pins.index != len(pins.choices) or pins.flips > TOL_FLIPS_BF16 * pins.samples):
+        raise AssertionError(f"{name}: pinned samples {pins.index} of {len(pins.choices)}, {pins.flips} flips")
     with open(result["path"]) as f:
         written = json.load(f)
     if set(result) != EVAL_JSON_KEYS or set(written) != EVAL_JSON_KEYS - {"path"} or written["returns"] != result["returns"]:
@@ -1924,7 +2357,7 @@ def _eval_command(name: str, ckpt: str, algo: str, reg: str, continuous: bool) -
            "mean": result["mean"], "iqm": result["iqm"], "policy_version": result["policy_version"],
            "config_hash": result["config_hash"], "pool_steps": steps, "hafner_cell_launches": launches["hafner_cell"],
            "pool_steps_per_s": kernel.steps_per_s(), "plain_cell_pool_steps_per_s": plain.steps_per_s(),
-           "command_wall_s": wall,
+           "command_wall_s": wall, "pinned_samples": flips,
            "plain_cell_action_max_abs_err" if continuous else "plain_cell_actions_differing": err}
     return {"row": row, "launches": launches, "actions": actions, "result": result}
 
@@ -2156,6 +2589,11 @@ P2E_TAGS = {
                             "Loss/value_loss_exploration", "Loss/policy_loss_task", "Loss/value_loss_task",
                             "Rewards/intrinsic", "Grads/ensemble", "Grads/critic_exploration"),
     "p2e_dv3_finetuning": ("Loss/world_model_loss", "Loss/policy_loss", "Loss/value_loss", "Grads/actor"),
+    "p2e_dv3_L_bf16_exploration": ("Loss/world_model_loss", "Loss/ensemble_loss", "Loss/policy_loss_exploration",
+                                   "Loss/value_loss_exploration_intrinsic", "Loss/value_loss_exploration_extrinsic",
+                                   "Loss/policy_loss_task", "Loss/value_loss_task", "Rewards/intrinsic_intrinsic",
+                                   "Grads/ensemble", "Grads/actor_exploration"),
+    "p2e_dv3_L_bf16_finetuning": ("Loss/world_model_loss", "Loss/policy_loss", "Loss/value_loss", "Grads/actor"),
     "p2e_dv2_finetuning": ("Loss/world_model_loss", "Loss/policy_loss", "Loss/value_loss", "Grads/actor"),
 }
 
@@ -2200,7 +2638,8 @@ def _check_p2e_run(tag: str, result, counts, per_step: int) -> dict:
     ckpt = result["checkpoint"]
     manifest = validate_checkpoint(ckpt, deep=True)
     return {"predicted_cell_launches": predicted, "graphs": result["graphs"], "checkpoint": ckpt,
-            "checkpoint_bytes": sum(manifest["files"].values()), "tags_at_last_log": len(last),
+            "checkpoint_bytes": sum(manifest["files"].values()), "checkpoint_parameters": _f32_parameters(ckpt),
+            "tags_at_last_log": len(last),
             "last_losses": {t: last[t] for t in P2E_TAGS[tag]}}
 
 
@@ -2211,8 +2650,9 @@ def phase_run_p2e(card: str, family: str, work: str):
     exploration actor to the task actor inside the run; each run's cell
     launches equal to its counters' prediction (acting steps, P2E_STEP_LAUNCHES
     or P2E_FINETUNING_STEP_LAUNCHES a gradient step, test steps), checked
-    one run at a time, and a second, profiled exploration run whose trace
-    holds as many gate kernels as its counters. Then the ``evaluation``
+    one run at a time; the exploration run is traced (its rates read under
+    the profiler), and its trace holds as many gate kernels as its counters.
+    Then the ``evaluation``
     command on the finetuning checkpoint (``_eval_command``: actions equal
     to a plain-cell evaluation's) and ``load_gateway_model`` serving its task
     actor to RUN_CLIENTS lockstep clients, equal to a plain-cell replay.
@@ -2235,68 +2675,107 @@ def phase_run_p2e(card: str, family: str, work: str):
         torch.cuda.reset_peak_memory_stats()
         ops.hafner_cell_launches.reset()
         ops.hafner_sequence_launches.reset()
-        result, wall = _run_once(root, tag, args)
+        traced = phase == "exploration"
+        with (profile(activities=[ProfilerActivity.CUDA]) if traced else contextlib.nullcontext()) as prof:
+            result, wall = _run_once(root, tag, args)
+        if traced:
+            exploration_prof = prof
         launches = {"hafner_cell": ops.hafner_cell_launches.count, "hafner_sequence": ops.hafner_sequence_launches.count}
+        bf16_launches = ops.hafner_cell_launches.by_variant.get("bf16", 0)
         line = _check_p2e_run(tag, result, spec[f"{phase}_counts"], per_step)
         if launches != {"hafner_cell": line["predicted_cell_launches"], "hafner_sequence": 0}:
             raise AssertionError(f"{tag}: launches {launches}, predicted {line['predicted_cell_launches']} of the cell")
         ckpt = result["checkpoint"]
         by_path[f"run_{tag}"] = launches
+        # a bf16-mixed preset's cell runs its bf16 operand path on every launch, an f32 preset's never
+        if bf16_launches != (launches["hafner_cell"] if spec.get("bf16") else 0):
+            raise AssertionError(f"{tag}: {bf16_launches} of {launches['hafner_cell']} cell launches took the bf16 path")
         line.update(run_args=list(args), wall_s=wall, policy_steps_per_s=result["policy_steps"] / wall,
+                    hafner_cell_bf16_launches=bf16_launches,
                     gradient_steps_per_s=result["gradient_steps"] / result["seconds"]["train"],
                     seconds=result["seconds"], player_steps_by_actor=result["player_steps_by_actor"],
                     actor_switched_at=result["actor_switched_at"], hafner_cell_launches=launches["hafner_cell"],
                     peak_device_memory_bytes=torch.cuda.max_memory_allocated(), prefetch=result["prefetch"])
         lines[phase] = line
 
-    ops.hafner_cell_launches.reset()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _result, profiled_wall = _run_once(root, f"{family}_exploration_profiled", spec["exploration"])
-    profiled_launches = ops.hafner_cell_launches.count
-    busy_us, found = trace_summary(prof, ("hafner_gates_kernel", "hafner_product_kernel"))
-    if found["hafner_gates_kernel"] != profiled_launches:
+    explored = by_path[f"run_{family}_exploration"]["hafner_cell"]
+    busy_us, found = trace_summary(exploration_prof, ("hafner_gates_kernel", "hafner_product_kernel"))
+    if found["hafner_gates_kernel"] != explored:
         raise AssertionError(f"{family}: the trace holds {found['hafner_gates_kernel']} gate kernels, the counters "
-                             f"{profiled_launches} launches")
+                             f"{explored} launches")
     lines["exploration"].update(
-        profiled_run_cell_launches=profiled_launches, profiled_run_gate_kernels_in_trace=found["hafner_gates_kernel"],
-        profiled_run_wall_s=profiled_wall, device_busy_s=busy_us / 1e6,
-        device_idle_share=1.0 - busy_us / 1e6 / lines["exploration"]["wall_s"],
+        gate_kernels_in_trace=found["hafner_gates_kernel"], device_busy_s=busy_us / 1e6,
+        # over the traced run's wall time: an upper bound on an untraced run's idle share
+        device_idle_share=1.0 - busy_us / 1e6 / lines["exploration"]["wall_s"], rates_under_profiler=True,
     )
 
-    evaluated = _eval_command(f"{family}_finetuning eval", ckpt, f"{family}_finetuning", os.path.join(work, "registry"),
-                              False)
+    algo = spec.get("algo", family)  # the runs' algorithm family (the L presets' is p2e_dv3)
+    bf16 = bool(spec.get("bf16"))
+    evaluated = _eval_command(f"{family}_finetuning eval", ckpt, f"{algo}_finetuning", os.path.join(work, "registry"),
+                              False, pinned=bf16)
     by_path[f"eval_{family}"] = evaluated["launches"]
 
     model, cfg, *_ = load_gateway_model(ckpt, device="cuda")
     plain, *_ = load_gateway_model(ckpt, device="cuda", plain_cell=True)
-    frames = _serve_frames(OBS, np.random.RandomState(SEED))
+    frames = _serve_frames(spec.get("obs", OBS), np.random.RandomState(SEED))
     ops.hafner_cell_launches.reset()
     ops.hafner_sequence_launches.reset()
-    actions, states, serve_wall, status = serve_lockstep(model, frames, seed=SEED)
+    pins = _PinnedSamples(greedy=True) if bf16 else contextlib.nullcontext()
+    with pins:
+        actions, states, serve_wall, status = serve_lockstep(model, frames, seed=SEED)
     by_path[f"serve_{family}"] = {"hafner_cell": ops.hafner_cell_launches.count,
                                   "hafner_sequence": ops.hafner_sequence_launches.count}
-    p_actions, p_states, _w, p_status = serve_lockstep(plain, frames, seed=SEED)
+    if bf16:
+        pins.replay = True
+    with pins:
+        p_actions, p_states, _w, p_status = serve_lockstep(plain, frames, seed=SEED)
     differing = int((actions != p_actions).sum())
     state_err = (states - p_states).abs().max().item()
+    served_flips = {"samples": pins.samples, "flips": pins.flips} if bf16 else None
+    if bf16 and (pins.index != len(pins.choices) or pins.flips > TOL_FLIPS_BF16 * pins.samples):
+        raise AssertionError(f"{family}: served pinned samples {pins.index} of {len(pins.choices)}, {pins.flips} flips")
     if status["failed_requests"] or p_status["failed_requests"] or status["requests"] != RUN_CLIENTS * RUN_REQUESTS:
         raise AssertionError(f"{family}: served {status['requests']} requests, {status['failed_requests']} failed")
-    if differing or state_err > TOL_STATE or not ((actions >= 0) & (actions < RUN_ACTIONS)).all():
+    if differing or state_err > (TOL_STATE_BF16 if bf16 else TOL_STATE) or not (
+            (actions >= 0) & (actions < spec.get("actions", RUN_ACTIONS))).all():
         raise AssertionError(f"{family}: served actions differ from a plain-cell replay in {differing}, state {state_err}")
-    if by_path[f"serve_{family}"]["hafner_cell"] != status["batches"] or model.algo != f"{family}_finetuning":
+    if by_path[f"serve_{family}"]["hafner_cell"] != status["batches"] or model.algo != f"{algo}_finetuning":
         raise AssertionError(f"{family}: served {model.algo}, cell launches {by_path[f'serve_{family}']} "
                              f"for {status['batches']} batches")
     del model, plain
     line = {**lines, "eval": evaluated["row"],
-            "serve": {"algo": f"{family}_finetuning", "requests": status["requests"], "batches": status["batches"],
+            "serve": {"algo": f"{algo}_finetuning", "requests": status["requests"], "batches": status["batches"],
                       "requests_per_s": status["requests"] / serve_wall, "plain_replay_actions_differing": differing,
-                      "plain_replay_state_max_abs_err": state_err},
+                      "plain_replay_state_max_abs_err": state_err, "pinned_samples": served_flips},
             "card": card}
     print(f"[run_{family}] " + json.dumps(line), flush=True)
     return by_path, line
 
 
+class _PhaseClock:
+    """Each phase's wall seconds (printed as the ``[timing]`` line): the
+    script must stay inside its 1,200 s limit on a slow host."""
+
+    def __init__(self):
+        self.seconds, self.start = {}, time.perf_counter()
+
+    def __call__(self, name: str, fn, *args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            self.seconds[name] = round(self.seconds.get(name, 0.0) + time.perf_counter() - t, 1)
+            print(f"[timing] {name} {time.perf_counter() - t:.1f} s (total {time.perf_counter() - self.start:.1f} s)",
+                  flush=True)
+
+    def line(self) -> dict:
+        return {"total_s": round(time.perf_counter() - self.start, 1), "phases_s": self.seconds}
+
+
 def main() -> int:
     import torch
+
+    clock = _PhaseClock()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs only on the card", file=sys.stderr)
@@ -2322,34 +2801,48 @@ def main() -> int:
     if not any(form.startswith("HGMMA") for form in sass):
         raise AssertionError("the built library has no HGMMA (wgmma) instruction")
 
-    serve_rows = phase_kernels()
-    train_rows = phase_cell_training()
-    dv3_rows = phase_cell_dv3()
-    p2e_rows = phase_cell_p2e()
-    seq_rows = phase_sequence()
+    serve_rows = clock("kernels", phase_kernels)
+    train_rows = clock("cell_training", phase_cell_training)
+    dv3_rows = clock("cell_dv3", phase_cell_dv3)
+    p2e_rows = clock("cell_p2e", phase_cell_p2e)
+    large_rows = clock("cell_l_xl", phase_cell_large)
+    bf16_rows = clock("cell_bf16", phase_cell_bf16)
+    seq_rows = clock("sequence", phase_sequence)
     # launches per kernel, read on each path's run with the counts zeroed just before it
-    by_path = {"serve": phase_slice(card)}
-    by_path["bench_kernels"], bench_line = phase_bench_kernels()
-    by_path["train"], train_rel_diff, graph_line = phase_train(card)
-    by_path["train_dv3"], dv3_rel_diff, dv3_graph_line = phase_train_dv3(card)
-    by_path["train_walker"], walker_rel_diff, walker_graph_line = phase_train_dv3(card, "dreamer_v3_walker")
-    by_path["train_dv2_continuous"], dv2_continuous_graph_line = phase_train_dv2_continuous(card)
+    by_path = {"serve": clock("slice", phase_slice, card)}
+    by_path["bench_kernels"], bench_line = clock("bench_kernels", phase_bench_kernels)
+    by_path["train"], train_rel_diff, graph_line = clock("train", phase_train, card)
+    by_path["train_dv3"], dv3_rel_diff, dv3_graph_line = clock("train_dv3", phase_train_dv3, card)
+    by_path["train_walker"], walker_rel_diff, walker_graph_line = clock("train_walker", phase_train_dv3, card,
+                                                                        "dreamer_v3_walker")
+    by_path["train_dv2_continuous"], dv2_continuous_graph_line = clock("train_dv2_continuous",
+                                                                       phase_train_dv2_continuous, card)
     p2e_train = {}
-    for algo in ("p2e_dv3", "p2e_dv3_continuous", "p2e_dv2"):
-        by_path[f"train_{algo}"], rel_diff, graphed = phase_train_p2e(card, algo)
+    for algo in ("p2e_dv3", "p2e_dv3_continuous", "p2e_dv2", "p2e_dv3_L_bf16"):
+        by_path[f"train_{algo}"], rel_diff, graphed = clock(f"train_{algo}", phase_train_p2e, card, algo)
         p2e_train[algo] = {"train_step_rel_diff_vs_plain": rel_diff, "graphed_vs_eager_cudnn_deterministic": graphed}
-    by_path["run"], _ckpt = phase_run(card, "run")
+    large_train = {}
+    for algo in ("dreamer_v3_L", "dreamer_v3_XL"):
+        tag = f"train_{algo.replace('dreamer_v', 'dv')}"
+        by_path[tag], rel_diff, graphed = clock(tag, phase_train_dv3, card, algo)
+        large_train[algo] = {"train_step_rel_diff_vs_plain": rel_diff, "graphed_vs_eager_cudnn_deterministic": graphed}
+    by_path["run"], _ckpt = clock("run", phase_run, card, "run")
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_serve_") as work:
-        by_path["run_dv3"], dv3_ckpt = phase_run(card, "run_dv3", keep_root=os.path.join(work, "run_dv3"))
-        by_path["run_walker"], walker_ckpt = phase_run(card, "run_walker", keep_root=os.path.join(work, "run_walker"))
-        by_path.update(phase_eval_serve(card, work, dv3_ckpt, walker_ckpt))
+        by_path["run_dv3"], dv3_ckpt = clock("run_dv3", phase_run, card, "run_dv3",
+                                             keep_root=os.path.join(work, "run_dv3"))
+        by_path["run_walker"], walker_ckpt = clock("run_walker", phase_run, card, "run_walker",
+                                                   keep_root=os.path.join(work, "run_walker"))
+        by_path.update(clock("eval_serve", phase_eval_serve, card, work, dv3_ckpt, walker_ckpt))
         for family in RUN_P2E_SPECS:
-            paths, _line = phase_run_p2e(card, family, work)
+            paths, _line = clock(f"run_{family}", phase_run_p2e, card, family, work)
             by_path.update(paths)
+    for name in ("run_dv3_L", "run_dv3_XL"):
+        by_path[name], _ckpt = clock(name, phase_run, card, name)
 
     cell_row = next(r for r in train_rows if r["B"] == 1600)
+    bf16_row = next(r for r in bf16_rows["p2e_dv3_L"] if r["B"] == 1024)
     seq_row = seq_rows[0]
     if {v for r in seq_rows for v in r["variants"]} != {"persistent", "multi_launch"}:
         raise AssertionError("the run did not launch both variants of the sequence")
@@ -2359,13 +2852,13 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/kernels/csrc/hafner_gru.cu",
             "replaces": "sheeprl_tpu/kernels/pallas_tpu.py:67",
-            # the main paths' runs: the DV2 MsPacman preset's, the DV3 100k preset's, the DV3 walker preset's and
-            # the P2E presets' exploration and finetuning runs
+            # the main paths' f32 runs: the DV2 MsPacman preset's, the DV3 100k, walker, L and XL presets' and
+            # the f32 P2E presets' exploration and finetuning runs (the bf16 presets' are hafner_cell_bf16's)
             "launches": sum(by_path[run]["hafner_cell"] for run in RUN_SPECS)
-            + sum(by_path[f"run_{family}_{phase}"]["hafner_cell"] for family in RUN_P2E_SPECS
-                  for phase in ("exploration", "finetuning")),
+            + sum(by_path[f"run_{family}_{phase}"]["hafner_cell"] for family, spec in RUN_P2E_SPECS.items()
+                  if not spec.get("bf16") for phase in ("exploration", "finetuning")),
             "max_abs_err": max(r["max_abs_err"] for r in serve_rows + train_rows + dv3_rows
-                               + [row for rows in p2e_rows.values() for row in rows]),
+                               + [row for rows in (*p2e_rows.values(), *large_rows.values()) for row in rows]),
             "ms": cell_row["ms"],
             "plain_ms": cell_row["plain_ms"],
             "bound_ms": cell_row["bound_ms"],
@@ -2405,6 +2898,46 @@ def main() -> int:
                 for name, rows in p2e_rows.items()
             },
             "p2e_train": p2e_train,
+            # the L and XL widths in f32 (H = 2048, X = 768; H = 4096, X = 1024; no bias, eps 1e-3)
+            "l_xl_shapes": {
+                name: [{k: r[k] for k in ("B", "H", "X", "bias", "eps", "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "cublas_product_ms", "max_abs_err", "grad_rel_err")}
+                       | {"variant": r["variant"]["product"], "product_ms": r.get("product_ms"),
+                          "gates_ms": r.get("gates_ms"), "vjp": r.get("vjp")}
+                       for r in rows]
+                for name, rows in large_rows.items()
+            },
+            "l_xl_train": large_train,
+        },
+        {
+            # the cell's bf16 operand path (fabric.precision=bf16-mixed): the same source, the product on
+            # wgmma.m64nNk16.f32.bf16.bf16; launches are the bf16 runs' (P2E-DV3's L DIAMBRA presets)
+            "name": "hafner_cell_bf16",
+            "route": "cuda",
+            "source": "sheeprl_tpu_torch/kernels/csrc/hafner_gru.cu",
+            "replaces": "sheeprl_tpu/kernels/pallas_tpu.py:67",
+            "launches": sum(by_path[f"run_{family}_{phase}"]["hafner_cell"] for family, spec in RUN_P2E_SPECS.items()
+                            if spec.get("bf16") for phase in ("exploration", "finetuning")),
+            "max_abs_err": max(r["max_abs_err"] for rows in bf16_rows.values() for r in rows),
+            "ms": bf16_row["ms"],
+            "plain_ms": bf16_row["plain_ms"],
+            "bound_ms": bf16_row["bound_ms"],
+            "bound_by": bf16_row["bound_by"],
+            "library_ms": bf16_row["cublas_product_ms"],
+            "library": "cuBLAS GEMM of the product [h|x].W alone on bf16 operands (torch.matmul)",
+            "product_ms": bf16_row["product_ms"],
+            "gates_ms": bf16_row["gates_ms"],
+            "variant": bf16_row["variant"]["product"],
+            "shape": "B=1024 H=1024 X=768 (P2E-DV3 L finetuning's imagination)",
+            "bf16_shapes": {
+                name: [{k: r[k] for k in ("B", "H", "X", "ms", "plain_ms", "bound_ms", "bound_by", "cublas_product_ms",
+                                          "max_abs_err", "grad_rel_err")}
+                       | {"variant": r["variant"]["product"], "product_ms": r.get("product_ms"),
+                          "gates_ms": r.get("gates_ms"), "vjp": r.get("vjp")}
+                       for r in rows]
+                for name, rows in bf16_rows.items()
+            },
+            "train_p2e_dv3_L_bf16": p2e_train["p2e_dv3_L_bf16"],
         },
         {
             "name": "hafner_sequence",
@@ -2431,6 +2964,7 @@ def main() -> int:
             "launches_by_path": {path: counts["hafner_sequence"] for path, counts in by_path.items()},
         },
     ]
+    print("[timing] " + json.dumps(clock.line()), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
@@ -2438,5 +2972,83 @@ def main() -> int:
     return 0
 
 
+def _f64_cell(h, x, kernel, bias, ln_scale, ln_bias, *, eps):
+    """The LayerNorm-GRU cell computed in f64 (product, LayerNorm and gates),
+    its output rounded once to f32: the reference that the plain f32 cell and
+    the kernel both round against."""
+    import torch
+
+    from sheeprl_tpu_torch.kernels import reference
+
+    h64 = h.double()
+    z = torch.cat([h64, x.double()], dim=-1) @ kernel.double()
+    if bias is not None:
+        z = z + bias.double()
+    if ln_scale is not None:
+        mu = z.mean(dim=-1, keepdim=True)
+        var = (z - mu).square().mean(dim=-1, keepdim=True)
+        z = (z - mu) * (var + eps).rsqrt() * ln_scale.double() + ln_bias.double()
+    return reference.hafner_gates(z, h64).float()
+
+
+TRAIN_GAP_SEEDS = (0, 1, 2)
+
+
+def train_gap_readings(card: str, algos=("dreamer_v3_L", "dreamer_v3_XL")) -> dict:
+    """The readings behind the L and XL train steps' limits (``python3
+    chip_smoke.py --train-gaps``): at each of TRAIN_GAP_SEEDS (weights and
+    noise), the kernel step and the plain-cell step of ``phase_train_dv3``'s
+    comparison and a third with the cell computed in f64 (``_f64_cell``),
+    TF32 off, the kernel path's discrete choices pinned. For each metric the
+    relative gaps kernel against plain f32, plain f32 against the f64 cell
+    and kernel against the f64 cell; the phase's gaps and limits
+    (``_train_step_gaps``), and the metrics outside them."""
+    import torch
+
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for algo in algos:
+            rows = []
+            for seed in TRAIN_GAP_SEEDS:
+                (kernel_m, _), (plain_m, _), pinned = _train_steps_kernel_and_plain(algo, seed, f64_cell=True)
+                f64_m = pinned.pop("f64_cell")
+                gaps, limits = _train_step_gaps(kernel_m, plain_m, algo)
+
+                def rel(a, b):
+                    return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for k in b}
+
+                rows.append({"seed": seed, "kernel": kernel_m, "plain": plain_m, "f64_cell": f64_m,
+                             "kernel_vs_plain": rel(kernel_m, plain_m), "plain_vs_f64_cell": rel(plain_m, f64_m),
+                             "kernel_vs_f64_cell": rel(kernel_m, f64_m), "gaps": gaps, "limits": limits,
+                             "outside": [k for k, g in gaps.items() if g > limits[k]], "pinned": pinned})
+            out[algo] = {"K": int(_trainer_width(algo)), "seeds": rows}
+            print(f"[train_gaps] {algo} " + json.dumps(out[algo]), flush=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    out["card"] = card
+    return out
+
+
+def main_train_gaps() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script runs only on the card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from sheeprl_tpu_torch.kernels import build
+
+    card = card_line()
+    print(f"[card] {card}", flush=True)
+    build.build_all()
+    readings = train_gap_readings(card)
+    print("[train_gaps] outside their limits: " + json.dumps(
+        {algo: {row["seed"]: row["outside"] for row in readings[algo]["seeds"]} for algo in readings if algo != "card"}),
+        flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_train_gaps() if sys.argv[1:] == ["--train-gaps"] else main())

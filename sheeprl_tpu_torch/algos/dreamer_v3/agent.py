@@ -15,6 +15,13 @@ The recurrent cell is ``LayerNormGRUCell(bias=False, layer_norm=True)``
 with eps 1e-3; on the card it is the CUDA kernel
 ``kernels/csrc/hafner_gru.cu``.
 
+Every module takes the compute ``dtype`` that ``build_agent`` reads from
+``fabric.precision`` (None for f32, bf16 under ``bf16-mixed``), as the JAX
+modules do: parameters stay f32, activations compute in ``dtype``, every
+head's output is cast back to f32 (the reconstruction stays in ``dtype``,
+as the JAX decoder's), and the recurrent cell takes its bf16 operand path
+and returns the f32 state.
+
 A serving build (``build_agent(..., training=False)``) leaves out the
 decoders and the reward and continue heads; a training build has them and
 also returns the critic and its target copy. A continuous actor has one head
@@ -48,7 +55,8 @@ from sheeprl_tpu_torch.distributions import (
     symlog,
     truncated_uniform_noise,
 )
-from sheeprl_tpu_torch.models.models import CNN, MLP, DeCNN, LayerNormGRUCell, resolve_activation
+from sheeprl_tpu_torch.fabric import compute_dtype_from_precision
+from sheeprl_tpu_torch.models.models import CNN, MLP, DeCNN, LayerNormGRUCell, Linear, resolve_activation
 from sheeprl_tpu_torch.models.norm import FastLayerNorm
 from sheeprl_tpu_torch.train.graphs import CapturedStep
 
@@ -105,6 +113,7 @@ class Actor(nn.Module):
         layer_norm: bool = True,
         activation="silu",
         device=None,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.actions_dim = tuple(int(d) for d in actions_dim)
@@ -117,9 +126,10 @@ class Actor(nn.Module):
             norm_eps=_EPS,
             bias=not layer_norm,
             device=device,
+            dtype=dtype,
         )
         widths = (2 * sum(self.actions_dim),) if is_continuous else self.actions_dim
-        self.heads = nn.ModuleList(nn.Linear(self.mlp.output_dim, dim, device=device) for dim in widths)
+        self.heads = nn.ModuleList(Linear(self.mlp.output_dim, dim, device=device, dtype=dtype) for dim in widths)
 
     def forward(self, state: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = self.mlp(state)
@@ -265,7 +275,7 @@ class CNNEncoder(nn.Module):
     ``obs[k]`` is ``[..., C, H, W]``."""
 
     def __init__(self, keys, in_channels, channels_multiplier, stages=4, layer_norm=True, activation="silu",
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         self.keys = list(keys)
         self.cnn = CNN(
@@ -280,6 +290,7 @@ class CNNEncoder(nn.Module):
             bias=not layer_norm,
             flatten=True,
             device=device,
+            dtype=dtype,
         )
 
     def forward(self, obs: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -291,12 +302,12 @@ class MLPEncoder(nn.Module):
     dense blocks."""
 
     def __init__(self, keys, input_dim, mlp_layers=4, dense_units=512, layer_norm=True, activation="silu",
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         self.keys = list(keys)
         self.mlp = MLP(
             input_dim, [dense_units] * mlp_layers, activation=activation, layer_norm=layer_norm, norm_eps=_EPS,
-            bias=not layer_norm, device=device,
+            bias=not layer_norm, device=device, dtype=dtype,
         )
 
     def forward(self, obs: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -323,22 +334,23 @@ class CNNDecoder(nn.Module):
     +0.5."""
 
     def __init__(self, output_channels, channels_multiplier, stages, image_size, latent_size, layer_norm=True,
-                 activation="silu", device=None):
+                 activation="silu", device=None, dtype=None):
         super().__init__()
         top_c = (2 ** (stages - 1)) * int(channels_multiplier)
         base = int(image_size[0]) // (2**stages)
         self.map_shape = (top_c, base, base)
-        self.linear = nn.Linear(latent_size, top_c * base * base, device=device)
+        self.linear = Linear(latent_size, top_c * base * base, device=device, dtype=dtype)
         hidden = [(2**i) * int(channels_multiplier) for i in reversed(range(stages - 1))]
         self.decnn = None
         if hidden:
             self.decnn = DeCNN(
                 top_c, hidden, kernel_sizes=4, strides=2, paddings=1, activation=activation,
                 layer_norm=layer_norm, norm_eps=_EPS, bias=not layer_norm, final_activation=activation, device=device,
+                dtype=dtype,
             )
         self.head = DeCNN(
             hidden[-1] if hidden else top_c, [sum(int(c) for c in output_channels)], kernel_sizes=4, strides=2,
-            paddings=1, activation="identity", layer_norm=False, bias=True, device=device,
+            paddings=1, activation="identity", layer_norm=False, bias=True, device=device, dtype=dtype,
         )
 
     def forward(self, latent: torch.Tensor) -> torch.Tensor:
@@ -353,30 +365,32 @@ class MLPDecoder(nn.Module):
     """Vector decoder: a dense trunk and one Linear head per key."""
 
     def __init__(self, keys, output_dims, latent_size, mlp_layers=4, dense_units=512, layer_norm=True,
-                 activation="silu", device=None):
+                 activation="silu", device=None, dtype=None):
         super().__init__()
         self.keys = list(keys)
         self.mlp = MLP(latent_size, [dense_units] * mlp_layers, activation=activation, layer_norm=layer_norm,
-                       norm_eps=_EPS, bias=not layer_norm, device=device)
-        self.heads = nn.ModuleDict({k: nn.Linear(dense_units, int(d), device=device) for k, d in zip(keys, output_dims)})
+                       norm_eps=_EPS, bias=not layer_norm, device=device, dtype=dtype)
+        self.heads = nn.ModuleDict(
+            {k: Linear(dense_units, int(d), device=device, dtype=dtype) for k, d in zip(keys, output_dims)}
+        )
 
     def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.mlp(latent)
-        return {k: self.heads[k](x) for k in self.keys}
+        return {k: self.heads[k](x).float() for k in self.keys}
 
 
 class MLPWithHead(nn.Module):
     """Dense trunk and one Linear head: the reward, continue and critic heads."""
 
     def __init__(self, input_dim, output_dim, mlp_layers, dense_units, layer_norm=True, activation="silu",
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         self.mlp = MLP(input_dim, [dense_units] * mlp_layers, activation=activation, layer_norm=layer_norm,
-                       norm_eps=_EPS, bias=not layer_norm, device=device)
-        self.head = nn.Linear(dense_units, output_dim, device=device)
+                       norm_eps=_EPS, bias=not layer_norm, device=device, dtype=dtype)
+        self.head = Linear(dense_units, output_dim, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.mlp(x))
+        return self.head(self.mlp(x)).float()
 
 
 # ---------------------------------------------------------------------------
@@ -389,12 +403,12 @@ class RecurrentModel(nn.Module):
     eps 1e-3 as in the JAX module)."""
 
     def __init__(self, input_size, recurrent_state_size, dense_units, layer_norm=True, activation="silu",
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         self.mlp = MLP(input_size, [dense_units], activation=activation, layer_norm=layer_norm, norm_eps=_EPS,
-                       bias=not layer_norm, device=device)
+                       bias=not layer_norm, device=device, dtype=dtype)
         self.gru = LayerNormGRUCell(
-            dense_units, recurrent_state_size, bias=False, layer_norm=True, norm_eps=_EPS, device=device
+            dense_units, recurrent_state_size, bias=False, layer_norm=True, norm_eps=_EPS, device=device, dtype=dtype
         )
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -404,14 +418,15 @@ class RecurrentModel(nn.Module):
 class _StochasticModel(nn.Module):
     """Dense trunk plus a logits head: the transition (prior) model."""
 
-    def __init__(self, input_size, hidden_size, stoch_size, layer_norm=True, activation="silu", device=None):
+    def __init__(self, input_size, hidden_size, stoch_size, layer_norm=True, activation="silu", device=None,
+                 dtype=None):
         super().__init__()
         self.mlp = MLP(input_size, [hidden_size], activation=activation, layer_norm=layer_norm, norm_eps=_EPS,
-                       bias=not layer_norm, device=device)
-        self.head = nn.Linear(hidden_size, stoch_size, device=device)
+                       bias=not layer_norm, device=device, dtype=dtype)
+        self.head = Linear(hidden_size, stoch_size, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.mlp(x))
+        return self.head(self.mlp(x)).float()
 
 
 class _RepresentationModel(nn.Module):
@@ -421,22 +436,28 @@ class _RepresentationModel(nn.Module):
     that training runs it once over the whole sequence and the time loop
     adds only ``h·W_h``."""
 
-    def __init__(self, h_size, embed_size, hidden_size, stoch_size, layer_norm=True, activation="silu", device=None):
+    def __init__(self, h_size, embed_size, hidden_size, stoch_size, layer_norm=True, activation="silu", device=None,
+                 dtype=None):
         super().__init__()
         self.h_size = int(h_size)
+        self.dtype = dtype
         self.trunk = nn.Linear(self.h_size + int(embed_size), hidden_size, bias=not layer_norm, device=device)
-        self.trunk_ln = FastLayerNorm(hidden_size, eps=_EPS, device=device) if layer_norm else None
+        self.trunk_ln = FastLayerNorm(hidden_size, eps=_EPS, device=device, dtype=dtype) if layer_norm else None
         self.act = resolve_activation(activation)
-        self.head = nn.Linear(hidden_size, stoch_size, device=device)
+        self.head = Linear(hidden_size, stoch_size, device=device, dtype=dtype)
+
+    def _cast(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.dtype is None else x.to(self.dtype)
 
     def project_embed(self, embed: torch.Tensor) -> torch.Tensor:
-        return F.linear(embed, self.trunk.weight[:, self.h_size:])
+        return F.linear(self._cast(embed), self._cast(self.trunk.weight[:, self.h_size:]))
 
     def from_projected(self, h: torch.Tensor, embed_proj: torch.Tensor) -> torch.Tensor:
-        x = F.linear(h, self.trunk.weight[:, : self.h_size], self.trunk.bias) + embed_proj
+        bias = None if self.trunk.bias is None else self._cast(self.trunk.bias)
+        x = F.linear(self._cast(h), self._cast(self.trunk.weight[:, : self.h_size]), bias) + self._cast(embed_proj)
         if self.trunk_ln is not None:
             x = self.trunk_ln(x)
-        return self.head(self.act(x))
+        return self.head(self.act(x)).float()
 
 
 def uniform_mix(logits: torch.Tensor, discrete: int, unimix: float) -> torch.Tensor:
@@ -490,17 +511,20 @@ class RSSM(nn.Module):
         unimix: float = 0.01,
         activation: Any = "silu",
         device=None,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.discrete_size = int(discrete_size)
         self.unimix = float(unimix)
         stoch = int(stochastic_size) * self.discrete_size
         H = int(recurrent_state_size)
-        self.recurrent_model = RecurrentModel(stoch + int(action_dim), H, dense_units, layer_norm, activation, device)
-        self.representation_model = _RepresentationModel(
-            H, embed_size, representation_hidden_size or hidden_size, stoch, layer_norm, activation, device
+        self.recurrent_model = RecurrentModel(
+            stoch + int(action_dim), H, dense_units, layer_norm, activation, device, dtype
         )
-        self.transition_model = _StochasticModel(H, hidden_size, stoch, layer_norm, activation, device)
+        self.representation_model = _RepresentationModel(
+            H, embed_size, representation_hidden_size or hidden_size, stoch, layer_norm, activation, device, dtype
+        )
+        self.transition_model = _StochasticModel(H, hidden_size, stoch, layer_norm, activation, device, dtype)
 
     def _transition(self, recurrent_out, generator=None, sample_state=True, gumbel=None):
         logits = self.prior_logits(recurrent_out)
@@ -586,6 +610,7 @@ class WorldModel(nn.Module):
         continue_mlp_layers: int = 4,
         continue_dense_units: int = 512,
         device=None,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.cnn_keys, self.mlp_keys = list(cnn_keys), list(mlp_keys)
@@ -593,12 +618,12 @@ class WorldModel(nn.Module):
         self.cnn_encoder = self.mlp_encoder = None
         if self.cnn_keys:
             self.cnn_encoder = CNNEncoder(
-                self.cnn_keys, sum(self.cnn_channels), channels_multiplier, stages, layer_norm, cnn_act, device
+                self.cnn_keys, sum(self.cnn_channels), channels_multiplier, stages, layer_norm, cnn_act, device, dtype
             )
         if self.mlp_keys:
             self.mlp_encoder = MLPEncoder(
                 self.mlp_keys, sum(int(d) for d in mlp_dims), encoder_mlp_layers, dense_units, layer_norm, dense_act,
-                device,
+                device, dtype,
             )
         embed = encoder_output_dim(
             bool(self.cnn_keys), bool(self.mlp_keys), image_size, channels_multiplier, stages, dense_units
@@ -606,7 +631,7 @@ class WorldModel(nn.Module):
         self.rssm = RSSM(
             recurrent_state_size, stochastic_size, discrete_size, dense_units, hidden_size,
             embed_size=embed, action_dim=action_dim, representation_hidden_size=representation_hidden_size,
-            layer_norm=layer_norm, unimix=unimix, activation=dense_act, device=device,
+            layer_norm=layer_norm, unimix=unimix, activation=dense_act, device=device, dtype=dtype,
         )
         self.cnn_decoder = self.mlp_decoder = self.reward_model = self.continue_model = None
         if not training:
@@ -614,17 +639,17 @@ class WorldModel(nn.Module):
         latent = int(stochastic_size) * int(discrete_size) + int(recurrent_state_size)
         if self.cnn_keys:
             self.cnn_decoder = CNNDecoder(
-                self.cnn_channels, channels_multiplier, stages, image_size, latent, layer_norm, cnn_act, device
+                self.cnn_channels, channels_multiplier, stages, image_size, latent, layer_norm, cnn_act, device, dtype
             )
         if self.mlp_keys:
             self.mlp_decoder = MLPDecoder(
-                self.mlp_keys, mlp_dims, latent, decoder_mlp_layers, dense_units, layer_norm, dense_act, device
+                self.mlp_keys, mlp_dims, latent, decoder_mlp_layers, dense_units, layer_norm, dense_act, device, dtype
             )
         self.reward_model = MLPWithHead(
-            latent, reward_bins, reward_mlp_layers, reward_dense_units, layer_norm, dense_act, device
+            latent, reward_bins, reward_mlp_layers, reward_dense_units, layer_norm, dense_act, device, dtype
         )
         self.continue_model = MLPWithHead(
-            latent, 1, continue_mlp_layers, continue_dense_units, layer_norm, dense_act, device
+            latent, 1, continue_mlp_layers, continue_dense_units, layer_norm, dense_act, device, dtype
         )
 
     def encode(self, obs: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -743,8 +768,11 @@ def build_agent(
     Returns ``(world_model, actor)`` in eval mode. With ``training=True`` the
     world model also has its decoders and heads, and the result is
     ``(world_model, actor, critic, target_critic)`` in train mode, the target
-    a copy of the critic whose parameters take no gradient."""
+    a copy of the critic whose parameters take no gradient. Every module
+    computes in the compute dtype of ``fabric.precision`` (f32 parameters
+    either way)."""
     dev = resolve_device(device)
+    dtype = compute_dtype_from_precision(cfg.get("fabric", {}).get("precision", "32-true"))
     wm_cfg = cfg.algo.world_model
     cnn_keys, mlp_keys = list(cfg.cnn_keys.encoder), list(cfg.mlp_keys.encoder)
     screen = int(cfg.env.screen_size)
@@ -777,6 +805,7 @@ def build_agent(
         reward_dense_units=int(wm_cfg.reward_model.dense_units),
         continue_mlp_layers=int(wm_cfg.discount_model.mlp_layers),
         continue_dense_units=int(wm_cfg.discount_model.dense_units),
+        dtype=dtype,
     )
     latent = int(wm_cfg.stochastic_size) * int(wm_cfg.discrete_size) + int(
         wm_cfg.recurrent_model.recurrent_state_size
@@ -790,6 +819,7 @@ def build_agent(
         mlp_layers=int(cfg.algo.actor.mlp_layers),
         layer_norm=bool(cfg.algo.actor.layer_norm),
         activation=cfg.algo.actor.dense_act,
+        dtype=dtype,
     )
     hafner = bool(cfg.algo.hafner_initialization)
     gen = torch.Generator().manual_seed(int(cfg.seed if seed is None else seed))
@@ -801,7 +831,7 @@ def build_agent(
     critic_cfg = cfg.algo.critic
     critic = MLPWithHead(
         latent, int(critic_cfg.bins), int(critic_cfg.mlp_layers), int(critic_cfg.dense_units),
-        bool(critic_cfg.layer_norm), critic_cfg.dense_act,
+        bool(critic_cfg.layer_norm), critic_cfg.dense_act, dtype=dtype,
     )
     if hafner:
         hafner_initialization(critic, gen, CRITIC_UNIFORM_HEADS)

@@ -216,9 +216,10 @@ def build_losses(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Simple
         is_first[0] = 1.0
         actions = torch.cat([torch.zeros_like(data["actions"][:1]), data["actions"][:-1]])
         embed_proj = wm.rssm.project_embed(wm.encode(batch_obs))
-        init_post = wm.initial_posterior(embed_proj.new_zeros((1, rec_size)))
-        posterior = embed_proj.new_zeros((B, stoch_flat))
-        recurrent = embed_proj.new_zeros((B, rec_size))
+        f32 = dict(dtype=torch.float32, device=embed_proj.device)  # the carried state is f32 at any precision
+        init_post = wm.initial_posterior(torch.zeros((1, rec_size), **f32))
+        posterior = torch.zeros((B, stoch_flat), **f32)
+        recurrent = torch.zeros((B, rec_size), **f32)
         recurrents, posteriors, post_logits = [], [], []
         for t in range(T):
             recurrent, posterior, logits = wm.rssm.dynamic_posterior(

@@ -39,6 +39,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
 )
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent as dv3_build_agent
 from sheeprl_tpu_torch.device import resolve_device
+from sheeprl_tpu_torch.fabric import compute_dtype_from_precision
 from sheeprl_tpu_torch.models.models import resolve_activation
 from sheeprl_tpu_torch.models.norm import fast_layer_norm
 
@@ -190,6 +191,9 @@ def build_agent(
     )
     gen = torch.Generator().manual_seed(int(cfg.seed if seed is None else seed) + 1)
     hafner = bool(cfg.algo.hafner_initialization)
+    # the exploration actor and critics compute in the run's precision, as the
+    # task's; the ensemble takes no dtype and stays f32, as in JAX
+    dtype = compute_dtype_from_precision(cfg.get("fabric", {}).get("precision", "32-true"))
     wm_cfg = cfg.algo.world_model
     latent = int(wm_cfg.stochastic_size) * int(wm_cfg.discrete_size) + int(wm_cfg.recurrent_model.recurrent_state_size)
     actor_exploration = Actor(
@@ -201,6 +205,7 @@ def build_agent(
         mlp_layers=int(cfg.algo.actor.mlp_layers),
         layer_norm=bool(cfg.algo.actor.layer_norm),
         activation=cfg.algo.actor.dense_act,
+        dtype=dtype,
     )
     if hafner:
         hafner_initialization(actor_exploration, gen, ACTOR_UNIFORM_HEADS)
@@ -209,7 +214,7 @@ def build_agent(
     for name in cfg.algo.critics_exploration.keys():
         module = MLPWithHead(
             latent, int(critic_cfg.bins), int(critic_cfg.mlp_layers), int(critic_cfg.dense_units),
-            bool(critic_cfg.layer_norm), critic_cfg.dense_act,
+            bool(critic_cfg.layer_norm), critic_cfg.dense_act, dtype=dtype,
         )
         if hafner:
             hafner_initialization(module, gen, CRITIC_UNIFORM_HEADS)

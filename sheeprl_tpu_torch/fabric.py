@@ -9,9 +9,11 @@ reads a global seed. Checkpoints go through ``fabric.call`` into the
 :mod:`sheeprl_tpu_torch.ckpt` subsystem and come back through
 :meth:`Fabric.load`.
 
-More than one device, ``strategy=ddp``/``fsdp`` and any precision but
-``32-true`` raise: multi-device training is ROADMAP queue A item 7, and
-bf16 needs a bf16 operand path for the recurrent cell (queue B item 3).
+Precision is ``32-true`` or ``bf16-mixed``, with the JAX package's meaning:
+parameters stay f32 (:attr:`Fabric.param_dtype`) and the modules that take
+a ``dtype`` compute their activations in :attr:`Fabric.compute_dtype` (None
+for f32). More than one device and ``strategy=ddp``/``fsdp`` raise:
+multi-device training is ROADMAP queue A item 7.
 """
 
 from __future__ import annotations
@@ -24,9 +26,21 @@ import torch
 
 from sheeprl_tpu_torch.device import resolve_device
 
-__all__ = ["Fabric"]
+__all__ = ["Fabric", "compute_dtype_from_precision"]
 
 _ACCELERATORS = {"auto": None, "cuda": "cuda", "gpu": "cuda", "cpu": "cpu"}
+
+
+def compute_dtype_from_precision(precision: Any) -> Optional[torch.dtype]:
+    """The one precision → compute-dtype mapping (shared by Fabric and the
+    model builders): ``32-true`` → None (f32 everywhere), ``bf16-mixed`` →
+    bf16 activations with f32 parameters and losses. Anything else raises."""
+    p = str(precision or "32-true").lower()
+    if p in ("32-true", "32"):
+        return None
+    if p == "bf16-mixed":
+        return torch.bfloat16
+    raise ValueError(f"Unsupported fabric.precision {precision!r}: use '32-true' or 'bf16-mixed'")
 
 
 class Fabric:
@@ -54,11 +68,8 @@ class Fabric:
             raise NotImplementedError(
                 f"fabric.strategy={strategy}: data-parallel strategies (ddp, fsdp) are ROADMAP queue A item 7"
             )
-        if str(precision or "32-true").lower() not in ("32-true", "32"):
-            raise NotImplementedError(
-                f"fabric.precision={precision}: the port trains in float32; bf16-mixed waits for a bf16 operand "
-                "path of the recurrent cell, ROADMAP queue B item 3 (and the L/XL presets, queue A item 5a)"
-            )
+        compute_dtype_from_precision(precision)  # raises on any other precision
+        self.precision = str(precision or "32-true")
         # prng_impl selects the JAX package's key implementation; torch has one generator kind
         del prng_impl
         self.device = resolve_device(_ACCELERATORS[accelerator])
@@ -75,6 +86,17 @@ class Fabric:
 
     def print(self, *args: Any, **kwargs: Any) -> None:
         print(*args, **kwargs)
+
+    # -- precision ------------------------------------------------------------
+
+    @property
+    def compute_dtype(self) -> Optional[torch.dtype]:
+        """None for f32, bf16 under ``bf16-mixed``: parameters stay f32."""
+        return compute_dtype_from_precision(self.precision)
+
+    @property
+    def param_dtype(self) -> torch.dtype:
+        return torch.float32
 
     # -- randomness -----------------------------------------------------------
 

@@ -117,6 +117,13 @@
 //
 // Both variants can write the pre-LayerNorm z [T, B, 3H] (with the bias)
 // for the gradient, which then recomputes no product.
+//
+// The cell also has a bf16 operand path (hafner_cell_forward_bf16, the
+// Pallas cell's with bf16 operands under fabric.precision=bf16-mixed): x
+// comes in bf16, h and W are rounded to bf16 as the product stages them,
+// and hafner_product_bf16_kernel runs one wgmma.m64nNk16.f32.bf16.bf16 a
+// k16 step in place of the three TF32 passes, at the same block shapes and
+// K splits; the gate kernel is the f32 one.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -346,6 +353,72 @@ __device__ __forceinline__ void wgmma_tf32_ss<64>(float (&d)[32], uint64_t da, u
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d[64 x N] += A[64 x 16] . B[16 x N] with bf16 operands: A from four
+// registers a thread (two bf16 each), B from shared memory through `desc`
+// (K-major: imm-trans-b 0), f32 accumulators.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<8>(float (&d)[4], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : D4(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : D4(0), D4(4)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : D4(0), D4(4), D4(8), D4(12)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : D4(0), D4(4), D4(8), D4(12), D4(16), D4(20), D4(24), D4(28)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : D4(0), D4(4), D4(8), D4(12), D4(16), D4(20), D4(24), D4(28),
+        D4(32), D4(36), D4(40), D4(44), D4(48), D4(52), D4(56), D4(60)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
 #undef D4
 
 // ---------------------------------------------------------------------------
@@ -531,6 +604,239 @@ __global__ void __launch_bounds__(kWgThreads * kWG, 1) hafner_product_kernel(
 
   // acc[4j + {0, 1, 2, 3}] = z^T at (row g, col 8j+2t), (g, 8j+2t+1),
   // (g+8, 8j+2t), (g+8, 8j+2t+1): features f0 / f0+1 of batch rows n, n+1
+  if (f0 >= N) return;
+  float* zs = zpart + static_cast<size_t>(blockIdx.z) * M * N;
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = n0 + 8 * j + 2 * t + r;
+      if (n >= M) continue;
+      float* p = zs + static_cast<size_t>(n) * N + f0;
+      if (kVec) {
+        *reinterpret_cast<float2*>(p) = make_float2(acc[4 * j + r], acc[4 * j + 2 + r]);
+      } else {
+        p[0] = acc[4 * j + r];
+        if (f0 + 1 < N) p[1] = acc[4 * j + 2 + r];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the product with bf16 operands
+// ---------------------------------------------------------------------------
+
+// The counterpart of the Pallas cell's bf16 path (`jnp.dot(..., preferred_
+// element_type=f32)` on bf16 operands): [a | b] . W with a (h) and W read in
+// f32 and rounded to bf16 (to nearest even, as `astype` rounds) where they
+// are staged, b (x) read in bf16, one wgmma.m64nNk16.f32.bf16.bf16 a k16
+// step into f32 accumulators. Same grid, block shapes, K splits and
+// partial-z layout as hafner_product_kernel, so the gate kernel is the f32
+// one; only the operands' staging and the instruction differ:
+// - A = W^T in registers: for k16 step s a thread holds W at rows
+//   kb + 2t + {0, 1, 8, 9} (t = lane & 3) of its features f0, f0 + 1 (the
+//   fragment's rows g and g + 8), packed two bf16 a register along K;
+// - B = [a | b]^T in shared memory, K-major without swizzle: a core matrix
+//   is 8 rows of 8 bf16 (16 bytes), a 32-row chunk 4 of them a row group,
+//   so a k16 step spans two core matrices along K, 32 bytes a row, as a
+//   TF32 k8 step does.
+
+constexpr int kSteps16 = kChunk / 16;              // wgmma k16 steps per chunk
+constexpr uint32_t kSboBf16 = 128 * (kChunk / 8);  // bytes between N-adjacent core matrices
+
+__device__ __forceinline__ uint16_t to_bf16(float v) {
+  uint16_t r;
+  asm("cvt.rn.bf16.f32 %0, %1;\n" : "=h"(r) : "f"(v));
+  return r;
+}
+
+// Two floats as bf16, `lo` in the low half (the lower K index).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+template <int NA>
+__device__ __forceinline__ void fence_operands(float (&acc)[NA], uint32_t (&a)[kSteps16][4]) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i) fence_reg(acc[i]);
+#pragma unroll
+  for (int s = 0; s < kSteps16; ++s) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) fence_reg(a[s][r]);
+  }
+}
+
+// This thread's W of chunk c: wr[s][2r + {0, 1}] = W[k][f0], W[k][f0 + 1]
+// with k = c*kChunk + 16s + 2(lane & 3) + (r & 1) + 8(r >> 1). Zeros past K and N.
+template <bool kVec>
+__device__ __forceinline__ void load_w_bf16(float (&wr)[kSteps16][8], const float* __restrict__ w, int c, int f0,
+                                            int K, int N) {
+#pragma unroll
+  for (int s = 0; s < kSteps16; ++s) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = c * kChunk + 16 * s + 2 * (threadIdx.x & 3) + (r & 1) + 8 * (r >> 1);
+      const float* p = w + static_cast<size_t>(k) * N + f0;
+      if (kVec) {
+        float2 v = make_float2(0.f, 0.f);
+        if (k < K && f0 < N) v = __ldg(reinterpret_cast<const float2*>(p));
+        wr[s][2 * r] = v.x;
+        wr[s][2 * r + 1] = v.y;
+      } else {
+        wr[s][2 * r] = k < K && f0 < N ? __ldg(p) : 0.f;
+        wr[s][2 * r + 1] = k < K && f0 + 1 < N ? __ldg(p + 1) : 0.f;
+      }
+    }
+  }
+}
+
+// The A registers of k16 step s: {a0 a1} row g, K 2t, 2t+1; {a2 a3} row
+// g + 8; {a4 a5} row g, K 2t + 8, 2t + 9; {a6 a7} row g + 8.
+__device__ __forceinline__ void pack_w_bf16(uint32_t (&a)[4], const float (&wr)[8]) {
+  a[0] = pack_bf16(wr[0], wr[2]);
+  a[1] = pack_bf16(wr[1], wr[3]);
+  a[2] = pack_bf16(wr[4], wr[6]);
+  a[3] = pack_bf16(wr[5], wr[7]);
+}
+
+// One chunk of [a | b] as bf16 (NT rows from n0, K columns c*kChunk ...)
+// over the kBlock threads of a block, zeros past M and K; a (f32) rounded,
+// b (bf16) as it is. kVec (Ka and Kb multiples of 8, a and b 16-byte
+// aligned): a thread takes whole core-matrix rows, 8 columns of one row (a
+// unit u: row u / 4, columns 8 (u % 4) ...), read as two float4 of a or one
+// uint4 of b and written as one 16-byte store; else element e is row
+// e / kChunk, column e % kChunk.
+template <int NT, int kBlock, bool kVec>
+struct ActChunkBf16 {
+  static constexpr int kUnits = NT * kChunk / 8;
+  static constexpr int kPer = kVec ? (kUnits + kBlock - 1) / kBlock : (NT * kChunk + kBlock - 1) / kBlock;
+  uint32_t v[kVec ? 4 * kPer : kPer];
+
+  __device__ __forceinline__ void load(const float* __restrict__ a, const uint16_t* __restrict__ b, int c, int n0,
+                                       int M, int Ka, int Kb) {
+    if (kVec) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int u = threadIdx.x + kBlock * i;
+        const int row = n0 + (u >> 2);
+        const int k = c * kChunk + 8 * (u & 3);
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (u < kUnits && row < M && k < Ka + Kb) {
+          if (k < Ka) {
+            const float4* p = reinterpret_cast<const float4*>(a + static_cast<size_t>(row) * Ka + k);
+            const float4 lo = __ldg(p), hi = __ldg(p + 1);
+            x = make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w), pack_bf16(hi.x, hi.y),
+                           pack_bf16(hi.z, hi.w));
+          } else {
+            x = __ldg(reinterpret_cast<const uint4*>(b + static_cast<size_t>(row) * Kb + (k - Ka)));
+          }
+        }
+        v[4 * i] = x.x;
+        v[4 * i + 1] = x.y;
+        v[4 * i + 2] = x.z;
+        v[4 * i + 3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int e = threadIdx.x + kBlock * i;
+        const int row = n0 + e / kChunk;
+        const int k = c * kChunk + e % kChunk;
+        uint16_t x = 0;
+        if (e < NT * kChunk && row < M && k < Ka + Kb) {
+          x = k < Ka ? to_bf16(__ldg(a + static_cast<size_t>(row) * Ka + k))
+                     : __ldg(b + static_cast<size_t>(row) * Kb + (k - Ka));
+        }
+        v[i] = x;
+      }
+    }
+  }
+
+  // row n, column kk of the chunk goes to core matrix (n / 8, kk / 8), its
+  // row n % 8, element kk % 8
+  __device__ __forceinline__ void store(uint16_t* stage) const {
+    if (kVec) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int u = threadIdx.x + kBlock * i;
+        if (u >= kUnits) continue;
+        const int n = u >> 2;
+        *reinterpret_cast<uint4*>(stage + ((n >> 3) * (kChunk / 8) + (u & 3)) * 64 + 8 * (n & 7)) =
+            make_uint4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int e = threadIdx.x + kBlock * i;
+        if (e >= NT * kChunk) continue;
+        const int n = e / kChunk, kk = e % kChunk;
+        stage[((n >> 3) * (kChunk / 8) + (kk >> 3)) * 64 + 8 * (n & 7) + (kk & 7)] = static_cast<uint16_t>(v[i]);
+      }
+    }
+  }
+};
+
+// kVec: N even and W 8-byte aligned (float2 loads of W), and the
+// activations' 16-byte path (ActChunkBf16). Dynamic shared memory: two
+// stages of bf16 [NT x kChunk].
+template <int NT, int kWG, bool kVec>
+__global__ void __launch_bounds__(kWgThreads * kWG, 1) hafner_product_bf16_kernel(
+    const float* __restrict__ a, const uint16_t* __restrict__ b, const float* __restrict__ w,
+    float* __restrict__ zpart, int M, int Ka, int Kb, int N, int split_chunks) {
+  extern __shared__ __align__(128) float smem[];
+  uint16_t* stages = reinterpret_cast<uint16_t*>(smem);
+  constexpr int kStage = NT * kChunk;  // bf16 elements of one stage
+
+  const int K = Ka + Kb;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int f0 = blockIdx.x * kTileM * kWG + 16 * warp + 2 * (lane >> 2);
+  const int n0 = blockIdx.y * NT;
+  const int chunks = (K + kChunk - 1) / kChunk;
+  const int q0 = blockIdx.z * split_chunks;
+  const int nq = min(split_chunks, chunks - q0);
+
+  float acc[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+
+  float wr[kSteps16][8];
+  ActChunkBf16<NT, kWgThreads * kWG, kVec> act;
+  load_w_bf16<kVec>(wr, w, q0, f0, K, N);
+  act.load(a, b, q0, n0, M, Ka, Kb);
+
+  uint32_t areg[kSteps16][4];
+  for (int q = 0; q < nq; ++q) {
+    // as hafner_product_kernel: stage q % 2 was last read by chunk q-2's
+    // wgmmas, which were waited for before chunk q-1's barrier
+    uint16_t* stage = stages + (q & 1) * kStage;
+    act.store(stage);
+    wgmma_wait_all();
+    fence_operands(acc, areg);
+#pragma unroll
+    for (int s = 0; s < kSteps16; ++s) pack_w_bf16(areg[s], wr[s]);
+    if (q + 1 < nq) {
+      load_w_bf16<kVec>(wr, w, q0 + q + 1, f0, K, N);
+      act.load(a, b, q0 + q + 1, n0, M, Ka, Kb);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    fence_operands(acc, areg);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kSteps16; ++s) {
+      wgmma_bf16<NT>(acc, areg[s], kmajor_desc(reinterpret_cast<const float*>(stage), s, kSboBf16));
+    }
+    wgmma_commit();
+  }
+  wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) fence_reg(acc[i]);
+
   if (f0 >= N) return;
   float* zs = zpart + static_cast<size_t>(blockIdx.z) * M * N;
   const int t = lane & 3;
@@ -1137,6 +1443,44 @@ cudaError_t launch_product(const float* a, const float* b, const float* w, float
   return launch_product_tile<kVec, 128, kWideWG>(a, b, w, zpart, M, Ka, Kb, N, split_chunks, stream);
 }
 
+template <bool kVec, int NT, int kWG>
+cudaError_t launch_product_bf16_tile(const float* a, const uint16_t* b, const float* w, float* zpart, int M, int Ka,
+                                     int Kb, int N, int split_chunks, cudaStream_t stream) {
+  static size_t set[64] = {};
+  const int chunks = (Ka + Kb + kChunk - 1) / kChunk;
+  const int splits = (chunks + split_chunks - 1) / split_chunks;
+  const size_t smem = sizeof(uint16_t) * 2 * NT * kChunk;
+  cudaError_t err = allow_smem(hafner_product_bf16_kernel<NT, kWG, kVec>, smem, set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kTileM * kWG - 1) / (kTileM * kWG), (M + NT - 1) / NT, splits);
+  hafner_product_bf16_kernel<NT, kWG, kVec><<<grid, kWgThreads * kWG, smem, stream>>>(a, b, w, zpart, M, Ka, Kb, N,
+                                                                                      split_chunks);
+  return cudaGetLastError();
+}
+
+// Partial products zpart[S, M, N] of [a | b] . w on the bf16 operand path,
+// with the f32 product's block shape (product_plan) and K splits.
+template <bool kVec>
+cudaError_t launch_product_bf16(const float* a, const uint16_t* b, const float* w, float* zpart, int M, int Ka, int Kb,
+                                int N, int split_chunks, cudaStream_t stream) {
+  int sms = 0;
+  const cudaError_t err = static_cast<cudaError_t>(sm_count_of_current_device(&sms));
+  if (err != cudaSuccess) return err;
+  const Plan p = product_plan(M, N, sms);
+  if (p.wg == 1) {
+    switch (p.nt) {
+      case 8: return launch_product_bf16_tile<kVec, 8, 1>(a, b, w, zpart, M, Ka, Kb, N, split_chunks, stream);
+      case 16: return launch_product_bf16_tile<kVec, 16, 1>(a, b, w, zpart, M, Ka, Kb, N, split_chunks, stream);
+      case 32: return launch_product_bf16_tile<kVec, 32, 1>(a, b, w, zpart, M, Ka, Kb, N, split_chunks, stream);
+      default: return launch_product_bf16_tile<kVec, 64, 1>(a, b, w, zpart, M, Ka, Kb, N, split_chunks, stream);
+    }
+  }
+  if (p.nt == 64) {
+    return launch_product_bf16_tile<kVec, 64, kWideWG>(a, b, w, zpart, M, Ka, Kb, N, split_chunks, stream);
+  }
+  return launch_product_bf16_tile<kVec, 128, kWideWG>(a, b, w, zpart, M, Ka, Kb, N, split_chunks, stream);
+}
+
 template <bool kVec>
 cudaError_t launch_gates(const float* zpart, int splits, const float* zx, int zx_splits, size_t zx_plane,
                          const float* h, const float* bias, const float* ln_scale, const float* ln_bias, float* zsave,
@@ -1168,6 +1512,16 @@ int cell(const float* h, const float* x, const float* w, const float* bias, cons
          const float* ln_bias, float* zpart, float* zsave, float* out, int B, int H, int X, int split_chunks,
          float eps, cudaStream_t stream) {
   cudaError_t err = launch_product<kVec>(h, x, w, zpart, B, H, X, 3 * H, split_chunks, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_gates<kVec>(zpart, n_splits(H + X, split_chunks), nullptr, 0, 0, h, bias,
+                                             ln_scale, ln_bias, zsave, out, B, H, eps, stream));
+}
+
+template <bool kVec>
+int cell_bf16(const float* h, const uint16_t* x, const float* w, const float* bias, const float* ln_scale,
+              const float* ln_bias, float* zpart, float* zsave, float* out, int B, int H, int X, int split_chunks,
+              float eps, cudaStream_t stream) {
+  cudaError_t err = launch_product_bf16<kVec>(h, x, w, zpart, B, H, X, 3 * H, split_chunks, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_gates<kVec>(zpart, n_splits(H + X, split_chunks), nullptr, 0, 0, h, bias,
                                              ln_scale, ln_bias, zsave, out, B, H, eps, stream));
@@ -1349,6 +1703,23 @@ int hafner_cell_forward(const float* h, const float* x, const float* w, const fl
   const auto s = static_cast<cudaStream_t>(stream);
   if (vec) return cell<true>(h, x, w, bias, ln_scale, ln_bias, zpart, zsave, out, B, H, X, split_chunks, eps, s);
   return cell<false>(h, x, w, bias, ln_scale, ln_bias, zpart, zsave, out, B, H, X, split_chunks, eps, s);
+}
+
+// hafner_cell_forward on the bf16 operand path: `x` is bf16 [B, X] (raw
+// bits); h and W are read in f32 and rounded to bf16 for the product, which
+// accumulates in f32; the bias, the LayerNorm, the gates and the new h are
+// f32, as on the f32 path. `vec` as for hafner_cell_forward; the bf16
+// product takes its 16-byte path where H and X are also multiples of 8 and x
+// is 16-byte aligned.
+int hafner_cell_forward_bf16(const float* h, const uint16_t* x, const float* w, const float* bias,
+                             const float* ln_scale, const float* ln_bias, float* zpart, float* zsave, float* out,
+                             int B, int H, int X, int split_chunks, float eps, int vec, void* stream) {
+  if (B < 1 || H < 1 || X < 0 || split_chunks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  // the 16-byte path also stages 8 activations a row at a time: H and X multiples of 8, x 16-byte aligned
+  vec = vec && H % 8 == 0 && X % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (vec) return cell_bf16<true>(h, x, w, bias, ln_scale, ln_bias, zpart, zsave, out, B, H, X, split_chunks, eps, s);
+  return cell_bf16<false>(h, x, w, bias, ln_scale, ln_bias, zpart, zsave, out, B, H, X, split_chunks, eps, s);
 }
 
 // The sequence's plan for B batch rows and H hidden units on the current

@@ -55,6 +55,9 @@ __all__ = [
 
 #: the two CUDA variants of the sequence's recurrence
 SEQUENCE_VARIANTS = ("persistent", "multi_launch")
+#: the dtypes of the cell's ``x`` that have a CUDA variant (``h`` and the
+#: parameters are f32 on both)
+CELL_X_DTYPES = (torch.float32, torch.bfloat16)
 
 
 class LaunchCounter:
@@ -120,6 +123,8 @@ def _hafner_lib():
     ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hafner_cell_forward.argtypes = [ptr] * 9 + [c_int] * 4 + [c_float, c_int, ptr]
     lib.hafner_cell_forward.restype = c_int
+    lib.hafner_cell_forward_bf16.argtypes = [ptr] * 9 + [c_int] * 4 + [c_float, c_int, ptr]
+    lib.hafner_cell_forward_bf16.restype = c_int
     lib.hafner_sequence_forward.argtypes = [ptr] * 12 + [c_int] * 6 + [c_float, c_int, c_int, ptr]
     lib.hafner_sequence_forward.restype = c_int
     lib.hafner_sequence_plan.argtypes = [c_int, c_int, ctypes.POINTER(c_int)]
@@ -136,13 +141,13 @@ def _hafner_lib():
     return lib
 
 
-def _check_operand(name: str, t: Optional[torch.Tensor], shape, device) -> None:
+def _check_operand(name: str, t: Optional[torch.Tensor], shape, device, dtypes=(torch.float32,)) -> None:
     if t is None:
         return
     if t.device != device:
         raise ValueError(f"hafner_cell: {name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"hafner_cell: {name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"hafner_cell: {name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"hafner_cell: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
@@ -196,9 +201,12 @@ def hafner_cell_cuda(
     save_z: bool = False,
 ):
     """Launch the CUDA cell on CUDA tensors: ``h [B,H]``, ``x [B,X]``,
-    ``kernel [H+X, 3H]``, ``bias``/``ln_scale``/``ln_bias`` ``[3H]`` or None.
-    Returns ``h'``, or ``(h', z)`` with the pre-LayerNorm ``z [B, 3H]`` when
-    ``save_z``."""
+    ``kernel [H+X, 3H]``, ``bias``/``ln_scale``/``ln_bias`` ``[3H]`` or None,
+    all f32 but ``x``, which may be bf16: then the cell takes its bf16
+    operand path (``hafner_cell_forward_bf16``: ``h`` and the kernel rounded
+    to bf16 where the product stages them, f32 accumulation, f32 LayerNorm
+    and gates). Returns the f32 ``h'``, or ``(h', z)`` with the
+    pre-LayerNorm ``z [B, 3H]`` when ``save_z``."""
     if h.device.type != "cuda":
         raise ValueError(f"hafner_cell_cuda needs CUDA tensors, got {h.device}")
     if h.dim() != 2 or x.dim() != 2:
@@ -206,7 +214,7 @@ def hafner_cell_cuda(
     B, H = h.shape
     X = x.shape[1]
     _check_operand("h", h, (B, H), h.device)
-    _check_operand("x", x, (B, X), h.device)
+    _check_operand("x", x, (B, X), h.device, CELL_X_DTYPES)
     _check_params(h, kernel, bias, ln_scale, ln_bias, H, X)
     if B == 0:
         out = torch.empty_like(h)
@@ -218,21 +226,24 @@ def hafner_cell_cuda(
         zpart = torch.empty((splits, B, 3 * H), dtype=torch.float32, device=h.device)
         # with one split the gate kernel writes z over the partial it reads
         z = None if not save_z else (zpart[0] if splits == 1 else torch.empty_like(zpart[0]))
-        vec = _vec(H, X, h, x, kernel, bias, ln_scale, ln_bias, zpart, z, out)
+        bf16 = x.dtype == torch.bfloat16
+        # x's own 16-byte path (H and X multiples of 8, x aligned) is the bf16 entry's to choose
+        vec = _vec(H, X, h, None if bf16 else x, kernel, bias, ln_scale, ln_bias, zpart, z, out)
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.hafner_cell_forward(
+        forward = lib.hafner_cell_forward_bf16 if bf16 else lib.hafner_cell_forward
+        err = forward(
             _ptr(h), _ptr(x), _ptr(kernel), _ptr(bias), _ptr(ln_scale), _ptr(ln_bias), _ptr(zpart), _ptr(z),
             _ptr(out), B, H, X, split_chunks, float(eps), vec, stream,
         )
-    _raise_on(lib, err, f"hafner_cell (B={B}, H={H}, X={X})")
-    hafner_cell_launches.add()
+    _raise_on(lib, err, f"hafner_cell{' bf16' if bf16 else ''} (B={B}, H={H}, X={X})")
+    hafner_cell_launches.add("bf16" if bf16 else "f32")
     return (out, z) if save_z else out
 
 
-def hafner_cell_variant(B: int, H: int, X: int, device="cuda") -> dict:
-    """Which hand-written product variant the cell launches at this shape:
-    batch rows per block (the wgmma N), warpgroups per block, K splits and
-    the grid."""
+def hafner_cell_variant(B: int, H: int, X: int, device="cuda", dtype=torch.float32) -> dict:
+    """Which hand-written product variant the cell launches at this shape
+    and operand dtype (``x``'s): batch rows per block (the wgmma N),
+    warpgroups per block, K splits and the grid."""
     lib = _hafner_lib()
     tile, wg = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device):
@@ -241,8 +252,10 @@ def hafner_cell_variant(B: int, H: int, X: int, device="cuda") -> dict:
     if err != 0:
         raise RuntimeError(f"hafner_cell: cannot query {device}")
     tile, wg = tile.value, wg.value
+    instruction = (f"wgmma.m64n{tile}k16.f32.bf16.bf16" if dtype == torch.bfloat16
+                   else f"wgmma.m64n{tile}k8.f32.tf32 x3 (3xTF32)")
     return {
-        "product": f"wgmma.m64n{tile}k8.f32.tf32 x3 (3xTF32), {wg} warpgroup(s) a block",
+        "product": f"{instruction}, {wg} warpgroup(s) a block",
         "tile_rows": tile,
         "warpgroups": wg,
         "splits": splits,
@@ -446,15 +459,22 @@ def hafner_cell_vjp(h, x, kernel, bias, ln_scale, ln_bias, z, g, eps: float, nee
     cotangent ``g``: ``(dh, dx, dkernel, dbias, dscale, dlbias)``. ``need``
     says which of ``(h, x, kernel, bias)`` take a gradient (None for the
     others): with a frozen kernel, as in DreamerV3's continuous imagination,
-    only the input product ``dz·Wᵀ`` runs."""
+    only the input product ``dz·Wᵀ`` runs. On the bf16 operand path (a bf16
+    ``x``) both products read the operands as the forward rounded them
+    (:func:`reference.bf16_operands`) and accumulate in f32, and what flows
+    back through a rounding is rounded to bf16, as the cotangent of an
+    ``astype``: the product's part of ``dh``, ``dx`` (returned in bf16) and
+    the kernel's gradient (returned in f32, for the f32 parameter)."""
     H = h.shape[-1]
     dz, dh, dscale, dlbias = _gates_vjp(z, h, ln_scale, ln_bias, eps, g)
+    hp, xp, kp = reference.bf16_operands(h, x, kernel)
+    rounded = (lambda t: t.to(torch.bfloat16).float()) if x.dtype == torch.bfloat16 else (lambda t: t)  # noqa: E731
     dh_out = dx = dkernel = dbias = None
     if need[0] or need[1]:
-        du = dz @ kernel.t()
-        dh_out, dx = dh + du[:, :H], du[:, H:]
+        du = dz @ kp.t()
+        dh_out, dx = dh + rounded(du[:, :H]), du[:, H:].to(x.dtype)
     if need[2]:
-        dkernel = torch.cat([h, x], dim=-1).t() @ dz
+        dkernel = rounded(torch.cat([hp, xp], dim=-1).t() @ dz)
     if bias is not None and need[3]:
         dbias = dz.sum(dim=0)
     return dh_out, dx, dkernel, dbias, dscale, dlbias
@@ -467,7 +487,7 @@ class _HafnerCell(torch.autograd.Function):
         knows whether a graph is recorded; inside ``forward`` grad mode is off)."""
         ctx.eps = eps
         if h.device.type == "cpu":  # reference.hafner_cell, with z kept
-            z = reference.dense_apply(torch.cat([h, x], dim=-1), kernel, bias)
+            z = reference.cell_product(h, x, kernel, bias)
             out = reference.hafner_norm_gates(z, h, ln_scale, ln_bias, eps=eps)
         elif save_z:
             out, z = hafner_cell_cuda(h, x, kernel, bias, ln_scale, ln_bias, eps=eps, save_z=True)

@@ -5,6 +5,13 @@ These run on the CPU, and on the card only where a test or ``chip_smoke.py``
 calls them by name to hold the CUDA kernel against them. The joint GRU
 kernel keeps the JAX layout, ``[H+X, 3H]`` with the h rows first, which is
 also the layout the CUDA kernel reads.
+
+The cell has two operand paths, chosen by the dtype of ``x``: f32, and bf16
+(the Pallas cell's with bf16 operands, ``pallas_tpu.py:67-76``): ``h`` and
+the kernel are rounded to bf16 (to nearest even, as ``astype`` rounds), the
+product of the bf16 operands accumulates in f32, and the bias, the
+LayerNorm and the gates run in f32 on the f32 ``h``. The new h is f32 on
+both paths.
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ import torch
 from sheeprl_tpu_torch.models.norm import fast_layer_norm
 
 __all__ = [
+    "bf16_operands",
+    "cell_product",
     "dense_apply",
     "hafner_cell",
     "hafner_gates",
@@ -31,6 +40,25 @@ def dense_apply(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tens
     if bias is not None:
         y = y + bias
     return y
+
+
+def bf16_operands(h: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor):
+    """``(h, x, kernel)`` as the product reads them: rounded to bf16 and held
+    in f32 (a product of two bf16 values is exact in f32) when ``x`` is bf16,
+    else as they are. Any other dtype of ``x`` raises."""
+    if x.dtype == torch.float32:
+        return h, x, kernel
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"hafner_cell: x must be float32 or bfloat16, got {x.dtype}")
+    bf = torch.bfloat16
+    return h.to(bf).float(), x.float(), kernel.to(bf).float()
+
+
+def cell_product(h: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The cell's pre-activation ``z = [h|x]·W + b`` in f32, on the operand
+    path of ``x``'s dtype (:func:`bf16_operands`)."""
+    h, x, kernel = bf16_operands(h, x, kernel)
+    return dense_apply(torch.cat([h, x], dim=-1), kernel, bias)
 
 
 def hafner_gates(z: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -67,8 +95,9 @@ def hafner_cell(
     *,
     eps: float,
 ) -> torch.Tensor:
-    """One LayerNorm-GRU step; ``ln_scale=None`` runs it without LayerNorm."""
-    return hafner_norm_gates(dense_apply(torch.cat([h, x], dim=-1), kernel, bias), h, ln_scale, ln_bias, eps=eps)
+    """One LayerNorm-GRU step; ``ln_scale=None`` runs it without LayerNorm.
+    A bf16 ``x`` takes the bf16 operand path (:func:`bf16_operands`)."""
+    return hafner_norm_gates(cell_product(h, x, kernel, bias), h, ln_scale, ln_bias, eps=eps)
 
 
 def hafner_sequence(

@@ -5,11 +5,17 @@ flattens its NHWC feature map, this one flattens in the same NHWC order, so
 the Dense layer after it sees its inputs in the order the JAX weights
 expect. The recurrent cell's joint kernel keeps the JAX ``[H+X, 3H]``
 layout, the one the CUDA kernel reads.
+
+Every module takes a compute ``dtype`` (None: f32), the JAX modules'
+``dtype`` under ``fabric.precision=bf16-mixed``: parameters stay f32 and
+are cast, with the input, to ``dtype`` at each call, as flax's
+``promote_dtype`` does; with None, the input and the parameters are
+promoted to their common dtype.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -18,7 +24,7 @@ from torch import nn
 from sheeprl_tpu_torch.kernels import ops, reference
 from sheeprl_tpu_torch.models.norm import FastLayerNorm
 
-__all__ = ["CNN", "DeCNN", "MLP", "LayerNormGRUCell", "resolve_activation"]
+__all__ = ["CNN", "Conv2d", "ConvTranspose2d", "DeCNN", "Linear", "MLP", "LayerNormGRUCell", "resolve_activation"]
 
 _ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "tanh": torch.tanh,
@@ -54,13 +60,54 @@ def _broadcast(value: Any, n: int) -> Tuple:
     return tuple(value for _ in range(n))
 
 
+def _promote(dtype: Optional[torch.dtype], x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]):
+    """``(x, weight, bias)`` in the compute dtype (flax's ``promote_dtype``)."""
+    dt = dtype or torch.promote_types(x.dtype, weight.dtype)
+    return x.to(dt), weight.to(dt), None if bias is None else bias.to(dt)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` (the same parameters) computing in ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, device=None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(*_promote(self.compute_dtype, x, self.weight, self.bias))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``dtype``."""
+
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(*_promote(self.compute_dtype, x, self.weight, self.bias))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in ``dtype``."""
+
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = _promote(self.compute_dtype, x, self.weight, self.bias)
+        return F.conv_transpose2d(x, w, b, self.stride, self.padding, self.output_padding, self.groups, self.dilation)
+
+
 class _Block(nn.Module):
     """Linear → [LayerNorm]."""
 
-    def __init__(self, in_dim, out_dim, bias, layer_norm, norm_eps, device):
+    def __init__(self, in_dim, out_dim, bias, layer_norm, norm_eps, device, dtype=None):
         super().__init__()
-        self.linear = nn.Linear(in_dim, out_dim, bias=bias, device=device)
-        self.norm = FastLayerNorm(out_dim, eps=norm_eps, device=device) if layer_norm else None
+        self.linear = Linear(in_dim, out_dim, bias=bias, device=device, dtype=dtype)
+        self.norm = FastLayerNorm(out_dim, eps=norm_eps, device=device, dtype=dtype) if layer_norm else None
 
     def forward(self, x):
         x = self.linear(x)
@@ -80,6 +127,7 @@ class MLP(nn.Module):
         norm_eps: float = 1e-5,
         bias: Union[bool, Sequence[bool]] = True,
         device=None,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         n = len(hidden_sizes)
@@ -89,7 +137,7 @@ class MLP(nn.Module):
         blocks = []
         dim = int(input_dim)
         for i, size in enumerate(hidden_sizes):
-            blocks.append(_Block(dim, int(size), biases[i], norms[i], norm_eps, device))
+            blocks.append(_Block(dim, int(size), biases[i], norms[i], norm_eps, device, dtype))
             dim = int(size)
         self.blocks = nn.ModuleList(blocks)
         self.output_dim = dim
@@ -117,6 +165,7 @@ class CNN(nn.Module):
         bias: Union[bool, Sequence[bool]] = True,
         flatten: bool = False,
         device=None,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         n = len(channels)
@@ -129,9 +178,9 @@ class CNN(nn.Module):
         for i, ch in enumerate(channels):
             pad = pd[i].lower() if isinstance(pd[i], str) else int(pd[i])
             convs.append(
-                nn.Conv2d(c_in, int(ch), ks[i], stride=st[i], padding=pad, bias=biases[i], device=device)
+                Conv2d(c_in, int(ch), ks[i], stride=st[i], padding=pad, bias=biases[i], device=device, dtype=dtype)
             )
-            lns.append(FastLayerNorm(int(ch), eps=norm_eps, device=device) if norms[i] else None)
+            lns.append(FastLayerNorm(int(ch), eps=norm_eps, device=device, dtype=dtype) if norms[i] else None)
             c_in = int(ch)
         self.convs = nn.ModuleList(convs)
         self.norms = nn.ModuleList([m if m is not None else nn.Identity() for m in lns])
@@ -175,6 +224,7 @@ class DeCNN(nn.Module):
         bias: Union[bool, Sequence[bool]] = True,
         final_activation: Union[str, Callable, None] = None,
         device=None,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         n = len(channels)
@@ -186,11 +236,11 @@ class DeCNN(nn.Module):
         c_in = int(in_channels)
         for i, ch in enumerate(channels):
             convs.append(
-                nn.ConvTranspose2d(
-                    c_in, int(ch), ks[i], stride=st[i], padding=int(pd[i]), bias=biases[i], device=device
+                ConvTranspose2d(
+                    c_in, int(ch), ks[i], stride=st[i], padding=int(pd[i]), bias=biases[i], device=device, dtype=dtype
                 )
             )
-            lns.append(FastLayerNorm(int(ch), eps=norm_eps, device=device) if norms[i] else None)
+            lns.append(FastLayerNorm(int(ch), eps=norm_eps, device=device, dtype=dtype) if norms[i] else None)
             c_in = int(ch)
         self.convs = nn.ModuleList(convs)
         self.norms = nn.ModuleList([m if m is not None else nn.Identity() for m in lns])
@@ -217,6 +267,12 @@ class LayerNormGRUCell(nn.Module):
     it is). ``impl="auto"`` runs the CUDA kernel on CUDA tensors and the plain
     version on CPU tensors; ``impl="plain"`` runs the plain version anywhere,
     for holding the kernel against it.
+
+    With ``dtype=torch.bfloat16`` the input goes to the cell in bf16 and the
+    cell takes its bf16 operand path (``h``, ``x`` and the kernel rounded to
+    bf16, the product accumulated in f32, the LayerNorm and the gates in
+    f32); the new h is f32, the carried state's dtype, as the JAX module
+    casts it back.
     """
 
     def __init__(
@@ -228,8 +284,11 @@ class LayerNormGRUCell(nn.Module):
         norm_eps: float = 1e-3,
         impl: str = "auto",
         device=None,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        if dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"LayerNormGRUCell: dtype must be None, float32 or bfloat16, got {dtype}")
         if impl not in ("auto", "plain"):
             raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
         H = int(hidden_size)
@@ -237,6 +296,7 @@ class LayerNormGRUCell(nn.Module):
         self.input_size = int(input_size)
         self.norm_eps = float(norm_eps)
         self.impl = impl
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(self.input_size + H, 3 * H, device=device))
         nn.init.xavier_uniform_(self.weight)
         self.bias = nn.Parameter(torch.zeros(3 * H, device=device)) if bias else None
@@ -246,4 +306,5 @@ class LayerNormGRUCell(nn.Module):
         ln_w = self.norm.weight if self.norm is not None else None
         ln_b = self.norm.bias if self.norm is not None else None
         cell = reference.hafner_cell if self.impl == "plain" else ops.hafner_gru_cell
-        return cell(h, x, self.weight, self.bias, ln_w, ln_b, eps=self.norm_eps)
+        x = x.to(self.dtype or torch.float32)
+        return cell(h.float(), x, self.weight, self.bias, ln_w, ln_b, eps=self.norm_eps)

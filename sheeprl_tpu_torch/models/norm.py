@@ -1,11 +1,12 @@
 """LayerNorm forward with f32 two-pass statistics (counterpart of
 ``sheeprl_tpu/models/norm.py``).
 
-The JAX module's one-pass custom backward comes with the training slice;
-serving needs the forward only.
+The backward is autograd's of these operations.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -28,15 +29,18 @@ def fast_layer_norm(
 
 class FastLayerNorm(nn.Module):
     """Affine LayerNorm over the last axis; ``weight``/``bias`` hold what the
-    JAX module calls ``scale``/``bias``."""
+    JAX module calls ``scale``/``bias``. The JAX dtype contract: statistics
+    from the input at its own precision, the output in ``dtype`` (the
+    promotion of the input's and the parameters' dtypes when None)."""
 
-    def __init__(self, features: int, eps: float = 1e-6, device=None):
+    def __init__(self, features: int, eps: float = 1e-6, device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.eps = float(eps)
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return fast_layer_norm(x, self.weight, self.bias, self.eps).to(
-            torch.promote_types(x.dtype, self.weight.dtype)
+            self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         )

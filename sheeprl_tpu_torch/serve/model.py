@@ -88,8 +88,9 @@ def load_gateway_model(
     a ``registry:best:<algo>:<env id>`` ref (resolved in ``registry_dir``),
     on ``device`` (``cuda`` when None). Every array of the model state is
     checksummed against the manifest (a replay buffer saved beside it is not
-    read); the architecture comes from the run's persisted
-    ``.hydra/config.yaml``, the spaces from one probe env, the version from
+    read); the architecture, and its compute dtype (``fabric.precision``: a
+    ``bf16-mixed`` run serves in bf16 on its f32 parameters), come from the
+    run's persisted ``.hydra/config.yaml``, the spaces from one probe env, the version from
     the manifest's step. Returns ``(model, cfg, observation_space,
     action_space)``: the rest is what a swap rebuilds against."""
     from sheeprl_tpu_torch.ckpt import read_checkpoint, read_manifest

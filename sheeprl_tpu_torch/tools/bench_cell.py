@@ -76,12 +76,16 @@ def operands(B: int, H: int, X: int, seed: int):
 
 def cell_split(cell_operands, calls: int = 50, flush=None) -> dict:
     """Mean device µs per call of the cell's product and gate kernels and of
-    cuBLAS's SGEMM of the same product, from the profiler's kernel records."""
+    cuBLAS's SGEMM of the same product, from the profiler's kernel records;
+    with a bf16 ``x`` (the bf16 operand path) cuBLAS's GEMM of the product on
+    bf16 operands."""
     import torch
 
     from sheeprl_tpu_torch.kernels import ops
 
     h, x, w = cell_operands[:3]
+    if x.dtype == torch.bfloat16:
+        h, w = h.to(torch.bfloat16), w.to(torch.bfloat16)
     u = torch.cat([h, x], dim=-1)
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False

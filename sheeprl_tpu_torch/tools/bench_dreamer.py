@@ -12,12 +12,16 @@ the default), ``exp=dreamer_v3_100k_ms_pacman`` (``dreamer_v3``),
 Box of actions (``dreamer_v2_continuous``), or Plan2Explore's exploration
 step (``p2e_dv3``, ``exp=p2e_dv3_exploration``, also on the walker's
 observations and actions as ``p2e_dv3_continuous``; ``p2e_dv2``,
-``exp=p2e_dv2_exploration``), with seeded random weights
+``exp=p2e_dv2_exploration``), the L and XL widths (``dreamer_v3_L``,
+``exp=dreamer_v3_L_doapp``; ``dreamer_v3_XL``, ``exp=dreamer_v3_XL_crafter``)
+and P2E-DV3's L DIAMBRA exploration preset under its ``bf16-mixed``
+(``p2e_dv3_L_bf16``), with seeded random weights
 (``compare`` takes config overrides, which the tests use to shrink it), and
 the seeded batch of the JAX bench at the preset's ``B × T`` (DV2: 32 × 50,
-DV3 and P2E-DV3: 16 × 64, P2E-DV2: 16 × 50 uint8 frames of 3×64×64; 9 one-hot actions, or uniform
-continuous ones in [−1, 1]; a Gaussian ``state``; Gaussian rewards, no
-episode ends). Times
+DV3 and P2E-DV3: 16 × 64, P2E-DV2: 16 × 50, P2E-DV3 L: 4 × 64) uint8 frames
+of 3×64×64 (1×64×64 grey); 9 one-hot actions (16 DIAMBRA, 17 Crafter), or
+uniform continuous ones in [−1, 1]; a Gaussian vector for every other
+key; Gaussian rewards, no episode ends). Times
 the step eager and graphed in one call, each on a fresh trainer of the same
 seed: one warm-up step at τ=1, then ``--steps`` timed steps at τ=0. Prints
 one JSON line with, for each side, steps/s (host clock around the timed
@@ -49,6 +53,20 @@ from typing import Any, Dict, Optional
 ACTIONS = (9,)
 OBS = {"rgb": (3, 64, 64)}
 WALKER_OBS = {"rgb": (3, 64, 64), "state": (24,)}
+#: DIAMBRA's Dead or Alive++ as the preset's keys see it (the DIAMBRA wrapper's spaces: every non-Box key a
+#: 1-wide Box) and its 16 combo-discrete actions (9 moves + 8 attack-button combinations - 1 shared no-op);
+#: the L preset's legacy key names with an RGB frame, and the P2E L presets' role-relative names with a grey frame
+#: and the reward as an observation
+DOAPP_L_OBS = {"frame": (3, 64, 64), **{k: (1,) for k in (
+    "P1_actions_attack", "P1_actions_move", "P1_oppChar", "P1_oppHealth", "P1_oppSide", "P1_oppWins", "P1_ownChar",
+    "P1_ownHealth", "P1_ownSide", "P1_ownWins", "stage")}}
+DOAPP_P2E_OBS = {"frame": (1, 64, 64), **{k: (1,) for k in (
+    "own_character", "own_health", "own_side", "own_wins", "opp_character", "opp_health", "opp_side", "opp_wins",
+    "stage", "timer", "action", "reward")}}
+DOAPP_ACTIONS = (16,)
+#: Crafter: its frame and the reward as an observation, its 17 actions
+CRAFTER_OBS = {"rgb": (3, 64, 64), "reward": (1,)}
+CRAFTER_ACTIONS = (17,)
 #: the agent and training modules of each family
 ALGOS = {
     "dreamer_v2": ("sheeprl_tpu_torch.algos.dreamer_v2.agent", "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2"),
@@ -69,6 +87,13 @@ PRESETS = {
     "p2e_dv3_continuous": ("p2e_dv3", "p2e_dv3_exploration", WALKER_OBS, (6,), True,
                            {"mlp_keys.encoder": ["state"], "mlp_keys.decoder": ["state"]}),
     "p2e_dv2": ("p2e_dv2", "p2e_dv2_exploration", OBS, ACTIONS, False),
+    # the L and XL widths in f32 (DIAMBRA's L preset: recurrent 2048, dense 768 x 4, CNN multiplier 64, B=16 x T=64;
+    # Crafter's XL: recurrent 4096, dense 1024 x 5, CNN multiplier 96), and P2E-DV3's L DIAMBRA exploration preset
+    # under its bf16-mixed (recurrent 1024, dense 768 x 4, CNN multiplier 48, B=4 x T=64)
+    "dreamer_v3_L": ("dreamer_v3", "dreamer_v3_L_doapp", DOAPP_L_OBS, DOAPP_ACTIONS, False),
+    "dreamer_v3_XL": ("dreamer_v3", "dreamer_v3_XL_crafter", CRAFTER_OBS, CRAFTER_ACTIONS, False),
+    "p2e_dv3_L_bf16": ("p2e_dv3", "p2e_dv3_expl_L_doapp_128px_gray_combo_discrete_15Mexpl_20Mstps", DOAPP_P2E_OBS,
+                       DOAPP_ACTIONS, False),
 }
 
 
@@ -131,25 +156,23 @@ def _metric(algo: str) -> str:
 
 def profile_steps(step, steps: int) -> Dict[str, Any]:
     """Device busy time, idle share and top operations over ``steps`` calls
-    of ``step()`` under ``torch.profiler`` (kernel and copy times from CUPTI)."""
+    of ``step()`` under ``torch.profiler`` (kernel and copy times from CUPTI;
+    the device's activity alone: host operations are not traced)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from sheeprl_tpu_torch.tools.profile_serve import device_us
-
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and device_us(e) > 0]
-    busy_us = sum(device_us(e) for e in events)
-    cell_us = sum(device_us(e) for e in events if "hafner" in e.key)
-    product_us = sum(device_us(e) for e in events if "hafner_product" in e.key)
-    top = sorted(events, key=device_us, reverse=True)[:12]
+    by_name = _device_us_by_name(prof)
+    busy_us = sum(by_name.values())
+    cell_us = sum(us for name, us in by_name.items() if "hafner" in name)
+    product_us = sum(us for name, us in by_name.items() if "hafner_product" in name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
         "profiled_steps": steps,
         "wall_ms_per_step_profiled": 1e3 * wall_s / steps,
@@ -159,8 +182,37 @@ def profile_steps(step, steps: int) -> Dict[str, Any]:
         "cell_product_ms_per_step": product_us / 1e3 / steps,
         "cell_gates_ms_per_step": (cell_us - product_us) / 1e3 / steps,
         "cell_share_of_device_time": cell_us / busy_us if busy_us else None,
-        "top_device_ms_per_step": {e.key[:90]: device_us(e) / 1e3 / steps for e in top},
+        "top_device_ms_per_step": {name[:90]: us / 1e3 / steps for name, us in top},
     }
+
+
+def _device_us_by_name(prof) -> Dict[str, float]:
+    """Device µs by kernel (or copy) name over a profiler window, summed from
+    the profiler's raw device events (a user-annotated range spans kernels
+    counted on their own, so it is left out); building its function events
+    and ``key_averages()`` gives the same sums but takes seconds a window at
+    these steps' tens of thousands of kernels. A PyTorch without the raw
+    events reads the averages."""
+    from torch.autograd import DeviceType
+
+    from sheeprl_tpu_torch.tools.profile_serve import device_us
+
+    try:
+        events = prof.profiler.kineto_results.events()
+    except AttributeError:
+        events = None
+    out: Dict[str, float] = {}
+    if events is None:
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and device_us(e) > 0:
+                out[e.key] = out.get(e.key, 0.0) + device_us(e)
+        return out
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        us = e.duration_ns() / 1e3 if hasattr(e, "duration_ns") else e.duration_us()
+        out[e.name()] = out.get(e.name(), 0.0) + us
+    return out
 
 
 def run(steps: int = 5, device=None, profile: bool = False, seed: int = 0, mode: str = "eager",
@@ -211,6 +263,7 @@ def run(steps: int = 5, device=None, profile: bool = False, seed: int = 0, mode:
         "horizon": int(cfg.algo.horizon),
         "losses": losses,
         "hafner_cell_launches": cell_launches,
+        "hafner_cell_launches_by_operand_dtype": dict(ops.hafner_cell_launches.by_variant),
         "hafner_cell_launches_per_step": cell_launches / steps,
         "hafner_sequence_launches": seq_launches,
         "peak_device_memory_bytes": torch.cuda.max_memory_allocated(dev) - base_bytes if cuda else None,

@@ -18,22 +18,48 @@ decides, not a flag.
 The kernel wrappers count their launches on the host. A capture runs no
 kernel, so its counts are taken back (``kernels.ops.launches_recorded``)
 and added again on every replay.
+
+Nothing may destroy a CUDA graph while another is captured: the
+destruction is not permitted then, and it invalidates the capture (a
+DreamerV3 run's first capture failed so, ``cudaErrorStreamCaptureInvalidated``
+after PyTorch's "operation not permitted when stream is capturing
+(function reset)": an earlier step's graph, left in a reference cycle,
+finalized by the garbage collector in the middle of the capture).
+``torch.cuda.graph`` collects before a capture only under
+``torch.compiler.config.force_cudagraph_gc``, so a capture here collects
+the garbage first and keeps the collector off until it ends
+(:func:`capture_guard`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
-
+import contextlib
+import gc
 import time
+from typing import Any, Callable, Iterator, Optional
 
 import torch
 
 from sheeprl_tpu_torch.kernels import ops
 
-__all__ = ["CapturedStep", "WARMUP_CALLS"]
+__all__ = ["CapturedStep", "WARMUP_CALLS", "capture_guard"]
 
 #: eager calls before the capture (PyTorch's recipe for whole-network capture)
 WARMUP_CALLS = 3
+
+
+@contextlib.contextmanager
+def capture_guard() -> Iterator[None]:
+    """Around a CUDA-graph capture: the garbage collected first and the
+    collector off until the block ends."""
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
 
 
 class CapturedStep:
@@ -81,7 +107,7 @@ class CapturedStep:
     def _capture(self) -> None:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with ops.launches_recorded() as recorded:
+        with capture_guard(), ops.launches_recorded() as recorded:
             # thread-local: the replay prefetch thread keeps copying on its own stream meanwhile
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 out = self._fn()

@@ -384,3 +384,29 @@ def test_the_trainer_bench_times_eager_and_graphed_on_the_cpu():
     assert line["graphed"]["graph"] == {"eager_calls": 5, "replays": 0, "warmup_s": 0.0, "capture_s": 0.0}
     for mode in ("eager", "graphed"):
         assert all(np.isfinite(v) for v in line[mode]["losses"].values())
+
+
+@pytest.mark.parametrize("collecting", [True, False])
+def test_capture_guard_collects_first_and_keeps_the_collector_off(collecting):
+    """Inside ``capture_guard`` the garbage of before is gone and the
+    collector is off; after it the collector is as it was."""
+    import gc
+    import weakref
+
+    from sheeprl_tpu_torch.train.graphs import capture_guard
+
+    class Held:
+        pass
+
+    prev = gc.isenabled()
+    try:
+        (gc.enable if collecting else gc.disable)()
+        cycle = Held()
+        cycle.self = cycle
+        ref = weakref.ref(cycle)
+        del cycle
+        with capture_guard():
+            assert ref() is None and not gc.isenabled()
+        assert gc.isenabled() == collecting
+    finally:
+        (gc.enable if prev else gc.disable)()

@@ -581,12 +581,14 @@ def test_cell_at_p2e_shapes_with_gradients(cuda, B, H, X, bias, eps):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("algo,per_step", [("p2e_dv3", 8 + 2 * 4), ("p2e_dv3_continuous", 8 + 2 * 4),
-                                           ("p2e_dv2", 8 + 2 * 4)])
+                                           ("p2e_dv2", 8 + 2 * 4), ("p2e_dv3_L_bf16", 8 + 2 * 4)])
 def test_graphed_p2e_train_burst_equals_the_eager_steps(cuda, monkeypatch, algo, per_step):
     """The P2E exploration step (six updates) as the DV2 and DV3 ones above:
     eager steps against one burst of replays at the same state, batches,
     noise and τ schedule, with cuDNN's deterministic algorithms; T + 2 ×
-    horizon cell launches a step on both (two imaginations)."""
+    horizon cell launches a step on both (two imaginations). The L DIAMBRA
+    preset runs at its ``bf16-mixed``, every launch on the cell's bf16
+    operand path."""
     import importlib
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
@@ -621,6 +623,59 @@ def test_graphed_p2e_train_burst_equals_the_eager_steps(cuda, monkeypatch, algo,
             assert abs(g[k] - e[k]) <= GRAPH_TOL * max(abs(e[k]), 1e-30), (k, g[k], e[k])
     for g, e in zip(gp, ep):
         assert (g - e).abs().max() <= GRAPH_TOL * e.abs().max().clamp_min(1e-30)
+    if algo.endswith("_bf16"):
+        assert ops.hafner_cell_launches.by_variant.get("bf16", 0) >= 2 * n * per_step
+
+
+# the L and XL widths in f32 (no bias, eps 1e-3), with the kernel at 0.05 as chip_smoke.py draws it: K = H + X
+# reaches 5120, and the 3xTF32 product's error against f32 grows with K (the forward reads 6e-5 at XL)
+LARGE_CELLS = [(2048, 768), (4096, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,X", LARGE_CELLS, ids=["L", "XL"])
+@pytest.mark.parametrize("B", [1, 16, 1024])
+def test_cell_at_l_xl_shapes_with_gradients(cuda, B, H, X):
+    """The forward and the hand VJP's five gradients against autograd of the
+    plain version at the L and XL widths (acting, posterior, imagination)."""
+    args = _operands(B, H, X, bias=False, layer_norm=True, device=cuda, seed=B + H)
+    args = (args[0], args[1], 0.5 * args[2], *args[3:])  # the kernel at scale 0.05
+    cot = torch.randn(B, H, device=cuda, generator=torch.Generator(device=cuda).manual_seed(B))
+    before = ops.hafner_cell_launches.by_variant.get("f32", 0)
+    out, got = _grads(lambda *a: ops.hafner_gru_cell(*a, eps=1e-3), args, cot)
+    assert ops.hafner_cell_launches.by_variant["f32"] == before + 1
+    plain, want = _grads(lambda *a: reference.hafner_cell(*a, eps=1e-3), args, cot)
+    assert len(got) == len(want) == 5
+    assert (out - plain).abs().max().item() <= TOL
+    _assert_grads_close(got, want)
+
+
+# the bf16 operand path against the plain bf16 cell: the same roundings of h, x and W, f32 accumulation, so the
+# forward within TOL (the f32 summation order); what flows back through a rounding to bf16 (dx, the product's part of
+# dh, dW) can land one bf16 ulp apart, at most 2^-7 of the value
+BF16_GRAD_TOL = 2.0**-7
+BF16_CELLS = [(1024, 768), (512, 512), (37, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,X", BF16_CELLS, ids=["p2e_L", "dv3", "odd"])
+@pytest.mark.parametrize("B", [1, 16, 70, 1024])
+def test_bf16_cell_matches_the_plain_bf16_cell(cuda, B, H, X):
+    """x in bf16: the kernel's bf16 variant (``wgmma ... .bf16``) against the
+    plain bf16 cell, forward and the five gradients; the new h is f32, dx
+    bf16."""
+    h, x, w, b, s, lb = _operands(B, H, X, bias=False, layer_norm=True, device=cuda, seed=B + X)
+    args = (h, x.to(torch.bfloat16), 0.5 * w, b, s, lb)
+    assert "bf16" in ops.hafner_cell_variant(B, H, X, dtype=torch.bfloat16)["product"]
+    cot = torch.randn(B, H, device=cuda, generator=torch.Generator(device=cuda).manual_seed(B))
+    before = ops.hafner_cell_launches.by_variant.get("bf16", 0)
+    out, got = _grads(lambda *a: ops.hafner_gru_cell(*a, eps=1e-3), args, cot)
+    assert ops.hafner_cell_launches.by_variant["bf16"] == before + 1
+    plain, want = _grads(lambda *a: reference.hafner_cell(*a, eps=1e-3), args, cot)
+    assert out.dtype == torch.float32 and got[1].dtype == torch.bfloat16 and len(got) == 5
+    assert (out - plain).abs().max().item() <= TOL
+    for g, w_ in zip(got, want):
+        assert ((g.float() - w_.float()).abs().max() / w_.float().abs().max().clamp_min(1e-30)).item() <= BF16_GRAD_TOL
 
 
 @pytest.mark.cuda
@@ -650,3 +705,56 @@ def test_p2e_finetuning_on_the_card_switches_between_two_captured_acting_steps(c
     assert fntn["graphs"]["act"]["captured"] == 2
     assert fntn["graphs"]["act"]["eager_calls"] == 2 * WARMUP_CALLS
     assert launches == 16 + (4 + 2) * fntn["gradient_steps"] + fntn["test_steps"]
+
+
+_GRAPH_IN_A_CYCLE = """
+import contextlib, gc, sys
+import torch
+from sheeprl_tpu_torch.train.graphs import capture_guard
+
+x = torch.ones(64, device="cuda")
+gc.collect()
+gc.set_threshold(1_000_000)  # no collection while the garbage is made
+old = torch.cuda.CUDAGraph()
+with torch.cuda.graph(old):
+    y = x * 2
+holder = {"graph": old}
+holder["self"] = holder  # a reference cycle: only the collector frees it
+del old, holder
+graph = torch.cuda.CUDAGraph()
+guard = capture_guard() if sys.argv[1] == "guarded" else contextlib.nullcontext()
+try:
+    with guard, torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        gc.set_threshold(1)  # the collector runs at the next allocations, as it may at any time of a capture
+        junk = [[] for _ in range(1000)]
+        y = x + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    print("CAPTURED", float(y.sum()))
+except Exception as e:  # the capture's own failure is what this script reports
+    print("FAILED", type(e).__name__, str(e).splitlines()[0])
+"""
+
+
+@pytest.mark.cuda
+def test_capture_guard_keeps_a_collected_graph_from_invalidating_a_capture(cuda, tmp_path):
+    """A CUDA graph left in a reference cycle and finalized by the garbage
+    collector while another graph is captured invalidates that capture
+    (``cudaErrorStreamCaptureInvalidated``): the failure a DreamerV3 run's
+    capture met. Under ``train.graphs.capture_guard`` the same capture
+    succeeds. Each case runs in a fresh interpreter."""
+    import os
+    import subprocess
+    import sys
+
+    script = tmp_path / "graph_in_a_cycle.py"
+    script.write_text(_GRAPH_IN_A_CYCLE)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = {}
+    for case in ("unguarded", "guarded"):
+        run = subprocess.run([sys.executable, str(script), case], capture_output=True, text=True, env=env, timeout=300)
+        assert run.returncode == 0, run.stderr[-2000:]
+        out[case] = run.stdout.strip().splitlines()[-1]
+    assert out["unguarded"].startswith("FAILED") and "capture" in out["unguarded"], out
+    assert out["guarded"] == "CAPTURED 128.0", out

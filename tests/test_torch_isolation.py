@@ -286,3 +286,53 @@ def test_the_p2e_builds_raise_without_a_card(monkeypatch):
     for build, exp in ((build_p2e_dv3, "p2e_dv3_exploration"), (build_p2e_dv2, "p2e_dv2_exploration")):
         with pytest.raises(RuntimeError, match="CUDA"):
             build(dreamer_v2_config(exp), (9,), False, {"rgb": (3, 64, 64)})
+
+
+def test_a_bf16_p2e_run_on_the_doapp_stand_in_loads_none_of_the_card_path_exclusions(tmp_path):
+    """P2E-DV3's L DIAMBRA exploration preset at its ``bf16-mixed`` on the
+    DIAMBRA stand-in, then finetuning from its checkpoint and serving it, in
+    a fresh interpreter: PyYAML, gymnasium, OpenCV, tensorboardX, JAX and the
+    JAX package are never imported, and the served model is built from the
+    run's ``bf16-mixed``."""
+    tiny = [a for a in TINY_P2E if not a.startswith(("env=", "env.id=", "env.num_envs=", "total_steps=",
+                                                       "algo.learning_starts="))]
+    tiny += ["env.wrapper._target_=chip_smoke.doapp_stand_in", "env.capture_video=False", "env.num_envs=2",
+             "total_steps=8", "algo.learning_starts=4", f"root_dir={tmp_path}", "fabric.accelerator=cpu"]
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "from sheeprl_tpu_torch import cli\n"
+        "from sheeprl_tpu_torch.serve.model import load_gateway_model\n"
+        f"base = {tiny!r}\n"
+        "expl = cli.run(base + ['exp=p2e_dv3_expl_L_doapp_128px_gray_combo_discrete_15Mexpl_20Mstps', 'run_name=expl'])\n"
+        "fntn = cli.run(base + ['exp=p2e_dv3_fntn_L_doapp_64px_gray_combo_discrete_5Mstps', 'run_name=fntn',\n"
+        "                       'checkpoint.exploration_ckpt_path=' + expl['checkpoint']])\n"
+        "model, cfg, *_ = load_gateway_model(fntn['checkpoint'], device='cpu')\n"
+        "assert cfg.fabric.precision == 'bf16-mixed', cfg.fabric.precision\n"
+        f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {CARD_PATH_FORBIDDEN!r}))\n"
+        "print('loaded:', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert "loaded: []" in proc.stdout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype", [("x", torch.float16), ("x", torch.float64), ("h", torch.bfloat16),
+                                        ("kernel", torch.bfloat16)])
+def test_the_cell_raises_for_a_cuda_tensor_of_an_unsupported_dtype(name, dtype):
+    """On a CUDA tensor the wrapper launches its kernel or raises: x may be
+    f32 or bf16 (the bf16 operand path), h and the parameters f32 only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the check is on CUDA tensors")
+    from sheeprl_tpu_torch.kernels import ops
+
+    args = {"h": torch.zeros(2, 8, device="cuda"), "x": torch.zeros(2, 4, device="cuda"),
+            "kernel": torch.zeros(12, 24, device="cuda")}
+    args[name] = args[name].to(dtype)
+    before = ops.hafner_cell_launches.count
+    with pytest.raises(TypeError, match=name):
+        ops.hafner_gru_cell(args["h"], args["x"], args["kernel"], None, None, None, eps=1e-3)
+    assert ops.hafner_cell_launches.count == before

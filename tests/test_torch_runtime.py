@@ -128,10 +128,13 @@ def test_fabric_is_one_device_and_raises_for_the_rest(monkeypatch):
     for kwargs, match in (
         (dict(devices=2), "item 7"),
         (dict(strategy="ddp"), "item 7"),
-        (dict(precision="bf16-mixed"), "item 5"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             Fabric(accelerator="cpu", **kwargs)
+    # bf16-mixed is the JAX package's: bf16 compute, f32 parameters; any other precision raises
+    assert Fabric(accelerator="cpu", precision="bf16-mixed").compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="precision"):
+        Fabric(accelerator="cpu", precision="16-mixed")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Fabric()
