@@ -84,11 +84,11 @@ latent, 255-bin two-hot reward and critic, B=16 x T=64, horizon 15, f32):
   graphed with a profiled window, 79 cell launches a step (64 posterior
   steps at B=16, 15 imagination steps at B=1024);
 - run_dv3 (after phase 7): ``cli.run`` with RUN_DV3_ARGS
-  (``exp=dreamer_v3_100k_ms_pacman`` on ``discrete_dummy``: 1152 policy
-  steps, learning from the preset's 1024, 128 acting steps, 129 gradient
+  (``exp=dreamer_v3_100k_ms_pacman`` on ``discrete_dummy``: 1088 policy
+  steps, learning from the preset's 1024, 64 acting steps, 65 gradient
   steps, a 5-step test episode that samples its actions), the same checks
   as phase 7 with the sequential buffer restored equal from the
-  checkpoint, and 128 + 79 x 129 + 5 cell launches.
+  checkpoint, and 64 + 79 x 65 + 5 cell launches.
 
 Continuous actions: DreamerV3's DMC walker_walk preset at full width
 (rgb 3x64x64 plus the 24-wide ``state`` vector, channels 32/64/128/256, an
@@ -112,7 +112,7 @@ backprop, so its gradient runs back through the 15 imagination cell steps):
   dm_control), the same checks as run_dv3 with the float actions served
   (kernel against plain cell within TOL_CONTINUOUS_ACTION) and the greedy
   best-of-100 actions of the checkpoint's weights against a plain-cell
-  replay at the same injected noise; 128 + 79 x 65 + 1000 cell launches.
+  replay at the same injected noise; 64 + 79 x 33 + 1000 cell launches.
 
 Evaluation, registration and serving, eval_serve (after run_walker,
 on run_dv3's and run_walker's checkpoints; the dv3 kernel rows gain B=10,
@@ -190,15 +190,40 @@ spaces; the card has neither simulator):
   same checks as the runs before them, and every floating array of each
   checkpoint's agent f32 (``_f32_parameters``).
 
+DreamerV1 and Plan2Explore on it, at their presets' full widths (DV1:
+recurrent 200, a Gaussian stochastic state of 30, dense 400 x 4, CNN
+multiplier 32, B=50 x T=50, horizon 15; P2E-DV1: recurrent 400, stochastic
+60, 10 members regressing the 1,024-wide observation embedding). Their
+recurrent core is flax's GRU cell, PyTorch operations on the card as the JAX
+package computes it outside any Pallas kernel, so every one of their paths
+must launch hafner_cell 0 times:
+
+- train_dv1, train_p2e_dv1 (after the L and XL trainers): the card's step
+  against the port's own CPU step on the same weights, batch and noise at
+  B=8 x T=16 (DV1_CPU_OVERRIDES: TF32 off, the updates that feed later
+  losses at lr 0; losses within TOL_TRAIN_LOSS, the other metrics within
+  TOL_TRAIN_GRAD, relative), GRAPH_STEPS steps graphed against eager within
+  TOL_GRAPHED with ``cudnn.deterministic`` (for DV1 also on a 2-wide Box of
+  actions), then DV1_TRAIN_STEPS timed steps eager and graphed with a
+  profiled window and the peak memory (``phase_train_dv1``);
+- run_p2e_dv1 (after the other P2E runs) and run_dv1 (after them):
+  ``cli.run`` of RUN_P2E_SPECS["p2e_dv1"] (exploration, then finetuning with
+  the actor switch) and of RUN_DV1_ARGS, checked as the runs before them
+  (counters, graphs, event tags, deep-validated f32 checkpoints, DV1's
+  sequential buffer restored equal), the evaluation command on the
+  finetuning checkpoint, and the served actions of both checkpoints held
+  against their evaluation policy's on the same frames and noise
+  (``eval_policy_lockstep``).
+
 Each path's launch counts are zeroed just before its run and read just
 after it: the served run (phase 4), the bench (phase 5), the timed train
 steps (phases 6, train_dv3, train_walker) and the graphed steps
 (train_dv2_continuous), the training runs (phases 7, run_dv3 and
 run_walker), and eval_serve's evaluations, rescore, serve command and
 in-run run (``launches_by_path``), and the P2E trainers, runs, evaluations and
-serving. The ``kernels`` line's cell ``launches`` is the f32 training runs'
-sum (the five Dreamer runs and the four f32 P2E runs; the bf16 P2E runs'
-are ``hafner_cell_bf16``'s); its ``p2e_shapes`` and
+serving, and the DreamerV1 paths (``dv1_paths``, each 0). The ``kernels``
+line's cell ``launches`` is the f32 training runs' sum (the six Dreamer runs and the six f32 P2E runs, DV1's
+at 0; the bf16 P2E runs' are ``hafner_cell_bf16``'s); its ``p2e_shapes`` and
 ``p2e_train`` keys carry the P2E rows. The build phase also counts the tensor-core instructions
 (``HGMMA``, ``HMMA``) in the built library's SASS (``cuobjdump -sass``).
 
@@ -288,28 +313,28 @@ DV3_CELL_LAUNCHES_PER_STEP = 79  # 64 posterior steps + 15 imagination steps
 DV3_TRAIN_STEPS = 4
 # the DV3 run: the port's CLI with exp=dreamer_v3_100k_ms_pacman at its full width (its sequential buffer checkpointed,
 # log_level 1, learning from the preset's 1024, one gradient step a policy step) on the dummy env (1 head of 2
-# actions, 5-step episodes); cut: a buffer of 4096 steps, 1152 policy steps (129 gradient steps: the pretrain step at
+# actions, 5-step episodes); cut: a buffer of 4096 steps, 1088 policy steps (65 gradient steps: the pretrain step at
 # 1024 and one a step after it), a log every 256 policy steps
 RUN_DV3_ARGS = (
     "exp=dreamer_v3_100k_ms_pacman", "env=dummy", "env.id=discrete_dummy", "env.sync_env=True", "buffer.size=4096",
-    "total_steps=1152", "metric.log_every=256",
+    "total_steps=1088", "metric.log_every=256",
 )
-RUN_DV3_UPDATES, RUN_DV3_PLAYER_STEPS, RUN_DV3_GRADIENT_STEPS, RUN_DV3_TEST_STEPS = 1152, 128, 129, 5
-RUN_DV3_LOG_STEPS = (256, 512, 768, 1024, 1152)
+RUN_DV3_UPDATES, RUN_DV3_PLAYER_STEPS, RUN_DV3_GRADIENT_STEPS, RUN_DV3_TEST_STEPS = 1088, 64, 65, 5
+RUN_DV3_LOG_STEPS = (256, 512, 768, 1024, 1088)
 # the walker: the DV3 DMC walker_walk preset at its full width (rgb and a 24-wide state, 6 continuous actions)
 WALKER_OBS = {"rgb": (3, 64, 64), "state": (24,)}
 WALKER_ACTIONS = 6
 # the walker run: the port's CLI with exp=dreamer_v3_dmc_walker_walk at its full width (1 env, train_every 2, the memmap
 # sequential buffer checkpointed, log_level 1) on walker_stand_in; cut: a buffer of 4096 steps in place of 1e5, learning
-# from 1024 in place of 8000, 1152 policy steps (65 gradient steps: the pretrain step at 1024 and one every 2 after
+# from 1024 in place of 8000, 1088 policy steps (33 gradient steps: the pretrain step at 1024 and one every 2 after
 # it), a log every 256 policy steps; the envs stepped in the process (sync) and no video capture (not ported)
 RUN_WALKER_ARGS = (
     "exp=dreamer_v3_dmc_walker_walk", "env.wrapper._target_=chip_smoke.walker_stand_in", "env.sync_env=True",
-    "env.capture_video=False", "buffer.size=4096", "algo.learning_starts=1024", "total_steps=1152",
+    "env.capture_video=False", "buffer.size=4096", "algo.learning_starts=1024", "total_steps=1088",
     "metric.log_every=256",
 )
-RUN_WALKER_UPDATES, RUN_WALKER_PLAYER_STEPS, RUN_WALKER_GRADIENT_STEPS, RUN_WALKER_TEST_STEPS = 1152, 128, 65, 1000
-RUN_WALKER_LOG_STEPS = (256, 512, 768, 1024, 1152)
+RUN_WALKER_UPDATES, RUN_WALKER_PLAYER_STEPS, RUN_WALKER_GRADIENT_STEPS, RUN_WALKER_TEST_STEPS = 1088, 64, 33, 1000
+RUN_WALKER_LOG_STEPS = (256, 512, 768, 1024, 1088)
 # DIAMBRA's Dead or Alive++ as diambra.arena gives it with the env config's flattened, role-relative wrappers: the
 # raw space of each key, ("box", low, high) of shape (1,) int32 or ("discrete", n), which the DIAMBRA wrapper
 # (sheeprl_tpu/envs/diambra.py:93-106) keeps as a Box or turns into a 1-wide int32 Box of [0, n - 1]. The P2E L
@@ -372,7 +397,8 @@ P2E_TRAIN_STEPS = 4
 # envs, the sequential buffer, log_level 1; exploration, then finetuning from its checkpoint, the finetuning player
 # acting with the exploration actor until learning_starts and with the task actor after it, inside the run. Cuts:
 # a buffer of 4096 steps (1e6 and 5e6), 1024 and 512 policy steps (P2E-DV3; 5e6 and 1e6) and 512 and 256 (P2E-DV2),
-# learning from 512 and 320 (P2E-DV3; 65536 both) and 256 and 224 (P2E-DV2; 1000 both), a log every 256 (5000)
+# learning from 512 and 320 (P2E-DV3; 65536 both) and 256 and 224 (P2E-DV2; 1000 both), a log every 256 (5000);
+# P2E-DV2's pretraining burst at learning_starts 10 gradient steps (100)
 P2E_ENV_ARGS = ("env=dummy", "env.id=discrete_dummy", "env.sync_env=True", "buffer.size=4096", "metric.log_every=256")
 P2E_L_ENV_ARGS = ("env.wrapper._target_=chip_smoke.doapp_stand_in", "env.sync_env=True", "env.capture_video=False",
                   "buffer.size=4096", "metric.log_every=256")
@@ -385,10 +411,12 @@ RUN_P2E_SPECS = {
         finetuning_counts=(128, 0, [79, 49], 13, 5, 80),
     ),
     "p2e_dv2": dict(
-        exploration=("exp=p2e_dv2_exploration", "total_steps=512", "algo.learning_starts=256") + P2E_ENV_ARGS,
-        finetuning=("exp=p2e_dv2_finetuning", "total_steps=256", "algo.learning_starts=224") + P2E_ENV_ARGS,
-        exploration_counts=(128, 64, [64], 164, 5, None),
-        finetuning_counts=(64, 0, [55, 9], 108, 5, 56),
+        exploration=("exp=p2e_dv2_exploration", "total_steps=512", "algo.learning_starts=256",
+                     "algo.per_rank_pretrain_steps=10") + P2E_ENV_ARGS,
+        finetuning=("exp=p2e_dv2_finetuning", "total_steps=256", "algo.learning_starts=224",
+                    "algo.per_rank_pretrain_steps=10") + P2E_ENV_ARGS,
+        exploration_counts=(128, 64, [64], 74, 5, None),
+        finetuning_counts=(64, 0, [55, 9], 18, 5, 56),
     ),
     # P2E-DV3's L DIAMBRA presets under their bf16-mixed on doapp_stand_in (grey frames, the reward as an observation,
     # 16 envs, train_every 1, B=4 and 16 x T=64). Cuts: a buffer of 4096 steps (1e6), 1152 policy steps each (2e7 and
@@ -404,6 +432,37 @@ RUN_P2E_SPECS = {
         obs=DOAPP_P2E_OBS, actions=DOAPP_ACTIONS, bf16=True, algo="p2e_dv3",
     ),
 }
+# DreamerV1 and P2E-DV1: their recurrent core is flax's GRU cell, PyTorch operations on the card as in the
+# JAX package (no Pallas kernel there, so none here), and every DV1 path must launch hafner_cell 0 times
+DV1_TRAIN_STEPS = 4
+# the card's step against the port's own CPU step on the same weights, batch and noise: full-width modules at a cut
+# batch (B=8 x T=16, so that the CPU side takes seconds), TF32 off, losses within TOL_TRAIN_LOSS and the other metrics
+# within TOL_TRAIN_GRAD, relative. The updates that precede later losses in the step (the world model's, P2E-DV1's
+# ensemble's) run at learning rate 0 there: Adam's first update moves every parameter by about lr whatever the size
+# of its gradient, so a rounding-sized gradient's sign flip moves it by 2 lr, and the imagination on the updated
+# world model carries that into the actor's losses (the port's own CPU step in f32 against f64 at the preset's lr:
+# 8.4e-5 relative on Loss/policy_loss; at lr 0: 3.4e-7)
+DV1_CPU_OVERRIDES = {"per_rank_batch_size": 8, "per_rank_sequence_length": 16, "algo.world_model.optimizer.lr": 0.0}
+# the DV1 run: exp=dreamer_v1 at its full width on the discrete dummy env (2 actions, 5-step episodes), 4 envs, the
+# sequential buffer (checkpointed), log_level 1. Cuts: a buffer of 4096 steps (5e6), 768 policy steps (5e6), learning
+# from 512 (5000), training every 128 policy steps (1000) for 8 gradient steps a burst (100), a log every 256
+RUN_DV1_ARGS = (
+    "exp=dreamer_v1", "env=dummy", "env.id=discrete_dummy", "env.sync_env=True", "buffer.size=4096",
+    "buffer.checkpoint=True", "total_steps=768", "algo.learning_starts=512", "algo.train_every=128",
+    "algo.per_rank_gradient_steps=8", "metric.log_every=256",
+)
+# P2E-DV1: exploration, then finetuning from its checkpoint, at exp=p2e_dv1_exploration's width. Cuts: a buffer of
+# 4096 steps, 768 and 512 policy steps (5e6 and 1e6), learning from 512 and 256 (5000 both), training every 128
+# (1000) for 4 gradient steps a burst (100)
+P2E_DV1_ARGS = P2E_ENV_ARGS + ("algo.train_every=128", "algo.per_rank_gradient_steps=4")
+RUN_P2E_SPECS["p2e_dv1"] = dict(
+    exploration=("exp=p2e_dv1_exploration", "total_steps=768", "algo.learning_starts=512") + P2E_DV1_ARGS,
+    finetuning=("exp=p2e_dv1_finetuning", "total_steps=512", "algo.learning_starts=256") + P2E_DV1_ARGS,
+    exploration_counts=(192, 128, [64], 12, 5, None),
+    finetuning_counts=(128, 0, [63, 65], 12, 5, 64),
+    cell=False,
+)
+P2E_STEP_LAUNCHES["p2e_dv1"] = P2E_FINETUNING_STEP_LAUNCHES["p2e_dv1"] = 0
 CLIENTS, STEPS, SEED = 64, 16, 5
 N_ACTIONS = 9
 OBS = {"rgb": (3, 64, 64)}
@@ -1162,6 +1221,36 @@ def serve_lockstep(model, frames, seed: int):
         gateway.close()
 
 
+def eval_policy_lockstep(ckpt: str, frames, seed: int):
+    """The evaluation policy of ``ckpt`` (its algorithm's registered eval
+    builder, as ``cli.evaluation`` builds it) acting on ``frames`` (each key's
+    ``[T, C, ...]``) as ``serve_lockstep``'s gateway batches them: C rows a
+    step in client order, fresh state from one row repeated, the noise from
+    one generator seeded ``seed`` on the card. Returns actions [T, C, heads]
+    and recurrent states [T, C, H] (host copies), to hold a server's against."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.ckpt import read_checkpoint
+    from sheeprl_tpu_torch.cli import load_run_config
+    from sheeprl_tpu_torch.evals.service import _builder_for, fresh_state, probe_spaces
+
+    cfg, _log_dir = load_run_config(ckpt)
+    cfg.env.capture_video = False
+    observation_space, action_space = probe_spaces(cfg)
+    policy = _builder_for(cfg.algo.name)(None, cfg, read_checkpoint(ckpt, with_rb=False), observation_space,
+                                         action_space, device="cuda")
+    steps, clients = next(iter(frames.values())).shape[:2]
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    state = fresh_state(policy.init_state, clients)
+    actions, states = [], []
+    for t in range(steps):
+        out, state = policy.act({k: v[t] for k, v in frames.items()}, state, generator)
+        actions.append(np.asarray(out).reshape(clients, -1))
+        states.append(state["recurrent"].cpu())
+    return np.asarray(actions), torch.stack(states)
+
+
 def phase_slice(card: str):
     import numpy as np
     import torch
@@ -1815,6 +1904,113 @@ def phase_train_p2e(card: str, algo: str):
     return launches, max(rel.values()), {k: held[k] for k in ("metric_max_rel_err", "param_max_rel_err", "bit_for_bit")}
 
 
+def _card_against_cpu_step(algo: str) -> dict:
+    """One full-width step of the bench preset ``algo`` at DV1_CPU_OVERRIDES
+    (the batch cut, the updates that precede later losses at learning rate
+    0) on the card and on the CPU, from the same seeded weights, batch and
+    noise (drawn on the CPU, copied to the card), TF32 off on the card.
+    Returns each side's metrics, each metric's relative gap and its limit,
+    and the card step's cell launches (0: no kernel on this path)."""
+    import torch
+
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.tools import bench_dreamer
+
+    _agent, train, actions, continuous = _trainer_modules(algo)
+    overrides = dict(DV1_CPU_OVERRIDES)
+    if algo.startswith("p2e_"):
+        overrides["algo.ensembles.optimizer.lr"] = 0.0
+    metrics, noise = {}, None
+    for device in ("cpu", "cuda"):
+        cfg, state, program, data = bench_dreamer.build_trainer(device, seed=0, algo=algo, **overrides)
+        T, B = data["rewards"].shape[:2]
+        if noise is None:
+            noise = train.draw_noise(cfg, actions, T, B, torch.Generator().manual_seed(SEED), "cpu", continuous)
+        moved = {k: [t.to(device) for t in v] if isinstance(v, list) else v.to(device) for k, v in noise.items()}
+        before = ops.hafner_cell_launches.count
+        metrics[device] = {k: float(v) for k, v in program(state, data, noise=moved).items()}
+        launches = ops.hafner_cell_launches.count - before
+        del state, program, data
+    torch.cuda.empty_cache()
+    card, cpu = metrics["cuda"], metrics["cpu"]
+    gaps = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-6) for k in cpu}
+    limits = {k: TOL_TRAIN_LOSS if k.startswith("Loss/") else TOL_TRAIN_GRAD for k in cpu}
+    return {"card": card, "cpu": cpu, "rel_diff": gaps, "limits": limits, "overrides": overrides,
+            "cell_launches": launches}
+
+
+def phase_train_dv1(card: str, algo: str = "dreamer_v1"):
+    """DreamerV1's trainer (``dreamer_v1``: B=50 x T=50, horizon 15, the
+    discrete dummy env's 2 actions) or P2E-DV1's exploration step
+    (``p2e_dv1``) at the preset's full width. Its recurrent core is PyTorch
+    operations, so the checks are of another kind than the kernel phases':
+    the card's step against the port's own CPU step (``_card_against_cpu_step``,
+    which the CPU tests hold against JAX); GRAPH_STEPS steps from one seed
+    eager and graphed with ``cudnn.deterministic`` (losses, gradient norms
+    and every module's parameters within TOL_GRAPHED), and for DreamerV1 the
+    same on a 2-wide Box of actions (``dreamer_v1_continuous``: the actor's
+    gradient through the reparameterized samples and the imagined dynamics);
+    then DV1_TRAIN_STEPS timed steps eager and as many graphed, each with a
+    profiled window (device busy time, idle share, top operations) and the
+    peak memory. No path launches the cell kernel: its gates are the
+    LayerNorm-GRU's, not flax's GRU's. The counts are read on the graphed
+    timed steps."""
+    import math
+
+    import torch
+
+    from sheeprl_tpu_torch.tools import bench_dreamer
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    tag = f"train_{algo.replace('dreamer_v', 'dv')}"
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        against_cpu = _card_against_cpu_step(algo)
+        torch.backends.cudnn.deterministic = True
+        graph_algos = (algo, "dreamer_v1_continuous") if algo == "dreamer_v1" else (algo,)
+        graphed_lines, steps = {}, []
+        for name in graph_algos:
+            eager, graphed = _train_steps(False, name), _train_steps(True, name)
+            steps += [eager, graphed]
+            graphed_lines[name] = {**_steps_diff(graphed, eager), "graph": graphed["graph"],
+                                   "launches": {"eager": eager["launches"], "graphed": graphed["launches"]}}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = prev
+    line = {"card_vs_cpu": against_cpu, "graphed_vs_eager": graphed_lines, "steps": GRAPH_STEPS, "tol": TOL_GRAPHED,
+            "card": card}
+    print(f"[{tag}] " + json.dumps(line), flush=True)
+    bad = [k for k, r in against_cpu["rel_diff"].items() if not r <= against_cpu["limits"][k]]
+    bad += [k for k, v in against_cpu["card"].items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{tag}: the card's step and the CPU step disagree on {bad}")
+    for name, held in graphed_lines.items():
+        if held["metric_max_rel_err"] > TOL_GRAPHED or held["param_max_rel_err"] > TOL_GRAPHED:
+            raise AssertionError(f"{tag}: graphed and eager {name} steps disagree: {held} > {TOL_GRAPHED}")
+        if held["graph"] != {"eager_calls": WARMUP_CALLS, "replays": GRAPH_STEPS - WARMUP_CALLS, "captured": True}:
+            raise AssertionError(f"{tag}: the graphed {name} steps ran as {held['graph']}")
+    if against_cpu["cell_launches"] or any(run["launches"] for run in steps):
+        raise AssertionError(f"{tag}: a DreamerV1 step launched hafner_cell")
+
+    result = bench_dreamer.compare(steps=DV1_TRAIN_STEPS, device="cuda", profile=True, algo=algo)
+    result["card"] = card
+    print(f"[{tag}] " + json.dumps(result), flush=True)
+    for mode in ("eager", "graphed"):
+        side = result[mode]
+        if not all(math.isfinite(v) for v in side["losses"].values()):
+            raise AssertionError(f"{tag}: a {mode} loss is not finite: {side['losses']}")
+        if side["hafner_cell_launches"] or side["hafner_sequence_launches"]:
+            raise AssertionError(f"{tag}: the {mode} steps launched the cell {side['hafner_cell_launches']} times "
+                                 f"and the sequence {side['hafner_sequence_launches']} times")
+    launches = {"hafner_cell": result["graphed"]["hafner_cell_launches"],
+                "hafner_sequence": result["graphed"]["hafner_sequence_launches"]}
+    return launches, {"card_vs_cpu_max_rel_diff": max(against_cpu["rel_diff"].values()),
+                      "graphed_vs_eager": {k: {n: v[n] for n in ("metric_max_rel_err", "param_max_rel_err",
+                                                                   "bit_for_bit")} for k, v in graphed_lines.items()}}
+
+
 def _run_once(root: str, name: str, args=RUN_ARGS):
     """One training run through the CLI; returns (result, wall seconds)."""
     import torch
@@ -2059,6 +2255,10 @@ RUN_SPECS = {
                        log_steps=(64, 128, 144), learning_starts=128,
                        buffer=lambda ckpt: _check_sequential_buffer(ckpt, RUN_XL_ARGS, tuple(CRAFTER_OBS)),
                        obs=CRAFTER_OBS, continuous=False, actions=CRAFTER_ACTIONS),
+    # (updates, player steps, gradient steps, test steps): 192 updates of 4 envs, 128 random ones up to learning_starts,
+    # then 64 acting steps; 3 bursts of 8 (at updates 128, 160 and 192); a 5-step test episode; no cell kernel
+    "run_dv1": dict(args=RUN_DV1_ARGS, counts=(192, 64, 24, 5), per_step=0, log_steps=(256, 512, 768),
+                    learning_starts=512, buffer=_check_sequential_buffer, obs=OBS, continuous=False, cell=False),
 }
 
 
@@ -2107,7 +2307,9 @@ def phase_run(card: str, name: str = "run", keep_root=None):
         counts = (result["updates"], result["player_steps"], result["gradient_steps"], result["test_steps"])
         if counts != spec["counts"]:
             raise AssertionError(f"the {name} took (updates, player, gradient, test) steps {counts}")
+        cell = spec.get("cell", True)
         predicted = result["player_steps"] + spec["per_step"] * result["gradient_steps"] + result["test_steps"]
+        predicted = predicted if cell else 0
         if launches["hafner_cell"] != predicted:
             raise AssertionError(f"hafner_cell launched {launches['hafner_cell']} times on the run, predicted {predicted}")
         if launches["hafner_sequence"] != 0:
@@ -2135,12 +2337,17 @@ def phase_run(card: str, name: str = "run", keep_root=None):
         model, _cfg, _obs_space, _act_space = load_gateway_model(ckpt, device="cuda")
         torch.cuda.synchronize()
         cold_start_s = time.perf_counter() - t0
-        plain, *_ = load_gateway_model(ckpt, device="cuda", plain_cell=True)
         frames = _serve_frames(spec["obs"], np.random.RandomState(SEED))
         ops.hafner_cell_launches.reset()
         actions, states, serve_wall, status = serve_lockstep(model, frames, seed=SEED)
         served_launches = ops.hafner_cell_launches.count
-        p_actions, p_states, _w, p_status = serve_lockstep(plain, frames, seed=SEED)
+        if cell:  # the kernel path against a plain-cell replay
+            plain, *_ = load_gateway_model(ckpt, device="cuda", plain_cell=True)
+            p_actions, p_states, _w, p_status = serve_lockstep(plain, frames, seed=SEED)
+            del plain
+        else:  # no kernel: the served actions against the evaluation policy's on the same frames and noise
+            p_actions, p_states = eval_policy_lockstep(ckpt, frames, seed=SEED)
+            p_status = {"failed_requests": 0}
         requests = RUN_CLIENTS * RUN_REQUESTS
         if status["failed_requests"] or p_status["failed_requests"] or status["requests"] != requests:
             raise AssertionError(f"served {status['requests']} requests, {status['failed_requests']} failed")
@@ -2160,9 +2367,9 @@ def phase_run(card: str, name: str = "run", keep_root=None):
         state_err = (states - p_states).abs().max().item()
         if state_err > TOL_STATE:
             raise AssertionError(f"recurrent state differs by {state_err} > {TOL_STATE}")
-        if served_launches != status["batches"]:
+        if served_launches != (status["batches"] if cell else 0):
             raise AssertionError(f"hafner_cell launched {served_launches} times for {status['batches']} batches")
-        del model, plain
+        del model
         stamps.append(("serve", time.perf_counter()))
 
         busy_us, found = trace_summary(prof, ("hafner_gates_kernel", "hafner_product_kernel"))
@@ -2213,6 +2420,7 @@ def phase_run(card: str, name: str = "run", keep_root=None):
         "served_requests": requests,
         "served_failed_requests": status["failed_requests"],
         "served_requests_per_s": requests / serve_wall,
+        "served_against": "plain_replay" if cell else "eval_policy",
         "plain_replay_actions_equal": not spec["continuous"],
         "plain_replay_action_max_abs_err" if spec["continuous"] else "plain_replay_actions_differing": action_err,
         "plain_replay_state_max_abs_err": state_err,
@@ -2300,11 +2508,14 @@ def _registry_lines(reg: str) -> int:
         return sum(1 for line in f if line.strip())
 
 
-def _eval_command(name: str, ckpt: str, algo: str, reg: str, continuous: bool, pinned: bool = False) -> dict:
+def _eval_command(name: str, ckpt: str, algo: str, reg: str, continuous: bool, pinned: bool = False,
+                  cell: bool = True) -> dict:
     """``cli.evaluation`` of ``ckpt`` at eval.episodes=10 on the card: eval.json
     with the JAX keys, one registry line, cell launches equal to the pool
-    steps, and every pool step's actions against a plain-cell evaluation at
-    the same seeds (equal; continuous ones within TOL_CONTINUOUS_ACTION).
+    steps (0 without ``cell``: DreamerV1's GRU has no kernel, and its
+    "plain-cell" evaluation is a second evaluation on the same path), and
+    every pool step's actions against a plain-cell evaluation at the same
+    seeds (equal; continuous ones within TOL_CONTINUOUS_ACTION).
     ``pinned`` (a bf16 checkpoint): the plain evaluation takes the kernel
     one's posterior samples and greedy actions (``_PinnedSamples``), at most
     TOL_FLIPS_BF16 of which its own scores would have flipped."""
@@ -2342,7 +2553,8 @@ def _eval_command(name: str, ckpt: str, algo: str, reg: str, continuous: bool, p
     if _registry_lines(reg) != lines + 1:
         raise AssertionError(f"{name}: the registry went from {lines} to {_registry_lines(reg)} lines, not one more")
     steps = len(kernel.steps)
-    if steps != max(result["lengths"]) or launches["hafner_cell"] != steps or launches["hafner_sequence"]:
+    if steps != max(result["lengths"]) or launches["hafner_cell"] != (steps if cell else 0) or (
+            launches["hafner_sequence"]):
         raise AssertionError(f"{name}: {steps} pool steps, longest episode {max(result['lengths'])}, "
                              f"cell launches {launches}")
     actions, p_actions = kernel.actions(), plain.actions()
@@ -2595,15 +2807,20 @@ P2E_TAGS = {
                                    "Grads/ensemble", "Grads/actor_exploration"),
     "p2e_dv3_L_bf16_finetuning": ("Loss/world_model_loss", "Loss/policy_loss", "Loss/value_loss", "Grads/actor"),
     "p2e_dv2_finetuning": ("Loss/world_model_loss", "Loss/policy_loss", "Loss/value_loss", "Grads/actor"),
+    "p2e_dv1_exploration": ("Loss/world_model_loss", "Loss/ensemble_loss", "Loss/policy_loss_exploration",
+                            "Loss/value_loss_exploration", "Loss/policy_loss_task", "Loss/value_loss_task",
+                            "Rewards/intrinsic", "Grads/ensemble", "Grads/actor_exploration"),
+    "p2e_dv1_finetuning": ("Loss/world_model_loss", "Loss/policy_loss", "Loss/value_loss", "Grads/actor"),
 }
 
 
-def _check_p2e_run(tag: str, result, counts, per_step: int) -> dict:
+def _check_p2e_run(tag: str, result, counts, per_step: int, cell: bool = True) -> dict:
     """A P2E run's counters against ``counts`` (updates, random steps, player
     steps by actor, gradient steps, test steps, the update of the actor
-    switch), its cell launches against the prediction, its graphs (one
-    captured acting step per actor), its event file's tags (finite) and its
-    checkpoint (deep-validated)."""
+    switch), its cell launches against the prediction (0 without ``cell``:
+    P2E-DV1's GRU has no kernel), its graphs (one captured acting step per
+    actor), its event file's tags (finite) and its checkpoint
+    (deep-validated)."""
     import math
 
     from sheeprl_tpu_torch.ckpt import validate_checkpoint
@@ -2615,7 +2832,7 @@ def _check_p2e_run(tag: str, result, counts, per_step: int) -> dict:
            result["test_steps"], result["actor_switched_at"])
     if got != tuple(counts):
         raise AssertionError(f"{tag}: (updates, random, by actor, gradient, test, switch) {got}, expected {counts}")
-    predicted = sum(by_actor) + per_step * gradient + test
+    predicted = sum(by_actor) + per_step * gradient + test if cell else 0
     want_graphs = {
         "train": {"eager_calls": WARMUP_CALLS, "replays": gradient - WARMUP_CALLS, "captured": 1},
         "act": {"eager_calls": WARMUP_CALLS * len(by_actor), "replays": sum(by_actor) - WARMUP_CALLS * len(by_actor),
@@ -2665,6 +2882,7 @@ def phase_run_p2e(card: str, family: str, work: str):
     from sheeprl_tpu_torch.serve.model import load_gateway_model
 
     spec = RUN_P2E_SPECS[family]
+    cell = spec.get("cell", True)
     root = os.path.join(work, f"run_{family}")
     by_path, lines = {}, {}
     ckpt = None
@@ -2682,7 +2900,7 @@ def phase_run_p2e(card: str, family: str, work: str):
             exploration_prof = prof
         launches = {"hafner_cell": ops.hafner_cell_launches.count, "hafner_sequence": ops.hafner_sequence_launches.count}
         bf16_launches = ops.hafner_cell_launches.by_variant.get("bf16", 0)
-        line = _check_p2e_run(tag, result, spec[f"{phase}_counts"], per_step)
+        line = _check_p2e_run(tag, result, spec[f"{phase}_counts"], per_step, cell)
         if launches != {"hafner_cell": line["predicted_cell_launches"], "hafner_sequence": 0}:
             raise AssertionError(f"{tag}: launches {launches}, predicted {line['predicted_cell_launches']} of the cell")
         ckpt = result["checkpoint"]
@@ -2712,11 +2930,10 @@ def phase_run_p2e(card: str, family: str, work: str):
     algo = spec.get("algo", family)  # the runs' algorithm family (the L presets' is p2e_dv3)
     bf16 = bool(spec.get("bf16"))
     evaluated = _eval_command(f"{family}_finetuning eval", ckpt, f"{algo}_finetuning", os.path.join(work, "registry"),
-                              False, pinned=bf16)
+                              False, pinned=bf16, cell=cell)
     by_path[f"eval_{family}"] = evaluated["launches"]
 
     model, cfg, *_ = load_gateway_model(ckpt, device="cuda")
-    plain, *_ = load_gateway_model(ckpt, device="cuda", plain_cell=True)
     frames = _serve_frames(spec.get("obs", OBS), np.random.RandomState(SEED))
     ops.hafner_cell_launches.reset()
     ops.hafner_sequence_launches.reset()
@@ -2727,8 +2944,14 @@ def phase_run_p2e(card: str, family: str, work: str):
                                   "hafner_sequence": ops.hafner_sequence_launches.count}
     if bf16:
         pins.replay = True
-    with pins:
-        p_actions, p_states, _w, p_status = serve_lockstep(plain, frames, seed=SEED)
+    if cell:  # the kernel path against a plain-cell replay
+        plain, *_ = load_gateway_model(ckpt, device="cuda", plain_cell=True)
+        with pins:
+            p_actions, p_states, _w, p_status = serve_lockstep(plain, frames, seed=SEED)
+        del plain
+    else:  # no kernel: the served actions against the evaluation policy's on the same frames and noise
+        p_actions, p_states = eval_policy_lockstep(ckpt, frames, seed=SEED)
+        p_status = {"failed_requests": 0}
     differing = int((actions != p_actions).sum())
     state_err = (states - p_states).abs().max().item()
     served_flips = {"samples": pins.samples, "flips": pins.flips} if bf16 else None
@@ -2738,15 +2961,18 @@ def phase_run_p2e(card: str, family: str, work: str):
         raise AssertionError(f"{family}: served {status['requests']} requests, {status['failed_requests']} failed")
     if differing or state_err > (TOL_STATE_BF16 if bf16 else TOL_STATE) or not (
             (actions >= 0) & (actions < spec.get("actions", RUN_ACTIONS))).all():
-        raise AssertionError(f"{family}: served actions differ from a plain-cell replay in {differing}, state {state_err}")
-    if by_path[f"serve_{family}"]["hafner_cell"] != status["batches"] or model.algo != f"{algo}_finetuning":
+        raise AssertionError(f"{family}: served actions differ from a plain-cell replay (or the evaluation policy's) "
+                             f"in {differing}, state {state_err}")
+    if by_path[f"serve_{family}"]["hafner_cell"] != (status["batches"] if cell else 0) or (
+            model.algo != f"{algo}_finetuning"):
         raise AssertionError(f"{family}: served {model.algo}, cell launches {by_path[f'serve_{family}']} "
                              f"for {status['batches']} batches")
-    del model, plain
+    del model
+    against = "plain_replay" if cell else "eval_policy"
     line = {**lines, "eval": evaluated["row"],
             "serve": {"algo": f"{algo}_finetuning", "requests": status["requests"], "batches": status["batches"],
-                      "requests_per_s": status["requests"] / serve_wall, "plain_replay_actions_differing": differing,
-                      "plain_replay_state_max_abs_err": state_err, "pinned_samples": served_flips},
+                      "requests_per_s": status["requests"] / serve_wall, f"{against}_actions_differing": differing,
+                      f"{against}_state_max_abs_err": state_err, "pinned_samples": served_flips},
             "card": card}
     print(f"[run_{family}] " + json.dumps(line), flush=True)
     return by_path, line
@@ -2826,6 +3052,10 @@ def main() -> int:
         tag = f"train_{algo.replace('dreamer_v', 'dv')}"
         by_path[tag], rel_diff, graphed = clock(tag, phase_train_dv3, card, algo)
         large_train[algo] = {"train_step_rel_diff_vs_plain": rel_diff, "graphed_vs_eager_cudnn_deterministic": graphed}
+    dv1_train = {}
+    for algo in ("dreamer_v1", "p2e_dv1"):
+        tag = f"train_{algo.replace('dreamer_v', 'dv')}"
+        by_path[tag], dv1_train[algo] = clock(tag, phase_train_dv1, card, algo)
     by_path["run"], _ckpt = clock("run", phase_run, card, "run")
     import tempfile
 
@@ -2838,7 +3068,7 @@ def main() -> int:
         for family in RUN_P2E_SPECS:
             paths, _line = clock(f"run_{family}", phase_run_p2e, card, family, work)
             by_path.update(paths)
-    for name in ("run_dv3_L", "run_dv3_XL"):
+    for name in ("run_dv1", "run_dv3_L", "run_dv3_XL"):
         by_path[name], _ckpt = clock(name, phase_run, card, name)
 
     cell_row = next(r for r in train_rows if r["B"] == 1600)
@@ -2852,8 +3082,9 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/kernels/csrc/hafner_gru.cu",
             "replaces": "sheeprl_tpu/kernels/pallas_tpu.py:67",
-            # the main paths' f32 runs: the DV2 MsPacman preset's, the DV3 100k, walker, L and XL presets' and
-            # the f32 P2E presets' exploration and finetuning runs (the bf16 presets' are hafner_cell_bf16's)
+            # the main paths' f32 runs: the DV2 MsPacman preset's, the DV3 100k, walker, L and XL presets', the
+            # DV1 preset's (0) and the f32 P2E presets' exploration and finetuning runs (P2E-DV1's 0; the bf16
+            # presets' are hafner_cell_bf16's)
             "launches": sum(by_path[run]["hafner_cell"] for run in RUN_SPECS)
             + sum(by_path[f"run_{family}_{phase}"]["hafner_cell"] for family, spec in RUN_P2E_SPECS.items()
                   if not spec.get("bf16") for phase in ("exploration", "finetuning")),
@@ -2908,6 +3139,9 @@ def main() -> int:
                 for name, rows in large_rows.items()
             },
             "l_xl_train": large_train,
+            # DreamerV1 and P2E-DV1: flax's GRU cell in PyTorch operations, every path of theirs at 0 launches
+            "dv1_paths": {path: counts["hafner_cell"] for path, counts in by_path.items() if "dv1" in path},
+            "dv1_train": dv1_train,
         },
         {
             # the cell's bf16 operand path (fabric.precision=bf16-mixed): the same source, the product on

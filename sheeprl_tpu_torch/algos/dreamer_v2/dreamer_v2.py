@@ -521,6 +521,7 @@ def train_loop(
     switch_at_learning_starts: bool = False,
     expl_decay_steps: Optional[int] = None,
     replay_state: Optional[Dict[str, Any]] = None,
+    hard_target_updates: bool = True,
 ) -> Dict[str, Any]:
     """The DreamerV2 loop over an agent built by the caller (:func:`main`,
     the P2E entrypoints): ``players`` are the acting player-fns (one, or the
@@ -531,7 +532,10 @@ def train_loop(
     ``publish()`` the in-run evaluation's ``agent`` tree; ``test_player``
     plays the final test episode. ``random_prefill=False`` acts with the
     first player from the first step (finetuning). ``replay_state`` is a
-    buffer state to restore (resumed, or the exploration run's)."""
+    buffer state to restore (resumed, or the exploration run's).
+    ``hard_target_updates=False`` is DreamerV1's loop: no target critic
+    (every ``tau`` 0) and no pretraining burst (``per_rank_gradient_steps``
+    at ``learning_starts`` too)."""
     world_size = fabric.world_size
     generator, device, logger, log_dir, envs = run.generator, run.device, run.logger, run.log_dir, run.envs
     n_envs, actions_dim, is_continuous = run.n_envs, run.actions_dim, run.is_continuous
@@ -727,7 +731,8 @@ def train_loop(
 
         # Train the agent
         if last >= learning_starts and updates_before_training <= 0:
-            n_samples = cfg.algo.per_rank_pretrain_steps if last == learning_starts else cfg.algo.per_rank_gradient_steps
+            pretrain = hard_target_updates and last == learning_starts
+            n_samples = cfg.algo.per_rank_pretrain_steps if pretrain else cfg.algo.per_rank_gradient_steps
             metrics = None
             if n_samples > 0:
                 t0 = time.perf_counter()
@@ -740,7 +745,7 @@ def train_loop(
                 taus = tau_schedule(
                     n_samples, counters["gradient_steps"], cfg.algo.critic.target_network_update_freq,
                     tau=1.0, first_hard=False,
-                )
+                ) if hard_target_updates else np.zeros(n_samples, np.float32)
                 fetch_metrics = metric_fetch_gate(
                     cfg,
                     aggregator,

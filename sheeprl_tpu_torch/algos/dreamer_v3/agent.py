@@ -861,6 +861,7 @@ def dreamer_player_fns(
     unimix: float,
     initial_posterior: Optional[Callable[[torch.Tensor], torch.Tensor]],
     normalize: Callable[[Dict[str, torch.Tensor], Sequence[str]], Dict[str, torch.Tensor]],
+    gaussian_posterior: bool = False,
 ) -> Dict[str, Any]:
     """The Dreamer player over an explicit state dict ``{"actions",
     "recurrent", "stochastic"}`` of ``[n, ...]`` tensors on the model's
@@ -871,12 +872,15 @@ def dreamer_player_fns(
     ``normalize``. A fresh state has zero actions and recurrent state and
     the stochastic state ``initial_posterior(recurrent)`` (zeros when None);
     the actor's categoricals take the ``unimix`` mix. A continuous action is
-    the float vector itself."""
+    the float vector itself. The posterior's noise (``gumbel`` in the
+    functions' arguments) is Gumbels ``[n, S, D]``, or with
+    ``gaussian_posterior`` (DreamerV1's latent) standard normals ``[n, S]``."""
     distribution = resolve_actor_distribution(cfg.distribution.get("type", "auto"), is_continuous)
     init_std, min_std = float(cfg.algo.actor.init_std), float(cfg.algo.actor.min_std)
     wm_cfg = cfg.algo.world_model
     rec_size = int(wm_cfg.recurrent_model.recurrent_state_size)
-    stoch, discrete = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
+    stoch = int(wm_cfg.stochastic_size)
+    posterior_shape = (stoch,) if gaussian_posterior else (stoch, int(wm_cfg.discrete_size))
     act_dim = int(np.sum(actions_dim))
     dims = [int(d) for d in actions_dim]
     heads = [act_dim] if is_continuous else dims
@@ -886,7 +890,7 @@ def dreamer_player_fns(
     def init_states(n: int) -> Dict[str, torch.Tensor]:
         recurrent = torch.zeros((n, rec_size), device=device)
         stochastic = (
-            torch.zeros((n, stoch * discrete), device=device)
+            torch.zeros((n, int(np.prod(posterior_shape))), device=device)
             if initial_posterior is None else initial_posterior(recurrent)
         )
         return {"actions": torch.zeros((n, act_dim), device=device), "recurrent": recurrent, "stochastic": stochastic}
@@ -908,14 +912,14 @@ def dreamer_player_fns(
         gumbel: Optional[torch.Tensor] = None,
         action_noise: Optional[Sequence[torch.Tensor]] = None,
     ):
-        """One greedy step: the posterior is still sampled (from ``gumbel``
-        ``[n, S, D]`` or ``generator``), the action is the actor's mode, or
+        """One greedy step: the posterior is still sampled (from ``gumbel``,
+        its noise, or ``generator``), the action is the actor's mode, or
         for continuous actions the best of GREEDY_SAMPLES samples (their
         noise ``action_noise``, one ``[GREEDY_SAMPLES, n, A]`` tensor, or
         from ``generator``)."""
         embed = world_model.encode(obs)
         recurrent = world_model.recurrent_step(state["stochastic"], state["actions"], state["recurrent"])
-        _, stochastic = world_model.representation(recurrent, embed, generator, gumbel=gumbel)
+        _, stochastic = world_model.representation(recurrent, embed, generator, gumbel)
         noise = None if action_noise is None else [t.to(device) for t in action_noise]
         actions = sample_actor_actions(_policy(torch.cat([stochastic, recurrent], dim=-1)), is_continuous,
                                        generator, is_training=False, noise=noise)
@@ -924,12 +928,16 @@ def dreamer_player_fns(
 
     def draw_exploration_noise(n: int, generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """One acting step's noise, in the order the step draws it: the
-        posterior's Gumbels ``[n, S, D]``, each action head's sampling noise
+        posterior's (Gumbels ``[n, S, D]``, DreamerV1's standard normals ``[n,
+        S]``), each action head's sampling noise
         (:func:`actor_noise`: Gumbels ``[n, dim]`` a categorical head, the
         continuous head's ``[n, A]``), then the exploration draw: per
         categorical head ``(uniform_category [n], u [n, 1])``, or one
         standard normal ``[n, A]`` for continuous actions."""
-        gumbel = gumbel_noise((n, stoch, discrete), generator, device)
+        if gaussian_posterior:
+            gumbel = torch.randn((n,) + posterior_shape, generator=generator, device=device)
+        else:
+            gumbel = gumbel_noise((n,) + posterior_shape, generator, device)
         action_noise = [actor_noise(distribution, (n, d), generator, device) for d in heads]
         if is_continuous:
             expl = [torch.randn((n, act_dim), generator=generator, device=device)]
@@ -948,7 +956,7 @@ def dreamer_player_fns(
         action is kept)."""
         embed = world_model.encode(obs)
         recurrent = world_model.recurrent_step(state["stochastic"], state["actions"], state["recurrent"])
-        _, stochastic = world_model.representation(recurrent, embed, gumbel=gumbel)
+        _, stochastic = world_model.representation(recurrent, embed, None, gumbel)
         actions = sample_actor_actions(_policy(torch.cat([stochastic, recurrent], dim=-1)), is_continuous,
                                        is_training=True, noise=action_gumbels)
         noisy = add_exploration_noise(actions, expl_amount, is_continuous, expl_noise)
@@ -966,8 +974,8 @@ def dreamer_player_fns(
         expl_noise: Optional[Sequence[Any]] = None,
     ):
         """One acting step of training (the JAX ``exploration_action``): the
-        posterior and each action head are sampled (from ``gumbel`` ``[n, S,
-        D]`` and ``action_gumbels``, each head's noise), then exploration
+        posterior and each action head are sampled (from ``gumbel``, the
+        posterior's noise, and ``action_gumbels``, each head's), then exploration
         noise is added (``add_exploration_noise``, its draw ``expl_noise``).
         Noise not given is drawn from ``generator``
         (:func:`draw_exploration_noise`'s order), the exploration draw at

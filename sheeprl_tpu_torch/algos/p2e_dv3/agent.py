@@ -149,16 +149,18 @@ def lecun_normal_initialization(ensemble: Ensemble, generator: torch.Generator) 
 
 
 def build_ensemble(cfg, actions_dim: Sequence[int], generator: torch.Generator, layer_norm_default: bool,
-                   device=None) -> Ensemble:
+                   device=None, output_dim: Optional[int] = None) -> Ensemble:
     """``algo.ensembles`` at ``cfg``'s widths: ``n`` members from the latent
-    and the action to the flat stochastic state, LeCun-normal initialized."""
+    and the action to the flat stochastic state (or to ``output_dim``:
+    P2E-DV1's observation embedding), LeCun-normal initialized."""
     wm_cfg = cfg.algo.world_model
-    stoch_flat = int(wm_cfg.stochastic_size) * int(wm_cfg.discrete_size)
+    stoch_flat = int(wm_cfg.stochastic_size) * int(wm_cfg.get("discrete_size", 1))
     latent = stoch_flat + int(wm_cfg.recurrent_model.recurrent_state_size)
     ens_cfg = cfg.algo.ensembles
     ensemble = Ensemble(
-        int(ens_cfg.n), latent + int(np.sum(actions_dim)), stoch_flat, int(ens_cfg.mlp_layers),
-        int(ens_cfg.dense_units), bool(ens_cfg.get("layer_norm", layer_norm_default)), ens_cfg.dense_act,
+        int(ens_cfg.n), latent + int(np.sum(actions_dim)), stoch_flat if output_dim is None else int(output_dim),
+        int(ens_cfg.mlp_layers), int(ens_cfg.dense_units), bool(ens_cfg.get("layer_norm", layer_norm_default)),
+        ens_cfg.dense_act,
     )
     lecun_normal_initialization(ensemble, generator)
     return ensemble.to(resolve_device(device))

@@ -1,7 +1,7 @@
-"""Carry DreamerV2 and DreamerV3 weights across from the JAX package.
+"""Carry DreamerV1, DreamerV2 and DreamerV3 weights across from the JAX package.
 
-:func:`convert_dreamer_v2` and :func:`convert_dreamer_v3` turn the JAX
-package's param trees (``{"world_model": ..., "actor": ...}`` as nested
+:func:`convert_dreamer_v1`, :func:`convert_dreamer_v2` and
+:func:`convert_dreamer_v3` turn the JAX package's param trees (``{"world_model": ..., "actor": ...}`` as nested
 dicts of numpy arrays, e.g. from ``jax.device_get``) into the port's
 ``state_dict``s:
 
@@ -11,14 +11,16 @@ dicts of numpy arrays, e.g. from ``jax.device_get``) into the port's
   kernel of the forward convolution it is the gradient of) becomes the
   ``ConvTranspose2d`` weight ``[in, out, kh, kw]`` by the same transpose,
   with no spatial flip;
-- the GRU's joint ``Dense_0/kernel [H+X, 3H]`` stays as it is: it is the
-  layout the CUDA kernel and the plain version both read;
+- the LayerNorm-GRU's joint ``Dense_0/kernel [H+X, 3H]`` stays as it is:
+  it is the layout the CUDA kernel and the plain version both read;
+- DreamerV1's flax GRU (``gru/{ir,iz,in,hr,hz,hn}``) is six Dense layers,
+  each becoming the Linear of the same name in ``models.GRUCell``;
 - ``FastLayerNorm`` ``scale``/``bias`` become ``weight``/``bias``;
 - DreamerV3's posterior trunk ``trunk_kernel [H+E, hidden]`` becomes the
   ``trunk`` Linear's weight (and a checkpoint of the earlier layout, an
   ``MLP_0`` under ``representation_model``, converts the same way);
 - Plan2Explore's stacked ensemble (:func:`convert_p2e_dv3`,
-  :func:`convert_p2e_dv2`): a Dense kernel ``[N, in, out]`` keeps its layout
+  :func:`convert_p2e_dv2`, :func:`convert_p2e_dv1`): a Dense kernel ``[N, in, out]`` keeps its layout
   with the member axis first (``StackedLinear.weight``), its bias and the
   LayerNorm vectors ``[N, out]`` too.
 
@@ -26,6 +28,7 @@ Every leaf is either consumed or listed as skipped. A training conversion
 (``training=True``) consumes every leaf of the four trees; a serving one
 skips the parts a serving build does not have (decoders, reward and
 continue heads, critic, target critic). An unknown leaf raises.
+DreamerV1 and P2E-DV1 have no target critics.
 """
 
 from __future__ import annotations
@@ -38,9 +41,11 @@ import torch
 
 __all__ = [
     "SKIPPED_PREFIXES",
+    "convert_dreamer_v1",
     "convert_dreamer_v2",
     "convert_dreamer_v3",
     "convert_layers",
+    "convert_p2e_dv1",
     "convert_p2e_dv2",
     "convert_p2e_dv3",
 ]
@@ -52,6 +57,8 @@ SKIPPED_PREFIXES: Dict[str, Tuple[str, ...]] = {
 #: whole trees serving does not need
 SKIPPED_TREES = ("critic", "target_critic")
 _TREES = ("world_model", "actor", "critic", "target_critic")
+#: the trees of a family whose training tree set is not ``_TREES``
+_FAMILY_TREES = {"dreamer_v1": ("world_model", "actor", "critic")}
 
 _HWIO_TO_OIHW = (3, 2, 0, 1)
 _GRU = "rssm/recurrent_model/gru"
@@ -64,6 +71,8 @@ _GRU_LEAVES = {
     f"{_GRU}/LayerNorm_0/scale": ("rssm.recurrent_model.gru.norm.weight", _SAME),
     f"{_GRU}/LayerNorm_0/bias": ("rssm.recurrent_model.gru.norm.bias", _SAME),
 }
+#: DreamerV1's flax GRU cell: six Dense layers, each a Linear of the same name in ``models.GRUCell``
+_FLAX_GRU_LEAVES = ("ir", "iz", "in", "hr", "hz", "hn")
 _REPR = "rssm/representation_model"
 _TRUNK = "rssm.representation_model.trunk"
 
@@ -72,6 +81,32 @@ _TRUNK = "rssm.representation_model.trunk"
 # ConvTranspose stacks), ``linear`` (one Dense), ``keyed`` (``<scope>/head_<key>``
 # → ``<module>.<key>``) and ``leaves`` (single leaves with their transform).
 _LAYOUTS: Dict[str, Dict[str, Dict[str, Any]]] = {
+    "dreamer_v1": {
+        "world_model": {
+            "mlp": {
+                "mlp_encoder/MLP_0": "mlp_encoder.mlp",
+                "rssm/representation_model/MLP_0": "rssm.representation_model.mlp",
+                "rssm/transition_model/MLP_0": "rssm.transition_model.mlp",
+                "mlp_decoder/MLP_0": "mlp_decoder.mlp",
+                "reward_model/MLP_0": "reward_model.mlp",
+                "continue_model/MLP_0": "continue_model.mlp",
+            },
+            "cnn": {"cnn_encoder/CNN_0": "cnn_encoder.cnn"},
+            "decnn": {"cnn_decoder/DeCNN_0": "cnn_decoder.decnn"},
+            "linear": {
+                "rssm/recurrent_model/Dense_0": "rssm.recurrent_model.linear",
+                **{f"{_GRU}/{name}": f"rssm.recurrent_model.gru.{name}" for name in _FLAX_GRU_LEAVES},
+                "rssm/representation_model/head": "rssm.representation_model.head",
+                "rssm/transition_model/head": "rssm.transition_model.head",
+                "cnn_decoder/Dense_0": "cnn_decoder.linear",
+                "reward_model/head": "reward_model.head",
+                "continue_model/head": "continue_model.head",
+            },
+            "keyed": ("mlp_decoder/head_", "mlp_decoder.heads."),
+        },
+        "actor": {"mlp": {"MLP_0": "mlp"}, "keyed": ("head_", "heads.")},
+        "critic": {"mlp": {"MLP_0": "mlp"}, "linear": {"head": "head"}},
+    },
     "dreamer_v2": {
         "world_model": {
             "mlp": {
@@ -154,6 +189,7 @@ _P2E_TREES = {
 }
 #: the trees a P2E training conversion must find
 _P2E_REQUIRED = {
+    "p2e_dv1": ("world_model", "actor_task", "critic_task", "actor_exploration", "critic_exploration", "ensembles"),
     "p2e_dv3": ("world_model", "actor_task", "critic_task", "target_critic_task", "actor_exploration",
                 "critics_exploration", "ensembles"),
     "p2e_dv2": ("world_model", "actor_task", "critic_task", "target_critic_task", "actor_exploration",
@@ -295,10 +331,11 @@ def convert_layers(tree: Mapping[str, Any], kind: str) -> Dict[str, torch.Tensor
 def _convert(
     family: str, params: Mapping[str, Mapping[str, Any]], training: bool
 ) -> Tuple[Dict[str, Dict[str, torch.Tensor]], List[str]]:
+    trees = _FAMILY_TREES.get(family, _TREES)
     state_dicts: Dict[str, Dict[str, torch.Tensor]] = {}
     skipped: List[str] = []
     for name, tree in params.items():
-        if name not in _TREES:
+        if name not in trees:
             raise KeyError(f"convert_{family}: unknown param tree {name!r}")
         flat = _flatten(tree)
         if name in SKIPPED_TREES and not training:
@@ -306,10 +343,19 @@ def _convert(
             continue
         state_dicts[name], dropped = _convert_tree(family, "critic" if name == "target_critic" else name, flat, training)
         skipped += dropped
-    for name in _TREES if training else ("world_model", "actor"):
+    for name in trees if training else ("world_model", "actor"):
         if name not in state_dicts:
             raise KeyError(f"convert_{family}: the {name!r} tree is missing")
     return state_dicts, skipped
+
+
+def convert_dreamer_v1(
+    params: Mapping[str, Mapping[str, Any]],
+    training: bool = False,
+) -> Tuple[Dict[str, Dict[str, torch.Tensor]], List[str]]:
+    """JAX DV1 params (world model, actor, critic; no target critic) → the
+    port's state dicts, as :func:`convert_dreamer_v2` does for DV2."""
+    return _convert("dreamer_v1", params, training)
 
 
 def convert_dreamer_v2(
@@ -336,7 +382,7 @@ def convert_dreamer_v3(
 def _convert_p2e(
     algo: str, params: Mapping[str, Mapping[str, Any]], training: bool
 ) -> Tuple[Dict[str, Any], List[str]]:
-    family = {"p2e_dv3": "dreamer_v3", "p2e_dv2": "dreamer_v2"}[algo]
+    family = {"p2e_dv3": "dreamer_v3", "p2e_dv2": "dreamer_v2", "p2e_dv1": "dreamer_v1"}[algo]
     state_dicts: Dict[str, Any] = {}
     skipped: List[str] = []
     for name, tree in params.items():
@@ -353,8 +399,7 @@ def _convert_p2e(
                     part: _convert_tree(family, "critic", _flatten(pair[part]), training)[0] for part in pair
                 }
             continue
-        if name not in _P2E_TREES or (algo, name) in (("p2e_dv3", "critic_exploration"),
-                                                      ("p2e_dv3", "target_critic_exploration")):
+        if name not in _P2E_REQUIRED[algo]:
             raise KeyError(f"convert_{algo}: unknown param tree {name!r}")
         state_dicts[name], dropped = _convert_tree(family, _P2E_TREES[name], _flatten(tree), training)
         skipped += dropped
@@ -388,3 +433,14 @@ def convert_p2e_dv2(
     ``target_critic_exploration``, ``ensembles``) → the port's state dicts,
     as :func:`convert_p2e_dv3` does for P2E-DV3."""
     return _convert_p2e("p2e_dv2", params, training)
+
+
+def convert_p2e_dv1(
+    params: Mapping[str, Mapping[str, Any]],
+    training: bool = False,
+) -> Tuple[Dict[str, Any], List[str]]:
+    """JAX P2E-DV1 params (``world_model``, ``actor_task``, ``critic_task``,
+    ``actor_exploration``, ``critic_exploration``, ``ensembles``; no target
+    critics) → the port's state dicts, as :func:`convert_p2e_dv3` does for
+    P2E-DV3."""
+    return _convert_p2e("p2e_dv1", params, training)

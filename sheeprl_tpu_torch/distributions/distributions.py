@@ -337,8 +337,9 @@ class Independent:
 
 
 def kl_divergence(p, q) -> torch.Tensor:
-    """KL(p ‖ q) for one-hot categoricals, optionally under matching
-    :class:`Independent` wrappers (the Dreamer KL balance)."""
+    """KL(p ‖ q) for one-hot categoricals (the Dreamer KL balance) or for
+    Gaussians (DreamerV1's latents), optionally under matching
+    :class:`Independent` wrappers."""
     if isinstance(p, Independent) and isinstance(q, Independent):
         if p.ndims != q.ndims:
             raise ValueError("Independent KL requires matching reinterpreted dims")
@@ -346,6 +347,10 @@ def kl_divergence(p, q) -> torch.Tensor:
         return inner.sum(dim=tuple(range(-p.ndims, 0))) if p.ndims else inner
     if isinstance(p, OneHotCategorical) and isinstance(q, OneHotCategorical):
         return (torch.exp(p.logits) * (p.logits - q.logits)).sum(dim=-1)
+    if isinstance(p, Normal) and isinstance(q, Normal):
+        var_ratio = (p.scale / q.scale) ** 2
+        t1 = ((p.loc - q.loc) / q.scale) ** 2
+        return 0.5 * (var_ratio + t1 - 1 - torch.log(var_ratio))
     raise NotImplementedError(f"KL not implemented for {type(p).__name__} / {type(q).__name__}")
 
 

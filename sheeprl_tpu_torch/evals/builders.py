@@ -77,13 +77,14 @@ def dreamer_eval_policy(
 
 
 def family_of(algo: str) -> str:
-    """``dreamer_v2`` or ``dreamer_v3``: the family whose player serves
-    ``algo`` (Plan2Explore's phases serve their family's task actor)."""
+    """``dreamer_v1``, ``dreamer_v2`` or ``dreamer_v3``: the family whose
+    player serves ``algo`` (Plan2Explore's phases serve their family's task
+    actor)."""
     algo = str(algo)
-    for family, p2e in (("dreamer_v3", "p2e_dv3_"), ("dreamer_v2", "p2e_dv2_")):
+    for family, p2e in (("dreamer_v3", "p2e_dv3_"), ("dreamer_v2", "p2e_dv2_"), ("dreamer_v1", "p2e_dv1_")):
         if algo == family or algo.startswith(p2e):
             return family
-    raise NotImplementedError(f"only the DreamerV2 and DreamerV3 families are served by the port, not {algo}")
+    raise NotImplementedError(f"only the DreamerV1, V2 and V3 families are served by the port, not {algo}")
 
 
 def serving_params(state: Dict[str, Any], algo: str) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -101,13 +102,11 @@ def serving_params(state: Dict[str, Any], algo: str) -> Dict[str, Dict[str, torc
             },
             "actor": {k: torch.as_tensor(v) for k, v in agent.get("actor_task", agent.get("actor")).items()},
         }
-    from sheeprl_tpu_torch.convert import convert_dreamer_v2, convert_dreamer_v3, convert_p2e_dv2, convert_p2e_dv3
+    from sheeprl_tpu_torch import convert
 
     family = family_of(algo)
     if "actor_task" in agent["params"]:
-        convert = convert_p2e_dv3 if family == "dreamer_v3" else convert_p2e_dv2
-        trees, _skipped = convert(agent["params"])
+        trees, _skipped = getattr(convert, f"convert_{family.replace('dreamer_v', 'p2e_dv')}")(agent["params"])
         return {"world_model": trees["world_model"], "actor": trees["actor_task"]}
-    convert = convert_dreamer_v3 if family == "dreamer_v3" else convert_dreamer_v2
-    params, _skipped = convert(agent["params"])
+    params, _skipped = getattr(convert, f"convert_{family}")(agent["params"])
     return params

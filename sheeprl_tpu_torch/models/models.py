@@ -24,7 +24,8 @@ from torch import nn
 from sheeprl_tpu_torch.kernels import ops, reference
 from sheeprl_tpu_torch.models.norm import FastLayerNorm
 
-__all__ = ["CNN", "Conv2d", "ConvTranspose2d", "DeCNN", "Linear", "MLP", "LayerNormGRUCell", "resolve_activation"]
+__all__ = ["CNN", "Conv2d", "ConvTranspose2d", "DeCNN", "GRUCell", "Linear", "MLP", "LayerNormGRUCell",
+           "resolve_activation"]
 
 _ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "tanh": torch.tanh,
@@ -308,3 +309,39 @@ class LayerNormGRUCell(nn.Module):
         cell = reference.hafner_cell if self.impl == "plain" else ops.hafner_gru_cell
         x = x.to(self.dtype or torch.float32)
         return cell(h.float(), x, self.weight, self.bias, ln_w, ln_b, eps=self.norm_eps)
+
+
+#: the flax ``nn.GRUCell``'s six projections: the input's three (with bias), then the state's (``hn`` alone with bias)
+GRU_PROJECTIONS = (("ir", True), ("iz", True), ("in", True), ("hr", False), ("hz", False), ("hn", True))
+
+
+class GRUCell(nn.Module):
+    """flax's ``nn.GRUCell`` (DreamerV1's recurrent core; the JAX
+    ``FusedGRUCell`` with ``fused="off"``): six Linear projections named
+    after its leaves, ``ir``, ``iz``, ``in`` of the input and ``hr``, ``hz``,
+    ``hn`` of the state (only ``hn`` of the three with a bias), and
+
+        r = σ(ir + hr); z = σ(iz + hz); n = tanh(in + r·hn); h' = (1−z)·n + z·h.
+
+    PyTorch operations on any device (the JAX package computes it outside
+    any Pallas kernel): the three input projections are one product, and so
+    are the three state projections."""
+
+    def __init__(self, input_size: int, hidden_size: int, device=None):
+        super().__init__()
+        self.input_size, self.hidden_size = int(input_size), int(hidden_size)
+        for name, bias in GRU_PROJECTIONS:
+            width = self.input_size if name.startswith("i") else self.hidden_size
+            self.add_module(name, nn.Linear(width, self.hidden_size, bias=bias, device=device))
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        m = self._modules
+        xi = F.linear(x, torch.cat([m["ir"].weight, m["iz"].weight, m["in"].weight]),
+                      torch.cat([m["ir"].bias, m["iz"].bias, m["in"].bias]))
+        hh = F.linear(h, torch.cat([m["hr"].weight, m["hz"].weight, m["hn"].weight]))
+        ir, iz, in_ = xi.chunk(3, dim=-1)
+        hr, hz, hn = hh.chunk(3, dim=-1)
+        r = torch.sigmoid(ir + hr)
+        z = torch.sigmoid(iz + hz)
+        n = torch.tanh(in_ + r * (hn + m["hn"].bias))
+        return (1.0 - z) * n + z * h

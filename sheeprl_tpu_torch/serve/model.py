@@ -1,7 +1,7 @@
 """Servable models (counterpart of ``GatewayModel`` in
 ``sheeprl_tpu/serve/model.py``).
 
-A :class:`GatewayModel` wraps one DreamerV2 or DreamerV3 (or Plan2Explore task actor)
+A :class:`GatewayModel` wraps one DreamerV1, V2 or V3 (or Plan2Explore task actor)
 :class:`~sheeprl_tpu_torch.evals.service.EvalPolicy`
 with what serving adds: a version stamped on every response, a per-row state
 contract for the batcher's server-side recurrent state, and the device the
@@ -52,17 +52,17 @@ class GatewayModel:
         version: int = 0,
         plain_cell: bool = False,
     ) -> "GatewayModel":
-        """A DreamerV2 or DreamerV3 policy (``cfg.algo.name``'s family:
+        """A DreamerV1, V2 or V3 policy (``cfg.algo.name``'s family:
         Plan2Explore's phases serve their family's player) from the port's
         state dicts ``{"world_model": ..., "actor": ...}`` (``convert.py``
         turns the JAX package's param trees into them)."""
+        import importlib
+
         from sheeprl_tpu_torch.evals.builders import family_of
 
         algo = str(cfg.algo.name)
-        if family_of(algo) == "dreamer_v2":
-            from sheeprl_tpu_torch.algos.dreamer_v2.evaluate import dreamer_v2_eval_policy as build
-        else:
-            from sheeprl_tpu_torch.algos.dreamer_v3.evaluate import dreamer_v3_eval_policy as build
+        family = family_of(algo)
+        build = getattr(importlib.import_module(f"sheeprl_tpu_torch.algos.{family}.evaluate"), f"{family}_eval_policy")
         dev = resolve_device(device)
         policy = build(cfg, params, observation_space, actions_dim, is_continuous, device=dev, plain_cell=plain_cell)
         return cls(policy, version=version, algo=algo, env_id=str(cfg.env.id), device=dev)
@@ -84,7 +84,7 @@ class GatewayModel:
 def load_gateway_model(
     checkpoint_ref: str, device=None, plain_cell: bool = False, registry_dir: str = "logs/registry"
 ) -> Tuple[GatewayModel, Any, Any, Any]:
-    """A servable DreamerV2 or DreamerV3 model from a checkpoint directory or
+    """A servable DreamerV1, V2 or V3 model from a checkpoint directory or
     a ``registry:best:<algo>:<env id>`` ref (resolved in ``registry_dir``),
     on ``device`` (``cuda`` when None). Every array of the model state is
     checksummed against the manifest (a replay buffer saved beside it is not

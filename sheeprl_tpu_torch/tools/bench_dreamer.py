@@ -13,13 +13,17 @@ Box of actions (``dreamer_v2_continuous``), or Plan2Explore's exploration
 step (``p2e_dv3``, ``exp=p2e_dv3_exploration``, also on the walker's
 observations and actions as ``p2e_dv3_continuous``; ``p2e_dv2``,
 ``exp=p2e_dv2_exploration``), the L and XL widths (``dreamer_v3_L``,
-``exp=dreamer_v3_L_doapp``; ``dreamer_v3_XL``, ``exp=dreamer_v3_XL_crafter``)
-and P2E-DV3's L DIAMBRA exploration preset under its ``bf16-mixed``
-(``p2e_dv3_L_bf16``), with seeded random weights
+``exp=dreamer_v3_L_doapp``; ``dreamer_v3_XL``, ``exp=dreamer_v3_XL_crafter``),
+P2E-DV3's L DIAMBRA exploration preset under its ``bf16-mixed``
+(``p2e_dv3_L_bf16``), or DreamerV1 (``dreamer_v1``, ``exp=dreamer_v1`` on
+the discrete dummy env's 2 actions; ``dreamer_v1_continuous`` on the
+continuous dummy env's 2-wide Box) and its Plan2Explore exploration step
+(``p2e_dv1``, ``exp=p2e_dv1_exploration``), with seeded random weights
 (``compare`` takes config overrides, which the tests use to shrink it), and
 the seeded batch of the JAX bench at the preset's ``B × T`` (DV2: 32 × 50,
-DV3 and P2E-DV3: 16 × 64, P2E-DV2: 16 × 50, P2E-DV3 L: 4 × 64) uint8 frames
-of 3×64×64 (1×64×64 grey); 9 one-hot actions (16 DIAMBRA, 17 Crafter), or
+DV3 and P2E-DV3: 16 × 64, P2E-DV2: 16 × 50, P2E-DV3 L: 4 × 64, DV1 and
+P2E-DV1: 50 × 50) uint8 frames of 3×64×64 (1×64×64 grey); 9 one-hot
+actions (16 DIAMBRA, 17 Crafter, 2 the dummy env), or
 uniform continuous ones in [−1, 1]; a Gaussian vector for every other
 key; Gaussian rewards, no episode ends). Times
 the step eager and graphed in one call, each on a fresh trainer of the same
@@ -67,8 +71,12 @@ DOAPP_ACTIONS = (16,)
 #: Crafter: its frame and the reward as an observation, its 17 actions
 CRAFTER_OBS = {"rgb": (3, 64, 64), "reward": (1,)}
 CRAFTER_ACTIONS = (17,)
+#: the dummy envs' actions: 2 discrete (``discrete_dummy``) or a 2-wide Box (``continuous_dummy``)
+DUMMY_ACTIONS = (2,)
 #: the agent and training modules of each family
 ALGOS = {
+    "dreamer_v1": ("sheeprl_tpu_torch.algos.dreamer_v1.agent", "sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1"),
+    "p2e_dv1": ("sheeprl_tpu_torch.algos.p2e_dv1.agent", "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_exploration"),
     "dreamer_v2": ("sheeprl_tpu_torch.algos.dreamer_v2.agent", "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2"),
     "dreamer_v3": ("sheeprl_tpu_torch.algos.dreamer_v3.agent", "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3"),
     "p2e_dv2": ("sheeprl_tpu_torch.algos.p2e_dv2.agent", "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration"),
@@ -94,6 +102,13 @@ PRESETS = {
     "dreamer_v3_XL": ("dreamer_v3", "dreamer_v3_XL_crafter", CRAFTER_OBS, CRAFTER_ACTIONS, False),
     "p2e_dv3_L_bf16": ("p2e_dv3", "p2e_dv3_expl_L_doapp_128px_gray_combo_discrete_15Mexpl_20Mstps", DOAPP_P2E_OBS,
                        DOAPP_ACTIONS, False),
+    # DreamerV1 at its preset's width (recurrent 200, Gaussian stochastic 30, dense 400 x 4, CNN multiplier 32,
+    # B=50 x T=50, horizon 15) on the dummy envs' spaces (2 discrete actions, or a 2-wide Box), and P2E-DV1's
+    # exploration step at its own (recurrent 400, stochastic 60, hidden 400, 10 members regressing the 1024-wide
+    # embedding)
+    "dreamer_v1": ("dreamer_v1", "dreamer_v1", OBS, DUMMY_ACTIONS, False),
+    "dreamer_v1_continuous": ("dreamer_v1", "dreamer_v1", OBS, DUMMY_ACTIONS, True),
+    "p2e_dv1": ("p2e_dv1", "p2e_dv1_exploration", OBS, DUMMY_ACTIONS, False),
 }
 
 

@@ -758,3 +758,110 @@ def test_capture_guard_keeps_a_collected_graph_from_invalidating_a_capture(cuda,
         out[case] = run.stdout.strip().splitlines()[-1]
     assert out["unguarded"].startswith("FAILED") and "capture" in out["unguarded"], out
     assert out["guarded"] == "CAPTURED 128.0", out
+
+
+# DreamerV1 at a small width: its flax GRU cell is PyTorch operations (no kernel), so no DV1 path launches the cell
+GRAPH_SMALL_DV1 = {
+    "algo.dense_units": 32, "algo.mlp_layers": 1, "algo.world_model.encoder.cnn_channels_multiplier": 4,
+    "algo.world_model.recurrent_model.recurrent_state_size": 64, "algo.world_model.stochastic_size": 8,
+    "algo.world_model.transition_model.hidden_size": 32, "algo.world_model.representation_model.hidden_size": 32,
+    "algo.horizon": 4, "per_rank_batch_size": 4, "per_rank_sequence_length": 8,
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["dreamer_v1", "dreamer_v1_continuous", "p2e_dv1"])
+def test_graphed_dv1_train_burst_equals_the_eager_steps(cuda, monkeypatch, algo):
+    """DreamerV1's step (and P2E-DV1's exploration step) as the DV2 and DV3
+    ones above: eager steps against one burst of replays at the same state,
+    batches and noise, with cuDNN's deterministic algorithms; no cell
+    launch on either."""
+    import importlib
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    from sheeprl_tpu_torch.tools import bench_dreamer
+    from sheeprl_tpu_torch.train.burst import run_train_burst
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    family, _exp, _obs, actions, continuous, *_ = bench_dreamer.PRESETS[algo]
+    train = importlib.import_module(bench_dreamer.ALGOS[family][1])
+    n = WARMUP_CALLS + GRAPH_REPLAYS
+    small = {**GRAPH_SMALL_DV1, **({"algo.ensembles.n": 3} if algo.startswith("p2e") else {})}
+    build = lambda: bench_dreamer.build_trainer(cuda, seed=0, algo=algo, **small)  # noqa: E731
+    cfg, _state, _program, data = build()
+    T, B = data["rewards"].shape[:2]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    noise = [train.draw_noise(cfg, actions, T, B, gen, cuda, continuous) for _ in range(n)]
+    stack = {k: torch.stack([torch.roll(v, i, dims=1) for i in range(n)]) for k, v in data.items()}
+    out = {}
+    for fused in (False, True):
+        _cfg, state, program, _data = build()
+        before = ops.hafner_cell_launches.count
+        metrics = [run_train_burst(program, state, {k: v[i : i + 1] for k, v in stack.items()}, [0.0],
+                                   noise=noise[i : i + 1], fused=fused) for i in range(n)]
+        params = [p.detach().clone() for m in state.values() if isinstance(m, torch.nn.Module) for p in m.parameters()]
+        out[fused] = (metrics, params, ops.hafner_cell_launches.count - before)
+        if fused:
+            assert program.static.step.graph is not None and program.static.step.replays == GRAPH_REPLAYS
+    (em, ep, el), (gm, gp, gl) = out[False], out[True]
+    assert el == gl == 0
+    for g, e in zip(gm, em):
+        for k in e:
+            assert abs(g[k] - e[k]) <= GRAPH_TOL * max(abs(e[k]), 1e-30), (k, g[k], e[k])
+    for g, e in zip(gp, ep):
+        assert (g - e).abs().max() <= GRAPH_TOL * e.abs().max().clamp_min(1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 50, 2500])
+def test_gru_cell_on_the_card_matches_the_cpu(cuda, B):
+    """DreamerV1's GRU cell (PyTorch operations) on CUDA tensors against the
+    same module on the CPU, TF32 off (the ``cuda`` fixture): forward and the
+    gradients of the input, the state and every projection, within TOL of
+    each tensor's largest magnitude."""
+    from sheeprl_tpu_torch.models import GRUCell
+
+    torch.manual_seed(B)
+    cpu_cell = GRUCell(400, 200)
+    card_cell = GRUCell(400, 200, device=cuda)
+    card_cell.load_state_dict(cpu_cell.state_dict())
+    x, h = torch.randn(B, 400), torch.randn(B, 200)
+    outs = {}
+    for name, cell, dev in (("cpu", cpu_cell, "cpu"), ("card", card_cell, cuda)):
+        xd, hd = x.detach().to(dev).requires_grad_(), h.detach().to(dev).requires_grad_()
+        out = cell(xd, hd)
+        out.square().sum().backward()
+        outs[name] = [out.detach().cpu(), xd.grad.cpu(), hd.grad.cpu()] + [p.grad.cpu() for p in cell.parameters()]
+    before = ops.hafner_cell_launches.count
+    for got, want in zip(outs["card"], outs["cpu"]):
+        assert (got - want).abs().max() <= TOL * want.abs().max().clamp_min(1.0)
+    assert ops.hafner_cell_launches.count == before
+
+
+@pytest.mark.cuda
+def test_dv1_cli_run_on_the_card_launches_no_cell_and_serves_its_checkpoint(cuda, tmp_path):
+    """``exp=dreamer_v1`` through the CLI on ``cuda``: gradient steps and
+    acting steps replayed from their graphs, 0 cell launches on the run and
+    on serving its checkpoint, whose served actions equal a second load's."""
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.ckpt import validate_checkpoint
+    from sheeprl_tpu_torch.serve.model import load_gateway_model
+
+    tiny = [f"{k}={v}" for k, v in GRAPH_SMALL_DV1.items()]
+    ops.hafner_cell_launches.reset()
+    result = cli.run(["exp=dreamer_v1", "env=dummy", "env.id=discrete_dummy", "env.num_envs=2", "env.sync_env=True",
+                      "buffer.size=256", "total_steps=64", "algo.learning_starts=32", "algo.train_every=4",
+                      "algo.per_rank_gradient_steps=1", f"root_dir={tmp_path}", "run_name=dv1"] + tiny)
+    assert result["gradient_steps"] > 3 and result["player_steps"] > 3
+    assert result["graphs"]["train"]["replays"] > 0 and result["graphs"]["act"]["replays"] > 0
+    assert ops.hafner_cell_launches.count == 0
+    ckpt = result["checkpoint"]
+    assert validate_checkpoint(ckpt, deep=True)["framework"] == "torch"
+    frames = {"rgb": np.random.RandomState(0).randint(0, 256, (3, 3, 64, 64)).astype(np.uint8)}
+    acted = []
+    for _ in range(2):
+        model, *_ = load_gateway_model(ckpt)
+        assert model.device.type == "cuda" and model.algo == "dreamer_v1"
+        acted.append(model.act(frames, model.init_state_rows(3), torch.Generator(device="cuda").manual_seed(0)))
+    np.testing.assert_array_equal(acted[0][0], acted[1][0])
+    assert ops.hafner_cell_launches.count == 0

@@ -288,6 +288,56 @@ def test_the_p2e_builds_raise_without_a_card(monkeypatch):
             build(dreamer_v2_config(exp), (9,), False, {"rgb": (3, 64, 64)})
 
 
+TINY_DV1 = [
+    "env=dummy", "env.id=discrete_dummy", "env.num_envs=2", "env.sync_env=True", "metric.log_level=1",
+    "buffer.memmap=False", "per_rank_batch_size=2", "per_rank_sequence_length=2", "algo.horizon=2",
+    "algo.dense_units=8", "algo.mlp_layers=1", "algo.train_every=2", "algo.per_rank_gradient_steps=1",
+    "algo.world_model.encoder.cnn_channels_multiplier=2", "algo.world_model.recurrent_model.recurrent_state_size=8",
+    "algo.world_model.transition_model.hidden_size=8", "algo.world_model.representation_model.hidden_size=8",
+    "algo.world_model.stochastic_size=4", "total_steps=8", "algo.learning_starts=4", "buffer.size=32",
+]
+
+
+def test_dreamer_v1_and_p2e_dv1_runs_and_serving_load_none_of_the_card_path_exclusions(tmp_path):
+    """DreamerV1 through the CLI at ``metric.log_level=1`` (its event file
+    written), then P2E-DV1's exploration run, finetuning from its checkpoint
+    and ``load_gateway_model`` on both runs' checkpoints, in a fresh
+    interpreter: PyYAML, gymnasium, OpenCV, tensorboardX, JAX and the JAX
+    package are never imported."""
+    code = (
+        "import glob, sys\n"
+        "from sheeprl_tpu_torch import cli\n"
+        "from sheeprl_tpu_torch.serve.model import load_gateway_model\n"
+        f"base = {TINY_DV1!r} + ['root_dir={tmp_path}', 'fabric.accelerator=cpu']\n"
+        "dv1 = cli.run(base + ['exp=dreamer_v1', 'run_name=dv1'])\n"
+        "assert glob.glob(dv1['log_dir'] + '/events.out.tfevents.*') == [dv1['event_file']]\n"
+        "assert load_gateway_model(dv1['checkpoint'], device='cpu')[0].algo == 'dreamer_v1'\n"
+        "expl = cli.run(base + ['exp=p2e_dv1_exploration', 'algo.ensembles.n=2', 'run_name=expl'])\n"
+        "fntn = cli.run(base + ['exp=p2e_dv1_finetuning', 'run_name=fntn',\n"
+        "                       'checkpoint.exploration_ckpt_path=' + expl['checkpoint']])\n"
+        "assert fntn['actor_switched_at'] == 2, fntn\n"
+        "assert load_gateway_model(fntn['checkpoint'], device='cpu')[0].algo == 'p2e_dv1_finetuning'\n"
+        f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {CARD_PATH_FORBIDDEN!r}))\n"
+        "print('loaded:', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert "loaded: []" in proc.stdout
+
+
+def test_the_dreamer_v1_builds_raise_without_a_card(monkeypatch):
+    from sheeprl_tpu_torch.algos.dreamer_v1.agent import build_agent as build_dv1
+    from sheeprl_tpu_torch.algos.p2e_dv1.agent import build_agent as build_p2e_dv1
+    from sheeprl_tpu_torch.configs import dreamer_v2_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build, exp in ((build_dv1, "dreamer_v1"), (build_p2e_dv1, "p2e_dv1_exploration")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(dreamer_v2_config(exp), (2,), False, {"rgb": (3, 64, 64)})
+
+
 def test_a_bf16_p2e_run_on_the_doapp_stand_in_loads_none_of_the_card_path_exclusions(tmp_path):
     """P2E-DV3's L DIAMBRA exploration preset at its ``bf16-mixed`` on the
     DIAMBRA stand-in, then finetuning from its checkpoint and serving it, in
