@@ -2978,6 +2978,540 @@ def phase_run_p2e(card: str, family: str, work: str):
     return by_path, line
 
 
+# ---------------------------------------------------------------------------
+# the SAC family (SAC, DroQ, SAC-AE) and the device envs behind env.backend=jax
+# ---------------------------------------------------------------------------
+
+# the trainers at their presets' widths on walker_stand_in's spaces (the vector state for SAC and DroQ, the RGB
+# frames stacked 3 deep for SAC-AE; 6 actions in [-1, 1]): SAC hidden 256, B 256, 2 critics; DroQ the same at
+# G = 20 and dropout 0.01; SAC-AE B 128, 16 x 32 channels, features 64, hidden 1024
+SAC_TRAINERS = {
+    "sac": dict(exp="sac", obs={"state": (24,)}, batch=256),
+    "droq": dict(exp="droq", obs={"state": (24,)}, batch=256),
+    "sac_ae": dict(exp="sac_ae", obs={"rgb": (9, 64, 64)}, batch=128),
+}
+# the card's step against the CPU's steps in float32 and float64: a small batch, the critics' learning rate 0 (their
+# update precedes the actor's, alpha's and the decoder's losses, which then read the same critic and encoder)
+SAC_CPU_BATCH = {"sac": 16, "droq": 16, "sac_ae": 4}
+SAC_TIMED_STEPS = {"sac": 50, "droq": 10, "sac_ae": 4}
+# the runs through the CLI on walker_stand_in (exp=sac, exp=droq, exp=sac_ae at their widths): 2 envs, a 64-step
+# time limit (the stand-in never terminates), a 4096-row buffer (1e6 in the presets); SAC and DroQ learn from the
+# presets' 100 policy steps; SAC-AE from 16 (1000 in the preset) over 48 policy steps (its step is ~0.4 s)
+_SAC_RUN_ENV = ("env.wrapper._target_=chip_smoke.walker_stand_in", "env.id=walker_walk", "env.num_envs=2",
+                "env.sync_env=True", "env.capture_video=False", "env.max_episode_steps=64", "metric.log_level=1")
+SAC_RUN_SPECS = {
+    "run_sac": ("sac", ("exp=sac", *_SAC_RUN_ENV, "mlp_keys.encoder=[state]", "buffer.size=4096",
+                        "total_steps=512", "checkpoint.every=512", "metric.log_every=256")),
+    "run_droq": ("droq", ("exp=droq", *_SAC_RUN_ENV, "mlp_keys.encoder=[state]", "buffer.size=4096",
+                          "total_steps=256", "checkpoint.every=256", "metric.log_every=128")),
+    "run_sac_ae": ("sac_ae", ("exp=sac_ae", *_SAC_RUN_ENV, "buffer.size=256", "algo.learning_starts=16",
+                              "total_steps=48", "checkpoint.every=48", "metric.log_every=48")),
+}
+# test_sac_learns_pendulum's settings (tests/test_algos/test_learning.py) on the port's own Pendulum: 4 envs,
+# 32,768 policy steps, learning from 1000, batch 128, seed 3 (the JAX test's); its criterion: more than 30
+# episodes, the last 10's mean return above -700 and 300 above the first 10's
+RUN_PENDULUM_ARGS = ("exp=sac", "env.backend=jax", "env.id=Pendulum-v1", "env.num_envs=4", "total_steps=32768",
+                     "algo.learning_starts=1000", "per_rank_batch_size=128", "metric.log_level=0",
+                     "checkpoint.every=100000000", "checkpoint.save_last=False", "algo.run_test=False",
+                     "buffer.memmap=False", "seed=3")
+SAC_EVAL_EPISODES = 4
+
+
+def _sac_cfg(algo: str, **overrides):
+    from sheeprl_tpu_torch.config import compose
+
+    return compose(overrides=[f"exp={SAC_TRAINERS[algo]['exp']}"] + [f"{k}={v}" for k, v in overrides.items()])
+
+
+def sac_trainer(algo: str, device, batch=None, seed: int = 0, **overrides):
+    """``(cfg, state, program, data)``: the preset's agent from seeded weights
+    (made on the CPU, then moved), its optimizers, its step program and one
+    seeded batch of ``batch`` rows (the preset's by default; DroQ's a G-step
+    critic batch and its actor batch)."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.droq import droq
+    from sheeprl_tpu_torch.algos.sac import sac
+    from sheeprl_tpu_torch.algos.sac.agent import build_agent_state
+    from sheeprl_tpu_torch.algos.sac_ae import sac_ae
+    from sheeprl_tpu_torch.algos.sac_ae.agent import build_agent
+    from sheeprl_tpu_torch.envs import spaces
+
+    spec = SAC_TRAINERS[algo]
+    cfg = _sac_cfg(algo, **overrides)
+    b = int(batch or spec["batch"])
+    gen = torch.Generator().manual_seed(seed)
+    if algo == "sac":
+        agent = build_agent_state(24, WALKER_ACTIONS, int(cfg.algo.actor.hidden_size), int(cfg.algo.critic.hidden_size),
+                                  int(cfg.algo.critic.n), float(cfg.algo.alpha.alpha), gen, device=device)
+        state, program = sac.build_optimizers_and_state(cfg, agent), sac.build_train_fn(cfg, WALKER_ACTIONS, -6.0)
+    elif algo == "droq":
+        agent = droq.build_agent_state(24, WALKER_ACTIONS, cfg, gen, device)
+        state, program = sac.build_optimizers_and_state(cfg, agent), droq.build_train_fn(cfg, WALKER_ACTIONS, -6.0)
+    else:
+        space = spaces.Dict({"rgb": spaces.Box(0, 255, spec["obs"]["rgb"], np.uint8)})
+        agent = build_agent(cfg, WALKER_ACTIONS, space, gen, device=device)
+        state, program = sac_ae.build_optimizers_and_state(cfg, agent), sac_ae.build_train_fn(cfg, WALKER_ACTIONS, -6.0)
+    state["action_scale"] = torch.ones(WALKER_ACTIONS, device=device)
+    state["action_bias"] = torch.zeros(WALKER_ACTIONS, device=device)
+    rng = np.random.RandomState(seed)
+    lead = (int(cfg.algo.per_rank_gradient_steps), b) if algo == "droq" else (b,)
+    data = {"actions": rng.uniform(-1, 1, lead + (WALKER_ACTIONS,)).astype(np.float32),
+            "rewards": rng.rand(*lead, 1).astype(np.float32), "dones": np.zeros(lead + (1,), np.float32)}
+    for k, shape in spec["obs"].items():
+        name = "observations" if algo != "sac_ae" else k
+        for prefix in ("", "next_"):
+            data[prefix + name] = (rng.randint(0, 256, lead + shape).astype(np.uint8) if len(shape) == 3
+                                   else rng.randn(*lead, *shape).astype(np.float32))
+    if algo == "droq":
+        data["actor_observations"] = rng.randn(b, 24).astype(np.float32)
+    data = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    return cfg, state, program, data
+
+
+def _sac_gates(algo: str, cfg, i: int = 0):
+    """The gates of gradient step ``i``: SAC's and DroQ's EMA on; SAC-AE's
+    cadences cycling through all four (EMA, actor, decoder) combinations."""
+    from sheeprl_tpu_torch.algos.sac.sac import ema_gates
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import cadence_gates
+
+    if algo != "sac_ae":
+        return ema_gates(True, float(cfg.algo.tau))
+    return cadence_gates(cfg, i % 2 == 0, i % 3 != 1, i % 4 != 3)
+
+
+def _first_moments(state) -> dict:
+    return {f"{name}.{i}": opt.state[p]["exp_avg"].detach().float().cpu()
+            for name, opt in state["opt"].items() for group in opt.param_groups for i, p in enumerate(group["params"])}
+
+
+def _in_f64(state, data) -> None:
+    """A trainer's modules, ``log_alpha``, optimizer state and float batch in
+    float64, in place (the reference step)."""
+    import torch
+
+    for module in state.values():
+        if isinstance(module, torch.nn.Module):
+            module.double()
+    state["log_alpha"].data = state["log_alpha"].data.double()
+    for opt in state["opt"].values():
+        for per_param in opt.state.values():
+            for k in per_param:
+                per_param[k] = per_param[k].double()
+    for k in ("action_scale", "action_bias"):
+        state[k] = state[k].double()
+    for k, v in data.items():
+        if v.dtype == torch.float32:
+            data[k] = v.double()
+
+
+def _sac_card_against_cpu(algo: str) -> dict:
+    """One step of the preset at SAC_CPU_BATCH rows on the card (float32,
+    TF32 off) and on the CPU in float32 and float64, from the same weights,
+    batch and noise (drawn on the CPU, copied), with the critics' learning
+    rate 0. Held, as the Dreamer phases hold their losses and Grads/ norms:
+    each loss within TOL_TRAIN_LOSS and each optimizer's gradient norm (its
+    first moments are 0.1 x its gradient after one step) within
+    TOL_TRAIN_GRAD, relative, of the CPU's float32 step or of its float64
+    step. The float64 step is the exact one; the float32 one shares the
+    card's float32 artifacts (a saturated tanh's log-prob: on the H100's
+    host SAC's value loss moves by 3.9e-4 between the CPU's float32 and
+    float64 steps at B=16), and may itself be the inexact side (there the
+    CPU's float32 SAC-AE encoder gradient norm sits 2.0e-4 from float64, the
+    card's 9.0e-6). Reported: both gaps, and each optimizer's gradient's
+    relative L2 distance to the float64 step, the card's and the CPU's
+    float32 step's."""
+    import math
+
+    import torch
+
+    from sheeprl_tpu_torch.kernels import ops
+
+    metrics, moments, noise = {}, {}, None
+    for side in ("cpu64", "cpu32", "cuda"):
+        device = "cuda" if side == "cuda" else "cpu"
+        cfg, state, program, data = sac_trainer(algo, device, SAC_CPU_BATCH[algo],
+                                                **{"algo.critic.optimizer.lr": 0.0})
+        if noise is None:
+            noise = program._draw_noise(state, data, torch.Generator().manual_seed(SEED), "cpu")
+        dtype = torch.float64 if side == "cpu64" else torch.float32
+        if side == "cpu64":
+            _in_f64(state, data)
+        before = ops.hafner_cell_launches.count
+        out = program(state, data, {k: v.to(device, dtype if v.is_floating_point() else v.dtype)
+                                    for k, v in noise.items()}, _sac_gates(algo, cfg))
+        metrics[side] = out.double().cpu().tolist()
+        moments[side] = _first_moments(state)
+        if side == "cuda":
+            launches = ops.hafner_cell_launches.count - before
+        del state, program, data
+    torch.cuda.empty_cache()
+
+    def norm(tensors):
+        return math.sqrt(sum(float((t.double() ** 2).sum()) for t in tensors))
+
+    def gaps(side, ref):
+        by_opt = {}
+        for k, r in moments[ref].items():
+            by_opt.setdefault(k.rsplit(".", 1)[0], []).append((r, moments[side][k]))
+        nonzero = {name: pairs for name, pairs in by_opt.items() if norm([r for r, _ in pairs]) > 0}
+        return {
+            "loss_rel_diff": {name: abs(g - r) / max(abs(r), 1e-6) for name, g, r in
+                              zip(("value", "policy", "alpha", "reconstruction"), metrics[side], metrics[ref])},
+            "grad_norm_rel_diff": {name: abs(norm([g for _, g in pairs]) - norm([r for r, _ in pairs]))
+                                   / norm([r for r, _ in pairs]) for name, pairs in nonzero.items()},
+            "grad_rel_l2_distance": {name: norm([g.double() - r.double() for r, g in pairs])
+                                     / norm([r for r, _ in pairs]) for name, pairs in nonzero.items()},
+        }
+
+    against32, against64, cpu32 = gaps("cuda", "cpu32"), gaps("cuda", "cpu64"), gaps("cpu32", "cpu64")
+    outside = [f"{kind}:{name}" for kind, limit in (("loss_rel_diff", TOL_TRAIN_LOSS),
+                                                    ("grad_norm_rel_diff", TOL_TRAIN_GRAD))
+               for name in against32[kind] if not min(against32[kind][name], against64[kind][name]) <= limit]
+    return {"card": metrics["cuda"], "cpu32": metrics["cpu32"], "cpu64": metrics["cpu64"],
+            "card_against_cpu32": against32, "card_against_cpu64": against64, "cpu32_against_cpu64": cpu32,
+            "limits": [TOL_TRAIN_LOSS, TOL_TRAIN_GRAD], "outside": outside, "cell_launches": launches}
+
+
+def _sac_graphed_against_eager(algo: str) -> dict:
+    """GRAPH_STEPS full-width steps from one seed on one batch: eager
+    (``program(...)``) and graphed (``program.burst``: the capture's eager
+    warm-up calls, the capture, replays), the same noise (drawn once on the
+    card) and gates; every step's losses and the final parameters."""
+    import torch
+
+    runs = {}
+    for mode in ("eager", "graphed"):
+        cfg, state, program, data = sac_trainer(algo, "cuda")
+        if mode == "eager":
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            noises = [program._draw_noise(state, data, gen, "cuda") for _ in range(GRAPH_STEPS)]
+            out = [program(state, data, noises[i], _sac_gates(algo, cfg, i)).cpu() for i in range(GRAPH_STEPS)]
+        else:
+            import numpy as np
+
+            gates = np.stack([_sac_gates(algo, cfg, i) for i in range(GRAPH_STEPS)])
+            stack = {k: v[None].expand(GRAPH_STEPS, *v.shape) for k, v in data.items()}
+            out = []
+            for i in range(GRAPH_STEPS):
+                out.append(program.burst(state, {k: v[i:i + 1] for k, v in stack.items()}, gates[i],
+                                         noise=[noises[i]]).cpu())
+        params = {f"{n}.{k}": v.detach().cpu().clone() for n, m in state.items() if isinstance(m, torch.nn.Module)
+                  for k, v in m.named_parameters()}
+        params["log_alpha"] = state["log_alpha"].detach().cpu().clone()
+        runs[mode] = {"metrics": [dict(enumerate(o.tolist())) for o in out], "params": params,
+                      "graph": None if program.static is None else {
+                          "eager_calls": program.static.step.eager_calls, "replays": program.static.step.replays,
+                          "captured": program.static.step.graph is not None}}
+        del state, program, data
+    torch.cuda.empty_cache()
+    return {**_steps_diff(runs["graphed"], runs["eager"]), "graph": runs["graphed"]["graph"]}
+
+
+def phase_train_sac(card: str, algo: str):
+    """SAC's, DroQ's or SAC-AE's gradient step at the preset's full width
+    (``SAC_TRAINERS``). None of them reaches a TPU kernel, so the checks are
+    the card's step against the port's own CPU step in float32 or float64
+    (``_sac_card_against_cpu``; the CPU tests hold that step against JAX), GRAPH_STEPS steps graphed against
+    eager with cuDNN deterministic, and 0 ``hafner_cell`` launches; then
+    SAC_TIMED_STEPS graphed steps under the profiler (device time a step,
+    idle share, top operations) and the peak memory."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.tools.bench_dreamer import profile_steps
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    tag = f"train_{algo}"
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        against_cpu = _sac_card_against_cpu(algo)
+        torch.backends.cudnn.deterministic = True
+        graphed = _sac_graphed_against_eager(algo)
+        torch.backends.cudnn.deterministic = prev[2]
+        ops.hafner_cell_launches.reset()
+        ops.hafner_sequence_launches.reset()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, state, program, data = sac_trainer(algo, "cuda")
+        n = SAC_TIMED_STEPS[algo]
+        gates = np.stack([_sac_gates(algo, cfg, i) for i in range(n)])
+        stack = {k: v[None] for k, v in data.items()}
+        for i in range(WARMUP_CALLS + 1):  # the warm-up calls and the capture
+            program.burst(state, stack, gates[i % n])
+        calls = iter(range(10**9))
+        profiled = profile_steps(lambda: program.burst(state, stack, gates[next(calls) % n]), n)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(n):
+            metrics = program.burst(state, stack, gates[i])
+        end.record()
+        torch.cuda.synchronize()
+        launches = {"hafner_cell": ops.hafner_cell_launches.count, "hafner_sequence": ops.hafner_sequence_launches.count}
+        peak = torch.cuda.max_memory_allocated()
+        losses = metrics.cpu().tolist()
+        del state, program, data
+        torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = prev
+    line = {"card_vs_cpu": against_cpu, "graphed_vs_eager": graphed, "steps": GRAPH_STEPS, "tol": TOL_GRAPHED,
+            "ms_per_step_graphed": start.elapsed_time(end) / n, "profiled": profiled, "last_losses": losses,
+            "peak_device_memory_bytes": peak, "launches": launches, "card": card}
+    print(f"[{tag}] " + json.dumps(line), flush=True)
+    bad = list(against_cpu["outside"])
+    bad += [k for k, v in zip(("value", "policy", "alpha", "reconstruction"), against_cpu["card"])
+            if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{tag}: the card's step and the CPU's steps disagree on {bad}")
+    if graphed["metric_max_rel_err"] > TOL_GRAPHED or graphed["param_max_rel_err"] > TOL_GRAPHED:
+        raise AssertionError(f"{tag}: graphed and eager steps disagree: {graphed}")
+    if graphed["graph"] != {"eager_calls": WARMUP_CALLS, "replays": GRAPH_STEPS - WARMUP_CALLS, "captured": True}:
+        raise AssertionError(f"{tag}: the graphed steps ran as {graphed['graph']}")
+    if against_cpu["cell_launches"] or launches["hafner_cell"] or launches["hafner_sequence"]:
+        raise AssertionError(f"{tag}: a SAC-family step launched a GRU kernel: {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag}: a loss is not finite: {losses}")
+    return launches, {"card_vs_cpu_loss_max_rel_diff": max(
+                          min(g, against_cpu["card_against_cpu64"]["loss_rel_diff"][k])
+                          for k, g in against_cpu["card_against_cpu32"]["loss_rel_diff"].items()),
+                      "card_vs_cpu_grad_norm_max_rel_diff": max(
+                          min(g, against_cpu["card_against_cpu64"]["grad_norm_rel_diff"][k])
+                          for k, g in against_cpu["card_against_cpu32"]["grad_norm_rel_diff"].items()),
+                      "card_vs_cpu64_grad_rel_l2_distance": against_cpu["card_against_cpu64"]["grad_rel_l2_distance"],
+                      "graphed_vs_eager": {k: graphed[k] for k in ("metric_max_rel_err", "param_max_rel_err",
+                                                                      "bit_for_bit")},
+                      "ms_per_step_graphed": line["ms_per_step_graphed"],
+                      "device_idle_share": profiled["device_idle_share"],
+                      "peak_device_memory_bytes": peak}
+
+
+def _sac_run_predicted(algo: str, cfg) -> dict:
+    """A run's counters from the loop's arithmetic, for a Python-plane run
+    of ``cfg`` (one update a policy step of the ``n`` envs)."""
+    n = int(cfg.env.num_envs)
+    updates, ls = int(cfg.total_steps) // n, int(cfg.algo.learning_starts) // n
+    g = int(cfg.algo.per_rank_gradient_steps)
+    every = lambda f: int(f) // n + 1  # noqa: E731
+    out = {"updates": updates, "random_steps": min(ls, updates), "player_steps": updates - min(ls, updates),
+           "gradient_steps": 0, "ema_steps": 0, "train_calls": 0}
+    for u in range(1, updates + 1):
+        if algo == "droq":
+            if u > ls:
+                out["gradient_steps"] += g
+                out["ema_steps"] += g
+                out["actor_steps"] = out.get("actor_steps", 0) + 1
+                out["train_calls"] += 1
+            continue
+        if u < ls:
+            continue
+        steps = (ls if u == ls else 1) * g
+        out["gradient_steps"] += steps
+        out["train_calls"] += steps
+        out["ema_steps"] += steps if u % every(cfg.algo.critic.target_network_frequency) == 0 else 0
+        if algo == "sac_ae":
+            out["actor_steps"] = out.get("actor_steps", 0) + (steps if u % every(cfg.algo.actor.network_frequency)
+                                                              == 0 else 0)
+            out["decoder_steps"] = out.get("decoder_steps", 0) + (steps if u % every(cfg.algo.decoder.update_freq)
+                                                                  == 0 else 0)
+    return out
+
+
+def _serve_stateless(model, frames):
+    """RUN_REQUESTS lockstep batches of RUN_CLIENTS rows through a fresh
+    gateway: the served actions ``[T, C, A]`` and the status."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.serve import ServeGateway
+
+    steps, clients = next(iter(frames.values())).shape[:2]
+    gateway = ServeGateway(model, max_batch=clients, deadline_s=60.0, seed=SEED)
+    try:
+        ids = [gateway.client(f"client{c}").client_id for c in range(clients)]
+        actions = []
+        for t in range(steps):
+            tickets = [gateway.batcher.submit(cid, {k: v[t, c] for k, v in frames.items()}, reset=t == 0)
+                       for c, cid in enumerate(ids)]
+            actions.append([np.asarray(gateway.batcher.wait(tk, timeout=120.0)[0]).reshape(-1) for tk in tickets])
+        if not gateway.drain(timeout=60.0):
+            raise AssertionError("gateway did not drain")
+        return np.asarray(actions), gateway.status()
+    finally:
+        gateway.close()
+
+
+def phase_run_sac(card: str, name: str):
+    """A SAC-family run through the CLI (``SAC_RUN_SPECS``) on
+    walker_stand_in at the preset's width, checkpointed: its counters
+    against the loop's arithmetic (``_sac_run_predicted``: the catch-up burst,
+    G a update, the EMA, actor and decoder cadences), its steps replayed from
+    graphs, 0 cell launches, its checkpoint valid to every crc32 and f32,
+    then the evaluation command (SAC_EVAL_EPISODES episodes) and the gateway:
+    the served actions equal to the evaluation policy's greedy actions on
+    the same observations."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.ckpt import read_checkpoint, validate_checkpoint
+    from sheeprl_tpu_torch.evals.service import _builder_for, probe_spaces
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.serve.model import load_gateway_model
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    algo, args = SAC_RUN_SPECS[name]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sac_") as root:
+        torch.cuda.reset_peak_memory_stats()
+        ops.hafner_cell_launches.reset()
+        ops.hafner_sequence_launches.reset()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            result, wall = _run_once(root, name, args)
+        launches = {"hafner_cell": ops.hafner_cell_launches.count, "hafner_sequence": ops.hafner_sequence_launches.count}
+        peak = torch.cuda.max_memory_allocated()
+        busy_us, _found = trace_summary(prof, ())
+        cfg, _log_dir = cli.load_run_config(result["checkpoint"])
+        want = _sac_run_predicted(algo, cfg)
+        got = {k: result.get(k, 0) for k in want if k != "train_calls"}
+        if got != {k: v for k, v in want.items() if k != "train_calls"}:
+            raise AssertionError(f"{name}: the run's counters {got}, the loop's arithmetic {want}")
+        graphs = result["graphs"]
+        expect = {"train": want["train_calls"], "act": want["player_steps"]}
+        for part, calls in expect.items():
+            g = graphs[part]
+            if (g["eager_calls"], g["replays"], g["captured"]) != (min(calls, WARMUP_CALLS),
+                                                                    max(calls - WARMUP_CALLS, 0),
+                                                                    int(calls > WARMUP_CALLS)):
+                raise AssertionError(f"{name}: the {part} steps ran as {g} for {calls} calls")
+        if launches["hafner_cell"] or launches["hafner_sequence"]:
+            raise AssertionError(f"{name}: the run launched {launches}")
+        ckpt = result["checkpoint"]
+        manifest = validate_checkpoint(ckpt, deep=True)
+        state = read_checkpoint(ckpt, with_rb=False)
+        if not {"agent", "opt_states", "update", "batch_size", "last_log", "last_checkpoint"} <= set(state):
+            raise AssertionError(f"{name}: the checkpoint holds {sorted(state)}")
+        f32 = _f32_parameters(ckpt)
+
+        ops.hafner_cell_launches.reset()
+        t0 = time.perf_counter()
+        evaluation = cli.evaluation([f"checkpoint_path={ckpt}", f"eval.episodes={SAC_EVAL_EPISODES}",
+                                     f"eval.seed0={EVAL_SEED0}", f"eval.registry_dir={root}/registry"])
+        eval_wall = time.perf_counter() - t0
+        if evaluation["n"] != SAC_EVAL_EPISODES or not np.isfinite(evaluation["returns"]).all():
+            raise AssertionError(f"{name}: the evaluation scored {evaluation}")
+        model, cfg, observation_space, action_space = load_gateway_model(ckpt, device="cuda")
+        rng = np.random.RandomState(SEED)
+        frames = {k: rng.randint(0, 256, (RUN_REQUESTS, RUN_CLIENTS) + s.shape).astype(np.uint8)
+                  if s.dtype == np.uint8 else rng.randn(RUN_REQUESTS, RUN_CLIENTS, *s.shape).astype(np.float32)
+                  for k, s in observation_space.items()}
+        actions, status = _serve_stateless(model, frames)
+        policy = _builder_for(algo)(None, cfg, state, observation_space, action_space, device="cuda")
+        greedy = np.stack([policy.act({k: v[t] for k, v in frames.items()}, None, None)[0]
+                           for t in range(RUN_REQUESTS)])
+        served_err = float(np.abs(actions - greedy).max())
+        if status["failed_requests"] or served_err != 0.0 or np.abs(actions).max() > 1.0:
+            raise AssertionError(f"{name}: served actions differ from the evaluation policy's by {served_err}")
+        if ops.hafner_cell_launches.count:
+            raise AssertionError(f"{name}: the evaluation or the gateway launched hafner_cell")
+        del model, policy
+        torch.cuda.empty_cache()
+    line = {"run_args": list(args), **{k: result[k] for k in ("updates", "policy_steps", "player_steps",
+                                                               "random_steps", "gradient_steps", "ema_steps")},
+            "predicted": want, "graphs": graphs, "wall_s": wall, "policy_steps_per_s": result["policy_steps"] / wall,
+            "gradient_steps_per_s": result["gradient_steps"] / max(result["seconds"]["sample_and_train"], 1e-9),
+            "seconds": result["seconds"], "checkpoint_bytes": sum(manifest["files"].values()),
+            "checkpoint_parameters": f32, "evaluation": {k: evaluation[k] for k in ("n", "returns", "mean")},
+            "evaluation_wall_s": eval_wall, "served_requests": status["requests"],
+            "served_vs_eval_policy_max_abs_err": served_err, "hafner_cell_launches": launches["hafner_cell"],
+            "peak_device_memory_bytes": peak, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall, "rates_under_profiler": True, "card": card}
+    for k in ("actor_steps", "decoder_steps"):
+        if k in result:
+            line[k] = result[k]
+    print(f"[{name}] " + json.dumps(line), flush=True)
+    return launches
+
+
+#: the Pendulum run's traced window: updates PENDULUM_WINDOW[0] up to PENDULUM_WINDOW[1], each one engine burst and one
+#: gradient step (a trace of all 8,192 updates takes longer to stop than the run takes)
+PENDULUM_WINDOW = (4000, 4500)
+
+
+def phase_run_sac_pendulum(card: str):
+    """``exp=sac env.backend=jax env.id=Pendulum-v1`` at test_sac_learns_pendulum's
+    settings (RUN_PENDULUM_ARGS) on the port's own Pendulum: the rollout
+    engine's bursts captured and replayed, the transitions in the device
+    ring, sampled there. It passes on that test's criterion: more than 30
+    episodes, the last 10 episodes' mean return above -700 and 300 above the
+    first 10's. The run is untraced but for PENDULUM_WINDOW's updates,
+    whose device busy time over their wall time gives the idle share."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sheeprl_tpu_torch.envs.rollout import engine as engine_module
+    from sheeprl_tpu_torch.kernels import ops
+
+    collect = engine_module.RolloutEngine.collect
+    window = {"bursts": 0}
+
+    def traced_collect(self, *args, **kwargs):
+        if window["bursts"] == PENDULUM_WINDOW[0]:
+            torch.cuda.synchronize()
+            window["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            window["prof"].__enter__()
+            window["t0"] = time.perf_counter()
+        if window["bursts"] == PENDULUM_WINDOW[1]:
+            torch.cuda.synchronize()
+            window["wall_s"] = time.perf_counter() - window["t0"]
+            window["prof"].__exit__(None, None, None)
+        window["bursts"] += 1
+        return collect(self, *args, **kwargs)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pendulum_") as root:
+        ops.hafner_cell_launches.reset()
+        ops.hafner_sequence_launches.reset()
+        torch.cuda.reset_peak_memory_stats()
+        engine_module.RolloutEngine.collect = traced_collect
+        try:
+            result, wall = _run_once(root, "run_sac_pendulum", RUN_PENDULUM_ARGS)
+        finally:
+            engine_module.RolloutEngine.collect = collect
+        launches = {"hafner_cell": ops.hafner_cell_launches.count, "hafner_sequence": ops.hafner_sequence_launches.count}
+    busy_us, _found = trace_summary(window["prof"], ())
+    returns = result["episode_returns"]
+    early, late = float(np.mean(returns[:10])), float(np.mean(returns[-10:]))
+    engine = result["engine"]
+    window_updates = PENDULUM_WINDOW[1] - PENDULUM_WINDOW[0]
+    line = {"run_args": list(RUN_PENDULUM_ARGS), "episodes": len(returns), "early_mean_return": early,
+            "late_mean_return": late, "criterion": "episodes > 30, late > -700, late > early + 300",
+            "policy_steps": result["policy_steps"], "gradient_steps": result["gradient_steps"], "wall_s": wall,
+            "policy_steps_per_s": result["policy_steps"] / wall,
+            "gradient_steps_per_s": result["gradient_steps"] / max(result["seconds"]["sample_and_train"], 1e-9),
+            "seconds": result["seconds"], "engine": engine, "graphs": result["graphs"],
+            "hafner_cell_launches": launches["hafner_cell"], "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+            "traced_window_updates": list(PENDULUM_WINDOW), "window_ms_per_update": 1e3 * window["wall_s"] / window_updates,
+            "window_device_busy_ms_per_update": busy_us / 1e3 / window_updates,
+            "device_idle_share": 1.0 - busy_us / 1e6 / window["wall_s"], "rates_under_profiler": False, "card": card}
+    print("[run_sac_pendulum] " + json.dumps(line), flush=True)
+    if not (len(returns) > 30 and late > -700 and late > early + 300):
+        raise AssertionError(f"run_sac_pendulum: SAC did not learn the port's Pendulum: {len(returns)} episodes, "
+                             f"early {early:.1f}, late {late:.1f}")
+    if engine["env_steps"] != 32768 or engine["ring_rows"] != 8192 or launches["hafner_cell"]:
+        raise AssertionError(f"run_sac_pendulum: engine {engine}, launches {launches}")
+    return launches
+
+
 class _PhaseClock:
     """Each phase's wall seconds (printed as the ``[timing]`` line): the
     script must stay inside its 1,200 s limit on a slow host."""
@@ -3070,6 +3604,13 @@ def main() -> int:
             by_path.update(paths)
     for name in ("run_dv1", "run_dv3_L", "run_dv3_XL"):
         by_path[name], _ckpt = clock(name, phase_run, card, name)
+    # the SAC family (no kernel on its path) and the device envs of env.backend=jax
+    sac_train = {}
+    for algo in SAC_TRAINERS:
+        by_path[f"train_{algo}"], sac_train[algo] = clock(f"train_{algo}", phase_train_sac, card, algo)
+    for name in SAC_RUN_SPECS:
+        by_path[name] = clock(name, phase_run_sac, card, name)
+    by_path["run_sac_pendulum"] = clock("run_sac_pendulum", phase_run_sac_pendulum, card)
 
     cell_row = next(r for r in train_rows if r["B"] == 1600)
     bf16_row = next(r for r in bf16_rows["p2e_dv3_L"] if r["B"] == 1024)
@@ -3142,6 +3683,10 @@ def main() -> int:
             # DreamerV1 and P2E-DV1: flax's GRU cell in PyTorch operations, every path of theirs at 0 launches
             "dv1_paths": {path: counts["hafner_cell"] for path, counts in by_path.items() if "dv1" in path},
             "dv1_train": dv1_train,
+            # SAC, DroQ and SAC-AE: PyTorch operations only (no TPU kernel on their path), every path at 0 launches
+            "sac_paths": {path: counts["hafner_cell"] for path, counts in by_path.items()
+                          if path.startswith(("train_sac", "train_droq", "run_sac", "run_droq"))},
+            "sac_train": sac_train,
         },
         {
             # the cell's bf16 operand path (fabric.precision=bf16-mixed): the same source, the product on
@@ -3284,5 +3829,33 @@ def main_train_gaps() -> int:
     return 0
 
 
+def main_sac() -> int:
+    """``--sac``: the SAC family's phases alone (the kernels built first, as
+    the full script builds them), for a short call while they change; the
+    full script runs them after the DreamerV1 runs."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script runs only on the card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from sheeprl_tpu_torch.kernels import build
+
+    clock = _PhaseClock()
+    card = card_line()
+    print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    build.build_all()
+    paths = {}
+    for algo in SAC_TRAINERS:
+        paths[f"train_{algo}"], _line = clock(f"train_{algo}", phase_train_sac, card, algo)
+    for name in SAC_RUN_SPECS:
+        paths[name] = clock(name, phase_run_sac, card, name)
+    paths["run_sac_pendulum"] = clock("run_sac_pendulum", phase_run_sac_pendulum, card)
+    print("[timing] " + json.dumps(clock.line()), flush=True)
+    print("[sac_paths] " + json.dumps({k: v["hafner_cell"] for k, v in paths.items()}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main_train_gaps() if sys.argv[1:] == ["--train-gaps"] else main())
+    modes = {"--train-gaps": main_train_gaps, "--sac": main_sac}
+    sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes and len(sys.argv) == 2 else main())

@@ -3,9 +3,11 @@
 The JAX package ``sheeprl_tpu`` is the reference; this package imports
 neither it nor JAX. It trains DreamerV1, DreamerV2 and DreamerV3 and
 Plan2Explore on each (exploration, then finetuning; discrete or continuous
-actions, float32) from its CLI (``python -m sheeprl_tpu_torch exp=dreamer_v3
-...``: config engine and YAML tree, sync vector envs, replay, manifest
-checkpoints), evaluates checkpoints (``cli.evaluation``, the model registry
+actions, float32), and SAC, DroQ and SAC-AE (SAC also on the device
+CartPole and Pendulum of ``env.backend=jax``, collected by the rollout
+engine into the device ring) from its CLI (``python -m sheeprl_tpu_torch
+exp=dreamer_v3 ...``: config engine and YAML tree, sync vector envs, replay,
+manifest checkpoints), evaluates checkpoints (``cli.evaluation``, the model registry
 in ``evals/``) and serves any of their policies (``cli.serve``,
 ``serve/``). The LayerNorm-GRU step of DreamerV2 and V3 is a hand-written
 CUDA kernel (``kernels/csrc/hafner_gru.cu``); DreamerV1's flax GRU cell is
@@ -29,12 +31,18 @@ ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning",
     "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_exploration",
     "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_finetuning",
+    "sheeprl_tpu_torch.algos.sac.sac",
+    "sheeprl_tpu_torch.algos.droq.droq",
+    "sheeprl_tpu_torch.algos.sac_ae.sac_ae",
     "sheeprl_tpu_torch.algos.dreamer_v1.evaluate",
     "sheeprl_tpu_torch.algos.dreamer_v2.evaluate",
     "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
     "sheeprl_tpu_torch.algos.p2e_dv2.evaluate",
     "sheeprl_tpu_torch.algos.p2e_dv3.evaluate",
     "sheeprl_tpu_torch.algos.p2e_dv1.evaluate",
+    "sheeprl_tpu_torch.algos.sac.evaluate",
+    "sheeprl_tpu_torch.algos.droq.evaluate",
+    "sheeprl_tpu_torch.algos.sac_ae.evaluate",
 )
 
 

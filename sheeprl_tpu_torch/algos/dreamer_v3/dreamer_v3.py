@@ -418,7 +418,9 @@ def resolve_actor_cls(name: str):
     try:
         return getattr(importlib.import_module(module), attr)
     except (ImportError, AttributeError) as err:
-        raise NotImplementedError(f"algo.actor.cls={name}: not in the port (ROADMAP queue A item 5a)") from err
+        raise NotImplementedError(
+            f"algo.actor.cls={name}: not in the port (MineDojo's actor comes with its wrapper, ROADMAP queue A item 6i)"
+        ) from err
 
 
 def _unsupported(cfg) -> None:

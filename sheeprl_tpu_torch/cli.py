@@ -160,7 +160,7 @@ def check_configs(cfg) -> None:
             f"Available algorithms: {registered_algorithm_names()}"
         )
     if entry["decoupled"]:
-        raise NotImplementedError(f"{algo_name}: the decoupled entrypoints are ROADMAP queue A item 5")
+        raise NotImplementedError(f"{algo_name}: the decoupled entrypoints are ROADMAP queue A item 5f")
     model_axis = int((cfg.get("parallel", None) or {}).get("model_axis", 1) or 1)
     if model_axis > 1:
         raise NotImplementedError(f"parallel.model_axis={model_axis}: parameter sharding is ROADMAP queue A item 7")

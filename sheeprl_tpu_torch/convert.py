@@ -1,4 +1,5 @@
-"""Carry DreamerV1, DreamerV2 and DreamerV3 weights across from the JAX package.
+"""Carry DreamerV1, DreamerV2, DreamerV3 and the SAC family's weights
+across from the JAX package.
 
 :func:`convert_dreamer_v1`, :func:`convert_dreamer_v2` and
 :func:`convert_dreamer_v3` turn the JAX package's param trees (``{"world_model": ..., "actor": ...}`` as nested
@@ -24,6 +25,13 @@ dicts of numpy arrays, e.g. from ``jax.device_get``) into the port's
   with the member axis first (``StackedLinear.weight``), its bias and the
   LayerNorm vectors ``[N, out]`` too.
 
+The SAC family (:func:`convert_sac`, :func:`convert_droq`,
+:func:`convert_sac_ae`) converts each agent tree by its own rules: the
+critics' stacked kernels ``[N, in, out]`` keep their layout, SAC-AE's
+convolutions and transposed convolutions are transposed as above and its
+projection is flattened NHWC as the Dreamer CNNs are; ``log_alpha`` is one
+leaf.
+
 Every leaf is either consumed or listed as skipped. A training conversion
 (``training=True``) consumes every leaf of the four trees; a serving one
 skips the parts a serving build does not have (decoders, reward and
@@ -48,6 +56,14 @@ __all__ = [
     "convert_p2e_dv1",
     "convert_p2e_dv2",
     "convert_p2e_dv3",
+    "convert_critic_ensemble",
+    "convert_droq",
+    "convert_sac",
+    "convert_sac_actor",
+    "convert_sac_ae",
+    "convert_sac_ae_actor",
+    "convert_sac_ae_decoder",
+    "convert_sac_ae_encoder",
 ]
 
 #: parameters of parts that training needs and serving does not (per tree)
@@ -444,3 +460,165 @@ def convert_p2e_dv1(
     critics) → the port's state dicts, as :func:`convert_p2e_dv3` does for
     P2E-DV3."""
     return _convert_p2e("p2e_dv1", params, training)
+
+
+# ---------------------------------------------------------------------------
+# the SAC family: SAC, DroQ, SAC-AE
+# ---------------------------------------------------------------------------
+
+
+def _by_rules(flat: Dict[str, np.ndarray], rules, where: str) -> Dict[str, torch.Tensor]:
+    """``flat`` (``scope/leaf`` paths) → a ``state_dict`` by ``rules``, each
+    ``(regex, key template over its groups, transform)``; every leaf must
+    match one rule."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, arr in flat.items():
+        for pattern, template, fn in rules:
+            m = re.fullmatch(pattern, path)
+            if m:
+                sd[template.format(*m.groups())] = _t(fn(arr))
+                break
+        else:
+            raise KeyError(f"{where}: unknown parameter {path}")
+    return sd
+
+
+def _dense(scope: str, module: str, fn=_T):
+    return [(rf"{scope}/kernel", f"{module}.weight", fn), (rf"{scope}/bias", f"{module}.bias", _SAME)]
+
+
+def _mlp_rules(scope: str, module: str):
+    return [
+        (rf"{scope}/Dense_(\d+)/kernel", module + ".blocks.{0}.linear.weight", _T),
+        (rf"{scope}/Dense_(\d+)/bias", module + ".blocks.{0}.linear.bias", _SAME),
+        (rf"{scope}/LayerNorm_(\d+)/scale", module + ".blocks.{0}.norm.weight", _SAME),
+        (rf"{scope}/LayerNorm_(\d+)/bias", module + ".blocks.{0}.norm.bias", _SAME),
+    ]
+
+
+def convert_sac_actor(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``SACActor`` (``MLP_0``, the mean ``Dense_0``, the log-std
+    ``Dense_1``) → :class:`~sheeprl_tpu_torch.algos.sac.agent.SACActor`'s ``state_dict``."""
+    rules = _mlp_rules("MLP_0", "mlp") + _dense("Dense_0", "mean") + _dense("Dense_1", "log_std")
+    return _by_rules(_flatten(tree), rules, "convert_sac_actor")
+
+
+def convert_critic_ensemble(tree: Mapping[str, Any], head: str = "last") -> Dict[str, torch.Tensor]:
+    """A stacked JAX critic (leaves ``[N, ...]``) →
+    :class:`~sheeprl_tpu_torch.algos.sac.agent.CriticEnsemble`'s ``state_dict``,
+    the kernels keeping their ``[N, in, out]`` layout. The head is the
+    ``MLP_0``'s last Dense (``head="last"``: SAC's and DroQ's ``SACCritic``,
+    whose MLP has ``output_dim``) or a ``Dense_0`` beside it (``"dense"``:
+    SAC-AE's ``SACAEQFunction``)."""
+    flat = _flatten(tree)
+    if head == "last":
+        last = max(int(m.group(1)) for p in flat if (m := re.fullmatch(r"MLP_0/Dense_(\d+)/kernel", p)))
+        head_rules = _dense(f"MLP_0/Dense_{last}", "head", _SAME)
+    else:
+        head_rules = _dense("Dense_0", "head", _SAME)
+    rules = head_rules + [
+        (r"MLP_0/Dense_(\d+)/kernel", "blocks.{0}.linear.weight", _SAME),
+        (r"MLP_0/Dense_(\d+)/bias", "blocks.{0}.linear.bias", _SAME),
+        (r"MLP_0/LayerNorm_(\d+)/scale", "blocks.{0}.norm.weight", _SAME),
+        (r"MLP_0/LayerNorm_(\d+)/bias", "blocks.{0}.norm.bias", _SAME),
+    ]
+    return _by_rules(flat, rules, "convert_critic_ensemble")
+
+
+def _convert_sac_trees(params: Mapping[str, Any], training: bool, head: str, trees) -> Tuple[Dict[str, Any], List[str]]:
+    out: Dict[str, Any] = {}
+    skipped: List[str] = []
+    for name, tree in params.items():
+        if name not in trees:
+            raise KeyError(f"convert: unknown param tree {name!r}")
+        if not training and name != "actor":
+            skipped += [name] if name == "log_alpha" else [f"{name}/{p}" for p in sorted(_flatten(tree))]
+            continue
+        if name == "actor":
+            out[name] = convert_sac_actor(tree)
+        elif name == "log_alpha":
+            out[name] = _t(np.asarray(tree))
+        else:
+            out[name] = convert_critic_ensemble(tree, head)
+    for name in trees if training else ("actor",):
+        if name not in out:
+            raise KeyError(f"convert: the {name!r} tree is missing")
+    return out, skipped
+
+
+_SAC_TREES = ("actor", "critics", "target_critics", "log_alpha")
+
+
+def convert_sac(params: Mapping[str, Any], training: bool = False) -> Tuple[Dict[str, Any], List[str]]:
+    """A JAX SAC (or DroQ) agent tree (``actor``, ``critics``,
+    ``target_critics``, ``log_alpha``) → the port's: a serving conversion
+    keeps the actor and lists every other leaf as skipped; a training one
+    converts all four (the critics' LayerNorms too, DroQ's)."""
+    return _convert_sac_trees(params, training, "last", _SAC_TREES)
+
+
+convert_droq = convert_sac
+
+
+def convert_sac_ae_encoder(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``SACAEEncoder`` → the port's ``SACAEEncoder`` ``state_dict``:
+    the convolutions HWIO → OIHW, the projection's Dense and LayerNorm, the
+    MLP encoder's layers."""
+    rules = [
+        (r"cnn_encoder/Conv_(\d+)/kernel", "cnn_encoder.cnn.convs.{0}.weight", lambda k: k.transpose(*_HWIO_TO_OIHW)),
+        (r"cnn_encoder/Conv_(\d+)/bias", "cnn_encoder.cnn.convs.{0}.bias", _SAME),
+        *_dense("cnn_encoder/Dense_0", "cnn_encoder.fc"),
+        (r"cnn_encoder/LayerNorm_0/scale", "cnn_encoder.norm.weight", _SAME),
+        (r"cnn_encoder/LayerNorm_0/bias", "cnn_encoder.norm.bias", _SAME),
+        *_mlp_rules("mlp_encoder/MLP_0", "mlp_encoder.mlp"),
+    ]
+    return _by_rules(_flatten(tree), rules, "convert_sac_ae_encoder")
+
+
+def convert_sac_ae_decoder(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``SACAEDecoder`` → the port's: the Dense back to the map, the
+    transposed convolutions by the same transpose (no flip), the MLP
+    decoder's trunk and per-key heads."""
+    rules = [
+        *_dense("cnn_decoder/Dense_0", "cnn_decoder.fc"),
+        (r"cnn_decoder/ConvTranspose_(\d+)/kernel", "cnn_decoder.deconvs.{0}.weight",
+         lambda k: k.transpose(*_HWIO_TO_OIHW)),
+        (r"cnn_decoder/ConvTranspose_(\d+)/bias", "cnn_decoder.deconvs.{0}.bias", _SAME),
+        *_mlp_rules("mlp_decoder/MLP_0", "mlp_decoder.mlp"),
+        (r"mlp_decoder/head_(\w+)/kernel", "mlp_decoder.heads.{0}.weight", _T),
+        (r"mlp_decoder/head_(\w+)/bias", "mlp_decoder.heads.{0}.bias", _SAME),
+    ]
+    return _by_rules(_flatten(tree), rules, "convert_sac_ae_decoder")
+
+
+def convert_sac_ae_actor(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``SACAEActorTrunk`` → the port's ``SACAEActor``."""
+    rules = _mlp_rules("MLP_0", "mlp") + _dense("fc_mean", "fc_mean") + _dense("fc_logstd", "fc_logstd")
+    return _by_rules(_flatten(tree), rules, "convert_sac_ae_actor")
+
+
+_SAC_AE_TREES = ("encoder", "target_encoder", "qfs", "target_qfs", "actor", "decoder", "log_alpha")
+
+
+def convert_sac_ae(params: Mapping[str, Any], training: bool = False) -> Tuple[Dict[str, Any], List[str]]:
+    """A JAX SAC-AE agent tree → the port's state dicts under the same names:
+    a serving conversion keeps ``encoder`` and ``actor`` and lists every
+    other leaf as skipped; a training one converts all seven."""
+    out: Dict[str, Any] = {}
+    skipped: List[str] = []
+    convert_tree = {
+        "encoder": convert_sac_ae_encoder, "target_encoder": convert_sac_ae_encoder,
+        "qfs": lambda t: convert_critic_ensemble(t, "dense"), "target_qfs": lambda t: convert_critic_ensemble(t, "dense"),
+        "actor": convert_sac_ae_actor, "decoder": convert_sac_ae_decoder, "log_alpha": lambda t: _t(np.asarray(t)),
+    }
+    for name, tree in params.items():
+        if name not in convert_tree:
+            raise KeyError(f"convert_sac_ae: unknown param tree {name!r}")
+        if not training and name not in ("encoder", "actor"):
+            skipped += [name] if name == "log_alpha" else [f"{name}/{p}" for p in sorted(_flatten(tree))]
+            continue
+        out[name] = convert_tree[name](tree)
+    for name in _SAC_AE_TREES if training else ("encoder", "actor"):
+        if name not in out:
+            raise KeyError(f"convert_sac_ae: the {name!r} tree is missing")
+    return out, skipped

@@ -140,6 +140,20 @@ class ReplayBuffer:
                 self._full = True
             self._pos = next_pos
 
+    def advance_external(self, example_rows: Dict[str, np.ndarray], steps: int) -> None:
+        """Advance the ring counters for ``steps`` rows written outside this
+        buffer (the device ring's); ``example_rows`` (``[n_envs, ...]``)
+        allocates the storage on the first call. The rows themselves are not
+        written here."""
+        if steps <= 0:
+            return
+        with self._write_lock or nullcontext():
+            if self._buf is None:
+                self._allocate({k: np.asarray(v)[None] for k, v in example_rows.items()})
+            if self._pos + steps >= self._buffer_size:
+                self._full = True
+            self._pos = (self._pos + steps) % self._buffer_size
+
     # -- sampling ---------------------------------------------------------
 
     def _valid_time_indices(self, sample_next_obs: bool) -> np.ndarray:

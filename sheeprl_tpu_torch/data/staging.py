@@ -13,8 +13,12 @@ next burst of the same shape while the caller trains on the current one
 ``buffer.prefetch=False`` samples on the caller's thread, and then the draws
 are bitwise the JAX package's stream for the same adds and seed.
 
-``buffer.device_ring=True`` (the TPU's device-resident mirror of the
-buffer, ``RingStaging``) is not ported and raises (ROADMAP queue A item 6d).
+:class:`RingStaging` serves the same call from the flat transitions ring
+in device memory (:class:`~sheeprl_tpu_torch.data.device_ring.DeviceRingTransitions`),
+which the rollout engine of ``env.backend=jax`` writes. On the Python plane
+``buffer.device_ring=True`` raises: the JAX package's mirror of a host
+buffer there is a remote TPU's cure for the host-to-device link, and the
+port stages from the host (pinned copies overlapping the step) instead.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, EpisodeBuffer
 
-__all__ = ["HostStaging", "make_replay_staging"]
+__all__ = ["HostStaging", "RingStaging", "make_replay_staging"]
 
 # burst spec: (batch_size, sequence_length, n_samples, sample_next_obs)
 _Spec = Tuple[int, int, int, bool]
@@ -129,12 +133,30 @@ class HostStaging:
             self._pool = None
 
 
+class RingStaging:
+    """``sample_device`` from a device ring: the burst is drawn and gathered
+    on the device, so there is nothing to prefetch."""
+
+    def __init__(self, ring: Any):
+        self.rb = ring
+        self.prefetch_hits = 0
+        self.prefetch_misses = 0
+
+    def sample_device(self, batch_size: int, *, n_samples: int = 1, sample_next_obs: bool = False,
+                      **_: Any) -> Dict[str, torch.Tensor]:
+        return self.rb.sample_device(int(batch_size), sample_next_obs=bool(sample_next_obs), n_samples=int(n_samples))
+
+    def close(self) -> None:
+        pass
+
+
 def make_replay_staging(cfg: Any, fabric: Any, rb: Any, *, seed: Optional[int] = None) -> HostStaging:
     """Seed the buffer's sampler (``seed``) and stage it to ``fabric.device``."""
     if bool(cfg.buffer.get("device_ring", False)):
         raise NotImplementedError(
-            "buffer.device_ring=True mirrors the replay buffer in device memory: ROADMAP queue A item 6d; "
-            "the port stages from the host (pass buffer.device_ring=False)"
+            "buffer.device_ring=True on the Python plane: the port stages replay from the host (pinned copies "
+            "overlapping the step); its device ring is the rollout engine's (env.backend=jax). Pass "
+            "buffer.device_ring=False"
         )
     if seed is not None:
         rb.seed(int(seed))

@@ -10,7 +10,11 @@ object array holding a dict for each env that ended, None elsewhere) and
 layout.
 
 ``env.vectorization=async`` / ``gym_async`` (the shared-memory worker pool)
-and ``env.backend=jax`` are not ported: they raise.
+is not ported: it raises. ``env.backend=jax`` selects the device envs and
+the rollout engine (:mod:`sheeprl_tpu_torch.envs.rollout`) instead of this
+plane; SAC branches on :func:`resolve_backend` before it builds envs, and
+any other entrypoint that asks this factory for a ``jax`` backend gets an
+error, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,9 +27,28 @@ from sheeprl_tpu_torch.envs.spaces import batch_space
 from sheeprl_tpu_torch.envs.wrappers import Env, RestartOnException
 from sheeprl_tpu_torch.utils.env import make_env
 
-__all__ = ["SyncVectorEnv", "env_seeds", "make_eval_env", "make_vector_env", "resolve_vectorization"]
+__all__ = [
+    "SyncVectorEnv",
+    "env_seeds",
+    "make_eval_env",
+    "make_vector_env",
+    "resolve_backend",
+    "resolve_vectorization",
+]
 
 _BACKENDS = ("sync", "async", "gym_async")
+_ENV_BACKENDS = ("python", "jax")
+
+
+def resolve_backend(cfg) -> str:
+    """``env.backend``: ``python`` (this vector-env plane, the default) or
+    ``jax`` (the device envs and the rollout engine, whose whole collection
+    burst is one CUDA graph replay). The name stays the JAX package's: the
+    config tree is shared."""
+    backend = str(cfg.env.get("backend", "python") or "python").lower()
+    if backend not in _ENV_BACKENDS:
+        raise ValueError(f"env.backend must be one of {_ENV_BACKENDS}, got {backend!r}")
+    return backend
 
 
 def env_seeds(seed: int, rank: int, n_envs: int) -> List[int]:
@@ -125,9 +148,11 @@ class SyncVectorEnv:
 
 
 def _check_plane(cfg) -> None:
-    backend = str(cfg.env.get("backend", "python") or "python").lower()
-    if backend != "python":
-        raise NotImplementedError(f"env.backend={backend}: the port steps Python envs only (ROADMAP queue A item 6d)")
+    if resolve_backend(cfg) == "jax":
+        raise NotImplementedError(
+            "env.backend=jax: the device envs and the rollout engine (item 6d) drive SAC's training loop only, "
+            "as in the JAX package; run this algorithm with env.backend=python"
+        )
     mode = resolve_vectorization(cfg)
     if mode != "sync":
         raise NotImplementedError(

@@ -12,8 +12,10 @@ only; the dummy envs need no gymnasium).
 
 from __future__ import annotations
 
+import copy
 import time
 import warnings
+from collections import deque
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -23,6 +25,7 @@ from sheeprl_tpu_torch.envs import spaces
 __all__ = [
     "ActionRepeat",
     "Env",
+    "FrameStack",
     "GymnasiumEnv",
     "RecordEpisodeStatistics",
     "RestartOnException",
@@ -249,6 +252,59 @@ class RestartOnException(Wrapper):
             return self.env.reset(seed=seed, options=options)
         except self._exceptions as e:
             return self._handle_crash("RESET", e)
+
+
+class FrameStack(Wrapper):
+    """Stack the last ``num_stack`` frames of each image key along a new
+    leading axis; with ``dilation=d`` the stacked frames are every d-th of
+    the last ``num_stack·d`` (the JAX package's ``FrameStack``). A reset
+    fills the stack with the reset frame."""
+
+    def __init__(self, env: Env, num_stack: int, cnn_keys: Sequence[str], dilation: int = 1):
+        super().__init__(env)
+        if num_stack <= 0:
+            raise ValueError(f"Invalid value for num_stack, expected a value greater than zero, got {num_stack}")
+        if not isinstance(env.observation_space, spaces.Dict):
+            raise RuntimeError(
+                f"Expected an observation space of type spaces.Dict, got: {type(env.observation_space)}"
+            )
+        self._num_stack = int(num_stack)
+        self._dilation = int(dilation)
+        self._cnn_keys = [k for k, v in env.observation_space.spaces.items() if cnn_keys and len(v.shape) == 3]
+        if not self._cnn_keys:
+            raise RuntimeError("Specify at least one valid cnn key to be stacked")
+        new_spaces = dict(env.observation_space.spaces)
+        for k in self._cnn_keys:
+            space = env.observation_space[k]
+            new_spaces[k] = spaces.Box(
+                np.repeat(space.low[None], num_stack, axis=0),
+                np.repeat(space.high[None], num_stack, axis=0),
+                (num_stack, *space.shape),
+                space.dtype,
+            )
+        self.observation_space = spaces.Dict(new_spaces)
+        self._frames = {k: deque(maxlen=self._num_stack * self._dilation) for k in self._cnn_keys}
+
+    def _stacked(self, key: str) -> np.ndarray:
+        frames = list(self._frames[key])[self._dilation - 1 :: self._dilation]
+        return np.stack(frames, axis=0)
+
+    def step(self, action):
+        obs, reward, terminated, truncated, info = self.env.step(action)
+        obs = copy.copy(obs)
+        for k in self._cnn_keys:
+            self._frames[k].append(obs[k])
+            obs[k] = self._stacked(k)
+        return obs, reward, terminated, truncated, info
+
+    def reset(self, *, seed: Optional[int] = None, options: Optional[Dict[str, Any]] = None):
+        obs, info = self.env.reset(seed=seed, options=options)
+        obs = copy.copy(obs)
+        for k in self._cnn_keys:
+            self._frames[k].clear()
+            self._frames[k].extend([obs[k]] * (self._num_stack * self._dilation))
+            obs[k] = self._stacked(k)
+        return obs, info
 
 
 class RewardAsObservationWrapper(Wrapper):

@@ -1,8 +1,8 @@
 """Servable models (counterpart of ``GatewayModel`` in
 ``sheeprl_tpu/serve/model.py``).
 
-A :class:`GatewayModel` wraps one DreamerV1, V2 or V3 (or Plan2Explore task actor)
-:class:`~sheeprl_tpu_torch.evals.service.EvalPolicy`
+A :class:`GatewayModel` wraps one DreamerV1, V2 or V3 (or Plan2Explore task
+actor), SAC, DroQ or SAC-AE :class:`~sheeprl_tpu_torch.evals.service.EvalPolicy`
 with what serving adds: a version stamped on every response, a per-row state
 contract for the batcher's server-side recurrent state, and the device the
 batcher draws its noise on.
@@ -25,7 +25,11 @@ import torch
 
 from sheeprl_tpu_torch.device import resolve_device
 
-__all__ = ["GatewayModel", "PolicySwapper", "load_gateway_model"]
+__all__ = ["STATELESS_ALGOS", "GatewayModel", "PolicySwapper", "load_gateway_model"]
+
+#: the families served without a recurrent state, built by their registered eval builder (the action bounds
+#: come from the action space, which ``GatewayModel.from_params`` does not take)
+STATELESS_ALGOS = ("sac", "droq", "sac_ae")
 
 
 class GatewayModel:
@@ -84,7 +88,7 @@ class GatewayModel:
 def load_gateway_model(
     checkpoint_ref: str, device=None, plain_cell: bool = False, registry_dir: str = "logs/registry"
 ) -> Tuple[GatewayModel, Any, Any, Any]:
-    """A servable DreamerV1, V2 or V3 model from a checkpoint directory or
+    """A servable DreamerV1, V2, V3, SAC, DroQ or SAC-AE model from a checkpoint directory or
     a ``registry:best:<algo>:<env id>`` ref (resolved in ``registry_dir``),
     on ``device`` (``cuda`` when None). Every array of the model state is
     checksummed against the manifest (a replay buffer saved beside it is not
@@ -108,17 +112,24 @@ def load_gateway_model(
     cfg.env.capture_video = False
     state = read_checkpoint(checkpoint_path, with_rb=False)
     observation_space, action_space = probe_spaces(cfg)
-    actions_dim, is_continuous = actions_dim_of(action_space)
-    model = GatewayModel.from_params(
-        serving_params(state, str(cfg.algo.name)),
-        cfg,
-        observation_space.spaces,
-        actions_dim,
-        is_continuous,
-        device=dev,
-        version=policy_version_of(checkpoint_path) or 0,
-        plain_cell=plain_cell,
-    )
+    algo, version = str(cfg.algo.name), policy_version_of(checkpoint_path) or 0
+    if algo in STATELESS_ALGOS:
+        from sheeprl_tpu_torch.evals.service import _builder_for
+
+        policy = _builder_for(algo)(None, cfg, state, observation_space, action_space, device=dev)
+        model = GatewayModel(policy, version=version, algo=algo, env_id=str(cfg.env.id), device=dev)
+    else:
+        actions_dim, is_continuous = actions_dim_of(action_space)
+        model = GatewayModel.from_params(
+            serving_params(state, algo),
+            cfg,
+            observation_space.spaces,
+            actions_dim,
+            is_continuous,
+            device=dev,
+            version=version,
+            plain_cell=plain_cell,
+        )
     model.checkpoint = os.path.abspath(checkpoint_path)
     return model, cfg, observation_space, action_space
 

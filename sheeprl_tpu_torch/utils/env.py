@@ -5,15 +5,18 @@ observation space whose image keys are uint8 CHW frames of
 ``env.screen_size`` (optionally grayscaled) and whose
 vector keys pass through. Pipeline order, as in the JAX package: wrapper
 target → ActionRepeat → dict-ification → resize/grayscale/CHW →
-RewardAsObservation → seeding → TimeLimit → RecordEpisodeStatistics.
+FrameStack → RewardAsObservation → seeding → TimeLimit →
+RecordEpisodeStatistics.
 
 The dummy envs need nothing but numpy. A gymnasium-backed wrapper target
 (``env=atari``, ``env=gym``, ...) imports gymnasium when it is
 instantiated and is adapted by
 :class:`~sheeprl_tpu_torch.envs.wrappers.GymnasiumEnv`. A frame that must be
 resized or grayscaled needs OpenCV (``cv2``), imported only then; without
-it that step raises. Frame stacking (which DreamerV2 does not use),
-velocity masking and video capture are not ported.
+it that step raises. ``env.frame_stack > 1`` stacks the image keys'
+frames (:class:`~sheeprl_tpu_torch.envs.wrappers.FrameStack`, dilated by
+``env.frame_stack_dilation``), as SAC-AE's preset asks. Velocity masking
+and video capture are not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.wrappers import (
     ActionRepeat,
     Env,
+    FrameStack,
     GymnasiumEnv,
     RecordEpisodeStatistics,
     RewardAsObservationWrapper,
@@ -146,10 +150,12 @@ def make_env(
                 new_space[k] = spaces.Box(0, 255, (channels, cfg.env.screen_size, cfg.env.screen_size), np.uint8)
             env = TransformObservation(env, _image_transform(cfg, cnn_keys), spaces.Dict(new_space))
             if cfg.env.frame_stack > 1:
-                raise NotImplementedError(
-                    "env.frame_stack>1: frame stacking is not ported (the families that stack frames are "
-                    "ROADMAP queue A item 5; DreamerV2 runs with frame_stack=1)"
-                )
+                if cfg.env.frame_stack_dilation <= 0:
+                    raise ValueError(
+                        "The frame stack dilation argument must be greater than zero, "
+                        f"got: {cfg.env.frame_stack_dilation}"
+                    )
+                env = FrameStack(env, cfg.env.frame_stack, cnn_keys, cfg.env.frame_stack_dilation)
 
         if cfg.env.get("reward_as_observation", False):
             env = RewardAsObservationWrapper(env)

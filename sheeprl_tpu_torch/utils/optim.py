@@ -21,7 +21,7 @@ checkpoints written with ``torch.optim.AdamW`` load into it.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Sequence
+from typing import Any, Dict, Iterable, Optional, Sequence
 
 import torch
 
@@ -56,9 +56,21 @@ class Adam(torch.optim.Optimizer):
                 }
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, gate: Optional[torch.Tensor] = None):
+        """One update; with ``gate`` (a bool device scalar) the parameters and
+        the state take it only where the gate is on and keep their values
+        otherwise (the JAX steps' ``where(do_update, new, old)`` on both
+        trees), with no host branch."""
         if closure is not None:
             raise ValueError("Adam.step takes no closure")
+        if gate is not None:
+            tensors = [t for group in self.param_groups for p in group["params"]
+                       for t in (p, *self.state[p].values())]
+            before = [t.clone() for t in tensors]
+            self.step()
+            for t, old in zip(tensors, before):
+                t.copy_(torch.where(gate, t, old))
+            return
         for group in self.param_groups:
             params = group["params"]
             if not params:
