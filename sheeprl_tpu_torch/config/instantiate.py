@@ -33,8 +33,8 @@ NOT_PORTED: Dict[str, str] = {
     "sheeprl_tpu_torch.envs.diambra": "ROADMAP queue A item 6i (real-simulator env wrappers)",
     "sheeprl_tpu_torch.envs.minedojo": "ROADMAP queue A item 6i (real-simulator env wrappers)",
     "sheeprl_tpu_torch.envs.minerl": "ROADMAP queue A item 6i (real-simulator env wrappers)",
-    "sheeprl_tpu_torch.utils.optim.AdamW": "ROADMAP queue A item 5e (PPO-recurrent configures it)",
-    "sheeprl_tpu_torch.utils.optim.SGD": "ROADMAP queue A item 5e (no preset selects it; it comes with 5e's optimizers)",
+    "sheeprl_tpu_torch.algos.ppo.ppo_decoupled": "ROADMAP queue A item 5f (the decoupled entrypoints)",
+    "sheeprl_tpu_torch.algos.sac.sac_decoupled": "ROADMAP queue A item 5f (the decoupled entrypoints)",
 }
 
 

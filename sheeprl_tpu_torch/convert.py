@@ -1,5 +1,5 @@
-"""Carry DreamerV1, DreamerV2, DreamerV3 and the SAC family's weights
-across from the JAX package.
+"""Carry DreamerV1, DreamerV2, DreamerV3, the SAC family's and the
+on-policy family's weights across from the JAX package.
 
 :func:`convert_dreamer_v1`, :func:`convert_dreamer_v2` and
 :func:`convert_dreamer_v3` turn the JAX package's param trees (``{"world_model": ..., "actor": ...}`` as nested
@@ -32,6 +32,13 @@ convolutions and transposed convolutions are transposed as above and its
 projection is flattened NHWC as the Dreamer CNNs are; ``log_alpha`` is one
 leaf.
 
+The on-policy family (:func:`convert_ppo` for PPO and A2C,
+:func:`convert_ppo_recurrent`) converts the whole agent (the NatureCNN as
+SAC-AE's encoder, the MLPs with a head, the LSTM's eight leaves), and
+:func:`convert_optax_state` carries an optax state (the learning rate,
+Adam's moments or SGD's trace) into the port optimizer's, so that a JAX
+checkpoint resumes in the port.
+
 Every leaf is either consumed or listed as skipped. A training conversion
 (``training=True``) consumes every leaf of the four trees; a serving one
 skips the parts a serving build does not have (decoders, reward and
@@ -53,17 +60,21 @@ __all__ = [
     "convert_dreamer_v2",
     "convert_dreamer_v3",
     "convert_layers",
+    "convert_optax_state",
     "convert_p2e_dv1",
     "convert_p2e_dv2",
     "convert_p2e_dv3",
     "convert_critic_ensemble",
     "convert_droq",
+    "convert_ppo",
+    "convert_ppo_recurrent",
     "convert_sac",
     "convert_sac_actor",
     "convert_sac_ae",
     "convert_sac_ae_actor",
     "convert_sac_ae_decoder",
     "convert_sac_ae_encoder",
+    "onpolicy_converter",
 ]
 
 #: parameters of parts that training needs and serving does not (per tree)
@@ -622,3 +633,129 @@ def convert_sac_ae(params: Mapping[str, Any], training: bool = False) -> Tuple[D
         if name not in out:
             raise KeyError(f"convert_sac_ae: the {name!r} tree is missing")
     return out, skipped
+
+
+# ---------------------------------------------------------------------------
+# the on-policy family: PPO, A2C, PPO-recurrent
+# ---------------------------------------------------------------------------
+
+
+def _last_dense(flat: Mapping[str, np.ndarray], scope: str) -> int:
+    found = [int(m.group(1)) for p in flat if (m := re.fullmatch(rf"{re.escape(scope)}/Dense_(\d+)/kernel", p))]
+    if not found:
+        raise KeyError(f"no Dense layer under {scope}")
+    return max(found)
+
+
+def _head_mlp_rules(flat, scope: str, module: str):
+    """The JAX ``MLP`` with ``output_dim`` → :class:`~sheeprl_tpu_torch.algos.ppo.agent.MLPHead`:
+    its last Dense is ``head``, the others (and their LayerNorms) ``mlp``'s blocks."""
+    return _dense(f"{scope}/Dense_{_last_dense(flat, scope)}", f"{module}.head") + _mlp_rules(scope, f"{module}.mlp")
+
+
+def _ppo_rules(flat: Mapping[str, np.ndarray]):
+    rules = [
+        (r"cnn_encoder/Conv_(\d+)/kernel", "encoder.cnn_encoder.cnn.convs.{0}.weight",
+         lambda k: k.transpose(*_HWIO_TO_OIHW)),
+        (r"cnn_encoder/Conv_(\d+)/bias", "encoder.cnn_encoder.cnn.convs.{0}.bias", _SAME),
+        *_dense("cnn_encoder/Dense_0", "encoder.cnn_encoder.fc"),
+        *_mlp_rules("actor_backbone", "actor_backbone"),
+        (r"actor_heads_(\d+)/kernel", "actor_heads.{0}.weight", _T),
+        (r"actor_heads_(\d+)/bias", "actor_heads.{0}.bias", _SAME),
+        *_mlp_rules("pre_rnn", "pre_rnn"),
+        *_mlp_rules("post_rnn", "post_rnn"),
+        (r"rnn/OptimizedLSTMCell_0/(\w+)/kernel", "rnn.cell.{0}.weight", _T),
+        (r"rnn/OptimizedLSTMCell_0/(\w+)/bias", "rnn.cell.{0}.bias", _SAME),
+    ]
+    for scope, module in (("mlp_encoder", "encoder.mlp_encoder"), ("critic", "critic")):
+        if any(p.startswith(scope + "/") for p in flat):
+            rules = _head_mlp_rules(flat, scope, module) + rules
+    return rules
+
+
+def convert_ppo(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``PPOAgent`` param tree (PPO's and A2C's) →
+    :class:`~sheeprl_tpu_torch.algos.ppo.agent.PPOAgent`'s ``state_dict``:
+    Dense kernels transposed, convolutions HWIO → OIHW (the projection after
+    them reads the NHWC flatten, as the port's CNN gives it), the MLPs with a
+    head (``mlp_encoder``, ``critic``) split into blocks and ``head``, one
+    Linear per actor head. Every leaf is converted (serving needs the whole
+    agent: the critic is a few kernels)."""
+    flat = _flatten(params)
+    return _by_rules(flat, _ppo_rules(flat), "convert_ppo")
+
+
+def convert_ppo_recurrent(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``RecurrentPPOAgent`` param tree → the port's
+    :class:`~sheeprl_tpu_torch.algos.ppo_recurrent.agent.RecurrentPPOAgent`:
+    PPO's rules, the pre- and post-RNN MLPs', and the LSTM's eight leaves
+    (``OptimizedLSTMCell_0/{ii,if,ig,io}`` kernels, ``{hi,hf,hg,ho}`` kernels
+    and biases), each the Linear of the same name in ``models.LSTMCell``,
+    transposed."""
+    return convert_ppo(params)
+
+
+def onpolicy_converter(algo: str):
+    """``algo``'s param-tree converter: ``convert_ppo_recurrent`` for
+    ``ppo_recurrent``, ``convert_ppo`` for ``ppo`` and ``a2c``."""
+    if algo == "ppo_recurrent":
+        return convert_ppo_recurrent
+    if algo in ("ppo", "a2c"):
+        return convert_ppo
+    raise KeyError(f"no on-policy converter for {algo!r}")
+
+
+def _fields(tree: Any) -> Any:
+    """A tree with its NamedTuples (optax's live states) as field dicts, as a
+    checkpoint restores them."""
+    if hasattr(tree, "_asdict"):
+        return {k: _fields(v) for k, v in tree._asdict().items()}
+    if isinstance(tree, Mapping):
+        return {k: _fields(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_fields(v) for v in tree]
+    return tree
+
+
+def _find(tree: Any, pred) -> Any:
+    """The first node of a nested dict/list/tuple tree for which ``pred`` holds."""
+    if pred(tree):
+        return tree
+    children = tree.values() if isinstance(tree, Mapping) else tree if isinstance(tree, (list, tuple)) else ()
+    for child in children:
+        found = _find(child, pred)
+        if found is not None:
+            return found
+    return None
+
+
+def convert_optax_state(opt_state: Any, convert_params, names) -> Dict[str, Any]:
+    """A JAX optimizer state (``utils/optim.py``'s factories: an
+    ``inject_hyperparams`` state, behind a ``clip_by_global_norm`` or an
+    ``add_decayed_weights`` in a chain, as a checkpoint restores it: field
+    dicts) → the port optimizer's ``{"state": {index: {...}}, "lr": float}``
+    over the parameter ``names`` (the port module's ``named_parameters``
+    order): Adam's ``mu``, ``nu`` and ``count`` as ``exp_avg``,
+    ``exp_avg_sq`` and ``step``, SGD's ``trace`` as ``momentum_buffer``, each
+    tree converted like the params by ``convert_params``. An SGD without
+    momentum has no per-parameter state. A live optax state (NamedTuples)
+    converts the same."""
+    opt_state = _fields(opt_state)
+    injected = _find(opt_state, lambda t: isinstance(t, Mapping) and "hyperparams" in t)
+    if injected is None:
+        raise KeyError("the optimizer state holds no injected learning rate (optax.inject_hyperparams)")
+    lr = float(np.asarray(injected["hyperparams"]["learning_rate"]))
+    inner = injected.get("inner_state", ())
+    adam = _find(inner, lambda t: isinstance(t, Mapping) and "mu" in t and "nu" in t)
+    trace = _find(inner, lambda t: isinstance(t, Mapping) and "trace" in t)
+    state: Dict[int, Dict[str, torch.Tensor]] = {}
+    if adam is not None:
+        mu, nu = convert_params(adam["mu"]), convert_params(adam["nu"])
+        count = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+        for i, name in enumerate(names):
+            state[i] = {"step": count.clone(), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+    elif trace is not None:
+        buffers = convert_params(trace["trace"])
+        for i, name in enumerate(names):
+            state[i] = {"momentum_buffer": buffers[name]}
+    return {"state": state, "lr": lr}

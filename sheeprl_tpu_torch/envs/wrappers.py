@@ -27,6 +27,7 @@ __all__ = [
     "Env",
     "FrameStack",
     "GymnasiumEnv",
+    "MaskVelocityWrapper",
     "RecordEpisodeStatistics",
     "RestartOnException",
     "RewardAsObservationWrapper",
@@ -108,6 +109,46 @@ class GymnasiumEnv(Env):
 
     def close(self) -> None:
         self.env.close()
+
+    @property
+    def spec(self) -> Any:
+        """The gymnasium env's registration (its ``id``), as ``env.unwrapped.spec``."""
+        return self.env.unwrapped.spec
+
+
+class MaskVelocityWrapper(Wrapper):
+    """Velocity entries of a classic-control observation set to zero, making
+    the task partially observable (the JAX ``MaskVelocityWrapper``): the
+    indices are chosen by ``env.unwrapped.spec.id``; an env without a spec,
+    or an id without indices, raises."""
+
+    velocity_indices: Dict[str, np.ndarray] = {
+        "CartPole-v0": np.array([1, 3]),
+        "CartPole-v1": np.array([1, 3]),
+        "MountainCar-v0": np.array([1]),
+        "MountainCarContinuous-v0": np.array([1]),
+        "Pendulum-v1": np.array([2]),
+        "LunarLander-v2": np.array([2, 3, 5]),
+        "LunarLanderContinuous-v2": np.array([2, 3, 5]),
+    }
+
+    def __init__(self, env: Env):
+        super().__init__(env)
+        spec = getattr(env.unwrapped, "spec", None)
+        if spec is None:
+            raise NotImplementedError("MaskVelocityWrapper needs a spec'd env")
+        if spec.id not in self.velocity_indices:
+            raise NotImplementedError(f"Velocity masking not implemented for {spec.id}")
+        self.mask = np.ones(env.observation_space.shape, dtype=np.float32)
+        self.mask[self.velocity_indices[spec.id]] = 0.0
+
+    def reset(self, *, seed: Optional[int] = None, options: Optional[Dict[str, Any]] = None):
+        obs, info = self.env.reset(seed=seed, options=options)
+        return obs * self.mask, info
+
+    def step(self, action):
+        obs, reward, terminated, truncated, info = self.env.step(action)
+        return obs * self.mask, reward, terminated, truncated, info
 
 
 class TransformObservation(Wrapper):

@@ -24,8 +24,8 @@ from torch import nn
 from sheeprl_tpu_torch.kernels import ops, reference
 from sheeprl_tpu_torch.models.norm import FastLayerNorm
 
-__all__ = ["CNN", "Conv2d", "ConvTranspose2d", "DeCNN", "GRUCell", "Linear", "MLP", "LayerNormGRUCell",
-           "resolve_activation"]
+__all__ = ["CNN", "Conv2d", "ConvTranspose2d", "DeCNN", "GRUCell", "LSTMCell", "Linear", "MLP", "LayerNormGRUCell",
+           "NatureCNN", "resolve_activation"]
 
 _ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "tanh": torch.tanh,
@@ -345,3 +345,61 @@ class GRUCell(nn.Module):
         z = torch.sigmoid(iz + hz)
         n = torch.tanh(in_ + r * (hn + m["hn"].bias))
         return (1.0 - z) * n + z * h
+
+
+class NatureCNN(nn.Module):
+    """The DQN-Nature encoder (the JAX ``NatureCNN``): three VALID ReLU
+    convolutions (32 channels 8×8 stride 4, 64 4×4 stride 2, 64 3×3 stride
+    1), the map flattened in NHWC order, then a ReLU Linear of
+    ``features_dim``. Input ``[..., C, H, W]`` with ``H = W = screen_size``."""
+
+    LAYERS = ((32, 8, 4), (64, 4, 2), (64, 3, 1))
+
+    def __init__(self, in_channels: int, features_dim: int = 512, screen_size: int = 64, device=None):
+        super().__init__()
+        self.cnn = CNN(in_channels, [c for c, _, _ in self.LAYERS], [k for _, k, _ in self.LAYERS],
+                       [s for _, _, s in self.LAYERS], 0, "relu", flatten=True, device=device)
+        side = int(screen_size)
+        for _, k, s in self.LAYERS:
+            side = (side - k) // s + 1
+        self.fc = Linear(self.LAYERS[-1][0] * side * side, int(features_dim), device=device)
+        self.output_dim = int(features_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.fc(self.cnn(x)))
+
+
+#: flax ``nn.OptimizedLSTMCell``'s eight projections, gate order i, f, g, o: the input's (no bias), the state's (bias)
+LSTM_PROJECTIONS = tuple((f"i{g}", False) for g in "ifgo") + tuple((f"h{g}", True) for g in "ifgo")
+
+
+class LSTMCell(nn.Module):
+    """flax's ``nn.OptimizedLSTMCell`` (PPO-recurrent's core): eight Linear
+    projections named after its leaves, ``ii if ig io`` of the input (no
+    bias) and ``hi hf hg ho`` of the state (with bias), and
+
+        i = σ(hi + ii); f = σ(hf + if); g = tanh(hg + ig); o = σ(ho + io);
+        c' = f·c + i·g; h' = o·tanh(c').
+
+    The carry is ``(c, h)``. The four input projections are one product, and
+    so are the four state projections, as in flax. PyTorch operations on any
+    device: the JAX package computes it outside any Pallas kernel."""
+
+    def __init__(self, input_size: int, hidden_size: int, device=None):
+        super().__init__()
+        self.input_size, self.hidden_size = int(input_size), int(hidden_size)
+        for name, bias in LSTM_PROJECTIONS:
+            width = self.input_size if name.startswith("i") else self.hidden_size
+            self.add_module(name, nn.Linear(width, self.hidden_size, bias=bias, device=device))
+
+    def forward(self, x: torch.Tensor, carry: Tuple[torch.Tensor, torch.Tensor]):
+        c, h = carry
+        m = self._modules
+        dense_h = F.linear(h, torch.cat([m[f"h{g}"].weight for g in "ifgo"]),
+                           torch.cat([m[f"h{g}"].bias for g in "ifgo"]))
+        dense_i = F.linear(x, torch.cat([m[f"i{g}"].weight for g in "ifgo"]))
+        z = dense_h + dense_i
+        zi, zf, zg, zo = z.chunk(4, dim=-1)
+        c = torch.sigmoid(zf) * c + torch.sigmoid(zi) * torch.tanh(zg)
+        h = torch.sigmoid(zo) * torch.tanh(c)
+        return c, h

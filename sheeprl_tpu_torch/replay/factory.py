@@ -10,7 +10,7 @@ whatever ``buffer.type`` says), ``kind="dreamer"`` with
 ``kind="transition"`` at one shard with uniform sampling (a plain
 :class:`~sheeprl_tpu_torch.data.buffers.ReplayBuffer`). Sizes are the JAX
 package's: ``buffer.size // n_envs`` rows per env (``dry_run_size`` under
-``dry_run``), floored at ``min_size``; the episode buffer holds that many
+``dry_run``; ``size`` when given), floored at ``min_size``; the episode buffer holds that many
 steps in all, floored at the sequence length alone, never at ``min_size``.
 More than one shard and non-uniform strategies raise: ROADMAP queue A
 item 6f.
@@ -39,13 +39,17 @@ def make_replay_buffer(
     n_envs: int,
     kind: str = "transition",
     obs_keys: Sequence[str] = ("observations",),
+    size: Optional[int] = None,
     min_size: int = 1,
     dry_run_size: Optional[int] = None,
     sequence_length: Optional[int] = None,
 ) -> Union[ReplayBuffer, EnvIndependentReplayBuffer, EpisodeBuffer]:
     """Build the replay storage an entrypoint needs (see module docstring);
-    ``sequence_length`` is the episode buffer's."""
-    if bool(cfg.dry_run) and dry_run_size is not None:
+    ``size`` sets the rows per env outright (the on-policy rollout storage's
+    ``buffer.size``); ``sequence_length`` is the episode buffer's."""
+    if size is not None:
+        base = int(size)
+    elif bool(cfg.dry_run) and dry_run_size is not None:
         base = int(dry_run_size)
     else:
         base = int(cfg.buffer.size) // n_envs

@@ -2,7 +2,8 @@
 ``sheeprl_tpu/serve/model.py``).
 
 A :class:`GatewayModel` wraps one DreamerV1, V2 or V3 (or Plan2Explore task
-actor), SAC, DroQ or SAC-AE :class:`~sheeprl_tpu_torch.evals.service.EvalPolicy`
+actor), SAC, DroQ, SAC-AE, PPO, A2C or PPO-recurrent
+:class:`~sheeprl_tpu_torch.evals.service.EvalPolicy`
 with what serving adds: a version stamped on every response, a per-row state
 contract for the batcher's server-side recurrent state, and the device the
 batcher draws its noise on.
@@ -25,11 +26,14 @@ import torch
 
 from sheeprl_tpu_torch.device import resolve_device
 
-__all__ = ["STATELESS_ALGOS", "GatewayModel", "PolicySwapper", "load_gateway_model"]
+__all__ = ["BUILDER_ALGOS", "STATELESS_ALGOS", "GatewayModel", "PolicySwapper", "load_gateway_model"]
 
 #: the families served without a recurrent state, built by their registered eval builder (the action bounds
 #: come from the action space, which ``GatewayModel.from_params`` does not take)
-STATELESS_ALGOS = ("sac", "droq", "sac_ae")
+STATELESS_ALGOS = ("sac", "droq", "sac_ae", "ppo", "a2c")
+#: the families a checkpoint is served through their registered eval builder: the stateless ones and
+#: PPO-recurrent, whose LSTM state (``c``, ``h``, the previous actions, ``is_first``) the batcher keeps per row
+BUILDER_ALGOS = STATELESS_ALGOS + ("ppo_recurrent",)
 
 
 class GatewayModel:
@@ -88,7 +92,7 @@ class GatewayModel:
 def load_gateway_model(
     checkpoint_ref: str, device=None, plain_cell: bool = False, registry_dir: str = "logs/registry"
 ) -> Tuple[GatewayModel, Any, Any, Any]:
-    """A servable DreamerV1, V2, V3, SAC, DroQ or SAC-AE model from a checkpoint directory or
+    """A servable DreamerV1, V2, V3, SAC, DroQ, SAC-AE, PPO, A2C or PPO-recurrent model from a checkpoint directory or
     a ``registry:best:<algo>:<env id>`` ref (resolved in ``registry_dir``),
     on ``device`` (``cuda`` when None). Every array of the model state is
     checksummed against the manifest (a replay buffer saved beside it is not
@@ -113,7 +117,7 @@ def load_gateway_model(
     state = read_checkpoint(checkpoint_path, with_rb=False)
     observation_space, action_space = probe_spaces(cfg)
     algo, version = str(cfg.algo.name), policy_version_of(checkpoint_path) or 0
-    if algo in STATELESS_ALGOS:
+    if algo in BUILDER_ALGOS:
         from sheeprl_tpu_torch.evals.service import _builder_for
 
         policy = _builder_for(algo)(None, cfg, state, observation_space, action_space, device=dev)

@@ -4,7 +4,7 @@ Every env is normalized to a :class:`~sheeprl_tpu_torch.envs.spaces.Dict`
 observation space whose image keys are uint8 CHW frames of
 ``env.screen_size`` (optionally grayscaled) and whose
 vector keys pass through. Pipeline order, as in the JAX package: wrapper
-target → ActionRepeat → dict-ification → resize/grayscale/CHW →
+target → ActionRepeat → MaskVelocity (``env.mask_velocities``) → dict-ification → resize/grayscale/CHW →
 FrameStack → RewardAsObservation → seeding → TimeLimit →
 RecordEpisodeStatistics.
 
@@ -15,8 +15,8 @@ instantiated and is adapted by
 resized or grayscaled needs OpenCV (``cv2``), imported only then; without
 it that step raises. ``env.frame_stack > 1`` stacks the image keys'
 frames (:class:`~sheeprl_tpu_torch.envs.wrappers.FrameStack`, dilated by
-``env.frame_stack_dilation``), as SAC-AE's preset asks. Velocity masking
-and video capture are not ported.
+``env.frame_stack_dilation``), as SAC-AE's preset asks. Video capture is
+not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from sheeprl_tpu_torch.envs.wrappers import (
     Env,
     FrameStack,
     GymnasiumEnv,
+    MaskVelocityWrapper,
     RecordEpisodeStatistics,
     RewardAsObservationWrapper,
     TimeLimit,
@@ -124,8 +125,6 @@ def make_env(
                 "env.capture_video=True: video capture is not ported and not queued: it needs moviepy "
                 "(ROADMAP queue A, after item 6i); pass env.capture_video=False"
             )
-        if cfg.env.get("mask_velocities", False):
-            raise NotImplementedError("env.mask_velocities is not ported (ROADMAP queue A item 6i)")
         kwargs = {}
         if "seed" in cfg.env.wrapper:
             kwargs["seed"] = seed
@@ -138,6 +137,8 @@ def make_env(
         # Atari-style envs repeat actions internally
         if cfg.env.action_repeat > 1 and "atari" not in str(cfg.env.wrapper.get("_target_", "")).lower():
             env = ActionRepeat(env, cfg.env.action_repeat)
+        if cfg.env.get("mask_velocities", False):
+            env = MaskVelocityWrapper(env)
 
         env = _dictify_observations(env, cfg)
 

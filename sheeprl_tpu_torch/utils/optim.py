@@ -3,7 +3,11 @@
 The JAX factory ``Adam(lr, betas, eps, weight_decay, max_grad_norm)`` is
 ``optax.adamw`` when ``weight_decay`` is set (decoupled decay:
 ``p ← p − lr·(adam_direction + wd·p)``), else ``optax.adam``, chained after
-``optax.clip_by_global_norm``. Here :class:`Adam` is the port's own
+``optax.clip_by_global_norm``; ``AdamW`` is ``optax.adamw`` always (its
+default decay 1e-2, the JAX factory's) and ``SGD`` is ``optax.sgd``
+(``add_decayed_weights`` before it when ``weight_decay`` is set), each under
+``optax.inject_hyperparams`` so that the learning rate can change between
+updates (``set_lr``). Here :class:`Adam` is the port's own
 optimizer in optax's order of operations (``torch.optim.Adam``'s decay is an
 L2 term added to the gradient, and ``torch.optim.AdamW`` scales the
 parameter before the Adam step), and the clip is the optax form
@@ -17,6 +21,14 @@ step is a handful of ``foreach`` kernels with no host synchronisation. It
 runs the same on the CPU. Its ``state_dict`` keeps ``torch.optim.Adam``'s
 layout (``step``, ``exp_avg``, ``exp_avg_sq`` per parameter index), so
 checkpoints written with ``torch.optim.AdamW`` load into it.
+
+Each optimizer keeps its learning rate in a device scalar
+(``optimizer.lr``, on its parameters' device) that a step reads, so that
+:func:`set_lr` anneals it between replays of a captured step without
+capturing it again (``u·lr`` then ``p − u·lr`` is the same float32 as
+optax's ``p + u·(−lr)``). The global-norm clip is
+:func:`clip_by_global_norm_`, applied to the gradients before the step, as
+the JAX chain applies it.
 """
 
 from __future__ import annotations
@@ -25,7 +37,19 @@ from typing import Any, Dict, Iterable, Optional, Sequence
 
 import torch
 
-__all__ = ["Adam", "clip_by_global_norm_", "global_norm"]
+__all__ = ["SGD", "Adam", "AdamW", "clip_by_global_norm_", "global_norm", "set_lr"]
+
+
+def _device_lr(optimizer: torch.optim.Optimizer, lr: float) -> torch.Tensor:
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    return torch.tensor(float(lr), dtype=torch.float32, device=params[0].device if params else None)
+
+
+def _apply_lr(lr: torch.Tensor, params, update) -> None:
+    """``p ← p + (−lr)·u`` (optax's ``scale_by_learning_rate``, then
+    ``apply_updates``), by the device scalar ``lr``."""
+    torch._foreach_mul_(update, lr)
+    torch._foreach_sub_(params, update)
 
 
 class Adam(torch.optim.Optimizer):
@@ -47,6 +71,7 @@ class Adam(torch.optim.Optimizer):
         b1, b2 = betas
         super().__init__(params, dict(lr=float(lr), betas=(float(b1), float(b2)), eps=float(eps),
                                       weight_decay=float(weight_decay)))
+        self.lr = _device_lr(self, lr)
         for group in self.param_groups:
             for p in group["params"]:
                 self.state[p] = {
@@ -93,8 +118,7 @@ class Adam(torch.optim.Optimizer):
             update = torch._foreach_div(torch._foreach_div(m, bc1), denom)
             if group["weight_decay"]:
                 torch._foreach_add_(update, torch._foreach_mul(params, group["weight_decay"]))
-            torch._foreach_mul_(update, -group["lr"])
-            torch._foreach_add_(params, update)
+            _apply_lr(self.lr, params, update)
 
     def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
         """Copy a ``state_dict``'s per-parameter state into this optimizer's
@@ -108,6 +132,76 @@ class Adam(torch.optim.Optimizer):
             entry = saved[i] if i in saved else saved[str(i)]
             for key, target in self.state[p].items():
                 target.copy_(torch.as_tensor(entry[key]).reshape(target.shape))
+
+
+class AdamW(Adam):
+    """The JAX factory's ``AdamW``: ``optax.adamw``, weight decay 1e-2 by default."""
+
+    def __init__(self, params, lr: float = 1e-3, betas: Sequence[float] = (0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 1e-2):
+        super().__init__(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
+
+
+class SGD(torch.optim.Optimizer):
+    """The JAX factory's ``SGD``: ``g ← g + wd·p`` when ``weight_decay`` is
+    set (``optax.add_decayed_weights``), then with ``momentum`` optax's
+    ``trace``: ``t ← g + momentum·t`` and ``u = t`` (``u = g + momentum·t``
+    with ``nesterov``), else ``u = g``; ``p ← p + (−lr)·u``. The trace starts
+    at zero, which is ``torch.optim.SGD``'s first step at ``dampening=0``;
+    another dampening has no optax counterpart and raises. Replayable from a
+    CUDA graph as :class:`Adam` is; the state (``momentum_buffer``) is
+    allocated when it is built."""
+
+    def __init__(self, params, lr: float = 1e-2, momentum: float = 0.0, weight_decay: float = 0.0,
+                 nesterov: bool = False, dampening: float = 0.0):
+        if dampening:
+            raise ValueError(f"SGD: dampening={dampening} has no counterpart in the JAX package's optax.sgd")
+        super().__init__(params, dict(lr=float(lr), momentum=float(momentum or 0.0),
+                                      weight_decay=float(weight_decay), nesterov=bool(nesterov)))
+        for group in self.param_groups:
+            if group["momentum"]:
+                for p in group["params"]:
+                    self.state[p] = {"momentum_buffer": torch.zeros_like(p, memory_format=torch.preserve_format)}
+        self.lr = _device_lr(self, lr)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("SGD.step takes no closure")
+        for group in self.param_groups:
+            params = group["params"]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, torch._foreach_mul(params, group["weight_decay"]))
+            if group["momentum"]:
+                trace = [self.state[p]["momentum_buffer"] for p in params]
+                torch._foreach_mul_(trace, group["momentum"])
+                torch._foreach_add_(trace, grads)
+                update = (torch._foreach_add(grads, torch._foreach_mul(trace, group["momentum"]))
+                          if group["nesterov"] else [t.clone() for t in trace])
+            else:
+                update = [g.clone() for g in grads]
+            _apply_lr(self.lr, params, update)
+
+    def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        """Copy a ``state_dict``'s momentum buffers into this optimizer's, in place."""
+        params = [p for group in self.param_groups for p in group["params"]]
+        saved = state_dict["state"]
+        for i, p in enumerate(params):
+            entry = saved.get(i, saved.get(str(i)))
+            if entry is not None and p in self.state:
+                self.state[p]["momentum_buffer"].copy_(torch.as_tensor(entry["momentum_buffer"]).reshape(p.shape))
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """The learning rate of the next steps (``optax.inject_hyperparams``'s,
+    the JAX ``set_lr``): into the optimizer's device scalar (no host
+    synchronisation; a captured step reads it) and its parameter groups."""
+    for group in optimizer.param_groups:
+        group["lr"] = float(lr)
+    optimizer.lr.fill_(float(lr))
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -1,13 +1,53 @@
-"""Run helpers (counterpart of ``polynomial_decay``, ``print_config`` and
-``save_configs`` in ``sheeprl_tpu/utils/utils.py``)."""
+"""Run helpers (counterpart of ``gae``, ``normalize_tensor``,
+``polynomial_decay``, ``print_config`` and ``save_configs`` in
+``sheeprl_tpu/utils/utils.py``)."""
 
 from __future__ import annotations
 
 import os
+from typing import TYPE_CHECKING, Tuple
 
 from sheeprl_tpu_torch.config.yamlite import dump
 
-__all__ = ["polynomial_decay", "print_config", "save_configs"]
+if TYPE_CHECKING:  # the module loads no torch: the CLI imports it
+    import torch
+
+__all__ = ["gae", "normalize_tensor", "polynomial_decay", "print_config", "save_configs"]
+
+
+def gae(
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    dones: torch.Tensor,
+    next_value: torch.Tensor,
+    gamma: float,
+    gae_lambda: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Generalized advantage estimation over a rollout ``[T, ...]``, the JAX
+    function's reversed scan in its order of operations: ``dones[t]`` ends
+    transition t, so ``1 − dones[t]`` masks the bootstrap from t+1 (the next
+    row's value, ``next_value`` after the last). Returns ``(returns,
+    advantages)``, both ``[T, ...]``. No host synchronisation: the loop over
+    T can be captured in a CUDA graph."""
+    import torch
+
+    dones = dones.to(rewards.dtype)
+    next_value = next_value.to(rewards.dtype)
+    next_values = torch.cat([values[1:], next_value[None]], dim=0)
+    advantages = torch.empty_like(rewards)
+    last = torch.zeros_like(next_value)
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        nonterminal = 1.0 - dones[t]
+        delta = rewards[t] + gamma * next_values[t] * nonterminal - values[t]
+        last = delta + gamma * gae_lambda * nonterminal * last
+        advantages[t] = last
+    return advantages + values, advantages
+
+
+def normalize_tensor(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """``(x − mean) / (std + eps)`` over every element, the std the
+    population one (``jnp.std``'s ddof 0, not ``torch.std``'s default)."""
+    return (x - x.mean()) / (x.std(correction=0) + eps)
 
 
 def polynomial_decay(

@@ -67,6 +67,18 @@ LR = 8e-5  # the smallest learning rate of the preset's three optimizers
 BF16_OVERRIDES = {**SMALL, "fabric.precision": "bf16-mixed"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def restore_prng_impl():
+    """The JAX Fabric switches JAX's default key implementation for the
+    whole process (to ``rbg``): put it back after the module, so that a
+    later file on the same worker draws the keys it expects (a
+    ``PRNGKey(1)`` of ``tests/test_envs/test_rollout.py`` otherwise starts
+    another Pendulum trajectory)."""
+    saved = jax.config.jax_default_prng_impl
+    yield
+    jax.config.update("jax_default_prng_impl", saved)
+
+
 def test_fabric_precision_dtypes():
     """As ``tests/test_runtime/test_fabric.py`` holds the JAX Fabric."""
     assert Fabric(accelerator="cpu").compute_dtype is None

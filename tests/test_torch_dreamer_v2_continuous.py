@@ -55,6 +55,18 @@ GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
 PARAM_ATOL = 0.01 * 2e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def restore_prng_impl():
+    """The JAX Fabric switches JAX's default key implementation for the
+    whole process (to ``rbg``): put it back after the module, so that a
+    later file on the same worker draws the keys it expects (a
+    ``PRNGKey(1)`` of ``tests/test_envs/test_rollout.py`` otherwise starts
+    another Pendulum trajectory)."""
+    saved = jax.config.jax_default_prng_impl
+    yield
+    jax.config.update("jax_default_prng_impl", saved)
+
+
 def _batch():
     rng = np.random.RandomState(21)
     dones = np.zeros((T, B, 1), np.float32)

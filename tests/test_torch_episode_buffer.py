@@ -16,6 +16,7 @@
 
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -33,6 +34,18 @@ from sheeprl_tpu_torch.replay import make_replay_buffer
 from sheeprl_tpu_torch.utils.callback import CheckpointCallback
 
 N_ENVS, SEQ = 3, 4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def restore_prng_impl():
+    """The JAX Fabric switches JAX's default key implementation for the
+    whole process (to ``rbg``): put it back after the module, so that a
+    later file on the same worker draws the keys it expects (a
+    ``PRNGKey(1)`` of ``tests/test_envs/test_rollout.py`` otherwise starts
+    another Pendulum trajectory)."""
+    saved = jax.config.jax_default_prng_impl
+    yield
+    jax.config.update("jax_default_prng_impl", saved)
 
 
 def _rows(rng, t, n=N_ENVS, p_done=0.15):

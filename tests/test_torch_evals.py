@@ -48,6 +48,18 @@ S = D = 4  # the tiny runs' stochastic and discrete sizes
 EPISODES, SEED0 = 4, 11
 
 
+@pytest.fixture(autouse=True, scope="module")
+def restore_prng_impl():
+    """The JAX Fabric switches JAX's default key implementation for the
+    whole process (to ``rbg``): put it back after the module, so that a
+    later file on the same worker draws the keys it expects (a
+    ``PRNGKey(1)`` of ``tests/test_envs/test_rollout.py`` otherwise starts
+    another Pendulum trajectory)."""
+    saved = jax.config.jax_default_prng_impl
+    yield
+    jax.config.update("jax_default_prng_impl", saved)
+
+
 def cartpole_args(root, run_name, algo, extra=()):
     """A tiny run on CartPole-v1's 4-wide state: random actions only (the
     learning starts past the run), a checkpoint at its end."""

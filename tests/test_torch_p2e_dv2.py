@@ -68,6 +68,18 @@ TRAINED = ("world_model", "ensembles", "actor_exploration", "critic_exploration"
 MODULES = TRAINED + ("target_critic_task", "target_critic_exploration")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def restore_prng_impl():
+    """The JAX Fabric switches JAX's default key implementation for the
+    whole process (to ``rbg``): put it back after the module, so that a
+    later file on the same worker draws the keys it expects (a
+    ``PRNGKey(1)`` of ``tests/test_envs/test_rollout.py`` otherwise starts
+    another Pendulum trajectory)."""
+    saved = jax.config.jax_default_prng_impl
+    yield
+    jax.config.update("jax_default_prng_impl", saved)
+
+
 def _batch(seed=21):
     rng = np.random.RandomState(seed)
     dones = np.zeros((T, B, 1), np.float32)

@@ -78,6 +78,18 @@ CONTINUOUS_KEYS = ["cnn_keys.encoder=[rgb]", "cnn_keys.decoder=[rgb]", "mlp_keys
                    "mlp_keys.decoder=[state]", "distribution.type=trunc_normal"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def restore_prng_impl():
+    """The JAX Fabric switches JAX's default key implementation for the
+    whole process (to ``rbg``): put it back after the module, so that a
+    later file on the same worker draws the keys it expects (a
+    ``PRNGKey(1)`` of ``tests/test_envs/test_rollout.py`` otherwise starts
+    another Pendulum trajectory)."""
+    saved = jax.config.jax_default_prng_impl
+    yield
+    jax.config.update("jax_default_prng_impl", saved)
+
+
 def _overrides(case):
     return [f"{k}={v}" for k, v in SMALL.items()] + (CONTINUOUS_KEYS if CASES[case][1] else [])
 

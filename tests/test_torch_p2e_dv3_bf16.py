@@ -34,6 +34,7 @@ import gymnasium as gym
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from sheeprl_tpu.algos.p2e_dv3 import agent as jax_agent
@@ -58,6 +59,18 @@ OVERRIDES = [f"{k}={v}" for k, v in SMALL.items()] + [
     "fabric.precision=bf16-mixed", "cnn_keys.encoder=[]", "cnn_keys.decoder=[]", "mlp_keys.encoder=[state]",
     "mlp_keys.decoder=[state]",
 ]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def restore_prng_impl():
+    """The JAX Fabric switches JAX's default key implementation for the
+    whole process (to ``rbg``): put it back after the module, so that a
+    later file on the same worker draws the keys it expects (a
+    ``PRNGKey(1)`` of ``tests/test_envs/test_rollout.py`` otherwise starts
+    another Pendulum trajectory)."""
+    saved = jax.config.jax_default_prng_impl
+    yield
+    jax.config.update("jax_default_prng_impl", saved)
 
 
 def _batch(seed=21):

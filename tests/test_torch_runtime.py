@@ -6,6 +6,7 @@ at a tiny width)."""
 import math
 import warnings
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -24,6 +25,18 @@ from sheeprl_tpu_torch.utils import metric
 from sheeprl_tpu_torch.utils.registry import find_algorithm, register_algorithm, registered_algorithm_names
 from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import polynomial_decay
+
+
+@pytest.fixture(autouse=True, scope="module")
+def restore_prng_impl():
+    """The JAX Fabric switches JAX's default key implementation for the
+    whole process (to ``rbg``): put it back after the module, so that a
+    later file on the same worker draws the keys it expects (a
+    ``PRNGKey(1)`` of ``tests/test_envs/test_rollout.py`` otherwise starts
+    another Pendulum trajectory)."""
+    saved = jax.config.jax_default_prng_impl
+    yield
+    jax.config.update("jax_default_prng_impl", saved)
 
 
 @pytest.mark.parametrize("step", [0, 1, 5, 49, 50, 51, 200])
@@ -73,7 +86,7 @@ def test_registry_finds_the_ported_entrypoint():
     sheeprl_tpu_torch.register_algorithms()
     entry = find_algorithm("dreamer_v2")
     assert entry["module"] == "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2" and entry["entrypoint"] == "main"
-    assert "dreamer_v2" in registered_algorithm_names() and find_algorithm("ppo") is None
+    assert "dreamer_v2" in registered_algorithm_names() and find_algorithm("ppo_decoupled") is None
 
     def main(fabric, cfg):
         return None
@@ -87,7 +100,7 @@ def test_registry_finds_the_ported_entrypoint():
     "target,match",
     [
         ("sheeprl_tpu_torch.envs.crafter.CrafterWrapper", "item 6"),
-        ("sheeprl_tpu_torch.utils.optim.SGD", "item 5"),
+        ("sheeprl_tpu_torch.algos.ppo.ppo_decoupled.main", "item 5"),
         ("sheeprl_tpu_torch.not_a_module.X", "queue A"),
     ],
 )
