@@ -84,11 +84,11 @@ latent, 255-bin two-hot reward and critic, B=16 x T=64, horizon 15, f32):
   graphed with a profiled window, 79 cell launches a step (64 posterior
   steps at B=16, 15 imagination steps at B=1024);
 - run_dv3 (after phase 7): ``cli.run`` with RUN_DV3_ARGS
-  (``exp=dreamer_v3_100k_ms_pacman`` on ``discrete_dummy``: 1088 policy
-  steps, learning from the preset's 1024, 64 acting steps, 65 gradient
+  (``exp=dreamer_v3_100k_ms_pacman`` on ``discrete_dummy``: 1056 policy
+  steps, learning from the preset's 1024, 32 acting steps, 33 gradient
   steps, a 5-step test episode that samples its actions), the same checks
   as phase 7 with the sequential buffer restored equal from the
-  checkpoint, and 64 + 79 x 65 + 5 cell launches.
+  checkpoint, and 32 + 79 x 33 + 5 cell launches.
 
 Continuous actions: DreamerV3's DMC walker_walk preset at full width
 (rgb 3x64x64 plus the 24-wide ``state`` vector, channels 32/64/128/256, an
@@ -112,7 +112,7 @@ backprop, so its gradient runs back through the 15 imagination cell steps):
   dm_control), the same checks as run_dv3 with the float actions served
   (kernel against plain cell within TOL_CONTINUOUS_ACTION) and the greedy
   best-of-100 actions of the checkpoint's weights against a plain-cell
-  replay at the same injected noise; 64 + 79 x 33 + 1000 cell launches.
+  replay at the same injected noise; 32 + 79 x 17 + 1000 cell launches.
 
 Evaluation, registration and serving, eval_serve (after run_walker,
 on run_dv3's and run_walker's checkpoints; the dv3 kernel rows gain B=10,
@@ -236,6 +236,27 @@ so every one of their paths must launch ``hafner_cell`` and
   a window of updates traced (``phase_run_onpolicy``). ``--ppo`` runs these
   phases alone; ``--seeds <run> <seed> ...`` runs one of them at other seeds.
 
+Then the decoupled SAC and PPO on the actor–learner plane (``--decoupled``
+runs them alone): the learner on the card, the players on the CPU in a
+thread or in processes with their envs on the shared-memory worker pool; no
+TPU kernel is on their path, so every run launches both kernels 0 times
+(``decoupled_paths``); while a process run is live, the compute apps
+nvidia-smi lists are the learner's alone, and every player reports at its
+exit that it initialised no CUDA:
+
+- run_sac_decoupled: ``exp=sac_decoupled fabric.devices=auto`` on
+  ``pendulum_stand_in`` at test_sac_learns_pendulum's settings: a thread
+  run and a 1-player process run (DECOUPLED_SAC_CUT_STEPS) bitwise equal in
+  their final learner state and replay; a 2-player run on two shards with TD
+  priorities at the same length, every sampled row's priority written back;
+  a 2-player run on two shards at the test's length passing its criterion,
+  evaluated and served (``phase_run_sac_decoupled``);
+- run_ppo_decoupled: ``exp=ppo_decoupled`` on ``cartpole_stand_in`` at
+  test_ppo_learns_cartpole's config on two player processes of 4 envs,
+  passing its criterion, evaluated and served (``phase_run_ppo_decoupled``).
+  ``--seeds run_sac_decoupled <seed> ...`` (and ``run_sac_decoupled_td``)
+  runs the SAC learning run at other seeds.
+
 Each path's launch counts are zeroed just before its run and read just
 after it: the served run (phase 4), the bench (phase 5), the timed train
 steps (phases 6, train_dv3, train_walker) and the graphed steps
@@ -243,7 +264,8 @@ steps (phases 6, train_dv3, train_walker) and the graphed steps
 run_walker), and eval_serve's evaluations, rescore, serve command and
 in-run run (``launches_by_path``), and the P2E trainers, runs, evaluations and
 serving, the DreamerV1 paths (``dv1_paths``, each 0), the SAC family's
-(``sac_paths``) and the on-policy family's (``ppo_paths``, both kernels, each 0). The ``kernels``
+(``sac_paths``), the on-policy family's (``ppo_paths``, both kernels, each 0) and the decoupled runs'
+(``decoupled_paths``, both kernels, each 0). The ``kernels``
 line's cell ``launches`` is the f32 training runs' sum (the six Dreamer runs and the six f32 P2E runs, DV1's
 at 0; the bf16 P2E runs' are ``hafner_cell_bf16``'s); its ``p2e_shapes`` and
 ``p2e_train`` keys carry the P2E rows. The build phase also counts the tensor-core instructions
@@ -335,28 +357,29 @@ DV3_CELL_LAUNCHES_PER_STEP = 79  # 64 posterior steps + 15 imagination steps
 DV3_TRAIN_STEPS = 4
 # the DV3 run: the port's CLI with exp=dreamer_v3_100k_ms_pacman at its full width (its sequential buffer checkpointed,
 # log_level 1, learning from the preset's 1024, one gradient step a policy step) on the dummy env (1 head of 2
-# actions, 5-step episodes); cut: a buffer of 4096 steps, 1088 policy steps (65 gradient steps: the pretrain step at
+# actions, 5-step episodes); cut: a buffer of 4096 steps, 1056 policy steps (33 gradient steps: the pretrain step at
 # 1024 and one a step after it), a log every 256 policy steps
 RUN_DV3_ARGS = (
     "exp=dreamer_v3_100k_ms_pacman", "env=dummy", "env.id=discrete_dummy", "env.sync_env=True", "buffer.size=4096",
-    "total_steps=1088", "metric.log_every=256",
+    "total_steps=1056", "metric.log_every=256",
 )
-RUN_DV3_UPDATES, RUN_DV3_PLAYER_STEPS, RUN_DV3_GRADIENT_STEPS, RUN_DV3_TEST_STEPS = 1088, 64, 65, 5
-RUN_DV3_LOG_STEPS = (256, 512, 768, 1024, 1088)
+RUN_DV3_UPDATES, RUN_DV3_PLAYER_STEPS, RUN_DV3_GRADIENT_STEPS, RUN_DV3_TEST_STEPS = 1056, 32, 33, 5
+RUN_DV3_LOG_STEPS = (256, 512, 768, 1024, 1056)
 # the walker: the DV3 DMC walker_walk preset at its full width (rgb and a 24-wide state, 6 continuous actions)
 WALKER_OBS = {"rgb": (3, 64, 64), "state": (24,)}
 WALKER_ACTIONS = 6
 # the walker run: the port's CLI with exp=dreamer_v3_dmc_walker_walk at its full width (1 env, train_every 2, the memmap
 # sequential buffer checkpointed, log_level 1) on walker_stand_in; cut: a buffer of 4096 steps in place of 1e5, learning
-# from 1024 in place of 8000, 1088 policy steps (33 gradient steps: the pretrain step at 1024 and one every 2 after
-# it), a log every 256 policy steps; the envs stepped in the process (sync) and no video capture (not ported)
+# from 1024 in place of 8000, 1056 policy steps (17 gradient steps: the pretrain step at 1024 and one every 2 after
+# it), a log every 256 policy steps; the envs stepped in the process (sync) and no video
+# capture (not ported)
 RUN_WALKER_ARGS = (
     "exp=dreamer_v3_dmc_walker_walk", "env.wrapper._target_=chip_smoke.walker_stand_in", "env.sync_env=True",
-    "env.capture_video=False", "buffer.size=4096", "algo.learning_starts=1024", "total_steps=1088",
+    "env.capture_video=False", "buffer.size=4096", "algo.learning_starts=1024", "total_steps=1056",
     "metric.log_every=256",
 )
-RUN_WALKER_UPDATES, RUN_WALKER_PLAYER_STEPS, RUN_WALKER_GRADIENT_STEPS, RUN_WALKER_TEST_STEPS = 1088, 64, 33, 1000
-RUN_WALKER_LOG_STEPS = (256, 512, 768, 1024, 1088)
+RUN_WALKER_UPDATES, RUN_WALKER_PLAYER_STEPS, RUN_WALKER_GRADIENT_STEPS, RUN_WALKER_TEST_STEPS = 1056, 32, 17, 1000
+RUN_WALKER_LOG_STEPS = (256, 512, 768, 1024, 1056)
 # DIAMBRA's Dead or Alive++ as diambra.arena gives it with the env config's flattened, role-relative wrappers: the
 # raw space of each key, ("box", low, high) of shape (1,) int32 or ("discrete", n), which the DIAMBRA wrapper
 # (sheeprl_tpu/envs/diambra.py:93-106) keeps as a Box or turns into a 1-wide int32 Box of [0, n - 1]. The P2E L
@@ -418,7 +441,8 @@ P2E_TRAIN_STEPS = 4
 # the P2E runs: the port's CLI at each preset's full width on the discrete dummy env (2 actions, 5-step episodes), 4
 # envs, the sequential buffer, log_level 1; exploration, then finetuning from its checkpoint, the finetuning player
 # acting with the exploration actor until learning_starts and with the task actor after it, inside the run. Cuts:
-# a buffer of 4096 steps (1e6 and 5e6), 1024 and 512 policy steps (P2E-DV3; 5e6 and 1e6) and 512 and 256 (P2E-DV2),
+# a buffer of 4096 steps (1e6 and 5e6), 1024 and 512 policy steps (P2E-DV3; 5e6 and 1e6) and 384 and 256
+# (P2E-DV2),
 # learning from 512 and 320 (P2E-DV3; 65536 both) and 256 and 224 (P2E-DV2; 1000 both), a log every 256 (5000);
 # P2E-DV2's pretraining burst at learning_starts 10 gradient steps (100)
 P2E_ENV_ARGS = ("env=dummy", "env.id=discrete_dummy", "env.sync_env=True", "buffer.size=4096", "metric.log_every=256")
@@ -433,11 +457,11 @@ RUN_P2E_SPECS = {
         finetuning_counts=(128, 0, [79, 49], 13, 5, 80),
     ),
     "p2e_dv2": dict(
-        exploration=("exp=p2e_dv2_exploration", "total_steps=512", "algo.learning_starts=256",
+        exploration=("exp=p2e_dv2_exploration", "total_steps=384", "algo.learning_starts=256",
                      "algo.per_rank_pretrain_steps=10") + P2E_ENV_ARGS,
         finetuning=("exp=p2e_dv2_finetuning", "total_steps=256", "algo.learning_starts=224",
                     "algo.per_rank_pretrain_steps=10") + P2E_ENV_ARGS,
-        exploration_counts=(128, 64, [64], 74, 5, None),
+        exploration_counts=(96, 64, [32], 42, 5, None),
         finetuning_counts=(64, 0, [55, 9], 18, 5, 56),
     ),
     # P2E-DV3's L DIAMBRA presets under their bf16-mixed on doapp_stand_in (grey frames, the reward as an observation,
@@ -4008,12 +4032,432 @@ def phase_run_onpolicy(card: str, name: str):
     return launches_after
 
 
+# ---------------------------------------------------------------------------
+# the actor-learner plane: sac_decoupled and ppo_decoupled (no kernel on their path)
+# ---------------------------------------------------------------------------
+
+# test_sac_learns_pendulum's settings (tests/test_algos/test_learning.py:63-105) on pendulum_stand_in, at the
+# preset's widths (hidden 256): 4 envs, learning from 1000 policy steps, batch 128, seed 3, through
+# exp=sac_decoupled fabric.devices=auto. The thread run and the 1-player process run are cut to
+# DECOUPLED_SAC_CUT_STEPS (their final learner state and replay are compared bit for bit: the replay is
+# checkpointed and sampled on the training thread, buffer.prefetch=False; the thread run's envs are the sync env,
+# which the worker pool is bitwise); the 2-player run with two replay shards is the test's length, 32,768 steps, with
+# a version of slack (plane.max_policy_lag=1: a player acts on the newest version at least one older than the
+# protocol's, so that it never waits for the newest), and passes its criterion. TD priorities run on two players and two shards at
+# the cut length, held to their writeback: with them the config misses the criterion in 32,768 steps in the JAX
+# package and in the port alike (PERF.md's seed table, tools/learning_seeds.py --algo sac_decoupled_td), neither
+# weighting the critic loss by the importance weights
+_DECOUPLED_SAC_COMMON = ("exp=sac_decoupled", "fabric.devices=auto", "env.wrapper._target_=chip_smoke.pendulum_stand_in",
+                         "env.id=Pendulum-v1", "env.capture_video=False", "env.num_envs=4", "env.vectorization=async",
+                         "algo.learning_starts=1000", "per_rank_batch_size=128", "metric.log_level=0",
+                         "buffer.memmap=False", "checkpoint.every=100000000", "checkpoint.save_last=True",
+                         "algo.run_test=False", "seed=3")
+DECOUPLED_SAC_CUT_STEPS = 2048
+DECOUPLED_SAC_RUNS = {
+    "thread": (f"total_steps={DECOUPLED_SAC_CUT_STEPS}", "plane.num_players=0", "buffer.prefetch=False",
+               "buffer.checkpoint=True", "env.vectorization=sync"),
+    "one_player": (f"total_steps={DECOUPLED_SAC_CUT_STEPS}", "plane.num_players=1", "buffer.prefetch=False",
+                   "buffer.checkpoint=True"),
+    "two_players_td": (f"total_steps={DECOUPLED_SAC_CUT_STEPS}", "plane.num_players=2", "replay.shards=2",
+                       "replay.strategy=td_priority"),
+    "two_players": ("total_steps=32768", "plane.num_players=2", "replay.shards=2", "plane.max_policy_lag=1"),
+}
+# each run's traced window: its training bursts (each one update's gradient step) DECOUPLED_SAC_WINDOW[run]
+DECOUPLED_SAC_WINDOW = {"thread": (100, 200), "one_player": (100, 200), "two_players_td": (100, 200),
+                        "two_players": (4000, 4200)}
+# test_ppo_learns_cartpole's config, length and seed (tests/test_algos/test_learning.py:20-60) on
+# cartpole_stand_in through exp=ppo_decoupled fabric.devices=auto: 2 player processes of 4 envs on the async pool
+RUN_PPO_DECOUPLED_ARGS = ("exp=ppo_decoupled", "fabric.devices=auto", "env.wrapper._target_=chip_smoke.cartpole_stand_in",
+                          "env.id=CartPole-v1", "env.capture_video=False", "env.vectorization=async",
+                          "plane.num_players=2", "total_steps=40960", "algo.rollout_steps=64", "per_rank_batch_size=64",
+                          "env.num_envs=8", "algo.anneal_lr=True", "metric.log_level=0", "buffer.memmap=False",
+                          "checkpoint.every=100000000", "checkpoint.save_last=True", "algo.run_test=False", "seed=3")
+DECOUPLED_PPO_WINDOW = (40, 50)
+
+
+def pendulum_stand_in(id="Pendulum-v1", render_mode=None, **_):
+    """``Pendulum-v1`` for the card's runs (its machine has no gymnasium),
+    made by ``env=gym``'s config (``env.wrapper._target_``) with
+    ``gymnasium.make``'s arguments: one env over the port's
+    ``device_envs.Pendulum`` on the CPU in float64 (held against gymnasium's
+    Pendulum, tests/test_torch_decoupled.py), with Pendulum-v1's spaces, its
+    reset draws (θ, θ̇ from ``uniform([-π, -1], [π, 1])`` of
+    ``np.random.default_rng(seed)``, as gymnasium seeds it), its 200-step
+    time limit and its spec id."""
+    import math
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.envs.rollout.device_envs import Pendulum
+    from sheeprl_tpu_torch.envs.wrappers import Env
+
+    if id != "Pendulum-v1":
+        raise ValueError(f"the Pendulum stand-in is Pendulum-v1 only, got {id}")
+
+    class PendulumStandIn(Env):
+        spec = SimpleNamespace(id="Pendulum-v1", max_episode_steps=Pendulum.max_episode_steps)
+
+        def __init__(self):
+            self._env = Pendulum(1, "cpu")
+            self.observation_space = self._env.observation_space["state"]
+            self.action_space = self._env.action_space
+            self._rng = np.random.default_rng()
+            self._state = None
+
+        def reset(self, *, seed=None, options=None):
+            if seed is not None:
+                self._rng = np.random.default_rng(seed)
+            th, thdot = self._rng.uniform(low=[-math.pi, -1.0], high=[math.pi, 1.0])
+            th, thdot = torch.tensor([th], dtype=torch.float64), torch.tensor([thdot], dtype=torch.float64)
+            self._state = {"th": th, "thdot": thdot, "elapsed": torch.zeros(1, dtype=torch.int64)}
+            return Pendulum._obs(th, thdot)[0].numpy(), {}
+
+        def step(self, action):
+            a = torch.as_tensor(np.asarray(action, np.float32).reshape(1, 1))
+            self._state, obs, reward, terminated, truncated = self._env.step(self._state, a)
+            return obs[0].numpy(), float(reward[0]), bool(terminated[0]), bool(truncated[0]), {}
+
+    return PendulumStandIn()
+
+
+class _BurstWindow:
+    """Traces the calls ``first`` up to ``last`` of a method (patched in by
+    :meth:`wrap`): the window's device busy time over its wall time gives a
+    run's idle share; ``probe`` runs once at the window's start (the
+    compute-apps reading while the players are live)."""
+
+    def __init__(self, first: int, last: int, probe=None):
+        self.first, self.last, self.calls, self.probe = first, last, 0, probe
+        self.prof = self.wall_s = self.t0 = None
+        self.probed = None
+
+    def wrap(self, fn):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        def traced(*args, **kwargs):
+            if self.calls == self.first:
+                if self.probe is not None:
+                    self.probed = self.probe()
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.calls += 1
+            if self.calls == self.last:
+                torch.cuda.synchronize()
+                self.wall_s = time.perf_counter() - self.t0
+                self.prof.__exit__(None, None, None)
+            return out
+
+        return traced
+
+    def line(self) -> dict:
+        if self.wall_s is None:
+            raise AssertionError(f"the traced window ({self.first}, {self.last}) was not reached: {self.calls} calls")
+        busy_us, _found = trace_summary(self.prof, ())
+        n = self.last - self.first
+        return {"traced_window_calls": [self.first, self.last], "window_ms_per_call": 1e3 * self.wall_s / n,
+                "window_device_busy_ms_per_call": busy_us / 1e3 / n,
+                "device_idle_share": 1.0 - busy_us / 1e6 / self.wall_s}
+
+
+def _compute_apps():
+    """``nvidia-smi --query-compute-apps=pid``'s pids (the processes that
+    hold a context on the card)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return sorted(int(p) for p in out.stdout.split() if p.strip().isdigit())
+
+
+class _PlaneWatch:
+    """The process plane's pids while its run is live (``ProcessPlane.start``
+    patched), and who holds a context on the card: the compute apps read
+    with the learner's context open and before any player starts (the
+    learner, under the pid nvidia-smi gives it: the sandbox's process
+    namespace may number it otherwise) must be the compute apps while the
+    players and their env workers run."""
+
+    def __init__(self):
+        from sheeprl_tpu_torch.plane import supervisor
+
+        self.supervisor, self.start = supervisor, supervisor.ProcessPlane.start
+        self.planes = []
+        self.baseline = None
+
+    def __enter__(self):
+        import torch
+
+        watch = self
+
+        def start(plane):
+            watch.planes.append(plane)
+            return watch.start(plane)
+
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        self.baseline = _compute_apps()
+        self.supervisor.ProcessPlane.start = start
+        return self
+
+    def __exit__(self, *exc):
+        self.supervisor.ProcessPlane.start = self.start
+        return False
+
+    def probe(self) -> dict:
+        """The compute apps with the players live: the learner's alone."""
+        import multiprocessing as mp
+
+        players = [pid for plane in self.planes for pid in plane.pids()]
+        apps = _compute_apps()
+        reading = {"learner_pid": os.getpid(), "learner_apps_before_the_players": self.baseline,
+                   "player_pids": players, "compute_app_pids": apps, "children": len(mp.active_children())}
+        if not players or apps != self.baseline or len(apps) > 1 or set(apps) & set(players):
+            raise AssertionError(f"a process other than the learner holds a context on the card: {reading}")
+        return reading
+
+
+def _leaves(tree, prefix=""):
+    import numpy as np
+
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def _bitwise_states(a: str, b: str, rows: int) -> dict:
+    """Two checkpoints' learner states (agent, optimizers, counters) and their
+    replays' first ``rows`` rows, compared bit for bit."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.ckpt import read_checkpoint
+
+    la, lb = dict(_leaves(read_checkpoint(a))), dict(_leaves(read_checkpoint(b)))
+    if sorted(la) != sorted(lb):
+        raise AssertionError(f"the checkpoints hold other leaves: {sorted(set(la) ^ set(lb))}")
+    differ = [k for k in la if not np.array_equal(la[k][:rows] if k.startswith("/rb/buffer/") else la[k],
+                                                   lb[k][:rows] if k.startswith("/rb/buffer/") else lb[k])]
+    if differ:
+        raise AssertionError(f"the 1-player process run is not bitwise the thread run: {differ[:8]}")
+    return {"leaves": len(la), "replay_rows": rows, "differ": 0}
+
+
+def _eval_and_serve(name: str, ckpt: str, root: str, algo: str) -> dict:
+    """The evaluation command on a decoupled run's checkpoint, and the
+    gateway: the served actions equal to the evaluation policy's greedy
+    actions on the same observations."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.ckpt import read_checkpoint, validate_checkpoint
+    from sheeprl_tpu_torch.evals.service import _builder_for
+    from sheeprl_tpu_torch.serve.model import load_gateway_model
+
+    manifest = validate_checkpoint(ckpt, deep=True)
+    state = read_checkpoint(ckpt, with_rb=False)
+    t0 = time.perf_counter()
+    evaluation = cli.evaluation([f"checkpoint_path={ckpt}", f"eval.episodes={SAC_EVAL_EPISODES}",
+                                 f"eval.seed0={EVAL_SEED0}", f"eval.registry_dir={root}/registry",
+                                 "eval.vectorization=sync"])
+    eval_wall = time.perf_counter() - t0
+    if evaluation["n"] != SAC_EVAL_EPISODES or not np.isfinite(evaluation["returns"]).all():
+        raise AssertionError(f"{name}: the evaluation scored {evaluation}")
+    model, cfg, observation_space, action_space = load_gateway_model(ckpt, device="cuda")
+    rng = np.random.RandomState(SEED)
+    frames = {k: (0.5 * rng.randn(RUN_REQUESTS, RUN_CLIENTS, *s.shape)).astype(np.float32)
+              for k, s in observation_space.items()}
+    served, status = _serve_stateless(model, frames)
+    policy = _builder_for(algo)(None, cfg, state, observation_space, action_space, device="cuda")
+    greedy = np.stack([np.asarray(policy.act({k: v[t] for k, v in frames.items()}, None, None)[0]).reshape(
+        RUN_CLIENTS, -1) for t in range(RUN_REQUESTS)])
+    served_err = float(np.abs(served.reshape(greedy.shape) - greedy).max())
+    if status["failed_requests"] or served_err != 0.0:
+        raise AssertionError(f"{name}: served actions differ from the evaluation policy's by {served_err}")
+    del model, policy
+    torch.cuda.empty_cache()
+    return {"checkpoint_bytes": sum(manifest["files"].values()),
+            "evaluation": {k: evaluation[k] for k in ("n", "returns", "mean")}, "evaluation_wall_s": eval_wall,
+            "served_requests": status["requests"], "served_vs_eval_policy_max_abs_err": served_err}
+
+
+def _decoupled_run(root: str, name: str, args, window: "_BurstWindow", patch) -> tuple:
+    """One decoupled run through the CLI with ``patch = (owner, method
+    name)`` traced over ``window``: ``(result, wall, launches, peak)``."""
+    import torch
+
+    from sheeprl_tpu_torch.kernels import ops
+
+    owner, attr = patch
+    original = getattr(owner, attr)
+    ops.hafner_cell_launches.reset()
+    ops.hafner_sequence_launches.reset()
+    torch.cuda.reset_peak_memory_stats()
+    setattr(owner, attr, window.wrap(original))
+    try:
+        result, wall = _run_once(root, name, args)
+    finally:
+        setattr(owner, attr, original)
+    launches = {"hafner_cell": ops.hafner_cell_launches.count, "hafner_sequence": ops.hafner_sequence_launches.count}
+    return result, wall, launches, torch.cuda.max_memory_allocated()
+
+
+def _decoupled_line(result, wall: float, window: "_BurstWindow", peak: int, launches: dict) -> dict:
+    return {**{k: result[k] for k in ("updates", "policy_steps", "gradient_steps") if k in result},
+            "episodes": len(result["episode_returns"]), "wall_s": wall,
+            "policy_steps_per_s": result["policy_steps"] / wall, "seconds": result["seconds"],
+            "plane_wait_ms_per_update": 1e3 * result["seconds"]["plane_wait"] / max(result["updates"], 1),
+            "plane": result["plane"], "graphs": result["graphs"], **window.line(), "probe": window.probed,
+            "peak_device_memory_bytes": peak, "launches": launches, "rates_under_profiler": False}
+
+
+def phase_run_sac_decoupled(card: str):
+    """``exp=sac_decoupled fabric.devices=auto`` on pendulum_stand_in at
+    test_sac_learns_pendulum's settings (``DECOUPLED_SAC_RUNS``): a thread
+    run and a 1-player process run cut to DECOUPLED_SAC_CUT_STEPS, whose
+    final learner states and replays must be bitwise equal; a 2-player run
+    with two shards and TD priorities at the cut length, whose every
+    sampled row's priority is written back; then a 2-player run with two
+    shards at the test's length, which passes its criterion (late > -700,
+    late > early + 300, more than 30 episodes) and is evaluated and served
+    (served equal to evaluated). While the process runs are live no player
+    or env worker holds a context on the card; every run launches neither
+    kernel. Each run's traced window gives its idle share."""
+    import tempfile
+
+    import numpy as np
+
+    from sheeprl_tpu_torch.algos.sac import sac as sac_module
+    from sheeprl_tpu_torch.replay import strategies
+
+    lines, launches_by_run, written = {}, {}, []
+    update = strategies.TDPriorityStrategy.update_priorities
+
+    def counted(self, rb, t_idx, e_idx, td):
+        written.append((id(rb), len(td)))
+        return update(self, rb, t_idx, e_idx, td)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sac_decoupled_") as root, _PlaneWatch() as watch:
+        results = {}
+        strategies.TDPriorityStrategy.update_priorities = counted
+        try:
+            for run, extra in DECOUPLED_SAC_RUNS.items():
+                window = _BurstWindow(*DECOUPLED_SAC_WINDOW[run], probe=watch.probe if run != "thread" else None)
+                result, wall, launches, peak = _decoupled_run(root, f"sac_{run}", _DECOUPLED_SAC_COMMON + extra,
+                                                              window, (sac_module.StepProgram, "burst"))
+                results[run] = result
+                launches_by_run[run] = launches
+                returns = result["episode_returns"]
+                lines[run] = {**_decoupled_line(result, wall, window, peak, launches),
+                              "early_mean_return": float(np.mean(returns[:10])),
+                              "late_mean_return": float(np.mean(returns[-10:]))}
+                print(f"[run_sac_decoupled_{run}] " + json.dumps(lines[run]), flush=True)
+                if any(launches.values()):
+                    raise AssertionError(f"run_sac_decoupled {run}: the run launched {launches}")
+                exits = result["plane"]["exits"]
+                if run != "thread" and (len(exits) != result["plane"]["players"]
+                                        or any(e["cuda_initialized"] for e in exits.values())):
+                    raise AssertionError(f"run_sac_decoupled {run}: the players' reports {exits}")
+        finally:
+            strategies.TDPriorityStrategy.update_priorities = update
+        rows = DECOUPLED_SAC_CUT_STEPS // 4
+        lines["one_player"]["bitwise_vs_thread"] = _bitwise_states(results["thread"]["checkpoint"],
+                                                                   results["one_player"]["checkpoint"], rows)
+        steps = results["two_players_td"]["gradient_steps"]
+        lines["two_players_td"]["priority_rows_written"] = sum(n for _, n in written)
+        if sum(n for _, n in written) != 128 * steps or len({rb for rb, _ in written}) != 2:
+            raise AssertionError(f"run_sac_decoupled: {sum(n for _, n in written)} priorities written back to "
+                                 f"{len({rb for rb, _ in written})} shards for {steps} gradient steps of 128 rows")
+        returns = results["two_players"]["episode_returns"]
+        early, late = lines["two_players"]["early_mean_return"], lines["two_players"]["late_mean_return"]
+        lines["two_players"]["criterion"] = "episodes > 30, late > -700, late > early + 300"
+        if not (len(returns) > 30 and late > -700 and late > early + 300):
+            raise AssertionError(f"run_sac_decoupled: the 2-player run did not learn the Pendulum stand-in: "
+                                 f"{len(returns)} episodes, early {early:.1f}, late {late:.1f}")
+        lines["two_players"].update(_eval_and_serve("run_sac_decoupled", results["two_players"]["checkpoint"], root,
+                                                    "sac_decoupled"))
+    print("[run_sac_decoupled] " + json.dumps({"runs": lines, "card": card}), flush=True)
+    return {f"run_sac_decoupled_{run}": counts for run, counts in launches_by_run.items()}
+
+
+def phase_run_ppo_decoupled(card: str):
+    """``exp=ppo_decoupled fabric.devices=auto`` on cartpole_stand_in at
+    test_ppo_learns_cartpole's config, length and seed, on two player
+    processes of 4 envs each (RUN_PPO_DECOUPLED_ARGS): it passes that test's
+    criterion (late > 150, late > 3 x early, more than 50 episodes), is
+    evaluated and served (served equal to evaluated); while it is live no
+    player or env worker holds a context on the card; neither kernel
+    launches. Its traced window (DECOUPLED_PPO_WINDOW's updates) gives the
+    idle share."""
+    import tempfile
+
+    import numpy as np
+
+    from sheeprl_tpu_torch.algos.ppo import ppo as ppo_module
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ppo_decoupled_") as root, _PlaneWatch() as watch:
+        window = _BurstWindow(*DECOUPLED_PPO_WINDOW, probe=watch.probe)
+        result, wall, launches, peak = _decoupled_run(root, "ppo_two_players", RUN_PPO_DECOUPLED_ARGS, window,
+                                                      (ppo_module.UpdateProgram, "update"))
+        line = _decoupled_line(result, wall, window, peak, launches)
+        if any(launches.values()):
+            raise AssertionError(f"run_ppo_decoupled: the run launched {launches}")
+        exits = result["plane"]["exits"]
+        if len(exits) != 2 or any(e["cuda_initialized"] for e in exits.values()):
+            raise AssertionError(f"run_ppo_decoupled: the players' reports {exits}")
+        returns = result["episode_returns"]
+        early, late = float(np.mean(returns[:10])), float(np.mean(returns[-10:]))
+        line.update({"early_mean_return": early, "late_mean_return": late,
+                     "criterion": "episodes > 50, late > 150, late > 3 x early"})
+        if not (len(returns) > 50 and late > 150 and late > 3 * early):
+            raise AssertionError(f"run_ppo_decoupled: PPO did not learn the CartPole stand-in: {len(returns)} "
+                                 f"episodes, early {early:.1f}, late {late:.1f}")
+        line.update(_eval_and_serve("run_ppo_decoupled", result["checkpoint"], root, "ppo_decoupled"))
+    print("[run_ppo_decoupled] " + json.dumps({"run_args": list(RUN_PPO_DECOUPLED_ARGS), **line, "card": card}),
+          flush=True)
+    return {"run_ppo_decoupled": launches}
+
+
+def main_decoupled() -> int:
+    """``--decoupled``: the actor-learner plane's phases alone (the kernels
+    built first, as the full script builds them); the full script runs them
+    after the on-policy phases."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script runs only on the card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from sheeprl_tpu_torch.kernels import build
+
+    clock = _PhaseClock()
+    card = card_line()
+    print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    build.build_all()
+    paths = {}
+    paths.update(clock("run_sac_decoupled", phase_run_sac_decoupled, card))
+    paths.update(clock("run_ppo_decoupled", phase_run_ppo_decoupled, card))
+    print("[timing] " + json.dumps(clock.line()), flush=True)
+    print("[decoupled_paths] " + json.dumps(paths), flush=True)
+    return 0
+
+
 def main_seeds(argv) -> int:
-    """``--seeds <run> <seed> ...``: ONPOLICY_RUN_SPECS[run] at each seed on
-    the card (its checkpoint left out), one JSON line a seed: the episodes,
-    the first and last 10's means and whether the run's criterion holds. The
-    card's side of the seed table in PERF.md (``tools/learning_seeds.py``
-    gives the CPU's)."""
+    """``--seeds <run> <seed> ...``: ONPOLICY_RUN_SPECS[run] (or
+    ``run_sac_decoupled``: its 2-player, 2-shard run; ``run_sac_decoupled_td``:
+    that run with TD priorities, both 32,768 steps) at each
+    seed on the card (its checkpoint left out), one JSON line a seed: the
+    episodes, the first and last 10's means and whether the run's criterion
+    holds. The card's side of the seed tables in PERF.md
+    (``tools/learning_seeds.py`` gives the CPU's)."""
     import contextlib
     import io
     import tempfile
@@ -4028,8 +4472,15 @@ def main_seeds(argv) -> int:
     from sheeprl_tpu_torch import cli
 
     name, seeds = argv[0], [int(s) for s in argv[1:]]
-    algo, args, (limit, factor) = ONPOLICY_RUN_SPECS[name]
-    base = [a for a in _ONPOLICY_RUN_COMMON + args if not a.startswith(("seed=", "checkpoint.save_last="))]
+    if name in ("run_sac_decoupled", "run_sac_decoupled_td"):
+        run = "two_players" if name == "run_sac_decoupled" else "two_players_td"
+        algo, args = "sac_decoupled", _DECOUPLED_SAC_COMMON + DECOUPLED_SAC_RUNS[run] + ("total_steps=32768",)
+        passed = lambda n, early, late: n > 30 and late > -700 and late > early + 300  # noqa: E731
+    else:
+        algo, args, (limit, factor) = ONPOLICY_RUN_SPECS[name]
+        args = _ONPOLICY_RUN_COMMON + args
+        passed = lambda n, early, late: n > 50 and late > limit and late > factor * early  # noqa: E731
+    base = [a for a in args if not a.startswith(("seed=", "checkpoint.save_last="))]
     print(f"[card] {card_line()}", flush=True)
     for seed in seeds:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_seeds_") as root, contextlib.redirect_stdout(io.StringIO()):
@@ -4037,8 +4488,8 @@ def main_seeds(argv) -> int:
         r = result["episode_returns"]
         early, late = float(np.mean(r[:10])), float(np.mean(r[-10:]))
         print("[seeds] " + json.dumps({"run": name, "algo": algo, "seed": seed, "episodes": len(r), "early": early,
-                                        "late": late, "passed": len(r) > 50 and late > limit and late > factor * early,
-                                        "wall_s": wall}), flush=True)
+                                        "late": late, "passed": passed(len(r), early, late), "wall_s": wall}),
+              flush=True)
     return 0
 
 
@@ -4174,6 +4625,10 @@ def main() -> int:
         by_path[f"train_{name}"], onpolicy_train[name] = clock(f"train_{name}", phase_train_onpolicy, card, name)
     for name in ONPOLICY_RUN_SPECS:
         by_path[name] = clock(name, phase_run_onpolicy, card, name)
+    # the actor-learner plane (no kernel on its path): sac_decoupled's thread, 1-player and 2-player runs, then
+    # ppo_decoupled's 2-player run
+    by_path.update(clock("run_sac_decoupled", phase_run_sac_decoupled, card))
+    by_path.update(clock("run_ppo_decoupled", phase_run_ppo_decoupled, card))
 
     cell_row = next(r for r in train_rows if r["B"] == 1600)
     bf16_row = next(r for r in bf16_rows["p2e_dv3_L"] if r["B"] == 1024)
@@ -4255,6 +4710,8 @@ def main() -> int:
             "ppo_paths": {path: counts for path, counts in by_path.items()
                           if path in {f"train_{n}" for n in ONPOLICY_TRAINERS} | set(ONPOLICY_RUN_SPECS)},
             "ppo_train": onpolicy_train,
+            # sac_decoupled and ppo_decoupled: PyTorch operations only, every run at 0 launches of both kernels
+            "decoupled_paths": {path: counts for path, counts in by_path.items() if "decoupled" in path},
         },
         {
             # the cell's bf16 operand path (fabric.precision=bf16-mixed): the same source, the product on
@@ -4425,7 +4882,7 @@ def main_sac() -> int:
 
 
 if __name__ == "__main__":
-    modes = {"--train-gaps": main_train_gaps, "--sac": main_sac, "--ppo": main_ppo}
+    modes = {"--train-gaps": main_train_gaps, "--sac": main_sac, "--ppo": main_ppo, "--decoupled": main_decoupled}
     if sys.argv[1:2] == ["--seeds"] and len(sys.argv) > 3:
         sys.exit(main_seeds(sys.argv[2:]))
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes and len(sys.argv) == 2 else main())

@@ -5,9 +5,11 @@ neither it nor JAX. It trains DreamerV1, DreamerV2 and DreamerV3 and
 Plan2Explore on each (exploration, then finetuning; discrete or continuous
 actions, float32), SAC, DroQ and SAC-AE (SAC also on the device
 CartPole and Pendulum of ``env.backend=jax``, collected by the rollout
-engine into the device ring), and the on-policy PPO, A2C and PPO-recurrent
-from its CLI (``python -m sheeprl_tpu_torch
-exp=dreamer_v3 ...``: config engine and YAML tree, sync vector envs, replay,
+engine into the device ring), the on-policy PPO, A2C and PPO-recurrent, and
+the decoupled SAC and PPO on the actor–learner plane (``plane/``: player
+threads or processes acting on the CPU) from its CLI (``python -m sheeprl_tpu_torch
+exp=dreamer_v3 ...``: config engine and YAML tree, the serial and the
+shared-memory worker-pool vector envs, sharded and prioritized replay,
 manifest checkpoints), evaluates checkpoints (``cli.evaluation``, the model registry
 in ``evals/``) and serves any of their policies (``cli.serve``,
 ``serve/``). The LayerNorm-GRU step of DreamerV2 and V3 is a hand-written
@@ -38,6 +40,8 @@ ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.ppo.ppo",
     "sheeprl_tpu_torch.algos.a2c.a2c",
     "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
+    "sheeprl_tpu_torch.algos.sac.sac_decoupled",
+    "sheeprl_tpu_torch.algos.ppo.ppo_decoupled",
     "sheeprl_tpu_torch.algos.dreamer_v1.evaluate",
     "sheeprl_tpu_torch.algos.dreamer_v2.evaluate",
     "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",

@@ -59,8 +59,9 @@ TensorBoard event file, and a test episode at the end that samples its
 actions at zero exploration. Each acting step is one replay of
 :class:`~sheeprl_tpu_torch.algos.dreamer_v3.agent.ExplorationStep`'s graph
 on the card. With ``eval.every_n_steps`` it publishes the acting modules for
-in-run evaluation (``evals/inrun.py``). Telemetry, the profiler, burst
-acting and the actor–learner plane are not ported and raise.
+in-run evaluation (``evals/inrun.py``). Telemetry, the profiler and burst
+acting are not ported and raise; the actor–learner plane serves the
+decoupled entrypoints only (``plane.num_players`` warns here, as in JAX).
 """
 
 from __future__ import annotations

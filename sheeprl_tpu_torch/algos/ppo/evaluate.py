@@ -1,6 +1,6 @@
 """PPO evaluation (counterpart of ``sheeprl_tpu/algos/ppo/evaluate.py``):
-the eval-policy builder, registered for ``ppo`` and ``a2c`` (A2C trains the
-same agent with the same checkpoint layout) and used by the eval service,
+the eval-policy builder, registered for ``ppo``, ``ppo_decoupled`` and
+``a2c`` (they train the same agent with the same checkpoint layout) and used by the eval service,
 the serving gateway and the in-run evaluator, and the evaluation
 entrypoint of ``cli.evaluation``. The policy is greedy: each discrete
 head's argmax, or the Gaussian's mean."""
@@ -20,7 +20,7 @@ from sheeprl_tpu_torch.evals.builders import actions_dim_of
 from sheeprl_tpu_torch.evals.service import EvalPolicy, register_eval_builder, run_eval_entrypoint
 from sheeprl_tpu_torch.utils.registry import register_evaluation
 
-__all__ = ["check_spaces", "evaluate_ppo", "params_of", "ppo_eval_builder"]
+__all__ = ["check_spaces", "evaluate_ppo", "evaluate_ppo_decoupled", "params_of", "ppo_eval_builder"]
 
 
 def check_spaces(cfg, observation_space) -> None:
@@ -44,7 +44,7 @@ def params_of(state: Mapping[str, Any], algo: str) -> Dict[str, torch.Tensor]:
     return onpolicy_converter(algo)(params)
 
 
-@register_eval_builder(algorithms=["ppo", "a2c"])
+@register_eval_builder(algorithms=["ppo", "ppo_decoupled", "a2c"])
 def ppo_eval_builder(fabric, cfg, state, observation_space, action_space, device=None,
                      plain_cell: bool = False) -> EvalPolicy:
     """The greedy PPO (or A2C) agent over the checkpoint's weights (no
@@ -73,4 +73,9 @@ def ppo_eval_builder(fabric, cfg, state, observation_space, action_space, device
 
 @register_evaluation(algorithms=["ppo"])
 def evaluate_ppo(fabric, cfg: Dict[str, Any], state: Dict[str, Any]):
+    return run_eval_entrypoint(fabric, cfg, state)
+
+
+@register_evaluation(algorithms=["ppo_decoupled"])
+def evaluate_ppo_decoupled(fabric, cfg: Dict[str, Any], state: Dict[str, Any]):
     return run_eval_entrypoint(fabric, cfg, state)

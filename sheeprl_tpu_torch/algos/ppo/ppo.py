@@ -486,7 +486,7 @@ def train_loop(fabric, cfg, run: SimpleNamespace, family: PPO) -> Dict[str, Any]
             f"The size of the buffer ({cfg.buffer.size}) cannot be lower than the rollout steps ({n_steps})"
         )
     rb = make_replay_buffer(cfg, fabric, log_dir, n_envs=n_envs, obs_keys=tuple(obs_keys), size=int(cfg.buffer.size),
-                            min_size=n_steps)
+                            min_size=n_steps, sampled=False)
     gae_step = GaeStep(float(cfg.algo.gamma), float(cfg.algo.gae_lambda), device)
 
     resumed = family.resumed

@@ -1,8 +1,8 @@
 """SAC evaluation (counterpart of ``sheeprl_tpu/algos/sac/evaluate.py``):
-the eval-policy builder, registered for ``sac`` and ``droq`` (DroQ trains
-the same actor with the same checkpoint layout) and used by the eval
-service, the serving gateway and the in-run evaluator, and the evaluation
-entrypoint of ``cli.evaluation``."""
+the eval-policy builder, registered for ``sac``, ``sac_decoupled`` and
+``droq`` (they train the same actor with the same checkpoint layout) and
+used by the eval service, the serving gateway and the in-run evaluator, and
+the evaluation entrypoints of ``cli.evaluation``."""
 
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.evals.service import EvalPolicy, register_eval_builder, run_eval_entrypoint
 from sheeprl_tpu_torch.utils.registry import register_evaluation
 
-__all__ = ["is_jax_tree", "sac_eval_builder", "sac_eval_policy", "evaluate_sac"]
+__all__ = ["evaluate_sac", "evaluate_sac_decoupled", "is_jax_tree", "sac_eval_builder", "sac_eval_policy"]
 
 
 def is_jax_tree(tree: Mapping[str, Any]) -> bool:
@@ -68,7 +68,7 @@ def actor_params_of(state: Mapping[str, Any]) -> Mapping[str, Any]:
     return convert_sac_actor(actor)
 
 
-@register_eval_builder(algorithms=["sac", "droq"])
+@register_eval_builder(algorithms=["sac", "sac_decoupled", "droq"])
 def sac_eval_builder(fabric, cfg, state, observation_space, action_space, device=None,
                      plain_cell: bool = False) -> EvalPolicy:
     """The registered builder (no recurrent cell: ``plain_cell`` is unused)."""
@@ -80,4 +80,9 @@ def sac_eval_builder(fabric, cfg, state, observation_space, action_space, device
 
 @register_evaluation(algorithms=["sac"])
 def evaluate_sac(fabric, cfg: Dict[str, Any], state: Dict[str, Any]):
+    return run_eval_entrypoint(fabric, cfg, state)
+
+
+@register_evaluation(algorithms=["sac_decoupled"])
+def evaluate_sac_decoupled(fabric, cfg: Dict[str, Any], state: Dict[str, Any]):
     return run_eval_entrypoint(fabric, cfg, state)

@@ -108,7 +108,10 @@ class StepProgram:
     gives one step's noise dict; ``prepare(state)`` gives every trained parameter its
     gradient tensor once. ``gates`` is a float32 vector of the step's
     cadence values (the family's; :func:`ema_gates` for SAC). A program
-    bursts on one state at one batch shape (``.static`` holds its buffers)."""
+    bursts on one state at one batch shape (``.static`` holds its buffers).
+    A body may return ``(metrics, td)``: the step then returns both, and a
+    burst keeps its steps' ``td`` stacked in :attr:`last_td` (a device
+    tensor, ``[G, B, 1]`` for SAC's TD residuals)."""
 
     def __init__(self, body, draw_noise, prepare, n_gates: int):
         self._body = body
@@ -116,8 +119,9 @@ class StepProgram:
         self.prepare = prepare
         self.n_gates = int(n_gates)
         self.static: Optional[SimpleNamespace] = None
+        self.last_td: Optional[torch.Tensor] = None
 
-    def __call__(self, state, data, noise=None, gates=None) -> torch.Tensor:
+    def __call__(self, state, data, noise=None, gates=None):
         device = data["rewards"].device
         if noise is None:
             noise = self._draw_noise(state, data, state.get("generator"), device)
@@ -151,7 +155,7 @@ class StepProgram:
         n = next(iter(data_stack.values())).shape[0]
         gates = np.array(np.broadcast_to(np.asarray(gates, np.float32), (n, self.n_gates)))
         gates_dev = torch.from_numpy(gates).to(static.gates.device)
-        total = None
+        total, tds = None, []
         for i in range(n):
             for k, v in static.data.items():
                 v.copy_(data_stack[k][i], non_blocking=True)
@@ -161,7 +165,11 @@ class StepProgram:
                 v.copy_(drawn[k])
             static.gates.copy_(gates_dev[i])
             out = static.step()
+            if isinstance(out, tuple):
+                out, td = out
+                tds.append(td.clone())
             total = out.clone() if total is None else total.add_(out)
+        self.last_td = torch.stack(tds) if tds else None
         return total / n
 
 
@@ -248,14 +256,17 @@ def actor_and_alpha_update(state, actor_loss_fn, alpha, target_entropy: float, g
     return actor_loss.detach(), alpha_loss.detach()
 
 
-def build_train_fn(cfg, act_dim: int, target_entropy: float) -> StepProgram:
+def build_train_fn(cfg, act_dim: int, target_entropy: float, emit_td: bool = False) -> StepProgram:
     """The gradient step at ``cfg``'s settings as a :class:`StepProgram`.
     ``state`` also holds the action bounds (``action_scale``,
     ``action_bias``). ``data`` holds ``[B, ...]`` device tensors
     ``observations``, ``actions``,
     ``rewards``, ``dones`` and ``next_observations``; ``noise`` is
     ``{"next": eps, "actor": eps}`` (``[B, A]`` standard normals); ``gates``
-    is :func:`ema_gates`'s. Returns ``LOSS_NAMES``' values stacked."""
+    is :func:`ema_gates`'s. Returns ``LOSS_NAMES``' values stacked; with
+    ``emit_td`` (``replay.strategy=td_priority``'s writeback) also each row's
+    TD residual ``min_i Q_i(s, a) − y`` of the critics before their update,
+    ``[B, 1]``, from the critic loss's own forward."""
     gamma = float(cfg.algo.gamma)
     n_critics = int(cfg.algo.critic.n)
 
@@ -272,7 +283,8 @@ def build_train_fn(cfg, act_dim: int, target_entropy: float) -> StepProgram:
             min_target = torch.amin(target_q, dim=-1, keepdim=True) - alpha * next_logprob
             td_target = data["rewards"] + (1.0 - data["dones"]) * gamma * min_target
 
-        qf_loss = critic_loss(critics(data["observations"], data["actions"]), td_target, n_critics)
+        q = critics(data["observations"], data["actions"])
+        qf_loss = critic_loss(q, td_target, n_critics)
         qf_loss.backward()
         opt["qf"].step()
         ema_update(targets, critics, gates[0], gates[1])
@@ -285,7 +297,10 @@ def build_train_fn(cfg, act_dim: int, target_entropy: float) -> StepProgram:
             return policy_loss(alpha, logprob, min_q), logprob
 
         actor_loss, alpha_loss = actor_and_alpha_update(state, actor_loss_fn, alpha, target_entropy)
-        return torch.stack([qf_loss.detach(), actor_loss, alpha_loss])
+        metrics = torch.stack([qf_loss.detach(), actor_loss, alpha_loss])
+        if emit_td:
+            return metrics, torch.amin(q.detach(), dim=-1, keepdim=True) - td_target
+        return metrics
 
     def draw_noise(state, data, generator, device):
         batch = data["rewards"].shape[0]
@@ -444,6 +459,9 @@ def train_loop(
     if run.backend == "jax":
         from sheeprl_tpu_torch.envs.rollout import RolloutEngine
 
+        if hasattr(rb, "plan_burst"):
+            raise ValueError("env.backend=jax collects into the device ring, which samples one ring uniformly: "
+                             "replay.shards and replay.strategy need env.backend=python")
         if not cfg.buffer.get("device_ring", False):
             warnings.warn("env.backend=jax collects straight into the device ring; enabling it "
                           "(buffer.device_ring was off)")
@@ -666,12 +684,22 @@ def sac_train_round(cfg, program: StepProgram, state: Dict[str, Any], n_envs: in
                                       sample_next_obs=cfg.buffer.sample_next_obs)
         do_ema = any(u % ema_every == 0 for u in range(first, last + 1))
         metrics = program.burst(state, batch, ema_gates(do_ema, tau))
+        if program.last_td is not None:
+            # the prioritized writeback: the [G, B, 1] residuals in the last plan's flat row order, one copy a burst
+            staging.update_priorities(np.abs(program.last_td.cpu().numpy()).reshape(-1))
         counters["gradient_steps"] += g_total
         counters["ema_steps"] += g_total if do_ema else 0
         counters["train_bursts"] += 1
         return metrics
 
     return train_round
+
+
+def needs_td_writeback(cfg) -> bool:
+    """The strategy writes TD priorities back (``replay.strategy=td_priority``)."""
+    from sheeprl_tpu_torch.replay import get_strategy, replay_config
+
+    return bool(get_strategy(str(replay_config(cfg).get("strategy", "uniform") or "uniform")).needs_writeback)
 
 
 def sac_acting_policy(state: Dict[str, Any]):
@@ -713,7 +741,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
     resumed = read_resume_checkpoint(fabric, cfg)
     if resumed is not None:
         load_agent_state(state, resumed["agent"], resumed["opt_states"], _MODULES + ("target_critics",))
-    program = build_train_fn(cfg, act_dim, -float(act_dim))
+    program = build_train_fn(cfg, act_dim, -float(act_dim), emit_td=needs_td_writeback(cfg))
 
     def checkpoint_state():
         agent_tree, opt_states = agent_state_dict(state, _MODULES + ("target_critics",))

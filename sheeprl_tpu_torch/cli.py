@@ -150,8 +150,12 @@ def resume_from_checkpoint(cfg, overrides: Optional[Sequence[str]] = None) -> An
 
 
 def check_configs(cfg) -> None:
-    """The algorithm is registered; the strategy, devices and precision are
-    the port's (checked again by the Fabric)."""
+    """The algorithm is registered; a decoupled entrypoint asks for more
+    than one device (``fabric.devices=auto`` passes: one learner card, the
+    players on the CPU), as in the JAX package; ``plane.num_players > 0``
+    needs a worker-pool vector env and ``plane.keep_policies >= 2``; the
+    strategy, devices and precision are the port's (checked again by the
+    Fabric)."""
     algo_name = cfg.algo.name
     entry = find_algorithm(algo_name)
     if entry is None:
@@ -160,12 +164,38 @@ def check_configs(cfg) -> None:
             f"Available algorithms: {registered_algorithm_names()}"
         )
     if entry["decoupled"]:
-        raise NotImplementedError(f"{algo_name}: the decoupled entrypoints are ROADMAP queue A item 5f")
+        devices = cfg.fabric.get("devices", 1)
+        if devices not in ("auto", -1) and int(devices) < 2:
+            raise RuntimeError(
+                f"The decoupled version of {algo_name} algorithm requires at least 2 devices: "
+                "one player and at least one trainer. "
+                f"Please set `fabric.devices` to at least 2, got {devices}"
+            )
     model_axis = int((cfg.get("parallel", None) or {}).get("model_axis", 1) or 1)
     if model_axis > 1:
         raise NotImplementedError(f"parallel.model_axis={model_axis}: parameter sharding is ROADMAP queue A item 7")
-    if int((cfg.get("plane", None) or {}).get("num_players", 0) or 0) > 0:
-        raise NotImplementedError("plane.num_players>0: the actor–learner plane is ROADMAP queue A item 6f")
+    plane = cfg.get("plane", None) or {}
+    num_players = int(plane.get("num_players", 0) or 0)
+    if num_players > 0:
+        if not entry["decoupled"]:
+            warnings.warn(
+                f"plane.num_players={num_players} is only consumed by the decoupled entrypoints (sac_decoupled, "
+                f"ppo_decoupled); '{algo_name}' runs coupled and ignores it"
+            )
+        elif str(cfg.env.get("vectorization", "") or "").lower() == "sync" or (
+            cfg.env.get("vectorization", None) is None and bool(cfg.env.get("sync_env", None))
+        ):
+            raise RuntimeError(
+                f"plane.num_players={num_players} with a sync env pool (env.vectorization=sync, or legacy "
+                "env.sync_env=true) serializes every player's env fleet inside its own process. Drop the sync "
+                "override (players default to the shared-memory async pool) or set plane.num_players=0."
+            )
+        keep = int(plane.get("keep_policies", 4) or 4)
+        if keep < 2:
+            raise RuntimeError(
+                f"plane.keep_policies={keep} can garbage-collect the policy version a freshly-respawned player "
+                "still needs; use >= 2"
+            )
 
 
 def _prune_metric_keys(cfg, algo_module: str) -> None:

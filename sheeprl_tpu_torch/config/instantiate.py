@@ -33,8 +33,6 @@ NOT_PORTED: Dict[str, str] = {
     "sheeprl_tpu_torch.envs.diambra": "ROADMAP queue A item 6i (real-simulator env wrappers)",
     "sheeprl_tpu_torch.envs.minedojo": "ROADMAP queue A item 6i (real-simulator env wrappers)",
     "sheeprl_tpu_torch.envs.minerl": "ROADMAP queue A item 6i (real-simulator env wrappers)",
-    "sheeprl_tpu_torch.algos.ppo.ppo_decoupled": "ROADMAP queue A item 5f (the decoupled entrypoints)",
-    "sheeprl_tpu_torch.algos.sac.sac_decoupled": "ROADMAP queue A item 5f (the decoupled entrypoints)",
 }
 
 

@@ -697,10 +697,11 @@ def convert_ppo_recurrent(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def onpolicy_converter(algo: str):
     """``algo``'s param-tree converter: ``convert_ppo_recurrent`` for
-    ``ppo_recurrent``, ``convert_ppo`` for ``ppo`` and ``a2c``."""
+    ``ppo_recurrent``, ``convert_ppo`` for ``ppo``, ``ppo_decoupled`` and
+    ``a2c``."""
     if algo == "ppo_recurrent":
         return convert_ppo_recurrent
-    if algo in ("ppo", "a2c"):
+    if algo in ("ppo", "ppo_decoupled", "a2c"):
         return convert_ppo
     raise KeyError(f"no on-policy converter for {algo!r}")
 

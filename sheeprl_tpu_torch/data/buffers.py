@@ -166,15 +166,18 @@ class ReplayBuffer:
             return np.arange(self._buffer_size)
         return np.arange(self._pos)
 
-    def sample(
+    def plan_transitions(
         self,
         batch_size: int,
         sample_next_obs: bool = False,
-        clone: bool = False,
         n_samples: int = 1,
-        **kwargs: Any,
-    ) -> Dict[str, np.ndarray]:
-        """Uniformly sample ``[n_samples, batch_size, ...]`` transitions."""
+        rng: Optional[np.random.Generator] = None,
+        envs: Optional[Sequence[int]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Draw ``batch_size * n_samples`` uniform ``(t_idx, e_idx)`` pairs:
+        the time rows first, then the env columns (among ``envs`` when
+        given), from ``rng`` (the buffer's own by default)."""
+        rng = self._rng if rng is None else rng
         if batch_size <= 0 or n_samples <= 0:
             raise ValueError(f"'batch_size' ({batch_size}) and 'n_samples' ({n_samples}) must be both greater than 0")
         if self._buf is None or (not self._full and self._pos == 0):
@@ -186,8 +189,42 @@ class ReplayBuffer:
                 "Make sure that at least two samples are added."
             )
         total = batch_size * n_samples
-        t_idx = valid[self._rng.integers(0, len(valid), size=total)]
-        e_idx = self._rng.integers(0, self._n_envs, size=total)
+        t_idx = valid[rng.integers(0, len(valid), size=total)]
+        if envs is None:
+            e_idx = rng.integers(0, self._n_envs, size=total)
+        else:
+            envs_arr = np.asarray(envs, dtype=np.int64)
+            e_idx = envs_arr[rng.integers(0, len(envs_arr), size=total)]
+        return t_idx, e_idx
+
+    def valid_time_indices(self, sample_next_obs: bool = False) -> np.ndarray:
+        """The sampleable ring positions (the newest row has no stored
+        successor under ``sample_next_obs``)."""
+        return self._valid_time_indices(sample_next_obs)
+
+    def age_ordered_time_indices(self, sample_next_obs: bool = False) -> np.ndarray:
+        """The sampleable window oldest first: ``0..pos-1`` until the ring
+        wraps, then from the write head round."""
+        if self._full:
+            ordered = (self._pos + np.arange(self._buffer_size)) % self._buffer_size
+        else:
+            ordered = np.arange(self._pos)
+        if sample_next_obs and len(ordered):
+            ordered = ordered[:-1]
+        return ordered
+
+    def observe_sample_ages(self, t_idx: np.ndarray) -> None:
+        """The JAX buffer feeds the drawn rows' ages to its staleness
+        histogram here; the port's telemetry is ROADMAP queue A item 6h."""
+
+    def gather_plan(self, t_idx: np.ndarray, e_idx: np.ndarray, sample_next_obs: bool = False,
+                    clone: bool = False) -> Dict[str, np.ndarray]:
+        """The rows of a planned ``(t_idx, e_idx)`` set, flat ``[total, ...]``
+        (each ``next_<obs key>`` beside its key under ``sample_next_obs``)."""
+        if self._buf is None:
+            raise ValueError("No sample has been added to the buffer")
+        t_idx = np.asarray(t_idx, dtype=np.int64).reshape(-1)
+        e_idx = np.asarray(e_idx, dtype=np.int64).reshape(-1)
         out: Dict[str, np.ndarray] = {}
         for k, v in self._buf.items():
             arr = _as_np(v)
@@ -196,6 +233,19 @@ class ReplayBuffer:
             if sample_next_obs and k in self._obs_keys:
                 nxt = arr[(t_idx + 1) % self._buffer_size, e_idx]
                 out[f"next_{k}"] = np.array(nxt) if clone else nxt
+        return out
+
+    def sample(
+        self,
+        batch_size: int,
+        sample_next_obs: bool = False,
+        clone: bool = False,
+        n_samples: int = 1,
+        **kwargs: Any,
+    ) -> Dict[str, np.ndarray]:
+        """Uniformly sample ``[n_samples, batch_size, ...]`` transitions."""
+        t_idx, e_idx = self.plan_transitions(batch_size, sample_next_obs, n_samples)
+        out = self.gather_plan(t_idx, e_idx, sample_next_obs, clone)
         return {k: v.reshape(n_samples, batch_size, *v.shape[1:]) for k, v in out.items()}
 
     # -- dict access ------------------------------------------------------

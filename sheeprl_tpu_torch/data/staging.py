@@ -24,6 +24,7 @@ port stages from the host (pinned copies overlapping the step) instead.
 from __future__ import annotations
 
 import threading
+import warnings
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
@@ -113,6 +114,18 @@ class HostStaging:
             torch.cuda.current_stream(self.device).wait_event(copied)
         return batch
 
+    def update_priorities(self, td_errors: np.ndarray) -> None:
+        """The TD-priority writeback of the last burst (a no-op unless the
+        buffer is a prioritized :class:`~sheeprl_tpu_torch.replay.sharded.ShardedReplay`)."""
+        if hasattr(self.rb, "update_priorities"):
+            with self._lock:
+                self.rb.update_priorities(td_errors)
+
+    def last_weights(self) -> Optional[np.ndarray]:
+        """The importance weights of the last burst's rows, flat (None for
+        uniform sampling)."""
+        return self.rb.last_weights() if hasattr(self.rb, "last_weights") else None
+
     def force_done_last(self, env: int) -> None:
         """Mark env's most recent stored step terminal (the restart-on-exception patch)."""
         if not isinstance(self.rb, EnvIndependentReplayBuffer):
@@ -156,13 +169,19 @@ def make_replay_staging(cfg: Any, fabric: Any, rb: Any, *, seed: Optional[int] =
         raise NotImplementedError(
             "buffer.device_ring=True on the Python plane: the port stages replay from the host (pinned copies "
             "overlapping the step); its device ring is the rollout engine's (env.backend=jax). Pass "
-            "buffer.device_ring=False"
+            "buffer.device_ring=False (the device ring on the Python plane is ROADMAP queue A item 6j)"
         )
     if seed is not None:
         rb.seed(int(seed))
+    prefetch = bool(cfg.buffer.get("prefetch", True))
+    if prefetch and bool(getattr(rb, "needs_writeback", False)):
+        # the writeback must meet the plan it answers: a prefetch would draw burst k+1 before burst k's priorities
+        warnings.warn("buffer.prefetch=True is disabled under a priority-writeback replay.strategy (td_priority): "
+                      "each burst is sampled on the training thread after the previous burst's writeback")
+        prefetch = False
     return HostStaging(
         rb,
         fabric.device,
         sequence_mode=isinstance(rb, (EnvIndependentReplayBuffer, EpisodeBuffer)),
-        prefetch=bool(cfg.buffer.get("prefetch", True)),
+        prefetch=prefetch,
     )

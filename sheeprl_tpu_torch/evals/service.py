@@ -233,10 +233,10 @@ def run_parallel_episodes(
 
 def make_eval_pool(cfg, log_dir: Optional[str], n: int, seed0: int, prefix: str = "test"):
     """One env per episode, wrapped as the train-time factory wraps its
-    envs, seeded ``seed0 + i``, in one sync vector env. ``eval.vectorization``
-    overrides the run's vectorization for this pool only; the worker-pool
-    backends are not ported and raise."""
-    from sheeprl_tpu_torch.envs.vector import SyncVectorEnv, resolve_vectorization
+    envs, seeded ``seed0 + i``, in the configured vector env
+    (``eval.vectorization`` overrides the run's vectorization for this pool
+    only)."""
+    from sheeprl_tpu_torch.envs.vector import vectorize_thunks
     from sheeprl_tpu_torch.utils.env import make_env
 
     settings = eval_settings(cfg)
@@ -244,17 +244,11 @@ def make_eval_pool(cfg, log_dir: Optional[str], n: int, seed0: int, prefix: str 
     if settings.vectorization is not None:
         pool_cfg = dotdict(cfg.as_dict() if hasattr(cfg, "as_dict") else dict(cfg))
         pool_cfg.env.vectorization = settings.vectorization
-    mode = resolve_vectorization(pool_cfg)
-    if mode != "sync":
-        raise NotImplementedError(
-            f"eval pool vectorization={mode}: the port has the sync vector env only; the worker-pool backends are "
-            "ROADMAP queue A item 6e (pass eval.vectorization=sync)"
-        )
     seeds = [int(seed0) + i for i in range(int(n))]
     thunks = [
         make_env(pool_cfg, seeds[i], 0, log_dir if i == 0 else None, prefix, vector_env_idx=i) for i in range(int(n))
     ]
-    return SyncVectorEnv(thunks), seeds
+    return vectorize_thunks(thunks, pool_cfg, env_seeds_list=seeds), seeds
 
 
 def _config_hash_of(cfg, checkpoint: Optional[str]) -> Optional[str]:

@@ -12,8 +12,11 @@ reads a global seed. Checkpoints go through ``fabric.call`` into the
 Precision is ``32-true`` or ``bf16-mixed``, with the JAX package's meaning:
 parameters stay f32 (:attr:`Fabric.param_dtype`) and the modules that take
 a ``dtype`` compute their activations in :attr:`Fabric.compute_dtype` (None
-for f32). More than one device and ``strategy=ddp``/``fsdp`` raise:
-multi-device training is ROADMAP queue A item 7.
+for f32). ``strategy=ddp`` or ``dp`` over the one device trains as
+``auto`` does (the JAX package maps every strategy onto its mesh, and a
+one-device mesh is the single-device program: the decoupled presets set
+``ddp``); ``fsdp`` and more than one device raise: multi-device training is
+ROADMAP queue A item 7.
 """
 
 from __future__ import annotations
@@ -64,9 +67,9 @@ class Fabric:
                 f"fabric.devices={devices} fabric.num_nodes={num_nodes}: the port trains on one device; "
                 "multi-device training is ROADMAP queue A item 7"
             )
-        if str(strategy or "auto").lower() not in ("auto", "single_device"):
+        if str(strategy or "auto").lower() not in ("auto", "single_device", "ddp", "dp"):
             raise NotImplementedError(
-                f"fabric.strategy={strategy}: data-parallel strategies (ddp, fsdp) are ROADMAP queue A item 7"
+                f"fabric.strategy={strategy}: sharded data-parallel training (fsdp) is ROADMAP queue A item 7"
             )
         compute_dtype_from_precision(precision)  # raises on any other precision
         self.precision = str(precision or "32-true")

@@ -29,8 +29,11 @@ def log_sps_metrics(
     ``policy_step`` and return them: ``Time/sps_train`` (train steps per
     second of timed train wall) and ``Time/sps_env_interaction``
     (per-process env steps × ``action_repeat`` per second of timed
-    interaction wall). Reads and resets the registry (``timer.compute``), so
-    call it once a log boundary; with the timers disabled it logs nothing."""
+    interaction wall), and the seconds the window spent waiting
+    (``Time/plane_wait_time``: a decoupled learner for its players' slabs;
+    ``Time/env_wait_time``: a worker pool for its workers' steps, in this
+    process). Reads and resets the registry (``timer.compute``), so call it
+    once a log boundary; with the timers disabled it logs nothing."""
     if timer.disabled:
         return {}
     timer_metrics = timer.compute()
@@ -41,6 +44,9 @@ def log_sps_metrics(
         gauges["Time/sps_train"] = (train_step - last_train) / max(train_s, 1e-9)
     if env_s:
         gauges["Time/sps_env_interaction"] = ((policy_step - last_log) / world_size * action_repeat) / max(env_s, 1e-9)
+    for name in ("Time/plane_wait_time", "Time/env_wait_time"):
+        if timer_metrics.get(name):
+            gauges[name] = timer_metrics[name]
     if logger is not None and gauges:
         logger.log_metrics(gauges, policy_step)
     return gauges

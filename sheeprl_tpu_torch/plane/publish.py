@@ -1,12 +1,18 @@
 """Atomic policy publication: trainer → readers in other threads or
-processes (counterpart of ``policy_path``, ``PolicyPublisher`` and
-``PolicyPoller`` in ``sheeprl_tpu/plane/publish.py``).
+processes (counterpart of ``sheeprl_tpu/plane/publish.py``).
 
 Each version is written by the checkpoint writer (``ckpt/writer.py``) as a
 policy-only manifest checkpoint ``policy_<version>/``: into
 ``policy_<version>.tmp/``, fsynced, then renamed. A poller therefore sees a
 whole, checksummed version or a ``.tmp`` partial that it skips. Versions are
 strictly monotone and the oldest are deleted past ``keep_policies``.
+
+The actor–learner plane moves a version every update, where that path (a
+manifest, an npz and their fsyncs to write, a checksum to read back, a
+directory to poll) takes ~10 ms: its channels keep the same contract
+(monotone versions, ``wait_min_version``) in memory.
+:class:`LocalPolicyChannel` serves the thread transport
+(``plane.num_players=0``), :class:`SharedPolicyChannel` the player processes.
 """
 
 from __future__ import annotations
@@ -17,15 +23,16 @@ import re
 import shutil
 import threading
 import time
-from typing import Any, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
-__all__ = ["PlaneClosed", "PolicyPoller", "PolicyPublisher", "policy_path"]
+import numpy as np
+
+from sheeprl_tpu_torch.plane.slabs import PlaneClosed
+
+__all__ = ["LocalPolicyChannel", "PlaneClosed", "PolicyPoller", "PolicyPublisher", "SharedPolicyChannel",
+           "policy_path"]
 
 _POLICY_RE = re.compile(r"^policy_(\d+)$")
-
-
-class PlaneClosed(RuntimeError):
-    """The channel is stopping: a blocked wait gives up."""
 
 
 def policy_path(root: str, version: int) -> str:
@@ -162,3 +169,121 @@ class PolicyPoller:
             if stop is not None and stop.is_set():
                 raise PlaneClosed("stopping while waiting for a policy version")
             time.sleep(self.poll_interval_s)
+
+
+class LocalPolicyChannel:
+    """The channel inside one process: monotone versions and the same
+    ``wait_min_version`` over a dict and a condition variable. The
+    publisher hands over host arrays it no longer writes."""
+
+    def __init__(self, keep_policies: int = 4):
+        self.keep = max(int(keep_policies), 2)
+        self._versions: Dict[int, Any] = {}
+        self._cv = threading.Condition()
+        self._last: Optional[int] = None
+
+    def publish(self, version: int, params: Any) -> None:
+        version = int(version)
+        with self._cv:
+            if self._last is not None and version <= self._last:
+                raise ValueError(f"policy versions must be strictly monotone: got {version} after {self._last}")
+            self._versions[version] = params
+            self._last = version
+            for v in sorted(self._versions)[: -self.keep]:
+                del self._versions[v]
+            self._cv.notify_all()
+
+    def wait_min_version(self, min_version: int, stop=None, use_exact: bool = True) -> Tuple[int, Any]:
+        min_version = max(int(min_version), 0)
+        with self._cv:
+            while True:
+                eligible = sorted(v for v in self._versions if v >= min_version)
+                if eligible:
+                    v = eligible[0] if use_exact else eligible[-1]
+                    return v, self._versions[v]
+                if stop is not None and stop.is_set():
+                    raise PlaneClosed("plane stopping while waiting for a policy version")
+                self._cv.wait(timeout=0.2)
+
+
+class SharedPolicyChannel:
+    """The process plane's channel: the newest ``keep_policies`` versions'
+    host arrays in shared memory (one ``multiprocessing.RawArray`` a key,
+    ``[keep, *shape]``, the publications written round the slots). The learner is
+    its one writer; a slot carries a sequence count, odd while the slot is
+    written, so that a reader keeps a copy only if the count was even and
+    unchanged around it. No lock is shared: a player killed in the middle of
+    a read leaves nothing held. Made by the learner, its layout that of the
+    first publication, and passed whole to every player process (a
+    respawned player finds the newest versions there). At
+    ``plane.max_policy_lag=0`` the protocol never lets the learner lead a
+    player by ``keep >= 2`` versions, so the exact version a player waits
+    for is still held."""
+
+    #: a waiting reader's poll interval (s)
+    POLL_S = 0.001
+
+    def __init__(self, ctx, example: Mapping[str, Any], keep_policies: int = 4):
+        self.keep = max(int(keep_policies), 2)
+        self._layout = tuple((k, tuple(np.shape(v)), np.asarray(v).dtype.str) for k, v in example.items())
+        self._raw = {k: ctx.RawArray("b", max(int(np.prod((self.keep, *shape), dtype=np.int64)) * np.dtype(dt).itemsize,
+                                             1))
+                     for k, shape, dt in self._layout}
+        self._versions = ctx.RawArray("q", [-1] * self.keep)
+        self._seq = ctx.RawArray("q", [0] * self.keep)
+        self._last: Optional[int] = None
+        self._published = 0
+        self._views: Optional[Dict[str, np.ndarray]] = None
+
+    def _slots(self) -> Dict[str, np.ndarray]:
+        if self._views is None:
+            self._views = {k: np.frombuffer(self._raw[k], dtype=np.dtype(dt),
+                                            count=int(np.prod((self.keep, *shape), dtype=np.int64))
+                                            ).reshape((self.keep, *shape))
+                           for k, shape, dt in self._layout}
+        return self._views
+
+    def publish(self, version: int, params: Mapping[str, Any]) -> None:
+        version = int(version)
+        if self._last is not None and version <= self._last:
+            raise ValueError(f"policy versions must be strictly monotone: got {version} after {self._last}")
+        slot = self._published % self.keep
+        self._seq[slot] += 1  # odd: being written
+        self._versions[slot] = -1
+        for k, view in self._slots().items():
+            view[slot] = np.asarray(params[k])
+        self._versions[slot] = version
+        self._seq[slot] += 1
+        self._last = version
+        self._published += 1
+
+    def _read(self, version: int) -> Optional[Dict[str, np.ndarray]]:
+        slot = list(self._versions).index(version) if version in self._versions else -1
+        if slot < 0:
+            return None
+        seq = self._seq[slot]
+        if seq % 2 or self._versions[slot] != version:
+            return None
+        params = {k: view[slot].copy() for k, view in self._slots().items()}
+        return params if self._seq[slot] == seq and self._versions[slot] == version else None
+
+    def wait_min_version(self, min_version: int, stop=None, use_exact: bool = True) -> Tuple[int, Any]:
+        """Poll until a version ``>= min_version`` is held; returns
+        ``(version, params)``, a copy: the smallest such version with
+        ``use_exact``, else the newest. Raises :class:`PlaneClosed` when
+        ``stop`` is set while waiting."""
+        min_version = max(int(min_version), 0)
+        while True:
+            eligible = sorted(v for v in self._versions if v >= min_version)
+            for v in eligible if use_exact else eligible[::-1]:
+                params = self._read(v)
+                if params is not None:
+                    return v, params
+            if stop is not None and stop.is_set():
+                raise PlaneClosed("plane stopping while waiting for a policy version")
+            time.sleep(self.POLL_S)
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_views"] = None  # views are per process
+        return state

@@ -30,7 +30,7 @@ __all__ = ["BUILDER_ALGOS", "STATELESS_ALGOS", "GatewayModel", "PolicySwapper", 
 
 #: the families served without a recurrent state, built by their registered eval builder (the action bounds
 #: come from the action space, which ``GatewayModel.from_params`` does not take)
-STATELESS_ALGOS = ("sac", "droq", "sac_ae", "ppo", "a2c")
+STATELESS_ALGOS = ("sac", "sac_decoupled", "droq", "sac_ae", "ppo", "ppo_decoupled", "a2c")
 #: the families a checkpoint is served through their registered eval builder: the stateless ones and
 #: PPO-recurrent, whose LSTM state (``c``, ``h``, the previous actions, ``is_first``) the batcher keeps per row
 BUILDER_ALGOS = STATELESS_ALGOS + ("ppo_recurrent",)

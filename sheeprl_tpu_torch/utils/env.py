@@ -22,6 +22,7 @@ not ported.
 from __future__ import annotations
 
 import warnings
+from functools import partial
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -40,7 +41,7 @@ from sheeprl_tpu_torch.envs.wrappers import (
     TransformObservation,
 )
 
-__all__ = ["get_dummy_env", "make_env"]
+__all__ = ["build_env", "get_dummy_env", "make_env"]
 
 
 def _dictify_observations(env: Env, cfg) -> Env:
@@ -109,6 +110,63 @@ def _image_transform(cfg, cnn_keys) -> Callable[[Dict[str, Any]], Dict[str, Any]
     return transform
 
 
+def build_env(
+    cfg,
+    seed: int,
+    rank: int,
+    run_name: Optional[str] = None,
+    prefix: str = "",
+    vector_env_idx: int = 0,
+) -> Env:
+    """Build one fully-wrapped env (the body of :func:`make_env`'s thunk)."""
+    if cfg.env.capture_video and rank == 0 and vector_env_idx == 0 and run_name is not None:
+        raise NotImplementedError(
+            "env.capture_video=True: video capture is not ported and not queued: it needs moviepy "
+            "(ROADMAP queue A, after item 6i); pass env.capture_video=False"
+        )
+    kwargs = {}
+    if "seed" in cfg.env.wrapper:
+        kwargs["seed"] = seed
+    if "rank" in cfg.env.wrapper:
+        kwargs["rank"] = rank + vector_env_idx
+    env = instantiate(cfg.env.wrapper, **kwargs)
+    if not isinstance(env, Env):
+        env = GymnasiumEnv(env)
+
+    # Atari-style envs repeat actions internally
+    if cfg.env.action_repeat > 1 and "atari" not in str(cfg.env.wrapper.get("_target_", "")).lower():
+        env = ActionRepeat(env, cfg.env.action_repeat)
+    if cfg.env.get("mask_velocities", False):
+        env = MaskVelocityWrapper(env)
+
+    env = _dictify_observations(env, cfg)
+
+    env_cnn_keys = {k for k, v in env.observation_space.items() if len(v.shape) in (2, 3)}
+    cnn_keys = sorted(env_cnn_keys & set(cfg.cnn_keys.encoder or []))
+    if cnn_keys:
+        channels = 1 if cfg.env.grayscale else 3
+        new_space = dict(env.observation_space.spaces)
+        for k in cnn_keys:
+            new_space[k] = spaces.Box(0, 255, (channels, cfg.env.screen_size, cfg.env.screen_size), np.uint8)
+        env = TransformObservation(env, _image_transform(cfg, cnn_keys), spaces.Dict(new_space))
+        if cfg.env.frame_stack > 1:
+            if cfg.env.frame_stack_dilation <= 0:
+                raise ValueError(
+                    "The frame stack dilation argument must be greater than zero, "
+                    f"got: {cfg.env.frame_stack_dilation}"
+                )
+            env = FrameStack(env, cfg.env.frame_stack, cnn_keys, cfg.env.frame_stack_dilation)
+
+    if cfg.env.get("reward_as_observation", False):
+        env = RewardAsObservationWrapper(env)
+
+    env.action_space.seed(seed)
+    env.observation_space.seed(seed)
+    if cfg.env.max_episode_steps and cfg.env.max_episode_steps > 0:
+        env = TimeLimit(env, max_episode_steps=cfg.env.max_episode_steps)
+    return RecordEpisodeStatistics(env)
+
+
 def make_env(
     cfg,
     seed: int,
@@ -117,57 +175,11 @@ def make_env(
     prefix: str = "",
     vector_env_idx: int = 0,
 ) -> Callable[[], Env]:
-    """Return a thunk that builds one fully-wrapped env."""
-
-    def thunk() -> Env:
-        if cfg.env.capture_video and rank == 0 and vector_env_idx == 0 and run_name is not None:
-            raise NotImplementedError(
-                "env.capture_video=True: video capture is not ported and not queued: it needs moviepy "
-                "(ROADMAP queue A, after item 6i); pass env.capture_video=False"
-            )
-        kwargs = {}
-        if "seed" in cfg.env.wrapper:
-            kwargs["seed"] = seed
-        if "rank" in cfg.env.wrapper:
-            kwargs["rank"] = rank + vector_env_idx
-        env = instantiate(cfg.env.wrapper, **kwargs)
-        if not isinstance(env, Env):
-            env = GymnasiumEnv(env)
-
-        # Atari-style envs repeat actions internally
-        if cfg.env.action_repeat > 1 and "atari" not in str(cfg.env.wrapper.get("_target_", "")).lower():
-            env = ActionRepeat(env, cfg.env.action_repeat)
-        if cfg.env.get("mask_velocities", False):
-            env = MaskVelocityWrapper(env)
-
-        env = _dictify_observations(env, cfg)
-
-        env_cnn_keys = {k for k, v in env.observation_space.items() if len(v.shape) in (2, 3)}
-        cnn_keys = sorted(env_cnn_keys & set(cfg.cnn_keys.encoder or []))
-        if cnn_keys:
-            channels = 1 if cfg.env.grayscale else 3
-            new_space = dict(env.observation_space.spaces)
-            for k in cnn_keys:
-                new_space[k] = spaces.Box(0, 255, (channels, cfg.env.screen_size, cfg.env.screen_size), np.uint8)
-            env = TransformObservation(env, _image_transform(cfg, cnn_keys), spaces.Dict(new_space))
-            if cfg.env.frame_stack > 1:
-                if cfg.env.frame_stack_dilation <= 0:
-                    raise ValueError(
-                        "The frame stack dilation argument must be greater than zero, "
-                        f"got: {cfg.env.frame_stack_dilation}"
-                    )
-                env = FrameStack(env, cfg.env.frame_stack, cnn_keys, cfg.env.frame_stack_dilation)
-
-        if cfg.env.get("reward_as_observation", False):
-            env = RewardAsObservationWrapper(env)
-
-        env.action_space.seed(seed)
-        env.observation_space.seed(seed)
-        if cfg.env.max_episode_steps and cfg.env.max_episode_steps > 0:
-            env = TimeLimit(env, max_episode_steps=cfg.env.max_episode_steps)
-        return RecordEpisodeStatistics(env)
-
-    return thunk
+    """A thunk that builds one fully-wrapped env: a ``partial`` of the
+    module-level :func:`build_env` over the config, the seed and the index,
+    so that it pickles and a worker process of the vector env's pool can
+    build the env itself."""
+    return partial(build_env, cfg, seed, rank, run_name, prefix, vector_env_idx)
 
 
 def get_dummy_env(id: str) -> Env:  # noqa: A002 — kwarg name fixed by env/dummy.yaml

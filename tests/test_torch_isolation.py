@@ -46,7 +46,9 @@ def test_no_forbidden_import_in_source(path):
 def test_importing_every_module_loads_no_forbidden_module():
     modules = [m.name for m in pkgutil.walk_packages(sheeprl_tpu_torch.__path__, "sheeprl_tpu_torch.")]
     for name in ("serve.gateway", "serve.rings", "serve.loadgen", "evals.inrun", "evals.registry", "plane.publish",
-                 "obs.dist.aggregate", "utils.model_manager"):
+                 "obs.dist.aggregate", "utils.model_manager", "plane.worker", "plane.supervisor", "plane.slabs",
+                 "envs.vector.async_env", "envs.vector.shmem", "replay.sharded", "replay.strategies", "replay.plane",
+                 "algos.sac.sac_decoupled", "algos.sac.player", "algos.ppo.ppo_decoupled", "algos.ppo.player"):
         assert f"sheeprl_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -386,3 +388,75 @@ def test_the_cell_raises_for_a_cuda_tensor_of_an_unsupported_dtype(name, dtype):
     with pytest.raises(TypeError, match=name):
         ops.hafner_gru_cell(args["h"], args["x"], args["kernel"], None, None, None, eps=1e-3)
     assert ops.hafner_cell_launches.count == before
+
+
+def _loaded_forbidden() -> list:
+    return sorted(m for m in sys.modules if _forbidden(m))
+
+
+def recording_pendulum(id="Pendulum-v1", render_mode=None, record_dir=None, **_):
+    """An env worker's env (``env.wrapper._target_``): the card's Pendulum
+    stand-in, after writing what the worker process has loaded."""
+    import json
+
+    import chip_smoke
+
+    with open(os.path.join(record_dir, f"worker_{os.getpid()}.json"), "w") as f:
+        json.dump({"forbidden": _loaded_forbidden(), "cuda_initialized": torch.cuda.is_initialized()}, f)
+    return chip_smoke.pendulum_stand_in(id, render_mode=render_mode)
+
+
+def recording_player(ctx):
+    """A player process's loop: both player modules and this player's env
+    pool, one step, one slab, then what the process has loaded."""
+    import json
+
+    import numpy as np
+
+    import sheeprl_tpu_torch.algos.ppo.player  # noqa: F401
+    from sheeprl_tpu_torch.algos.sac.player import player_envs
+
+    envs = player_envs(ctx)
+    try:
+        envs.reset(seed=0)
+        envs.step(np.zeros((ctx.n_envs, 1), np.float32))
+        kind = type(envs).__name__
+    finally:
+        envs.close()
+    token, views = ctx.acquire_slab()
+    ctx.emit(token, views, ctx.start_update, 1, 0, [])
+    with open(os.path.join(ctx.log_dir, f"player_{ctx.player_idx}.json"), "w") as f:
+        json.dump({"forbidden": _loaded_forbidden(), "cuda_initialized": torch.cuda.is_initialized(), "envs": kind,
+                   "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}, f)
+
+
+def test_a_spawned_player_and_its_env_workers_load_no_jax_and_no_cuda(tmp_path):
+    """A process plane's player (started as the decoupled learners start
+    theirs) and the env workers of its async pool: no JAX, flax or JAX
+    package in their ``sys.modules``, no CUDA initialised, the card hidden
+    from the player."""
+    import json
+
+    import numpy as np
+
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.plane import ProcessPlane, SlabSpec
+
+    sys.path.insert(0, str(REPO))
+    cfg = compose(overrides=["exp=sac_decoupled", "env.id=Pendulum-v1", "env.num_envs=2", "env.capture_video=False",
+                             "env.wrapper._target_=test_torch_isolation.recording_pendulum",
+                             f"+env.wrapper.record_dir={tmp_path}"])
+    spec = SlabSpec.from_arrays({"rewards": np.zeros((1, 2, 1), np.float32)})
+    plane = ProcessPlane(cfg, log_dir=str(tmp_path), entry="test_torch_isolation:recording_player", spec=spec,
+                         n_players=1, envs_per_player=2, scalars={"num_updates": 1, "first_train_update": 1},
+                         start_update=1).start()
+    try:
+        plane.recv(0, 1).release()
+    finally:
+        plane.drain()
+    assert plane.exits == {0: {"cuda_initialized": False}}
+    player = json.loads((tmp_path / "player_0.json").read_text())
+    assert player == {"forbidden": [], "cuda_initialized": False, "envs": "AsyncSharedMemVectorEnv",
+                      "cuda_visible_devices": ""}
+    workers = [json.loads(p.read_text()) for p in tmp_path.glob("worker_*.json")]
+    assert len(workers) >= 2 and all(w == {"forbidden": [], "cuda_initialized": False} for w in workers)

@@ -86,7 +86,8 @@ def test_registry_finds_the_ported_entrypoint():
     sheeprl_tpu_torch.register_algorithms()
     entry = find_algorithm("dreamer_v2")
     assert entry["module"] == "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2" and entry["entrypoint"] == "main"
-    assert "dreamer_v2" in registered_algorithm_names() and find_algorithm("ppo_decoupled") is None
+    assert "dreamer_v2" in registered_algorithm_names()
+    assert find_algorithm("ppo_decoupled")["decoupled"] and find_algorithm("sac_decoupled")["decoupled"]
 
     def main(fabric, cfg):
         return None
@@ -100,7 +101,7 @@ def test_registry_finds_the_ported_entrypoint():
     "target,match",
     [
         ("sheeprl_tpu_torch.envs.crafter.CrafterWrapper", "item 6"),
-        ("sheeprl_tpu_torch.algos.ppo.ppo_decoupled.main", "item 5"),
+        ("sheeprl_tpu_torch.envs.minerl.MineRLWrapper", "item 6i"),
         ("sheeprl_tpu_torch.not_a_module.X", "queue A"),
     ],
 )
@@ -140,7 +141,7 @@ def test_fabric_is_one_device_and_raises_for_the_rest(monkeypatch):
     assert np_gen.integers(1 << 30) == np.random.default_rng(3).integers(1 << 30)
     for kwargs, match in (
         (dict(devices=2), "item 7"),
-        (dict(strategy="ddp"), "item 7"),
+        (dict(strategy="fsdp"), "item 7"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             Fabric(accelerator="cpu", **kwargs)
@@ -157,9 +158,9 @@ def test_fabric_is_one_device_and_raises_for_the_rest(monkeypatch):
     "overrides,match",
     [
         (["metric.profiler=true"], "item 6h"),
-        (["plane.num_players=1"], "item 6f"),
+        (["parallel.model_axis=2"], "item 7"),
         (["env.act_burst=4"], "act_burst"),
-        (["env.vectorization=async"], "sync vector env"),
+        (["fabric.devices=2"], "item 7"),
         (["buffer.device_ring=True"], "device_ring"),
         (["env.backend=jax"], "item 6d"),
     ],

@@ -209,7 +209,8 @@ def test_without_a_card_each_entrypoint_raises(tmp_path, monkeypatch, exp, base)
         ("droq", ["env.act_burst=4"], NotImplementedError, "act_burst"),
         ("droq", ["env.backend=jax"], NotImplementedError, "SAC's training loop only"),
         ("sac", ["env.backend=jax", "env.id=brax/ant"], NotImplementedError, "brax"),
-        ("sac", ["replay.strategy=td_priority"], NotImplementedError, "item 6f"),
+        ("sac", ["metric.telemetry.enabled=True", "metric.telemetry.learn.enabled=True"], NotImplementedError,
+         "item 6h"),
     ],
 )
 def test_the_options_not_ported_raise(tmp_path, monkeypatch, exp, extra, error, match):
