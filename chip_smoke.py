@@ -257,6 +257,20 @@ exit that it initialised no CUDA:
   ``--seeds run_sac_decoupled <seed> ...`` (and ``run_sac_decoupled_td``)
   runs the SAC learning run at other seeds.
 
+The run telemetry (``metric=telemetry``, TELEMETRY_ARGS) is on in three of
+those runs, and each is held to its own counts: run_dv3 (its ``hafner_cell``
+launches as predicted; ``recompiles`` and ``graph_replays`` equal to its
+graphs' captures and replays; ``peak_hbm_bytes`` equal to
+``torch.cuda.max_memory_allocated``; ``Perf/mfu`` logged between 0 and 100;
+the env, train and checkpoint phases' percentiles; no flight dump; its trace
+merged by ``tools/trace_view.py``), run_sac_decoupled's 1-player run (still
+bitwise the thread run; the slabs and versions the players' snapshots fold
+in equal to the loop's) and its 2-player run (the staleness section, both
+players' watchdog beats, ``plane.keep_policies`` versions in
+``<log_dir>/policy/``, the learner's blocked seconds in ``publish``). The
+``[telemetry]`` line gives their policy steps/s beside PR 15's with the
+telemetry off, and the seconds the checks took.
+
 Each path's launch counts are zeroed just before its run and read just
 after it: the served run (phase 4), the bench (phase 5), the timed train
 steps (phases 6, train_dv3, train_walker) and the graphed steps
@@ -364,6 +378,15 @@ RUN_DV3_ARGS = (
     "total_steps=1056", "metric.log_every=256",
 )
 RUN_DV3_UPDATES, RUN_DV3_PLAYER_STEPS, RUN_DV3_GRADIENT_STEPS, RUN_DV3_TEST_STEPS = 1056, 32, 33, 5
+# the run telemetry (metric=telemetry; the learning-health plane is ROADMAP 6h-c) inside runs the script makes anyway:
+# run_dv3, and run_sac_decoupled's 1-player process run and its 2-player run at the test's length
+TELEMETRY_ARGS = ("metric=telemetry", "metric.telemetry.learn.enabled=False")
+# those runs' policy steps/s with the telemetry off, PR 15 (PERF.md §6: the 2-player run from call 18, the 1-player run
+# from call 5; no rate of run_dv3 was kept)
+PR15_TELEMETRY_OFF_POLICY_STEPS_PER_S = {"run_dv3": None, "run_sac_decoupled_one_player": 103.0,
+                                         "run_sac_decoupled_two_players": 580.0}
+# each telemetry run's checks, filled by its phase: printed as the [telemetry] line
+TELEMETRY_CHECKS = {}
 RUN_DV3_LOG_STEPS = (256, 512, 768, 1024, 1056)
 # the walker: the DV3 DMC walker_walk preset at its full width (rgb and a 24-wide state, 6 continuous actions)
 WALKER_OBS = {"rgb": (3, 64, 64), "state": (24,)}
@@ -2137,17 +2160,24 @@ def _check_events(result, spec) -> dict:
             "episode_metrics_at": episodes, "ep_len_avg": [by_step[s]["Game/ep_len_avg"] for s in episodes]}
 
 
+def _read_verified(ckpt) -> dict:
+    """A checkpoint's whole state, every crc32 verified (``ckpt`` a path), or
+    a state the caller already read so."""
+    from sheeprl_tpu_torch.ckpt import read_checkpoint
+
+    return ckpt if isinstance(ckpt, dict) else read_checkpoint(ckpt, verify=True)
+
+
 def _check_episode_buffer(ckpt) -> dict:
     """The checkpoint's episode buffer, every crc32 verified, restored into
     a fresh buffer whose ``state_dict`` equals the one read back."""
     import numpy as np
 
-    from sheeprl_tpu_torch.ckpt import read_checkpoint
     from sheeprl_tpu_torch.data.buffers import EpisodeBuffer
 
     opts = dict(a.split("=", 1) for a in RUN_ARGS)
     n_envs = int(opts["env.num_envs"])
-    rb_state = read_checkpoint(ckpt, verify=True)["rb"]
+    rb_state = _read_verified(ckpt)["rb"]
     fresh = EpisodeBuffer(int(opts["buffer.size"]) // n_envs, 50, n_envs=n_envs, obs_keys=("rgb",), prioritize_ends=True)
     fresh.load_state_dict(rb_state)
     restored = fresh.state_dict()
@@ -2169,11 +2199,10 @@ def _check_sequential_buffer(ckpt, args=RUN_DV3_ARGS, obs_keys=("rgb",)) -> dict
     into a fresh buffer whose ``state_dict`` equals the one read back."""
     import numpy as np
 
-    from sheeprl_tpu_torch.ckpt import read_checkpoint
     from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 
     del args  # the envs and each one's size come from the checkpoint
-    rb_state = read_checkpoint(ckpt, verify=True)["rb"]
+    rb_state = _read_verified(ckpt)["rb"]
     per_env = next(iter(rb_state["buffers"][0]["buffer"].values())).shape[0]
     fresh = EnvIndependentReplayBuffer(per_env, n_envs=len(rb_state["buffers"]), obs_keys=tuple(obs_keys),
                                        buffer_cls=SequentialReplayBuffer)
@@ -2194,7 +2223,8 @@ def _check_sequential_buffer(ckpt, args=RUN_DV3_ARGS, obs_keys=("rgb",)) -> dict
 def _f32_parameters(ckpt) -> dict:
     """Every floating array of the checkpoint's agent (the modules'
     parameters, the optimizers' state) is f32, at any precision: bf16-mixed
-    computes in bf16 and keeps its parameters in f32. Returns the counts."""
+    computes in bf16 and keeps its parameters in f32 (``ckpt`` a path or a
+    state read already). Returns the counts."""
     import numpy as np
 
     from sheeprl_tpu_torch.ckpt import read_checkpoint
@@ -2211,7 +2241,7 @@ def _f32_parameters(ckpt) -> dict:
         elif isinstance(node, np.ndarray) and np.issubdtype(node.dtype, np.floating):
             dtypes[str(node.dtype)] = dtypes.get(str(node.dtype), 0) + 1
 
-    walk(read_checkpoint(ckpt, with_rb=False)["agent"])
+    walk((ckpt if isinstance(ckpt, dict) else read_checkpoint(ckpt, with_rb=False))["agent"])
     if set(dtypes) != {"float32"}:
         raise AssertionError(f"the checkpoint's agent holds floating arrays of {dtypes}")
     return {"float32_arrays": dtypes["float32"]}
@@ -2281,7 +2311,7 @@ RUN_SPECS = {
     "run": dict(args=RUN_ARGS, counts=(RUN_UPDATES, RUN_PLAYER_STEPS, RUN_GRADIENT_STEPS, RUN_TEST_STEPS),
                 per_step=CELL_LAUNCHES_PER_STEP, log_steps=RUN_LOG_STEPS, learning_starts=544,
                 buffer=_check_episode_buffer, obs=OBS, continuous=False),
-    "run_dv3": dict(args=RUN_DV3_ARGS,
+    "run_dv3": dict(args=RUN_DV3_ARGS + TELEMETRY_ARGS,
                     counts=(RUN_DV3_UPDATES, RUN_DV3_PLAYER_STEPS, RUN_DV3_GRADIENT_STEPS, RUN_DV3_TEST_STEPS),
                     per_step=DV3_CELL_LAUNCHES_PER_STEP, log_steps=RUN_DV3_LOG_STEPS, learning_starts=1024,
                     buffer=_check_sequential_buffer, obs=OBS, continuous=False),
@@ -2306,6 +2336,130 @@ RUN_SPECS = {
     "run_dv1": dict(args=RUN_DV1_ARGS, counts=(192, 64, 24, 5), per_step=0, log_steps=(256, 512, 768),
                     learning_starts=512, buffer=_check_sequential_buffer, obs=OBS, continuous=False, cell=False),
 }
+
+
+def _telemetry_summary(log_dir: str) -> dict:
+    with open(os.path.join(log_dir, "telemetry.json")) as f:
+        return json.load(f)
+
+
+def _trace_view(log_dir: str) -> dict:
+    """The run's trace files merged by ``tools/trace_view.py`` (a standard-library
+    script of the repo) into one Perfetto trace: the merged events by kind."""
+    import subprocess
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        out = os.path.join(tmp, "trace.json")
+        proc = subprocess.run([sys.executable, os.path.join(repo, "tools", "trace_view.py"), log_dir, "-o", out],
+                              capture_output=True, text=True, timeout=120)
+        if proc.returncode != 0:
+            raise AssertionError(f"tools/trace_view.py failed on {log_dir}: {proc.stderr[-2000:]}")
+        with open(out) as f:
+            merged = json.load(f)["traceEvents"]
+    kinds = {}
+    for e in merged:
+        kinds[e.get("ph")] = kinds.get(e.get("ph"), 0) + 1
+    if not kinds.get("X"):
+        raise AssertionError(f"the merged trace of {log_dir} holds no span: {kinds}")
+    return {"events_by_phase_kind": kinds, "pids": sorted({e.get("pid") for e in merged if e.get("ph") == "X"})}
+
+
+def _check_run_telemetry(name: str, result, wall: float, graphs: dict, peak: int) -> dict:
+    """A telemetry run's ``telemetry.json`` against the run's own counts: the
+    CUDA-graph captures and replays of its steps (``recompiles``,
+    ``graph_replays``), ``torch.cuda.max_memory_allocated`` read at the run's
+    end (``peak_hbm_bytes``) and the card's memory (``hbm_bytes_limit``);
+    ``Perf/mfu`` logged strictly between 0 and 100; the env, train and
+    checkpoint phases' percentiles; no flight dump; the trace merged by
+    ``tools/trace_view.py``."""
+    import glob
+
+    import torch
+
+    from sheeprl_tpu_torch.utils.tb_events import read_events
+
+    t0 = time.perf_counter()
+    log_dir = result["log_dir"]
+    summary = _telemetry_summary(log_dir)
+    counts = {"recompiles": sum(g["captured"] for g in graphs.values()),
+              "graph_replays": sum(g["replays"] for g in graphs.values()),
+              "peak_hbm_bytes": peak, "hbm_bytes_limit": torch.cuda.get_device_properties(0).total_memory}
+    got = {k: summary[k] for k in counts}
+    if got != counts:
+        raise AssertionError(f"{name}: telemetry.json reads {got}, the run {counts}")
+    mfu = [v.get("simple_value") for e in read_events(result["event_file"]) for v in e.get("values", [])
+           if v.get("tag") == "Perf/mfu"]
+    if not mfu or not all(v is not None and 0.0 < v < 100.0 for v in mfu):
+        raise AssertionError(f"{name}: Perf/mfu logged as {mfu}")
+    phases = summary["phase_percentiles"]
+    want = ("Time/env_interaction_time", "Time/train_time", "Time/checkpoint_time")
+    if not all(phases.get(k, {}).get("count") for k in want):
+        raise AssertionError(f"{name}: phase_percentiles holds {sorted(phases)}")
+    dumps = glob.glob(os.path.join(log_dir, "telemetry", "flight_*.json"))
+    if dumps or summary["flight_dumps"]:
+        raise AssertionError(f"{name}: the flight recorder fired: {dumps}")
+    merged = _trace_view(log_dir)
+    checks_s = time.perf_counter() - t0
+    line = {**got, "mfu": summary["mfu"], "perf_mfu_logged": mfu, "flops_per_train_step": summary["flops_per_train_step"],
+            "compile_secs": summary["compile_secs"], "phases": {k: phases[k] for k in want},
+            "policy_steps_per_s": result["policy_steps"] / wall, "trace_view": merged, "checks_s": checks_s}
+    TELEMETRY_CHECKS[name] = line
+    return line
+
+
+def _check_decoupled_telemetry(run: str, result, wall: float, keep_policies: int = 4) -> dict:
+    """A decoupled telemetry run's ``telemetry.json``: the players' snapshots
+    folded into the learner's counters (the slabs the loop received, the
+    versions it published, the players as sources); for the 2-player run the
+    staleness section (sample age, policy lag, the slab queue's depth), both
+    players' watchdog beats, ``keep_policies`` versions in ``<log_dir>/policy/``
+    with the learner's last the newest, and the learner's blocked seconds in
+    ``publish``."""
+    import glob
+
+    t0 = time.perf_counter()
+    summary = _telemetry_summary(result["log_dir"])
+    plane = result["plane"]
+    got = {"plane_traj_slabs": summary["plane_traj_slabs"], "plane_policy_version": summary["plane_policy_version"]}
+    want = {"plane_traj_slabs": plane["slabs"], "plane_policy_version": plane["policy_version"]}
+    players = {f"player{i}" for i in range(plane["players"])}
+    if got != want or not players <= set(summary.get("sources") or {}):
+        raise AssertionError(f"run_sac_decoupled {run}: telemetry.json reads {got} and sources "
+                             f"{sorted(summary.get('sources') or {})}, the loop {want} and players {sorted(players)}")
+    dumps = sorted(os.path.basename(p) for p in glob.glob(os.path.join(result["log_dir"], "telemetry", "flight_*.json")))
+    line = {**got, "env_steps_async": summary["env_steps_async"], "policy_steps": result["policy_steps"],
+            "sources": sorted(summary["sources"]), "flight_dumps": dumps,
+            "policy_steps_per_s": result["policy_steps"] / wall}
+    if run == "two_players":
+        staleness = summary["staleness"] or {}
+        if not (staleness.get("sample_age_s", {}).get("count") and staleness.get("policy_lag_versions", {}).get("count")
+                and staleness.get("queue_depth", {}).get("plane_slab_queue", {}).get("samples")):
+            raise AssertionError(f"run_sac_decoupled {run}: the staleness section reads {staleness}")
+        beats = plane["watchdog_beats"]
+        if sorted(beats) != list(range(plane["players"])) or not all(beats.values()):
+            raise AssertionError(f"run_sac_decoupled {run}: the watchdog's player beats {beats}")
+        versions = sorted(os.listdir(os.path.join(result["log_dir"], "policy")))
+        if len(versions) != keep_policies or versions[-1] != f"policy_{plane['policy_version']:08d}":
+            raise AssertionError(f"run_sac_decoupled {run}: <log_dir>/policy/ holds {versions}")
+        publish = summary["phase_percentiles"]["Time/policy_publish_time"]
+        line.update({"staleness": staleness, "watchdog_beats": beats, "policy_dir": versions,
+                     "publish_blocked_s": result["seconds"]["publish"], "publish_span": publish,
+                     "stalls": summary["stalls"]})
+    line["checks_s"] = time.perf_counter() - t0
+    TELEMETRY_CHECKS[f"run_sac_decoupled_{run}"] = line
+    return line
+
+
+def telemetry_line() -> dict:
+    """The ``[telemetry]`` line: each telemetry run's policy steps/s beside
+    PR 15's with the telemetry off, and the seconds its checks took."""
+    if sorted(TELEMETRY_CHECKS) != sorted(PR15_TELEMETRY_OFF_POLICY_STEPS_PER_S):
+        raise AssertionError(f"the telemetry checks ran on {sorted(TELEMETRY_CHECKS)}")
+    return {name: {"policy_steps_per_s": line["policy_steps_per_s"],
+                   "pr15_telemetry_off_policy_steps_per_s": PR15_TELEMETRY_OFF_POLICY_STEPS_PER_S[name],
+                   "checks_s": line["checks_s"]} for name, line in sorted(TELEMETRY_CHECKS.items())}
 
 
 def phase_run(card: str, name: str = "run", keep_root=None):
@@ -2369,14 +2523,17 @@ def phase_run(card: str, name: str = "run", keep_root=None):
             raise AssertionError(f"the run's steps ran as {graphs}, expected {want_graphs}")
         stamps.append(("run", time.perf_counter()))
         events = _check_events(result, spec)
+        telemetry = _check_run_telemetry(name, result, wall, graphs, peak) if "metric=telemetry" in spec["args"] else None
 
         ckpt = result["checkpoint"]
         if ckpt is None or not ckpt.endswith(f"ckpt_{result['policy_steps']}_0"):
             raise AssertionError(f"the run's last checkpoint is {ckpt}")
         manifest = validate_checkpoint(ckpt, deep=True)
         ckpt_bytes = sum(manifest["files"].values())
-        replay = spec["buffer"](ckpt)
-        f32_parameters = _f32_parameters(ckpt)
+        state = _read_verified(ckpt)  # read once for both checks (an XL checkpoint holds GBs)
+        replay = spec["buffer"](state)
+        f32_parameters = _f32_parameters(state)
+        del state
 
         stamps.append(("checks", time.perf_counter()))
         t0 = time.perf_counter()
@@ -2479,6 +2636,7 @@ def phase_run(card: str, name: str = "run", keep_root=None):
         # untraced run's)
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "rates_under_profiler": True,
+        "telemetry": telemetry,
         "card": card,
     }
     print(f"[{name}] " + json.dumps(line), flush=True)
@@ -4057,10 +4215,11 @@ DECOUPLED_SAC_RUNS = {
     "thread": (f"total_steps={DECOUPLED_SAC_CUT_STEPS}", "plane.num_players=0", "buffer.prefetch=False",
                "buffer.checkpoint=True", "env.vectorization=sync"),
     "one_player": (f"total_steps={DECOUPLED_SAC_CUT_STEPS}", "plane.num_players=1", "buffer.prefetch=False",
-                   "buffer.checkpoint=True"),
+                   "buffer.checkpoint=True") + TELEMETRY_ARGS,
     "two_players_td": (f"total_steps={DECOUPLED_SAC_CUT_STEPS}", "plane.num_players=2", "replay.shards=2",
                        "replay.strategy=td_priority"),
-    "two_players": ("total_steps=32768", "plane.num_players=2", "replay.shards=2", "plane.max_policy_lag=1"),
+    "two_players": ("total_steps=32768", "plane.num_players=2", "replay.shards=2",
+                    "plane.max_policy_lag=1") + TELEMETRY_ARGS,
 }
 # each run's traced window: its training bursts (each one update's gradient step) DECOUPLED_SAC_WINDOW[run]
 DECOUPLED_SAC_WINDOW = {"thread": (100, 200), "one_player": (100, 200), "two_players_td": (100, 200),
@@ -4359,6 +4518,8 @@ def phase_run_sac_decoupled(card: str):
                 lines[run] = {**_decoupled_line(result, wall, window, peak, launches),
                               "early_mean_return": float(np.mean(returns[:10])),
                               "late_mean_return": float(np.mean(returns[-10:]))}
+                if "metric=telemetry" in extra:
+                    lines[run]["telemetry"] = _check_decoupled_telemetry(run, result, wall)
                 print(f"[run_sac_decoupled_{run}] " + json.dumps(lines[run]), flush=True)
                 if any(launches.values()):
                     raise AssertionError(f"run_sac_decoupled {run}: the run launched {launches}")
@@ -4445,6 +4606,7 @@ def main_decoupled() -> int:
     paths = {}
     paths.update(clock("run_sac_decoupled", phase_run_sac_decoupled, card))
     paths.update(clock("run_ppo_decoupled", phase_run_ppo_decoupled, card))
+    print("[telemetry] " + json.dumps(TELEMETRY_CHECKS), flush=True)
     print("[timing] " + json.dumps(clock.line()), flush=True)
     print("[decoupled_paths] " + json.dumps(paths), flush=True)
     return 0
@@ -4629,6 +4791,7 @@ def main() -> int:
     # ppo_decoupled's 2-player run
     by_path.update(clock("run_sac_decoupled", phase_run_sac_decoupled, card))
     by_path.update(clock("run_ppo_decoupled", phase_run_ppo_decoupled, card))
+    print("[telemetry] " + json.dumps({"runs": telemetry_line(), "card": card}), flush=True)
 
     cell_row = next(r for r in train_rows if r["B"] == 1600)
     bf16_row = next(r for r in bf16_rows["p2e_dv3_L"] if r["B"] == 1024)

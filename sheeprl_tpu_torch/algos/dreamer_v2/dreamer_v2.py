@@ -55,7 +55,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
 import warnings
 from types import SimpleNamespace
 from typing import Any, Callable, Dict, Optional, Sequence
@@ -84,7 +83,8 @@ from sheeprl_tpu_torch.distributions import Bernoulli, Independent, Normal, gumb
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.vector import make_vector_env
 from sheeprl_tpu_torch.evals.inrun import maybe_start_inrun_eval
-from sheeprl_tpu_torch.obs.perf import log_sps_metrics
+from sheeprl_tpu_torch.obs.perf import PhaseSeconds, log_sps_metrics, register_step_cost
+from sheeprl_tpu_torch.obs.spans import span
 from sheeprl_tpu_torch.replay import make_replay_buffer
 from sheeprl_tpu_torch.train.burst import (
     TrainProgram,
@@ -97,7 +97,6 @@ from sheeprl_tpu_torch.utils.logger import create_tensorboard_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric
 from sheeprl_tpu_torch.utils.optim import Adam, clip_by_global_norm_
 from sheeprl_tpu_torch.utils.registry import register_algorithm
-from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import polynomial_decay, save_configs
 
 __all__ = [
@@ -418,8 +417,6 @@ def _unsupported(cfg) -> None:
         raise NotImplementedError(
             "env.act_burst>1: burst acting amortises TPU dispatches; the port replays each acting step from a CUDA graph"
         )
-    if cfg.metric.get("profiler", False):
-        raise NotImplementedError("metric.profiler: trace capture is ROADMAP queue A item 6h")
 
 
 def open_run(fabric, cfg) -> SimpleNamespace:
@@ -619,7 +616,7 @@ def train_loop(
     acting_index = actor_for(start_step)
     reset_mask = np.zeros((n_envs, 1), np.float32)
 
-    seconds = {"env": 0.0, "act": 0.0, "sample": 0.0, "train": 0.0, "checkpoint": 0.0, "test": 0.0}
+    seconds = PhaseSeconds("env", "act", "sample", "train", "checkpoint", "test")
     counters = {"updates": 0, "player_steps": 0, "random_steps": 0, "gradient_steps": 0, "train_bursts": 0}
     player_steps_by_actor = [0] * len(players)
     switched_at = None
@@ -630,11 +627,10 @@ def train_loop(
         returns the player's next observation and marks the ended envs in
         ``reset_mask``."""
         nonlocal policy_step
-        t0 = time.perf_counter()
         policy_step += n_envs
         # The next row's is_first mirrors the previous dones
         step_data["is_first"] = step_data["dones"].copy()
-        with timer("Time/env_interaction_time", SumMetric()):
+        with span("Time/env_interaction_time", SumMetric(), phase="env"):
             o, rewards, terminated, truncated, infos = envs.step(real_actions.reshape(envs.action_space.shape))
         dones = np.logical_or(terminated, truncated).astype(np.float32)
         if "restart_on_exception" in infos:
@@ -687,7 +683,6 @@ def train_loop(
             rb.add(reset_data, dones_idxes)
             step_data["dones"][:, dones_idxes] = 0.0
             reset_mask[dones_idxes] = 1.0
-        seconds["env"] += time.perf_counter() - t0
         return new_obs
 
     # in-run eval: the acting modules are published every eval.every_n_steps and scored by a separate
@@ -704,25 +699,28 @@ def train_loop(
                     [np.eye(d, dtype=np.float32)[heads[:, j]] for j, d in enumerate(actions_dim)], axis=-1
                 )
             counters["random_steps"] += 1
+            with seconds.phase("env"):
+                obs = env_step(actions, real_actions)
         else:
-            t0 = time.perf_counter()
-            index = actor_for(update)
-            if index != acting_index:
-                # the switch: the next actor's step carries on from the player state as it stands
-                for k, v in actings[acting_index].state.items():
-                    actings[index].state[k].copy_(v)
-                acting_index, switched_at = index, update
-            actions_t = actings[index]({k: obs[k] for k in obs_keys}, reset_mask, expl_amount)
-            reset_mask[:] = 0.0
-            actions = np.concatenate([a.cpu().numpy() for a in actions_t], -1)
-            if is_continuous:
-                real_actions = actions
-            else:
-                real_actions = np.stack([a.argmax(dim=-1).cpu().numpy() for a in actions_t], axis=-1)
-            seconds["act"] += time.perf_counter() - t0
-            counters["player_steps"] += 1
-            player_steps_by_actor[index] += 1
-        obs = env_step(actions, real_actions)
+            with span("Time/rollout_time", SumMetric(), phase="rollout"):
+                with seconds.phase("act"):
+                    index = actor_for(update)
+                    if index != acting_index:
+                        # the switch: the next actor's step carries on from the player state as it stands
+                        for k, v in actings[acting_index].state.items():
+                            actings[index].state[k].copy_(v)
+                        acting_index, switched_at = index, update
+                    actions_t = actings[index]({k: obs[k] for k in obs_keys}, reset_mask, expl_amount)
+                    reset_mask[:] = 0.0
+                    actions = np.concatenate([a.cpu().numpy() for a in actions_t], -1)
+                    if is_continuous:
+                        real_actions = actions
+                    else:
+                        real_actions = np.stack([a.argmax(dim=-1).cpu().numpy() for a in actions_t], axis=-1)
+                counters["player_steps"] += 1
+                player_steps_by_actor[index] += 1
+                with seconds.phase("env"):
+                    obs = env_step(actions, real_actions)
 
         update += 1
         last = update - 1
@@ -735,13 +733,12 @@ def train_loop(
             n_samples = cfg.algo.per_rank_pretrain_steps if pretrain else cfg.algo.per_rank_gradient_steps
             metrics = None
             if n_samples > 0:
-                t0 = time.perf_counter()
-                local_data = staging.sample_device(
-                    cfg.per_rank_batch_size * world_size,
-                    sequence_length=cfg.per_rank_sequence_length,
-                    n_samples=n_samples,
-                )
-                t1 = time.perf_counter()
+                with seconds.phase("sample"):
+                    local_data = staging.sample_device(
+                        cfg.per_rank_batch_size * world_size,
+                        sequence_length=cfg.per_rank_sequence_length,
+                        n_samples=n_samples,
+                    )
                 taus = tau_schedule(
                     n_samples, counters["gradient_steps"], cfg.algo.critic.target_network_update_freq,
                     tau=1.0, first_hard=False,
@@ -757,12 +754,14 @@ def train_loop(
                     policy_steps_per_update=policy_steps_per_update,
                     world_size=world_size,
                 )
-                with timer("Time/train_time", SumMetric(sync_on_compute=cfg.metric.sync_on_compute)):
+                with seconds.phase("train"), span(
+                    "Time/train_time", SumMetric(sync_on_compute=cfg.metric.sync_on_compute), phase="train"
+                ):
                     # one graph replay a gradient step on the card; the metrics (or one
                     # pacing scalar) come back once a burst
                     metrics = run_train_burst(train_program, state, local_data, taus, fetch_metrics=fetch_metrics)
-                seconds["sample"] += t1 - t0
-                seconds["train"] += time.perf_counter() - t1
+                register_step_cost(train_program.step, dispatches_per_step=cfg.algo.per_rank_gradient_steps,
+                                   world_size=world_size)
                 counters["gradient_steps"] += n_samples
                 counters["train_bursts"] += 1
                 train_step += world_size
@@ -807,24 +806,23 @@ def train_loop(
 
         # Checkpoint
         if should_checkpoint(cfg, policy_step, last_checkpoint, last, num_updates):
-            t0 = time.perf_counter()
-            last_checkpoint = policy_step
-            ckpt_state = {
-                **checkpoint_state(),
-                "expl_decay_steps": expl_decay_steps,
-                "update": last * world_size,
-                "batch_size": cfg.per_rank_batch_size * world_size,
-                "last_log": last_log,
-                "last_checkpoint": last_checkpoint,
-            }
-            checkpoint_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_{fabric.global_rank}")
-            fabric.call(
-                "on_checkpoint_coupled",
-                ckpt_path=checkpoint_path,
-                state=ckpt_state,
-                replay_buffer=rb if cfg.buffer.get("checkpoint", False) else None,
-            )
-            seconds["checkpoint"] += time.perf_counter() - t0
+            with seconds.phase("checkpoint"), span("Time/checkpoint_time", phase="checkpoint"):
+                last_checkpoint = policy_step
+                ckpt_state = {
+                    **checkpoint_state(),
+                    "expl_decay_steps": expl_decay_steps,
+                    "update": last * world_size,
+                    "batch_size": cfg.per_rank_batch_size * world_size,
+                    "last_log": last_log,
+                    "last_checkpoint": last_checkpoint,
+                }
+                checkpoint_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_{fabric.global_rank}")
+                fabric.call(
+                    "on_checkpoint_coupled",
+                    ckpt_path=checkpoint_path,
+                    state=ckpt_state,
+                    replay_buffer=rb if cfg.buffer.get("checkpoint", False) else None,
+                )
             if preemption_requested():
                 break
 
@@ -834,9 +832,8 @@ def train_loop(
     envs.close()
     test_reward, test_steps = None, 0
     if fabric.is_global_zero and cfg.algo.get("run_test", True) and not preemption_requested():
-        t0 = time.perf_counter()
-        test_reward, test_steps = test(test_player, fabric, cfg, log_dir, normalize_fn=normalize_obs)
-        seconds["test"] = time.perf_counter() - t0
+        with seconds.phase("test"):
+            test_reward, test_steps = test(test_player, fabric, cfg, log_dir, normalize_fn=normalize_obs)
     if logger is not None:
         logger.close()
     return _run_result(

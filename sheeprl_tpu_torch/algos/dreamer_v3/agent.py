@@ -58,6 +58,7 @@ from sheeprl_tpu_torch.distributions import (
 from sheeprl_tpu_torch.fabric import compute_dtype_from_precision
 from sheeprl_tpu_torch.models.models import CNN, MLP, DeCNN, LayerNormGRUCell, Linear, resolve_activation
 from sheeprl_tpu_torch.models.norm import FastLayerNorm
+from sheeprl_tpu_torch.obs.counters import add_rollout_burst
 from sheeprl_tpu_torch.train.graphs import CapturedStep
 
 __all__ = [
@@ -1080,6 +1081,7 @@ class ExplorationStep:
         drawn = noise if noise is not None else self._fns["draw_exploration_noise"](self.n, self._generator)
         for dst, src in zip(_flat(self.noise), _flat(drawn), strict=True):
             dst.copy_(src)
+        add_rollout_burst(act_dispatches=1)
         return self.step()
 
 

@@ -35,8 +35,9 @@ def check_spaces(cfg, observation_space) -> None:
 
 def params_of(state: Mapping[str, Any], algo: str) -> Dict[str, torch.Tensor]:
     """The agent's ``state_dict`` from a checkpoint's or a publication's
-    ``state``: the port's ``params``, or the JAX package's flax tree converted."""
-    params = state["params"]
+    ``state`` (a decoupled run's plane publishes the agent's tree itself):
+    the port's ``params``, or the JAX package's flax tree converted."""
+    params = state["params"] if "params" in state else state
     if not is_jax_tree(params):
         return {k: torch.as_tensor(np.asarray(v)) for k, v in params.items()}
     from sheeprl_tpu_torch.convert import onpolicy_converter

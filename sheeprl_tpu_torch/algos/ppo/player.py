@@ -15,12 +15,14 @@ comes from a generator seeded by the run's seed and the player's index.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from sheeprl_tpu_torch.algos.sac.player import episode_stats, load_params, player_envs
+from sheeprl_tpu_torch.obs.counters import add_rollout_burst
+from sheeprl_tpu_torch.obs.spans import span
+from sheeprl_tpu_torch.utils.metric import SumMetric
 
 __all__ = ["ppo_slab_example", "run_player"]
 
@@ -53,6 +55,7 @@ def run_player(ctx) -> None:
     try:
         _collect(ctx, envs)
     finally:
+        ctx.close_watchdog()
         envs.close()
 
 
@@ -85,15 +88,14 @@ def _collect(ctx, envs) -> None:
         token, views = ctx.acquire_slab()
         ep_stats: List[Tuple[float, float]] = []
         for r in range(rollout_steps):
-            t0 = time.perf_counter()
-            with torch.no_grad():
+            add_rollout_burst(act_dispatches=1)
+            with ctx.timed("act"), torch.no_grad():
                 pre_dist, values = agent(norm(obs))
                 actions, real, logprob = sample_actions(
                     pre_dist, is_continuous, draw_noise(actions_dim, is_continuous, (n_envs,), generator, "cpu"))
-            ctx.add_seconds("act", t0)
-            t0 = time.perf_counter()
-            next_o, rewards, terminated, truncated, infos = envs.step(real.numpy().reshape(envs.action_space.shape))
-            ctx.add_seconds("env", t0)
+            with ctx.timed("env"), span("Time/env_interaction_time", SumMetric(), phase="env"):
+                next_o, rewards, terminated, truncated, infos = envs.step(real.numpy().reshape(envs.action_space.shape))
+            ctx.beat()  # a hung envs.step() must fire the stall watchdog
             rewards = np.asarray(rewards, np.float32).reshape(n_envs).copy()
             truncated_envs = np.nonzero(truncated)[0]
             if len(truncated_envs) > 0:

@@ -36,7 +36,6 @@ the JAX package's (the flax params and optax state converted,
 from __future__ import annotations
 
 import os
-import time
 import warnings
 from types import SimpleNamespace
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
@@ -54,14 +53,15 @@ from sheeprl_tpu_torch.config.instantiate import instantiate
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.vector import make_vector_env
 from sheeprl_tpu_torch.evals.builders import actions_dim_of
-from sheeprl_tpu_torch.obs.perf import log_sps_metrics
+from sheeprl_tpu_torch.obs.counters import add_rollout_burst, count_h2d
+from sheeprl_tpu_torch.obs.perf import PhaseSeconds, log_sps_metrics, register_step_cost
+from sheeprl_tpu_torch.obs.spans import span
 from sheeprl_tpu_torch.replay import make_replay_buffer
 from sheeprl_tpu_torch.train.graphs import CapturedStep
 from sheeprl_tpu_torch.utils.logger import create_tensorboard_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric
 from sheeprl_tpu_torch.utils.optim import clip_by_global_norm_, set_lr
 from sheeprl_tpu_torch.utils.registry import register_algorithm
-from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import gae, normalize_tensor, polynomial_decay, save_configs
 
 __all__ = [
@@ -108,6 +108,7 @@ class ActingGraph:
             self.inputs[k].copy_(torch.from_numpy(np.ascontiguousarray(v)))
         for dst, src in zip(self.noise, noise if noise is not None else self._draw(self._generator), strict=True):
             dst.copy_(src)
+        add_rollout_burst(act_dispatches=1)
         return [o.cpu().numpy() for o in self.step()]
 
 
@@ -171,7 +172,7 @@ class UpdateProgram:
         self.acc = torch.zeros(int(n_metrics), dtype=torch.float32, device=self.device)
         self._params = [p for p in agent.parameters()]
         give_zero_grads([agent])
-        self.step = CapturedStep(self._step, self.device)
+        self.step = CapturedStep(self._step, self.device, train=True)
 
     def _step(self) -> torch.Tensor:
         grads = [p.grad for p in self._params]
@@ -192,8 +193,10 @@ class UpdateProgram:
             self.data = {k: torch.zeros(v.shape, dtype=v.dtype, device=self.device) for k, v in tensors.items()}
         if self.data.keys() != tensors.keys() or any(self.data[k].shape != v.shape for k, v in tensors.items()):
             raise ValueError("an UpdateProgram updates on one data layout")
-        for k, v in tensors.items():
-            self.data[k].copy_(v, non_blocking=True)
+        with span("Time/stage_h2d_time", phase="stage_h2d"):
+            for k, v in tensors.items():
+                self.data[k].copy_(v, non_blocking=True)
+        count_h2d(tensors)
 
     def update(self, data: Mapping[str, Any], scalars: Sequence[float], perms: Optional[Sequence[Any]] = None,
                eager: bool = False) -> torch.Tensor:
@@ -506,7 +509,7 @@ def train_loop(fabric, cfg, run: SimpleNamespace, family: PPO) -> Dict[str, Any]
     warn_checkpoint_rounding(cfg, policy_steps_per_update)
     initial_ent_coef, initial_clip_coef = float(cfg.algo.get("ent_coef", 0.0)), float(cfg.algo.get("clip_coef", 0.0))
 
-    seconds = {"env": 0.0, "act": 0.0, "gae_and_stage": 0.0, "train": 0.0, "checkpoint": 0.0, "test": 0.0}
+    seconds = PhaseSeconds("env", "act", "gae_and_stage", "train", "checkpoint", "test")
     counters = {"updates": 0, "acting_steps": 0, "gradient_steps": 0}
     episode_returns: List[float] = []
     loss_sum, loss_count = None, 0
@@ -522,57 +525,58 @@ def train_loop(fabric, cfg, run: SimpleNamespace, family: PPO) -> Dict[str, Any]
             set_lr(family.optimizer, lr)
         family.rollout_start()
         for _ in range(n_steps):
-            t0 = time.perf_counter()
-            out = family.act(obs)
-            t1 = time.perf_counter()
-            seconds["act"] += t1 - t0
-            policy_step += n_envs
-            with timer("Time/env_interaction_time", SumMetric()):
-                next_o, rewards, terminated, truncated, info = envs.step(
-                    np.asarray(out["real"]).reshape(envs.action_space.shape))
-            rewards = np.asarray(rewards, np.float32).reshape(n_envs).copy()
-            truncated_envs = np.nonzero(truncated)[0]
-            if len(truncated_envs) > 0:
-                # bootstrap V(s') of the final observation into the reward on truncation
-                final = info["final_obs"]
-                t_obs = prepare_obs({k: np.stack([np.asarray(final[e][k]) for e in truncated_envs]) for k in obs_keys},
-                                    cnn_keys, len(truncated_envs))
-                rewards[truncated_envs] += family.value(t_obs, out, truncated_envs).reshape(-1)
-            dones = np.logical_or(terminated, truncated).astype(np.float32)
-            step_data = {k: np.asarray(obs[k])[None] for k in obs_keys}
-            step_data["dones"] = dones.reshape(1, n_envs, 1)
-            step_data["values"] = np.asarray(out["values"], np.float32).reshape(1, n_envs, 1)
-            step_data["actions"] = np.asarray(out["actions"], np.float32).reshape(1, n_envs, -1)
-            step_data["rewards"] = rewards.reshape(1, n_envs, 1)
-            for k, v in family.rows(out).items():
-                step_data[k] = np.asarray(v)[None]
-            rb.add(step_data)
-            family.after_step(out, dones)
-            obs = prepare_obs(next_o, cnn_keys, n_envs)
-            if "final_info" in info:
-                fi = info["final_info"]
-                if isinstance(fi, dict) and "episode" in fi:
-                    for i in np.nonzero(np.asarray(fi.get("_episode", []), dtype=bool))[0]:
-                        ep_rew, ep_len = float(fi["episode"]["r"][i]), float(fi["episode"]["l"][i])
-                        episode_returns.append(ep_rew)
-                        if cfg.metric.log_level > 0:
-                            if aggregator and not aggregator.disabled:
-                                aggregator.update("Rewards/rew_avg", ep_rew)
-                                aggregator.update("Game/ep_len_avg", ep_len)
-                            fabric.print(f"Rank-0: policy_step={policy_step}, reward_env_{i}={ep_rew}")
-            seconds["env"] += time.perf_counter() - t1
+            with span("Time/rollout_time", SumMetric(), phase="rollout"):
+                with seconds.phase("act"):
+                    out = family.act(obs)
+                policy_step += n_envs
+                with seconds.phase("env"):
+                    with span("Time/env_interaction_time", SumMetric(), phase="env"):
+                        next_o, rewards, terminated, truncated, info = envs.step(
+                            np.asarray(out["real"]).reshape(envs.action_space.shape))
+                    rewards = np.asarray(rewards, np.float32).reshape(n_envs).copy()
+                    truncated_envs = np.nonzero(truncated)[0]
+                    if len(truncated_envs) > 0:
+                        # bootstrap V(s') of the final observation into the reward on truncation
+                        final = info["final_obs"]
+                        t_obs = prepare_obs(
+                            {k: np.stack([np.asarray(final[e][k]) for e in truncated_envs]) for k in obs_keys},
+                            cnn_keys, len(truncated_envs))
+                        rewards[truncated_envs] += family.value(t_obs, out, truncated_envs).reshape(-1)
+                    dones = np.logical_or(terminated, truncated).astype(np.float32)
+                    step_data = {k: np.asarray(obs[k])[None] for k in obs_keys}
+                    step_data["dones"] = dones.reshape(1, n_envs, 1)
+                    step_data["values"] = np.asarray(out["values"], np.float32).reshape(1, n_envs, 1)
+                    step_data["actions"] = np.asarray(out["actions"], np.float32).reshape(1, n_envs, -1)
+                    step_data["rewards"] = rewards.reshape(1, n_envs, 1)
+                    for k, v in family.rows(out).items():
+                        step_data[k] = np.asarray(v)[None]
+                    rb.add(step_data)
+                    family.after_step(out, dones)
+                    obs = prepare_obs(next_o, cnn_keys, n_envs)
+                    if "final_info" in info:
+                        fi = info["final_info"]
+                        if isinstance(fi, dict) and "episode" in fi:
+                            for i in np.nonzero(np.asarray(fi.get("_episode", []), dtype=bool))[0]:
+                                ep_rew, ep_len = float(fi["episode"]["r"][i]), float(fi["episode"]["l"][i])
+                                episode_returns.append(ep_rew)
+                                if cfg.metric.log_level > 0:
+                                    if aggregator and not aggregator.disabled:
+                                        aggregator.update("Rewards/rew_avg", ep_rew)
+                                        aggregator.update("Game/ep_len_avg", ep_len)
+                                    fabric.print(f"Rank-0: policy_step={policy_step}, reward_env_{i}={ep_rew}")
             counters["acting_steps"] += 1
 
-        t0 = time.perf_counter()
-        next_values = family.next_value(obs)
-        returns, advantages = gae_step(rb["rewards"], rb["values"], rb["dones"], next_values)
-        data = family.update_data(rb, returns, advantages)
-        seconds["gae_and_stage"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        with timer("Time/train_time", SumMetric(sync_on_compute=cfg.metric.sync_on_compute)):
+        with seconds.phase("gae_and_stage"):
+            next_values = family.next_value(obs)
+            returns, advantages = gae_step(rb["rewards"], rb["values"], rb["dones"], next_values)
+            data = family.update_data(rb, returns, advantages)
+        with seconds.phase("train"), span(
+            "Time/train_time", SumMetric(sync_on_compute=cfg.metric.sync_on_compute), phase="train"
+        ):
             metrics = family.program.update(data, family.scalars())
-        seconds["train"] += time.perf_counter() - t0
-        counters["gradient_steps"] += family.program.epochs * family.program.n_minibatches
+        minibatch_steps = family.program.epochs * family.program.n_minibatches
+        register_step_cost(family.program.step, dispatches_per_step=minibatch_steps, world_size=world_size)
+        counters["gradient_steps"] += minibatch_steps
         counters["updates"] += 1
         loss_sum = metrics.clone() if loss_sum is None else loss_sum.add_(metrics)
         loss_count += 1
@@ -604,23 +608,21 @@ def train_loop(fabric, cfg, run: SimpleNamespace, family: PPO) -> Dict[str, Any]
                                                  max_decay_steps=num_updates, power=1.0)
 
         if should_checkpoint(cfg, policy_step, last_checkpoint, update, num_updates):
-            t0 = time.perf_counter()
-            last_checkpoint = policy_step
-            ckpt_state = {**family.checkpoint_entries(), "update": update * world_size, "last_log": last_log,
-                          "last_checkpoint": last_checkpoint}
-            checkpoint_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_{fabric.global_rank}")
-            fabric.call("on_checkpoint_coupled", ckpt_path=checkpoint_path, state=ckpt_state,
-                        replay_buffer=rb if cfg.buffer.get("checkpoint", False) else None)
-            seconds["checkpoint"] += time.perf_counter() - t0
+            with seconds.phase("checkpoint"), span("Time/checkpoint_time", phase="checkpoint"):
+                last_checkpoint = policy_step
+                ckpt_state = {**family.checkpoint_entries(), "update": update * world_size, "last_log": last_log,
+                              "last_checkpoint": last_checkpoint}
+                checkpoint_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_{fabric.global_rank}")
+                fabric.call("on_checkpoint_coupled", ckpt_path=checkpoint_path, state=ckpt_state,
+                            replay_buffer=rb if cfg.buffer.get("checkpoint", False) else None)
             if preemption_requested():
                 break
 
     envs.close()
     test_reward, test_steps = None, 0
     if fabric.is_global_zero and cfg.algo.get("run_test", True) and not preemption_requested():
-        t0 = time.perf_counter()
-        test_reward, test_steps = test(family.greedy(), fabric, cfg, log_dir)
-        seconds["test"] = time.perf_counter() - t0
+        with seconds.phase("test"):
+            test_reward, test_steps = test(family.greedy(), fabric, cfg, log_dir)
     if logger is not None:
         logger.close()
     return {

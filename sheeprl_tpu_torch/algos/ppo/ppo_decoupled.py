@@ -23,7 +23,6 @@ entrypoint it refuses ``fabric.devices=1`` (``cli.check_configs``).
 from __future__ import annotations
 
 import os
-import time
 from types import SimpleNamespace
 from typing import Any, Dict, List
 
@@ -55,13 +54,13 @@ from sheeprl_tpu_torch.ckpt import preemption_requested, should_checkpoint, warn
 from sheeprl_tpu_torch.config.instantiate import instantiate
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.evals.builders import actions_dim_of
-from sheeprl_tpu_torch.obs.perf import log_sps_metrics
+from sheeprl_tpu_torch.obs.perf import PhaseSeconds, log_sps_metrics, register_step_cost
+from sheeprl_tpu_torch.obs.spans import span
 from sheeprl_tpu_torch.plane import SlabSpec, build_plane, plane_env_split, version_after
 from sheeprl_tpu_torch.utils.logger import create_tensorboard_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric
 from sheeprl_tpu_torch.utils.optim import set_lr
 from sheeprl_tpu_torch.utils.registry import register_algorithm
-from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import polynomial_decay, save_configs
 
 __all__ = ["assemble_rollout", "main", "rollout_update_data"]
@@ -144,8 +143,8 @@ def main(fabric, cfg) -> Dict[str, Any]:
     scalars = {"num_updates": num_updates, "learning_starts": 0, "first_train_update": start_step,
                "act_burst": 1, "max_policy_lag": int((cfg.get("plane", {}) or {}).get("max_policy_lag", 0) or 0)}
 
-    seconds = {"plane_wait": 0.0, "gae_and_stage": 0.0, "train": 0.0, "publish": 0.0, "checkpoint": 0.0,
-               "test": 0.0, **dict.fromkeys(PLAYER_PHASES, 0.0)}
+    seconds = PhaseSeconds("plane_wait", "gae_and_stage", "train", "publish", "checkpoint", "test",
+                           *PLAYER_PHASES)
     counters = {"updates": 0, "gradient_steps": 0}
     episode_returns: List[float] = []
     loss_sum, loss_count = None, 0
@@ -161,26 +160,24 @@ def main(fabric, cfg) -> Dict[str, Any]:
                 lr = polynomial_decay(update - 1, initial=float(cfg.algo.optimizer.lr), final=0.0,
                                       max_decay_steps=num_updates, power=1.0)
                 set_lr(optimizer, lr)
-            t0 = time.perf_counter()
-            with timer("Time/plane_wait_time", SumMetric(sync_on_compute=False)):
+            with seconds.phase("plane_wait"), span("Time/plane_wait_time", SumMetric(), phase="plane_wait"):
                 handles = [plane.recv(p, update) for p in range(plane.n_players)]
-            t1 = time.perf_counter()
-            seconds["plane_wait"] += t1 - t0
             add_player_seconds(seconds, handles)
             policy_step += policy_steps_per_update
             ep_stats = [s for h in handles for s in h.ep_stats]
-            data = rollout_update_data(assemble_rollout(handles), obs_keys, gae_step)
-            t2 = time.perf_counter()
-            seconds["gae_and_stage"] += t2 - t1
-            with timer("Time/train_time", SumMetric(sync_on_compute=cfg.metric.sync_on_compute)):
+            with seconds.phase("gae_and_stage"):
+                data = rollout_update_data(assemble_rollout(handles), obs_keys, gae_step)
+            with seconds.phase("train"), span(
+                "Time/train_time", SumMetric(sync_on_compute=cfg.metric.sync_on_compute), phase="train"
+            ):
                 metrics = program.update(data, [float(cfg.algo.clip_coef), float(cfg.algo.ent_coef)])
-            for h in handles:  # the update's load copied the rows out
-                h.release()
-            t3 = time.perf_counter()
-            seconds["train"] += t3 - t2
-            plane.publish(version_after(update, start_step), host_params(agent))
-            seconds["publish"] += time.perf_counter() - t3
-            counters["gradient_steps"] += program.epochs * program.n_minibatches
+                for h in handles:  # the update's load copied the rows out
+                    h.release()
+            minibatch_steps = program.epochs * program.n_minibatches
+            register_step_cost(program.step, dispatches_per_step=minibatch_steps, world_size=world_size)
+            with seconds.phase("publish"):
+                plane.publish(version_after(update, start_step), host_params(agent))
+            counters["gradient_steps"] += minibatch_steps
             counters["updates"] += 1
             loss_sum = metrics.clone() if loss_sum is None else loss_sum.add_(metrics)
             loss_count += 1
@@ -216,15 +213,15 @@ def main(fabric, cfg) -> Dict[str, Any]:
                 cfg.algo.ent_coef = polynomial_decay(update, initial=initial_ent_coef, final=0.0,
                                                      max_decay_steps=num_updates, power=1.0)
             if should_checkpoint(cfg, policy_step, last_checkpoint, update, num_updates):
-                t0 = time.perf_counter()
-                last_checkpoint = policy_step
-                ckpt_state = {"params": {k: v.detach() for k, v in agent.state_dict().items()},
-                              "opt_state": optimizer_entry(optimizer),
-                              "batch_size": int(cfg.per_rank_batch_size) * world_size, "update": update * world_size,
-                              "last_log": last_log, "last_checkpoint": last_checkpoint}
-                checkpoint_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_{fabric.global_rank}")
-                fabric.call("on_checkpoint_coupled", ckpt_path=checkpoint_path, state=ckpt_state)
-                seconds["checkpoint"] += time.perf_counter() - t0
+                with seconds.phase("checkpoint"), span("Time/checkpoint_time", phase="checkpoint"):
+                    last_checkpoint = policy_step
+                    ckpt_state = {"params": {k: v.detach() for k, v in agent.state_dict().items()},
+                                  "opt_state": optimizer_entry(optimizer),
+                                  "batch_size": int(cfg.per_rank_batch_size) * world_size,
+                                  "update": update * world_size,
+                                  "last_log": last_log, "last_checkpoint": last_checkpoint}
+                    checkpoint_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_{fabric.global_rank}")
+                    fabric.call("on_checkpoint_coupled", ckpt_path=checkpoint_path, state=ckpt_state)
                 if preemption_requested():
                     break  # the final checkpoint is written; the drain below joins the players
     finally:
@@ -238,9 +235,8 @@ def main(fabric, cfg) -> Dict[str, Any]:
             norm = normalize_obs({k: torch.from_numpy(prepared[k]).to(device) for k in obs_keys}, cnn_keys, obs_keys)
             return greedy_actions(agent.pre_dist(norm), is_continuous).cpu().numpy()
 
-        t0 = time.perf_counter()
-        test_reward, test_steps = test(greedy, fabric, cfg, log_dir)
-        seconds["test"] = time.perf_counter() - t0
+        with seconds.phase("test"):
+            test_reward, test_steps = test(greedy, fabric, cfg, log_dir)
     if logger is not None:
         logger.close()
     return learner_result(

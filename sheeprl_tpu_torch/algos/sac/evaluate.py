@@ -59,8 +59,9 @@ def sac_eval_policy(cfg, actor_params: Mapping[str, Any], observation_space, act
 
 def actor_params_of(state: Mapping[str, Any]) -> Mapping[str, Any]:
     """The actor's ``state_dict`` from a checkpoint's or a publication's
-    ``state``: the port's layout, or the JAX package's flax tree converted."""
-    actor = state["agent"]["actor"]
+    ``state`` (a decoupled run's plane publishes the actor's tree itself):
+    the port's layout, or the JAX package's flax tree converted."""
+    actor = state["agent"]["actor"] if "agent" in state else state
     if not is_jax_tree(actor):
         return actor
     from sheeprl_tpu_torch.convert import convert_sac_actor

@@ -17,10 +17,13 @@ imports it by dotted name. It
 
 from __future__ import annotations
 
-import time
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
+
+from sheeprl_tpu_torch.obs.counters import add_rollout_burst
+from sheeprl_tpu_torch.obs.spans import span
+from sheeprl_tpu_torch.utils.metric import SumMetric
 
 __all__ = ["run_player", "sac_slab_example"]
 
@@ -78,6 +81,7 @@ def run_player(ctx) -> None:
     try:
         _collect(ctx, envs)
     finally:
+        ctx.close_watchdog()
         envs.close()
 
 
@@ -113,18 +117,18 @@ def _collect(ctx, envs) -> None:
         token, views = ctx.acquire_slab()
         ep_stats: List[Tuple[float, float]] = []
         for r in range(n_act):
-            t0 = time.perf_counter()
-            if random_phase:
-                actions = np.asarray(envs.action_space.sample(), np.float32)
-            else:
-                eps = torch.randn((n_envs, act_dim), generator=generator)
-                with torch.no_grad():
-                    mean, std = actor(torch.from_numpy(obs))
-                    actions = squash_sample(mean, std, eps, scale, bias)[0].numpy()
-            ctx.add_seconds("act", t0)
-            t0 = time.perf_counter()
-            next_o, rewards, terminated, truncated, infos = envs.step(actions.reshape(envs.action_space.shape))
-            ctx.add_seconds("env", t0)
+            with ctx.timed("act"):
+                if random_phase:
+                    actions = np.asarray(envs.action_space.sample(), np.float32)
+                else:
+                    add_rollout_burst(act_dispatches=1)
+                    eps = torch.randn((n_envs, act_dim), generator=generator)
+                    with torch.no_grad():
+                        mean, std = actor(torch.from_numpy(obs))
+                        actions = squash_sample(mean, std, eps, scale, bias)[0].numpy()
+            with ctx.timed("env"), span("Time/env_interaction_time", SumMetric(), phase="env"):
+                next_o, rewards, terminated, truncated, infos = envs.step(actions.reshape(envs.action_space.shape))
+            ctx.beat()  # a hung envs.step() must fire the stall watchdog
             ep_stats += episode_stats(infos)
             next_obs = concat_obs(next_o, mlp_keys, n_envs)
             views["observations"][r] = obs

@@ -34,7 +34,6 @@ module's ``state_dict`` and ``log_alpha``), ``opt_states``, ``update``,
 from __future__ import annotations
 
 import os
-import time
 import warnings
 from types import SimpleNamespace
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
@@ -60,14 +59,15 @@ from sheeprl_tpu_torch.data.staging import RingStaging, make_replay_staging
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.vector import make_vector_env, resolve_backend
 from sheeprl_tpu_torch.evals.inrun import maybe_start_inrun_eval
-from sheeprl_tpu_torch.obs.perf import log_sps_metrics
+from sheeprl_tpu_torch.obs.counters import add_rollout_burst, add_train_burst
+from sheeprl_tpu_torch.obs.perf import PhaseSeconds, log_sps_metrics, register_step_cost
+from sheeprl_tpu_torch.obs.spans import span
 from sheeprl_tpu_torch.replay import make_replay_buffer
 from sheeprl_tpu_torch.train.graphs import CapturedStep
 from sheeprl_tpu_torch.utils.logger import create_tensorboard_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric
 from sheeprl_tpu_torch.utils.optim import Adam
 from sheeprl_tpu_torch.utils.registry import register_algorithm
-from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import save_configs
 
 __all__ = [
@@ -121,6 +121,15 @@ class StepProgram:
         self.static: Optional[SimpleNamespace] = None
         self.last_td: Optional[torch.Tensor] = None
 
+    @property
+    def step(self) -> Optional[CapturedStep]:
+        """The captured step (None before the first burst)."""
+        return None if self.static is None else self.static.step
+
+    def calls(self) -> int:
+        """The captured step's calls so far, eager and replayed."""
+        return 0 if self.static is None else self.static.step.eager_calls + self.static.step.replays
+
     def __call__(self, state, data, noise=None, gates=None):
         device = data["rewards"].device
         if noise is None:
@@ -140,7 +149,8 @@ class StepProgram:
                 gates=torch.zeros(self.n_gates, dtype=torch.float32, device=device),
             )
             self.prepare(state)
-            static.step = CapturedStep(lambda: self._body(state, static.data, static.noise, static.gates), device)
+            static.step = CapturedStep(lambda: self._body(state, static.data, static.noise, static.gates), device,
+                                       train=True)
             self.static = static
         static = self.static
         same = static.state is state and static.data.keys() == data_stack.keys() and all(
@@ -153,6 +163,7 @@ class StepProgram:
     def burst(self, state, data_stack, gates, noise: Optional[Sequence[Dict[str, torch.Tensor]]] = None):
         static = self._static_for(state, data_stack)
         n = next(iter(data_stack.values())).shape[0]
+        add_train_burst(steps=n, dispatches=n)
         gates = np.array(np.broadcast_to(np.asarray(gates, np.float32), (n, self.n_gates)))
         gates_dev = torch.from_numpy(gates).to(static.gates.device)
         total, tds = None, []
@@ -195,6 +206,7 @@ class ActingStep:
         if eps is None:
             eps = torch.randn(self.eps.shape, generator=self._generator, device=self.device)
         self.eps.copy_(eps)
+        add_rollout_burst(act_dispatches=1)
         return self.step().cpu().numpy()
 
 
@@ -349,11 +361,6 @@ def unsupported(cfg, family: str) -> None:
             "env.act_burst>1 on the Python plane: burst acting amortises TPU dispatches; the port replays each "
             "acting step from a CUDA graph (on env.backend=jax it is the rollout engine's burst length)"
         )
-    if cfg.metric.get("profiler", False):
-        raise NotImplementedError("metric.profiler: trace capture is ROADMAP queue A item 6h")
-    telemetry = cfg.metric.get("telemetry", None) or {}
-    if telemetry.get("enabled", False) and (telemetry.get("learn", None) or {}).get("enabled", False):
-        raise NotImplementedError("metric.telemetry.learn: the learn probes are ROADMAP queue A item 6h")
 
 
 def open_run(fabric, cfg, family: str, *, allow_device_envs: bool = False) -> SimpleNamespace:
@@ -493,7 +500,7 @@ def train_loop(
     warn_checkpoint_rounding(cfg, policy_steps_per_update)
     act_burst = max(int(cfg.env.get("act_burst", 1) or 1), 1)
 
-    seconds = {"env": 0.0, "act": 0.0, "sample_and_train": 0.0, "checkpoint": 0.0, "test": 0.0}
+    seconds = PhaseSeconds("env", "act", "sample_and_train", "checkpoint", "test")
     counters = {"updates": 0, "player_steps": 0, "random_steps": 0, "gradient_steps": 0, "train_bursts": 0,
                 "ema_steps": 0}
     episode_returns: List[float] = []
@@ -518,9 +525,8 @@ def train_loop(
 
     def env_step(actions: np.ndarray) -> None:
         nonlocal policy_step
-        t0 = time.perf_counter()
         policy_step += n_envs
-        with timer("Time/env_interaction_time", SumMetric()):
+        with span("Time/env_interaction_time", SumMetric(), phase="env"):
             next_o, rewards, terminated, truncated, infos = run.envs.step(actions.reshape(run.envs.action_space.shape))
         dones = np.logical_or(terminated, truncated)
         if "final_info" in infos:
@@ -545,47 +551,53 @@ def train_loop(
                 step_data[f"next_{k}"] = v[None]
         rb.add(step_data)
         box["obs"] = next_rows
-        seconds["env"] += time.perf_counter() - t0
 
     inrun = maybe_start_inrun_eval(fabric, cfg, log_dir)
     update = start_step
     while update <= num_updates:
-        t0 = time.perf_counter()
         if engine is not None:
-            random_phase = update <= learning_starts
-            boundary = min(learning_starts, num_updates) if random_phase else num_updates
-            n_act = max(min(act_burst, boundary - update + 1), 1)
-            stats = engine.collect(n_act, random_actions=random_phase)
-            _, done_b, ep_ret_b, ep_len_b = (s.cpu().numpy() for s in stats)
-            for t_i, env_i in zip(*np.nonzero(done_b)):
-                log_episode(policy_step + (int(t_i) + 1) * n_envs, int(env_i), float(ep_ret_b[t_i, env_i]),
-                            float(ep_len_b[t_i, env_i]))
-            policy_step += n_envs * n_act
-            counters["random_steps" if random_phase else "player_steps"] += n_act
-            seconds["env"] += time.perf_counter() - t0
+            with seconds.phase("env"):
+                random_phase = update <= learning_starts
+                boundary = min(learning_starts, num_updates) if random_phase else num_updates
+                n_act = max(min(act_burst, boundary - update + 1), 1)
+                with span("Time/rollout_time", SumMetric(), phase="rollout"):
+                    stats = engine.collect(n_act, random_actions=random_phase)
+                _, done_b, ep_ret_b, ep_len_b = (s.cpu().numpy() for s in stats)
+                for t_i, env_i in zip(*np.nonzero(done_b)):
+                    log_episode(policy_step + (int(t_i) + 1) * n_envs, int(env_i), float(ep_ret_b[t_i, env_i]),
+                                float(ep_len_b[t_i, env_i]))
+                policy_step += n_envs * n_act
+                counters["random_steps" if random_phase else "player_steps"] += n_act
         elif update <= learning_starts:
             n_act = 1
-            env_step(np.asarray(run.envs.action_space.sample()))
+            with seconds.phase("env"):
+                env_step(np.asarray(run.envs.action_space.sample()))
             counters["random_steps"] += 1
         else:
             n_act = 1
-            actions = acting(box["obs"])
-            seconds["act"] += time.perf_counter() - t0
-            env_step(actions)
+            with span("Time/rollout_time", SumMetric(), phase="rollout"):
+                with seconds.phase("act"):
+                    actions = acting(box["obs"])
+                with seconds.phase("env"):
+                    env_step(actions)
             counters["player_steps"] += 1
         first = update
         update += n_act
         last = update - 1
         counters["updates"] += n_act
 
-        t0 = time.perf_counter()
-        with timer("Time/train_time", SumMetric(sync_on_compute=cfg.metric.sync_on_compute)):
+        calls = sum(p.calls() for p in programs)
+        with seconds.phase("sample_and_train"), span(
+            "Time/train_time", SumMetric(sync_on_compute=cfg.metric.sync_on_compute), phase="train"
+        ):
             metrics = train_round(staging, first, last, learning_starts, counters)
         if metrics is not None:
             loss_sum = metrics.clone() if loss_sum is None else loss_sum.add_(metrics)
             loss_count += 1
             train_step += world_size
-        seconds["sample_and_train"] += time.perf_counter() - t0
+            if first > learning_starts:  # a round past the catch-up burst: its step calls are a train step's
+                register_step_cost(programs[0].step, dispatches_per_step=sum(p.calls() for p in programs) - calls,
+                                   world_size=world_size)
 
         if inrun is not None and last >= learning_starts and inrun.due(policy_step):
             inrun.maybe_publish(policy_step, publish())
@@ -605,19 +617,18 @@ def train_loop(
             last_log, last_train = policy_step, train_step
 
         if should_checkpoint(cfg, policy_step, last_checkpoint, last, num_updates):
-            t0 = time.perf_counter()
-            last_checkpoint = policy_step
-            ckpt_state = {
-                **checkpoint_state(),
-                "update": last * world_size,
-                "batch_size": cfg.per_rank_batch_size * world_size,
-                "last_log": last_log,
-                "last_checkpoint": last_checkpoint,
-            }
-            checkpoint_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_{fabric.global_rank}")
-            fabric.call("on_checkpoint_coupled", ckpt_path=checkpoint_path, state=ckpt_state,
-                        replay_buffer=rb if cfg.buffer.get("checkpoint", False) else None)
-            seconds["checkpoint"] += time.perf_counter() - t0
+            with seconds.phase("checkpoint"), span("Time/checkpoint_time", phase="checkpoint"):
+                last_checkpoint = policy_step
+                ckpt_state = {
+                    **checkpoint_state(),
+                    "update": last * world_size,
+                    "batch_size": cfg.per_rank_batch_size * world_size,
+                    "last_log": last_log,
+                    "last_checkpoint": last_checkpoint,
+                }
+                checkpoint_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_{fabric.global_rank}")
+                fabric.call("on_checkpoint_coupled", ckpt_path=checkpoint_path, state=ckpt_state,
+                            replay_buffer=rb if cfg.buffer.get("checkpoint", False) else None)
             if preemption_requested():
                 break
 
@@ -628,9 +639,8 @@ def train_loop(
         run.envs.close()
     test_reward, test_steps = None, 0
     if fabric.is_global_zero and cfg.algo.get("run_test", True) and not preemption_requested():
-        t0 = time.perf_counter()
-        test_reward, test_steps = test(greedy, fabric, cfg, log_dir, device_env=engine is not None)
-        seconds["test"] = time.perf_counter() - t0
+        with seconds.phase("test"):
+            test_reward, test_steps = test(greedy, fabric, cfg, log_dir, device_env=engine is not None)
     if logger is not None:
         logger.close()
     train_steps = [p.static.step for p in programs if p.static is not None]

@@ -22,7 +22,6 @@ entrypoint it refuses ``fabric.devices=1`` (``cli.check_configs``).
 from __future__ import annotations
 
 import os
-import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -49,13 +48,13 @@ from sheeprl_tpu_torch.config.instantiate import instantiate
 from sheeprl_tpu_torch.data.staging import make_replay_staging
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.vector import make_eval_env
-from sheeprl_tpu_torch.obs.perf import log_sps_metrics
+from sheeprl_tpu_torch.obs.perf import PhaseSeconds, log_sps_metrics, register_step_cost
+from sheeprl_tpu_torch.obs.spans import span
 from sheeprl_tpu_torch.plane import SlabSpec, build_plane, burst_plan, plane_env_split, version_after
 from sheeprl_tpu_torch.replay import ReplayPlane, make_replay_buffer, replay_config
 from sheeprl_tpu_torch.utils.logger import create_tensorboard_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric
 from sheeprl_tpu_torch.utils.registry import register_algorithm
-from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import save_configs
 
 __all__ = ["add_player_seconds", "host_params", "learner_result", "main", "probe_spaces", "read_sac_resume"]
@@ -127,10 +126,12 @@ def learner_result(plane, num_players: int, counters: Dict[str, int], seconds: D
                    **extra: Any) -> Dict[str, Any]:
     """The decoupled learners' result: their counters, host seconds by
     phase, and the plane's players, slabs, restarts, last published version
-    and (process players) each player's report at its exit."""
+    and (process players) each player's report at its exit and, with the
+    telemetry on, the watchdog beats each one forwarded."""
     return {**counters, **extra, "seconds": seconds,
             "plane": {"players": num_players, "slabs": plane.slabs, "player_restarts": plane.player_restarts,
-                      "policy_version": plane.published_version, "exits": dict(getattr(plane, "exits", {}))}}
+                      "policy_version": plane.published_version, "exits": dict(getattr(plane, "exits", {})),
+                      "watchdog_beats": dict(getattr(plane, "watchdog_beats", {}))}}
 
 
 @register_algorithm(decoupled=True)
@@ -203,8 +204,8 @@ def main(fabric, cfg) -> Dict[str, Any]:
     spec = SlabSpec.from_arrays(sac_slab_example(act_burst, envs_per_player, obs_dim, act_dim,
                                                  not cfg.buffer.sample_next_obs))
 
-    seconds = {"plane_wait": 0.0, "ingest": 0.0, "sample_and_train": 0.0, "publish": 0.0, "checkpoint": 0.0,
-               "test": 0.0, **dict.fromkeys(PLAYER_PHASES, 0.0)}
+    seconds = PhaseSeconds("plane_wait", "ingest", "sample_and_train", "publish", "checkpoint", "test",
+                           *PLAYER_PHASES)
     counters = {"updates": 0, "player_steps": 0, "random_steps": 0, "gradient_steps": 0, "train_bursts": 0,
                 "ema_steps": 0}
     episode_returns: List[float] = []
@@ -220,49 +221,50 @@ def main(fabric, cfg) -> Dict[str, Any]:
         while update <= num_updates:
             n_act, random_phase = burst_plan(update, act_burst, learning_starts, num_updates)
             first, last = update, update + n_act - 1
-            t0 = time.perf_counter()
-            with timer("Time/plane_wait_time", SumMetric(sync_on_compute=False)):
+            with seconds.phase("plane_wait"), span("Time/plane_wait_time", SumMetric(), phase="plane_wait"):
                 handles = [plane.recv(p, update) for p in range(plane.n_players)]
-            t1 = time.perf_counter()
-            seconds["plane_wait"] += t1 - t0
             add_player_seconds(seconds, handles)
-            if replay_plane is not None:
-                ep_stats = replay_plane.ingest(handles, n_act)
-            else:
-                if len(handles) == 1:
-                    rows = {k: v[:n_act] for k, v in handles[0].data.items()}
+            with seconds.phase("ingest"):
+                if replay_plane is not None:
+                    ep_stats = replay_plane.ingest(handles, n_act)
                 else:
-                    # the env axis in player order: the canonical seed order
-                    rows = {k: np.concatenate([h.data[k][:n_act] for h in handles], axis=1) for k in handles[0].data}
-                rb.add(rows)
-                ep_stats = [s for h in handles for s in h.ep_stats]
-                for h in handles:
-                    h.release()
-            policy_step += n_envs * n_act
-            counters["updates"] += n_act
-            counters["random_steps" if random_phase else "player_steps"] += n_act
-            for ep_rew, ep_len in ep_stats:
-                episode_returns.append(ep_rew)
-                if cfg.metric.log_level > 0:
-                    if aggregator and not aggregator.disabled:
-                        aggregator.update("Rewards/rew_avg", ep_rew)
-                        aggregator.update("Game/ep_len_avg", ep_len)
-                    fabric.print(f"Rank-0: policy_step={policy_step}, reward={ep_rew}")
-            t2 = time.perf_counter()
-            seconds["ingest"] += t2 - t1
+                    if len(handles) == 1:
+                        rows = {k: v[:n_act] for k, v in handles[0].data.items()}
+                    else:
+                        # the env axis in player order: the canonical seed order
+                        rows = {k: np.concatenate([h.data[k][:n_act] for h in handles], axis=1)
+                                for k in handles[0].data}
+                    rb.add(rows)
+                    ep_stats = [s for h in handles for s in h.ep_stats]
+                    for h in handles:
+                        h.release()
+                policy_step += n_envs * n_act
+                counters["updates"] += n_act
+                counters["random_steps" if random_phase else "player_steps"] += n_act
+                for ep_rew, ep_len in ep_stats:
+                    episode_returns.append(ep_rew)
+                    if cfg.metric.log_level > 0:
+                        if aggregator and not aggregator.disabled:
+                            aggregator.update("Rewards/rew_avg", ep_rew)
+                            aggregator.update("Game/ep_len_avg", ep_len)
+                        fabric.print(f"Rank-0: policy_step={policy_step}, reward={ep_rew}")
 
-            with timer("Time/train_time", SumMetric(sync_on_compute=cfg.metric.sync_on_compute)):
+            calls = program.calls()
+            with seconds.phase("sample_and_train"), span(
+                "Time/train_time", SumMetric(sync_on_compute=cfg.metric.sync_on_compute), phase="train"
+            ):
                 metrics = train_round(staging, first, last, learning_starts, counters)
             if metrics is not None:
                 loss_sum = metrics.clone() if loss_sum is None else loss_sum.add_(metrics)
                 loss_count += 1
                 train_step += world_size
-            t3 = time.perf_counter()
-            seconds["sample_and_train"] += t3 - t2
+                if first > learning_starts:  # a round past the catch-up burst
+                    register_step_cost(program.step, dispatches_per_step=program.calls() - calls,
+                                       world_size=world_size)
             if last >= learning_starts:
                 # the parameter broadcast: also with per_rank_gradient_steps=0, or the players would wait forever
-                plane.publish(version_after(last, first_train_update), host_params(state["actor"]))
-            seconds["publish"] += time.perf_counter() - t3
+                with seconds.phase("publish"):
+                    plane.publish(version_after(last, first_train_update), host_params(state["actor"]))
 
             if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or last == num_updates):
                 if aggregator and not aggregator.disabled:
@@ -279,16 +281,15 @@ def main(fabric, cfg) -> Dict[str, Any]:
                 last_log, last_train = policy_step, train_step
 
             if should_checkpoint(cfg, policy_step, last_checkpoint, last, num_updates):
-                t0 = time.perf_counter()
-                last_checkpoint = policy_step
-                agent_tree, opt_states = agent_state_dict(state, _MODULES)
-                ckpt_state = {"agent": agent_tree, "opt_states": opt_states, "update": last * world_size,
-                              "batch_size": cfg.per_rank_batch_size * world_size, "last_log": last_log,
-                              "last_checkpoint": last_checkpoint}
-                checkpoint_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_{fabric.global_rank}")
-                fabric.call("on_checkpoint_coupled", ckpt_path=checkpoint_path, state=ckpt_state,
-                            replay_buffer=rb if cfg.buffer.get("checkpoint", False) else None)
-                seconds["checkpoint"] += time.perf_counter() - t0
+                with seconds.phase("checkpoint"), span("Time/checkpoint_time", phase="checkpoint"):
+                    last_checkpoint = policy_step
+                    agent_tree, opt_states = agent_state_dict(state, _MODULES)
+                    ckpt_state = {"agent": agent_tree, "opt_states": opt_states, "update": last * world_size,
+                                  "batch_size": cfg.per_rank_batch_size * world_size, "last_log": last_log,
+                                  "last_checkpoint": last_checkpoint}
+                    checkpoint_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_{fabric.global_rank}")
+                    fabric.call("on_checkpoint_coupled", ckpt_path=checkpoint_path, state=ckpt_state,
+                                replay_buffer=rb if cfg.buffer.get("checkpoint", False) else None)
                 if preemption_requested():
                     break  # the final checkpoint is written; the drain below joins the players
             update = last + 1
@@ -298,9 +299,8 @@ def main(fabric, cfg) -> Dict[str, Any]:
 
     test_reward, test_steps = None, 0
     if fabric.is_global_zero and cfg.algo.get("run_test", True) and not preemption_requested():
-        t0 = time.perf_counter()
-        test_reward, test_steps = test(sac_greedy(state, cfg), fabric, cfg, log_dir)
-        seconds["test"] = time.perf_counter() - t0
+        with seconds.phase("test"):
+            test_reward, test_steps = test(sac_greedy(state, cfg), fabric, cfg, log_dir)
     if logger is not None:
         logger.close()
     return learner_result(

@@ -50,6 +50,7 @@ from sheeprl_tpu_torch.ckpt.preemption import (
 )
 from sheeprl_tpu_torch.ckpt.saver import AsyncSaver
 from sheeprl_tpu_torch.ckpt.writer import OLD_SUFFIX, TMP_SUFFIX, write_checkpoint
+from sheeprl_tpu_torch.obs.counters import add_ckpt_blocked_ms
 
 __all__ = [
     "FRAMEWORK",
@@ -134,7 +135,9 @@ class CheckpointManager:
             label=os.path.basename(ckpt_path),
             sync=(not self.async_save) if sync is None else sync,
         )
-        self.blocked_ms += (time.perf_counter() - t0) * 1000.0
+        blocked_ms = (time.perf_counter() - t0) * 1000.0
+        self.blocked_ms += blocked_ms
+        add_ckpt_blocked_ms(blocked_ms)
 
     @property
     def stats(self) -> Dict[str, Any]:

@@ -23,6 +23,8 @@ import time
 import warnings
 from typing import Callable, Optional
 
+from sheeprl_tpu_torch.obs.counters import add_ckpt_write
+
 
 __all__ = ["AsyncSaver"]
 
@@ -39,9 +41,11 @@ class AsyncSaver:
         self.stats = {"writes": 0, "failed": 0, "bytes": 0, "write_ms": 0.0}
 
     def _account(self, t0: float, nbytes: int, failed: bool = False) -> None:
+        ms = (time.perf_counter() - t0) * 1000.0
         self.stats["writes" if not failed else "failed"] += 1
         self.stats["bytes"] += int(nbytes)
-        self.stats["write_ms"] += (time.perf_counter() - t0) * 1000.0
+        self.stats["write_ms"] += ms
+        add_ckpt_write(ms, nbytes, failed=failed)
 
     # -- internals ----------------------------------------------------------
 

@@ -34,7 +34,7 @@ from sheeprl_tpu_torch.ckpt.manifest import (
     write_manifest,
 )
 
-__all__ = ["write_checkpoint", "TMP_SUFFIX", "OLD_SUFFIX"]
+__all__ = ["commit_checkpoint", "stage_checkpoint", "write_checkpoint", "TMP_SUFFIX", "OLD_SUFFIX"]
 
 TMP_SUFFIX = ".tmp"
 #: a same-step overwrite parks the previous final dir here for the instant
@@ -157,6 +157,29 @@ def write_checkpoint(
     names the writer of the state's layout (``"torch"`` for the port); it
     is written only when given, so a JAX-written manifest has no such field.
     """
+    nbytes = stage_checkpoint(final_dir, state, rb_state, step=step, rank=rank, world_size=world_size, algo=algo,
+                              config_hash=config_hash, fsync=fsync, sharding=sharding, framework=framework)
+    commit_checkpoint(final_dir, fsync=fsync)
+    return nbytes
+
+
+def stage_checkpoint(
+    final_dir: str,
+    state: Optional[Dict[str, Any]],
+    rb_state: Any = None,
+    *,
+    step: Optional[int] = None,
+    rank: int = 0,
+    world_size: int = 1,
+    algo: Optional[str] = None,
+    config_hash: Optional[str] = None,
+    fsync: bool = True,
+    sharding: Optional[Dict[str, Any]] = None,
+    framework: Optional[str] = None,
+) -> int:
+    """The first half of :func:`write_checkpoint`: every file of the
+    checkpoint in ``<final_dir>.tmp/``, fsynced, the manifest last; returns
+    the bytes written. Nothing is final until :func:`commit_checkpoint`."""
     final_dir = os.path.abspath(final_dir)
     tmp_dir = final_dir + TMP_SUFFIX
     if os.path.isdir(tmp_dir):
@@ -191,7 +214,15 @@ def write_checkpoint(
     write_manifest(tmp_dir, manifest, fsync=fsync)
     if fsync:
         _fsync_path(tmp_dir)
+    return sum(files.values())
 
+
+def commit_checkpoint(final_dir: str, fsync: bool = True) -> None:
+    """The second half of :func:`write_checkpoint`: the staged
+    ``<final_dir>.tmp/`` renamed to ``final_dir`` (an existing one parked
+    as ``.old`` for the instant between the renames), the parent fsynced."""
+    final_dir = os.path.abspath(final_dir)
+    tmp_dir = final_dir + TMP_SUFFIX
     old_dir = final_dir + OLD_SUFFIX
     if os.path.isdir(final_dir):
         # same-step overwrite (a resumed run re-writing its save_last step):
@@ -205,4 +236,3 @@ def write_checkpoint(
     if fsync:
         _fsync_path(os.path.dirname(final_dir) or ".")
     shutil.rmtree(old_dir, ignore_errors=True)
-    return sum(files.values())

@@ -35,6 +35,7 @@ from sheeprl_tpu_torch.utils.utils import print_config
 
 __all__ = [
     "check_configs",
+    "check_telemetry_options",
     "eval_algorithm",
     "evaluation",
     "load_exploration_cfg",
@@ -241,16 +242,48 @@ def load_exploration_cfg(cfg) -> dotdict:
     return exploration_cfg
 
 
+def check_telemetry_options(cfg) -> None:
+    """Raise for the observability options whose layers the port does not
+    have yet, the same keys for every entrypoint: the profiler
+    (``metric.profiler``, ``metric.telemetry.profile.every_n_steps``,
+    ``metric.telemetry.flight.profiler_capture_s``; ROADMAP queue A item
+    6h-b) and, with telemetry on, the learning-health plane
+    (``metric.telemetry.learn.enabled``; 6h-c)."""
+    metric = cfg.get("metric", None) or {}
+    if metric.get("profiler", False):
+        raise NotImplementedError("metric.profiler: trace capture is ROADMAP queue A item 6h-b")
+    telemetry = metric.get("telemetry", None) or {}
+    if float((telemetry.get("profile", None) or {}).get("every_n_steps", 0) or 0) > 0:
+        raise NotImplementedError(
+            "metric.telemetry.profile.every_n_steps>0: in-run device profiling is ROADMAP queue A item 6h-b"
+        )
+    if float((telemetry.get("flight", None) or {}).get("profiler_capture_s", 0) or 0) > 0:
+        raise NotImplementedError(
+            "metric.telemetry.flight.profiler_capture_s>0: the flight recorder's profiler window is ROADMAP queue A "
+            "item 6h-b"
+        )
+    if telemetry.get("enabled", False) and (telemetry.get("learn", None) or {}).get("enabled", False):
+        raise NotImplementedError(
+            "metric.telemetry.learn.enabled=True: the learn probes and the divergence sentinel are ROADMAP queue A "
+            "item 6h-c; run the telemetry with metric.telemetry.learn.enabled=False"
+        )
+
+
 def run_algorithm(cfg) -> Any:
     """Registry lookup → Fabric → entrypoint (a P2E finetuning entrypoint also
-    gets its exploration run's config, ``load_exploration_cfg``); the
-    checkpoint subsystem is set up before and drained after; the metric aggregator's and the
-    timer's on/off switches follow ``metric.log_level`` for the run and are
-    put back after it. Returns the entrypoint's result, a dict result with
-    the run's checkpoint stats (bytes, write and blocked time) added as
+    gets its exploration run's config, ``load_exploration_cfg``); the run
+    telemetry (``metric.telemetry``, :mod:`sheeprl_tpu_torch.obs`) and then
+    the checkpoint subsystem are set up before and, in the ``finally``, the
+    checkpoint subsystem drained and then the telemetry finalized (a crashed
+    run's ``telemetry.json`` records the exception); the metric aggregator's
+    and the timer's on/off switches follow ``metric.log_level`` for the run
+    and are put back after it. Returns the entrypoint's result, a dict result
+    with the run's checkpoint stats (bytes, write and blocked time) added as
     ``checkpoint_stats``."""
     from sheeprl_tpu_torch.ckpt import setup_checkpoint, teardown_checkpoint
+    from sheeprl_tpu_torch.obs.telemetry import finalize_telemetry, setup_telemetry
 
+    check_telemetry_options(cfg)
     entry = find_algorithm(cfg.algo.name)
     module = importlib.import_module(entry["module"])
     entrypoint = getattr(module, entry["entrypoint"])
@@ -264,11 +297,14 @@ def run_algorithm(cfg) -> Any:
         cfg.metric.get("aggregator", {}).get("metrics", {})
     ) == 0
     timer.disabled = cfg.metric.log_level == 0 or cfg.metric.get("disable_timer", False)
+    setup_telemetry(cfg, device=fabric.device, rank=fabric.global_rank)
     setup_checkpoint(cfg)
     try:
         result = fabric.launch(entrypoint, cfg, **kwargs)
     finally:
         stats = teardown_checkpoint()
+        # inside a finally, exc_info() is the exception in flight (if any)
+        finalize_telemetry(error=sys.exc_info()[1])
         MetricAggregator.disabled, timer.disabled = switches
     if isinstance(result, dict):
         result["checkpoint_stats"] = stats

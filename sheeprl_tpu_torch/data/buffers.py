@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Type, Union
 
 import numpy as np
 
+from sheeprl_tpu_torch.obs.dist import staleness as _staleness
 from sheeprl_tpu_torch.utils.memmap import MemmapArray, validate_memmap_mode
 
 __all__ = ["EnvIndependentReplayBuffer", "EpisodeBuffer", "ReplayBuffer", "SequentialReplayBuffer", "end_biased_start"]
@@ -70,6 +71,8 @@ class ReplayBuffer:
             os.makedirs(self._memmap_dir, exist_ok=True)
         self._memmap_mode = memmap_mode
         self._buf: Optional[Arrays] = None
+        #: each time row's add time (``time.time()``), kept while the run telemetry tracks staleness
+        self._add_ts: Optional[np.ndarray] = None
         self._pos = 0
         self._full = False
         self._rng: np.random.Generator = np.random.default_rng()
@@ -136,9 +139,19 @@ class ReplayBuffer:
             idxes = np.arange(start, start + write_len) % self._buffer_size
             for k, v in data.items():
                 self._buf[k][idxes] = v[-write_len:]
+            self._stamp(idxes)
             if self._pos + data_len >= self._buffer_size:
                 self._full = True
             self._pos = next_pos
+
+    def _stamp(self, idxes: np.ndarray) -> None:
+        """The staleness lineage's add stamp of the rows at ``idxes`` (a
+        slab's commit time on the plane; nothing with the telemetry off)."""
+        ts = _staleness.take_add_stamp()
+        if ts is not None:
+            if self._add_ts is None:
+                self._add_ts = np.zeros(self._buffer_size, np.float64)
+            self._add_ts[idxes] = ts
 
     def advance_external(self, example_rows: Dict[str, np.ndarray], steps: int) -> None:
         """Advance the ring counters for ``steps`` rows written outside this
@@ -150,6 +163,8 @@ class ReplayBuffer:
         with self._write_lock or nullcontext():
             if self._buf is None:
                 self._allocate({k: np.asarray(v)[None] for k, v in example_rows.items()})
+            write_len = min(steps, self._buffer_size)
+            self._stamp(np.arange(self._pos + steps - write_len, self._pos + steps) % self._buffer_size)
             if self._pos + steps >= self._buffer_size:
                 self._full = True
             self._pos = (self._pos + steps) % self._buffer_size
@@ -195,6 +210,7 @@ class ReplayBuffer:
         else:
             envs_arr = np.asarray(envs, dtype=np.int64)
             e_idx = envs_arr[rng.integers(0, len(envs_arr), size=total)]
+        self.observe_sample_ages(t_idx)
         return t_idx, e_idx
 
     def valid_time_indices(self, sample_next_obs: bool = False) -> np.ndarray:
@@ -214,8 +230,17 @@ class ReplayBuffer:
         return ordered
 
     def observe_sample_ages(self, t_idx: np.ndarray) -> None:
-        """The JAX buffer feeds the drawn rows' ages to its staleness
-        histogram here; the port's telemetry is ROADMAP queue A item 6h."""
+        """The staleness chokepoint: the drawn time rows' ages into the run's
+        ``sample_age_s`` histogram (every plan, this buffer's and the replay
+        strategies', comes through here). Rows added before the tracker
+        existed (stamp 0) are left out."""
+        if self._add_ts is not None and _staleness.installed() is not None:
+            import time
+
+            stamps = self._add_ts[np.asarray(t_idx, dtype=np.int64).reshape(-1)]
+            stamps = stamps[stamps > 0.0]
+            if stamps.size:
+                _staleness.observe_sample_ages(time.time() - stamps)
 
     def gather_plan(self, t_idx: np.ndarray, e_idx: np.ndarray, sample_next_obs: bool = False,
                     clone: bool = False) -> Dict[str, np.ndarray]:
@@ -292,13 +317,16 @@ class SequentialReplayBuffer(ReplayBuffer):
                 raise ValueError(
                     f"Cannot sample a sequence of length {sequence_length} from a buffer of size {self._buffer_size}"
                 )
-            return (self._pos + self._rng.integers(0, max_offset + 1, size=total)) % self._buffer_size
-        max_start = self._pos - effective_len
-        if max_start < 0:
-            raise ValueError(
-                f"Cannot sample a sequence of length {sequence_length}: the buffer only contains {self._pos} steps"
-            )
-        return self._rng.integers(0, max_start + 1, size=total)
+            starts = (self._pos + self._rng.integers(0, max_offset + 1, size=total)) % self._buffer_size
+        else:
+            max_start = self._pos - effective_len
+            if max_start < 0:
+                raise ValueError(
+                    f"Cannot sample a sequence of length {sequence_length}: the buffer only contains {self._pos} steps"
+                )
+            starts = self._rng.integers(0, max_start + 1, size=total)
+        self.observe_sample_ages(starts)
+        return starts
 
     def sample(
         self,

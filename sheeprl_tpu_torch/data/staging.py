@@ -24,6 +24,7 @@ port stages from the host (pinned copies overlapping the step) instead.
 from __future__ import annotations
 
 import threading
+import time
 import warnings
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
@@ -32,6 +33,8 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, EpisodeBuffer
+from sheeprl_tpu_torch.obs.counters import add_prefetch, add_ring_gather, staged_device_put
+from sheeprl_tpu_torch.obs.dist.staleness import note_queue_depth
 
 __all__ = ["HostStaging", "RingStaging", "make_replay_staging"]
 
@@ -67,12 +70,11 @@ class HostStaging:
             else:
                 np_batch = self.rb.sample(batch_size, sample_next_obs=sample_next_obs, clone=clone, n_samples=n_samples)
         pin = self.device.type == "cuda"
-        out = {}
-        for k, v in np_batch.items():
-            host = torch.from_numpy(np.ascontiguousarray(v))
-            if pin:
-                host = host.pin_memory()
-            out[k] = host.to(self.device, non_blocking=pin)
+        hosts = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in np_batch.items()}
+        if pin:
+            hosts = {k: v.pin_memory() for k, v in hosts.items()}
+        # the copy in the staging span, its bytes counted (obs/counters.py)
+        out = staged_device_put(hosts, self.device, non_blocking=pin)
         copied = None
         if pin:
             copied = torch.cuda.Event()
@@ -94,17 +96,21 @@ class HostStaging:
         fut = self._pending.pop(spec, None)
         produced = None
         if fut is not None:
+            t0 = time.perf_counter()
             try:
                 produced = fut.result()
                 self.prefetch_hits += 1
+                add_prefetch(hit=True, wait_ms=(time.perf_counter() - t0) * 1000.0)
             except Exception:
                 produced = None  # a genuine sampling error re-raises below, on this thread
         if produced is None:
             self.prefetch_misses += 1
+            add_prefetch(hit=False)
             produced = self._produce(spec, clone=True)
         self._spec_counts[spec] = self._spec_counts.get(spec, 0) + 1
         if self._spec_counts[spec] >= 2:
             self._pending[spec] = self._pool.submit(self._produce, spec, True)
+        note_queue_depth("staging_prefetch", len(self._pending))
         return self._consume(produced)
 
     def _consume(self, produced) -> Dict[str, torch.Tensor]:
@@ -157,6 +163,7 @@ class RingStaging:
 
     def sample_device(self, batch_size: int, *, n_samples: int = 1, sample_next_obs: bool = False,
                       **_: Any) -> Dict[str, torch.Tensor]:
+        add_ring_gather()
         return self.rb.sample_device(int(batch_size), sample_next_obs=bool(sample_next_obs), n_samples=int(n_samples))
 
     def close(self) -> None:

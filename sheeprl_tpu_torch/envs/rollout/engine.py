@@ -33,6 +33,7 @@ import torch
 
 from sheeprl_tpu_torch.data.device_ring import DeviceRingTransitions, scatter_append
 from sheeprl_tpu_torch.envs.rollout.device_envs import DeviceEnv
+from sheeprl_tpu_torch.obs.counters import add_rollout_burst
 from sheeprl_tpu_torch.train.graphs import CapturedStep
 
 __all__ = ["RolloutEngine"]
@@ -201,6 +202,7 @@ class RolloutEngine:
             self.ring.advance(length, self.example_rows())
         self.bursts += 1
         self.env_steps += int(length) * self.n_envs
+        add_rollout_burst(act_dispatches=1, jax_steps=int(length) * self.n_envs)
         return out
 
     @property

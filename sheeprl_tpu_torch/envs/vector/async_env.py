@@ -35,13 +35,19 @@ Faults:
   ``close()`` asks them to exit and waits a short budget (2 s under a
   preemption, 10 s otherwise) before killing them.
 
-The wait for the workers' replies is the ``Time/env_wait_time`` timer.
+The wait for the workers' replies is the ``Time/env_wait_time`` span. With
+the run telemetry on, the pool counts its async steps, restarts and degrade
+(``obs/counters.py``), fires the flight recorder's ``env_worker_restart``
+and ``env_degrade_sync``, and at its close publishes its per-worker steps
+and restarts as a telemetry source (``envpool_<pid>``; inside a plane player
+it rides in the player's sidecar).
 """
 
 from __future__ import annotations
 
 import atexit
 import multiprocessing
+import os
 import time
 import warnings
 import weakref
@@ -53,8 +59,9 @@ import numpy as np
 from sheeprl_tpu_torch.envs.spaces import batch_space
 from sheeprl_tpu_torch.envs.vector.shmem import N_SLOTS, SharedStepSlabs
 from sheeprl_tpu_torch.envs.vector.sync_env import add_final, add_info, expand_seeds
+from sheeprl_tpu_torch.obs import counters as _counters
+from sheeprl_tpu_torch.obs.spans import span
 from sheeprl_tpu_torch.utils.metric import SumMetric
-from sheeprl_tpu_torch.utils.timer import timer
 
 __all__ = ["AsyncSharedMemVectorEnv"]
 
@@ -84,6 +91,15 @@ def _write(views, slot: int, index: int, obs, reward: float, terminated: bool, t
     rew_view[slot, index] = reward
     term_view[slot, index] = terminated
     trunc_view[slot, index] = truncated
+
+
+def _flight(reason: str, detail: Dict[str, Any]) -> None:
+    """Fire the run's flight recorder (a no-op with the telemetry off)."""
+    from sheeprl_tpu_torch.obs.telemetry import get_telemetry
+
+    telemetry = get_telemetry()
+    if telemetry is not None and telemetry.flight is not None:
+        telemetry.flight.trigger(reason, detail)
 
 
 def _worker(index: int, thunk: Callable, conn, slabs: SharedStepSlabs) -> None:
@@ -190,6 +206,9 @@ class AsyncSharedMemVectorEnv:
         #: lifetime restarts, and whether the pool degraded
         self.worker_restarts = 0
         self.degraded_to_sync = False
+        #: the pool's steps (each steps every env) and its name as a telemetry source
+        self.steps = 0
+        self.pool_name = f"envpool_{os.getpid()}"
         self._sync_envs: Optional[List[Any]] = None
         self._closed = False
         self._procs: List[Optional[Any]] = [None] * self.num_envs
@@ -256,8 +275,12 @@ class AsyncSharedMemVectorEnv:
                 self._restart_times.popleft()
         self.worker_restarts += 1
         self._restart_counts[index] += 1
+        _counters.add_env_worker_restart()
         warnings.warn(f"async env worker {index} {reason}; restart {len(self._restart_times)}/"
                       f"{self.max_worker_restarts} in window (an auto-reset replaces the lost step)")
+        _flight("env_worker_restart", {"worker": index, "reason": reason, "restarts": self.worker_restarts,
+                                       "restarts_in_window": len(self._restart_times),
+                                       "max_worker_restarts": self.max_worker_restarts})
 
     def _restart_budget_exhausted(self) -> bool:
         used = len(self._restart_times) if self.restart_window_s > 0 else self.worker_restarts
@@ -287,6 +310,8 @@ class AsyncSharedMemVectorEnv:
         for i in range(self.num_envs):
             self._kill_worker(i)
         self.degraded_to_sync = True
+        _counters.add_env_degraded()
+        _flight("env_degrade_sync", {"reason": reason, "restarts": self.worker_restarts})
         self._sync_envs = [fn() for fn in self.env_fns]
         for i, env in enumerate(self._sync_envs):
             # a new restart generation for every env: its first seed would replay trajectories already stored
@@ -340,6 +365,8 @@ class AsyncSharedMemVectorEnv:
             for i in range(self.num_envs):
                 self._conns[i].send(("step", {"action": np.asarray(actions[i]), "slot": slot}))
             results = self._collect(slot)
+            _counters.add_env_async_steps(self.num_envs)
+        self.steps += 1
         infos: Dict[str, Any] = {}
         for i in range(self.num_envs):
             info, final_obs, final_info = results[i]
@@ -356,7 +383,7 @@ class AsyncSharedMemVectorEnv:
         deadline = time.perf_counter() + self.worker_timeout_s if self.worker_timeout_s > 0 else None
         results: Dict[int, Tuple] = {}
         failed: List[Tuple[int, str]] = []
-        with timer("Time/env_wait_time", SumMetric(sync_on_compute=False)):
+        with span("Time/env_wait_time", SumMetric(), phase="env_wait"):
             for i in range(self.num_envs):
                 conn = self._conns[i]
                 remaining = None if deadline is None else max(deadline - time.perf_counter(), 0.0)
@@ -403,6 +430,7 @@ class AsyncSharedMemVectorEnv:
         if self._closed:
             return
         self._closed = True
+        self._publish_pool_source()
         if self._sync_envs is not None:
             for env in self._sync_envs:
                 try:
@@ -427,6 +455,31 @@ class AsyncSharedMemVectorEnv:
                 proc.join(timeout=remaining)
         for i in range(self.num_envs):
             self._kill_worker(i)
+
+    def _publish_pool_source(self) -> None:
+        """This pool's per-worker steps and restarts into the process's
+        telemetry sources (``obs/dist/aggregate``), and a sidecar when the
+        run telemetry has a run directory; nothing with the telemetry off."""
+        from sheeprl_tpu_torch.obs.telemetry import get_telemetry
+
+        telemetry = get_telemetry()
+        if telemetry is None and _counters.installed() is None:
+            return
+        from sheeprl_tpu_torch.obs.dist import aggregate as _aggregate
+
+        snap = {
+            "num_envs": self.num_envs,
+            "worker_restarts": self.worker_restarts,
+            "degraded_to_sync": bool(self.degraded_to_sync),
+            "workers": {str(i): {"steps": self.steps, "restarts": int(self._restart_counts[i])}
+                        for i in range(self.num_envs)},
+        }
+        try:
+            _aggregate.publish_source(self.pool_name, snap)
+            if telemetry is not None and telemetry.run_dir:
+                _aggregate.write_sidecar(os.path.join(telemetry.run_dir, "telemetry"), self.pool_name, snap)
+        except Exception:
+            pass  # telemetry must never break the env's teardown
 
     def __del__(self):  # pragma: no cover - interpreter teardown
         try:

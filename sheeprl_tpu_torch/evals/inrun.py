@@ -171,6 +171,7 @@ class InRunEval:
         import torch
 
         from sheeprl_tpu_torch.ckpt.manager import host_snapshot
+        from sheeprl_tpu_torch.obs.counters import add_inrun_eval_publishes
 
         if not self.due(policy_step):
             return False
@@ -179,6 +180,7 @@ class InRunEval:
         self._publisher.publish(int(policy_step), host_snapshot(state))
         self._last_version = int(policy_step)
         self.publishes += 1
+        add_inrun_eval_publishes()
         return True
 
     def close(self, timeout: float = 60.0) -> None:

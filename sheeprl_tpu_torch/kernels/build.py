@@ -75,6 +75,9 @@ def build_library(name: str) -> "tuple[Path, str]":
     lines; empty when the library was already built)."""
     out = _library_path(name)
     if out.exists():
+        from sheeprl_tpu_torch.obs.counters import add_compile_cache_hit
+
+        add_compile_cache_hit()
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

@@ -36,6 +36,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 
 from sheeprl_tpu_torch.kernels import reference
+from sheeprl_tpu_torch.obs.perf import add_kernel_flops
 
 __all__ = [
     "LaunchCounter",
@@ -237,6 +238,7 @@ def hafner_cell_cuda(
         )
     _raise_on(lib, err, f"hafner_cell{' bf16' if bf16 else ''} (B={B}, H={H}, X={X})")
     hafner_cell_launches.add("bf16" if bf16 else "f32")
+    add_kernel_flops(2 * B * (H + X) * 3 * H)
     return (out, z) if save_z else out
 
 
@@ -403,6 +405,7 @@ def hafner_sequence_cuda(
         )
     _raise_on(lib, err, f"hafner_sequence {variant} (T={T}, B={B}, H={H}, X={X})")
     hafner_sequence_launches.add(variant)
+    add_kernel_flops(2 * T * B * (H + X) * 3 * H)
     return (hs, z) if save_z else hs
 
 

@@ -29,6 +29,7 @@ class BurstPayload:
     policy_version: int
     ep_stats: List[Tuple[float, float]] = field(default_factory=list)
     seconds: Dict[str, float] = field(default_factory=dict)
+    commit_ts: float = 0.0
 
     def release(self) -> None:  # the slab handle's surface
         pass
@@ -55,6 +56,10 @@ class LocalBurstQueue:
             return self._q.get(timeout=timeout)
         except _queue.Empty:
             return None
+
+    def depth(self) -> int:
+        """Committed bursts waiting for the learner."""
+        return self._q.qsize()
 
     def drain(self) -> None:
         """Unblock a player stuck on a full queue at shutdown."""

@@ -21,8 +21,10 @@ import os
 import queue
 import re
 import shutil
+import signal
 import threading
 import time
+import traceback
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
@@ -53,20 +55,36 @@ def _list_versions(root: str) -> Iterator[int]:
 class PolicyPublisher:
     """The trainer's side of the channel.
 
-    ``async_publish=True`` moves the write, fsync, rename and clean-up onto
-    one writer thread behind a bounded FIFO queue: ``publish`` checks the
-    version, enqueues and returns, and every version still lands in order.
-    A failure on the writer thread is raised by the next ``publish``.
+    ``async_publish=True`` moves the write, fsync, rename and clean-up off
+    the caller behind a bounded FIFO queue of 8: ``publish`` checks the
+    version, enqueues (blocking while 8 versions wait) and returns, and
+    every version still lands, in order. A failed write is raised by a later
+    ``publish``. The writer is a thread, or with ``mp_context``
+    ``WRITER_PROCESSES`` processes of that multiprocessing context: a write
+    is a few ms of Python and filesystem calls (the npz, the manifest),
+    which a thread takes from the trainer's own under the GIL, at every
+    version where the actor–learner plane publishes one an update. The
+    processes stage versions side by side (``ckpt.writer.stage_checkpoint``)
+    and commit them (the rename, the clean-up of old versions) one at a
+    time in the order they were published.
     """
 
-    def __init__(self, root: str, keep_policies: int = 4, algo: Optional[str] = None, async_publish: bool = False):
+    #: writer processes of an ``mp_context`` publisher
+    WRITER_PROCESSES = 2
+
+    def __init__(self, root: str, keep_policies: int = 4, algo: Optional[str] = None, async_publish: bool = False,
+                 mp_context=None):
         self.root = os.path.abspath(root)
         self.keep = max(int(keep_policies), 2)
         self.algo = algo
         self._last: Optional[int] = None
         self._async = bool(async_publish)
-        self._queue: Optional[queue.Queue] = None
+        self._mp = mp_context
+        self._queue: Any = None
         self._thread: Optional[threading.Thread] = None
+        self._procs: list = []
+        self._errors: Any = None
+        self._seq = 0
         self._error: Optional[BaseException] = None
         os.makedirs(self.root, exist_ok=True)
 
@@ -77,15 +95,15 @@ class PolicyPublisher:
         version = int(version)
         if self._last is not None and version <= self._last:
             raise ValueError(f"policy versions must be strictly monotone: got {version} after {self._last}")
-        if self._error is not None:
-            err, self._error = self._error, None
-            raise RuntimeError("policy publication failed on the writer thread") from err
+        self._raise_writer_error()
         if self._async:
             if self._queue is None:
-                self._queue = queue.Queue(maxsize=8)
-                self._thread = threading.Thread(target=self._worker, name="policy-publisher", daemon=True)
-                self._thread.start()
-            self._queue.put((version, params))
+                self._start_writer()
+            if self._procs:
+                self._put_checked((self._seq, version, params))
+                self._seq += 1
+            else:
+                self._queue.put((version, params))
         else:
             self._write(version, params)
         self._last = version
@@ -102,8 +120,49 @@ class PolicyPublisher:
             algo=self.algo,
             framework=FRAMEWORK,
         )
+        self._collect_old()
+
+    def _collect_old(self) -> None:
         for v in sorted(_list_versions(self.root))[: -self.keep]:
             shutil.rmtree(policy_path(self.root, v), ignore_errors=True)
+
+    def _start_writer(self) -> None:
+        if self._mp is None:
+            self._queue = queue.Queue(maxsize=8)
+            self._thread = threading.Thread(target=self._worker, name="policy-publisher", daemon=True)
+            self._thread.start()
+            return
+        self._queue, self._errors = self._mp.Queue(maxsize=8), self._mp.Queue()
+        # held here for the writers' lives: the children rebuild them from their names after start() returns
+        self._turn, self._cond = self._mp.Value("q", 0, lock=False), self._mp.Condition()
+        for k in range(self.WRITER_PROCESSES):
+            proc = self._mp.Process(target=_writer_main, name=f"policy-publisher-{k}", daemon=True,
+                                    args=(self.root, self.keep, self.algo, self._queue, self._errors, self._turn,
+                                          self._cond, os.getpid()))
+            proc.start()
+            self._procs.append(proc)
+
+    def _put_checked(self, item) -> None:
+        """Enqueue for the writer processes, blocking while 8 versions wait;
+        a writer that died raises instead of a wait without end."""
+        while True:
+            try:
+                self._queue.put(item, timeout=0.5)
+                return
+            except queue.Full:
+                dead = [p.name for p in self._procs if not p.is_alive()]
+                if dead:
+                    raise RuntimeError(f"policy writer processes died: {dead}")
+
+    def _raise_writer_error(self) -> None:
+        if self._errors is not None:
+            try:
+                raise RuntimeError(f"policy publication failed in the writer process:\n{self._errors.get_nowait()}")
+            except queue.Empty:
+                pass
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("policy publication failed on the writer thread") from err
 
     def _worker(self) -> None:
         while True:
@@ -116,11 +175,87 @@ class PolicyPublisher:
                 self._error = exc
 
     def close(self, timeout: float = 30.0) -> None:
-        """Flush pending publications and stop the writer thread."""
+        """Flush pending publications and stop the writer."""
         if self._thread is not None:
             self._queue.put(None)
             self._thread.join(timeout=timeout)
             self._thread = None
+        if self._procs:
+            for _ in self._procs:
+                self._queue.put(None)
+            deadline = time.monotonic() + timeout
+            for proc in self._procs:
+                proc.join(timeout=max(deadline - time.monotonic(), 0.5))
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join(timeout=5.0)
+            self._procs = []
+            for q in (self._queue, self._errors):
+                q.cancel_join_thread()
+                q.close()
+
+
+def _writer_main(root: str, keep: int, algo: Optional[str], items, errors, turn, cond, parent_pid: int) -> None:
+    """A writer process: stages each version it takes from ``items``, then
+    waits for its turn (``turn`` holds the sequence number to commit next,
+    guarded by ``cond``) to commit it and collect old versions, until the
+    ``None`` that closes it or until its parent is gone. A failed write is
+    put on ``errors`` and its turn passed on. It ignores SIGTERM and SIGINT:
+    the trainer owns the preemption drain and closes it."""
+    from sheeprl_tpu_torch.ckpt.manager import FRAMEWORK
+    from sheeprl_tpu_torch.ckpt.writer import commit_checkpoint, stage_checkpoint
+
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    publisher = PolicyPublisher(root, keep_policies=keep, algo=algo)
+    # under forkserver the observed parent is the forkserver, which dies with the trainer
+    observed_parent = os.getppid()
+
+    def orphaned() -> bool:
+        return os.getppid() != observed_parent or not _alive(parent_pid)
+
+    while True:
+        try:
+            item = items.get(timeout=1.0)
+        except queue.Empty:
+            if orphaned():
+                return
+            continue
+        if item is None:
+            return
+        seq, version, params = item
+        failure = None
+        try:
+            stage_checkpoint(policy_path(root, version), {"params": params, "version": version}, step=version,
+                             algo=algo, framework=FRAMEWORK)
+        except BaseException:
+            failure = traceback.format_exc(limit=8)
+        with cond:
+            while turn.value != seq:
+                cond.wait(timeout=1.0)
+                if orphaned():
+                    return
+            try:
+                if failure is None:
+                    commit_checkpoint(policy_path(root, version))
+                    publisher._collect_old()
+            except BaseException:
+                failure = traceback.format_exc(limit=8)
+            finally:
+                turn.value = seq + 1
+                cond.notify_all()
+        if failure is not None:
+            errors.put(failure)
+
+
+def _alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
 
 
 class PolicyPoller:

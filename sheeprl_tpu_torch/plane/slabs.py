@@ -20,6 +20,7 @@ from.
 from __future__ import annotations
 
 import queue as _queue
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -70,6 +71,8 @@ class SlabHandle:
     _slot: int
     #: the player's host seconds for this slab by phase (its env steps, acting, its waits)
     seconds: Dict[str, float] = field(default_factory=dict)
+    #: the commit's wall time (``time.time()``), where the rows' sample age starts
+    commit_ts: float = 0.0
 
     def release(self) -> None:
         if self._ring is not None:
@@ -123,18 +126,26 @@ class TrajSlabRing:
                ep_stats: Optional[List[Tuple[float, float]]] = None,
                seconds: Optional[Mapping[str, float]] = None) -> None:
         self._filled.put((int(slot), int(first_update), int(n_valid), int(policy_version), list(ep_stats or []),
-                          dict(seconds or {})))
+                          dict(seconds or {}), time.time()))
 
     # -- the learner's side ---------------------------------------------------
 
     def recv(self, timeout: Optional[float] = None) -> Optional[SlabHandle]:
         """The next committed slab, or None on timeout."""
         try:
-            slot, first_update, n_valid, version, ep_stats, seconds = self._filled.get(timeout=timeout)
+            slot, first_update, n_valid, version, ep_stats, seconds, commit_ts = self._filled.get(timeout=timeout)
         except _queue.Empty:
             return None
         return SlabHandle(data=self.writer_views(slot), first_update=first_update, n_valid=n_valid,
-                          policy_version=version, ep_stats=ep_stats, _ring=self, _slot=slot, seconds=seconds)
+                          policy_version=version, ep_stats=ep_stats, _ring=self, _slot=slot, seconds=seconds,
+                          commit_ts=commit_ts)
+
+    def depth(self) -> Optional[int]:
+        """Committed slabs waiting for the learner (None where the platform cannot count them)."""
+        try:
+            return int(self._filled.qsize())
+        except NotImplementedError:
+            return None
 
     def close(self) -> None:
         """Drop the queues' feeder threads, so that the interpreter's exit never waits on them."""

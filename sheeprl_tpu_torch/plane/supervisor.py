@@ -3,33 +3,84 @@
 
 :class:`ProcessPlane` runs N player processes: a
 :class:`~sheeprl_tpu_torch.plane.slabs.TrajSlabRing` each, the
-:class:`~sheeprl_tpu_torch.plane.publish.SharedPolicyChannel` (the JAX
-package publishes every version as a file the players poll; here a version
-is a copy into shared memory), and an event queue for the players' errors. A player that dies (crash, kill) is started
-again from the latest published version at the burst the learner expects
-next, on a fresh ring, at most ``plane.max_player_restarts`` times a
-player; ``plane.recv_timeout_s`` bounds a wait for one burst.
+:class:`~sheeprl_tpu_torch.plane.publish.SharedPolicyChannel` the players
+read every version from (a copy into shared memory), and an event queue
+for the players' errors, watchdog beats and counter snapshots. Every
+version is also published to ``<log_dir>/policy/`` through an asynchronous
+:class:`~sheeprl_tpu_torch.plane.publish.PolicyPublisher`, as the JAX
+package publishes it (a gateway with ``serve.poll_root`` follows it): its
+writer processes (of the plane's multiprocessing context) take the versions
+in order from a bounded queue, so writers slower than the updates block the
+learner's ``publish``, timed as the ``Time/policy_publish_time`` span. A
+player that dies (crash, kill) is started again from the latest published
+version at the burst the learner expects next, on a fresh ring, at most
+``plane.max_player_restarts`` times a player; ``plane.recv_timeout_s``
+bounds a wait for one burst.
 :class:`LocalPlane` is the same surface over one player thread
 (``plane.num_players=0``). The decoupled learners are written against that
-surface and never branch on the mode. The JAX package's plane telemetry,
-stall watchdog and flight recorder wait for the port's (ROADMAP queue A
-item 6h).
+surface and never branch on the mode.
+
+With the run telemetry on, both planes count the slabs received, the newest
+version and the restarts, feed the staleness lineage (each burst's policy
+lag, the slab queue's depth, the commit stamp of the rows the learner adds
+next), and run the stall watchdog over the learner and every player (a
+process player's beats arrive through the event queue). A process player's
+counter snapshots are folded into the learner's counters as deltas and
+published as the source ``player<k>``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import queue as _queue
 import sys
 import time
 import warnings
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
+from sheeprl_tpu_torch.obs import counters as _counters
+from sheeprl_tpu_torch.obs.dist import aggregate as _aggregate
+from sheeprl_tpu_torch.obs.dist import staleness as _staleness
+from sheeprl_tpu_torch.obs.spans import span
 from sheeprl_tpu_torch.plane.local import LocalBurstQueue, LocalPlayerHandle
-from sheeprl_tpu_torch.plane.publish import LocalPolicyChannel, SharedPolicyChannel
+from sheeprl_tpu_torch.plane.publish import LocalPolicyChannel, PolicyPublisher, SharedPolicyChannel
 from sheeprl_tpu_torch.plane.slabs import SlabSpec, TrajSlabRing
-from sheeprl_tpu_torch.plane.worker import ACTING_THREADS, PlayerContext, player_seed
+from sheeprl_tpu_torch.plane.worker import ACTING_THREADS, PlayerContext, player_role, player_seed
 
-__all__ = ["LocalPlane", "ProcessPlane", "build_plane", "plane_env_split", "resolve_plane_players"]
+__all__ = ["POLICY_DIR", "LocalPlane", "ProcessPlane", "build_plane", "plane_env_split", "resolve_plane_players"]
+
+#: the run directory's policy publications (``<log_dir>/policy/policy_<version>``)
+POLICY_DIR = "policy"
+
+#: a process player's counters folded into the learner's: the deltas of its cumulative snapshots
+_FOLDED_COUNTERS = (
+    "env_steps_async",
+    "env_worker_restarts",
+    "env_degraded_to_sync",
+    "act_dispatches",
+    "rollout_bursts",
+    "env_steps_jax",
+)
+
+
+def _get_telemetry():
+    from sheeprl_tpu_torch.obs.telemetry import get_telemetry
+
+    return get_telemetry()
+
+
+def _observe_burst(plane, policy_version: int, commit_ts: float, depth) -> None:
+    """A received burst: the slab count, its policy lag behind the newest
+    published version, the slab queue's depth, and the commit stamp the
+    learner's next ``rb.add`` carries."""
+    _counters.add_plane_slabs()
+    published = plane.published_version
+    if published is not None and policy_version >= 0:
+        _staleness.observe_policy_lag(max(published - int(policy_version), 0))
+    _staleness.note_queue_depth("plane_slab_queue", depth)
+    if commit_ts:
+        _staleness.stamp_next_add(commit_ts)
 
 
 def resolve_plane_players(cfg) -> int:
@@ -66,15 +117,19 @@ def build_plane(cfg, *, spec: SlabSpec, entry: str, run_player: Callable[[Any], 
     num_players, envs_per_player = plane_env_split(cfg, n_envs)
     threads = torch.get_num_threads()
     torch.set_num_threads(ACTING_THREADS)
+    telemetry = _get_telemetry()
+    watchdog = telemetry.watchdog() if telemetry is not None else None
     if num_players > 0:
         plane: Any = ProcessPlane(cfg, log_dir=log_dir, entry=entry, spec=spec, n_players=num_players,
                                   envs_per_player=envs_per_player, scalars=scalars, start_update=start_update)
     else:
         ctx = PlayerContext(cfg=cfg, player_idx=0, n_envs=n_envs, env_rank=0, start_update=start_update,
                             restart_count=0, log_dir=log_dir, channel=None, writer=None, stop=None,
-                            seed=player_seed(cfg.seed, 0), scalars=scalars)
+                            seed=player_seed(cfg.seed, 0), scalars=scalars, watchdog=watchdog)
         plane = LocalPlane(cfg, spec, lambda: run_player(ctx), name=thread_name)
         ctx.channel, ctx.writer, ctx.stop = plane.channel, plane.writer, plane.stop
+    if watchdog is not None:
+        plane.watch(watchdog, thread_name.replace("player", "learner"))
     plane.restore_threads = threads
     plane.publish(0, initial_params)
     return plane.start()
@@ -99,21 +154,33 @@ class LocalPlane:
         self.slabs = 0
         self.published_version: Optional[int] = None
         self.player_restarts = 0
+        self.watchdog: Any = None
+        self.learner_role = ""
 
     @property
     def stop(self):
         return self._handle.stop
+
+    def watch(self, watchdog, learner_role: str) -> None:
+        """Run the stall watchdog over the learner's waits (and the player's beats)."""
+        _watch(self, watchdog, learner_role)
 
     def start(self) -> "LocalPlane":
         self._handle.start()
         return self
 
     def publish(self, version: int, params: Any) -> None:
-        self.channel.publish(version, params)
+        with span("Time/policy_publish_time", phase="publish"):
+            self.channel.publish(version, params)
         self.published_version = int(version)
+        _counters.note_plane_policy_version(version)
 
     def recv(self, idx: int, expected_first: int):
         """The next burst; raises if the thread died or stayed silent past ``plane.recv_timeout_s``."""
+        with _learner_waits(self):
+            return self._recv(expected_first)
+
+    def _recv(self, expected_first: int):
         deadline = time.monotonic() + self.recv_timeout_s if self.recv_timeout_s > 0 else None
         while True:
             payload = self._queue.recv(timeout=0.5)
@@ -122,6 +189,7 @@ class LocalPlane:
                     raise RuntimeError(f"plane protocol drift: learner expected the burst at update {expected_first}, "
                                        f"player sent {payload.first_update}")
                 self.slabs += 1
+                _observe_burst(self, payload.policy_version, payload.commit_ts, self._queue.depth())
                 return payload
             self._handle.check()
             if not self._handle.alive():
@@ -134,7 +202,31 @@ class LocalPlane:
         self._handle.stop.set()
         self._queue.drain()
         self._handle.join(timeout=timeout)
+        _unwatch(self)
         _restore_threads(self)
+
+
+def _watch(plane, watchdog, learner_role: str) -> None:
+    plane.watchdog, plane.learner_role = watchdog, learner_role
+    watchdog.register(learner_role)
+    watchdog.start()
+
+
+def _unwatch(plane) -> None:
+    """A drained plane's roles are done (a finished run is not a stalled one)."""
+    if plane.watchdog is not None:
+        plane.watchdog.stop()
+        plane.watchdog = None
+
+
+@contextlib.contextmanager
+def _learner_waits(plane) -> Iterator[None]:
+    """The learner's wait for a burst: its watchdog role paused, then beaten."""
+    if plane.watchdog is not None:
+        plane.watchdog.pause(plane.learner_role)
+    yield
+    if plane.watchdog is not None:
+        plane.watchdog.beat(plane.learner_role)
 
 
 def _restore_threads(plane) -> None:
@@ -173,6 +265,18 @@ class ProcessPlane:
         self._events = self._mp.Queue()
         #: made at the first publication (its arrays fix the layout), before any player starts
         self.channel: Optional[SharedPolicyChannel] = None
+        #: every version to <log_dir>/policy/ by writer processes (a bounded FIFO: every version lands, in order)
+        self.publisher = PolicyPublisher(os.path.join(log_dir, POLICY_DIR), keep_policies=self.keep_policies,
+                                         algo=str(cfg.algo.name), async_publish=True, mp_context=self._mp)
+        telemetry = _get_telemetry()
+        self._telemetry = telemetry is not None
+        self._trace = bool(telemetry is not None and telemetry.trace_enabled)
+        self.watchdog: Any = None
+        self.learner_role = ""
+        #: the watchdog beats each player forwarded (they stay counted after the player unregisters at its exit)
+        self.watchdog_beats: Dict[int, int] = {}
+        #: each player's last cumulative counter snapshot: the fold adds the deltas
+        self._last_snaps: Dict[int, Dict[str, Any]] = {}
         self._rings: List[Optional[TrajSlabRing]] = [None] * self.n_players
         self._procs: List[Optional[Any]] = [None] * self.n_players
         self._restarts = [0] * self.n_players
@@ -188,6 +292,10 @@ class ProcessPlane:
     @property
     def player_restarts(self) -> int:
         return sum(self._restarts)
+
+    def watch(self, watchdog, learner_role: str) -> None:
+        """Run the stall watchdog over the learner's waits and the players' forwarded beats."""
+        _watch(self, watchdog, learner_role)
 
     def pids(self) -> List[int]:
         """The live player processes' pids."""
@@ -206,6 +314,7 @@ class ProcessPlane:
             "entry": self.entry, "cfg": self._cfg_plain, "player_idx": idx, "n_envs": self.envs_per_player, "env_rank": idx, "start_update": int(start_update),
             "restart_count": self._restarts[idx], "log_dir": self.log_dir, "channel": self.channel, "ring": ring, "stop": self.stop, "events": self._events,
             "seed": player_seed(self.cfg.seed, idx), "scalars": self.scalars, "sys_path": list(sys.path),
+            "telemetry": self._telemetry, "trace": self._trace,
         }
         # not daemonic: a player owns an env worker pool; the orphan watch and drain's ladder cover it
         proc = self._mp.Process(target=child_main, args=(spec,), name=f"plane-player-{idx}", daemon=False)
@@ -215,14 +324,23 @@ class ProcessPlane:
             old.close()
 
     def publish(self, version: int, params: Any) -> None:
-        if self.channel is None:
-            self.channel = SharedPolicyChannel(self._mp, params, self.keep_policies)
-        self.channel.publish(version, params)
+        """The version to the players' shared channel, then to the policy
+        directory's writer queue (blocks while 8 versions wait for the disk)."""
+        with span("Time/policy_publish_time", phase="publish"):
+            if self.channel is None:
+                self.channel = SharedPolicyChannel(self._mp, params, self.keep_policies)
+            self.channel.publish(version, params)
+            self.publisher.publish(version, params)
         self.published_version = int(version)
+        _counters.note_plane_policy_version(version)
 
     def recv(self, idx: int, expected_first: int):
         """Player ``idx``'s burst starting at ``expected_first``, the player
         started again (fresh ring, latest version) if it died."""
+        with _learner_waits(self):
+            return self._recv(idx, expected_first)
+
+    def _recv(self, idx: int, expected_first: int):
         deadline = time.monotonic() + self.recv_timeout_s if self.recv_timeout_s > 0 else None
         while True:
             handle = self._rings[idx].recv(timeout=0.5)
@@ -233,6 +351,7 @@ class ProcessPlane:
                     raise RuntimeError(f"plane protocol drift: learner expected the burst at update {expected_first} "
                                        f"from player {idx}, got {handle.first_update}")
                 self.slabs += 1
+                _observe_burst(self, handle.policy_version, handle.commit_ts, self._rings[idx].depth())
                 return handle
             proc = self._procs[idx]
             if proc is not None and not proc.is_alive():
@@ -252,6 +371,13 @@ class ProcessPlane:
                                + (f"; last error:\n{err}" if err else ""))
         warnings.warn(f"plane player {idx} died (restart {self._restarts[idx]}/{self.max_restarts}); respawning at "
                       f"update {next_update} from the latest published policy" + (f"; error:\n{err}" if err else ""))
+        _counters.add_plane_player_restart()
+        # the replacement's counters start at zero: so does its delta fold
+        self._last_snaps.pop(idx, None)
+        telemetry = _get_telemetry()
+        if telemetry is not None and telemetry.flight is not None:
+            telemetry.flight.trigger("plane_player_restart",
+                                     {"player": idx, "restart": self._restarts[idx], "update": next_update})
         self._spawn(idx, next_update)
 
     def _drain_events(self) -> None:
@@ -264,6 +390,31 @@ class ProcessPlane:
                 self._errors[int(idx)] = str(payload)
             elif kind == "exit":
                 self.exits[int(idx)] = dict(payload)
+            elif kind == "telemetry":
+                self._fold_counters(int(idx), payload)
+            elif kind == "watchdog" and self.watchdog is not None:
+                if payload == "beat":
+                    self.watchdog_beats[int(idx)] = self.watchdog_beats.get(int(idx), 0) + 1
+                role = player_role(int(idx))
+                {"beat": self.watchdog.beat, "pause": self.watchdog.pause,
+                 "unregister": self.watchdog.unregister}[payload](role)
+
+    def _fold_counters(self, idx: int, snap: Dict[str, Any]) -> None:
+        """One player's cumulative counter snapshot: the learner's counters
+        advance by the delta since that player's previous snapshot, and the
+        snapshot is published as the source ``player<idx>``."""
+        if not isinstance(snap, dict):
+            return
+        _aggregate.publish_source(f"player{idx}", snap)
+        counters = _counters.installed()
+        if counters is None:
+            return
+        last = self._last_snaps.get(idx, {})
+        for name in _FOLDED_COUNTERS:
+            delta = int(snap.get(name, 0) or 0) - int(last.get(name, 0) or 0)
+            if delta > 0:
+                counters.add(name, delta)
+        self._last_snaps[idx] = snap
 
     def drain(self, timeout: float = 30.0) -> None:
         """Stop the players and join them (also the preemption path: the
@@ -296,6 +447,8 @@ class ProcessPlane:
             self._events.close()
         except Exception:
             pass
+        self.publisher.close()
+        _unwatch(self)
         _restore_threads(self)
 
 

@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from sheeprl_tpu_torch.obs.counters import set_replay_shard_fill
 from sheeprl_tpu_torch.replay.strategies import SamplingStrategy, UniformStrategy
 
 __all__ = ["ShardedReplay", "apportion_by_fill"]
@@ -113,8 +114,12 @@ class ShardedReplay:
     # -- adds -----------------------------------------------------------------
 
     def add_shard(self, shard: int, data: Dict[str, np.ndarray]) -> None:
-        """One writer's ``[T, shard_envs, ...]`` rows into its shard."""
+        """One writer's ``[T, shard_envs, ...]`` rows into its shard (and the
+        run telemetry's fill gauge of that shard)."""
         self._shards[shard].add(data)
+        if len(self._shards) > 1:
+            new = self._shards[shard]
+            set_replay_shard_fill({str(shard): 1.0 if new.full else new._pos / new.buffer_size})
 
     def add(self, data: Dict[str, np.ndarray]) -> None:
         """A whole fleet's ``[T, n_envs, ...]`` rows, split along the env

@@ -27,6 +27,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Type
 
 import numpy as np
 
+from sheeprl_tpu_torch.obs.counters import add_replay_priority_updates
+
 __all__ = [
     "PrioritizeEndsStrategy",
     "SamplingStrategy",
@@ -213,6 +215,7 @@ class TDPriorityStrategy(SamplingStrategy):
             raise ValueError(f"Priority writeback shapes disagree: {len(t_idx)} rows, {len(e_idx)} env columns, "
                              f"{len(td)} td errors")
         self._table(rb)[t_idx, e_idx] = td
+        add_replay_priority_updates(len(td))
         rb_ref, table, max_prio = self._state[id(rb)]
         self._state[id(rb)] = (rb_ref, table, max(max_prio, float(td.max())) if len(td) else max_prio)
 

@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from sheeprl_tpu_torch.obs.counters import add_train_burst
 from sheeprl_tpu_torch.train.graphs import CapturedStep
 
 __all__ = ["TrainProgram", "build_train_burst", "metric_fetch_gate", "run_train_burst", "tau_schedule"]
@@ -49,7 +50,7 @@ class _Static:
         self.noise = program._draw_noise(T, B, None, device)
         self.tau = torch.zeros((), dtype=torch.float32, device=device)
         program.prepare(state)
-        self.step = CapturedStep(lambda: program._body(state, self.data, self.noise, self.tau), device)
+        self.step = CapturedStep(lambda: program._body(state, self.data, self.noise, self.tau), device, train=True)
 
     def set_noise(self, noise: Noise) -> None:
         for dst, src in zip(_noise_tensors(self.noise), _noise_tensors(noise), strict=True):
@@ -86,6 +87,11 @@ class TrainProgram:
         self._draw_noise = draw_noise
         self.prepare = prepare
         self.static: Optional[_Static] = None
+
+    @property
+    def step(self) -> Optional[CapturedStep]:
+        """The captured step (None before the first burst)."""
+        return None if self.static is None else self.static.step
 
     def __call__(self, state: Dict[str, Any], data: Batch, noise: Optional[Noise] = None, tau: float = 0.0):
         T, B = data["rewards"].shape[:2]
@@ -190,6 +196,7 @@ def run_train_burst(
     sample (the parity side). Returns the last step's metrics as floats,
     pulled in one copy, when ``fetch_metrics``; else waits for the burst
     through one scalar (the stream's work up to it) and returns None."""
+    add_train_burst(steps=len(taus), dispatches=len(taus))
     if fused:
         metrics = program.burst(state, data_stack, taus, noise)
     else:

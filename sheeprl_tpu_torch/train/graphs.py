@@ -19,6 +19,12 @@ The kernel wrappers count their launches on the host. A capture runs no
 kernel, so its counts are taken back (``kernels.ops.launches_recorded``)
 and added again on every replay.
 
+With the run telemetry on, a capture counts as ``recompiles`` (its warm-up
+and capture seconds as ``compile_secs``) and a replay as ``graph_replays``
+(``obs/counters.py``); a train step (``train=True``) counts its FLOPs on its
+first eager call under ``FlopCounterMode`` (``obs.perf.count_flops``), once
+a run, never inside a capture. Neither adds a launch or a synchronisation.
+
 Nothing may destroy a CUDA graph while another is captured: the
 destruction is not permitted then, and it invalidates the capture (a
 DreamerV3 run's first capture failed so, ``cudaErrorStreamCaptureInvalidated``
@@ -41,6 +47,7 @@ from typing import Any, Callable, Iterator, Optional
 import torch
 
 from sheeprl_tpu_torch.kernels import ops
+from sheeprl_tpu_torch.obs import counters as _counters
 
 __all__ = ["CapturedStep", "WARMUP_CALLS", "capture_guard"]
 
@@ -63,9 +70,12 @@ def capture_guard() -> Iterator[None]:
 
 
 class CapturedStep:
-    def __init__(self, fn: Callable[[], Any], device):
+    def __init__(self, fn: Callable[[], Any], device, *, train: bool = False):
         self._fn = fn
         self.device = torch.device(device)
+        self.train = bool(train)
+        #: the FLOPs of one call, counted on the first eager call of a train step while the telemetry asks for them
+        self.flops: Optional[int] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._out: Any = None
         self._recorded: Optional[ops.Recorded] = None
@@ -80,7 +90,7 @@ class CapturedStep:
     def __call__(self) -> Any:
         if self.device.type != "cuda":
             self.eager_calls += 1
-            return self._fn()
+            return self._eager()
         if self.graph is None and self.eager_calls < WARMUP_CALLS:
             return self._warm_up()
         if self.graph is None:
@@ -88,7 +98,17 @@ class CapturedStep:
         self.graph.replay()
         ops.add_recorded_launches(self._recorded)
         self.replays += 1
+        _counters.add_graph_replays()
         return self._out
+
+    def _eager(self) -> Any:
+        if self.train and self.flops is None:
+            from sheeprl_tpu_torch.obs.perf import count_flops, wants_train_flops
+
+            if wants_train_flops():
+                out, self.flops = count_flops(self._fn)
+                return out
+        return self._fn()
 
     def _warm_up(self) -> Any:
         t0 = time.perf_counter()
@@ -97,7 +117,7 @@ class CapturedStep:
             self._side = torch.cuda.Stream(self.device)
         self._side.wait_stream(current)
         with torch.cuda.stream(self._side):
-            out = self._fn()
+            out = self._eager()
         current.wait_stream(self._side)
         self._side.synchronize()
         self.eager_calls += 1
@@ -113,3 +133,4 @@ class CapturedStep:
                 out = self._fn()
         self.graph, self._out, self._recorded = graph, out, recorded
         self.capture_s = time.perf_counter() - t0
+        _counters.add_graph_capture(self.warmup_s + self.capture_s)

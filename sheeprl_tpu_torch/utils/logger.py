@@ -4,9 +4,9 @@
 The JAX package writes through tensorboardX's ``SummaryWriter``; the port
 writes the same events with its own writer (:mod:`.tb_events`), and dumps
 the hyperparameters with its own YAML writer instead of
-``yaml.safe_dump``. The run telemetry that the JAX
-``create_tensorboard_logger`` attaches to the run directory is not ported
-(ROADMAP queue A item 6h)."""
+``yaml.safe_dump``. Every loop resolves its run directory here, so this is
+where the run telemetry learns where its trace, live snapshot and
+``telemetry.json`` belong."""
 
 from __future__ import annotations
 
@@ -69,6 +69,11 @@ def get_log_dir(cfg) -> str:
 
 def create_tensorboard_logger(cfg) -> Tuple[Optional[TensorBoardLogger], str]:
     """``(logger, log_dir)``: the logger is None at ``metric.log_level=0``."""
+    from sheeprl_tpu_torch.obs.telemetry import get_telemetry
+
     log_dir = get_log_dir(cfg)
     logger = TensorBoardLogger(log_dir) if int(cfg.metric.log_level) > 0 else None
+    telemetry = get_telemetry()
+    if telemetry is not None:
+        telemetry.attach_run_dir(log_dir)
     return logger, log_dir

@@ -11,7 +11,18 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Optional
 
-__all__ = ["MeanMetric", "Metric", "MetricAggregator", "SumMetric"]
+__all__ = ["MeanMetric", "Metric", "MetricAggregator", "SumMetric", "set_value_guard"]
+
+# Run-health hook (obs/health.py NonFiniteGuard): when set, every value
+# entering an aggregator is offered to the guard after its one conversion to
+# a Python float, the one chokepoint all loops log their losses through.
+_VALUE_GUARD = None
+
+
+def set_value_guard(guard) -> None:
+    """Install (or with ``None`` remove) the metric value guard."""
+    global _VALUE_GUARD
+    _VALUE_GUARD = guard
 
 
 def _to_scalar(value: Any) -> float:
@@ -80,6 +91,9 @@ class MetricAggregator:
             if self._raise_on_missing:
                 raise KeyError(f"Metric '{name}' not present in the aggregator")
             return
+        if _VALUE_GUARD is not None:
+            value = _to_scalar(value)
+            _VALUE_GUARD(name, value)
         metric.update(value, weight)
 
     def reset(self) -> None:

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_config import PEAK_TFLOPS
 
 from sheeprl_tpu.algos.dreamer_v2 import agent as jax_agent
 from sheeprl_tpu.algos.dreamer_v2.utils import normalize_obs_jnp
@@ -222,13 +223,17 @@ def _jax_names(value):
 def test_config_matches_composed_yaml(exp, overrides):
     """Every leaf of the port's composed preset equals the JAX package's
     compose of the same experiment and overrides (targets renamed; the
-    clock-stamped run name aside)."""
+    clock-stamped run name aside), but the port's one listed deviation,
+    ``metric.telemetry.peak_tflops`` (``test_torch_config.DEVIATIONS``)."""
     ours = _leaves(dreamer_v2_config(exp=exp, **overrides))
     theirs = _leaves(compose(overrides=[f"exp={exp}"] + [f"{k}={v}" for k, v in overrides.items()]))
     assert ours.keys() == theirs.keys()
     for key, value in ours.items():
         want = theirs[key]
         if key == "run_name":
+            continue
+        if key == "metric.telemetry.peak_tflops":
+            assert (value, want) == PEAK_TFLOPS
             continue
         assert _jax_names(value) == want, f"{key}: port {value!r} vs composed {want!r}"
 

@@ -48,7 +48,9 @@ def test_importing_every_module_loads_no_forbidden_module():
     for name in ("serve.gateway", "serve.rings", "serve.loadgen", "evals.inrun", "evals.registry", "plane.publish",
                  "obs.dist.aggregate", "utils.model_manager", "plane.worker", "plane.supervisor", "plane.slabs",
                  "envs.vector.async_env", "envs.vector.shmem", "replay.sharded", "replay.strategies", "replay.plane",
-                 "algos.sac.sac_decoupled", "algos.sac.player", "algos.ppo.ppo_decoupled", "algos.ppo.player"):
+                 "algos.sac.sac_decoupled", "algos.sac.player", "algos.ppo.ppo_decoupled", "algos.ppo.player",
+                 "obs.hist", "obs.spans", "obs.counters", "obs.health", "obs.live", "obs.perf", "obs.telemetry",
+                 "obs.dist.staleness"):
         assert f"sheeprl_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
