@@ -271,6 +271,28 @@ players' watchdog beats, ``plane.keep_policies`` versions in
 ``[telemetry]`` line gives their policy steps/s beside PR 15's with the
 telemetry off, and the seconds the checks took.
 
+Profiling and learning health (PR 17, ``obs/prof``, ``obs/learn``) ride
+existing phases. run_dv3 runs with the learn probes on and one scheduled
+profiler window (RUN_DV3_TELEMETRY_ARGS: a log every 8 policy steps, the
+window from the boundary at 1048 to the last, so the run is not traced
+whole): one capture, none
+failed; the window's ``hafner_gates_kernel`` runs (the trace parser's
+count) equal to the ``hafner_cell`` counter's delta over the window;
+``device_ms_per_step`` (the parser's, over the train graph's replays)
+within TOL_PROF_DEVICE_MS of CUDA events around the same replays; a
+roofline verdict; the ``learn/*`` probes and no critical event
+(``[run_dv3_capture]``, the run line's ``telemetry.prof``); a window on the
+card with no device event is a failed capture, never host time. train_dv3
+holds one graphed DV3 step's learn probes against the CPU step's from the
+same state, at the preset's learning rates (``update_ratio`` included) and
+at 0, within TOL_TRAIN_LOSS, the gradient norms downstream of the world
+model's update within TOL_TRAIN_GRAD (``[train_dv3_probes]``).
+run_ppo_cartpole adds one update
+traced whole by ``metric.profiler=<dir>``, whose trace must hold CUDA kernel
+events (``[run_ppo_cartpole_profiler]``). run_sac_decoupled's 2-player run
+opens the flight recorder's profiler window at its dump, which must parse
+with device events and the train step (its ``flight_windows``).
+
 Each path's launch counts are zeroed just before its run and read just
 after it: the served run (phase 4), the bench (phase 5), the timed train
 steps (phases 6, train_dv3, train_walker) and the graphed steps
@@ -302,6 +324,7 @@ line, when there is no CUDA device or any phase fails.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -378,16 +401,26 @@ RUN_DV3_ARGS = (
     "total_steps=1056", "metric.log_every=256",
 )
 RUN_DV3_UPDATES, RUN_DV3_PLAYER_STEPS, RUN_DV3_GRADIENT_STEPS, RUN_DV3_TEST_STEPS = 1056, 32, 33, 5
-# the run telemetry (metric=telemetry; the learning-health plane is ROADMAP 6h-c) inside runs the script makes anyway:
-# run_dv3, and run_sac_decoupled's 1-player process run and its 2-player run at the test's length
+# the run telemetry (metric=telemetry) inside runs the script makes anyway: run_dv3, and run_sac_decoupled's 1-player
+# process run and its 2-player run at the test's length (those two with the learn probes off: the 1-player run is held
+# bitwise to the thread run)
 TELEMETRY_ARGS = ("metric=telemetry", "metric.telemetry.learn.enabled=False")
+# run_dv3's: the learn probes on (the shipped default), and one scheduled profiler window, from the log boundary at
+# policy step 1048 to the next (1056, the run's last; no deadline: the steps' host time varies by host), which a log
+# every 8 policy steps makes: the train graph's last 8 replays (~16k kernels each; its eager warm-ups and capture at
+# 1025-1027 stay out) and the acting steps between them. A window's cost grows with its events (stopping the session,
+# reading, writing and parsing them): all 32 train steps, ~580k events, cost ~34 s of host time on the card's host
+RUN_DV3_TELEMETRY_ARGS = ("metric=telemetry", "metric.log_every=8", "metric.telemetry.profile.every_n_steps=1048",
+                          "metric.telemetry.profile.window_s=0", "metric.telemetry.profile.max_captures=2")
+# the window's device time a train step (the parser's, over the graph's replays) against CUDA events around the same
+# replays, relative: the events also hold each replay's graph launch (~20 us on an idle stream)
+TOL_PROF_DEVICE_MS = 0.05
 # those runs' policy steps/s with the telemetry off, PR 15 (PERF.md §6: the 2-player run from call 18, the 1-player run
 # from call 5; no rate of run_dv3 was kept)
 PR15_TELEMETRY_OFF_POLICY_STEPS_PER_S = {"run_dv3": None, "run_sac_decoupled_one_player": 103.0,
                                          "run_sac_decoupled_two_players": 580.0}
 # each telemetry run's checks, filled by its phase: printed as the [telemetry] line
 TELEMETRY_CHECKS = {}
-RUN_DV3_LOG_STEPS = (256, 512, 768, 1024, 1056)
 # the walker: the DV3 DMC walker_walk preset at its full width (rgb and a 24-wide state, 6 continuous actions)
 WALKER_OBS = {"rgb": (3, 64, 64), "state": (24,)}
 WALKER_ACTIONS = 6
@@ -739,6 +772,23 @@ def call_ms(fn, n: int = 200, warmup: int = 20) -> float:
     return _median_event_ms(fn, n)
 
 
+@contextlib.contextmanager
+def _gc_paused():
+    """Around ``device_ms``'s capture: the collector off until it ends (a
+    CUDA graph in a garbage cycle finalized in the middle of a capture
+    invalidates it: ``train/graphs.capture_guard``), without the full
+    collection ``capture_guard`` makes first, ~0.2 s a call in this process
+    and hundreds of calls a run: ``device_ms``'s own graphs go by their
+    reference counts."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
+
+
 def device_ms(fn, calls: int = 20, n: int = 50) -> float:
     """Median device time of one call: ``calls`` back-to-back calls of
     ``fn`` captured in one CUDA graph, an event pair around each of ``n``
@@ -754,10 +804,8 @@ def device_ms(fn, calls: int = 20, n: int = 50) -> float:
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(stream)
-    from sheeprl_tpu_torch.train.graphs import capture_guard
-
     graph = torch.cuda.CUDAGraph()
-    with capture_guard(), torch.cuda.graph(graph):
+    with _gc_paused(), torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
     for _ in range(3):
@@ -1787,6 +1835,108 @@ def imagination_split(algo: str = "dreamer_v3_walker") -> dict:
             "actor_loss_backward_ms": both_ms - fwd_ms}
 
 
+def _state_tensors(tree) -> list:
+    """Every tensor a train step updates in an agent state: the modules'
+    parameters and buffers, the optimizers' per-parameter state, device
+    scalars (the moments), through nested dicts and lists."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, torch.nn.Module):
+        return [*tree.parameters(), *tree.buffers()]
+    if isinstance(tree, torch.optim.Optimizer):
+        return [t for entry in tree.state.values() for t in entry.values() if isinstance(t, torch.Tensor)]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _state_tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _state_tensors(v)]
+    return []
+
+
+def _dv3_probes_card_against_cpu() -> dict:
+    """The learn probes (``obs/learn``) of one DreamerV3 step at the 100k
+    preset's width (the batch cut to 2 x 8): the CPU's eager call against
+    the card's graph replay, each from the same initial state, twice: at
+    the preset's learning rates (so the optimizers' ‖lr·u‖², taken inside
+    the captured graph, is held: ``update_ratio``) and with every learning
+    rate 0 (nothing moves within the step). The card runs WARMUP_CALLS
+    eager calls and the capture's replay, then puts back the state it
+    started from (in place: the graph reads those tensors) before each
+    compared replay; the CPU puts it back before its second call; the
+    learning rates are device scalars the graph reads (``set_lr``). The
+    same seeded noise in every call. Each probe's relative gap against
+    TOL_TRAIN_LOSS, but at the preset's rates the actor's and the critic's
+    gradient norms against TOL_TRAIN_GRAD (the script's card-against-CPU
+    limit for gradient norms): their inputs carry the world model's update
+    of the same step. At 1 x 4 the actor's gradient norm, ~3.8e-4 against
+    the world model's ~5.5e3, reads 3.4e-7 apart (8.9e-4 relative): not
+    held there."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as train
+    from sheeprl_tpu_torch.obs import learn
+    from sheeprl_tpu_torch.tools import bench_dreamer
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+    from sheeprl_tpu_torch.utils.optim import set_lr
+
+    overrides = {"per_rank_batch_size": 2, "per_rank_sequence_length": 8}
+    probes, noise = {}, None
+    learn.install(learn.LearnSentinel())
+    try:
+        for device in ("cpu", "cuda"):
+            cfg, state, program, data = bench_dreamer.build_trainer(device, seed=0, algo="dreamer_v3", **overrides)
+            T, B = data["rewards"].shape[:2]
+            if noise is None:
+                noise = train.draw_noise(cfg, (9,), T, B, torch.Generator().manual_seed(SEED), "cpu", False)
+            moved = {k: [t.to(device) for t in v] if isinstance(v, list) else v.to(device) for k, v in noise.items()}
+            stack = {k: v[None] for k, v in data.items()}
+            tensors = _state_tensors(state)
+            start = [t.detach().clone() for t in tensors]
+
+            def restore():
+                with torch.no_grad():
+                    for t, t0 in zip(tensors, start):
+                        t.copy_(t0)
+
+            def call():
+                if device == "cuda":
+                    program.burst(state, stack, [0.0], noise=[moved])
+                else:
+                    program(state, data, noise=moved)
+                return {k: float(v) for k, v in program.learn_tap.last().items()}
+
+            if device == "cuda":
+                for _ in range(WARMUP_CALLS + 1):
+                    call()
+                restore()
+            probes[device, "lr"] = call()
+            restore()
+            for opt in state["opt"].values():
+                set_lr(opt, 0.0)
+            probes[device, "lr0"] = call()
+            replays = program.step.replays if device == "cuda" else 0
+            del state, program, data, start, tensors
+    finally:
+        learn.install(None)
+    torch.cuda.empty_cache()
+    line, bad = {"card_replays": replays, "overrides": overrides}, []
+    for rates in ("lr", "lr0"):
+        card, cpu = probes["cuda", rates], probes["cpu", rates]
+        gaps = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-6) for k in cpu}
+        limits = {k: TOL_TRAIN_GRAD if rates == "lr" and k in ("learn/grad_norm/actor", "learn/grad_norm/critic")
+                  else TOL_TRAIN_LOSS for k in cpu}
+        line[rates] = {"card": card, "cpu": cpu, "rel_diff": gaps, "limits": limits}
+        bad += [f"{rates} {k}" for k in cpu if gaps[k] > limits[k]]
+        if sorted(card) != sorted(cpu):
+            bad.append(f"{rates} keys")
+    if replays != 3 or not probes["cpu", "lr"].get("learn/update_ratio") or probes["cpu", "lr0"]["learn/update_ratio"]:
+        bad.append("replays or update ratios")
+    if bad:
+        raise AssertionError(f"train_dv3: the graphed step's learn probes against the CPU's: {bad} {line}")
+    return line
+
+
 def phase_train_dv3(card: str, algo: str = "dreamer_v3"):
     """A DreamerV3 trainer at full width (B=16, T=64, horizon 15): the 100k
     MsPacman preset (``dreamer_v3``) or the DMC walker preset
@@ -1839,6 +1989,12 @@ def phase_train_dv3(card: str, algo: str = "dreamer_v3"):
     if graphed["graph"] != {"eager_calls": WARMUP_CALLS, "replays": GRAPH_STEPS - WARMUP_CALLS, "captured": True}:
         raise AssertionError(f"{tag}: the graphed steps ran as {graphed['graph']}")
     split = imagination_split(algo) if algo == "dreamer_v3_walker" else None
+    if algo == "dreamer_v3":
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            print(f"[{tag}_probes] " + json.dumps(_dv3_probes_card_against_cpu()), flush=True)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev[:2]
 
     result = bench_dreamer.compare(steps=DV3_TRAIN_STEPS, device="cuda", profile=True, algo=algo)
     result["card"] = card
@@ -2097,33 +2253,13 @@ def trace_summary(prof, names) -> tuple:
     """``(device busy µs, {name: count})`` of a ``torch.profiler`` window:
     every device event's time (a user-annotated range spans kernels counted
     on their own), and the device events whose name holds each of
-    ``names``. Read from the profiler's raw events: building its function
-    events and averages takes minutes on a run of 10^5-10^6 kernels."""
-    from torch.autograd import DeviceType
+    ``names``. Read by the port's trace parser from the profiler's raw
+    events (``obs/prof/trace.py``): building its function events and
+    averages takes minutes on a run of 10^5-10^6 kernels."""
+    from sheeprl_tpu_torch.obs.prof.trace import device_durations
 
-    from sheeprl_tpu_torch.tools.profile_serve import device_us
-
-    counts = dict.fromkeys(names, 0)
-    busy = 0.0
-    try:
-        events = prof.profiler.kineto_results.events()
-    except AttributeError:  # a PyTorch without the raw events: the averages
-        events = None
-    if events is None:
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                busy += device_us(e)
-                for n in names:
-                    counts[n] += e.count if n in e.key else 0
-        return busy, counts
-    for e in events:
-        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
-            continue
-        busy += e.duration_ns() / 1e3 if hasattr(e, "duration_ns") else e.duration_us()
-        name = e.name()
-        for n in names:
-            counts[n] += n in name
-    return busy, counts
+    device = device_durations(prof)
+    return sum(us for _name, us in device), {n: sum(n in name for name, _us in device) for n in names}
 
 
 def _check_events(result, spec) -> dict:
@@ -2311,9 +2447,9 @@ RUN_SPECS = {
     "run": dict(args=RUN_ARGS, counts=(RUN_UPDATES, RUN_PLAYER_STEPS, RUN_GRADIENT_STEPS, RUN_TEST_STEPS),
                 per_step=CELL_LAUNCHES_PER_STEP, log_steps=RUN_LOG_STEPS, learning_starts=544,
                 buffer=_check_episode_buffer, obs=OBS, continuous=False),
-    "run_dv3": dict(args=RUN_DV3_ARGS + TELEMETRY_ARGS,
+    "run_dv3": dict(args=RUN_DV3_ARGS + RUN_DV3_TELEMETRY_ARGS,
                     counts=(RUN_DV3_UPDATES, RUN_DV3_PLAYER_STEPS, RUN_DV3_GRADIENT_STEPS, RUN_DV3_TEST_STEPS),
-                    per_step=DV3_CELL_LAUNCHES_PER_STEP, log_steps=RUN_DV3_LOG_STEPS, learning_starts=1024,
+                    per_step=DV3_CELL_LAUNCHES_PER_STEP, log_steps=tuple(range(8, 1057, 8)), learning_starts=1024,
                     buffer=_check_sequential_buffer, obs=OBS, continuous=False),
     "run_walker": dict(args=RUN_WALKER_ARGS,
                        counts=(RUN_WALKER_UPDATES, RUN_WALKER_PLAYER_STEPS, RUN_WALKER_GRADIENT_STEPS,
@@ -2409,6 +2545,103 @@ def _check_run_telemetry(name: str, result, wall: float, graphs: dict, peak: int
     return line
 
 
+class _ReplayEvents:
+    """Within the block, CUDA events around every replay of a train step's
+    graph made while a profiler session records (``ms``: each replay's
+    elapsed milliseconds, read at the block's end)."""
+
+    def __enter__(self):
+        import torch
+
+        from sheeprl_tpu_torch.train.graphs import CapturedStep
+
+        self.pairs, self._real = [], CapturedStep._call
+        real, pairs = self._real, self.pairs
+
+        def timed(step):
+            if not (step.train and step.graph is not None and torch.autograd._profiler_enabled()):
+                return real(step)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(step)
+            end.record()
+            pairs.append((start, end))
+            return out
+
+        CapturedStep._call = timed
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        from sheeprl_tpu_torch.train.graphs import CapturedStep
+
+        CapturedStep._call = self._real
+        torch.cuda.synchronize()
+        self.ms = [s.elapsed_time(e) for s, e in self.pairs]
+        return False
+
+
+def _check_run_prof(name: str, result, replays: "_ReplayEvents") -> dict:
+    """A run's scheduled profiler window (``obs/prof``) and its learn
+    probes, against the run's own counts: one capture or more and none
+    failed; the window's ``hafner_gates_kernel`` runs (the parser's count)
+    equal to the ``hafner_cell`` launch counter's delta over the same
+    window; ``device_ms_per_step`` (the parser's, over the train graph's
+    replays) within TOL_PROF_DEVICE_MS of the mean of CUDA events around
+    the same replays; a roofline verdict of the four; the train module
+    attributed through ``cudaGraphLaunch`` (device events inside the
+    replays); the ``learn/*`` keys, and no critical event on this healthy
+    run."""
+    import statistics
+
+    t0 = time.perf_counter()
+    summary = _telemetry_summary(result["log_dir"])
+    prof = summary.get("prof") or {}
+    if summary["prof_captures"] < 1 or prof.get("failed"):
+        raise AssertionError(f"{name}: prof_captures {summary['prof_captures']}, failed {prof.get('failed')}")
+    kernels = prof.get("kernel_counts") or {}
+    gates = sum(n for k, n in kernels.items() if "hafner_gates_kernel" in k)
+    products = sum(n for k, n in kernels.items() if "hafner_product_kernel" in k)
+    launched = (prof.get("kernel_launches") or {}).get("hafner_cell")
+    if not gates or gates != launched:
+        raise AssertionError(f"{name}: the window holds {gates} hafner_gates_kernel runs, the counter's delta {launched}")
+    device_ms = summary["device_ms_per_step"]
+    event_ms = statistics.fmean(replays.ms) if replays.ms else None
+    with open(os.path.join(result["log_dir"], "telemetry", "prof", f"capture_{prof['step']}.json")) as f:
+        record = json.load(f)
+    print(f"[{name}_capture] " + json.dumps({k: record.get(k) for k in (
+        "step", "source", "train_module", "train_execs", "device_ms_per_step", "busy_frac", "window_ms", "modules",
+        "kernel_launches", "roofline_verdict", "mfu_device_pct", "achieved_gbps")} | {"event_ms": replays.ms}),
+          flush=True)
+    if len(replays.ms) < 8 or device_ms is None or abs(device_ms - event_ms) > TOL_PROF_DEVICE_MS * event_ms:
+        raise AssertionError(f"{name}: device_ms_per_step {device_ms} against {event_ms} ms from CUDA events over "
+                             f"{len(replays.ms)} replays (tolerance {TOL_PROF_DEVICE_MS} relative)")
+    if summary["roofline_verdict"] not in ("compute-bound", "memory-bound", "dispatch-bound", "unknown"):
+        raise AssertionError(f"{name}: roofline_verdict {summary['roofline_verdict']}")
+    if prof.get("source") != "device" or prof.get("train_module") != "train_step":
+        raise AssertionError(f"{name}: the window's train module {prof.get('train_module')} from {prof.get('source')}")
+    learn = summary.get("learn") or {}
+    probes = sorted(learn.get("probes") or {})
+    want = {"learn/grad_norm", "learn/param_norm", "learn/update_ratio", "learn/clip_frac"} | {
+        f"learn/grad_norm/{m}" for m in ("world_model", "actor", "critic")}
+    if not want <= set(probes) or summary["learn_criticals"] or not summary["learn_probe_fetches"]:
+        raise AssertionError(f"{name}: learn probes {probes}, criticals {summary['learn_criticals']}, "
+                             f"fetches {summary['learn_probe_fetches']}")
+    return {"prof_captures": summary["prof_captures"], "device_ms_per_step": device_ms,
+            "event_ms_per_replay": event_ms, "replays_timed": len(replays.ms),
+            "device_ms_rel_gap": abs(device_ms - event_ms) / event_ms, "tolerance": TOL_PROF_DEVICE_MS,
+            "mfu_device_pct": summary["mfu_device_pct"], "roofline_verdict": summary["roofline_verdict"],
+            "bytes_per_train_step": summary["bytes_per_train_step"], "achieved_gbps": prof.get("achieved_gbps"),
+            "bandwidth_util_pct": prof.get("bandwidth_util_pct"), "busy_frac": prof.get("busy_frac"),
+            "window_ms": prof.get("window_ms"), "train_execs": prof.get("train_execs"), "gate_kernels": gates,
+            "product_kernels": products, "cell_launches_in_window": launched,
+            "learn_warnings": summary["learn_warnings"], "learn_criticals": summary["learn_criticals"],
+            "window_events": prof.get("events"), "window_costs_s": prof.get("costs_s"),
+            "learn_probe_fetches": summary["learn_probe_fetches"], "grad_norm_p95": summary["grad_norm_p95"],
+            "update_ratio_p50": summary["update_ratio_p50"], "checks_s": time.perf_counter() - t0}
+
+
 def _check_decoupled_telemetry(run: str, result, wall: float, keep_policies: int = 4) -> dict:
     """A decoupled telemetry run's ``telemetry.json``: the players' snapshots
     folded into the learner's counters (the slabs the loop received, the
@@ -2428,10 +2661,24 @@ def _check_decoupled_telemetry(run: str, result, wall: float, keep_policies: int
     if got != want or not players <= set(summary.get("sources") or {}):
         raise AssertionError(f"run_sac_decoupled {run}: telemetry.json reads {got} and sources "
                              f"{sorted(summary.get('sources') or {})}, the loop {want} and players {sorted(players)}")
-    dumps = sorted(os.path.basename(p) for p in glob.glob(os.path.join(result["log_dir"], "telemetry", "flight_*.json")))
+    dumps = sorted(os.path.basename(p) for p in glob.glob(os.path.join(result["log_dir"], "telemetry", "flight_*.json"))
+                   if not p.endswith("_summary.json"))
     line = {**got, "env_steps_async": summary["env_steps_async"], "policy_steps": result["policy_steps"],
             "sources": sorted(summary["sources"]), "flight_dumps": dumps,
             "policy_steps_per_s": result["policy_steps"] / wall}
+    if run == "two_players":  # the flight recorder's profiler window (DECOUPLED_FLIGHT_CAPTURE_ARGS) parsed on the card
+        windows = []
+        for path in sorted(glob.glob(os.path.join(result["log_dir"], "telemetry", "flight_*_trace_summary.json"))):
+            with open(path) as f:
+                doc = json.load(f)
+            windows.append({"file": os.path.basename(path), "source": doc["source"],
+                            "kernels": sum((doc.get("kernel_counts") or {}).values()),
+                            "train_module": doc["train_module"], "device_ms_per_step": doc["device_ms_per_step"]})
+        if not windows or windows[0]["source"] != "device" or not windows[0]["kernels"] or \
+                windows[0]["train_module"] != "train_step":
+            raise AssertionError(f"run_sac_decoupled {run}: the flight dumps' profiler windows parse as {windows} "
+                                 f"(dumps {dumps})")
+        line["flight_windows"] = windows
     if run == "two_players":
         staleness = summary["staleness"] or {}
         if not (staleness.get("sample_age_s", {}).get("count") and staleness.get("policy_lag_versions", {}).get("count")
@@ -2499,7 +2746,10 @@ def phase_run(card: str, name: str = "run", keep_root=None):
         torch.cuda.reset_peak_memory_stats()
         ops.hafner_cell_launches.reset()
         ops.hafner_sequence_launches.reset()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a run that opens its own profiler window (obs/prof) is not traced whole: one profiler session a process
+        windowed = any(a.startswith("metric.telemetry.profile.every_n_steps=") for a in spec["args"])
+        replays = _ReplayEvents() if windowed else contextlib.nullcontext()
+        with (contextlib.nullcontext() if windowed else profile(activities=[ProfilerActivity.CUDA])) as prof, replays:
             result, wall = _run_once(root, name, spec["args"])
         launches = {"hafner_cell": ops.hafner_cell_launches.count, "hafner_sequence": ops.hafner_sequence_launches.count}
         peak = torch.cuda.max_memory_allocated()
@@ -2524,6 +2774,8 @@ def phase_run(card: str, name: str = "run", keep_root=None):
         stamps.append(("run", time.perf_counter()))
         events = _check_events(result, spec)
         telemetry = _check_run_telemetry(name, result, wall, graphs, peak) if "metric=telemetry" in spec["args"] else None
+        if windowed:
+            telemetry["prof"] = _check_run_prof(name, result, replays)
 
         ckpt = result["checkpoint"]
         if ckpt is None or not ckpt.endswith(f"ckpt_{result['policy_steps']}_0"):
@@ -2575,13 +2827,19 @@ def phase_run(card: str, name: str = "run", keep_root=None):
         del model
         stamps.append(("serve", time.perf_counter()))
 
-        busy_us, found = trace_summary(prof, ("hafner_gates_kernel", "hafner_product_kernel"))
+        if windowed:  # the gate kernels held to the counters over the window (_check_run_prof), the busy share its
+            window = telemetry["prof"]
+            busy_us = window["busy_frac"] * window["window_ms"] * 1e3
+            gate_kernels, product_kernels = window["gate_kernels"], window["product_kernels"]
+        else:
+            busy_us, found = trace_summary(prof, ("hafner_gates_kernel", "hafner_product_kernel"))
+            gate_kernels, product_kernels = found["hafner_gates_kernel"], found["hafner_product_kernel"]
+            if gate_kernels != launches["hafner_cell"]:
+                raise AssertionError(
+                    f"the trace holds {gate_kernels} hafner_gates_kernel runs, the counters {launches['hafner_cell']} "
+                    "launches"
+                )
         stamps.append(("trace_read", time.perf_counter()))
-        gate_kernels, product_kernels = found["hafner_gates_kernel"], found["hafner_product_kernel"]
-        if gate_kernels != launches["hafner_cell"]:
-            raise AssertionError(
-                f"the trace holds {gate_kernels} hafner_gates_kernel runs, the counters {launches['hafner_cell']} launches"
-            )
 
     seconds = result["seconds"]
     stats = result["checkpoint_stats"]
@@ -2633,9 +2891,9 @@ def phase_run(card: str, name: str = "run", keep_root=None):
         "phase_seconds": {k: t - stamps[i][1] for i, (k, t) in enumerate(stamps[1:])},
         "device_busy_s": busy_us / 1e6,
         # over the traced run's wall time (the profiler adds host time, so this share is an upper bound on an
-        # untraced run's)
-        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-        "rates_under_profiler": True,
+        # untraced run's); a windowed run's over its window
+        "device_idle_share": (1.0 - telemetry["prof"]["busy_frac"]) if windowed else 1.0 - busy_us / 1e6 / wall,
+        "rates_under_profiler": not windowed,
         "telemetry": telemetry,
         "card": card,
     }
@@ -4187,7 +4445,37 @@ def phase_run_onpolicy(card: str, name: str):
         raise AssertionError(f"{name}: served actions differ from the evaluation policy's by {served_err}")
     if updates != result["updates"] or not {"params", "opt_state", "update", "last_log", "last_checkpoint"} <= set(state):
         raise AssertionError(f"{name}: {updates} traced updates of {result['updates']}; checkpoint {sorted(state)}")
+    if name == "run_ppo_cartpole":
+        line = _profiled_onpolicy_run(args)
+        print(f"[{name}_profiler] " + json.dumps(line), flush=True)
     return launches_after
+
+
+def _profiled_onpolicy_run(args) -> dict:
+    """One update of the run's config with ``metric.profiler=<dir>``: the
+    port's whole-run ``torch.profiler`` trace, which must hold CUDA kernel
+    events (and the update's minibatch steps attributed by the parser)."""
+    import tempfile
+
+    from sheeprl_tpu_torch.obs.prof.trace import load_trace, summarize_events
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profiler_") as root:
+        trace_dir = os.path.join(root, "trace")
+        t0 = time.perf_counter()
+        # one update of 2 envs x 8 steps: the trace stays small (a few MB) and quick to read
+        _run_once(root, "profiled", tuple(args) + ("dry_run=True", "env.num_envs=2", "algo.rollout_steps=8",
+                                                   "per_rank_batch_size=8", f"metric.profiler={trace_dir}"))
+        wall = time.perf_counter() - t0
+        path = os.path.join(trace_dir, "trace.json")
+        events = load_trace(path)
+        kernels = sum(1 for e in events if e[0] == "kernel")
+        summary = summarize_events(events)
+        line = {"trace_bytes": os.path.getsize(path), "events": len(events), "kernel_events": kernels,
+                "source": summary["source"], "modules": {k: m["execs"] for k, m in summary["modules"].items()},
+                "wall_s": wall}
+    if not kernels or summary["source"] != "device":
+        raise AssertionError(f"metric.profiler: the trace holds {kernels} kernel events ({line})")
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -4205,6 +4493,13 @@ def phase_run_onpolicy(card: str, name: str):
 # the cut length, held to their writeback: with them the config misses the criterion in 32,768 steps in the JAX
 # package and in the port alike (PERF.md's seed table, tools/learning_seeds.py --algo sac_decoupled_td), neither
 # weighting the critic loss by the importance weights
+# the 2-player run's flight recorder opens a profiler window of 1 s at its dump; the slow-span trigger armed at any
+# span over its running p50 after 1000 observations (a quarter of the run's 4096 updates: training runs by then) makes
+# the dump certain and lands its window on the learner's train steps, and one dump a run keeps the window's cost (the
+# profiler on the learner's thread, the trace written and parsed beside it) to one second's
+DECOUPLED_FLIGHT_CAPTURE_ARGS = ("metric.telemetry.flight.profiler_capture_s=1", "metric.telemetry.flight.max_dumps=1",
+                                 "metric.telemetry.flight.slow_span_factor=1", "metric.telemetry.flight.slow_span_min_ms=0",
+                                 "metric.telemetry.flight.slow_span_warmup=1000")
 _DECOUPLED_SAC_COMMON = ("exp=sac_decoupled", "fabric.devices=auto", "env.wrapper._target_=chip_smoke.pendulum_stand_in",
                          "env.id=Pendulum-v1", "env.capture_video=False", "env.num_envs=4", "env.vectorization=async",
                          "algo.learning_starts=1000", "per_rank_batch_size=128", "metric.log_level=0",
@@ -4219,7 +4514,7 @@ DECOUPLED_SAC_RUNS = {
     "two_players_td": (f"total_steps={DECOUPLED_SAC_CUT_STEPS}", "plane.num_players=2", "replay.shards=2",
                        "replay.strategy=td_priority"),
     "two_players": ("total_steps=32768", "plane.num_players=2", "replay.shards=2",
-                    "plane.max_policy_lag=1") + TELEMETRY_ARGS,
+                    "plane.max_policy_lag=1") + TELEMETRY_ARGS + DECOUPLED_FLIGHT_CAPTURE_ARGS,
 }
 # each run's traced window: its training bursts (each one update's gradient step) DECOUPLED_SAC_WINDOW[run]
 DECOUPLED_SAC_WINDOW = {"thread": (100, 200), "one_player": (100, 200), "two_players_td": (100, 200),
@@ -4291,15 +4586,23 @@ class _BurstWindow:
         self.first, self.last, self.calls, self.probe = first, last, 0, probe
         self.prof = self.wall_s = self.t0 = None
         self.probed = None
+        self.claimed = False
 
     def wrap(self, fn):
         import torch
         from torch.profiler import ProfilerActivity, profile
 
+        from sheeprl_tpu_torch.obs.prof import capture
+
         def traced(*args, **kwargs):
             if self.calls == self.first:
                 if self.probe is not None:
                     self.probed = self.probe()
+                # one profiler session a process: a flight recorder's window open on this (the loop's) thread closes
+                # first, and this window holds the slot until it ends
+                if capture._WINDOW is not None:
+                    capture._WINDOW.stop()
+                self.claimed = capture.try_begin_capture()
                 torch.cuda.synchronize()
                 self.prof = profile(activities=[ProfilerActivity.CUDA])
                 self.prof.__enter__()
@@ -4310,6 +4613,8 @@ class _BurstWindow:
                 torch.cuda.synchronize()
                 self.wall_s = time.perf_counter() - self.t0
                 self.prof.__exit__(None, None, None)
+                if self.claimed:
+                    capture.end_capture()
             return out
 
         return traced

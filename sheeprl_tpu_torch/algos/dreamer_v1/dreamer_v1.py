@@ -55,6 +55,7 @@ from sheeprl_tpu_torch.algos.dreamer_v1.utils import compute_lambda_values, norm
 from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import _no_param_grads, _step, adam_for, give_zero_grads
 from sheeprl_tpu_torch.distributions import Bernoulli, Independent
+from sheeprl_tpu_torch.obs.learn import learn_tap, probe_losses
 from sheeprl_tpu_torch.train.burst import TrainProgram, build_train_burst
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -199,20 +200,20 @@ def build_losses(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Simple
 
 
 def behaviour_update(losses, wm, actor, critic, opt_actor, opt_critic, clips, posteriors, recurrents, prior_noise,
-                     action_noise, reward_fn):
+                     action_noise, reward_fn, names=("actor", "critic")):
     """One actor's update, then its critic's: the behaviour loss
     differentiated in the actor alone (the world model and the critic held),
     its step, then the critic's loss on the detached trajectories and its
-    step. Returns ``(policy_loss, value_loss, aux, actor_grad_norm,
-    critic_grad_norm)``."""
+    step (probed under ``names``). Returns ``(policy_loss, value_loss, aux,
+    actor_grad_norm, critic_grad_norm)``."""
     with _no_param_grads(wm, critic):
         policy_loss, aux = losses.behaviour_loss(wm, actor, critic, posteriors, recurrents, prior_noise,
                                                  action_noise, reward_fn)
         policy_loss.backward()
-    actor_norm = _step(actor, opt_actor, clips["actor"])
+    actor_norm = _step(actor, opt_actor, clips["actor"], names[0])
     value_loss = losses.critic_loss(critic, aux["trajectories"], aux["lambda_values"], aux["discount"])
     value_loss.backward()
-    critic_norm = _step(critic, opt_critic, clips["critic"])
+    critic_norm = _step(critic, opt_critic, clips["critic"], names[1])
     return policy_loss.detach(), value_loss.detach(), aux, actor_norm, critic_norm
 
 
@@ -240,12 +241,13 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
 
         wm_loss, metrics, posteriors, recurrents, _ = losses.world_model_loss(wm, data, noise["posterior"])
         wm_loss.backward()
-        wm_norm = _step(wm, opt["world_model"], clips["world_model"])
+        wm_norm = _step(wm, opt["world_model"], clips["world_model"], "world_model")
 
         policy_loss, value_loss, aux, actor_norm, critic_norm = behaviour_update(
             losses, wm, actor, critic, opt["actor"], opt["critic"], clips, posteriors, recurrents, noise["prior"],
             noise["actions"], lambda traj, actions: wm.reward(traj),
         )
+        probe_losses(wm_loss, policy_loss, value_loss)
         metrics = dict(metrics)
         metrics["Loss/policy_loss"] = policy_loss
         metrics["User/PredictedRewards"] = aux["reward_mean"]
@@ -257,7 +259,7 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
     def noise_for(T: int, B: int, generator: Optional[torch.Generator], device):
         return draw_noise(cfg, actions_dim, T, B, generator, device, is_continuous)
 
-    return build_train_burst(body, noise_for, _prepare)
+    return build_train_burst(body, noise_for, _prepare, learn_tap())
 
 
 # ---------------------------------------------------------------------------

@@ -83,7 +83,9 @@ from sheeprl_tpu_torch.distributions import Bernoulli, Independent, Normal, gumb
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.vector import make_vector_env
 from sheeprl_tpu_torch.evals.inrun import maybe_start_inrun_eval
+from sheeprl_tpu_torch.obs.learn import learn_tap, probe_losses, probe_update
 from sheeprl_tpu_torch.obs.perf import PhaseSeconds, log_sps_metrics, register_step_cost
+from sheeprl_tpu_torch.obs.prof.capture import profile_tick
 from sheeprl_tpu_torch.obs.spans import span
 from sheeprl_tpu_torch.replay import make_replay_buffer
 from sheeprl_tpu_torch.train.burst import (
@@ -182,11 +184,19 @@ def give_zero_grads(modules) -> None:
                 p.grad = torch.zeros_like(p)
 
 
-def _step(module: torch.nn.Module, optimizer: torch.optim.Optimizer, clip: float) -> torch.Tensor:
+def _step(module: torch.nn.Module, optimizer: torch.optim.Optimizer, clip: float,
+          name: Optional[str] = None) -> torch.Tensor:
     """Clip the module's gradients (optax's global-norm form) and step.
-    Returns the gradient norm before clipping."""
-    norm = clip_by_global_norm_([p.grad for p in module.parameters()], clip)
+    Returns the gradient norm before clipping. Inside a step built with the
+    learn probes on, the raw gradients, the parameters and the applied
+    update are probed under ``name`` (``obs/learn``), and the clip reuses
+    the probes' gradient norm."""
+    params = list(module.parameters())
+    grads = [p.grad for p in params]
+    probed = probe_update(name, grads, params, optimizer, clip)
+    norm = clip_by_global_norm_(grads, clip, norm=probed.grad_norm)
     optimizer.step()
+    probed()
     return norm
 
 
@@ -341,17 +351,18 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
 
         wm_loss, metrics, posteriors, recurrents = world_model_loss(wm, data, noise["posterior"])
         wm_loss.backward()
-        grad_norms = {"world_model": _step(wm, opt["world_model"], clips["world_model"])}
+        grad_norms = {"world_model": _step(wm, opt["world_model"], clips["world_model"], "world_model")}
 
         true_continue = (1.0 - data["dones"]).reshape(-1, 1)
         with _no_param_grads(wm, target):
             policy_loss, aux = actor_loss(wm, actor, target, posteriors, recurrents, true_continue, noise)
             policy_loss.backward()
-        grad_norms["actor"] = _step(actor, opt["actor"], clips["actor"])
+        grad_norms["actor"] = _step(actor, opt["actor"], clips["actor"], "actor")
 
         value_loss = critic_loss(critic, aux["trajectories"], aux["lambda_values"], aux["discount"])
         value_loss.backward()
-        grad_norms["critic"] = _step(critic, opt["critic"], clips["critic"])
+        grad_norms["critic"] = _step(critic, opt["critic"], clips["critic"], "critic")
+        probe_losses(wm_loss, policy_loss, value_loss)
 
         metrics = dict(metrics)
         metrics["Loss/policy_loss"] = policy_loss.detach()
@@ -364,7 +375,7 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
     def noise_for(T: int, B: int, generator: Optional[torch.Generator], device):
         return draw_noise(cfg, actions_dim, T, B, generator, device, is_continuous)
 
-    return build_train_burst(body, noise_for, _prepare)
+    return build_train_burst(body, noise_for, _prepare, learn_tap())
 
 
 # ---------------------------------------------------------------------------
@@ -801,6 +812,7 @@ def train_loop(
                 world_size=world_size,
                 action_repeat=cfg.env.action_repeat,
             )
+            profile_tick(policy_step=policy_step, world_size=world_size)
             last_log = policy_step
             last_train = train_step
 

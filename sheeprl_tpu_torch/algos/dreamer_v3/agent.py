@@ -1046,7 +1046,7 @@ class ExplorationStep:
         self.reset_mask = torch.zeros((self.n, 1), dtype=torch.float32, device=self.device)
         self.expl_amount = torch.zeros((), dtype=torch.float32, device=self.device)
         self.noise = player_fns["draw_exploration_noise"](self.n, None)
-        self.step = CapturedStep(self._body, self.device)
+        self.step = CapturedStep(self._body, self.device, name="act")
 
     @torch.no_grad()
     def _body(self) -> list:

@@ -117,7 +117,9 @@ from sheeprl_tpu_torch.distributions import (
     gumbel_noise,
 )
 from sheeprl_tpu_torch.evals.inrun import maybe_start_inrun_eval
+from sheeprl_tpu_torch.obs.learn import learn_tap, probe_losses
 from sheeprl_tpu_torch.obs.perf import PhaseSeconds, log_sps_metrics, register_step_cost
+from sheeprl_tpu_torch.obs.prof.capture import profile_tick
 from sheeprl_tpu_torch.obs.spans import span
 from sheeprl_tpu_torch.replay import make_replay_buffer
 from sheeprl_tpu_torch.train.burst import (
@@ -354,20 +356,21 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
 
         wm_loss, metrics, posteriors, recurrents = world_model_loss(wm, data, noise["posterior"])
         wm_loss.backward()
-        grad_norms = {"world_model": _step(wm, opt["world_model"], clips["world_model"])}
+        grad_norms = {"world_model": _step(wm, opt["world_model"], clips["world_model"], "world_model")}
 
         true_continue = (1.0 - data["dones"]).reshape(-1, 1)
         policy_loss, aux = actor_loss_backward(
             wm, actor, critic, state["moments"], posteriors, recurrents, true_continue, noise
         )
-        grad_norms["actor"] = _step(actor, opt["actor"], clips["actor"])
+        grad_norms["actor"] = _step(actor, opt["actor"], clips["actor"], "actor")
         with torch.no_grad():
             for k, v in aux.pop("moments").items():
                 state["moments"][k].copy_(v)
 
         value_loss = critic_loss(critic, target, aux.pop("trajectories"), aux.pop("lambda_values"), aux.pop("discount"))
         value_loss.backward()
-        grad_norms["critic"] = _step(critic, opt["critic"], clips["critic"])
+        grad_norms["critic"] = _step(critic, opt["critic"], clips["critic"], "critic")
+        probe_losses(wm_loss, policy_loss, value_loss)
 
         metrics = dict(metrics)
         metrics["Loss/policy_loss"] = policy_loss.detach()
@@ -379,7 +382,7 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
     def noise_for(T: int, B: int, generator: Optional[torch.Generator], device):
         return draw_noise(cfg, actions_dim, T, B, generator, device, is_continuous)
 
-    return build_train_burst(body, noise_for, _prepare)
+    return build_train_burst(body, noise_for, _prepare, learn_tap())
 
 
 # ---------------------------------------------------------------------------
@@ -716,6 +719,7 @@ def train_loop(
                 world_size=world_size,
                 action_repeat=cfg.env.action_repeat,
             )
+            profile_tick(policy_step=policy_step, world_size=world_size)
             last_log = policy_step
             last_train = train_step
 

@@ -30,6 +30,7 @@ from sheeprl_tpu_torch.algos.sac import sac
 from sheeprl_tpu_torch.algos.sac.agent import SACActor, lecun_normal_, squash_sample
 from sheeprl_tpu_torch.algos.sac.loss import policy_loss
 from sheeprl_tpu_torch.algos.sac.sac import StepProgram, actor_and_alpha_update, ema_gates, ema_update
+from sheeprl_tpu_torch.obs.learn import learn_tap, probe_losses, probe_optimizer, probe_record
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
 __all__ = ["build_agent_state", "build_train_fn", "main"]
@@ -84,7 +85,10 @@ def build_train_fn(cfg, act_dim: int, target_entropy: float) -> StepProgram:
             if i > 0:
                 sac._zero_grads(list(critics.parameters()))
             qf_loss.backward()
+            probed = probe_optimizer("critic", opt["qf"])
             opt["qf"].step()
+            probed()
+            probe_record(qf_loss)
             ema_update(targets, critics, gates[0], gates[1])
             qf_losses.append(qf_loss.detach())
 
@@ -96,6 +100,7 @@ def build_train_fn(cfg, act_dim: int, target_entropy: float) -> StepProgram:
             return policy_loss(alpha, logprob, mean_q), logprob
 
         actor_loss, alpha_loss = actor_and_alpha_update(state, actor_loss_fn, alpha, target_entropy)
+        probe_losses(actor_loss, alpha_loss)
         return torch.stack([torch.stack(qf_losses).mean(), actor_loss, alpha_loss])
 
     def draw_noise(state, data, generator, device):
@@ -109,7 +114,7 @@ def build_train_fn(cfg, act_dim: int, target_entropy: float) -> StepProgram:
             "actor_masks": draw_dropout_masks(critics, batch, generator, device),
         }
 
-    return StepProgram(body, draw_noise, sac._prepare, n_gates=2)
+    return StepProgram(body, draw_noise, sac._prepare, n_gates=2, learn_tap=learn_tap())
 
 
 def droq_train_round(cfg, program: StepProgram, state: Dict[str, Any]):

@@ -40,6 +40,7 @@ from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import _step, adam_for, give_zero_grads
 from sheeprl_tpu_torch.algos.p2e_dv1.agent import build_agent, build_player_fns
 from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import intrinsic_reward
+from sheeprl_tpu_torch.obs.learn import learn_tap, probe_losses
 from sheeprl_tpu_torch.train.burst import TrainProgram, build_train_burst
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -124,11 +125,11 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
 
         wm_loss, metrics, posteriors, recurrents, embedded = losses.world_model_loss(wm, data, noise["posterior"])
         wm_loss.backward()
-        grads = {"world_model": _step(wm, opt["world_model"], clips["world_model"])}
+        grads = {"world_model": _step(wm, opt["world_model"], clips["world_model"], "world_model")}
 
         ens_loss = ensemble_loss(ens, posteriors, recurrents, data["actions"], embedded)
         ens_loss.backward()
-        grads["ensemble"] = _step(ens, opt["ensembles"], clips["ensembles"])
+        grads["ensemble"] = _step(ens, opt["ensembles"], clips["ensembles"], "ensembles")
 
         policy_expl, value_expl, aux_expl, grads["actor_exploration"], grads["critic_exploration"] = (
             dv1.behaviour_update(
@@ -136,12 +137,15 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
                 opt["critic_exploration"], clips, posteriors, recurrents, noise["exploration_prior"],
                 noise["exploration_actions"],
                 lambda traj, actions: intrinsic_reward(ens, traj.detach(), actions.detach(), multiplier),
+                names=("actor_exploration", "critic_exploration"),
             )
         )
         policy_task, value_task, _aux, grads["actor_task"], grads["critic_task"] = dv1.behaviour_update(
             losses, wm, state["actor_task"], state["critic_task"], opt["actor_task"], opt["critic_task"], clips,
             posteriors, recurrents, noise["prior"], noise["actions"], lambda traj, actions: wm.reward(traj),
+            names=("actor_task", "critic_task"),
         )
+        probe_losses(wm_loss, ens_loss, policy_expl, value_expl, policy_task, value_task)
 
         metrics = dict(metrics)
         metrics["Loss/ensemble_loss"] = ens_loss.detach()
@@ -158,7 +162,7 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
     def noise_for(T: int, B: int, generator: Optional[torch.Generator], device):
         return draw_noise(cfg, actions_dim, T, B, generator, device, is_continuous)
 
-    return build_train_burst(body, noise_for, _prepare)
+    return build_train_burst(body, noise_for, _prepare, learn_tap())
 
 
 @register_algorithm()

@@ -56,6 +56,7 @@ from sheeprl_tpu_torch.algos.dreamer_v2.utils import compute_lambda_values
 from sheeprl_tpu_torch.algos.p2e_dv2.agent import build_agent, build_player_fns
 from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import ensemble_loss, intrinsic_reward
 from sheeprl_tpu_torch.distributions import Independent, Normal, gumbel_noise
+from sheeprl_tpu_torch.obs.learn import learn_tap, probe_losses
 from sheeprl_tpu_torch.train.burst import TrainProgram, build_train_burst
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -206,11 +207,11 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
 
         wm_loss, metrics, posteriors, recurrents = losses.world_model_loss(wm, data, noise["posterior"])
         wm_loss.backward()
-        grads = {"world_model": _step(wm, opt["world_model"], clips["world_model"])}
+        grads = {"world_model": _step(wm, opt["world_model"], clips["world_model"], "world_model")}
 
         ens_loss = losses.ensemble_loss(ens, posteriors, recurrents, data["actions"])
         ens_loss.backward()
-        grads["ensemble"] = _step(ens, opt["ensembles"], clips["ensembles"])
+        grads["ensemble"] = _step(ens, opt["ensembles"], clips["ensembles"], "ensembles")
 
         true_continue = (1.0 - data["dones"]).reshape(-1, 1)
         policy_expl, aux_expl = losses.behaviour_loss_backward(
@@ -218,21 +219,24 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
             true_continue, noise["exploration_prior"], noise["exploration_actions"],
             lambda traj, actions: intrinsic_reward(ens, traj.detach(), actions.detach(), multiplier),
         )
-        grads["actor_exploration"] = _step(state["actor_exploration"], opt["actor_exploration"], clips["actor"])
+        grads["actor_exploration"] = _step(state["actor_exploration"], opt["actor_exploration"], clips["actor"],
+                                           "actor_exploration")
         value_expl = losses.critic_loss(state["critic_exploration"], aux_expl["trajectories"],
                                         aux_expl["lambda_values"], aux_expl["discount"])
         value_expl.backward()
-        grads["critic_exploration"] = _step(state["critic_exploration"], opt["critic_exploration"], clips["critic"])
+        grads["critic_exploration"] = _step(state["critic_exploration"], opt["critic_exploration"], clips["critic"],
+                                            "critic_exploration")
 
         policy_task, aux_task = losses.behaviour_loss_backward(
             wm, state["actor_task"], state["target_critic_task"], posteriors, recurrents, true_continue,
             noise["prior"], noise["actions"], lambda traj, actions: wm.reward(traj),
         )
-        grads["actor_task"] = _step(state["actor_task"], opt["actor_task"], clips["actor"])
+        grads["actor_task"] = _step(state["actor_task"], opt["actor_task"], clips["actor"], "actor_task")
         value_task = losses.critic_loss(state["critic_task"], aux_task["trajectories"], aux_task["lambda_values"],
                                         aux_task["discount"])
         value_task.backward()
-        grads["critic_task"] = _step(state["critic_task"], opt["critic_task"], clips["critic"])
+        grads["critic_task"] = _step(state["critic_task"], opt["critic_task"], clips["critic"], "critic_task")
+        probe_losses(wm_loss, ens_loss, policy_expl, value_expl, policy_task, value_task)
 
         metrics = dict(metrics)
         metrics["Loss/ensemble_loss"] = ens_loss.detach()
@@ -249,7 +253,7 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
     def noise_for(T: int, B: int, generator: Optional[torch.Generator], device):
         return draw_noise(cfg, actions_dim, T, B, generator, device, is_continuous)
 
-    return build_train_burst(body, noise_for, prepare)
+    return build_train_burst(body, noise_for, prepare, learn_tap())
 
 
 # ---------------------------------------------------------------------------

@@ -66,6 +66,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.loss import continue_distribution
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import compute_lambda_values, init_moments, update_moments
 from sheeprl_tpu_torch.algos.p2e_dv3.agent import build_agent, build_player_fns
 from sheeprl_tpu_torch.distributions import MSEDistribution, TwoHotEncodingDistribution, gumbel_noise
+from sheeprl_tpu_torch.obs.learn import learn_tap, probe_losses
 from sheeprl_tpu_torch.train.burst import TrainProgram, build_train_burst
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -284,11 +285,11 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
 
         wm_loss, metrics, posteriors, recurrents = losses.world_model_loss(wm, data, noise["posterior"])
         wm_loss.backward()
-        grads = {"world_model": _step(wm, opt["world_model"], clips["world_model"])}
+        grads = {"world_model": _step(wm, opt["world_model"], clips["world_model"], "world_model")}
 
         ens_loss = losses.ensemble_loss(ens, posteriors, recurrents, data["actions"])
         ens_loss.backward()
-        grads["ensemble"] = _step(ens, opt["ensembles"], clips["ensembles"])
+        grads["ensemble"] = _step(ens, opt["ensembles"], clips["ensembles"], "ensembles")
 
         true_continue = (1.0 - data["dones"]).reshape(-1, 1)
         modules = {k: c["module"] for k, c in critics.items()}
@@ -296,28 +297,32 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
             wm, state["actor_exploration"], ens, modules, state["moments"]["exploration"], posteriors, recurrents,
             true_continue, noise,
         )
-        grads["actor_exploration"] = _step(state["actor_exploration"], opt["actor_exploration"], clips["actor"])
+        grads["actor_exploration"] = _step(state["actor_exploration"], opt["actor_exploration"], clips["actor"],
+                                           "actor_exploration")
         for k, nm in aux["moments"].items():
             _copy_moments(state["moments"]["exploration"][k], nm)
         metrics = dict(metrics)
         metrics.update(aux["metrics"])
+        critic_losses = []
         for k, c in critics.items():
             value_loss = losses.critic_loss(c["module"], c["target"], aux["trajectories"], aux["lambda_values"][k],
                                             aux["discount"])
             value_loss.backward()
-            _step(c["module"], opt["critics_exploration"][k], clips["critic"])
+            _step(c["module"], opt["critics_exploration"][k], clips["critic"], "critics_exploration")
             metrics[f"Loss/value_loss_exploration_{k}"] = value_loss.detach()
+            critic_losses.append(value_loss)
 
         policy_task, aux_task = losses.actor_loss_backward(
             wm, state["actor_task"], state["critic_task"], state["moments"]["task"], posteriors, recurrents,
             true_continue, noise,
         )
-        grads["actor_task"] = _step(state["actor_task"], opt["actor_task"], clips["actor"])
+        grads["actor_task"] = _step(state["actor_task"], opt["actor_task"], clips["actor"], "actor_task")
         _copy_moments(state["moments"]["task"], aux_task["moments"])
         value_task = losses.critic_loss(state["critic_task"], state["target_critic_task"], aux_task["trajectories"],
                                         aux_task["lambda_values"], aux_task["discount"])
         value_task.backward()
-        grads["critic_task"] = _step(state["critic_task"], opt["critic_task"], clips["critic"])
+        grads["critic_task"] = _step(state["critic_task"], opt["critic_task"], clips["critic"], "critic_task")
+        probe_losses(wm_loss, ens_loss, policy_expl, policy_task, value_task, *critic_losses)
 
         metrics["Loss/ensemble_loss"] = ens_loss.detach()
         metrics["Loss/policy_loss_exploration"] = policy_expl.detach()
@@ -329,7 +334,7 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
     def noise_for(T: int, B: int, generator: Optional[torch.Generator], device):
         return draw_noise(cfg, actions_dim, T, B, generator, device, is_continuous)
 
-    return build_train_burst(body, noise_for, prepare)
+    return build_train_burst(body, noise_for, prepare, learn_tap())
 
 
 # ---------------------------------------------------------------------------

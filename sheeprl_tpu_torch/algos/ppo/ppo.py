@@ -54,7 +54,9 @@ from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.vector import make_vector_env
 from sheeprl_tpu_torch.evals.builders import actions_dim_of
 from sheeprl_tpu_torch.obs.counters import add_rollout_burst, count_h2d
+from sheeprl_tpu_torch.obs.learn import learn_tap, probe_losses, probe_update, tapped
 from sheeprl_tpu_torch.obs.perf import PhaseSeconds, log_sps_metrics, register_step_cost
+from sheeprl_tpu_torch.obs.prof.capture import profile_tick
 from sheeprl_tpu_torch.obs.spans import span
 from sheeprl_tpu_torch.replay import make_replay_buffer
 from sheeprl_tpu_torch.train.graphs import CapturedStep
@@ -101,7 +103,8 @@ class ActingGraph:
         self.inputs = {k: torch.zeros(np.shape(v), dtype=torch.from_numpy(np.asarray(v)).dtype, device=self.device)
                        for k, v in example.items()}
         self.noise = [torch.zeros_like(t) for t in draw(None)]
-        self.step = CapturedStep(torch.no_grad()(lambda: policy(self.inputs, self.noise)), self.device)
+        self.step = CapturedStep(torch.no_grad()(lambda: policy(self.inputs, self.noise)), self.device,
+                                 name="act")
 
     def __call__(self, inputs: Mapping[str, np.ndarray], noise: Optional[Sequence[torch.Tensor]] = None):
         for k, v in inputs.items():
@@ -132,7 +135,7 @@ class GaeStep:
             self.static = {k: torch.zeros(v.shape, dtype=torch.float32, device=self.device) for k, v in given.items()}
             s = self.static
             self.step = CapturedStep(lambda: gae(s["rewards"], s["values"], s["dones"], s["next_value"], self.gamma,
-                                                 self.gae_lambda), self.device)
+                                                 self.gae_lambda), self.device, name="gae")
         for k, v in given.items():
             self.static[k].copy_(v)
         return self.step()
@@ -153,7 +156,10 @@ class UpdateProgram:
     permutations drawn from ``generator`` (the JAX update's own, in the
     parity tests); ``eager`` runs every step eagerly (the graph's yardstick
     on the card). Returns the metrics' mean over the update's steps, a
-    device tensor."""
+    device tensor. Built with the learn probes on (``obs.learn``), each
+    step also probes the raw gradients, the parameters and the applied
+    update under ``agent``, and an update hands its steps' probes to the
+    sentinel in one pull."""
 
     def __init__(self, loss_fn, select, agent: torch.nn.Module, optimizer: torch.optim.Optimizer, *,
                  max_grad_norm: float, epochs: int, n_samples: int, batch_size: int, n_metrics: int,
@@ -172,16 +178,21 @@ class UpdateProgram:
         self.acc = torch.zeros(int(n_metrics), dtype=torch.float32, device=self.device)
         self._params = [p for p in agent.parameters()]
         give_zero_grads([agent])
-        self.step = CapturedStep(self._step, self.device, train=True)
+        self.learn_tap = learn_tap()
+        self._probed_step = tapped(self._step, self.learn_tap)
+        self.step = CapturedStep(self._probed_step, self.device, train=True)
 
     def _step(self) -> torch.Tensor:
         grads = [p.grad for p in self._params]
         torch._foreach_zero_(grads)
         loss, metrics = self._loss_fn(self.agent, self._select(self.data, self.idx), self.scalars)
         loss.backward()
+        probed = probe_update("agent", grads, self._params, self.optimizer, self.max_grad_norm or None)
         if self.max_grad_norm > 0:
-            clip_by_global_norm_(grads, self.max_grad_norm)
+            clip_by_global_norm_(grads, self.max_grad_norm, norm=probed.grad_norm)
         self.optimizer.step()
+        probed()
+        probe_losses(metrics)
         self.acc.add_(metrics.detach())
         return self.acc
 
@@ -210,7 +221,11 @@ class UpdateProgram:
                 perm = torch.randperm(self.n_samples, generator=self.generator, device=self.device)
             for m in range(self.n_minibatches):
                 self.idx.copy_(perm[m * self.batch_size:(m + 1) * self.batch_size])
-                self._step() if eager else self.step()
+                self._probed_step() if eager else self.step()
+                if self.learn_tap is not None:
+                    self.learn_tap.collect()
+        if self.learn_tap is not None:
+            self.learn_tap.flush()
         return self.acc / float(self.epochs * self.n_minibatches)
 
 
@@ -598,6 +613,7 @@ def train_loop(fabric, cfg, run: SimpleNamespace, family: PPO) -> Dict[str, Any]
             loss_sum, loss_count = None, 0
             log_sps_metrics(logger, policy_step=policy_step, last_log=last_log, train_step=train_step,
                             last_train=last_train, world_size=world_size, action_repeat=cfg.env.action_repeat)
+            profile_tick(policy_step=policy_step, world_size=world_size)
             last_log, last_train = policy_step, train_step
 
         if family.anneals and cfg.algo.get("anneal_clip_coef", False):

@@ -55,6 +55,7 @@ from sheeprl_tpu_torch.config.instantiate import instantiate
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.evals.builders import actions_dim_of
 from sheeprl_tpu_torch.obs.perf import PhaseSeconds, log_sps_metrics, register_step_cost
+from sheeprl_tpu_torch.obs.prof.capture import profile_tick
 from sheeprl_tpu_torch.obs.spans import span
 from sheeprl_tpu_torch.plane import SlabSpec, build_plane, plane_env_split, version_after
 from sheeprl_tpu_torch.utils.logger import create_tensorboard_logger
@@ -205,6 +206,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
                 loss_sum, loss_count = None, 0
                 log_sps_metrics(logger, policy_step=policy_step, last_log=last_log, train_step=train_step,
                                 last_train=last_train, world_size=world_size, action_repeat=cfg.env.action_repeat)
+                profile_tick(policy_step=policy_step, world_size=world_size)
                 last_log, last_train = policy_step, train_step
             if cfg.algo.get("anneal_clip_coef", False):
                 cfg.algo.clip_coef = polynomial_decay(update, initial=initial_clip_coef, final=0.0,

@@ -60,13 +60,15 @@ from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.vector import make_vector_env, resolve_backend
 from sheeprl_tpu_torch.evals.inrun import maybe_start_inrun_eval
 from sheeprl_tpu_torch.obs.counters import add_rollout_burst, add_train_burst
+from sheeprl_tpu_torch.obs.learn import LearnTap, learn_tap, probe_losses, probe_optimizer, tapped
 from sheeprl_tpu_torch.obs.perf import PhaseSeconds, log_sps_metrics, register_step_cost
+from sheeprl_tpu_torch.obs.prof.capture import profile_tick
 from sheeprl_tpu_torch.obs.spans import span
 from sheeprl_tpu_torch.replay import make_replay_buffer
 from sheeprl_tpu_torch.train.graphs import CapturedStep
 from sheeprl_tpu_torch.utils.logger import create_tensorboard_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric
-from sheeprl_tpu_torch.utils.optim import Adam
+from sheeprl_tpu_torch.utils.optim import Adam, set_lr
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 from sheeprl_tpu_torch.utils.utils import save_configs
 
@@ -111,10 +113,13 @@ class StepProgram:
     bursts on one state at one batch shape (``.static`` holds its buffers).
     A body may return ``(metrics, td)``: the step then returns both, and a
     burst keeps its steps' ``td`` stacked in :attr:`last_td` (a device
-    tensor, ``[G, B, 1]`` for SAC's TD residuals)."""
+    tensor, ``[G, B, 1]`` for SAC's TD residuals). ``learn_tap`` (an
+    ``obs.learn.LearnTap``, or None) records each call's learn probes; a
+    burst hands their stack to the sentinel (``train/burst.py``'s feed)."""
 
-    def __init__(self, body, draw_noise, prepare, n_gates: int):
-        self._body = body
+    def __init__(self, body, draw_noise, prepare, n_gates: int, learn_tap: Optional[LearnTap] = None):
+        self._body = tapped(body, learn_tap)
+        self.learn_tap = learn_tap
         self._draw_noise = draw_noise
         self.prepare = prepare
         self.n_gates = int(n_gates)
@@ -136,7 +141,10 @@ class StepProgram:
             noise = self._draw_noise(state, data, state.get("generator"), device)
         self.prepare(state)
         gates = torch.as_tensor(np.asarray(gates, np.float32).reshape(self.n_gates)).to(device)
-        return self._body(state, data, noise, gates)
+        out = self._body(state, data, noise, gates)
+        if self.learn_tap is not None:
+            self.learn_tap.collect()
+        return out
 
     def _static_for(self, state, data_stack) -> SimpleNamespace:
         if self.static is None:
@@ -176,11 +184,15 @@ class StepProgram:
                 v.copy_(drawn[k])
             static.gates.copy_(gates_dev[i])
             out = static.step()
+            if self.learn_tap is not None:
+                self.learn_tap.collect()
             if isinstance(out, tuple):
                 out, td = out
                 tds.append(td.clone())
             total = out.clone() if total is None else total.add_(out)
         self.last_td = torch.stack(tds) if tds else None
+        if self.learn_tap is not None:
+            self.learn_tap.flush()
         return total / n
 
 
@@ -198,7 +210,8 @@ class ActingStep:
                     for k, v in obs_example.items()}
         n = int(np.shape(next(iter(obs_example.values())))[0])
         self.eps = torch.zeros((n, int(act_dim)), device=self.device)
-        self.step = CapturedStep(torch.no_grad()(lambda: policy(self.obs, self.eps)), self.device)
+        self.step = CapturedStep(torch.no_grad()(lambda: policy(self.obs, self.eps)), self.device,
+                                 name="act")
 
     def __call__(self, obs: Mapping[str, np.ndarray], eps: Optional[torch.Tensor] = None) -> np.ndarray:
         for k, v in obs.items():
@@ -261,10 +274,14 @@ def actor_and_alpha_update(state, actor_loss_fn, alpha, target_entropy: float, g
     opt = state["opt"]
     actor_loss, logprob = actor_loss_fn()
     actor_loss.backward()
+    probed = probe_optimizer("actor", opt["actor"])
     opt["actor"].step(gate=gate)
+    probed()
     alpha_loss = entropy_loss(state["log_alpha"], logprob.detach(), target_entropy)
     alpha_loss.backward()
+    probed = probe_optimizer("alpha", opt["alpha"])
     opt["alpha"].step(gate=gate)
+    probed()
     return actor_loss.detach(), alpha_loss.detach()
 
 
@@ -298,7 +315,9 @@ def build_train_fn(cfg, act_dim: int, target_entropy: float, emit_td: bool = Fal
         q = critics(data["observations"], data["actions"])
         qf_loss = critic_loss(q, td_target, n_critics)
         qf_loss.backward()
+        probed = probe_optimizer("critic", opt["qf"])
         opt["qf"].step()
+        probed()
         ema_update(targets, critics, gates[0], gates[1])
 
         def actor_loss_fn():
@@ -309,6 +328,7 @@ def build_train_fn(cfg, act_dim: int, target_entropy: float, emit_td: bool = Fal
             return policy_loss(alpha, logprob, min_q), logprob
 
         actor_loss, alpha_loss = actor_and_alpha_update(state, actor_loss_fn, alpha, target_entropy)
+        probe_losses(qf_loss, actor_loss, alpha_loss)
         metrics = torch.stack([qf_loss.detach(), actor_loss, alpha_loss])
         if emit_td:
             return metrics, torch.amin(q.detach(), dim=-1, keepdim=True) - td_target
@@ -318,7 +338,7 @@ def build_train_fn(cfg, act_dim: int, target_entropy: float, emit_td: bool = Fal
         batch = data["rewards"].shape[0]
         return {k: torch.randn((batch, act_dim), generator=generator, device=device) for k in ("next", "actor")}
 
-    return StepProgram(body, draw_noise, _prepare, n_gates=2)
+    return StepProgram(body, draw_noise, _prepare, n_gates=2, learn_tap=learn_tap())
 
 
 # ---------------------------------------------------------------------------
@@ -483,6 +503,11 @@ def train_loop(
         rb.load_state_dict(resumed["rb"])
 
     start_step = int(resumed["update"]) // world_size if resumed is not None else 1
+    # fault injection (metric.telemetry.learn.inject_lr_spike_*): every optimizer's rate multiplied once, at the
+    # update given; it drives the divergence sentinel's acceptance tests and is never on in a real run
+    learn_cfg = (cfg.metric.get("telemetry", None) or {}).get("learn", None) or {}
+    lr_spike_at = learn_cfg.get("inject_lr_spike_at", None)
+    lr_spike_factor = float(learn_cfg.get("inject_lr_spike_factor", 0) or 0)
     policy_step = int(resumed["update"]) * cfg.env.num_envs if resumed is not None else 0
     last_log = int(resumed["last_log"]) if resumed is not None else 0
     last_checkpoint = int(resumed["last_checkpoint"]) if resumed is not None else 0
@@ -587,6 +612,10 @@ def train_loop(
         counters["updates"] += n_act
 
         calls = sum(p.calls() for p in programs)
+        if lr_spike_at is not None and lr_spike_factor and first <= int(lr_spike_at) <= last:
+            lr_spike_at = None  # fires exactly once
+            for opt in state["opt"].values():
+                set_lr(opt, opt.param_groups[0]["lr"] * lr_spike_factor)
         with seconds.phase("sample_and_train"), span(
             "Time/train_time", SumMetric(sync_on_compute=cfg.metric.sync_on_compute), phase="train"
         ):
@@ -614,6 +643,7 @@ def train_loop(
             loss_sum, loss_count = None, 0
             log_sps_metrics(logger, policy_step=policy_step, last_log=last_log, train_step=train_step,
                             last_train=last_train, world_size=world_size, action_repeat=cfg.env.action_repeat)
+            profile_tick(policy_step=policy_step, world_size=world_size)
             last_log, last_train = policy_step, train_step
 
         if should_checkpoint(cfg, policy_step, last_checkpoint, last, num_updates):

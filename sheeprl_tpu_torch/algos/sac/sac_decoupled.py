@@ -49,6 +49,7 @@ from sheeprl_tpu_torch.data.staging import make_replay_staging
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.vector import make_eval_env
 from sheeprl_tpu_torch.obs.perf import PhaseSeconds, log_sps_metrics, register_step_cost
+from sheeprl_tpu_torch.obs.prof.capture import profile_tick
 from sheeprl_tpu_torch.obs.spans import span
 from sheeprl_tpu_torch.plane import SlabSpec, build_plane, burst_plan, plane_env_split, version_after
 from sheeprl_tpu_torch.replay import ReplayPlane, make_replay_buffer, replay_config
@@ -278,6 +279,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
                 loss_sum, loss_count = None, 0
                 log_sps_metrics(logger, policy_step=policy_step, last_log=last_log, train_step=train_step,
                                 last_train=last_train, world_size=world_size, action_repeat=cfg.env.action_repeat)
+                profile_tick(policy_step=policy_step, world_size=world_size)
                 last_log, last_train = policy_step, train_step
 
             if should_checkpoint(cfg, policy_step, last_checkpoint, last, num_updates):

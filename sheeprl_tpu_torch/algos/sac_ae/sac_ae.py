@@ -44,6 +44,7 @@ from sheeprl_tpu_torch.algos.sac.loss import critic_loss, policy_loss
 from sheeprl_tpu_torch.algos.sac.sac import StepProgram, actor_and_alpha_update, ema_update
 from sheeprl_tpu_torch.algos.sac_ae.agent import build_agent, preprocess_obs
 from sheeprl_tpu_torch.algos.sac_ae.utils import normalize_obs, normalize_obs_tensors, prepare_obs
+from sheeprl_tpu_torch.obs.learn import learn_tap, probe_losses, probe_optimizer, probe_update
 from sheeprl_tpu_torch.utils.optim import Adam
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -118,7 +119,9 @@ def build_train_fn(cfg, act_dim: int, target_entropy: float) -> StepProgram:
 
         qf_loss = critic_loss(qfs(encoder(obs), data["actions"]), td_target, n_critics)
         qf_loss.backward()
+        probed = probe_optimizer("critic", opt["qf"])
         opt["qf"].step()
+        probed()
         ema_update(target_qfs, qfs, gates[0], gates[1])
         ema_update(target_encoder, encoder, gates[2], gates[3])
 
@@ -147,8 +150,14 @@ def build_train_fn(cfg, act_dim: int, target_entropy: float) -> StepProgram:
             recon_loss = recon_loss + (torch.mean((data[k] - recon[k]) ** 2) + latent_l2)
         recon_loss.backward()
         do_decoder = gates[5] > 0
+        # the JAX step probes the decoder's module over the encoder's and the decoder's gradients
+        decoder_params = list(decoder.parameters())
+        probed = probe_update("decoder", [p.grad for p in list(encoder.parameters()) + decoder_params],
+                              decoder_params, opt["decoder"])
         opt["encoder"].step(gate=do_decoder)
         opt["decoder"].step(gate=do_decoder)
+        probed()
+        probe_losses(qf_loss, actor_loss, alpha_loss, recon_loss)
         return torch.stack([qf_loss.detach(), actor_loss, alpha_loss, recon_loss.detach()])
 
     def draw_noise(state, data, generator, device):
@@ -158,7 +167,7 @@ def build_train_fn(cfg, act_dim: int, target_entropy: float) -> StepProgram:
             noise[f"recon_{k}"] = torch.rand(data[k].shape, generator=generator, device=device)
         return noise
 
-    return StepProgram(body, draw_noise, _prepare, n_gates=6)
+    return StepProgram(body, draw_noise, _prepare, n_gates=6, learn_tap=learn_tap())
 
 
 def sac_ae_train_round(cfg, program: StepProgram, state: Dict[str, Any], n_envs: int):

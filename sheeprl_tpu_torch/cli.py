@@ -243,37 +243,42 @@ def load_exploration_cfg(cfg) -> dotdict:
 
 
 def check_telemetry_options(cfg) -> None:
-    """Raise for the observability options whose layers the port does not
-    have yet, the same keys for every entrypoint: the profiler
-    (``metric.profiler``, ``metric.telemetry.profile.every_n_steps``,
-    ``metric.telemetry.flight.profiler_capture_s``; ROADMAP queue A item
-    6h-b) and, with telemetry on, the learning-health plane
-    (``metric.telemetry.learn.enabled``; 6h-c)."""
+    """Raise for observability values no run can honour, the same for every
+    entrypoint: a negative ``metric.telemetry.profile.every_n_steps``,
+    ``window_s`` or ``max_captures``, a negative
+    ``metric.telemetry.flight.profiler_capture_s``, or a
+    ``metric.telemetry.learn.every_n_bursts`` below 1."""
     metric = cfg.get("metric", None) or {}
-    if metric.get("profiler", False):
-        raise NotImplementedError("metric.profiler: trace capture is ROADMAP queue A item 6h-b")
     telemetry = metric.get("telemetry", None) or {}
-    if float((telemetry.get("profile", None) or {}).get("every_n_steps", 0) or 0) > 0:
-        raise NotImplementedError(
-            "metric.telemetry.profile.every_n_steps>0: in-run device profiling is ROADMAP queue A item 6h-b"
-        )
-    if float((telemetry.get("flight", None) or {}).get("profiler_capture_s", 0) or 0) > 0:
-        raise NotImplementedError(
-            "metric.telemetry.flight.profiler_capture_s>0: the flight recorder's profiler window is ROADMAP queue A "
-            "item 6h-b"
-        )
-    if telemetry.get("enabled", False) and (telemetry.get("learn", None) or {}).get("enabled", False):
-        raise NotImplementedError(
-            "metric.telemetry.learn.enabled=True: the learn probes and the divergence sentinel are ROADMAP queue A "
-            "item 6h-c; run the telemetry with metric.telemetry.learn.enabled=False"
-        )
+    profile = telemetry.get("profile", None) or {}
+    for key in ("every_n_steps", "window_s", "max_captures"):
+        if float(profile.get(key, 0) or 0) < 0:
+            raise ValueError(f"metric.telemetry.profile.{key} must be >= 0, got {profile.get(key)}")
+    capture_s = (telemetry.get("flight", None) or {}).get("profiler_capture_s", 0)
+    if float(capture_s or 0) < 0:
+        raise ValueError(f"metric.telemetry.flight.profiler_capture_s must be >= 0, got {capture_s}")
+    every = (telemetry.get("learn", None) or {}).get("every_n_bursts", 1)
+    if every is not None and int(every) < 1:
+        raise ValueError(f"metric.telemetry.learn.every_n_bursts must be >= 1, got {every}")
+
+
+def profiler_trace_dir(cfg) -> Optional[str]:
+    """``metric.profiler``: None (off), the directory given, or, for
+    ``True``, ``logs/runs/<root_dir>/<run_name>/torch_traces``."""
+    profiler = cfg.metric.get("profiler", False)
+    if not profiler:
+        return None
+    if isinstance(profiler, str):
+        return os.path.abspath(profiler)
+    return os.path.abspath(os.path.join("logs", "runs", str(cfg.root_dir), str(cfg.run_name), "torch_traces"))
 
 
 def run_algorithm(cfg) -> Any:
     """Registry lookup → Fabric → entrypoint (a P2E finetuning entrypoint also
     gets its exploration run's config, ``load_exploration_cfg``); the run
     telemetry (``metric.telemetry``, :mod:`sheeprl_tpu_torch.obs`) and then
-    the checkpoint subsystem are set up before and, in the ``finally``, the
+    the checkpoint subsystem are set up before (``metric.profiler`` traces
+    the entrypoint with ``torch.profiler``) and, in the ``finally``, the
     checkpoint subsystem drained and then the telemetry finalized (a crashed
     run's ``telemetry.json`` records the exception); the metric aggregator's
     and the timer's on/off switches follow ``metric.log_level`` for the run
@@ -300,7 +305,15 @@ def run_algorithm(cfg) -> Any:
     setup_telemetry(cfg, device=fabric.device, rank=fabric.global_rank)
     setup_checkpoint(cfg)
     try:
-        result = fabric.launch(entrypoint, cfg, **kwargs)
+        trace_dir = profiler_trace_dir(cfg)
+        if trace_dir is not None:
+            # torch.profiler around the whole run (the JAX package's jax.profiler trace)
+            from sheeprl_tpu_torch.obs.prof.capture import whole_run_trace
+
+            with whole_run_trace(trace_dir):
+                result = fabric.launch(entrypoint, cfg, **kwargs)
+        else:
+            result = fabric.launch(entrypoint, cfg, **kwargs)
     finally:
         stats = teardown_checkpoint()
         # inside a finally, exc_info() is the exception in flight (if any)

@@ -58,7 +58,8 @@ class _Burst:
             "reset": torch.zeros((self.length, engine.n_envs, engine.env.reset_width), dtype=torch.float64,
                                  device=engine.device),
         }
-        self.step = CapturedStep(lambda: engine._burst(self.length, self.random_actions, self.noise), engine.device)
+        self.step = CapturedStep(lambda: engine._burst(self.length, self.random_actions, self.noise), engine.device,
+                                 name="rollout")
 
 
 class RolloutEngine:

@@ -36,7 +36,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 
 from sheeprl_tpu_torch.kernels import reference
-from sheeprl_tpu_torch.obs.perf import add_kernel_flops
+from sheeprl_tpu_torch.obs.perf import add_kernel_bytes, add_kernel_flops
 
 __all__ = [
     "LaunchCounter",
@@ -171,6 +171,11 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _io_bytes(*tensors: Optional[torch.Tensor]) -> int:
+    """Bytes a launch must move: each operand read or written once."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def _vec(H: int, X: int, *operands) -> int:
     """16-byte copies: every width a multiple of 4 floats, every pointer aligned."""
     return int(H % 4 == 0 and X % 4 == 0 and all(t is None or t.data_ptr() % 16 == 0 for t in operands))
@@ -239,6 +244,7 @@ def hafner_cell_cuda(
     _raise_on(lib, err, f"hafner_cell{' bf16' if bf16 else ''} (B={B}, H={H}, X={X})")
     hafner_cell_launches.add("bf16" if bf16 else "f32")
     add_kernel_flops(2 * B * (H + X) * 3 * H)
+    add_kernel_bytes(_io_bytes(h, x, kernel, bias, ln_scale, ln_bias, out, z))
     return (out, z) if save_z else out
 
 
@@ -406,6 +412,7 @@ def hafner_sequence_cuda(
     _raise_on(lib, err, f"hafner_sequence {variant} (T={T}, B={B}, H={H}, X={X})")
     hafner_sequence_launches.add(variant)
     add_kernel_flops(2 * T * B * (H + X) * 3 * H)
+    add_kernel_bytes(_io_bytes(h0, xs, kernel, bias, ln_scale, ln_bias, hs, z))
     return (hs, z) if save_z else hs
 
 

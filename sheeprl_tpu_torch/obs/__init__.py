@@ -19,9 +19,15 @@ end-of-run ``telemetry.json``.
 
 Everything is configured by the ``metric.telemetry`` config group and is
 off by default; disabled, a span is a plain ``timer`` and no file, thread,
-histogram or flight ring exists. The JAX package's profiler (``obs/prof``)
-and learning-health plane (``obs/learn``) are ROADMAP queue A items 6h-b and
-6h-c. Names load on first use, so ``import sheeprl_tpu_torch.obs`` costs
+histogram or flight ring exists. Two planes sit beside these:
+
+- :mod:`~sheeprl_tpu_torch.obs.prof`: ``torch.profiler`` capture windows,
+  the Chrome-trace parser and the roofline (``device_ms_per_step``,
+  ``mfu_device_pct``, ``roofline_verdict``);
+- :mod:`~sheeprl_tpu_torch.obs.learn`: learn probes computed inside the
+  train step and the divergence sentinel over them.
+
+Names load on first use, so ``import sheeprl_tpu_torch.obs`` costs
 nothing.
 """
 
@@ -59,7 +65,7 @@ _EXPORTS = {
     "prometheus_text": "live",
     "PEAK_TFLOPS_BF16": "perf",
     "LoopProbe": "perf",
-    "count_flops": "perf",
+    "count_cost": "perf",
     "log_sps_metrics": "perf",
     "mfu_pct": "perf",
     "register_step_cost": "perf",
@@ -68,6 +74,15 @@ _EXPORTS = {
     "get_tracer": "spans",
     "set_tracer": "spans",
     "span": "spans",
+    "LEARN_PREFIX": "learn",
+    "LearnSentinel": "learn",
+    "learn_probes": "learn",
+    "observe_probes": "learn",
+    "probes_enabled": "learn",
+    "StepProfiler": "prof",
+    "detect_peaks": "prof",
+    "profile_tick": "prof",
+    "roofline_analyze": "prof",
     "Telemetry": "telemetry",
     "finalize_telemetry": "telemetry",
     "get_telemetry": "telemetry",

@@ -17,9 +17,11 @@ dump layout).
   stall, a non-finite loss, an env worker restart or the pool's fall back to
   in-process stepping, a plane player or replay writer restart), dumps the
   ring plus a counter snapshot to ``telemetry/flight_<reason>_<step>.json``.
-  The JAX package can also open a profiler window per trigger
-  (``flight.profiler_capture_s``); that is ROADMAP queue A item 6h-b here,
-  and the knob raises.
+  With ``flight.profiler_capture_s > 0`` a dump also opens a
+  ``torch.profiler`` window of that many seconds (on the loop's thread,
+  arbitrated with the scheduled captures: ``obs/prof/capture.py``) whose
+  Chrome trace lands in ``flight_<reason>_<step>_trace/`` and whose parse,
+  ``flight_<reason>_<step>_trace_summary.json``, beside it.
 
 Everything here is owned by :class:`~sheeprl_tpu_torch.obs.telemetry.Telemetry`;
 none of it exists (no threads, no sockets, no ring allocation) when
@@ -378,8 +380,12 @@ class FlightRecorder:
         step_source: Optional[Callable[[], int]] = None,
         context_fn: Optional[Callable[[], Dict[str, Any]]] = None,
         tag: str = "",
+        profiler_capture_s: float = 0.0,
     ):
         self.ring: collections.deque = collections.deque(maxlen=int(capacity))
+        self.profiler_capture_s = float(profiler_capture_s or 0.0)
+        self._capturing = False
+        self._window = None
         self.min_interval_s = float(min_interval_s)
         self.max_dumps = int(max_dumps)
         self.out_dir = out_dir
@@ -471,4 +477,52 @@ class FlightRecorder:
         tracer = get_tracer()
         if tracer is not None:
             tracer.instant(f"flight_{reason}", cat="flight", args=detail)
+        if self.profiler_capture_s > 0:
+            self._capture_window(f"{path[:-5]}_trace")
         return path
+
+    def _capture_window(self, out_dir: str) -> None:
+        """A profiler window of ``profiler_capture_s`` seconds, opened on the
+        loop's thread (now, or at its next span when the trigger fired
+        elsewhere) if no other capture holds the profiler; its trace is
+        parsed and folded into the run telemetry as it lands."""
+        from sheeprl_tpu_torch.obs.prof import capture as _capture
+
+        with self._lock:
+            if self._capturing:
+                return
+            self._capturing = True
+
+        def on_done(events, window) -> Optional[Dict[str, Any]]:
+            with self._lock:
+                self._capturing = False
+            if not events:
+                return None
+            from sheeprl_tpu_torch.obs.telemetry import get_telemetry
+
+            record = _capture.parse_and_fold(events, get_telemetry())
+            if record is not None:
+                record["trace_dir"] = out_dir
+                record["kernel_launches"] = dict(window.launches)
+                try:
+                    atomic_write_json(f"{out_dir}_summary.json", record)
+                except OSError:
+                    pass
+            return record
+
+        def opener() -> None:
+            self._window = _capture.open_window(out_dir, self.profiler_capture_s, on_done)
+            if self._window is None:
+                with self._lock:
+                    self._capturing = False
+
+        if not _capture.queue_window(opener):
+            with self._lock:
+                self._capturing = False
+
+    def close_capture(self) -> None:
+        """Stop an open anomaly window (on its own thread) and wait for its parse."""
+        window, self._window = self._window, None
+        if window is not None:
+            window.stop()
+            window.wait()

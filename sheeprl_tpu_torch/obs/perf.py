@@ -9,12 +9,20 @@ rate gauges and ``Perf/mfu``: the loops call it at their log boundary, and
 A train step's FLOPs are counted once per run with
 ``torch.utils.flop_counter.FlopCounterMode`` over one eager call of the
 step, the first warm-up call that ``train/graphs.CapturedStep`` makes anyway
-(never inside a capture): :func:`count_flops`. The counter sees the matrix
+(never inside a capture): :func:`count_cost`. The counter sees the matrix
 products and convolutions that PyTorch dispatches, forward and backward;
 the products inside the port's own CUDA kernels, which it cannot see, their
 wrappers add from their shapes (:func:`add_kernel_flops`), so a step counts
 the same on the card as on the CPU. Elementwise work and reductions are not
 counted (the JAX package takes XLA's cost analysis of the whole program).
+
+The same call counts the step's bytes (:func:`count_cost`): a
+``TorchDispatchMode`` sums every PyTorch operation's input and output bytes,
+views excepted, and the kernels' wrappers add theirs
+(:func:`add_kernel_bytes`). That is an unfused upper bound, as XLA's "bytes
+accessed" is: an operation's inputs are read and its outputs written once
+each, whatever a fused kernel would keep on chip. It is the in-run
+roofline's bandwidth numerator (``obs/prof``).
 """
 
 from __future__ import annotations
@@ -28,8 +36,9 @@ __all__ = [
     "LoopProbe",
     "PEAK_TFLOPS_BF16",
     "PhaseSeconds",
+    "add_kernel_bytes",
     "add_kernel_flops",
-    "count_flops",
+    "count_cost",
     "log_sps_metrics",
     "mfu_pct",
     "register_step_cost",
@@ -42,8 +51,10 @@ __all__ = [
 #: stay comparable across precisions)
 PEAK_TFLOPS_BF16 = 989.4
 
-#: the products the port's kernels ran during a count_flops call (None outside one)
+#: the products the port's kernels ran during a count_cost call (None outside one)
 _KERNEL_FLOPS: Optional[List[int]] = None
+#: the bytes the port's kernels moved during a count_cost call (None outside one)
+_KERNEL_BYTES: Optional[List[int]] = None
 
 
 class LoopProbe:
@@ -106,29 +117,70 @@ class PhaseSeconds(dict):
             self[name] = self.get(name, 0.0) + time.perf_counter() - t0
 
 
-def count_flops(fn: Callable[[], Any]) -> Tuple[Any, int]:
-    """``(fn(), flops)``: one eager call under ``FlopCounterMode`` (matrix
-    products and convolutions, forward and backward). Never call it inside a
-    CUDA-graph capture."""
+def _nbytes(t) -> int:
+    """A tensor's bytes, at most its storage's (a broadcast view is read once)."""
+    n = t.numel() * t.element_size()
+    try:
+        return min(n, t.untyped_storage().nbytes())
+    except Exception:
+        return n
+
+
+def _byte_counter():
+    """A ``TorchDispatchMode`` summing every operation's input and output
+    bytes into ``.total`` (views and metadata operations move none)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class ByteCounter(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not getattr(func, "is_view", False):
+                self.total += sum(
+                    _nbytes(t) for t in tree_leaves((args, kwargs, out)) if isinstance(t, torch.Tensor)
+                )
+            return out
+
+    return ByteCounter()
+
+
+def count_cost(fn: Callable[[], Any]) -> Tuple[Any, int, int]:
+    """``(fn(), flops, bytes)``: one eager call under ``FlopCounterMode``
+    (matrix products and convolutions, forward and backward) and the byte
+    counter (every operation's inputs and outputs, an unfused upper bound),
+    plus what the port's kernels add. Never call it inside a CUDA-graph
+    capture."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    global _KERNEL_FLOPS
+    global _KERNEL_FLOPS, _KERNEL_BYTES
     counter = FlopCounterMode(display=False)
-    _KERNEL_FLOPS = [0]
+    nbytes = _byte_counter()
+    _KERNEL_FLOPS, _KERNEL_BYTES = [0], [0]
     try:
-        with counter:
+        with counter, nbytes:
             out = fn()
-        return out, int(counter.get_total_flops()) + _KERNEL_FLOPS[0]
+        return out, int(counter.get_total_flops()) + _KERNEL_FLOPS[0], int(nbytes.total) + _KERNEL_BYTES[0]
     finally:
-        _KERNEL_FLOPS = None
+        _KERNEL_FLOPS = _KERNEL_BYTES = None
 
 
 def add_kernel_flops(flops: int) -> None:
     """A hand-written kernel's product (``2·M·K·N``) inside a
-    :func:`count_flops` call; a no-op outside one."""
+    :func:`count_cost` call; a no-op outside one."""
     acc = _KERNEL_FLOPS
     if acc is not None:
         acc[0] += int(flops)
+
+
+def add_kernel_bytes(nbytes: int) -> None:
+    """A hand-written kernel's bytes (each input read and each output
+    written once) inside a :func:`count_cost` call; a no-op outside one."""
+    acc = _KERNEL_BYTES
+    if acc is not None:
+        acc[0] += int(nbytes)
 
 
 def wants_train_flops() -> bool:
@@ -140,18 +192,23 @@ def wants_train_flops() -> bool:
 
 
 def register_train_cost(
-    telemetry, step_flops: Optional[float], *, dispatches_per_step: int = 1, world_size: int = 1
+    telemetry, step_flops: Optional[float], step_bytes: Optional[float] = None, *, dispatches_per_step: int = 1,
+    world_size: int = 1,
 ) -> None:
-    """Register the counted FLOPs of one train-step call with the run
-    telemetry per unit of the loop's train-step counter: the counter
+    """Register the counted FLOPs and bytes of one train-step call with the
+    run telemetry per unit of the loop's train-step counter: the counter
     advances by ``world_size`` per training block, which calls the step
     ``dispatches_per_step`` times, so the registered cost is
-    ``step_flops × dispatches_per_step / world_size``."""
+    ``step_cost × dispatches_per_step / world_size``."""
     if telemetry is None:
         return
     dps = max(int(dispatches_per_step), 1)
     ws = max(int(world_size), 1)
-    telemetry.set_train_cost(step_flops * dps / ws if step_flops else None, None, dispatches_per_step=dps)
+    telemetry.set_train_cost(
+        step_flops * dps / ws if step_flops else None,
+        step_bytes * dps / ws if step_bytes else None,
+        dispatches_per_step=dps,
+    )
 
 
 def register_step_cost(step, *, dispatches_per_step: int = 1, world_size: int = 1) -> None:
@@ -162,7 +219,8 @@ def register_step_cost(step, *, dispatches_per_step: int = 1, world_size: int = 
     telemetry = get_telemetry()
     if telemetry is None or not telemetry.needs_train_flops() or getattr(step, "flops", None) is None:
         return
-    register_train_cost(telemetry, step.flops, dispatches_per_step=dispatches_per_step, world_size=world_size)
+    register_train_cost(telemetry, step.flops, getattr(step, "bytes", None), dispatches_per_step=dispatches_per_step,
+                        world_size=world_size)
 
 
 def mfu_pct(

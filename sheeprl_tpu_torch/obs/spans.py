@@ -14,6 +14,10 @@ active, additionally
   the same phase names show up in a profiler trace. Outside a profiler
   session the mirror costs one flag read.
 
+A span's exit is also where an in-run profiler window is closed at its
+deadline and a queued one opened (``obs/prof/capture.poll``: a
+``torch.profiler`` session is stopped on the thread that started it).
+
 A span is host wall time: it never synchronises the device. With no tracer
 and no histogram set installed a ``span`` is exactly a ``timer`` (no file
 handles, no clock read of its own).
@@ -40,6 +44,7 @@ from contextlib import ContextDecorator
 from typing import Any, Dict, Optional
 
 from sheeprl_tpu_torch.obs import hist as _hist
+from sheeprl_tpu_torch.obs.prof import capture as _capture
 from sheeprl_tpu_torch.utils.timer import timer
 
 __all__ = ["span", "TraceWriter", "get_tracer", "set_tracer"]
@@ -265,4 +270,7 @@ class span(ContextDecorator):
             tracer = _TRACER
             if tracer is not None:
                 tracer.complete(self.name, self.phase, t0, t1)
+        # a profiler window closes at its deadline on the thread that opened it
+        # (obs/prof/capture.py); outside a window this is two reads
+        _capture.poll()
         return False

@@ -36,10 +36,15 @@ key                       meaning
                           (``torch.cuda.max_memory_allocated``; 0 on the CPU)
 ``hbm_bytes_limit``       the card's memory (0 on the CPU)
 ``nonfinite_metrics``     NaN/inf values caught by the loss guard
-``learn_warnings``        0: the learning-health plane is ROADMAP 6h-c
-``learn_criticals``       0 (the same)
-``grad_norm_p95``         null (the same)
-``update_ratio_p50``      null (the same)
+``learn_warnings``        warn-grade learning-health events (``obs/learn``)
+``learn_criticals``       critical-grade learning-health events (sustained
+                          explosion before a NaN, non-finite gradients)
+``learn_probe_fetches``   device→host pulls of learn probes (one a burst at
+                          the sentinel's cadence; 0 with the probes off)
+``grad_norm_p95``         p95 of the global gradient norm over the run
+``update_ratio_p50``      p50 of the update-to-weight ratio
+``learn``                 the sentinel's sub-dict: event list, per-probe
+                          baselines (n, last, p50, p95, max)
 ``stalls``                watchdog stall episodes
 ``ckpt_blocked_ms``       train-step wall ms blocked on checkpoints (host
                           snapshot + double-buffer wait — the step-path cost)
@@ -53,10 +58,20 @@ key                       meaning
                           fell back to in-process sync stepping
 ``phase_percentiles``     per-phase ``p50/p95/p99`` span durations (ms) from
                           the streaming histograms (``obs/hist.py``)
-``device_ms_per_step``    null: in-run device profiling is ROADMAP 6h-b
-``mfu_device_pct``        null (the same)
-``roofline_verdict``      null (the same)
-``prof_captures``         0 (the same)
+``device_ms_per_step``    profiled device time per train-step unit from the
+                          latest in-run capture (``obs/prof``; null until a
+                          ``metric.telemetry.profile`` window landed)
+``mfu_device_pct``        the captured train step's FLOPs over its device
+                          time, % of the card's peak
+``roofline_verdict``      compute-bound / memory-bound / dispatch-bound /
+                          unknown / unmeasured for the captured train step
+                          (its FLOP rate against the peak of its compute
+                          type, ``prof.compute_dtype``)
+``prof_captures``         in-run profile captures parsed this run
+``prof``                  the latest capture's detail (train module, busy
+                          share, bandwidth, the window's kernel counts), or
+                          when every capture failed, their count and the
+                          last reason (a card's window with no device event)
 ``flight_dumps``          flight-recorder evidence files written
 ``crashed``               True when the entrypoint raised; ``exception``
                           then carries the type and message
@@ -72,6 +87,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from typing import Any, Dict, Optional
 
@@ -99,6 +115,8 @@ class Telemetry:
     def __init__(self, tcfg: Optional[Dict[str, Any]] = None, device: Any = None, rank: int = 0):
         tcfg = dict(tcfg or {})
         self.device = device
+        #: the run's ``fabric.precision`` (set by :func:`setup_telemetry`)
+        self.precision: Optional[str] = None
         self.cfg = tcfg
         self.trace_enabled = bool(tcfg.get("trace", True))
         self.trace_file: Optional[str] = tcfg.get("trace_file") or None
@@ -117,6 +135,8 @@ class Telemetry:
         self.histograms_enabled = bool(tcfg.get("histograms", True))
         self.staleness_enabled = bool(tcfg.get("staleness", True))
         self._flight_cfg = dict(tcfg.get("flight", {}) or {})
+        self._profile_cfg = dict(tcfg.get("profile", {}) or {})
+        self.sentinel = None  # LearnSentinel (obs/learn), built in start()
 
         self.counters = _counters.Counters()
         self.staleness = None  # StalenessTracker, built in start()
@@ -144,18 +164,31 @@ class Telemetry:
         #: `flops_per_train_step × Δtrain_step` is the FLOPs the card ran, the
         #: MFU numerator against `peak_tflops`
         self.flops_per_train_step: Optional[float] = None
-        #: bytes accessed per train-step unit (the in-run roofline's, 6h-b; None here)
+        #: bytes per train-step unit (the same convention): the bandwidth
+        #: numerator of the in-run roofline (obs/prof)
         self.bytes_per_train_step: Optional[float] = None
         #: step calls per train-step unit
         self.dispatches_per_train_step = 1
         self._flops_attempted = False
+        # in-run device-profile capture (obs/prof/capture.py); built in
+        # start() so profile_tick is a no-op on un-instrumented runs
+        self.prof = None
+        self._prof_last: Optional[Dict[str, Any]] = None
+        #: last world_size seen at a profile_tick: anomaly-capture parses
+        #: (obs/prof.parse_and_fold) scale per-unit numbers with it
+        self.last_world_size = 1
 
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> None:
         from sheeprl_tpu_torch.obs.dist import aggregate as _aggregate
         from sheeprl_tpu_torch.obs.dist import staleness as _staleness
+        from sheeprl_tpu_torch.obs.prof import capture as _capture
 
+        self.prof = _capture.StepProfiler(self._profile_cfg, self)
+        # the thread that runs the loop opens the profiler windows queued by
+        # triggers on other threads (a session stops only where it started)
+        _capture.set_loop_thread(threading.get_ident())
         _counters.install(self.counters)
         _aggregate.clear_sources()
         if self.staleness_enabled:
@@ -171,6 +204,7 @@ class Telemetry:
                 capacity=int(fcfg.get("ring_events", 2048)),
                 min_interval_s=float(fcfg.get("min_interval_s", 30.0)),
                 max_dumps=int(fcfg.get("max_dumps", 8)),
+                profiler_capture_s=float(fcfg.get("profiler_capture_s", 0.0) or 0.0),
                 step_source=lambda: self.policy_steps,
                 context_fn=self._flight_context,
             )
@@ -186,13 +220,25 @@ class Telemetry:
                 on_slow=self._on_slow_span if self.flight is not None else None,
             )
             _hist.install(self.hists)
+        lcfg = dict(self.cfg.get("learn", {}) or {})
+        if bool(lcfg.get("enabled", True)):
+            from sheeprl_tpu_torch.obs import learn as _learn
+
+            self.sentinel = _learn.LearnSentinel(
+                lcfg, counters=self.counters, flight=self.flight, step_source=lambda: self.policy_steps
+            )
+            _learn.install(self.sentinel)
         guard_cfg = self.cfg.get("health", {}) or {}
         if bool(guard_cfg.get("nan_guard", True)):
             self.guard = NonFiniteGuard(
                 prefixes=tuple(guard_cfg.get("nan_guard_prefixes", ("Loss/", "Grads/"))),
                 raise_on_nonfinite=bool(guard_cfg.get("raise_on_nonfinite", False)),
                 counters=self.counters,
-                on_fire=self._on_nonfinite if self.flight is not None else None,
+                # terminal stage: the flight dump and the learn sentinel's
+                # first non-finite timestamp (the acceptance ordering)
+                on_fire=(
+                    self._on_nonfinite if (self.flight is not None or self.sentinel is not None) else None
+                ),
             )
             from sheeprl_tpu_torch.utils.metric import set_value_guard
 
@@ -315,6 +361,8 @@ class Telemetry:
     def _on_nonfinite(self, name: str, value: float) -> None:
         if self.flight is not None:
             self.flight.trigger("nonfinite", {"metric": name, "value": str(value)})
+        if self.sentinel is not None:
+            self.sentinel.on_nonfinite(name, value)
 
     def _live_snapshot(self) -> Dict[str, Any]:
         snap = self.summary()
@@ -374,6 +422,25 @@ class Telemetry:
             self.bytes_per_train_step = float(bytes_per_step)
         self.dispatches_per_train_step = max(int(dispatches_per_step), 1)
 
+    def record_prof(self, record: Dict[str, Any]) -> None:
+        """Latest in-run profile result (StepProfiler / flight-recorder
+        capture), folded into summary(), live.json and telemetry.json. A
+        window that caught no train execution (``device_ms_per_step`` null)
+        never replaces an earlier measured one, and a slow parse of an old
+        capture landing out of order never replaces a newer measured one."""
+        prev = self._prof_last
+        if record.get("device_ms_per_step") is None and prev is not None:
+            return
+        if (
+            prev is not None
+            and prev.get("device_ms_per_step") is not None
+            and isinstance(prev.get("step"), int)
+            and isinstance(record.get("step"), int)
+            and record["step"] < prev["step"]
+        ):
+            return
+        self._prof_last = record
+
     def needs_train_flops(self) -> bool:
         """Should a train step count its FLOPs on its next eager call?"""
         return not self._flops_attempted and self.flops_per_train_step is None
@@ -421,15 +488,52 @@ class Telemetry:
         )
         out["flight_dumps"] = self.flight.dumps if self.flight is not None else 0
         out["flight_suppressed"] = self.flight.suppressed if self.flight is not None else 0
-        # the in-run device profile (ROADMAP 6h-b) and the learning-health
-        # plane (6h-c) are not ported: their keys stand as in a JAX run
-        # with those planes off
-        out["device_ms_per_step"] = None
-        out["mfu_device_pct"] = None
-        out["roofline_verdict"] = None
-        out["prof_captures"] = 0
-        out["grad_norm_p95"] = None
-        out["update_ratio_p50"] = None
+        # in-run device profile (obs/prof): the latest capture's headline
+        # numbers as first-class summary keys, the detail as a sub-dict
+        p = self._prof_last
+        out["device_ms_per_step"] = p.get("device_ms_per_step") if p else None
+        out["mfu_device_pct"] = p.get("mfu_device_pct") if p else None
+        out["roofline_verdict"] = p.get("roofline_verdict") if p else None
+        out["prof_captures"] = self.prof.captures if self.prof is not None else 0
+        if p is not None:
+            out["prof"] = {
+                k: p.get(k)
+                for k in (
+                    "step",
+                    "source",
+                    "train_module",
+                    "train_execs",
+                    "comms_ms_per_step",
+                    "compute_ms_per_step",
+                    "compute_dtype",
+                    "compute_peak_tflops",
+                    "compute_util_pct",
+                    "achieved_gbps",
+                    "bandwidth_util_pct",
+                    "arithmetic_intensity",
+                    "busy_frac",
+                    "window_ms",
+                    "trace_dir",
+                    "kernel_counts",
+                    "kernel_launches",
+                    "events",
+                    "costs_s",
+                )
+            }
+            out["prof"]["peaks"] = (p.get("peaks") or {}).get("label")
+            out["prof"]["failed"] = self.prof.failed if self.prof is not None else 0
+        elif self.prof is not None and self.prof.failed:
+            # every capture failed: the count and the reason, the headline numbers stay null
+            out["prof"] = {"failed": self.prof.failed, "last_failure": self.prof.last_failure}
+        # learning health (obs/learn): headline percentiles flat (Prometheus
+        # exports scalars), the event/baseline detail as a sub-dict
+        if self.sentinel is not None:
+            out["grad_norm_p95"] = self.sentinel.quantile("learn/grad_norm", 0.95)
+            out["update_ratio_p50"] = self.sentinel.quantile("learn/update_ratio", 0.50)
+            out["learn"] = self.sentinel.summary()
+        else:
+            out["grad_norm_p95"] = None
+            out["update_ratio_p50"] = None
         # distributed observability (obs/dist): data-staleness lineage plus
         # the per-source breakdown of every process feeding this run
         staleness = self.staleness.summary() if self.staleness is not None else None
@@ -506,6 +610,13 @@ class Telemetry:
         if self._finalized:
             return None
         self._finalized = True
+        if self.prof is not None:
+            self.prof.close()  # an open capture still lands its numbers
+        from sheeprl_tpu_torch.obs.prof import capture as _capture
+
+        _capture.set_loop_thread(None)
+        if self.flight is not None:
+            self.flight.close_capture()
         for dog in self._watchdogs:
             dog.stop()
         if self.prom is not None:
@@ -530,6 +641,11 @@ class Telemetry:
             self.tracer.close()
         _counters.install(None)
         _hist.install(None)
+        if self.sentinel is not None:
+            from sheeprl_tpu_torch.obs import learn as _learn
+
+            if _learn.installed() is self.sentinel:
+                _learn.install(None)
         from sheeprl_tpu_torch.obs.dist import staleness as _staleness
 
         if _staleness.installed() is self.staleness:
@@ -676,6 +792,11 @@ def setup_telemetry(cfg, device: Any = None, rank: int = 0) -> Optional[Telemetr
         _ACTIVE = None
         return None
     telemetry = Telemetry(tcfg, device=device, rank=rank)
+    # the run's fabric.precision: the roofline verdict weighs a capture's FLOP rate against its compute type's peak
+    try:
+        telemetry.precision = str(cfg.fabric.precision)
+    except AttributeError:
+        pass
     telemetry.start()
     _ACTIVE = telemetry
     return telemetry

@@ -22,7 +22,7 @@ import argparse
 import json
 import subprocess
 
-from sheeprl_tpu_torch.tools.profile_serve import device_us
+from sheeprl_tpu_torch.obs.prof.trace import averaged_device_us as device_us
 
 
 #: profiled windows ``_profile`` takes at most: CUPTI can drop a window's records (one H100 run kept none of a

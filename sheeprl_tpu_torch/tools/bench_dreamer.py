@@ -54,115 +54,9 @@ import json
 import time
 from typing import Any, Dict, Optional
 
-ACTIONS = (9,)
-OBS = {"rgb": (3, 64, 64)}
-WALKER_OBS = {"rgb": (3, 64, 64), "state": (24,)}
-#: DIAMBRA's Dead or Alive++ as the preset's keys see it (the DIAMBRA wrapper's spaces: every non-Box key a
-#: 1-wide Box) and its 16 combo-discrete actions (9 moves + 8 attack-button combinations - 1 shared no-op);
-#: the L preset's legacy key names with an RGB frame, and the P2E L presets' role-relative names with a grey frame
-#: and the reward as an observation
-DOAPP_L_OBS = {"frame": (3, 64, 64), **{k: (1,) for k in (
-    "P1_actions_attack", "P1_actions_move", "P1_oppChar", "P1_oppHealth", "P1_oppSide", "P1_oppWins", "P1_ownChar",
-    "P1_ownHealth", "P1_ownSide", "P1_ownWins", "stage")}}
-DOAPP_P2E_OBS = {"frame": (1, 64, 64), **{k: (1,) for k in (
-    "own_character", "own_health", "own_side", "own_wins", "opp_character", "opp_health", "opp_side", "opp_wins",
-    "stage", "timer", "action", "reward")}}
-DOAPP_ACTIONS = (16,)
-#: Crafter: its frame and the reward as an observation, its 17 actions
-CRAFTER_OBS = {"rgb": (3, 64, 64), "reward": (1,)}
-CRAFTER_ACTIONS = (17,)
-#: the dummy envs' actions: 2 discrete (``discrete_dummy``) or a 2-wide Box (``continuous_dummy``)
-DUMMY_ACTIONS = (2,)
-#: the agent and training modules of each family
-ALGOS = {
-    "dreamer_v1": ("sheeprl_tpu_torch.algos.dreamer_v1.agent", "sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1"),
-    "p2e_dv1": ("sheeprl_tpu_torch.algos.p2e_dv1.agent", "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_exploration"),
-    "dreamer_v2": ("sheeprl_tpu_torch.algos.dreamer_v2.agent", "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2"),
-    "dreamer_v3": ("sheeprl_tpu_torch.algos.dreamer_v3.agent", "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3"),
-    "p2e_dv2": ("sheeprl_tpu_torch.algos.p2e_dv2.agent", "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration"),
-    "p2e_dv3": ("sheeprl_tpu_torch.algos.p2e_dv3.agent", "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration"),
-}
-#: ``--algo`` → (family, ``exp=``, observation shapes, actions, continuous[, config overrides])
-PRESETS = {
-    "dreamer_v2": ("dreamer_v2", "dreamer_v2_ms_pacman", OBS, ACTIONS, False),
-    "dreamer_v3": ("dreamer_v3", "dreamer_v3_100k_ms_pacman", OBS, ACTIONS, False),
-    "dreamer_v3_walker": ("dreamer_v3", "dreamer_v3_dmc_walker_walk", WALKER_OBS, (6,), True),
-    "dreamer_v2_continuous": ("dreamer_v2", "dreamer_v2", OBS, (2,), True),
-    # Plan2Explore's exploration step at its presets' widths: DV3's default (dense 256, recurrent 256, 32x32
-    # latent, B=16 x T=64, an 8-member ensemble, two exploration critics) and DV2's (dense 400 x 4, recurrent
-    # 400, B=16 x T=50, 10 members); the DV3 one also on the walker's observations and 6 continuous actions
-    "p2e_dv3": ("p2e_dv3", "p2e_dv3_exploration", OBS, ACTIONS, False),
-    "p2e_dv3_continuous": ("p2e_dv3", "p2e_dv3_exploration", WALKER_OBS, (6,), True,
-                           {"mlp_keys.encoder": ["state"], "mlp_keys.decoder": ["state"]}),
-    "p2e_dv2": ("p2e_dv2", "p2e_dv2_exploration", OBS, ACTIONS, False),
-    # the L and XL widths in f32 (DIAMBRA's L preset: recurrent 2048, dense 768 x 4, CNN multiplier 64, B=16 x T=64;
-    # Crafter's XL: recurrent 4096, dense 1024 x 5, CNN multiplier 96), and P2E-DV3's L DIAMBRA exploration preset
-    # under its bf16-mixed (recurrent 1024, dense 768 x 4, CNN multiplier 48, B=4 x T=64)
-    "dreamer_v3_L": ("dreamer_v3", "dreamer_v3_L_doapp", DOAPP_L_OBS, DOAPP_ACTIONS, False),
-    "dreamer_v3_XL": ("dreamer_v3", "dreamer_v3_XL_crafter", CRAFTER_OBS, CRAFTER_ACTIONS, False),
-    "p2e_dv3_L_bf16": ("p2e_dv3", "p2e_dv3_expl_L_doapp_128px_gray_combo_discrete_15Mexpl_20Mstps", DOAPP_P2E_OBS,
-                       DOAPP_ACTIONS, False),
-    # DreamerV1 at its preset's width (recurrent 200, Gaussian stochastic 30, dense 400 x 4, CNN multiplier 32,
-    # B=50 x T=50, horizon 15) on the dummy envs' spaces (2 discrete actions, or a 2-wide Box), and P2E-DV1's
-    # exploration step at its own (recurrent 400, stochastic 60, hidden 400, 10 members regressing the 1024-wide
-    # embedding)
-    "dreamer_v1": ("dreamer_v1", "dreamer_v1", OBS, DUMMY_ACTIONS, False),
-    "dreamer_v1_continuous": ("dreamer_v1", "dreamer_v1", OBS, DUMMY_ACTIONS, True),
-    "p2e_dv1": ("p2e_dv1", "p2e_dv1_exploration", OBS, DUMMY_ACTIONS, False),
-}
-
-
-def synthetic_batch(T: int, B: int, actions_dim: int, seed: int = 0, continuous: bool = False,
-                    obs=None) -> Dict[str, np.ndarray]:
-    """A seeded synthetic replay batch on the host, as the JAX
-    ``bench_dreamer.py`` makes it: uint8 frames ``[T, B, 3, 64, 64]`` (and a
-    Gaussian float vector for each other key of ``obs``), one-hot actions
-    (uniform in [−1, 1] when ``continuous``), Gaussian rewards, no episode
-    ends."""
-    import numpy as np
-
-    obs = OBS if obs is None else obs
-    rng = np.random.default_rng(seed)
-    batch = {
-        k: rng.integers(0, 256, size=(T, B) + tuple(shape)).astype(np.uint8) if len(shape) == 3
-        else rng.normal(size=(T, B) + tuple(shape)).astype(np.float32)
-        for k, shape in obs.items()
-    }
-    if continuous:
-        batch["actions"] = rng.uniform(-1.0, 1.0, (T, B, actions_dim)).astype(np.float32)
-    else:
-        batch["actions"] = np.eye(actions_dim, dtype=np.float32)[rng.integers(0, actions_dim, (T, B))]
-    batch.update(
-        rewards=rng.normal(size=(T, B, 1)).astype(np.float32),
-        dones=np.zeros((T, B, 1), np.float32),
-        is_first=np.zeros((T, B, 1), np.float32),
-    )
-    return batch
-
-
-def build_trainer(device=None, seed: int = 0, algo: str = "dreamer_v2", **overrides):
-    """``(cfg, state, program, data)`` of the preset ``algo`` (PRESETS) at
-    its width (with ``overrides``) on ``device``: ``program`` is the
-    gradient step's ``TrainProgram``; the state's generator draws the
-    noise."""
-    import importlib
-
-    import torch
-
-    from sheeprl_tpu_torch import configs
-    from sheeprl_tpu_torch.device import resolve_device
-
-    family, exp, obs, actions, continuous, *preset_overrides = PRESETS[algo]
-    agent_module, train_module = ALGOS[family]
-    agent, train = importlib.import_module(agent_module), importlib.import_module(train_module)
-    dev = resolve_device(device)
-    cfg = configs.dreamer_v2_config(exp, **{**(preset_overrides[0] if preset_overrides else {}), **overrides})
-    modules = agent.build_agent(cfg, actions, continuous, obs, seed=seed, device=dev, training=True)
-    state = train.build_optimizers_and_state(cfg, *modules, generator=torch.Generator(device=dev).manual_seed(seed))
-    T, B = int(cfg.per_rank_sequence_length), int(cfg.per_rank_batch_size)
-    batch = synthetic_batch(T, B, int(sum(actions)), seed=seed, continuous=continuous, obs=obs)
-    data = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-    return cfg, state, train.build_train_fn(cfg, actions, continuous), data
+# the presets and the trainer builder live in the one harness (obs/prof/harness.py); ALGOS is read through
+# this module by chip_smoke.py and the card tests
+from sheeprl_tpu_torch.obs.prof.harness import ALGOS, PRESETS, build_trainer  # noqa: F401
 
 
 def _metric(algo: str) -> str:
@@ -202,32 +96,13 @@ def profile_steps(step, steps: int) -> Dict[str, Any]:
 
 
 def _device_us_by_name(prof) -> Dict[str, float]:
-    """Device µs by kernel (or copy) name over a profiler window, summed from
-    the profiler's raw device events (a user-annotated range spans kernels
-    counted on their own, so it is left out); building its function events
-    and ``key_averages()`` gives the same sums but takes seconds a window at
-    these steps' tens of thousands of kernels. A PyTorch without the raw
-    events reads the averages."""
-    from torch.autograd import DeviceType
+    """Device µs by kernel (or copy) name over a profiler window, read by the
+    trace parser from the profiler's raw events (``obs/prof/trace.py``;
+    ``key_averages()`` gives the same sums but takes seconds a window at
+    these steps' tens of thousands of kernels)."""
+    from sheeprl_tpu_torch.obs.prof.trace import device_us_by_name
 
-    from sheeprl_tpu_torch.tools.profile_serve import device_us
-
-    try:
-        events = prof.profiler.kineto_results.events()
-    except AttributeError:
-        events = None
-    out: Dict[str, float] = {}
-    if events is None:
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and device_us(e) > 0:
-                out[e.key] = out.get(e.key, 0.0) + device_us(e)
-        return out
-    for e in events:
-        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
-            continue
-        us = e.duration_ns() / 1e3 if hasattr(e, "duration_ns") else e.duration_us()
-        out[e.name()] = out.get(e.name(), 0.0) + us
-    return out
+    return device_us_by_name(prof)
 
 
 def run(steps: int = 5, device=None, profile: bool = False, seed: int = 0, mode: str = "eager",

@@ -66,7 +66,7 @@ def sequence_split(seq_operands, variant: str, eps: float = EPS, calls: int = 10
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from sheeprl_tpu_torch.kernels import ops
-    from sheeprl_tpu_torch.tools.profile_serve import device_us
+    from sheeprl_tpu_torch.obs.prof.trace import averaged_device_us as device_us
 
     fn = lambda: ops.hafner_sequence_cuda(*seq_operands, eps=eps, variant=variant)  # noqa: E731
     fn()

@@ -20,25 +20,12 @@ import subprocess
 import time
 
 
-def device_us(evt) -> float:
-    """Self device time of a profiler event, in µs (the attribute was renamed
-    across PyTorch versions); 0 for a user-annotated range (such as
-    ``Optimizer.step#Adam.step``), which spans kernels counted on their own."""
-    if getattr(evt, "is_user_annotation", False):
-        return 0.0
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        value = getattr(evt, attr, None)
-        if value is not None:
-            return float(value)
-    return 0.0
-
-
 def main() -> int:
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from sheeprl_tpu_torch.obs.prof.trace import device_us_by_name
     from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent
     from sheeprl_tpu_torch.configs import dreamer_v2_config
     from sheeprl_tpu_torch.serve import GatewayModel
@@ -75,11 +62,11 @@ def main() -> int:
         run_batches()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    # only what ran on the device: an operator's own entry repeats the time
-    # of the kernels it launched
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and device_us(e) > 0]
-    busy_us = sum(device_us(e) for e in events)
-    top = sorted(events, key=device_us, reverse=True)[:10]
+    # only what ran on the device (the trace parser's raw device events): an
+    # operator's own entry repeats the time of the kernels it launched
+    by_name = device_us_by_name(prof)
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     n = args.batches
     result = {
         "card": card,
@@ -88,7 +75,7 @@ def main() -> int:
         "wall_ms_per_batch": 1e3 * wall_s / n,
         "device_busy_ms_per_batch": busy_us / 1e3 / n if busy_us else None,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall_s if busy_us else None,
-        "top_device_ms_per_batch": {e.key[:80]: device_us(e) / 1e3 / n for e in top},
+        "top_device_ms_per_batch": {name[:80]: us / 1e3 / n for name, us in top},
     }
     print(json.dumps(result), flush=True)
     return 0

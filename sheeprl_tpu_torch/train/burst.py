@@ -16,6 +16,15 @@ The eager loop stays callable by name, ``run_train_burst(...,
 fused=False)``: the parity side, as ``SHEEPRL_TRAIN_NO_FUSE=1`` is in JAX.
 No environment variable or config key selects it. On the CPU ``.burst``
 runs the same body eagerly over the same static inputs.
+
+**Learn probes.** A program built with a
+:class:`~sheeprl_tpu_torch.obs.learn.LearnTap` (the probes on:
+``obs.learn.learn_tap()``) runs its body inside the tap, so the step (and
+its graph) also writes the gradient step's probes into the tap's static
+buffers; after each call the program keeps a copy, and a burst hands its
+calls' stacked probes to ``obs.learn.observe_probes``: one device→host pull
+a burst, at the sentinel's cadence (the JAX burst engine's feed). Built
+without a tap, a program runs exactly the body it was given.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.obs.counters import add_train_burst
+from sheeprl_tpu_torch.obs.learn import LearnTap, tapped
 from sheeprl_tpu_torch.train.graphs import CapturedStep
 
 __all__ = ["TrainProgram", "build_train_burst", "metric_fetch_gate", "run_train_burst", "tau_schedule"]
@@ -75,15 +85,19 @@ class TrainProgram:
 
     A program bursts on one agent state at one batch shape: ``.static``, the
     captured step and its buffers, is made by the first burst (None before)
-    and a later burst on another state or shape raises."""
+    and a later burst on another state or shape raises. ``learn_tap`` (a
+    :class:`~sheeprl_tpu_torch.obs.learn.LearnTap`, or None) records each
+    call's learn probes."""
 
     def __init__(
         self,
         body: Callable[[Dict[str, Any], Batch, Noise, torch.Tensor], Dict[str, torch.Tensor]],
         draw_noise: Callable[[int, int, Optional[torch.Generator], Any], Noise],
         prepare: Callable[[Dict[str, Any]], None],
+        learn_tap: Optional[LearnTap] = None,
     ):
-        self._body = body
+        self._body = tapped(body, learn_tap)
+        self.learn_tap = learn_tap
         self._draw_noise = draw_noise
         self.prepare = prepare
         self.static: Optional[_Static] = None
@@ -99,7 +113,10 @@ class TrainProgram:
         if noise is None:
             noise = self._draw_noise(T, B, state.get("generator"), device)
         self.prepare(state)
-        return self._body(state, data, noise, torch.tensor(float(tau), dtype=torch.float32, device=device))
+        metrics = self._body(state, data, noise, torch.tensor(float(tau), dtype=torch.float32, device=device))
+        if self.learn_tap is not None:
+            self.learn_tap.collect()
+        return metrics
 
     def _static_for(self, state: Dict[str, Any], data_stack: Batch) -> _Static:
         if self.static is None:
@@ -131,6 +148,10 @@ class TrainProgram:
             static.set_noise(noise[i] if noise is not None else self._draw_noise(T, B, state.get("generator"), device))
             static.tau.copy_(taus_dev[i])
             metrics = static.step()
+            if self.learn_tap is not None:
+                self.learn_tap.collect()
+        if self.learn_tap is not None:
+            self.learn_tap.flush()
         return metrics
 
 
@@ -204,6 +225,8 @@ def run_train_burst(
             metrics = program(
                 state, {k: v[i] for k, v in data_stack.items()}, None if noise is None else noise[i], float(taus[i])
             )
+        if program.learn_tap is not None:
+            program.learn_tap.flush()
     if fetch_metrics:
         names = list(metrics)
         values = torch.stack([metrics[k].detach().float().reshape(()) for k in names]).tolist()

@@ -21,9 +21,15 @@ and added again on every replay.
 
 With the run telemetry on, a capture counts as ``recompiles`` (its warm-up
 and capture seconds as ``compile_secs``) and a replay as ``graph_replays``
-(``obs/counters.py``); a train step (``train=True``) counts its FLOPs on its
-first eager call under ``FlopCounterMode`` (``obs.perf.count_flops``), once
-a run, never inside a capture. Neither adds a launch or a synchronisation.
+(``obs/counters.py``); a train step (``train=True``) counts its FLOPs and
+bytes on its first eager call (``obs.perf.count_cost``), once a run, never
+inside a capture. Neither adds a launch or a synchronisation.
+
+While a ``torch.profiler`` session records, every call (eager or replayed)
+runs inside a ``record_function("step:<name>")`` range, the port's
+counterpart of a jitted program's name in an XLA trace: the trace parser
+(``obs/prof/trace.py``) attributes the device work a call launched to the
+step by that name. Outside a session the range costs one flag read.
 
 Nothing may destroy a CUDA graph while another is captured: the
 destruction is not permitted then, and it invalidates the capture (a
@@ -49,7 +55,10 @@ import torch
 from sheeprl_tpu_torch.kernels import ops
 from sheeprl_tpu_torch.obs import counters as _counters
 
-__all__ = ["CapturedStep", "WARMUP_CALLS", "capture_guard"]
+__all__ = ["CapturedStep", "STEP_PREFIX", "WARMUP_CALLS", "capture_guard"]
+
+#: the profiler range a step's calls run in: ``step:<name>``
+STEP_PREFIX = "step:"
 
 #: eager calls before the capture (PyTorch's recipe for whole-network capture)
 WARMUP_CALLS = 3
@@ -69,13 +78,23 @@ def capture_guard() -> Iterator[None]:
             gc.enable()
 
 
+def _profiling() -> bool:
+    return torch.autograd._profiler_enabled()
+
+
 class CapturedStep:
-    def __init__(self, fn: Callable[[], Any], device, *, train: bool = False):
+    """``name`` labels the step's calls in a profiler trace (``train_step``
+    for a train step, ``step`` otherwise, unless given)."""
+
+    def __init__(self, fn: Callable[[], Any], device, *, train: bool = False, name: Optional[str] = None):
         self._fn = fn
         self.device = torch.device(device)
         self.train = bool(train)
-        #: the FLOPs of one call, counted on the first eager call of a train step while the telemetry asks for them
+        self.name = name or ("train_step" if self.train else "step")
+        #: the FLOPs and bytes of one call, counted on the first eager call of a train step while the telemetry
+        #: asks for them
         self.flops: Optional[int] = None
+        self.bytes: Optional[int] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._out: Any = None
         self._recorded: Optional[ops.Recorded] = None
@@ -88,6 +107,12 @@ class CapturedStep:
         self.capture_s = 0.0
 
     def __call__(self) -> Any:
+        if _profiling():
+            with torch.profiler.record_function(STEP_PREFIX + self.name):
+                return self._call()
+        return self._call()
+
+    def _call(self) -> Any:
         if self.device.type != "cuda":
             self.eager_calls += 1
             return self._eager()
@@ -103,10 +128,10 @@ class CapturedStep:
 
     def _eager(self) -> Any:
         if self.train and self.flops is None:
-            from sheeprl_tpu_torch.obs.perf import count_flops, wants_train_flops
+            from sheeprl_tpu_torch.obs.perf import count_cost, wants_train_flops
 
             if wants_train_flops():
-                out, self.flops = count_flops(self._fn)
+                out, self.flops, self.bytes = count_cost(self._fn)
                 return out
         return self._fn()
 

@@ -29,15 +29,20 @@ capturing it again (``u·lr`` then ``p − u·lr`` is the same float32 as
 optax's ``p + u·(−lr)``). The global-norm clip is
 :func:`clip_by_global_norm_`, applied to the gradients before the step, as
 the JAX chain applies it.
+
+With ``track_updates`` on (the learn probes turn it on, ``obs/learn``) a
+step also writes ‖lr·u‖², the squared norm of the update it applied, into
+the device scalar ``optimizer.update_sq``: no parameter copy, no host
+synchronisation. Off, a step is exactly what it was.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
-__all__ = ["SGD", "Adam", "AdamW", "clip_by_global_norm_", "global_norm", "set_lr"]
+__all__ = ["SGD", "Adam", "AdamW", "clip_by_global_norm_", "global_norm", "set_lr", "square_norms", "square_sums"]
 
 
 def _device_lr(optimizer: torch.optim.Optimizer, lr: float) -> torch.Tensor:
@@ -45,11 +50,19 @@ def _device_lr(optimizer: torch.optim.Optimizer, lr: float) -> torch.Tensor:
     return torch.tensor(float(lr), dtype=torch.float32, device=params[0].device if params else None)
 
 
-def _apply_lr(lr: torch.Tensor, params, update) -> None:
+def _apply_lr(optimizer: torch.optim.Optimizer, params, update) -> None:
     """``p ← p + (−lr)·u`` (optax's ``scale_by_learning_rate``, then
-    ``apply_updates``), by the device scalar ``lr``."""
-    torch._foreach_mul_(update, lr)
+    ``apply_updates``), by the optimizer's device scalar ``lr``; with
+    ``track_updates``, ‖lr·u‖² into ``update_sq``."""
+    torch._foreach_mul_(update, optimizer.lr)
+    if optimizer.track_updates:
+        optimizer.update_sq.copy_(square_norms(update).sum())
     torch._foreach_sub_(params, update)
+
+
+def _track_state(optimizer: torch.optim.Optimizer) -> None:
+    optimizer.track_updates = False
+    optimizer.update_sq = torch.zeros((), dtype=torch.float32, device=optimizer.lr.device)
 
 
 class Adam(torch.optim.Optimizer):
@@ -72,6 +85,7 @@ class Adam(torch.optim.Optimizer):
         super().__init__(params, dict(lr=float(lr), betas=(float(b1), float(b2)), eps=float(eps),
                                       weight_decay=float(weight_decay)))
         self.lr = _device_lr(self, lr)
+        _track_state(self)
         for group in self.param_groups:
             for p in group["params"]:
                 self.state[p] = {
@@ -85,7 +99,9 @@ class Adam(torch.optim.Optimizer):
         """One update; with ``gate`` (a bool device scalar) the parameters and
         the state take it only where the gate is on and keep their values
         otherwise (the JAX steps' ``where(do_update, new, old)`` on both
-        trees), with no host branch."""
+        trees), with no host branch. ``update_sq`` is the update computed,
+        gated or not, as the JAX steps hand their probes the updates
+        ``tx.update`` returned."""
         if closure is not None:
             raise ValueError("Adam.step takes no closure")
         if gate is not None:
@@ -118,7 +134,7 @@ class Adam(torch.optim.Optimizer):
             update = torch._foreach_div(torch._foreach_div(m, bc1), denom)
             if group["weight_decay"]:
                 torch._foreach_add_(update, torch._foreach_mul(params, group["weight_decay"]))
-            _apply_lr(self.lr, params, update)
+            _apply_lr(self, params, update)
 
     def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
         """Copy a ``state_dict``'s per-parameter state into this optimizer's
@@ -163,6 +179,7 @@ class SGD(torch.optim.Optimizer):
                 for p in group["params"]:
                     self.state[p] = {"momentum_buffer": torch.zeros_like(p, memory_format=torch.preserve_format)}
         self.lr = _device_lr(self, lr)
+        _track_state(self)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -183,7 +200,7 @@ class SGD(torch.optim.Optimizer):
                           if group["nesterov"] else [t.clone() for t in trace])
             else:
                 update = [g.clone() for g in grads]
-            _apply_lr(self.lr, params, update)
+            _apply_lr(self, params, update)
 
     def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
         """Copy a ``state_dict``'s momentum buffers into this optimizer's, in place."""
@@ -204,16 +221,40 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
     optimizer.lr.fill_(float(lr))
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``sqrt(sum of squares)`` over every element of every tensor (``optax.global_norm``)."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def square_norms(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Each tensor's sum of squares, one float32 vector: on the card from one
+    multi-tensor reduction (``torch._foreach_norm``, squared); on the CPU
+    from :func:`square_sums`, because PyTorch's CPU norm kernel adds in
+    float32 in order (1e-4 off at 4M elements) where ``sum`` adds pairwise."""
+    if not tensors:
+        return torch.zeros(0, dtype=torch.float32)
+    if tensors[0].device.type == "cuda":
+        return torch.stack(torch._foreach_norm(list(tensors), 2, dtype=torch.float32)).square()
+    return torch.stack(square_sums(tensors))
 
 
-def clip_by_global_norm_(tensors: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def square_sums(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Each tensor's sum of squares (float32 scalars): what :func:`global_norm` adds up."""
+    return [t.float().square().sum() for t in tensors]
+
+
+def global_norm(tensors: Sequence[torch.Tensor], sums: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """``sqrt(sum of squares)`` over every element of every tensor
+    (``optax.global_norm``), from the tensors' :func:`square_sums` when
+    ``sums`` are given (the same operations: the same bits)."""
+    return torch.sqrt(sum(square_sums(tensors) if sums is None else sums))
+
+
+def clip_by_global_norm_(
+    tensors: Sequence[torch.Tensor], max_norm: float, norm: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """``optax.clip_by_global_norm`` in place: each ``t`` becomes
     ``t / ‖g‖ · max_norm`` when ``‖g‖ ≥ max_norm``. Returns the norm before
-    clipping, as a device tensor (no host synchronisation)."""
-    norm = global_norm(tensors)
+    clipping, as a device tensor (no host synchronisation). ``norm``, when
+    given, is ``‖g‖`` already taken by :func:`global_norm` (the learn
+    probes', which keep its per-tensor sums), not taken again."""
+    if norm is None:
+        norm = global_norm(tensors)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(list(tensors), scale)
     return norm

@@ -25,9 +25,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax_cli_switches import run_jax_cli
 import torch
 
-from sheeprl_tpu import cli as jax_cli
 from sheeprl_tpu.algos.dreamer_v2 import agent as jax_agent
 from sheeprl_tpu.ckpt import validate_checkpoint as jax_validate_checkpoint
 from sheeprl_tpu.serve.model import load_gateway_model as jax_load_gateway_model
@@ -84,10 +84,47 @@ def jax_run(tmp_path_factory):
     cwd = os.getcwd()
     os.chdir(root)
     try:
-        jax_cli.run(tiny_args(root / "logs", "jax"))
+        run_jax_cli(tiny_args(root / "logs", "jax"))
     finally:
         os.chdir(cwd)
     return _checkpoint(root / "logs")
+
+
+def test_the_jax_run_leaves_the_jax_timer_recording(jax_run):
+    """The JAX CLI turns the JAX timer off for the whole process at
+    ``metric.log_level=0``; ``run_jax_cli`` puts it back, so a span timed
+    after the JAX run is in the timer's registry (``tests/test_obs/
+    test_spans.py`` on the same worker reads it)."""
+    from sheeprl_tpu.utils.timer import timer
+
+    name = "Time/after_the_jax_run"
+    assert not timer.disabled
+    with timer(name):
+        pass
+    assert name in timer.timers
+    timer.timers.pop(name)
+
+
+def test_run_jax_cli_puts_the_default_key_implementation_back(monkeypatch):
+    """The JAX Fabric switches JAX's default key implementation for the
+    whole process; ``run_jax_cli`` puts it back with the timer switches, so
+    a later test's ``PRNGKey`` draws what it drew before the JAX run."""
+    import jax
+    from sheeprl_tpu import cli as jax_cli
+    from sheeprl_tpu.utils.timer import timer
+
+    before = jax.config.jax_default_prng_impl
+    other = "rbg" if before != "rbg" else "threefry2x32"
+
+    def switching_run(args):
+        jax.config.update("jax_default_prng_impl", other)
+        timer.disabled = True
+        return list(args)
+
+    monkeypatch.setattr(jax_cli, "run", switching_run)
+    assert run_jax_cli(["a=1"]) == ["a=1"]
+    assert jax.config.jax_default_prng_impl == before
+    assert not timer.disabled
 
 
 def test_the_port_reads_the_jax_run_config(jax_run):

@@ -7,8 +7,9 @@
 - ``compose`` gives the JAX ``compose`` result for every experiment and for
   each override form, the ``_target_`` prefix aside (``run_name`` holds the
   composition's clock and is compared without it);
-- the one deviation, ``metric.telemetry.peak_tflops`` (DEVIATIONS), is where
-  it is listed, and nowhere else;
+- the one deviation of a value, ``metric.telemetry.peak_tflops``, and the
+  comments that name the port's profiler (DEVIATIONS) are where they are
+  listed, and nowhere else;
 - input outside the subset raises.
 
 Equality is exact: both sides produce Python scalars, lists and dicts.
@@ -38,15 +39,53 @@ OVERRIDE_FORMS = {
 }
 
 
-#: the port's listed deviations from the JAX tree: file → (the port's text, the JAX text, why)
+#: the port's listed deviations from the JAX tree: file → [(the port's text, the JAX text, why), ...]
 DEVIATIONS = {
-    "metric/default.yaml": (
-        "  # MFU denominator in TFLOP/s (default: the H100 SXM's dense bf16\n"
-        "  # tensor-core peak; f32 programs are measured against the same bf16 peak)\n"
-        "  peak_tflops: 989.4\n",
-        "  # MFU denominator in TFLOP/s (default: TPU v5e single-chip bf16 peak)\n  peak_tflops: 197.0\n",
-        "Perf/mfu divides by it: the port runs on an H100, the JAX package on a TPU v5e",
-    ),
+    "metric/default.yaml": [
+        (
+            "  # MFU denominator in TFLOP/s (default: the H100 SXM's dense bf16\n"
+            "  # tensor-core peak; f32 programs are measured against the same bf16 peak)\n"
+            "  peak_tflops: 989.4\n",
+            "  # MFU denominator in TFLOP/s (default: TPU v5e single-chip bf16 peak)\n  peak_tflops: 197.0\n",
+            "Perf/mfu divides by it: the port runs on an H100, the JAX package on a TPU v5e",
+        ),
+        # comments only: the port's profiler is torch.profiler, its traces Chrome traces of CUDA graphs and spans
+        (
+            "# torch.profiler trace of the whole run: false, true (a Chrome trace in\n"
+            "# logs/runs/<root_dir>/<run_name>/torch_traces/), or the directory to write\n"
+            "# the Chrome trace of the whole run into (CUDA kernels, graph replays, spans)\n",
+            "# jax.profiler trace capture: false, or a directory to dump XLA/TensorBoard\n"
+            "# traces of the whole run into (the TPU superset of the reference's\n"
+            "# named-scope timers — SURVEY §5.1)\n",
+            "a comment: metric.profiler's trace",
+        ),
+        (
+            "  # mirror spans into torch.profiler.record_function ranges so phases show\n"
+            "  # up inside the Chrome traces captured while a profiler records\n",
+            "  # mirror spans into jax.profiler.TraceAnnotation so phases show up inside\n"
+            "  # XLA/TensorBoard profiles captured with metric.profiler\n",
+            "a comment: the span mirror",
+        ),
+        (
+            "    # > 0: additionally capture an on-demand torch.profiler window of this\n"
+            "    # many seconds next to each dump (flight_<...>_trace/)\n",
+            "    # > 0: additionally capture an on-demand jax.profiler window of this\n"
+            "    # many seconds next to each dump (flight_<...>_xla/)\n",
+            "a comment: the flight recorder's window",
+        ),
+        (
+            "  # in-run device-profile capture + roofline attribution (obs/prof/):\n"
+            "  # every_n_steps > 0 opens a torch.profiler window at the first log\n"
+            "  # boundary past each multiple of that many policy steps, bounds it at\n"
+            "  # window_s seconds, parses its Chrome trace (device time by CUDA-graph\n"
+            "  # replay and span), and folds\n",
+            "  # in-run device-profile capture + roofline attribution (obs/prof/,\n"
+            "  # howto/profiling.md): every_n_steps > 0 opens a jax.profiler window at\n"
+            "  # the first log boundary past each multiple of that many policy steps,\n"
+            "  # bounds it at window_s seconds, auto-parses the xplane, and folds\n",
+            "a comment: the scheduled capture",
+        ),
+    ],
 }
 #: the composed key of that deviation: (the port's value, the JAX value)
 PEAK_TFLOPS = (989.4, 197.0)
@@ -76,9 +115,7 @@ def test_the_tree_is_the_jax_tree_with_port_targets():
         ours = path.read_text().replace("_target_: sheeprl_tpu_torch.", "_target_: sheeprl_tpu.").replace(
             "cls: sheeprl_tpu_torch.", "cls: sheeprl_tpu."
         )
-        deviation = DEVIATIONS.get(str(path.relative_to(TREE)))
-        if deviation is not None:
-            port_text, jax_text, _why = deviation
+        for port_text, jax_text, _why in DEVIATIONS.get(str(path.relative_to(TREE)), ()):
             assert ours.count(port_text) == 1, path
             ours = ours.replace(port_text, jax_text)
         assert ours == (jax_tree / path.relative_to(TREE)).read_text(), path

@@ -25,8 +25,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_cli_switches import run_jax_cli
 
-from sheeprl_tpu import cli as jax_cli
 from sheeprl_tpu.algos.dreamer_v1 import agent as jax_agent
 from sheeprl_tpu.algos.p2e_dv1 import agent as jax_p2e_agent
 from sheeprl_tpu.ckpt import validate_checkpoint as jax_validate_checkpoint
@@ -172,22 +172,17 @@ def _checkpoint(root):
 
 @pytest.fixture(scope="module")
 def jax_run(tmp_path_factory):
-    """One tiny JAX DreamerV1 dry run; returns its checkpoint directory. The
-    JAX CLI turns its aggregator and timer off for ``metric.log_level=0``
-    and leaves them so: they are put back for the tests that follow."""
-    from sheeprl_tpu.utils.metric import MetricAggregator
-    from sheeprl_tpu.utils.timer import timer
-
+    """One tiny JAX DreamerV1 dry run; returns its checkpoint directory
+    (``run_jax_cli`` puts back the process-wide switches the JAX CLI leaves
+    changed)."""
     root = tmp_path_factory.mktemp("jax_dv1")
     cwd = os.getcwd()
     os.chdir(root)
-    saved = MetricAggregator.disabled, timer.disabled
     try:
-        jax_cli.run(TINY + ["exp=dreamer_v1", "fabric.accelerator=cpu", "dry_run=True", "per_rank_sequence_length=1",
+        run_jax_cli(TINY + ["exp=dreamer_v1", "fabric.accelerator=cpu", "dry_run=True", "per_rank_sequence_length=1",
                             "algo.learning_starts=0", f"root_dir={root}/logs", "run_name=jax"])
     finally:
         os.chdir(cwd)
-        MetricAggregator.disabled, timer.disabled = saved
     return _checkpoint(root / "logs")
 
 

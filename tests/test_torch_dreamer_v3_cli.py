@@ -21,9 +21,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax_cli_switches import run_jax_cli
 import torch
 
-from sheeprl_tpu import cli as jax_cli
 from sheeprl_tpu.algos.dreamer_v3 import agent as jax_agent
 from sheeprl_tpu.ckpt import validate_checkpoint as jax_validate_checkpoint
 from sheeprl_tpu.serve.model import load_gateway_model as jax_load_gateway_model
@@ -78,7 +78,7 @@ def jax_run(tmp_path_factory):
     cwd = os.getcwd()
     os.chdir(root)
     try:
-        jax_cli.run(tiny_args(root / "logs", "jax", ["dry_run=True", "per_rank_sequence_length=1",
+        run_jax_cli(tiny_args(root / "logs", "jax", ["dry_run=True", "per_rank_sequence_length=1",
                                                      "algo.learning_starts=0"]))
     finally:
         os.chdir(cwd)
@@ -176,16 +176,17 @@ def test_the_port_cli_trains_checkpoints_resumes_and_serves(tmp_path, monkeypatc
     [
         (["parallel.model_axis=2"], "item 7"),
         (["env.act_burst=4"], "act_burst"),
-        (["metric.profiler=true"], "6h"),
-        (["metric.telemetry.enabled=true", "metric.telemetry.learn.enabled=true"], "learn probes"),
+        # the profiler and the learn probes run now (6h-b, 6h-c); values no run can honour still raise
+        (["metric.telemetry.profile.every_n_steps=-1"], "every_n_steps must be >= 0"),
+        (["metric.telemetry.enabled=true", "metric.telemetry.learn.every_n_bursts=0"], "every_n_bursts must be >= 1"),
         (["algo.actor.cls=sheeprl_tpu.algos.dreamer_v3.minedojo_actor.MinedojoActor"], "not in the port"),
         (["algo.actor.cls=sheeprl_tpu_torch.algos.dreamer_v3.agent.MLPWithHead"], "only the discrete Actor"),
         (["algo.actor.cls=other.Actor"], "only its own"),
     ],
 )
 def test_the_run_raises_for_layers_not_ported(tmp_path, monkeypatch, overrides, match):
-    """Options whose layers the port does not have raise before the run
-    starts, naming what is missing; the actor class resolves in the port
+    """Options whose layers the port does not have, or values no run can
+    honour, raise before the run starts, naming what is missing; the actor class resolves in the port
     only (a JAX run's ``sheeprl_tpu.`` path names the port's module)."""
     monkeypatch.chdir(tmp_path)
     with pytest.raises((NotImplementedError, ValueError), match=match):

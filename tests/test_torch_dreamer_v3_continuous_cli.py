@@ -16,8 +16,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from jax_cli_switches import run_jax_cli
 
-from sheeprl_tpu import cli as jax_cli
 from sheeprl_tpu.algos.dreamer_v3 import agent as jax_agent
 from sheeprl_tpu.serve.model import load_gateway_model as jax_load_gateway_model
 from sheeprl_tpu_torch.serve.model import load_gateway_model
@@ -31,7 +31,7 @@ def _jax_continuous_checkpoint(root):
     cwd = os.getcwd()
     os.chdir(root)
     try:
-        jax_cli.run([
+        run_jax_cli([
             "exp=dreamer_v3", "env=dummy", "env.id=continuous_dummy", "env.sync_env=True", "env.num_envs=2",
             "env.capture_video=False", "checkpoint.every=1000000", "metric.log_every=1000000", "metric.log_level=0",
             "buffer.memmap=False", f"root_dir={root / 'logs'}", "run_name=jax", "dry_run=True",

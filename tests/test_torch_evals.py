@@ -30,12 +30,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax_cli_switches import run_jax_cli
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
 import sheeprl_tpu
-from sheeprl_tpu import cli as jax_cli
 from sheeprl_tpu.config.engine import expand_multirun as jax_expand_multirun
 from sheeprl_tpu.evals import registry as jax_registry
 from sheeprl_tpu.evals import service as jax_service
@@ -98,7 +98,7 @@ def jax_runs(tmp_path_factory):
     (agg, tmr), saved = _keep_switches()
     try:
         for algo in ("dreamer_v3", "dreamer_v2"):
-            jax_cli.run(cartpole_args(root / "logs" / algo, "jax", algo, ["fabric.accelerator=cpu"]))
+            run_jax_cli(cartpole_args(root / "logs" / algo, "jax", algo, ["fabric.accelerator=cpu"]))
     finally:
         os.chdir(cwd)
         agg.disabled, tmr.disabled = saved

@@ -50,7 +50,8 @@ def test_importing_every_module_loads_no_forbidden_module():
                  "envs.vector.async_env", "envs.vector.shmem", "replay.sharded", "replay.strategies", "replay.plane",
                  "algos.sac.sac_decoupled", "algos.sac.player", "algos.ppo.ppo_decoupled", "algos.ppo.player",
                  "obs.hist", "obs.spans", "obs.counters", "obs.health", "obs.live", "obs.perf", "obs.telemetry",
-                 "obs.dist.staleness"):
+                 "obs.dist.staleness", "obs.prof.capture", "obs.prof.trace", "obs.prof.roofline", "obs.prof.harness",
+                 "obs.learn.probes", "obs.learn.sentinel", "tools.roofline_report", "tools.run_report"):
         assert f"sheeprl_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

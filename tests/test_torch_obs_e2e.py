@@ -8,8 +8,10 @@
 - a run without telemetry writes no telemetry file and starts no telemetry
   thread, and leaves no histogram, tracer or counters installed;
 - a NaN loss writes the flight recorder's dump;
-- the profiler's and the learning-health plane's knobs raise from the CLI,
-  naming their ROADMAP item, for one entrypoint of each family.
+- the profiler's and the learning-health plane's knobs run for one
+  entrypoint of each family and write their output: ``metric.profiler``'s
+  trace, a scheduled capture (``prof_captures``), the flight recorder's
+  profiler window, the ``learn`` keys.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import os
 import threading
 
 import pytest
+from jax_cli_switches import run_jax_cli
 from test_torch_isolation import TINY_DV1, TINY_P2E, TINY_RUN, TINY_RUN_DV3
 from test_torch_ppo import restore_prng_impl  # noqa: F401  (a module fixture: the JAX CLI's Fabric)
 
@@ -43,11 +46,10 @@ def _pairs(trace: str) -> set:
 
 
 def test_a_ppo_run_has_the_jax_runs_keys_counts_and_phases(tmp_path, monkeypatch):
-    from sheeprl_tpu import cli as jax_cli
 
     monkeypatch.chdir(tmp_path)
     cli.run(PPO_TINY + TELEMETRY + [f"root_dir={tmp_path}/port", "run_name=r"])
-    jax_cli.run(PPO_TINY + TELEMETRY + [f"root_dir={tmp_path}/jax", "run_name=r"])
+    run_jax_cli(PPO_TINY + TELEMETRY + [f"root_dir={tmp_path}/jax", "run_name=r"])
     dirs = {side: _run_dir(tmp_path / side) for side in ("port", "jax")}
     ours, theirs = (json.load(open(os.path.join(dirs[s], "telemetry.json"))) for s in ("port", "jax"))
     assert set(ours) == set(theirs) | {"graph_replays"}
@@ -143,22 +145,50 @@ FAMILIES = {
     "sac": ["exp=sac", "env=gym", "env.id=Pendulum-v1", "env.sync_env=True", "env.capture_video=False",
             "mlp_keys.encoder=[state]", "dry_run=True"],
     "ppo": PPO_TINY,
-    "decoupled": ["exp=sac_decoupled", "fabric.devices=auto", "env.id=Pendulum-v1", "dry_run=True"],
+    "decoupled": ["exp=sac_decoupled", "fabric.devices=auto", "env.id=Pendulum-v1", "dry_run=True",
+                  "env.capture_video=False"],
 }
+#: each knob, and what its run must leave: "trace" (metric.profiler's Chrome trace), "capture" (a parsed
+#: scheduled window), "flight" (a flight dump's profiler window, parsed), "learn" (the sentinel's keys)
 KNOBS = {
-    "6h-b: metric.profiler": ["metric.profiler=true"],
-    "6h-b: metric.telemetry.profile": ["metric=telemetry", "metric.telemetry.profile.every_n_steps=100"],
-    "6h-b: metric.telemetry.flight.profiler_capture_s": ["metric.telemetry.flight.profiler_capture_s=5"],
-    "6h-c: metric.telemetry.learn": ["metric=telemetry"],
+    "6h-b: metric.profiler": (["metric.profiler=true"], "trace"),
+    "6h-b: metric.telemetry.profile": (
+        ["metric=telemetry", "metric.telemetry.profile.every_n_steps=1", "metric.telemetry.profile.window_s=0"],
+        "capture",
+    ),
+    # a slow-span trigger armed from the first observation at any duration fires the flight recorder in every run
+    "6h-b: metric.telemetry.flight.profiler_capture_s": (
+        ["metric=telemetry", "metric.telemetry.flight.profiler_capture_s=0.05",
+         "metric.telemetry.flight.slow_span_warmup=0", "metric.telemetry.flight.slow_span_factor=1e-9",
+         "metric.telemetry.flight.slow_span_min_ms=0", "metric.telemetry.flight.min_interval_s=3600"],
+        "flight",
+    ),
+    "6h-c: metric.telemetry.learn": (["metric=telemetry"], "learn"),
 }
 
 
 @pytest.mark.parametrize("knob", sorted(KNOBS))
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_the_knobs_of_later_items_raise_for_every_family(tmp_path, monkeypatch, family, knob):
-    item, name = knob.split(": ")
+    """Each knob runs (the name is kept from when they raised): a dry run of
+    one entrypoint of each family writes the knob's output."""
+    knob_args, output = KNOBS[knob]
     monkeypatch.chdir(tmp_path)
-    args = [a for a in FAMILIES[family] if not a.startswith(("root_dir=", "fabric.accelerator="))]
-    with pytest.raises(NotImplementedError, match=f"{name}.*item {item}"):
-        cli.run(args + KNOBS[knob] + [f"root_dir={tmp_path}/logs", "run_name=knob", "fabric.accelerator=cpu"])
-    assert not os.path.exists(tmp_path / "logs")
+    args = [a for a in FAMILIES[family] if not a.startswith(("root_dir=", "fabric.accelerator=", "metric.log_level="))]
+    cli.run(args + knob_args + [f"root_dir={tmp_path}/logs", "run_name=knob", "fabric.accelerator=cpu",
+                                "metric.log_level=1"])
+    if output == "trace":
+        assert os.path.getsize(tmp_path / "logs" / "knob" / "torch_traces" / "trace.json") > 0
+        return
+    run_dir = _run_dir(tmp_path / "logs")
+    summary = json.load(open(os.path.join(run_dir, "telemetry.json")))
+    if output == "capture":
+        assert summary["prof_captures"] >= 1 and summary["prof"]["failed"] == 0
+        assert glob.glob(os.path.join(run_dir, "telemetry", "prof", "step_*", "trace.json"))
+    elif output == "flight":
+        (summary_file,) = glob.glob(os.path.join(run_dir, "telemetry", "flight_*_trace_summary.json"))
+        assert json.load(open(summary_file))["source"] == "host"
+        assert glob.glob(os.path.join(run_dir, "telemetry", "flight_*_trace", "trace.json"))
+    else:
+        assert summary["learn_probe_fetches"] >= 1 and summary["learn"]["bursts_observed"] >= 1
+        assert summary["grad_norm_p95"] is not None and summary["learn"]["probes"]["learn/grad_norm"]["n"] >= 1

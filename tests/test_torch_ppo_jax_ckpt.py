@@ -19,9 +19,9 @@ import gymnasium as gym
 import jax
 import numpy as np
 import pytest
+from jax_cli_switches import run_jax_cli
 import torch
 
-from sheeprl_tpu import cli as jax_cli
 from sheeprl_tpu.ckpt.resume import read_checkpoint as jax_read_checkpoint
 from sheeprl_tpu_torch import cli
 from sheeprl_tpu_torch.algos.ppo.ppo import build_optimizer, load_resume
@@ -49,7 +49,7 @@ def jax_runs(tmp_path_factory):
     runs = {}
     try:
         for exp in SHAPES:
-            jax_cli.run([f"exp={exp}", *TINY, *SHAPES[exp], *CARTPOLE, "fabric.accelerator=cpu", "dry_run=True",
+            run_jax_cli([f"exp={exp}", *TINY, *SHAPES[exp], *CARTPOLE, "fabric.accelerator=cpu", "dry_run=True",
                          "algo.run_test=False", f"root_dir={root}/logs", f"run_name={exp}"])
             runs[exp] = sorted(glob.glob(f"{root}/logs/**/{exp}/**/ckpt_*_0", recursive=True))[-1]
     finally:

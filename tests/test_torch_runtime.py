@@ -9,6 +9,7 @@ import warnings
 import jax
 import numpy as np
 import pytest
+from jax_cli_switches import run_jax_cli
 import torch
 
 from sheeprl_tpu.envs.vector.factory import env_seeds as jax_env_seeds
@@ -143,7 +144,7 @@ def test_fabric_is_one_device_and_raises_for_the_rest(monkeypatch):
         (dict(devices=2), "item 7"),
         (dict(strategy="fsdp"), "item 7"),
     ):
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises((NotImplementedError, ValueError), match=match):
             Fabric(accelerator="cpu", **kwargs)
     # bf16-mixed is the JAX package's: bf16 compute, f32 parameters; any other precision raises
     assert Fabric(accelerator="cpu", precision="bf16-mixed").compute_dtype == torch.bfloat16
@@ -157,7 +158,8 @@ def test_fabric_is_one_device_and_raises_for_the_rest(monkeypatch):
 @pytest.mark.parametrize(
     "overrides,match",
     [
-        (["metric.profiler=true"], "item 6h"),
+        # metric.profiler traces the run now (6h-b); a value no run can honour still raises
+        (["metric.telemetry.flight.profiler_capture_s=-1"], "profiler_capture_s must be >= 0"),
         (["parallel.model_axis=2"], "item 7"),
         (["env.act_burst=4"], "act_burst"),
         (["fabric.devices=2"], "item 7"),
@@ -173,7 +175,7 @@ def test_the_run_raises_for_layers_not_ported(tmp_path, overrides, match):
             "algo.mlp_layers=1", "algo.world_model.encoder.cnn_channels_multiplier=2",
             "algo.world_model.recurrent_model.recurrent_state_size=8", "algo.world_model.stochastic_size=4",
             "algo.world_model.discrete_size=4"]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises((NotImplementedError, ValueError), match=match):
         cli.run(args + overrides)
 
 
@@ -184,7 +186,6 @@ def test_the_run_loop_fills_the_buffer_as_the_jax_loop_does(tmp_path, monkeypatc
     the real next observation of an ended episode, the reset rows, the ring's
     wrap, the forced last terminal) must be equal, and so must the loops'
     counters."""
-    from sheeprl_tpu import cli as jax_cli
     from sheeprl_tpu.ckpt import read_checkpoint as jax_read_checkpoint
     from sheeprl_tpu_torch import cli
     from sheeprl_tpu_torch.ckpt import read_checkpoint
@@ -196,7 +197,7 @@ def test_the_run_loop_fills_the_buffer_as_the_jax_loop_does(tmp_path, monkeypatc
             "algo.world_model.transition_model.hidden_size=8", "algo.world_model.representation_model.hidden_size=8",
             "algo.world_model.stochastic_size=4", "algo.world_model.discrete_size=4", "fabric.accelerator=cpu"]
     monkeypatch.chdir(tmp_path)
-    jax_cli.run(args + [f"root_dir={tmp_path}/jax", "run_name=jax"])
+    run_jax_cli(args + [f"root_dir={tmp_path}/jax", "run_name=jax"])
     result = cli.run(args + [f"root_dir={tmp_path}/port", "run_name=port"])
     assert (result["updates"], result["random_steps"], result["player_steps"], result["gradient_steps"]) == (32, 32, 0, 0)
     (jax_ckpt,) = sorted((tmp_path / "jax").rglob("ckpt_*_0"))

@@ -26,9 +26,9 @@ import gymnasium as gym
 import jax
 import numpy as np
 import pytest
+from jax_cli_switches import run_jax_cli
 import torch
 
-from sheeprl_tpu import cli as jax_cli
 from sheeprl_tpu.ckpt.resume import read_checkpoint as jax_read_checkpoint
 from sheeprl_tpu_torch import cli
 from sheeprl_tpu_torch.ckpt import read_checkpoint, validate_checkpoint
@@ -157,7 +157,7 @@ def jax_runs(tmp_path_factory):
     runs = {}
     try:
         for exp, base in (("sac", PENDULUM), ("droq", PENDULUM), ("sac_ae", PIXELS)):
-            jax_cli.run(base + [f"exp={exp}", "fabric.accelerator=cpu", "dry_run=True", "algo.learning_starts=0",
+            run_jax_cli(base + [f"exp={exp}", "fabric.accelerator=cpu", "dry_run=True", "algo.learning_starts=0",
                                 "algo.run_test=False", f"root_dir={root}/logs", f"run_name={exp}"])
             runs[exp] = sorted(glob.glob(f"{root}/logs/**/{exp}/**/ckpt_*_0", recursive=True))[-1]
     finally:
@@ -209,8 +209,9 @@ def test_without_a_card_each_entrypoint_raises(tmp_path, monkeypatch, exp, base)
         ("droq", ["env.act_burst=4"], NotImplementedError, "act_burst"),
         ("droq", ["env.backend=jax"], NotImplementedError, "SAC's training loop only"),
         ("sac", ["env.backend=jax", "env.id=brax/ant"], NotImplementedError, "brax"),
-        ("sac", ["metric.telemetry.enabled=True", "metric.telemetry.learn.enabled=True"], NotImplementedError,
-         "item 6h"),
+        # the learn probes run now (6h-c); a value no run can honour still raises
+        ("sac", ["metric.telemetry.enabled=True", "metric.telemetry.learn.every_n_bursts=0"], ValueError,
+         "every_n_bursts must be >= 1"),
     ],
 )
 def test_the_options_not_ported_raise(tmp_path, monkeypatch, exp, extra, error, match):

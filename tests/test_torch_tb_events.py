@@ -20,6 +20,7 @@ import time
 
 import numpy as np
 import pytest
+from jax_cli_switches import run_jax_cli
 from tensorboardX import SummaryWriter
 from tensorboardX.crc32c import crc32c as tbx_crc32c
 from tensorboardX.proto import event_pb2
@@ -180,7 +181,6 @@ def test_a_log_level_1_run_logs_the_jax_episode_metrics(tmp_path, monkeypatch):
     """Both CLIs at ``metric.log_level=1`` on the dummy env with every update
     random (``learning_starts`` past the run): the same seeded episodes, so
     the same episode metrics at the same log boundaries."""
-    from sheeprl_tpu import cli as jax_cli
     from sheeprl_tpu_torch import cli
 
     args = ["exp=dreamer_v2", "env=dummy", "env.id=discrete_dummy", "env.sync_env=True", "env.num_envs=2",
@@ -202,7 +202,7 @@ def test_a_log_level_1_run_logs_the_jax_episode_metrics(tmp_path, monkeypatch):
 
     monkeypatch.setattr(jax_logger.TensorBoardLogger, "__init__", init)
     monkeypatch.chdir(tmp_path)
-    jax_cli.run(args + [f"root_dir={tmp_path}/jax", "run_name=jax"])
+    run_jax_cli(args + [f"root_dir={tmp_path}/jax", "run_name=jax"])
     for jax_tb in made:
         jax_tb.close()
     result = cli.run(args + [f"root_dir={tmp_path}/port", "run_name=port"])
