@@ -123,15 +123,26 @@ the eval pool's batch, and B=64, a full serving batch):
   step, and every pool step's actions against a plain-cell evaluation at
   the same seeds (equal; the walker's within TOL_CONTINUOUS_ACTION);
 - ``cli.registration`` of the DV3 checkpoint, the cold start of
-  ``ServeGateway.from_checkpoint("registry:best:dreamer_v3:<env>")``, and
-  ``rescore_through_gateway`` of that ref: returns, lengths and every step's
-  actions bit for bit the evaluation's, one cell launch a batch;
-- the ``serve`` command in a subprocess, its ring driven by SERVE_CLIENTS
-  spawned clients (``serve/loadgen.py``); once all have had an answer, a
-  publication of perturbed weights into the watched ``poll_root`` mid-load,
-  the clients stopped, then SIGTERM: no failed request, versions monotone for every client, at
-  least one swap, ``drained=clean`` and exit 0, one cell launch a batch;
-  requests/s, latency p50/p99, publication-to-new-version and drain time;
+  ``ServeGateway.from_checkpoint("registry:best:dreamer_v3:<env>")`` (that
+  gateway then runs the SLO fault drill: ``inject_dispatch_delay_s`` against
+  a tight p99 bound fires the fast burn, dumps ``flight_slo_burn_*.json``,
+  ``serve_report`` exits 1), and ``rescore_through_gateway`` of that ref:
+  returns, lengths and every step's actions bit for bit the evaluation's,
+  one cell launch a batch;
+- the ``serve`` command in a subprocess with every ops knob on
+  (SERVE_OPS_ARGS), its ring driven by SERVE_CLIENTS spawned clients
+  (``serve/loadgen.py``); once all have had an answer, a publication of
+  perturbed weights into the watched ``poll_root`` mid-load, one
+  ``/metrics`` scrape (both versions' requests), the clients stopped, then
+  SIGTERM: no failed request, versions monotone for every client, at least
+  one swap, ``drained=clean`` and exit 0, one cell launch a batch;
+  ``serve_live.json``'s requests equal to the clients' records, the access
+  log's and the traces' sampled counts, every objective a verdict in
+  ``serve_report --json``; requests/s, latency p50/p99,
+  publication-to-new-version and drain time, and the ``[serve_ops]`` line:
+  the traced stages' p50/p99 and each client's first answer split by stage
+  (its process's start, then the six traced stages). ``--serve-ops`` runs
+  the command with the ops off and on in turns, for their cost;
 - in-run evaluation on a DV3 run at the 100k width (INRUN_ARGS): the
   sidecar's curve, the spawned CPU child never initialising CUDA, and the
   trainer's launches still the player steps + 79 a gradient step + the test
@@ -263,7 +274,7 @@ launches as predicted; ``recompiles`` and ``graph_replays`` equal to its
 graphs' captures and replays; ``peak_hbm_bytes`` equal to
 ``torch.cuda.max_memory_allocated``; ``Perf/mfu`` logged between 0 and 100;
 the env, train and checkpoint phases' percentiles; no flight dump; its trace
-merged by ``tools/trace_view.py``), run_sac_decoupled's 1-player run (still
+merged by ``sheeprl_tpu_torch/tools/trace_view.py``), run_sac_decoupled's 1-player run (still
 bitwise the thread run; the slabs and versions the players' snapshots fold
 in equal to the loop's) and its 2-player run (the staleness section, both
 players' watchdog beats, ``plane.keep_policies`` versions in
@@ -2480,20 +2491,11 @@ def _telemetry_summary(log_dir: str) -> dict:
 
 
 def _trace_view(log_dir: str) -> dict:
-    """The run's trace files merged by ``tools/trace_view.py`` (a standard-library
-    script of the repo) into one Perfetto trace: the merged events by kind."""
-    import subprocess
-    import tempfile
+    """The run's trace files merged by ``sheeprl_tpu_torch/tools/trace_view.py``
+    into one Perfetto trace: the merged events by kind."""
+    from sheeprl_tpu_torch.tools import trace_view
 
-    repo = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
-        out = os.path.join(tmp, "trace.json")
-        proc = subprocess.run([sys.executable, os.path.join(repo, "tools", "trace_view.py"), log_dir, "-o", out],
-                              capture_output=True, text=True, timeout=120)
-        if proc.returncode != 0:
-            raise AssertionError(f"tools/trace_view.py failed on {log_dir}: {proc.stderr[-2000:]}")
-        with open(out) as f:
-            merged = json.load(f)["traceEvents"]
+    merged = trace_view.merge(trace_view.discover([log_dir]))["traceEvents"]
     kinds = {}
     for e in merged:
         kinds[e.get("ph")] = kinds.get(e.get("ph"), 0) + 1
@@ -2509,7 +2511,7 @@ def _check_run_telemetry(name: str, result, wall: float, graphs: dict, peak: int
     end (``peak_hbm_bytes``) and the card's memory (``hbm_bytes_limit``);
     ``Perf/mfu`` logged strictly between 0 and 100; the env, train and
     checkpoint phases' percentiles; no flight dump; the trace merged by
-    ``tools/trace_view.py``."""
+    ``sheeprl_tpu_torch/tools/trace_view.py``."""
     import glob
 
     import torch
@@ -3036,15 +3038,211 @@ def _eval_command(name: str, ckpt: str, algo: str, reg: str, continuous: bool, p
     return {"row": row, "launches": launches, "actions": actions, "result": result}
 
 
-def _serve_command(ckpt_ref: str, reg: str, base_ckpt: str, work: str) -> dict:
+# the serving ops surface (ROADMAP 6g), on in the serve-command run: every 20th request of a client traced (its
+# first among them), every 4th logged, /metrics on an ephemeral port, the SLO engine; its files in <work>/serve_obs
+SERVE_TRACE_EVERY, SERVE_ACCESS_EVERY = 20, 4
+SERVE_OPS_ARGS = (f"serve.trace_sample_rate={1 / SERVE_TRACE_EVERY}", f"serve.access_log_sample_rate={1 / SERVE_ACCESS_EVERY}",
+                  "serve.metrics_port=0", "serve.slo.enabled=true")
+SERVE_OBJECTIVES = {"act_latency_p99", "availability", "swap_staleness"}
+SERVE_STAGES = ("client_enqueue", "ring_transit", "queue_wait", "batch_assembly", "device_dispatch", "respond")
+# the fault drill: every dispatch delayed by DRILL_DELAY_S against a p99 bound of DRILL_P99_MS trips the fast burn
+DRILL_DELAY_S, DRILL_P99_MS, DRILL_REQUESTS = 0.12, 20.0, 6
+# --serve-ops: the serve command with its ops off and on, alternated (off, on, on, off), on a full-width DV3
+# checkpoint of a run that only collects (RUN_DV3_ARGS cut to 16 policy steps)
+SERVE_OPS_CKPT_ARGS = tuple(a for a in RUN_DV3_ARGS if not a.startswith("total_steps=")) + (
+    "total_steps=16", "algo.learning_starts=1024")
+# --serve-ops's second set of pairs: few enough client processes that they and the server leave the 8 cores unsaturated
+SERVE_OPS_FEW_CLIENTS = 4
+# the serve command's process, with the dispatcher thread's time measured inside it: every batch's _dispatch (its
+# wall seconds and its end on the wall clock) and, within it, the ops sink's on_request and on_cancelled seconds;
+# written at exit to $SERVE_COST_OUT, so the ops' cost a batch is read on the thread that pays it, however loaded the
+# host is, and over the same steady window as the clients' latencies
+SERVE_TIMED_MAIN = """
+import json, os, sys, time
+from sheeprl_tpu_torch.serve import batcher as _batcher, ops as _ops
+batches, ops_s, ops_calls = [], [0.0], [0]
+def timed_ops(fn):
+    def wrapper(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            ops_s[0] += time.perf_counter() - t0
+            ops_calls[0] += 1
+    return wrapper
+def timed_dispatch(fn):
+    def wrapper(self, batch):
+        t0, o0 = time.perf_counter(), ops_s[0]
+        try:
+            return fn(self, batch)
+        finally:
+            batches.append((time.time(), time.perf_counter() - t0, ops_s[0] - o0))
+    return wrapper
+_batcher.RequestBatcher._dispatch = timed_dispatch(_batcher.RequestBatcher._dispatch)
+_ops.ServeOps.on_request = timed_ops(_ops.ServeOps.on_request)
+_ops.ServeOps.on_cancelled = timed_ops(_ops.ServeOps.on_cancelled)
+from sheeprl_tpu_torch.cli import serve
+try:
+    serve(sys.argv[1:])
+finally:
+    with open(os.environ["SERVE_COST_OUT"], "w") as f:
+        json.dump({"batches": batches, "ops_s": ops_s[0], "ops_calls": ops_calls[0]}, f)
+"""
+
+
+def _scrape_metrics(port: int, versions) -> dict:
+    """One ``/metrics`` scrape of the serve command: every sample line parses
+    as ``name{labels} value``, the stage percentiles are there, and the
+    per-version request counts hold every version in ``versions``."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as resp:
+        body = resp.read().decode()
+    samples = {}
+    for line in body.splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            samples[key] = float(value)
+    by_version = {int(k.split('"')[1]): v for k, v in samples.items() if k.startswith("sheeprl_serve_version_requests{")}
+    stages = sorted({k.split('"')[1] for k in samples if k.startswith("sheeprl_phase_duration_ms{")})
+    if not all(by_version.get(int(v), 0) > 0 for v in versions) or "serve/queue_wait" not in stages:
+        raise AssertionError(f"/metrics: requests by version {by_version} (want {list(versions)}), stages {stages}")
+    return {"samples": len(samples), "requests_by_version": by_version, "stages": stages,
+            "slo_objective_ok": {k.split('"')[1]: v for k, v in samples.items() if k.startswith("sheeprl_slo_objective_ok{")}}
+
+
+def _percentiles(values) -> dict:
+    import numpy as np
+
+    return {"p50": float(np.percentile(values, 50)), "p99": float(np.percentile(values, 99)), "n": len(values)}
+
+
+def _first_answer_split(obs_dir: str, t_up_wall: float, n_clients: int) -> dict:
+    """Each ring client's first answer, split by stage: its process's start
+    (the serve command's "gateway up" line to the client's first ``act``
+    entry, on the wall clock through the client lane's ``clock_sync``
+    anchor), then the six traced stages of its first request (every
+    client's first request is traced: trace id (slot+1)·10^6 + 1). Also the
+    traced stages' p50/p99 over every sampled request. Milliseconds."""
+    import numpy as np
+
+    anchor, spans = None, {}
+    for lane in ("client", "gateway"):
+        with open(os.path.join(obs_dir, f"trace_serve_{lane}.jsonl")) as f:
+            for line in f:
+                ev = json.loads(line)
+                if ev.get("ph") == "M" and ev.get("name") == "clock_sync" and lane == "client":
+                    anchor = float(ev["args"]["unix_ts"])
+                elif ev.get("ph") == "X":
+                    spans.setdefault(ev["args"]["trace_id"], {})[ev["name"][len("serve/"):]] = ev
+    firsts = [spans.get((slot + 1) * 1_000_000 + 1) for slot in range(n_clients)]
+    if anchor is None or any(f is None or set(f) != set(SERVE_STAGES) for f in firsts):
+        raise AssertionError(f"serve: {sum(f is None for f in firsts)} clients' first requests untraced")
+    split = {"client_start": [1e3 * (anchor + f["client_enqueue"]["ts"] / 1e6 - t_up_wall) for f in firsts]}
+    for stage in SERVE_STAGES:
+        split[stage] = [f[stage]["dur"] / 1e3 for f in firsts]
+    total = [sum(split[k][i] for k in split) for i in range(n_clients)]
+    medians = {k: float(np.median(v)) for k, v in split.items()}
+    return {
+        "first_answer_ms": {k: {"median": medians[k], "max": float(np.max(v))} for k, v in split.items()},
+        "first_answer_total_ms": {"median": float(np.median(total)), "max": float(np.max(total))},
+        "first_answer_dominant_stage": max(medians, key=medians.get),
+        "traced_requests": len(spans),
+        "traced_stage_ms": {stage: _percentiles([s[stage]["dur"] / 1e3 for s in spans.values() if stage in s])
+                            for stage in SERVE_STAGES},
+    }
+
+
+def _check_serve_ops(obs_dir: str, records, final: dict, t_up_wall: float) -> dict:
+    """The serve command's ops files: ``serve_live.json``'s requests equal the
+    clients' records, the access log holds every SERVE_ACCESS_EVERY-th and
+    the traces every client's every SERVE_TRACE_EVERY-th request, and
+    ``serve_report --json`` gives each objective a verdict (its exit code 1
+    exactly when one FAILs)."""
+    from sheeprl_tpu_torch.tools import serve_report
+
+    for name in ("serve_live.json", "access.jsonl", "trace_serve_client.jsonl", "trace_serve_gateway.jsonl"):
+        if not os.path.exists(os.path.join(obs_dir, name)):
+            raise AssertionError(f"serve ops: no {name} in {obs_dir}")
+    with open(os.path.join(obs_dir, "serve_live.json")) as f:
+        live = json.load(f)
+    requests = sum(len(r["versions"]) for r in records)
+    traced = sum(-(-len(r["versions"]) // SERVE_TRACE_EVERY) for r in records)
+    with open(os.path.join(obs_dir, "access.jsonl")) as f:
+        access = sum(1 for line in f if line.strip())
+    if (live["requests"] != requests or final["requests"] != requests or access != -(-requests // SERVE_ACCESS_EVERY)
+            or live["trace_sampled_requests"] != traced):
+        raise AssertionError(f"serve ops: serve_live.json counts {live['requests']} requests, {live['trace_sampled_requests']}"
+                             f" traced; the clients {requests}, {traced} traced; {access} access-log lines")
+    rc = serve_report.main([obs_dir, "--json"])
+    with open(os.path.join(obs_dir, "serve_report.json")) as f:
+        report = json.load(f)
+    verdicts = {name: obj.get("verdict") for name, obj in report["objectives"].items()}
+    if set(verdicts) != SERVE_OBJECTIVES or not set(verdicts.values()) <= {"PASS", "FAIL"} or (
+            rc != (1 if "FAIL" in verdicts.values() else 0)):
+        raise AssertionError(f"serve_report: exit {rc}, verdicts {verdicts}")
+    return {"verdicts": verdicts, "serve_report_rc": rc, "alerts_fired": report["alerts"]["fired"],
+            "flight_slo_burn_dumps": len(report["flights"]), "access_log_lines": access, "traced_requests": traced,
+            "server_stage_ms": live["phase_percentiles"], **_first_answer_split(obs_dir, t_up_wall, len(records))}
+
+
+def _serve_fault_drill(gateway, obs_dir: str) -> dict:
+    """The SLO fault drill on the card, in process: ``gateway`` with
+    ``inject_dispatch_delay_s`` = DRILL_DELAY_S against a p99 bound of
+    DRILL_P99_MS serves DRILL_REQUESTS requests; one engine tick fires the
+    fast burn, the flight recorder dumps ``flight_slo_burn_*.json``, the
+    delay is charged to ``device_dispatch`` and ``serve_report`` exits 1."""
+    import glob
+
+    import numpy as np
+
+    from sheeprl_tpu_torch.obs import counters as obs_counters
+    from sheeprl_tpu_torch.tools import serve_report
+
+    previous, counters = obs_counters.installed(), obs_counters.Counters()
+    obs_counters.install(counters)
+    try:
+        ops = gateway.enable_ops({"inject_dispatch_delay_s": DRILL_DELAY_S,
+                                  "slo": {"enabled": True, "eval_interval_s": 3600.0,  # the drill drives the tick
+                                          "objectives": {"act_latency_p99_ms": DRILL_P99_MS}}}, out_dir=obs_dir)
+        rng = np.random.default_rng(SEED)
+        client = gateway.client("drill")
+        for i in range(DRILL_REQUESTS):
+            client.act({k: rng.integers(0, 256, s.shape, dtype=np.uint8) if s.dtype == np.uint8
+                        else rng.standard_normal(s.shape).astype(s.dtype)
+                        for k, s in gateway.observation_space.spaces.items()}, reset=i == 0)
+        ops.slo_tick()
+        fired = sorted({r["alert"] for r in ops.slo.alert_log if r["event"] == "fire"
+                        and r["objective"] == "act_latency_p99"})
+        dispatch_p50 = gateway.status()["stage_latency"]["device_dispatch"]["p50_ms"]
+        verdict = ops.slo.verdicts()["act_latency_p99"]
+    finally:
+        obs_counters.install(previous)
+        gateway.close()
+    flights = glob.glob(os.path.join(obs_dir, "flight_slo_burn_*.json"))
+    rc = serve_report.main([obs_dir])
+    if ("fast_burn" not in fired or counters.slo_alerts_fired < 1 or verdict != "FAIL" or not flights or rc != 1
+            or dispatch_p50 < 1e3 * DRILL_DELAY_S):
+        raise AssertionError(f"fault drill: fired {fired}, {counters.slo_alerts_fired} alerts counted, verdict {verdict}, "
+                             f"{len(flights)} flight dumps, serve_report exit {rc}, dispatch p50 {dispatch_p50} ms")
+    return {"inject_dispatch_delay_s": DRILL_DELAY_S, "p99_bound_ms": DRILL_P99_MS, "requests": DRILL_REQUESTS,
+            "fired": fired, "verdict": verdict, "flight_slo_burn_dumps": len(flights), "serve_report_rc": rc,
+            "device_dispatch_p50_ms": dispatch_p50}
+
+
+def _serve_command(ckpt_ref: str, reg: str, base_ckpt: str, work: str, ops: bool = True,
+                   clients: int = SERVE_CLIENTS) -> dict:
     """The serve command in a subprocess (``cli.serve`` with serve.duration_s
-    as a limit), its ring driven by SERVE_CLIENTS spawned seeded clients.
+    as a limit), its ring driven by ``clients`` spawned seeded clients.
     Once every client has had an answer, the steady window starts;
     SERVE_PUBLISH_AFTER_S seconds into it perturbed weights are published
     into the watched ``poll_root``, SERVE_STOP_AFTER_S seconds later the
     clients are stopped (a stop file), and once every client has written its
     record the command gets SIGTERM. Requests/s and latency are read over the
-    steady window."""
+    steady window. With ``ops`` every ops knob is on (SERVE_OPS_ARGS, files in
+    ``<work>/serve_obs``): ``/metrics`` is scraped once at the end of the
+    steady window, after the swap (both versions' requests), and the files
+    are checked (``_check_serve_ops``)."""
     import signal
     import threading
 
@@ -3057,13 +3255,17 @@ def _serve_command(ckpt_ref: str, reg: str, base_ckpt: str, work: str) -> dict:
     repo = os.path.dirname(os.path.abspath(__file__))
     pol, out = os.path.join(work, "policies"), os.path.join(work, "clients")
     base = policy_version_of(base_ckpt)
-    cmd = [sys.executable, "-c", "import sys; from sheeprl_tpu_torch.cli import serve; serve(sys.argv[1:])",
+    cmd = [sys.executable, "-c", SERVE_TIMED_MAIN,
            f"checkpoint_path={ckpt_ref}", f"serve.registry_dir={reg}", "serve.duration_s=150",
-           f"serve.max_clients={SERVE_CLIENTS}", f"serve.poll_root={pol}", "serve.poll_interval_s=0.2",
-           f"serve.clients.n={SERVE_CLIENTS}", "serve.clients.entry=sheeprl_tpu_torch.serve.loadgen:seeded_client",
+           f"serve.max_clients={clients}", f"serve.poll_root={pol}", "serve.poll_interval_s=0.2",
+           f"serve.clients.n={clients}", "serve.clients.entry=sheeprl_tpu_torch.serve.loadgen:seeded_client",
            f"serve.clients.spec.duration_s={SERVE_CLIENT_CAP_S}", f"serve.clients.spec.out_dir={out}",
            f"serve.clients.spec.stop_file={os.path.join(out, 'stop')}", f"serve.clients.spec.seed={SEED}"]
-    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    obs_dir = os.path.join(work, "serve_obs")
+    if ops:
+        cmd += [*SERVE_OPS_ARGS, f"serve.obs_dir={obs_dir}"]
+    cost_out = os.path.join(work, "serve_cost.json")
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""), SERVE_COST_OUT=cost_out)
     t_start = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines, up = [], threading.Event()
@@ -3086,7 +3288,7 @@ def _serve_command(ckpt_ref: str, reg: str, base_ckpt: str, work: str) -> dict:
                  for k, v in agent["actor"].items()}
         def wait_for(suffix: str, what: str):
             deadline = time.perf_counter() + 120.0
-            while len([f for f in os.listdir(out) if f.endswith(suffix)] if os.path.isdir(out) else []) < SERVE_CLIENTS:
+            while len([f for f in os.listdir(out) if f.endswith(suffix)] if os.path.isdir(out) else []) < clients:
                 if time.perf_counter() > deadline or proc.poll() is not None:
                     raise AssertionError(f"the serve clients did not all {what}: " + " | ".join(lines[-20:]))
                 time.sleep(0.05)
@@ -3099,6 +3301,10 @@ def _serve_command(ckpt_ref: str, reg: str, base_ckpt: str, work: str) -> dict:
             new_version, {"agent": {"world_model": agent["world_model"], "actor": actor}})
         t_publish = time.time()
         time.sleep(SERVE_STOP_AFTER_S)
+        scrape = None
+        if ops:
+            port = [line.split("metrics_port=")[1].split()[0] for line in lines if "[serve] ops surface on" in line]
+            scrape = _scrape_metrics(int(port[0]), (base, new_version))
         t_stop = time.time()
         open(os.path.join(out, "stop"), "w").close()
         wait_for(".json", "finish")
@@ -3113,8 +3319,13 @@ def _serve_command(ckpt_ref: str, reg: str, base_ckpt: str, work: str) -> dict:
     if rc != 0 or not finals or not any("drained=clean" in line for line in lines):
         raise AssertionError(f"the serve command exited {rc}: " + " | ".join(lines[-30:]))
     final = json.loads(finals[-1][len("[serve] final "):])
+    with open(cost_out) as f:
+        cost = json.load(f)
+    if len(cost["batches"]) < final["batches"] or bool(cost["ops_calls"]) != ops:
+        raise AssertionError(f"serve: {len(cost['batches'])} dispatches timed for {final['batches']} batches, "
+                             f"{cost['ops_calls']} ops calls, ops {ops}")
     records = []
-    for slot in range(SERVE_CLIENTS):
+    for slot in range(clients):
         with open(os.path.join(out, f"client_{slot}.json")) as f:
             records.append(json.load(f))
     errors = [e for r in records for e in r["errors"]]
@@ -3132,8 +3343,10 @@ def _serve_command(ckpt_ref: str, reg: str, base_ckpt: str, work: str) -> dict:
         raise AssertionError(f"serve: cell launches {launches} for {final['batches']} batches")
     steady = [(t, x) for r in records for t, x in zip(r["answered_at"], r["latency_s"]) if t_all <= t <= t_stop]
     latency_ms = 1e3 * np.array([x for _t, x in steady])
+    # the dispatcher thread over the same window: its seconds a batch, and the ops sink's within them
+    dispatch_s, sink_s = np.array([(d, o) for t, d, o in cost["batches"] if t_all <= t <= t_stop]).T
     new_at = [t for r in records for t, v in zip(r["answered_at"], r["versions"]) if v == new_version]
-    row = {"clients": SERVE_CLIENTS, "steady_window_s": t_stop - t_all, "requests": requests,
+    row = {"clients": clients, "steady_window_s": t_stop - t_all, "requests": requests,
            "steady_requests": len(steady), "requests_per_s": len(steady) / (t_stop - t_all),
            "act_latency_p50_ms": float(np.percentile(latency_ms, 50)),
            "act_latency_p99_ms": float(np.percentile(latency_ms, 99)),
@@ -3144,8 +3357,30 @@ def _serve_command(ckpt_ref: str, reg: str, base_ckpt: str, work: str) -> dict:
            "requests_at_new_version": len(new_at), "drain_s": final["drain_s"], "serving_s": final["serving_s"],
            "server_act_latency": final["act_latency"], "server_stage_latency": final["stage_latency"],
            "hafner_cell_launches": launches["hafner_cell"], "start_to_up_s": t_up - t_start,
-           "up_to_all_clients_answered_s": t_all - t_up_wall}
-    return {"row": row, "launches": launches}
+           "up_to_all_clients_answered_s": t_all - t_up_wall, "ops": ops,
+           # the dispatcher thread's own ms a batch over the steady window, and the ops sink's within them (0 off)
+           "steady_batches": len(dispatch_s), "dispatcher_ms_p50": 1e3 * float(np.percentile(dispatch_s, 50)),
+           "dispatcher_ms_p99": 1e3 * float(np.percentile(dispatch_s, 99)),
+           "ops_ms_p50": 1e3 * float(np.percentile(sink_s, 50)), "ops_ms_p99": 1e3 * float(np.percentile(sink_s, 99)),
+           "ops_share_of_dispatcher": float(sink_s.sum() / dispatch_s.sum()), "ops_calls": cost["ops_calls"]}
+    checked = {"metrics": scrape, **_check_serve_ops(obs_dir, records, final, t_up_wall)} if ops else None
+    return {"row": row, "launches": launches, "ops": checked}
+
+
+SERVE_OPS_KEYS = ("requests_per_s", "act_latency_p50_ms", "act_latency_p99_ms", "steady_requests", "mean_batch_occupancy",
+                  "up_to_all_clients_answered_s", "steady_batches", "dispatcher_ms_p50", "dispatcher_ms_p99", "ops_ms_p50",
+                  "ops_ms_p99", "ops_share_of_dispatcher")
+
+
+def _serve_ops_line(on: dict, off_rows, drill: dict, card: str) -> dict:
+    """The ``[serve_ops]`` line: the serve command's steady window with the ops
+    on (``on``, a ``_serve_command`` result) beside ``off_rows`` (the same
+    command's rows with them off, when the call made any), its ops checks
+    and first-answer split, and the fault drill."""
+    return {"on": {k: on["row"][k] for k in SERVE_OPS_KEYS},
+            "off": [{k: row[k] for k in SERVE_OPS_KEYS} for row in off_rows] if off_rows else
+            "not run in this call: python3 chip_smoke.py --serve-ops alternates the command off and on",
+            **on["ops"], "fault_drill": drill, "card": card}
 
 
 def phase_eval_serve(card: str, work: str, dv3_ckpt: str, walker_ckpt: str):
@@ -3153,9 +3388,10 @@ def phase_eval_serve(card: str, work: str, dv3_ckpt: str, walker_ckpt: str):
     run_walker's checkpoints (``_eval_command``), the registration command
     and the gateway-path rescore of ``registry:best:dreamer_v3:<env>``
     (returns, lengths and every step's actions bit for bit the evaluation's,
-    one cell launch a batch), the cold start through that ref, the serve
-    command under load with a hot-swap and a SIGTERM drain
-    (``_serve_command``), and in-run evaluation on a short DV3 run
+    one cell launch a batch), the cold start through that ref (its gateway
+    then runs the SLO fault drill, ``_serve_fault_drill``), the serve
+    command under load with a hot-swap, every ops knob on and a SIGTERM drain
+    (``_serve_command``, the ``[serve_ops]`` line), and in-run evaluation on a short DV3 run
     (INRUN_ARGS: the sidecar's curve, the spawned CPU child never opening a
     CUDA context, the trainer's launches still player steps + 79 a gradient
     step + test steps). Returns each path's launches."""
@@ -3189,7 +3425,7 @@ def phase_eval_serve(card: str, work: str, dv3_ckpt: str, walker_ckpt: str):
         cold_start_s = time.perf_counter() - t0
         if gateway.status()["checkpoint"] != os.path.abspath(dv3_ckpt):
             raise AssertionError(f"{ref} resolved to {gateway.status()['checkpoint']}")
-        gateway.close()
+        drill = _serve_fault_drill(gateway, os.path.join(work, "drill_obs"))  # closes the gateway
         steps = []
         ops.hafner_cell_launches.reset()
         ops.hafner_sequence_launches.reset()
@@ -3209,6 +3445,7 @@ def phase_eval_serve(card: str, work: str, dv3_ckpt: str, walker_ckpt: str):
 
         serve = _serve_command(ref, reg, dv3_ckpt, work)
         stamps.append(("serve", time.perf_counter()))
+        print("[serve_ops] " + json.dumps(_serve_ops_line(serve, None, drill, card)), flush=True)
 
         ops.hafner_cell_launches.reset()
         ops.hafner_sequence_launches.reset()
@@ -4986,6 +5223,52 @@ def main_ppo() -> int:
     return 0
 
 
+def main_serve_ops() -> int:
+    """``--serve-ops``: the serve command with every ops knob off and on in
+    alternation (off, on, on, off) on a full-width DV3 checkpoint of a run
+    that only collects (SERVE_OPS_CKPT_ARGS), with SERVE_CLIENTS ring
+    clients and again with SERVE_OPS_FEW_CLIENTS (the host's cores not
+    saturated), and the fault drill on a gateway of it: the ``[serve_ops]``
+    line with the ops' cost, end to end and on the dispatcher thread. The
+    whole script serves with the ops on only (its time has no room for a
+    second serve command)."""
+    import tempfile
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script runs only on the card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from sheeprl_tpu_torch.kernels import build
+    from sheeprl_tpu_torch.serve import ServeGateway
+
+    clock = _PhaseClock()
+    card = card_line()
+    print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    build.build_all()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_ops_") as work:
+        result, _wall = clock("checkpoint", _run_once, work, "serve_ops_ckpt", SERVE_OPS_CKPT_ARGS)
+        ckpt, reg = result["checkpoint"], os.path.join(work, "registry")
+        drill = clock("drill", _serve_fault_drill, ServeGateway.from_checkpoint(ckpt), os.path.join(work, "drill"))
+        runs = {}
+        for clients in (SERVE_CLIENTS, SERVE_OPS_FEW_CLIENTS):
+            for i, ops in enumerate((False, True, True, False)):
+                sub = os.path.join(work, f"serve{clients}_{i}")
+                os.makedirs(sub)
+                runs.setdefault((clients, ops), []).append(clock(
+                    f"serve{clients}_{i}_{'on' if ops else 'off'}", _serve_command, ckpt, reg, ckpt, sub, ops=ops,
+                    clients=clients))
+    line = _serve_ops_line(runs[SERVE_CLIENTS, True][0], [r["row"] for r in runs[SERVE_CLIENTS, False]], drill, card)
+    line["on_runs"] = [{k: r["row"][k] for k in SERVE_OPS_KEYS} for r in runs[SERVE_CLIENTS, True]]
+    line["few_clients"] = {"clients": SERVE_OPS_FEW_CLIENTS, **{
+        "on" if ops else "off": [{k: r["row"][k] for k in SERVE_OPS_KEYS} for r in runs[SERVE_OPS_FEW_CLIENTS, ops]]
+        for ops in (False, True)}}
+    print("[serve_ops] " + json.dumps(line), flush=True)
+    print("[timing] " + json.dumps(clock.line()), flush=True)
+    return 0
+
+
 class _PhaseClock:
     """Each phase's wall seconds (printed as the ``[timing]`` line): the
     script must stay inside its 1,200 s limit on a slow host."""
@@ -5350,7 +5633,8 @@ def main_sac() -> int:
 
 
 if __name__ == "__main__":
-    modes = {"--train-gaps": main_train_gaps, "--sac": main_sac, "--ppo": main_ppo, "--decoupled": main_decoupled}
+    modes = {"--train-gaps": main_train_gaps, "--sac": main_sac, "--ppo": main_ppo, "--decoupled": main_decoupled,
+             "--serve-ops": main_serve_ops}
     if sys.argv[1:2] == ["--seeds"] and len(sys.argv) > 3:
         sys.exit(main_seeds(sys.argv[2:]))
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes and len(sys.argv) == 2 else main())

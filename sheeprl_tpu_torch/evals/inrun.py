@@ -17,6 +17,12 @@ itself to the CPU backend, so that it never competes with the trainer for
 the device; it never initialises CUDA, and says so in its sidecar
 (``cuda_initialized``). It runs at ``SCHED_IDLE`` (``nice(19)`` where that
 is refused), so it takes only the CPU time the trainer leaves.
+
+The child sets a **ready** event once it has imported its modules and built
+its env pool, and :meth:`InRunEval.close` counts its stop's timeout from
+that beat, not from the spawn: on a saturated host a spawned interpreter's
+start alone can take a minute. A child that still has to be terminated
+leaves ``{"error": "terminated", ...}`` in its sidecar, so the loss shows.
 """
 
 from __future__ import annotations
@@ -26,6 +32,11 @@ import time
 from typing import Any, Dict, Optional
 
 __all__ = ["InRunEval", "child_main", "maybe_start_inrun_eval"]
+
+# How long the stop waits for the child's ready beat: a spawned interpreter
+# that imports torch and builds its env pool can take a minute on a saturated
+# host, and the stop's own ``timeout`` only starts once the child is ready.
+_CHILD_START_TIMEOUT_S = 600.0
 
 
 class _ChildHalt:
@@ -75,6 +86,8 @@ def child_main(spec: Dict[str, Any]) -> None:
     act_shape = tuple(pool.single_action_space.shape)
     poller = PolicyPoller(spec["policy_root"])
     points = []
+    if spec.get("ready") is not None:
+        spec["ready"].set()  # the ready beat: the parent's stop timeout counts from here
     try:
         version = -1
         while True:
@@ -142,6 +155,7 @@ class InRunEval:
                                           async_publish=True)
         ctx = mp.get_context("spawn")
         self._stop = ctx.Event()
+        self._ready = ctx.Event()
         spec = {
             "cfg": dict(cfg),
             "policy_root": self.policy_root,
@@ -149,6 +163,7 @@ class InRunEval:
             "episodes": int(settings.inrun_episodes),
             "seed0": int(settings.seed0),
             "stop": self._stop,
+            "ready": self._ready,
             "parent_pid": os.getpid(),
         }
         self._child = ctx.Process(target=child_main, args=(spec,), daemon=True, name="inrun-eval")
@@ -185,16 +200,37 @@ class InRunEval:
 
     def close(self, timeout: float = 60.0) -> None:
         """Flush pending publications, then stop the eval process: it scores
-        the newest version published before the stop (``timeout`` seconds at
-        most), then exits."""
+        the newest version published before the stop, then exits. The
+        ``timeout`` seconds for that count from the child's ready beat; its
+        start gets ``_CHILD_START_TIMEOUT_S``. A child terminated past them
+        leaves ``{"error": "terminated", ...}`` in its sidecar."""
         try:
             self._publisher.close(timeout=timeout)
         finally:
             self._stop.set()
+            t0 = time.monotonic()
+            while not self._ready.is_set() and self._child.is_alive() and time.monotonic() - t0 < _CHILD_START_TIMEOUT_S:
+                self._ready.wait(0.1)
+            ready = self._ready.is_set()
             self._child.join(timeout=timeout)
             if self._child.is_alive():
                 self._child.terminate()
                 self._child.join(timeout=5.0)
+                self._mark_terminated(ready, time.monotonic() - t0)
+
+    def _mark_terminated(self, ready: bool, waited_s: float) -> None:
+        """Keep the child's curve, if it wrote one, and say it was cut."""
+        import json
+
+        from sheeprl_tpu_torch.obs.dist.aggregate import sidecar_path, write_sidecar
+
+        try:
+            with open(sidecar_path(self.tel_dir, "evalproc")) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            doc = {"points": []}
+        write_sidecar(self.tel_dir, "evalproc", {**doc, "error": "terminated", "child_ready": bool(ready),
+                                                 "stop_waited_s": round(waited_s, 3)})
 
 
 def maybe_start_inrun_eval(fabric, cfg, log_dir: Optional[str]) -> Optional[InRunEval]:

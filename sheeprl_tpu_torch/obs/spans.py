@@ -30,7 +30,7 @@ the Chrome trace-event format):
 
 plus ``{"ph": "M", ...}`` thread-name and ``clock_sync`` metadata and
 ``{"ph": "C", ...}`` counter samples from the device poller.
-``tools/trace_view.py`` merges a run's files into one Perfetto trace.
+``sheeprl_tpu_torch/tools/trace_view.py`` merges a run's files into one Perfetto trace.
 """
 
 from __future__ import annotations
@@ -110,7 +110,7 @@ class TraceWriter:
         # plane players and env workers pass their own track id, so that
         # they do not collide with the learner's pid 0 in a merged view
         self._pid = int(pid)
-        # wall-clock anchor so tools/trace_view.py can align files written
+        # wall-clock anchor so tools.trace_view can align files written
         # by processes with different perf_counter origins
         self._emit({"ph": "M", "name": "clock_sync", "pid": self._pid, "args": {"unix_ts": time.time()}})
         if process_name:

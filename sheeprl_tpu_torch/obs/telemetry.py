@@ -270,7 +270,7 @@ class Telemetry:
 
         Rank 0 owns the summary, the live exporter, and ``trace.jsonl``;
         other ranks write per-rank trace files (``trace_rank<k>.jsonl``,
-        merged by ``tools/trace_view.py``) and dump their histograms at
+        merged by ``tools.trace_view``) and dump their histograms at
         finalize for rank 0's cross-rank percentile merge."""
         if not log_dir or self.run_dir is not None:
             return

@@ -23,22 +23,30 @@ produced it. A cancelled request is dropped at dispatch; a dispatch that
 raises fails only its own requests; ``drain`` refuses new requests,
 finishes the queue, waits for the device and stops the thread, and fails
 loudly whatever is still queued at its timeout.
+
+An optional ops sink (:class:`~sheeprl_tpu_torch.serve.ops.ServeOps`,
+``attach_ops``) is read once a batch: it gets every retired ticket with its
+five stamps (``on_request``, failed ones too), the cancelled count
+(``on_cancelled``) and the injected dispatch delay. With no sink the
+request path is the one without ops.
 """
 
 from __future__ import annotations
 
 import threading
-import time
+import time  # sleep only: clock reads go through obs.reqtrace
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from sheeprl_tpu_torch.obs.hist import StreamingHist
+from sheeprl_tpu_torch.obs.reqtrace import now as _now
 
 __all__ = ["RequestBatcher", "ServeClosed", "ServeRequestError"]
 
-#: the stages of a request's life on the server
+#: the stages of a request's life on the server (the client's two,
+#: ``client_enqueue`` and ``ring_transit``, are stamped by the client)
 STAGE_NAMES = ("queue_wait", "batch_assembly", "device_dispatch", "respond")
 
 
@@ -53,18 +61,21 @@ class ServeRequestError(RuntimeError):
 class _Pending:
     """One queued request: the ticket a client waits on."""
 
-    __slots__ = ("client_id", "obs", "reset", "t_submit", "event", "action", "version", "error", "cancelled")
+    __slots__ = ("client_id", "obs", "reset", "t_submit", "event", "action", "version", "error", "cancelled",
+                 "trace")
 
-    def __init__(self, client_id: str, obs: Dict[str, np.ndarray], reset: bool):
+    def __init__(self, client_id: str, obs: Dict[str, np.ndarray], reset: bool, trace=None):
         self.client_id = client_id
         self.obs = obs
         self.reset = bool(reset)
-        self.t_submit = time.perf_counter()
+        self.t_submit = _now()
         self.event = threading.Event()
         self.action: Optional[np.ndarray] = None
         self.version: Optional[int] = None
         self.error: Optional[BaseException] = None
         self.cancelled = False
+        #: the request's RequestTrace (obs/reqtrace), None when not sampled
+        self.trace = trace
 
 
 def _stack_obs(rows: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -114,14 +125,17 @@ class RequestBatcher:
         self._versions_served: List[int] = []
         self._per_version: Dict[int, Dict[str, Any]] = {}
         self._last_deadline_miss: Optional[Dict[str, float]] = None
+        #: the ops sink (serve/ops.ServeOps) or None
+        self._ops = None
         self._thread = threading.Thread(target=self._run, name="serve-batcher", daemon=True)
         self._thread.start()
 
     # ------------------------------------------------------------- client API
 
-    def submit(self, client_id: str, obs: Dict[str, np.ndarray], reset: bool = False) -> _Pending:
-        """Queue one observation row; returns the ticket to :meth:`wait` on."""
-        pending = _Pending(str(client_id), obs, reset)
+    def submit(self, client_id: str, obs: Dict[str, np.ndarray], reset: bool = False, trace=None) -> _Pending:
+        """Queue one observation row; returns the ticket to :meth:`wait` on.
+        ``trace`` is the request's sampled trace baton, or None."""
+        pending = _Pending(str(client_id), obs, reset, trace=trace)
         with self._cv:
             if self._draining or self._stopped:
                 raise ServeClosed("gateway is draining: no new requests accepted")
@@ -164,11 +178,10 @@ class RequestBatcher:
         return self._model
 
     def attach_ops(self, ops) -> None:
-        """Install the request-path observability sink. The port has none
-        yet (tracing, access log, SLO feed: ROADMAP queue A items 6g/6h), so
-        only None (no sink) is taken."""
-        if ops is not None:
-            raise NotImplementedError("the serving ops surface is ROADMAP queue A items 6g/6h")
+        """Install (or with None remove) the request-path ops sink, a
+        :class:`~sheeprl_tpu_torch.serve.ops.ServeOps`. The dispatcher reads
+        it once a batch."""
+        self._ops = ops  # atomic reference assignment
 
     def swap(self, model) -> int:
         """Install ``model`` for every later dispatch; a batch in flight
@@ -186,8 +199,8 @@ class RequestBatcher:
         with self._cv:
             self._draining = True
             self._cv.notify_all()
-        deadline = time.perf_counter() + float(timeout)
-        while time.perf_counter() < deadline:
+        deadline = _now() + float(timeout)
+        while _now() < deadline:
             with self._cv:
                 if not self._queue:
                     break
@@ -201,6 +214,10 @@ class RequestBatcher:
             p.event.set()
         with self._stats_lock:
             self._failed += len(leftovers)
+        ops = self._ops
+        if ops is not None:
+            for p in leftovers:
+                ops.on_request(p.client_id, None, 0, ok=False)
         self.close()
         device = getattr(self._model, "device", None)
         if device is not None and torch.device(device).type == "cuda":
@@ -258,7 +275,7 @@ class RequestBatcher:
                     if self._stopped or self._draining:
                         return []
                     self._cv.wait(timeout=0.05)
-                remaining = self.deadline_s - (time.perf_counter() - self._queue[0].t_submit)
+                remaining = self.deadline_s - (_now() - self._queue[0].t_submit)
                 if self._draining or len(self._queue) >= self.max_batch or remaining <= 0:
                     batch = self._queue[: self.max_batch]
                     del self._queue[: len(batch)]
@@ -291,12 +308,15 @@ class RequestBatcher:
         return gen
 
     def _dispatch(self, batch: List[_Pending]) -> None:
-        t_collect = time.perf_counter()
+        ops = self._ops  # one read a batch, as the model
+        t_collect = _now()
         # a miss is a late launch (the previous batch still running), not a
         # partial fill at the deadline, which is by design
         lateness = t_collect - (batch[0].t_submit + self.deadline_s)
         deadline_miss = self.deadline_s > 0 and lateness > 0.5 * self.deadline_s
         live = [p for p in batch if not p.cancelled]
+        if ops is not None and len(live) < len(batch):
+            ops.on_cancelled(len(batch) - len(live))
         if not live:
             return
         model = self._model  # one read: the whole batch rides one model
@@ -305,7 +325,10 @@ class RequestBatcher:
             with self._cv:
                 state = self._batch_states(live, model)
             generator = self._generator_for(model.device)
-            t_model = time.perf_counter()
+            t_model = _now()
+            if ops is not None and ops.inject_dispatch_delay_s > 0:
+                # fault injection (serve.inject_dispatch_delay_s): a slow device, charged to device_dispatch
+                time.sleep(ops.inject_dispatch_delay_s)
             actions, new_state = model.act(obs, state, generator)
             actions = np.asarray(actions)
         except Exception as exc:  # fail this batch's waiters, keep serving
@@ -314,8 +337,11 @@ class RequestBatcher:
                 p.event.set()
             with self._stats_lock:
                 self._failed += len(live)
+            if ops is not None:
+                for p in live:
+                    ops.on_request(p.client_id, None, int(model.version), ok=False)
             return
-        t_done = time.perf_counter()
+        t_done = _now()
         if new_state is not None:
             with self._cv:
                 for p, row in zip(live, _split_states(new_state, len(live))):
@@ -325,7 +351,7 @@ class RequestBatcher:
             p.action = actions[i]
             p.version = version
             p.event.set()
-        t_end = time.perf_counter()
+        t_end = _now()
         with self._stats_lock:
             ver_rec = self._per_version.setdefault(version, {"requests": 0, "latency": StreamingHist()})
             ver_rec["requests"] += len(live)
@@ -336,6 +362,9 @@ class RequestBatcher:
             self._stage_hists["batch_assembly"].record(t_model - t_collect)
             self._stage_hists["device_dispatch"].record(t_done - t_model)
             self._stage_hists["respond"].record(t_end - t_done)
+            if ops is not None:
+                ops.on_request(p.client_id, t_end - p.t_submit, version, ok=True, trace=p.trace,
+                               stamps=(p.t_submit, t_collect, t_model, t_done, t_end), rows=len(live))
         self._occupancy.record(len(live))
         with self._stats_lock:
             self._batches += 1
@@ -347,11 +376,20 @@ class RequestBatcher:
             self._flag_deadline_miss(len(live), lateness)
 
     def _flag_deadline_miss(self, rows: int, lateness_s: float) -> None:
-        """Keep the latest late launch for ``stats`` (the JAX batcher arms its
-        run's flight recorder here; the port's is ROADMAP queue A item 6h)."""
+        """Keep the latest late launch for ``stats``, and arm the run's flight
+        recorder with it (telemetry runs only)."""
+        detail = {
+            "rows": int(rows),
+            "lateness_ms": round(lateness_s * 1e3, 3),
+            "deadline_ms": round(self.deadline_s * 1e3, 3),
+        }
         with self._stats_lock:
-            self._last_deadline_miss = {
-                "rows": int(rows),
-                "lateness_ms": round(lateness_s * 1e3, 3),
-                "deadline_ms": round(self.deadline_s * 1e3, 3),
-            }
+            self._last_deadline_miss = detail
+        try:
+            from sheeprl_tpu_torch.obs.telemetry import get_telemetry
+
+            tel = get_telemetry()
+            if tel is not None and tel.flight is not None:
+                tel.flight.trigger("serve_deadline_miss", dict(detail))
+        except Exception:
+            pass  # observability must never take the gateway down

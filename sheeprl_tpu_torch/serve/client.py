@@ -6,6 +6,12 @@ in-process :class:`LocalServeClient` and the cross-process
 A client never sees the model: it hands an observation row to the gateway
 and gets ``(action_row, version)`` back. ``reset=True`` marks an episode
 boundary, where the gateway starts the client's recurrent state afresh.
+
+Tracing: a :class:`LocalServeClient` takes its request's baton from
+:func:`~sheeprl_tpu_torch.obs.reqtrace.sample` (the gateway's tracer); a
+:class:`RingServeClient`, whose process has no tracer, stamps every
+``ring.trace_every``-th request itself and sends the stamps through the
+ring's metadata block.
 """
 
 from __future__ import annotations
@@ -15,6 +21,10 @@ import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from sheeprl_tpu_torch.obs import reqtrace
+from sheeprl_tpu_torch.obs.reqtrace import RequestTrace
+from sheeprl_tpu_torch.obs.reqtrace import now as _now
 
 __all__ = ["LocalServeClient", "RingServeClient"]
 
@@ -42,7 +52,10 @@ class LocalServeClient:
         """One request → one action row plus the serving model version."""
         if self._closed:
             raise RuntimeError(f"client {self.client_id} is closed")
-        pending = self._batcher.submit(self.client_id, obs_row, reset=reset)
+        trace = reqtrace.sample()  # None, after one global read, when tracing is off
+        if trace is not None:
+            trace.t_enqueue = _now()
+        pending = self._batcher.submit(self.client_id, obs_row, reset=reset, trace=trace)
         self._pending = pending
         try:
             return self._batcher.wait(pending, timeout=timeout)
@@ -75,7 +88,12 @@ class RingServeClient:
 
     def act(self, obs_row: Dict[str, np.ndarray], reset: bool = False, timeout: float = 30.0) -> Tuple[np.ndarray, int]:
         self._seq += 1
-        self._ring.request(self.slot, obs_row, self._seq, reset)
+        every = int(getattr(self._ring, "trace_every", 0) or 0)
+        trace = None
+        if every > 0 and (self._seq - 1) % every == 0:
+            # the JAX package's id scheme: unique across slots while a slot sends fewer than a million requests
+            trace = RequestTrace((self.slot + 1) * 1_000_000 + self._seq, t_start=_now())
+        self._ring.request(self.slot, obs_row, self._seq, reset, trace=trace)
         return self._ring.wait_response(self.slot, self._seq, timeout=timeout)
 
     def close(self) -> None:

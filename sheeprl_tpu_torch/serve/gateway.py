@@ -16,8 +16,10 @@ pool, seed ladder and noise schedule) with every episode row behind its own
 serve client, so each pool step coalesces into one dispatch: at matched
 seeds it gives the eval service's returns bit for bit.
 
-The serving ops surface (tracing, access log, SLO engine, ``/metrics``,
-fault injection) is ROADMAP queue A items 6g/6h: its knobs raise.
+``enable_ops`` attaches the request-path ops surface
+(:class:`~sheeprl_tpu_torch.serve.ops.ServeOps`: tracing, the access log,
+the SLO engine, ``/metrics``, fault injection) by the ``serve.*`` knobs;
+with every knob off there is none and the request path is unchanged.
 
 This module imports no torch at import time: a spawned ring client
 (``child_main``) never loads it.
@@ -28,11 +30,12 @@ from __future__ import annotations
 import json
 import os
 import threading
-import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
+from sheeprl_tpu_torch.obs.reqtrace import now as _now
+from sheeprl_tpu_torch.obs.reqtrace import unix_now as _unix_now
 from sheeprl_tpu_torch.utils import dotdict
 
 __all__ = ["ServeContext", "ServeGateway", "child_main", "rescore_through_gateway", "run_serve_entrypoint",
@@ -52,7 +55,7 @@ _SERVE_DEFAULTS: Dict[str, Any] = {
     # the port's own knob, not in the shipped YAML: load clients the command spawns on its ring
     # (serve.clients.n=64 serve.clients.entry=sheeprl_tpu_torch.serve.loadgen:seeded_client serve.clients.spec.*=...)
     "clients": {"n": 0, "entry": None, "spec": {}},
-    # the ops surface: every knob off, or the gateway refuses to start
+    # the request-path ops surface (serve/ops.py): all off by default
     "trace_sample_rate": 0.0,
     "access_log_sample_rate": 0.0,
     "obs_dir": None,
@@ -74,19 +77,6 @@ def serve_settings(cfg) -> dotdict:
         user = {}
     merged.update(dict(user))
     return dotdict(merged)
-
-
-def _ops_knobs_set(settings) -> list:
-    """The ops knobs a setting turns on."""
-    on = []
-    for key in ("trace_sample_rate", "access_log_sample_rate", "inject_dispatch_delay_s"):
-        if float(settings.get(key, 0.0) or 0.0) > 0:
-            on.append(key)
-    if settings.get("metrics_port", None) is not None:
-        on.append("metrics_port")
-    if bool((settings.get("slo", None) or {}).get("enabled", False)):
-        on.append("slo.enabled")
-    return on
 
 
 class ServeGateway:
@@ -112,6 +102,7 @@ class ServeGateway:
         self._ring = None
         self._ring_stop = threading.Event()
         self._ring_thread: Optional[threading.Thread] = None
+        self.ops = None
 
     @classmethod
     def from_checkpoint(
@@ -136,18 +127,42 @@ class ServeGateway:
 
         return LocalServeClient(self.batcher, client_id=client_id)
 
-    def enable_ops(self, settings: Dict[str, Any]):
-        """The request-path ops surface. With every knob off there is none
-        (None is returned and the request path is untouched); a knob that is
-        on raises: tracing, the access log, ``/metrics``, the SLO engine and
-        fault injection are ROADMAP queue A items 6g/6h."""
-        on = _ops_knobs_set(settings)
-        if on:
-            raise NotImplementedError(
-                f"serve ops knobs {on}: the serving ops surface (tracing, access log, /metrics, SLO engine, "
-                "fault injection) is ROADMAP queue A items 6g/6h"
-            )
-        return None
+    def enable_ops(self, settings: Dict[str, Any], out_dir: Optional[str] = None):
+        """Attach the request-path ops surface (tracing, SLO engine, access
+        log, ``/metrics``, fault injection) by the ``serve.*`` knobs, its
+        files under ``out_dir`` (else ``serve.obs_dir``, else
+        ``logs/serve_obs``). Returns the
+        :class:`~sheeprl_tpu_torch.serve.ops.ServeOps`, or None when every
+        knob is off: then the request path is untouched."""
+        from sheeprl_tpu_torch.serve.ops import ServeOps
+
+        if self.ops is not None:
+            raise RuntimeError("gateway ops surface is already enabled")
+        out = out_dir or settings.get("obs_dir", None) or "logs/serve_obs"
+        self.ops = ServeOps.build(settings, str(out), status_fn=self.status, staleness_fn=self._swap_staleness)
+        if self.ops is not None:
+            self.batcher.attach_ops(self.ops)
+            if self._ring is not None and self.ops.tracer is not None:
+                self._ring.trace_every = self.ops.tracer.every
+        return self.ops
+
+    def _swap_staleness(self) -> float:
+        """Seconds the serving model lags the newest publication: 0 with no
+        swapper or when serving is current, else the age of the newest
+        publication not yet swapped in."""
+        swapper = self._swapper
+        if swapper is None:
+            return 0.0
+        try:
+            from sheeprl_tpu_torch.plane.publish import policy_path
+
+            latest = swapper._poller.latest_version()
+            if latest is None or int(latest) <= int(swapper._last_version):
+                return 0.0
+            mtime = os.path.getmtime(policy_path(swapper._poller.root, int(latest)))
+            return max(0.0, _unix_now() - mtime)
+        except Exception:
+            return 0.0
 
     def watch(self, policy_root: str, poll_interval_s: float = 0.2):
         """Start hot-swapping from a policy publication channel."""
@@ -178,6 +193,9 @@ class ServeGateway:
         obs_row = {k: np.zeros(s.shape, s.dtype) for k, s in self.observation_space.spaces.items()}
         act_row = np.zeros(self.action_space.shape, self.action_space.dtype)
         self._ring = ActSlabRing.from_example(obs_row, act_row, n_clients, ctx=ctx)
+        if self.ops is not None and self.ops.tracer is not None:
+            # the ring carries the sampling knob: a client process has no tracer, it stamps every k-th request
+            self._ring.trace_every = self.ops.tracer.every
         self._ring_thread = threading.Thread(target=self._serve_ring, name="serve-ring", daemon=True)
         self._ring_thread.start()
         return self._ring
@@ -191,7 +209,8 @@ class ServeGateway:
             tickets = []
             for slot, seq, reset in requests:
                 try:
-                    ticket = self.batcher.submit(f"ring{slot}", ring.read_obs_row(slot), reset=reset)
+                    ticket = self.batcher.submit(f"ring{slot}", ring.read_obs_row(slot), reset=reset,
+                                                 trace=ring.read_meta(slot))
                 except ServeClosed as exc:
                     ring.respond(slot, seq, None, -1, error=str(exc))
                     continue
@@ -208,7 +227,7 @@ class ServeGateway:
 
     def status(self) -> Dict[str, Any]:
         model = self.batcher.model
-        return {
+        status = {
             "algo": model.algo,
             "env": model.env_id,
             "device": str(model.device),
@@ -217,6 +236,14 @@ class ServeGateway:
             "swapper": self._swapper is not None,
             **self.batcher.stats(),
         }
+        ops = self.ops
+        if ops is not None:
+            if ops.tracer is not None:
+                status["trace"] = {"sample_rate": float(ops.tracer.sample_rate),
+                                   "sampled_requests": int(ops.tracer.sampled)}
+            if ops.slo is not None:
+                status["slo"] = ops.slo.status()
+        return status
 
     def drain(self, timeout: float = 30.0) -> bool:
         """The SIGTERM path: finish the queued requests (those still queued
@@ -231,6 +258,9 @@ class ServeGateway:
         self._shutdown_aux()
 
     def _shutdown_aux(self) -> None:
+        if self.ops is not None:  # its last tick and snapshot read the batcher's final stats
+            self.ops.close()
+            self.ops = None
         if self._swapper is not None:
             self._swapper.close()
             self._swapper = None
@@ -403,7 +433,7 @@ def run_serve_entrypoint(serve_cfg) -> Dict[str, Any]:
     )
     procs, previous = [], {}
     try:
-        gateway.enable_ops(settings)
+        ops = gateway.enable_ops(settings)
         if settings.poll_root:
             gateway.watch(str(settings.poll_root), poll_interval_s=float(settings.poll_interval_s))
         clients = dotdict(settings.clients or {})
@@ -416,6 +446,14 @@ def run_serve_entrypoint(serve_cfg) -> Dict[str, Any]:
             f"max_clients={settings.max_clients})",
             flush=True,
         )
+        if ops is not None:
+            port = ops.prom.port if ops.prom is not None else None
+            print(
+                f"[serve] ops surface on: dir={ops.out_dir} trace_rate={settings.trace_sample_rate} "
+                f"access_rate={settings.access_log_sample_rate} slo={'on' if ops.slo is not None else 'off'} "
+                f"metrics_port={port} inject_dispatch_delay_s={ops.inject_dispatch_delay_s}",
+                flush=True,
+            )
         if n_clients:
             procs = spawn_clients(ring, n_clients, str(clients.entry), dict(clients.get("spec", None) or {}))
 
@@ -428,12 +466,12 @@ def run_serve_entrypoint(serve_cfg) -> Dict[str, Any]:
         # caller's come back after the drain
         if threading.current_thread() is threading.main_thread():
             previous = {sig: signal.signal(sig, _on_term) for sig in (signal.SIGTERM, signal.SIGINT)}
-        t_up = time.monotonic()
+        t_up = _now()
         deadline = t_up + float(settings.duration_s) if settings.duration_s else None
         while not stop.is_set():
-            if deadline is not None and time.monotonic() >= deadline:
+            if deadline is not None and _now() >= deadline:
                 break
-            stop.wait(timeout=min(5.0, max(deadline - time.monotonic(), 0.0)) if deadline is not None else 5.0)
+            stop.wait(timeout=min(5.0, max(deadline - _now(), 0.0)) if deadline is not None else 5.0)
             s = gateway.status()
             print(
                 f"[serve] v{s['model_version']} requests={s['requests']} batches={s['batches']} "
@@ -441,10 +479,10 @@ def run_serve_entrypoint(serve_cfg) -> Dict[str, Any]:
                 f"failed={s['failed_requests']}",
                 flush=True,
             )
-        serving_s = time.monotonic() - t_up
-        t0 = time.monotonic()
+        serving_s = _now() - t_up
+        t0 = _now()
         drained = gateway.drain(timeout=float(settings.drain_timeout_s))
-        drain_s = time.monotonic() - t0
+        drain_s = _now() - t0
     finally:
         for sig, handler in previous.items():
             signal.signal(sig, handler)

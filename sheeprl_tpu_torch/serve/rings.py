@@ -16,22 +16,30 @@ The ring is numpy over ``multiprocessing`` shared memory and imports no
 torch: it pickles to a ``spawn``-ed child (cached views are dropped in
 ``__getstate__`` and rebuilt there), so a client never touches the card.
 ``close()`` sets the shared stop event: a blocked client raises
-:class:`RingClosed` instead of hanging. The layout is versioned: a ring
+:class:`RingClosed` instead of hanging.
+
+Layout 2 adds a per-slot **metadata block** of three float64s: the client's
+``act()`` entry stamp, its enqueue stamp and a trace id (0 when the request
+is not sampled), so the gateway's tracer draws the ``client_enqueue`` and
+``ring_transit`` spans of a request that crossed a process boundary
+(:mod:`sheeprl_tpu_torch.obs.reqtrace`). The layout is versioned: a ring
 pickled by another layout refuses to unpickle.
 """
 
 from __future__ import annotations
 
 import queue
-import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from sheeprl_tpu_torch.obs.reqtrace import RequestTrace
+from sheeprl_tpu_torch.obs.reqtrace import now as _now
+
 __all__ = ["RING_LAYOUT_VERSION", "ActSlabRing", "RingClosed"]
 
 #: bump on any change of the slabs or of the queue records
-RING_LAYOUT_VERSION = 1
+RING_LAYOUT_VERSION = 2
 
 
 class RingClosed(RuntimeError):
@@ -67,12 +75,17 @@ class ActSlabRing:
             k: ctx.RawArray("b", self.n_clients * _nbytes(shape, dtype)) for k, (shape, dtype) in self.obs_spec.items()
         }
         self._act_block = ctx.RawArray("b", self.n_clients * _nbytes(self.act_shape, self.act_dtype))
+        # layout 2: per slot (t_start, t_enqueue, trace_id) of the request
+        self._meta_block = ctx.RawArray("d", self.n_clients * 3)
         self._layout = RING_LAYOUT_VERSION
+        #: a client traces every trace_every-th request of its slot (0: none); the gateway sets it from its tracer
+        self.trace_every = 0
         self._requests = ctx.Queue()
         self._responses = [ctx.Queue() for _ in range(self.n_clients)]
         self._stop = ctx.Event()
         self._views: Optional[Dict[str, np.ndarray]] = None
         self._act_view: Optional[np.ndarray] = None
+        self._meta_view: Optional[np.ndarray] = None
 
     @classmethod
     def from_example(cls, obs_row: Dict[str, np.ndarray], act_row: np.ndarray, n_clients: int, ctx=None):
@@ -96,10 +109,16 @@ class ActSlabRing:
             )
         return self._act_view
 
+    def _meta_views(self) -> np.ndarray:
+        if self._meta_view is None:
+            self._meta_view = np.frombuffer(self._meta_block, dtype=np.float64).reshape((self.n_clients, 3))
+        return self._meta_view
+
     def __getstate__(self):
         state = self.__dict__.copy()
         state["_views"] = None  # numpy views do not cross processes: rebuilt from the RawArrays
         state["_act_view"] = None
+        state["_meta_view"] = None
         return state
 
     def __setstate__(self, state):
@@ -113,20 +132,29 @@ class ActSlabRing:
 
     # ------------------------------------------------------------ client side
 
-    def request(self, slot: int, obs_row: Dict[str, np.ndarray], seq: int, reset: bool) -> None:
-        """Write the obs row into the client's slot and commit the request."""
+    def request(self, slot: int, obs_row: Dict[str, np.ndarray], seq: int, reset: bool, trace=None) -> None:
+        """Write the obs row and the request's metadata into the client's
+        slot and commit the request. ``trace`` is the request's
+        :class:`~sheeprl_tpu_torch.obs.reqtrace.RequestTrace` or None; its
+        stamps ride the metadata block to the gateway."""
         views = self._obs_views()
         for k, (shape, dtype) in self.obs_spec.items():
             views[k][slot] = np.asarray(obs_row[k], dtype=dtype).reshape(shape)
+        meta = self._meta_views()
+        if trace is not None:
+            trace.t_enqueue = _now()
+            meta[slot] = (trace.t_start, trace.t_enqueue, float(trace.trace_id))
+        else:
+            meta[slot] = (0.0, 0.0, 0.0)
         self._requests.put((int(slot), int(seq), bool(reset)))
 
     def wait_response(self, slot: int, seq: int, timeout: float = 30.0) -> Tuple[np.ndarray, int]:
         """Block for the client's response; returns ``(action_row, version)``.
         A response of an older ``seq`` (an abandoned request) is dropped."""
-        deadline = time.monotonic() + float(timeout)
+        deadline = _now() + float(timeout)
         q = self._responses[int(slot)]
         while True:
-            remaining = deadline - time.monotonic()
+            remaining = deadline - _now()
             if remaining <= 0:
                 raise TimeoutError(f"serve ring response timed out (slot {slot})")
             try:
@@ -156,6 +184,15 @@ class ActSlabRing:
                 out.append(self._requests.get_nowait())
             except queue.Empty:
                 return out
+
+    def read_meta(self, slot: int):
+        """The slot's request metadata as a
+        :class:`~sheeprl_tpu_torch.obs.reqtrace.RequestTrace`, or None when
+        the request was not sampled."""
+        t_start, t_enqueue, trace_id = self._meta_views()[int(slot)]
+        if trace_id <= 0:
+            return None
+        return RequestTrace(int(trace_id), float(t_start), float(t_enqueue))
 
     def read_obs_row(self, slot: int) -> Dict[str, np.ndarray]:
         """A copy of one client's observation row."""

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
+import cpu_threads  # noqa: F401  (one CPU thread a process: see cpu_threads.py)
+
 
 def run_jax_cli(args: Sequence[str]) -> Any:
     """``sheeprl_tpu.cli.run(args)``, the aggregator and timer switches and

@@ -41,6 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_jit_build import jit_build
 
 from sheeprl_tpu.algos.dreamer_v3 import agent as jax_agent
 from sheeprl_tpu.algos.dreamer_v3 import dreamer_v3 as jax_dv3
@@ -207,7 +208,7 @@ def _jax_build(overrides, space):
         overrides=["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "metric.log_level=0"]
         + [f"{k}={'[' + ','.join(v) + ']' if isinstance(v, list) else v}" for k, v in overrides.items()]
     )
-    return jcfg, jax_agent.build_agent(jcfg, ACTIONS, False, gym.spaces.Dict(space), jax.random.PRNGKey(3))
+    return jcfg, jit_build(jax_agent.build_agent, jcfg, ACTIONS, False, gym.spaces.Dict(space), jax.random.PRNGKey(3))
 
 
 def test_train_step_bf16_matches_jax():

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_jit_build import jit_build
 
 from sheeprl_tpu.algos.dreamer_v1 import agent as jax_agent
 from sheeprl_tpu.algos.dreamer_v1.loss import gaussian_independent as jax_gaussian
@@ -70,7 +71,7 @@ def _jax_space(obs=OBS):
 def _build(actions, continuous, seed=3):
     overrides = {**SMALL, **KEYS}
     jcfg = compose(overrides=["exp=dreamer_v1"] + [f"{k}={v}" for k, v in overrides.items()])
-    wm, actor, critic, params = jax_agent.build_agent(jcfg, actions, continuous, _jax_space(), jax.random.PRNGKey(seed))
+    wm, actor, critic, params = jit_build(jax_agent.build_agent, jcfg, actions, continuous, _jax_space(), jax.random.PRNGKey(seed))
     params = jax.device_get(params)
     state_dicts, skipped = convert_dreamer_v1(params, training=True)
     assert skipped == []

@@ -41,6 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_jit_build import jit_build
 
 from sheeprl_tpu.algos.dreamer_v1 import agent as jax_agent
 from sheeprl_tpu.algos.dreamer_v1 import dreamer_v1 as jax_dv1
@@ -137,7 +138,7 @@ def _jax_build(name):
     fabric = Fabric(devices=1, accelerator="cpu")
     jcfg = compose(overrides=["exp=dreamer_v1", "metric.log_level=0"] + [f"{k}={v}" for k, v in overrides.items()])
     space = gym.spaces.Dict({"rgb": gym.spaces.Box(0, 255, (3, 64, 64), np.uint8)})
-    wm, actor, critic, params = jax_agent.build_agent(jcfg, actions, continuous, space, jax.random.PRNGKey(3))
+    wm, actor, critic, params = jit_build(jax_agent.build_agent, jcfg, actions, continuous, space, jax.random.PRNGKey(3))
     txs = jax_dv1.build_optimizers_and_state(jcfg, params)
     train_fn = jax_dv1.build_train_fn(wm, actor, critic, *txs[:3], jcfg, fabric, actions, continuous)
     return dict(params=jax.device_get(params), state=jax.device_get(txs[3]), train_fn=train_fn, actions=actions,

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_jit_build import jit_build
 from test_torch_config import PEAK_TFLOPS
 
 from sheeprl_tpu.algos.dreamer_v2 import agent as jax_agent
@@ -47,7 +48,7 @@ def _build(overrides, jax_space, torch_space, actions=ACTIONS, seed=3):
     """The JAX agent from ``build_agent`` and the port's agent with its
     weights carried across by ``convert_dreamer_v2``."""
     jcfg = compose(overrides=["exp=dreamer_v2_ms_pacman"] + [f"{k}={v}" for k, v in overrides.items()])
-    wm, actor, _critic, params = jax_agent.build_agent(jcfg, actions, False, jax_space, jax.random.PRNGKey(seed))
+    wm, actor, _critic, params = jit_build(jax_agent.build_agent, jcfg, actions, False, jax_space, jax.random.PRNGKey(seed))
     params = jax.device_get(params)
     state_dicts, skipped = convert_dreamer_v2(params)
     tcfg = dreamer_v2_config(**overrides)

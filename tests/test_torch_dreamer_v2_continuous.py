@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_jit_build import jit_build
 
 from sheeprl_tpu.algos.dreamer_v2 import agent as jax_agent
 from sheeprl_tpu.algos.dreamer_v2 import dreamer_v2 as jax_dv2
@@ -121,7 +122,7 @@ def jax_side():
     fabric = Fabric(devices=1, accelerator="cpu")
     jcfg = compose(overrides=["exp=dreamer_v2", "metric.log_level=0"] + [f"{k}={v}" for k, v in SMALL.items()])
     space = gym.spaces.Dict({"rgb": gym.spaces.Box(0, 255, (3, 64, 64), np.uint8)})
-    wm, actor, critic, params = jax_agent.build_agent(jcfg, ACTIONS, True, space, jax.random.PRNGKey(3))
+    wm, actor, critic, params = jit_build(jax_agent.build_agent, jcfg, ACTIONS, True, space, jax.random.PRNGKey(3))
     params["target_critic"] = jax.tree_util.tree_map(lambda p: 0.5 * p, params["target_critic"])
     txs = jax_dv2.build_optimizers_and_state(jcfg, params)
     train_fn = jax_dv2.build_train_fn(wm, actor, critic, *txs[:3], jcfg, fabric, ACTIONS, True)

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_jit_build import jit_build
 
 from sheeprl_tpu.algos.dreamer_v2 import agent as jax_agent
 from sheeprl_tpu.algos.dreamer_v2 import dreamer_v2 as jax_dv2
@@ -142,7 +143,7 @@ def jax_side():
         overrides=["exp=dreamer_v2_ms_pacman", "metric.log_level=0"] + [f"{k}={v}" for k, v in SMALL.items()]
     )
     space = gym.spaces.Dict({"rgb": gym.spaces.Box(0, 255, (3, 64, 64), np.uint8)})
-    wm, actor, critic, params = jax_agent.build_agent(jcfg, ACTIONS, False, space, jax.random.PRNGKey(3))
+    wm, actor, critic, params = jit_build(jax_agent.build_agent, jcfg, ACTIONS, False, space, jax.random.PRNGKey(3))
     # a target critic that differs from the critic, so that tau decides which one the actor sees
     params["target_critic"] = jax.tree_util.tree_map(lambda p: 0.5 * p, params["target_critic"])
     txs = jax_dv2.build_optimizers_and_state(jcfg, params)
@@ -262,7 +263,7 @@ def test_converter_consumes_every_leaf_of_a_full_width_tree():
     every state dict loads strictly into a full-width training build."""
     jcfg = compose(overrides=["exp=dreamer_v2_ms_pacman"])
     space = gym.spaces.Dict({"rgb": gym.spaces.Box(0, 255, (3, 64, 64), np.uint8)})
-    params = jax.device_get(jax_agent.build_agent(jcfg, ACTIONS, False, space, jax.random.PRNGKey(0))[3])
+    params = jax.device_get(jit_build(jax_agent.build_agent, jcfg, ACTIONS, False, space, jax.random.PRNGKey(0))[3])
     state_dicts, skipped = convert_dreamer_v2(params, training=True)
     assert skipped == []
     assert sorted(state_dicts) == ["actor", "critic", "target_critic", "world_model"]

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_jit_build import jit_build
 
 from sheeprl_tpu.algos.dreamer_v3 import agent as jax_agent
 from sheeprl_tpu.algos.dreamer_v3.utils import normalize_obs_jnp
@@ -87,7 +88,7 @@ def _jax_cfg(overrides, exp="dreamer_v3_100k_ms_pacman"):
 @pytest.fixture(scope="module")
 def agents():
     jcfg = _jax_cfg(SMALL)
-    wm, actor, critic, params = jax_agent.build_agent(jcfg, ACTIONS, False, _jax_space(), jax.random.PRNGKey(3))
+    wm, actor, critic, params = jit_build(jax_agent.build_agent, jcfg, ACTIONS, False, _jax_space(), jax.random.PRNGKey(3))
     params = jax.device_get(params)
     state_dicts, skipped = convert_dreamer_v3(params, training=True)
     assert skipped == []

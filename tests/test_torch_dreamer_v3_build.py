@@ -14,6 +14,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from jax_jit_build import jit_build
 
 from sheeprl_tpu.algos.dreamer_v3 import agent as jax_agent
 from sheeprl_tpu.config import compose
@@ -62,7 +63,7 @@ def test_hafner_initialization_matches_jax_statistics():
                  "algo.world_model.transition_model.hidden_size": 128,
                  "algo.world_model.representation_model.hidden_size": 128}
     jcfg = _jax_cfg(overrides)
-    params = jax.device_get(jax_agent.build_agent(jcfg, ACTIONS, False, _jax_space(), jax.random.PRNGKey(0))[3])
+    params = jax.device_get(jit_build(jax_agent.build_agent, jcfg, ACTIONS, False, _jax_space(), jax.random.PRNGKey(0))[3])
     want, _ = convert_dreamer_v3(params, training=True)
     modules = build_agent(dreamer_v3_config(**overrides), ACTIONS, False, OBS, seed=1, device="cpu", training=True)
     compared = 0
@@ -98,7 +99,7 @@ def test_converter_consumes_every_leaf_of_a_full_width_tree():
     training build of the port."""
     jcfg = compose(overrides=["exp=dreamer_v3_100k_ms_pacman", "env=dummy"])
     space = gym.spaces.Dict({"rgb": gym.spaces.Box(0, 255, (3, 64, 64), np.uint8)})
-    params = jax.device_get(jax_agent.build_agent(jcfg, ACTIONS, False, space, jax.random.PRNGKey(0))[3])
+    params = jax.device_get(jit_build(jax_agent.build_agent, jcfg, ACTIONS, False, space, jax.random.PRNGKey(0))[3])
     state_dicts, skipped = convert_dreamer_v3(params, training=True)
     assert skipped == []
     assert sorted(state_dicts) == sorted(MODULES)

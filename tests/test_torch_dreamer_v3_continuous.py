@@ -42,6 +42,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_jit_build import jit_build
 
 from sheeprl_tpu.algos.dreamer_v3 import agent as jax_agent
 from sheeprl_tpu.algos.dreamer_v3 import dreamer_v3 as jax_dv3
@@ -163,7 +164,7 @@ def jax_side():
         "rgb": gym.spaces.Box(0, 255, (3, 64, 64), np.uint8),
         "state": gym.spaces.Box(-np.inf, np.inf, (STATE,), np.float32),
     })
-    wm, actor, critic, params = jax_agent.build_agent(jcfg, ACTIONS, True, space, jax.random.PRNGKey(3))
+    wm, actor, critic, params = jit_build(jax_agent.build_agent, jcfg, ACTIONS, True, space, jax.random.PRNGKey(3))
     # the reward and critic heads start at zero (Hafner): move them, and the target critic off the critic, so
     # that the returns, the advantage (the continuous actor's whole objective) and the target term are live
     rng = np.random.RandomState(8)

@@ -84,6 +84,23 @@ def test_in_run_evaluation_leaves_the_run_bit_for_bit_unchanged(runs):
             np.testing.assert_array_equal(a[module][k], b[module][k], err_msg=f"{module}.{k}")
 
 
+def test_the_stop_waits_for_the_ready_beat_and_a_terminated_child_says_so(runs, tmp_path):
+    """``close`` counts its timeout from the child's ready beat: with no
+    time at all past it, a child still scoring the last version is
+    terminated, and its sidecar says so (the curve it wrote kept)."""
+    _off, on = runs
+    cfg, _log_dir = cli.load_run_config(on["checkpoint"])
+    cfg.eval.every_n_steps = EVERY
+    handle = InRunEval(cfg, str(tmp_path))
+    state = read_checkpoint(on["checkpoint"], with_rb=False)["agent"]
+    assert handle.maybe_publish(32, {"agent": {"world_model": state["world_model"], "actor": state["actor"]}})
+    handle.close(timeout=0.0)
+    assert handle._ready.is_set() and not handle._child.is_alive()
+    with open(sidecar_path(str(tmp_path / "telemetry"), "evalproc")) as f:
+        curve = json.load(f)
+    assert curve["error"] == "terminated" and curve["child_ready"] is True and "points" in curve
+
+
 def test_no_eval_process_without_every_n_steps(tmp_path):
     from sheeprl_tpu_torch.utils import dotdict
 

@@ -51,7 +51,8 @@ def test_importing_every_module_loads_no_forbidden_module():
                  "algos.sac.sac_decoupled", "algos.sac.player", "algos.ppo.ppo_decoupled", "algos.ppo.player",
                  "obs.hist", "obs.spans", "obs.counters", "obs.health", "obs.live", "obs.perf", "obs.telemetry",
                  "obs.dist.staleness", "obs.prof.capture", "obs.prof.trace", "obs.prof.roofline", "obs.prof.harness",
-                 "obs.learn.probes", "obs.learn.sentinel", "tools.roofline_report", "tools.run_report"):
+                 "obs.learn.probes", "obs.learn.sentinel", "tools.roofline_report", "tools.run_report",
+                 "obs.reqtrace", "obs.slo", "serve.ops", "tools.serve_report", "tools.trace_view", "tools.lint_serve"):
         assert f"sheeprl_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -220,6 +221,40 @@ def test_a_spawned_ring_client_loads_no_torch():
         "import sheeprl_tpu_torch.serve.gateway, sheeprl_tpu_torch.serve.client\n"
         "import sheeprl_tpu_torch.serve.rings, sheeprl_tpu_torch.serve.loadgen\n"
         "print(sorted(m for m in sys.modules if m == 'torch' or m.startswith('torch.')))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stdout + proc.stderr
+
+
+def test_a_ring_client_with_tracing_on_loads_no_torch():
+    """A ring client on a ring that traces every request (what a client
+    process of a gateway with ``serve.trace_sample_rate=1`` does) stamps its
+    requests, and the gateway's side reads the stamps back, with no torch,
+    JAX or JAX package loaded."""
+    code = (
+        "import sys, threading\n"
+        "import numpy as np\n"
+        "from sheeprl_tpu_torch.serve.rings import ActSlabRing\n"
+        "from sheeprl_tpu_torch.serve.client import RingServeClient\n"
+        "ring = ActSlabRing({'x': ((3,), np.float32)}, (1,), np.int64, 2)\n"
+        "ring.trace_every = 1\n"
+        "seen = []\n"
+        "def serve():\n"
+        "    for _ in range(2):\n"
+        "        reqs = []\n"
+        "        while not reqs: reqs = ring.next_requests(timeout=1.0)\n"
+        "        for slot, seq, reset in reqs:\n"
+        "            seen.append(ring.read_meta(slot))\n"
+        "            ring.respond(slot, seq, np.array([seq]), 7)\n"
+        "t = threading.Thread(target=serve); t.start()\n"
+        "client = RingServeClient(ring, 1)\n"
+        "answers = [client.act({'x': np.zeros(3, np.float32)}) for _ in range(2)]\n"
+        "t.join(); ring.close()\n"
+        "assert [int(a[0]) for a, _v in answers] == [1, 2] and [v for _a, v in answers] == [7, 7]\n"
+        "assert [m.trace_id for m in seen] == [2_000_001, 2_000_002], [m and m.trace_id for m in seen]\n"
+        "assert all(0 < m.t_start <= m.t_enqueue for m in seen)\n"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch',) + {FORBIDDEN!r}))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)

@@ -33,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_jit_build import jit_build
 
 from sheeprl_tpu_torch.obs import learn
 from sheeprl_tpu_torch.obs.learn import LearnSentinel, LearnTap, learn_probes, probe_losses, probe_update, tapped
@@ -251,7 +252,7 @@ def test_dv3_step_probes_match_jax(sentinels):
     jcfg = jax_compose(overrides=["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "metric.log_level=0"]
                        + [f"{k}={v}" for k, v in SMALL.items()])
     space = gym.spaces.Dict({"rgb": gym.spaces.Box(0, 255, (3, 64, 64), np.uint8)})
-    wm, actor, critic, params = jax_agent.build_agent(jcfg, ACTIONS, False, space, jax.random.PRNGKey(3))
+    wm, actor, critic, params = jit_build(jax_agent.build_agent, jcfg, ACTIONS, False, space, jax.random.PRNGKey(3))
     rng = np.random.RandomState(8)
     for tree in (params["world_model"]["reward_model"], params["critic"]):
         tree["head"]["kernel"] = jnp.asarray(0.3 * rng.randn(*tree["head"]["kernel"].shape).astype(np.float32))

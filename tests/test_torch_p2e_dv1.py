@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_jit_build import jit_build
 
 from sheeprl_tpu.algos.dreamer_v1 import dreamer_v1 as jax_dv1
 from sheeprl_tpu.algos.p2e_dv1 import agent as jax_agent
@@ -128,7 +129,7 @@ def _space():
 @pytest.fixture(scope="module")
 def jax_side():
     jcfg = compose(overrides=["exp=p2e_dv1_exploration", "env=dummy", "metric.log_level=0"] + OVERRIDES)
-    wm, actor, critic, member, params = jax_agent.build_agent(jcfg, ACTIONS, False, _space(), jax.random.PRNGKey(3))
+    wm, actor, critic, member, params = jit_build(jax_agent.build_agent, jcfg, ACTIONS, False, _space(), jax.random.PRNGKey(3))
     a = jcfg.algo
     groups = {"world_model": a.world_model, "ensembles": a.ensembles, "actor_task": a.actor, "critic_task": a.critic,
               "actor_exploration": a.actor, "critic_exploration": a.critic}

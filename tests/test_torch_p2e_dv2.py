@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_jit_build import jit_build
 
 from sheeprl_tpu.algos.p2e_dv2 import agent as jax_agent
 from sheeprl_tpu.algos.p2e_dv2 import p2e_dv2_exploration as jax_expl
@@ -142,7 +143,7 @@ def _first_moments(opt_state):
 def jax_side():
     jcfg = compose(overrides=["exp=p2e_dv2_exploration", "env=dummy", "metric.log_level=0"] + OVERRIDES)
     space = gym.spaces.Dict({"rgb": gym.spaces.Box(0, 255, (3, 64, 64), np.uint8)})
-    wm, actor, critic, member, params = jax_agent.build_agent(jcfg, ACTIONS, False, space, jax.random.PRNGKey(3))
+    wm, actor, critic, member, params = jit_build(jax_agent.build_agent, jcfg, ACTIONS, False, space, jax.random.PRNGKey(3))
     half = lambda t: jax.tree_util.tree_map(lambda p: 0.5 * p, t)  # noqa: E731
     params["target_critic_task"] = half(params["critic_task"])
     params["target_critic_exploration"] = half(params["critic_exploration"])

@@ -10,6 +10,7 @@ import gymnasium as gym
 import jax
 import numpy as np
 import pytest
+from jax_jit_build import jit_build
 
 from sheeprl_tpu.algos.p2e_dv2 import agent as jax_agent
 from sheeprl_tpu.ckpt.writer import write_checkpoint as jax_write_checkpoint
@@ -86,7 +87,7 @@ def jax_exploration_run(tmp_path_factory):
     log_dir = tmp_path_factory.mktemp("jax_p2e_dv2") / "jax" / "version_0"
     jcfg = compose(overrides=[o for o in TINY if o != "fabric.accelerator=cpu"] + ["exp=p2e_dv2_exploration"])
     space = gym.spaces.Dict({"rgb": gym.spaces.Box(0, 255, (3, 64, 64), np.uint8)})
-    *_, params = jax_agent.build_agent(jcfg, (2,), False, space, jax.random.PRNGKey(5))
+    *_, params = jit_build(jax_agent.build_agent, jcfg, (2,), False, space, jax.random.PRNGKey(5))
     state = {"agent": {"params": jax.device_get(params)}, "expl_decay_steps": 2, "update": 8, "batch_size": 2,
              "last_log": 0, "last_checkpoint": 16}
     jax_save_configs(jcfg, str(log_dir))

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_jit_build import jit_build
 
 from sheeprl_tpu.algos.p2e_dv3 import agent as jax_agent
 from sheeprl_tpu.algos.p2e_dv3 import p2e_dv3_exploration as jax_expl
@@ -174,7 +175,7 @@ def _jax_build(case):
         k: gym.spaces.Box(0, 255, shape, np.uint8) if len(shape) == 3 else gym.spaces.Box(-np.inf, np.inf, shape)
         for k, shape in obs.items()
     })
-    wm, actor, critic, member, params = jax_agent.build_agent(jcfg, actions, continuous, space, jax.random.PRNGKey(3))
+    wm, actor, critic, member, params = jit_build(jax_agent.build_agent, jcfg, actions, continuous, space, jax.random.PRNGKey(3))
     rng = np.random.RandomState(8)
     heads = [params["world_model"]["reward_model"], params["critic_task"]]
     heads += [params["critics_exploration"][k]["module"] for k in CRITICS]

@@ -36,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_jit_build import jit_build
 
 from sheeprl_tpu.algos.p2e_dv3 import agent as jax_agent
 from sheeprl_tpu.algos.p2e_dv3 import p2e_dv3_exploration as jax_expl
@@ -111,7 +112,7 @@ def _jax_noise(key):
 def _jax_side():
     jcfg = compose(overrides=["exp=p2e_dv3_exploration", "env=dummy", "metric.log_level=0"] + OVERRIDES)
     space = gym.spaces.Dict({"state": gym.spaces.Box(-np.inf, np.inf, (STATE,))})
-    wm, actor, critic, member, params = jax_agent.build_agent(jcfg, ACTIONS, False, space, jax.random.PRNGKey(3))
+    wm, actor, critic, member, params = jit_build(jax_agent.build_agent, jcfg, ACTIONS, False, space, jax.random.PRNGKey(3))
     rng = np.random.RandomState(8)
     heads = [params["world_model"]["reward_model"], params["critic_task"]]
     heads += [params["critics_exploration"][k]["module"] for k in CRITICS]

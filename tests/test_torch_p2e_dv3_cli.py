@@ -11,6 +11,7 @@ import gymnasium as gym
 import jax
 import numpy as np
 import pytest
+from jax_jit_build import jit_build
 
 from sheeprl_tpu.algos.dreamer_v3.utils import init_moments as jax_init_moments
 from sheeprl_tpu.algos.p2e_dv3 import agent as jax_agent
@@ -133,7 +134,7 @@ def jax_exploration_run(tmp_path_factory):
     log_dir = tmp_path_factory.mktemp("jax_p2e_dv3") / "jax" / "version_0"
     jcfg = compose(overrides=[o for o in TINY if o != "fabric.accelerator=cpu"] + ["exp=p2e_dv3_exploration"])
     space = gym.spaces.Dict({"rgb": gym.spaces.Box(0, 255, (3, 64, 64), np.uint8)})
-    *_, params = jax_agent.build_agent(jcfg, (2,), False, space, jax.random.PRNGKey(5))
+    *_, params = jit_build(jax_agent.build_agent, jcfg, (2,), False, space, jax.random.PRNGKey(5))
     moments = {"task": {"low": np.float32(-0.25), "high": np.float32(1.5)},
                "exploration": {k: jax_init_moments() for k in CRITICS}}
     state = {"agent": {"params": jax.device_get(params), "moments": jax.device_get(moments)},

@@ -39,6 +39,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_jit_build import jit_build
 
 from sheeprl_tpu.algos.sac.agent import action_bounds as jax_action_bounds
 from sheeprl_tpu.algos.sac_ae import agent as jax_agent
@@ -75,7 +76,7 @@ def port_space():
 def jax_side():
     jax_fabric()
     jcfg = jax_compose(overrides=["exp=sac_ae"] + SMALL)
-    encoder, decoder, qf, actor, params = jax_agent.build_agent(jcfg, ACT, gym_space(), jax.random.PRNGKey(3))
+    encoder, decoder, qf, actor, params = jit_build(jax_agent.build_agent, jcfg, ACT, gym_space(), jax.random.PRNGKey(3))
     txs = {k: jax_instantiate(jcfg.algo[n].optimizer) for k, n in (("qf", "critic"), ("actor", "actor"),
                                                                    ("alpha", "alpha"), ("encoder", "encoder"),
                                                                    ("decoder", "decoder"))}

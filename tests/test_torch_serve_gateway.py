@@ -3,9 +3,10 @@ the JAX package's settings: checkpoint and ``registry:best:`` loads, the
 gateway-path rescore (bit for bit the eval service's returns, lengths and
 every step's actions at matched seeds), hot-swap under load from a policy
 publication channel, a torn publication refused, the drain, the
-shared-memory ring across spawned processes, the ``serve`` command with
-``serve.duration_s`` and spawned load clients, and the ops knobs, which
-raise."""
+shared-memory ring across spawned processes (and a ring of layout 1
+refused), the ``serve`` command with ``serve.duration_s`` and spawned load
+clients, and the ops knobs, each of which builds its own part of the ops
+surface."""
 
 import os
 import threading
@@ -243,6 +244,21 @@ def test_a_ring_of_another_layout_refuses_to_unpickle():
     ring.close()
 
 
+def test_a_ring_pickled_at_layout_1_refuses_to_unpickle(monkeypatch):
+    from sheeprl_tpu_torch.serve import rings
+
+    assert rings.RING_LAYOUT_VERSION == 2
+    monkeypatch.setattr(rings, "RING_LAYOUT_VERSION", 1)
+    old = ActSlabRing({"x": ((2,), np.float32)}, (1,), np.int64, 1)  # a ring as a layout-1 build makes it
+    state = old.__getstate__()
+    monkeypatch.undo()
+    assert state["_layout"] == 1 and state["_meta_view"] is None
+    clone = ActSlabRing.__new__(ActSlabRing)
+    with pytest.raises(RuntimeError, match="layout mismatch: the pickled ring has layout 1, this build 2"):
+        clone.__setstate__(state)
+    old.close()
+
+
 def test_the_serve_command_serves_spawned_clients_and_drains(runs, tmp_path, monkeypatch):
     import json
     import signal
@@ -267,22 +283,67 @@ OPS_KNOBS = ["serve.trace_sample_rate=0.1", "serve.access_log_sample_rate=0.5", 
              "serve.slo.enabled=true", "serve.inject_dispatch_delay_s=0.01"]
 
 
-@pytest.mark.parametrize("knob", OPS_KNOBS)
-def test_the_ops_knobs_raise(runs, gateway, knob):
-    from sheeprl_tpu_torch.config import compose
+#: each ops knob: the ServeOps part it builds, and how the serve command's ops line shows it
+KNOB_PARTS = {
+    "serve.trace_sample_rate=0.1": ("tracer", "trace_rate=0.1 "),
+    "serve.access_log_sample_rate=0.5": ("access", "access_rate=0.5 "),
+    "serve.metrics_port=0": ("prom", "metrics_port="),
+    "serve.slo.enabled=true": ("slo", "slo=on "),
+    "serve.inject_dispatch_delay_s=0.01": ("inject_dispatch_delay_s", "inject_dispatch_delay_s=0.01"),
+}
 
+
+def _parts(ops):
+    """The parts of the ops surface that ``ops`` built."""
+    return {part for part in ("tracer", "access", "prom", "slo") if getattr(ops, part) is not None} | (
+        {"inject_dispatch_delay_s"} if ops.inject_dispatch_delay_s > 0 else set())
+
+
+@pytest.mark.parametrize("knob", OPS_KNOBS)
+def test_each_ops_knob_builds_its_surface(runs, gateway, knob, tmp_path, monkeypatch, capsys):
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.obs import reqtrace
+
+    part, shown = KNOB_PARTS[knob]
     settings = serve_settings(compose("serve_config", overrides=["checkpoint_path=x", knob]))
-    with pytest.raises(NotImplementedError, match="6g/6h"):
-        gateway.enable_ops(settings)
-    with pytest.raises(NotImplementedError, match="6g/6h"):
-        cli.serve([f"checkpoint_path={runs['dreamer_v2']}", "fabric.accelerator=cpu", "serve.duration_s=1", knob])
+    ops = gateway.enable_ops(settings, out_dir=str(tmp_path / "gw"))
+    assert ops is not None and gateway.batcher._ops is ops and _parts(ops) == {part}
+    assert (reqtrace.installed() is ops.tracer) if part == "tracer" else reqtrace.installed() is None
+    _action, version = gateway.client().act(_row(np.random.default_rng(5), gateway))
+    assert version == 8 and ("trace" in gateway.status()) == (part == "tracer")
+    assert ("slo" in gateway.status()) == (part == "slo")
+    gateway.close()
+    assert reqtrace.installed() is None and (tmp_path / "gw" / "serve_live.json").exists()
+    written = {p.name for p in (tmp_path / "gw").iterdir()}
+    assert ("access.jsonl" in written) == (part == "access") and ("alerts.jsonl" in written) == (part == "slo")
+    assert ("trace_serve_gateway.jsonl" in written) == (part == "tracer")
+
+    monkeypatch.chdir(tmp_path)
+    capsys.readouterr()
+    final = cli.serve([f"checkpoint_path={runs['dreamer_v2']}", "fabric.accelerator=cpu", "serve.duration_s=1",
+                       f"serve.obs_dir={tmp_path / 'cmd'}", knob])
+    assert final["drained"] is True and final["failed_requests"] == 0
+    lines = [line for line in capsys.readouterr().out.splitlines() if line.startswith("[serve] ops surface on: ")]
+    assert len(lines) == 1 and f"dir={tmp_path / 'cmd'} " in lines[0] and shown in lines[0]
+    if part != "tracer":
+        assert "trace_rate=0.0 " in lines[0]
+    if part != "prom":
+        assert "metrics_port=None " in lines[0]
+    if part != "slo":
+        assert "slo=off " in lines[0]
+    assert (tmp_path / "cmd" / "serve_live.json").exists()
+    written = {p.name for p in (tmp_path / "cmd").iterdir()}
+    assert ("access.jsonl" in written) == (part == "access") and ("alerts.jsonl" in written) == (part == "slo")
 
 
 def test_no_ops_knob_means_no_ops_surface(gateway):
     assert gateway.enable_ops(serve_settings(dotdict({}))) is None
+    assert gateway.ops is None and gateway.batcher._ops is None
+    sink = object()
+    gateway.batcher.attach_ops(sink)
+    assert gateway.batcher._ops is sink
     gateway.batcher.attach_ops(None)
-    with pytest.raises(NotImplementedError, match="6g/6h"):
-        gateway.batcher.attach_ops(object())
+    assert gateway.batcher._ops is None
 
 
 @pytest.mark.parametrize("group", [{}, {"serve": {"max_batch": 16}}, {"serve": None}])
