@@ -49,7 +49,7 @@ Phases, each fatal on failure:
    eager and as many graphed,
    with every loss finite and exactly 65 cell launches a step in both (50
    posterior steps at B=32, 15 imagination steps at B=1600), each with a
-   profiled window of as many steps;
+   profiled window of PROFILED_STEPS more steps (every trainer below too);
 7. run: the port's main path, ``sheeprl_tpu_torch.cli.run`` with RUN_ARGS
    (``exp=dreamer_v2_ms_pacman`` at its full width on the dummy env with
    the preset's episode buffer, ``prioritize_ends`` and ``log_level=1``: 4
@@ -180,9 +180,11 @@ L DIAMBRA preset (``exp=dreamer_v3_L_doapp``: recurrent 2048, dense 768 x 4,
 CNN multiplier 64, 8 envs), the XL Crafter preset
 (``exp=dreamer_v3_XL_crafter``: recurrent 4096, dense 1024 x 5, CNN
 multiplier 96) and P2E-DV3's L DIAMBRA presets at their ``bf16-mixed``
-(recurrent 1024, dense 768 x 4, CNN multiplier 48, grey frames, 16 envs), on
-``doapp_stand_in`` and ``crafter_stand_in`` (the DIAMBRA and Crafter wrappers'
-spaces; the card has neither simulator):
+(recurrent 1024, dense 768 x 4, CNN multiplier 48, grey frames, 16 envs). The
+card has no simulator: every one of these presets runs through its own
+``env.wrapper``, the port's DIAMBRA or Crafter wrapper, over the stand-in
+simulators of ``tests/sim_stubs.py`` (32-step episodes; a stand-in raises on
+an action outside its action space):
 
 - cell_l_xl and cell_bf16 kernels (after the P2E rows): the cell at
   LARGE_CELL_SHAPES in f32 (forward and gradients against the plain
@@ -196,10 +198,20 @@ spaces; the card has neither simulator):
   policy loss within TOL_TRAIN_GRAD scaled by K = H + X (the readings behind
   that limit: ``python3 chip_smoke.py --train-gaps``), every launch on the
   expected operand path;
-- run_p2e_dv3_L_bf16 (after the P2E runs) and run_dv3_L, run_dv3_XL (last):
-  the presets through the CLI at full width, 9 gradient steps each, the
-  same checks as the runs before them, and every floating array of each
-  checkpoint's agent f32 (``_f32_parameters``).
+- run_p2e_dv3_L_bf16 (after the P2E runs) and run_dv3_L, run_dv3_XL (after
+  run_dv1): the presets through the CLI at full width, 9 gradient steps
+  each, the same checks as the runs before them, and every floating array
+  of each checkpoint's agent f32 (``_f32_parameters``). run_dv3_L's phase
+  also runs (``phase_run_dv3_L``) the L Navigate preset
+  (``exp=dreamer_v3_L_navigate``, RUN_NAVIGATE_ARGS) through the port's
+  MineRL wrapper and CustomNavigate over the minerl stand-in, checked as the
+  others (its buffer holding the preset's keys), and DreamerV3 on MineDojo
+  (``phase_run_minedojo``: ``exp=dreamer_v3 env=minedojo`` at the default
+  widths, RUN_MINEDOJO_ARGS, every acting step sampling through the env's
+  masks, no action its masks forbid, launches as predicted, finite
+  losses; then ``_minedojo_player_lockstep``: the captured masked acting
+  step on the card against the CPU's step on 64 steps of 4 envs, every
+  action equal, the state within TOL_STATE).
 
 DreamerV1 and Plan2Explore on it, at their presets' full widths (DV1:
 recurrent 200, a Gaussian stochastic state of 30, dense 400 x 4, CNN
@@ -217,7 +229,7 @@ must launch hafner_cell 0 times:
   TOL_GRAPHED with ``cudnn.deterministic`` (for DV1 also on a 2-wide Box of
   actions), then DV1_TRAIN_STEPS timed steps eager and graphed with a
   profiled window and the peak memory (``phase_train_dv1``);
-- run_p2e_dv1 (after the other P2E runs) and run_dv1 (after them):
+- run_p2e_dv1 (after the other P2E runs) and run_dv1 (in the ``runs`` lane):
   ``cli.run`` of RUN_P2E_SPECS["p2e_dv1"] (exploration, then finetuning with
   the actor switch) and of RUN_DV1_ARGS, checked as the runs before them
   (counters, graphs, event tags, deep-validated f32 checkpoints, DV1's
@@ -227,7 +239,8 @@ must launch hafner_cell 0 times:
   (``eval_policy_lockstep``).
 
 The SAC family (SAC, DroQ, SAC-AE) and SAC on the port's device Pendulum
-follow the DreamerV1 runs (``--sac`` runs them alone). Then the on-policy
+follow: their trainers after the DreamerV1 trainers, their runs in the
+``runs`` lane (``--sac`` runs them alone). Then the on-policy
 family, PPO, A2C and PPO-recurrent, at their presets' widths; no TPU kernel
 is on their path (flax Dense, LayerNorm, Conv and ``nn.OptimizedLSTMCell``),
 so every one of their paths must launch ``hafner_cell`` and
@@ -247,13 +260,15 @@ so every one of their paths must launch ``hafner_cell`` and
   a window of updates traced (``phase_run_onpolicy``). ``--ppo`` runs these
   phases alone; ``--seeds <run> <seed> ...`` runs one of them at other seeds.
 
-Then the decoupled SAC and PPO on the actor–learner plane (``--decoupled``
+Then the decoupled SAC and PPO on the actor–learner plane, in the ``plane``
+lane (``--decoupled``
 runs them alone): the learner on the card, the players on the CPU in a
 thread or in processes with their envs on the shared-memory worker pool; no
 TPU kernel is on their path, so every run launches both kernels 0 times
-(``decoupled_paths``); while a process run is live, the compute apps
-nvidia-smi lists are the learner's alone, and every player reports at its
-exit that it initialised no CUDA:
+(``decoupled_paths``); while a process run is live, no player or env
+worker holds one of the card's device files open and the learner does
+(``_PlaneWatch``), and every player reports at its exit that it
+initialised no CUDA:
 
 - run_sac_decoupled: ``exp=sac_decoupled fabric.devices=auto`` on
   ``pendulum_stand_in`` at test_sac_learns_pendulum's settings: a thread
@@ -313,10 +328,22 @@ in-run run (``launches_by_path``), and the P2E trainers, runs, evaluations and
 serving, the DreamerV1 paths (``dv1_paths``, each 0), the SAC family's
 (``sac_paths``), the on-policy family's (``ppo_paths``, both kernels, each 0) and the decoupled runs'
 (``decoupled_paths``, both kernels, each 0). The ``kernels``
-line's cell ``launches`` is the f32 training runs' sum (the six Dreamer runs and the six f32 P2E runs, DV1's
-at 0; the bf16 P2E runs' are ``hafner_cell_bf16``'s); its ``p2e_shapes`` and
+line's cell ``launches`` is the f32 training runs' sum (the seven Dreamer runs, the MineDojo run and its masked
+acting steps, and the six f32 P2E runs, DV1's at 0; the bf16 P2E runs' are ``hafner_cell_bf16``'s); its ``p2e_shapes`` and
 ``p2e_train`` keys carry the P2E rows. The build phase also counts the tensor-core instructions
 (``HGMMA``, ``HMMA``) in the built library's SASS (``cuobjdump -sass``).
+
+The order on the card. The kernel phases, every trainer (the Dreamer
+families', then the SAC and on-policy families') and run_dv3 have the card
+alone. Then two more processes, the lanes (``chip_smoke.py --lane <name>
+<out>``, LANES), run beside the main process's run, run_walker, eval_serve
+and P2E runs: ``runs`` (run_dv1, run_dv3_L's phase, run_dv3_XL, the SAC
+family's runs and run_sac_pendulum, run_ppo_cartpole, run_a2c_cartpole) and
+``plane`` (run_sac_decoupled, run_ppo_decoupled,
+run_ppo_recurrent_cartpole). A lane's output is echoed when it ends, and
+it fails the script if it fails. The ``[timing]`` line carries each lane's
+own line under ``lanes``. On a failure the script kills every process it
+started.
 
 Bounds: the least time of the same work on an H100 SXM, the larger of its
 bytes (each input read once, each output written once) at 3.35 TB/s and its
@@ -354,7 +381,12 @@ TOL_GRAD = 1e-4  # relative to each gradient's largest magnitude: f32, other sum
 # the cell's six gradients against autograd of the plain version
 TOL_TRAIN_LOSS = 1e-5
 TOL_TRAIN_GRAD = 1e-4
+# timed steps of each trainer, eager and graphed; then PROFILED_STEPS more under the profiler (the device's busy time
+# a step, which the idle share divides by the timed steps' wall time), cut from 4 to make room in the script's time
+# for the real-simulator runs: ``python3 chip_smoke.py --train-steps`` reads each trainer at 2 and at 4 steps side by
+# side (PERF.md section 6: the busy time a step agrees within the repeats' spread or 3.6 %)
 TRAIN_STEPS = 4
+PROFILED_STEPS = 2
 CELL_LAUNCHES_PER_STEP = 65  # 50 posterior steps + 15 imagination steps
 # (T, B, H, X, bias, LayerNorm, eps, the variant the plan must pick): the kernel bench's shape; an odd
 # one (last unit group of 11 units, scalar copies, no bias, no LayerNorm); the widest batch the
@@ -402,7 +434,7 @@ DV3_CELL_BATCHES = (1, 10, 16, 64, 1024)
 DV3_H = DV3_X = 512
 DV3_EPS = 1e-3
 DV3_CELL_LAUNCHES_PER_STEP = 79  # 64 posterior steps + 15 imagination steps
-DV3_TRAIN_STEPS = 4
+DV3_TRAIN_STEPS = TRAIN_STEPS
 # the DV3 run: the port's CLI with exp=dreamer_v3_100k_ms_pacman at its full width (its sequential buffer checkpointed,
 # log_level 1, learning from the preset's 1024, one gradient step a policy step) on the dummy env (1 head of 2
 # actions, 5-step episodes); cut: a buffer of 4096 steps, 1056 policy steps (33 gradient steps: the pretrain step at
@@ -447,40 +479,65 @@ RUN_WALKER_ARGS = (
 )
 RUN_WALKER_UPDATES, RUN_WALKER_PLAYER_STEPS, RUN_WALKER_GRADIENT_STEPS, RUN_WALKER_TEST_STEPS = 1056, 32, 17, 1000
 RUN_WALKER_LOG_STEPS = (256, 512, 768, 1024, 1056)
-# DIAMBRA's Dead or Alive++ as diambra.arena gives it with the env config's flattened, role-relative wrappers: the
-# raw space of each key, ("box", low, high) of shape (1,) int32 or ("discrete", n), which the DIAMBRA wrapper
-# (sheeprl_tpu/envs/diambra.py:93-106) keeps as a Box or turns into a 1-wide int32 Box of [0, n - 1]. The P2E L
-# presets name the role-relative keys; the L preset names the legacy ones (verbatim from its reference recipe); the
-# stand-in offers both. 11 characters; 16 combo-discrete actions (9 moves + 8 attack-button combinations - 1 shared
-# no-op), also the last action's key
+# DIAMBRA's Dead or Alive++ (the combo-discrete action: 9 moves + 8 attack-button combinations - 1 shared no-op) and
+# Crafter: their action counts, as the stand-in simulators of tests/sim_stubs.py give them
 DOAPP_ACTIONS = 16
-DOAPP_RAW_KEYS = {
-    **{f"{side}_{k}": v for side in ("own", "opp") for k, v in (
-        ("character", ("discrete", 11)), ("health", ("box", 0, 208)), ("side", ("discrete", 2)),
-        ("wins", ("box", 0, 2)))},
-    "stage": ("box", 1, 8), "timer": ("box", 0, 40), "action": ("discrete", DOAPP_ACTIONS),
-    **{f"P1_{side}{k}": v for side in ("own", "opp") for k, v in (
-        ("Char", ("discrete", 11)), ("Health", ("box", 0, 208)), ("Side", ("discrete", 2)), ("Wins", ("box", 0, 2)))},
-    "P1_actions_move": ("discrete", 9), "P1_actions_attack": ("discrete", 8),
-}
 CRAFTER_ACTIONS = 17
-# a stand-in's episodes end after this many steps (a round, a Crafter life): the runs' test episodes stay short
+# a stand-in simulator's episodes end after this many steps (a round, a Crafter life; tests/sim_stubs.py
+# EPISODE_STEPS): the runs' test episodes stay short
 STAND_IN_EPISODE = 32
 # the L and XL runs: the port's CLI with exp=dreamer_v3_L_doapp (8 envs, train_every 8) and exp=dreamer_v3_XL_crafter
-# (1 env, train_every 2) at full width in f32 on doapp_stand_in and crafter_stand_in (DIAMBRA's and Crafter's spaces;
-# the card has neither), the sequential buffer checkpointed, log_level 1. Cuts: a buffer of 4096 steps (5e6 and 1e6),
-# learning from 1024 and 128 policy steps (65536 and 1024: 128 steps an env, two sequences of 64), 1088 and 144 policy
-# steps (5e6 and 1e6): 9 gradient steps each (the pretrain step and 8), a log every 256 and 64 policy steps
+# (1 env, train_every 2) at full width in f32 through the port's DIAMBRA and Crafter wrappers (the presets' own
+# env.wrapper) over the stand-in simulators of tests/sim_stubs.py (the card has neither simulator; the stand-ins give
+# DIAMBRA's and Crafter's raw spaces, 32-step episodes, and raise on an action outside the action space), the
+# sequential buffer checkpointed, log_level 1. Cuts: a buffer of 4096
+# steps (5e6 and 1e6), learning from 1024 and 128 policy steps (65536 and 1024: 128 steps an env, two sequences of
+# 64), 1088 and 144 policy steps (5e6 and 1e6): 9 gradient steps each (the pretrain step and 8), a log every 256 and
+# 64 policy steps. The XL preset's env.id is "reward", which no Crafter wrapper takes (the JAX one raises on it too):
+# the run names its task, crafter_reward
 RUN_L_ARGS = (
-    "exp=dreamer_v3_L_doapp", "env.wrapper._target_=chip_smoke.doapp_stand_in", "env.sync_env=True",
-    "env.capture_video=False", "buffer.size=4096", "algo.learning_starts=1024", "total_steps=1088",
-    "metric.log_every=256",
+    "exp=dreamer_v3_L_doapp", "env.sync_env=True", "env.capture_video=False", "buffer.size=4096",
+    "algo.learning_starts=1024", "total_steps=1088", "metric.log_every=256",
 )
 RUN_XL_ARGS = (
-    "exp=dreamer_v3_XL_crafter", "env.wrapper._target_=chip_smoke.crafter_stand_in", "env.sync_env=True",
-    "env.capture_video=False", "buffer.size=4096", "algo.learning_starts=128", "total_steps=144",
-    "metric.log_every=64",
+    "exp=dreamer_v3_XL_crafter", "env.id=crafter_reward", "env.sync_env=True", "env.capture_video=False",
+    "buffer.size=4096", "algo.learning_starts=128", "total_steps=144", "metric.log_every=64",
 )
+# the L Navigate run (inside run_dv3_L's phase): exp=dreamer_v3_L_navigate at full L width in f32 (recurrent 2048,
+# dense 768 x 4, CNN multiplier 64; 4 envs, train_every 16, multihot_inventory off) through the port's MineRL wrapper
+# and CustomNavigate over the minerl stand-in, the sequential buffer checkpointed, log_level 1. Cuts, as run_dv3_L's:
+# a buffer of 4096 steps (5e6), learning from 512 policy steps (65536: 128 steps an env, two sequences of 64), 640
+# policy steps (5e7): 9 gradient steps (the pretrain step at update 128 and one every 4 updates after it), a log
+# every 128 policy steps
+RUN_NAVIGATE_ARGS = (
+    "exp=dreamer_v3_L_navigate", "env.sync_env=True", "env.capture_video=False", "buffer.size=4096",
+    "algo.learning_starts=512", "total_steps=640", "metric.log_every=128",
+)
+NAVIGATE_OBS = {"rgb": (3, 64, 64), "life_stats": (3,), "inventory": (1,), "max_inventory": (1,), "compass": (1,),
+                "reward": (1,)}
+NAVIGATE_ACTIONS = 14  # the no-op, attack, back, 4 camera moves, forward, jump, left, place dirt, right, sneak, sprint
+# the MineDojo run (inside run_dv3_L's phase): exp=dreamer_v3 env=minedojo at DreamerV3's default widths (recurrent
+# 256, dense 512 x 2, CNN multiplier 32; rgb and the inventory, equipment and life-stats vectors; actions 19 x 16 x 60)
+# through the port's MineDojo wrapper over the minedojo stand-in, whose masks the acting step samples through (as
+# JAX's: by the wrapper's _target_). The stand-in flags, without raising, every action its masks forbid; the run must
+# send none. Cuts: 2 envs, 320 policy steps, training every 160 policy steps for 2 gradient steps (the first at 80
+# rows an env), a buffer of 4096 steps, a log every 160 policy steps; learning from 0 and no test episode: the wrapper
+# (sheeprl_tpu/envs/minedojo.py:218, as upstream SheepRL's) raises KeyError on an equip, place or destroy of an item
+# the inventory does not hold, which the preset's random prefill and the unmasked test episode (the JAX loop passes
+# the masks to its acting steps only) draw, and the env's restart wrapper gives up after its third crash
+RUN_MINEDOJO_ARGS = (
+    "exp=dreamer_v3", "env=minedojo", "env.num_envs=2", "env.sync_env=True", "env.capture_video=False",
+    "mlp_keys.encoder=[inventory,inventory_max,inventory_delta,equipment,life_stats]", "algo.learning_starts=0",
+    "algo.train_every=160", "algo.per_rank_gradient_steps=2", "algo.run_test=False", "buffer.size=4096",
+    "total_steps=320", "metric.log_every=160",
+)
+RUN_MINEDOJO_COUNTS = (160, 160, 4, 0)  # (updates, player steps, gradient steps, test steps)
+# the masked acting step on the card (its CUDA graph, the masks among its inputs) against the same step on the CPU
+# (the plain cell), from the card's state before each step, at noise drawn on the host: MINEDOJO_PLAYER_STEPS steps of
+# MINEDOJO_PLAYER_ENVS envs stepped with the card's actions at exploration MINEDOJO_PLAYER_EXPL (the preset's is 0:
+# this runs the masked redraws too); every head's action equal, the state within TOL_STATE
+MINEDOJO_PLAYER_STEPS, MINEDOJO_PLAYER_ENVS, MINEDOJO_PLAYER_EXPL = 64, 4, 0.3
+MINEDOJO_PATHS = ("run_dv3_minedojo", "dv3_minedojo_player")
 DOAPP_L_OBS = {"frame": (3, 64, 64), **{k: (1,) for k in (
     "P1_actions_attack", "P1_actions_move", "P1_oppChar", "P1_oppHealth", "P1_oppSide", "P1_oppWins", "P1_ownChar",
     "P1_ownHealth", "P1_ownSide", "P1_ownWins", "stage")}}
@@ -504,7 +561,7 @@ P2E_CELL_SHAPES = {
 P2E_STEP_LAUNCHES = {"p2e_dv3": 64 + 15 + 15, "p2e_dv3_continuous": 64 + 15 + 15, "p2e_dv2": 50 + 15 + 15,
                      "p2e_dv3_L_bf16": 64 + 15 + 15}
 P2E_FINETUNING_STEP_LAUNCHES = {"p2e_dv3": 64 + 15, "p2e_dv2": 50 + 15, "p2e_dv3_L_bf16": 64 + 15}
-P2E_TRAIN_STEPS = 4
+P2E_TRAIN_STEPS = TRAIN_STEPS
 # the P2E runs: the port's CLI at each preset's full width on the discrete dummy env (2 actions, 5-step episodes), 4
 # envs, the sequential buffer, log_level 1; exploration, then finetuning from its checkpoint, the finetuning player
 # acting with the exploration actor until learning_starts and with the task actor after it, inside the run. Cuts:
@@ -513,8 +570,7 @@ P2E_TRAIN_STEPS = 4
 # learning from 512 and 320 (P2E-DV3; 65536 both) and 256 and 224 (P2E-DV2; 1000 both), a log every 256 (5000);
 # P2E-DV2's pretraining burst at learning_starts 10 gradient steps (100)
 P2E_ENV_ARGS = ("env=dummy", "env.id=discrete_dummy", "env.sync_env=True", "buffer.size=4096", "metric.log_every=256")
-P2E_L_ENV_ARGS = ("env.wrapper._target_=chip_smoke.doapp_stand_in", "env.sync_env=True", "env.capture_video=False",
-                  "buffer.size=4096", "metric.log_every=256")
+P2E_L_ENV_ARGS = ("env.sync_env=True", "env.capture_video=False", "buffer.size=4096", "metric.log_every=256")
 RUN_P2E_SPECS = {
     "p2e_dv3": dict(
         exploration=("exp=p2e_dv3_exploration", "total_steps=1024", "algo.learning_starts=512") + P2E_ENV_ARGS,
@@ -531,7 +587,8 @@ RUN_P2E_SPECS = {
         exploration_counts=(96, 64, [32], 42, 5, None),
         finetuning_counts=(64, 0, [55, 9], 18, 5, 56),
     ),
-    # P2E-DV3's L DIAMBRA presets under their bf16-mixed on doapp_stand_in (grey frames, the reward as an observation,
+    # P2E-DV3's L DIAMBRA presets under their bf16-mixed through the port's DIAMBRA wrapper over the diambra stand-in
+    # (grey frames, the reward as an observation,
     # 16 envs, train_every 1, B=4 and 16 x T=64). Cuts: a buffer of 4096 steps (1e6), 1152 policy steps each (2e7 and
     # 5e6), learning from 1024 (131072 and 65536: 64 steps an env, one sequence), a log every 256 (10000): 9 gradient
     # steps each, the finetuning player switching actors at update 64
@@ -542,12 +599,12 @@ RUN_P2E_SPECS = {
                     "algo.learning_starts=1024") + P2E_L_ENV_ARGS,
         exploration_counts=(72, 64, [8], 9, STAND_IN_EPISODE, None),
         finetuning_counts=(72, 0, [63, 9], 9, STAND_IN_EPISODE, 64),
-        obs=DOAPP_P2E_OBS, actions=DOAPP_ACTIONS, bf16=True, algo="p2e_dv3",
+        obs=DOAPP_P2E_OBS, actions=DOAPP_ACTIONS, bf16=True, algo="p2e_dv3", simulators=("diambra",),
     ),
 }
 # DreamerV1 and P2E-DV1: their recurrent core is flax's GRU cell, PyTorch operations on the card as in the
 # JAX package (no Pallas kernel there, so none here), and every DV1 path must launch hafner_cell 0 times
-DV1_TRAIN_STEPS = 4
+DV1_TRAIN_STEPS = TRAIN_STEPS
 # the card's step against the port's own CPU step on the same weights, batch and noise: full-width modules at a cut
 # batch (B=8 x T=16, so that the CPU side takes seconds), TF32 off, losses within TOL_TRAIN_LOSS and the other metrics
 # within TOL_TRAIN_GRAD, relative. The updates that precede later losses in the step (the world model's, P2E-DV1's
@@ -670,92 +727,6 @@ def walker_stand_in(id="walker_walk", from_pixels=True, from_vectors=True, heigh
             return self._obs(), float(self._rng.random()), False, False, {"discount": 1.0}
 
     return WalkerStandIn()
-
-
-def _stand_in_env(obs_spaces, action_n: int, seed):
-    """A seeded env of the port's spaces: random frames and vector keys in
-    their boxes, rewards in [0, 1), an episode terminated every
-    STAND_IN_EPISODE steps; a discrete action outside ``[0, action_n)``
-    raises."""
-    import numpy as np
-
-    from sheeprl_tpu_torch.envs import spaces
-    from sheeprl_tpu_torch.envs.wrappers import Env
-
-    class StandIn(Env):
-        def __init__(self):
-            self.observation_space = spaces.Dict(obs_spaces)
-            self.action_space = spaces.Discrete(action_n)
-            self._rng = np.random.default_rng(seed)
-            self._t = 0
-
-        def _obs(self):
-            out = {}
-            for k, space in self.observation_space.spaces.items():
-                lo, hi = np.broadcast_to(space.low, space.shape), np.broadcast_to(space.high, space.shape)
-                out[k] = self._rng.integers(lo, hi, endpoint=True, dtype=np.int64).astype(space.dtype)
-            return out
-
-        def reset(self, *, seed=None, options=None):
-            if seed is not None:
-                self._rng = np.random.default_rng(seed)
-            self._t = 0
-            return self._obs(), {}
-
-        def step(self, action):
-            a = np.asarray(action)
-            if a.size != 1 or not 0 <= int(a.reshape(())) < action_n:
-                raise ValueError(f"the stand-in got an action outside Discrete({action_n}): {action}")
-            self._t += 1
-            return self._obs(), float(self._rng.random()), self._t >= STAND_IN_EPISODE, False, {}
-
-    return StandIn()
-
-
-def doapp_spaces(screen_size=64, grayscale=False):
-    """The DIAMBRA wrapper's observation spaces for Dead or Alive++
-    (DOAPP_RAW_KEYS, and the frame ``(H, W, 1)`` grey or ``(H, W, 3)``
-    uint8, as the engine resizes it), as the port's spaces."""
-    import numpy as np
-
-    from sheeprl_tpu_torch.envs import spaces
-
-    size = (screen_size, screen_size) if isinstance(screen_size, int) else tuple(screen_size)
-    out = {"frame": spaces.Box(0, 255, size + (1 if grayscale else 3,), np.uint8)}
-    for k, (kind, *args) in DOAPP_RAW_KEYS.items():
-        low, high = (0, args[0] - 1) if kind == "discrete" else args
-        out[k] = spaces.Box(low, high, (1,), np.int32)
-    return out
-
-
-def doapp_stand_in(id="doapp", action_space="diambra.arena.SpaceTypes.DISCRETE", screen_size=64, grayscale=False,
-                   rank=None, seed=None, **_):
-    """A stand-in for DIAMBRA's Dead or Alive++ (the card's machine has no
-    diambra), made by the DIAMBRA runs' env config (``env.wrapper._target_``)
-    with the DIAMBRA wrapper's arguments: its spaces (``doapp_spaces``) and
-    the combo-discrete action, Discrete(DOAPP_ACTIONS); seeded from the env's
-    rank."""
-    if not str(action_space).endswith("DISCRETE") or str(action_space).endswith("MULTI_DISCRETE"):
-        raise ValueError(f"the doapp stand-in has the combo-discrete action space only, got {action_space}")
-    return _stand_in_env(doapp_spaces(screen_size, grayscale), DOAPP_ACTIONS, seed if seed is not None else rank)
-
-
-def crafter_spaces(screen_size=64):
-    """The Crafter wrapper's observation space (sheeprl_tpu/envs/crafter.py:29-32:
-    ``rgb``, crafter's ``(H, W, 3)`` uint8 frame), as the port's spaces."""
-    import numpy as np
-
-    from sheeprl_tpu_torch.envs import spaces
-
-    size = (screen_size, screen_size) if isinstance(screen_size, int) else tuple(screen_size)
-    return {"rgb": spaces.Box(0, 255, size + (3,), np.uint8)}
-
-
-def crafter_stand_in(id="crafter_reward", screen_size=64, seed=None, **_):
-    """A stand-in for Crafter (the card's machine has no crafter), made by
-    the Crafter runs' env config with the Crafter wrapper's arguments: its
-    spaces (``crafter_spaces``) and Discrete(CRAFTER_ACTIONS)."""
-    return _stand_in_env(crafter_spaces(screen_size), CRAFTER_ACTIONS, seed)
 
 
 def _median_event_ms(run, n: int) -> float:
@@ -1795,7 +1766,7 @@ def phase_train(card: str):
         raise AssertionError(f"kernel and plain-cell train steps disagree on {bad}")
 
     # eager and graphed in the same call, on fresh trainers of the same seed; the main path runs graphed
-    result = bench_dreamer.compare(steps=TRAIN_STEPS, device="cuda", profile=True)
+    result = bench_dreamer.compare(steps=TRAIN_STEPS, device="cuda", profile=True, profiled_steps=PROFILED_STEPS)
     result["card"] = card
     print("[train] " + json.dumps(result), flush=True)
     for mode in ("eager", "graphed"):
@@ -2007,7 +1978,7 @@ def phase_train_dv3(card: str, algo: str = "dreamer_v3"):
         finally:
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev[:2]
 
-    result = bench_dreamer.compare(steps=DV3_TRAIN_STEPS, device="cuda", profile=True, algo=algo)
+    result = bench_dreamer.compare(steps=DV3_TRAIN_STEPS, device="cuda", profile=True, algo=algo, profiled_steps=PROFILED_STEPS)
     result["card"] = card
     if split is not None:
         result["actor_loss_split"] = split
@@ -2122,7 +2093,7 @@ def phase_train_p2e(card: str, algo: str):
     if graphed["graph"] != {"eager_calls": WARMUP_CALLS, "replays": GRAPH_STEPS - WARMUP_CALLS, "captured": True}:
         raise AssertionError(f"{tag}: the graphed steps ran as {graphed['graph']}")
 
-    result = bench_dreamer.compare(steps=P2E_TRAIN_STEPS, device="cuda", profile=True, algo=algo)
+    result = bench_dreamer.compare(steps=P2E_TRAIN_STEPS, device="cuda", profile=True, algo=algo, profiled_steps=PROFILED_STEPS)
     result["card"] = card
     print(f"[{tag}] " + json.dumps(result), flush=True)
     for mode in ("eager", "graphed"):
@@ -2230,7 +2201,7 @@ def phase_train_dv1(card: str, algo: str = "dreamer_v1"):
     if against_cpu["cell_launches"] or any(run["launches"] for run in steps):
         raise AssertionError(f"{tag}: a DreamerV1 step launched hafner_cell")
 
-    result = bench_dreamer.compare(steps=DV1_TRAIN_STEPS, device="cuda", profile=True, algo=algo)
+    result = bench_dreamer.compare(steps=DV1_TRAIN_STEPS, device="cuda", profile=True, algo=algo, profiled_steps=PROFILED_STEPS)
     result["card"] = card
     print(f"[{tag}] " + json.dumps(result), flush=True)
     for mode in ("eager", "graphed"):
@@ -2473,11 +2444,19 @@ RUN_SPECS = {
     "run_dv3_L": dict(args=RUN_L_ARGS, counts=(136, 8, 9, STAND_IN_EPISODE), per_step=DV3_CELL_LAUNCHES_PER_STEP,
                       log_steps=(256, 512, 768, 1024, 1088), learning_starts=1024,
                       buffer=lambda ckpt: _check_sequential_buffer(ckpt, RUN_L_ARGS, tuple(DOAPP_L_OBS)),
-                      obs=DOAPP_L_OBS, continuous=False, actions=DOAPP_ACTIONS),
+                      obs=DOAPP_L_OBS, continuous=False, actions=DOAPP_ACTIONS, simulators=("diambra",)),
     "run_dv3_XL": dict(args=RUN_XL_ARGS, counts=(144, 16, 9, STAND_IN_EPISODE), per_step=DV3_CELL_LAUNCHES_PER_STEP,
                        log_steps=(64, 128, 144), learning_starts=128,
                        buffer=lambda ckpt: _check_sequential_buffer(ckpt, RUN_XL_ARGS, tuple(CRAFTER_OBS)),
-                       obs=CRAFTER_OBS, continuous=False, actions=CRAFTER_ACTIONS),
+                       obs=CRAFTER_OBS, continuous=False, actions=CRAFTER_ACTIONS, simulators=("crafter",)),
+    # 160 updates of 4 envs, 128 random ones up to learning_starts, then 32 acting steps; the test episode is one
+    # stand-in episode
+    "run_dv3_L_navigate": dict(
+        args=RUN_NAVIGATE_ARGS, counts=(160, 32, 9, STAND_IN_EPISODE), per_step=DV3_CELL_LAUNCHES_PER_STEP,
+        log_steps=(128, 256, 384, 512, 640), learning_starts=512,
+        buffer=lambda ckpt: _check_sequential_buffer(ckpt, RUN_NAVIGATE_ARGS, tuple(NAVIGATE_OBS)),
+        buffer_keys=tuple(NAVIGATE_OBS), obs=NAVIGATE_OBS, continuous=False, actions=NAVIGATE_ACTIONS,
+        simulators=("minerl",)),
     # (updates, player steps, gradient steps, test steps): 192 updates of 4 envs, 128 random ones up to learning_starts,
     # then 64 acting steps; 3 bursts of 8 (at updates 128, 160 and 192); a 5-step test episode; no cell kernel
     "run_dv1": dict(args=RUN_DV1_ARGS, counts=(192, 64, 24, 5), per_step=0, log_steps=(256, 512, 768),
@@ -2728,8 +2707,48 @@ def phase_run(card: str, name: str = "run", keep_root=None):
     gives the device's busy time, its idle share over the run's wall time,
     and the number of the cell's gate kernels the device ran, which must
     equal the run's counters. The run writes under
-    ``keep_root`` when given (its checkpoint outlives the phase). Returns
-    the run's launches and its checkpoint."""
+    ``keep_root`` when given (its checkpoint outlives the phase). A spec
+    with ``simulators`` runs over those stand-in simulators. Returns the
+    run's launches and its checkpoint."""
+    spec = RUN_SPECS[name]
+    with _simulators(spec.get("simulators", ())):
+        return _phase_run(card, name, spec, keep_root)
+
+
+@contextlib.contextmanager
+def _simulators(names):
+    """The stand-in simulators ``names`` (``tests/sim_stubs.py``, duck-typed spaces) in ``sys.modules`` for the
+    block: the port's real-simulator wrappers import and run over them."""
+    if not names:
+        yield {}
+        return
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "sim_stubs.py")
+    spec = importlib.util.spec_from_file_location("sim_stubs", path)
+    sim_stubs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sim_stubs)
+
+    try:
+        yield sim_stubs.install(*names)
+    finally:
+        sim_stubs.uninstall(*names)
+
+
+def _plain_cell_model(state, cfg, observation_space, action_space, version: int):
+    """The served model of a checkpoint's ``state`` (read already, every
+    crc32 verified) with its recurrent cell on the plain PyTorch version: what
+    ``load_gateway_model(..., plain_cell=True)`` builds, without reading the
+    checkpoint again."""
+    from sheeprl_tpu_torch.evals.builders import actions_dim_of, serving_params
+    from sheeprl_tpu_torch.serve.model import GatewayModel
+
+    actions_dim, is_continuous = actions_dim_of(action_space)
+    return GatewayModel.from_params(serving_params(state, str(cfg.algo.name)), cfg, observation_space.spaces,
+                                    actions_dim, is_continuous, device="cuda", version=version, plain_cell=True)
+
+
+def _phase_run(card: str, name: str, spec: dict, keep_root):
     import tempfile
 
     import numpy as np
@@ -2741,7 +2760,6 @@ def phase_run(card: str, name: str = "run", keep_root=None):
     from sheeprl_tpu_torch.serve.model import load_gateway_model
     from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
 
-    spec = RUN_SPECS[name]
     stamps = [("start", time.perf_counter())]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as tmp:
         root = keep_root or tmp
@@ -2782,29 +2800,33 @@ def phase_run(card: str, name: str = "run", keep_root=None):
         ckpt = result["checkpoint"]
         if ckpt is None or not ckpt.endswith(f"ckpt_{result['policy_steps']}_0"):
             raise AssertionError(f"the run's last checkpoint is {ckpt}")
-        manifest = validate_checkpoint(ckpt, deep=True)
+        # the manifest and every shard's size; then the whole state read once, every array's crc32 verified (what
+        # deep validation reads), for both checks below (an XL checkpoint holds GBs)
+        manifest = validate_checkpoint(ckpt)
         ckpt_bytes = sum(manifest["files"].values())
-        state = _read_verified(ckpt)  # read once for both checks (an XL checkpoint holds GBs)
+        state = _read_verified(ckpt)
         replay = spec["buffer"](state)
+        if "buffer_keys" in spec and not set(spec["buffer_keys"]) <= set(replay["keys"]):
+            raise AssertionError(f"the checkpoint's buffer holds {replay['keys']}, not all of {spec['buffer_keys']}")
         f32_parameters = _f32_parameters(state)
-        del state
 
         stamps.append(("checks", time.perf_counter()))
         t0 = time.perf_counter()
-        model, _cfg, _obs_space, _act_space = load_gateway_model(ckpt, device="cuda")
+        model, serve_cfg, obs_space, act_space = load_gateway_model(ckpt, device="cuda")
         torch.cuda.synchronize()
         cold_start_s = time.perf_counter() - t0
         frames = _serve_frames(spec["obs"], np.random.RandomState(SEED))
         ops.hafner_cell_launches.reset()
         actions, states, serve_wall, status = serve_lockstep(model, frames, seed=SEED)
         served_launches = ops.hafner_cell_launches.count
-        if cell:  # the kernel path against a plain-cell replay
-            plain, *_ = load_gateway_model(ckpt, device="cuda", plain_cell=True)
+        if cell:  # the kernel path against a plain-cell replay, built from the state the checks read
+            plain = _plain_cell_model(state, serve_cfg, obs_space, act_space, model.version)
             p_actions, p_states, _w, p_status = serve_lockstep(plain, frames, seed=SEED)
             del plain
         else:  # no kernel: the served actions against the evaluation policy's on the same frames and noise
             p_actions, p_states = eval_policy_lockstep(ckpt, frames, seed=SEED)
             p_status = {"failed_requests": 0}
+        del state
         requests = RUN_CLIENTS * RUN_REQUESTS
         if status["failed_requests"] or p_status["failed_requests"] or status["requests"] != requests:
             raise AssertionError(f"served {status['requests']} requests, {status['failed_requests']} failed")
@@ -2901,6 +2923,198 @@ def phase_run(card: str, name: str = "run", keep_root=None):
     }
     print(f"[{name}] " + json.dumps(line), flush=True)
     return launches, ckpt
+
+
+def _minedojo_functional_counts(envs) -> dict:
+    """The functional actions (the 8-entry action's entry 5) the MineDojo stand-ins received, by name."""
+    names = ("no_op", "use", "drop", "attack", "craft", "equip", "place", "destroy")
+    counts = dict.fromkeys(names, 0)
+    for env in envs:
+        for action in env.received:
+            counts[names[int(action[5])]] += 1
+    return counts
+
+
+def _minedojo_player_lockstep(ckpt: str) -> dict:
+    """The masked acting step on the card against the same step on the CPU:
+    the run's checkpointed world model and actor, MINEDOJO_PLAYER_ENVS envs
+    (the port's MineDojo wrapper over the stand-in, the run's env pipeline)
+    stepped MINEDOJO_PLAYER_STEPS times with the card's actions. The card
+    runs the run's acting step (``ExplorationStep``: its CUDA graph, the
+    masks copied into its static buffers); the CPU runs the player's
+    ``exploration_action`` from the card's state before the step, on the
+    same observation, masks and noise (drawn on the host), with the plain
+    cell; TF32 off on the card. Every head's action must be equal, the
+    recurrent and stochastic states within TOL_STATE, and the stand-ins must
+    flag none of the actions they received as forbidden by their masks.
+    Returns the counts, the errors and the cell's launches."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import ExplorationStep, build_agent, build_player_fns
+    from sheeprl_tpu_torch.algos.dreamer_v3.minedojo_actor import MASK_KEYS
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_obs, prepare_obs
+    from sheeprl_tpu_torch.ckpt import read_checkpoint
+    from sheeprl_tpu_torch.cli import load_run_config
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.utils.env import build_env
+
+    cfg, _log_dir = load_run_config(ckpt)
+    n, expl = MINEDOJO_PLAYER_ENVS, MINEDOJO_PLAYER_EXPL
+    envs = [build_env(cfg, SEED + i, 0, vector_env_idx=i) for i in range(n)]
+    cnn_keys, mlp_keys = list(cfg.cnn_keys.encoder), list(cfg.mlp_keys.encoder)
+    space = envs[0].observation_space
+    actions_dim = tuple(int(d) for d in envs[0].action_space.nvec)
+    agent = read_checkpoint(ckpt, with_rb=False)["agent"]
+    players = {}
+    for device in ("cuda", "cpu"):
+        # the checkpoint holds the whole training agent (the decoders too): build it whole, act with two modules
+        world_model, actor, *_ = build_agent(cfg, actions_dim, False,
+                                             {k: space[k].shape for k in cnn_keys + mlp_keys}, device=device,
+                                             training=True)
+        world_model.load_state_dict({k: torch.as_tensor(v) for k, v in agent["world_model"].items()})
+        actor.load_state_dict({k: torch.as_tensor(v) for k, v in agent["actor"].items()})
+        players[device] = build_player_fns(world_model, actor, cfg, actions_dim, False)
+
+    def stacked(raw):
+        return {k: np.stack([r[k] for r in raw]) for k in raw[0]}
+
+    raw = stacked([env.reset(seed=SEED + i)[0] for i, env in enumerate(envs)])
+    obs = prepare_obs(raw, cnn_keys, mlp_keys, n)
+    masks = {k: raw[k] for k in MASK_KEYS}
+    acting = ExplorationStep(players["cuda"], n, obs, cnn_keys, None, "cuda", reset_in_step=False,
+                             masks_example=masks)
+    generator = torch.Generator().manual_seed(SEED)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    ops.hafner_cell_launches.reset()
+    state_err, episodes = 0.0, 0
+    try:
+        for _ in range(MINEDOJO_PLAYER_STEPS):
+            before = {k: v.detach().cpu().clone() for k, v in acting.state.items()}
+            noise = players["cpu"]["draw_exploration_noise"](n, generator)
+            card_actions = [a.cpu() for a in acting(obs, None, expl, noise=noise, masks=masks)]
+            cpu_actions, cpu_state = players["cpu"]["exploration_action"](
+                before, normalize_obs(obs, cnn_keys, torch.device("cpu")), expl, gumbel=noise["gumbel"],
+                action_gumbels=noise["action_gumbels"], expl_noise=noise["expl_noise"],
+                masks={k: torch.from_numpy(v) for k, v in masks.items()})
+            for head, (a, b) in enumerate(zip(card_actions, cpu_actions)):
+                if not torch.equal(a.argmax(-1), b.argmax(-1)):
+                    raise AssertionError(f"the masked acting step's head {head}: card {a.argmax(-1).tolist()}, "
+                                         f"CPU {b.argmax(-1).tolist()}")
+            for k in ("recurrent", "stochastic"):
+                state_err = max(state_err, (acting.state[k].cpu() - cpu_state[k]).abs().max().item())
+            real = np.stack([a.argmax(-1).numpy() for a in card_actions], -1)
+            steps = [env.step(real[i]) for i, env in enumerate(envs)]
+            done = np.array([s[2] or s[3] for s in steps])
+            raw = stacked([env.reset()[0] if d else s[0] for env, s, d in zip(envs, steps, done)])
+            obs = prepare_obs(raw, cnn_keys, mlp_keys, n)
+            masks = {k: raw[k] for k in MASK_KEYS}
+            if done.any():
+                episodes += int(done.sum())
+                acting.reset(done.astype(np.float32).reshape(n, 1))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    launches = ops.hafner_cell_launches.count
+    if state_err > TOL_STATE:
+        raise AssertionError(f"the masked acting step's state: card against CPU {state_err} > {TOL_STATE}")
+    if launches != MINEDOJO_PLAYER_STEPS:
+        raise AssertionError(f"hafner_cell launched {launches} times on {MINEDOJO_PLAYER_STEPS} acting steps")
+    stand_ins = [env.unwrapped.env for env in envs]
+    invalid = [flag for stand_in in stand_ins for flag in stand_in.invalid]
+    if invalid or sum(len(stand_in.received) for stand_in in stand_ins) != n * MINEDOJO_PLAYER_STEPS:
+        raise AssertionError(f"the masked acting steps sent actions their masks forbid: {invalid[:4]}")
+    return {"steps": MINEDOJO_PLAYER_STEPS, "envs": n, "episodes_ended": episodes, "actions_equal": True,
+            "actions_invalid_under_masks": 0,
+            "state_max_abs_err": state_err, "tol": TOL_STATE, "hafner_cell_launches": launches,
+            "graph": {"eager_calls": acting.step.eager_calls, "replays": acting.step.replays},
+            "functional_actions": _minedojo_functional_counts(stand_ins)}
+
+
+def phase_run_minedojo(card: str) -> tuple:
+    """``exp=dreamer_v3 env=minedojo`` through the CLI (RUN_MINEDOJO_ARGS)
+    over the MineDojo stand-in, every one of its acting steps masked: its
+    counts, the cell's launches (player steps + 79 a gradient step), its
+    graphs, finite logged losses, no env restarted and none of the actions
+    the stand-ins received flagged as forbidden by the masks they handed
+    out; then ``_minedojo_player_lockstep`` on its checkpoint.
+    Returns ``({path: launches}, line)``."""
+    import math
+    import tempfile
+    import warnings
+
+    import torch
+
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+    from sheeprl_tpu_torch.utils.tb_events import read_events
+
+    with _simulators(("minedojo",)) as stand_in, tempfile.TemporaryDirectory(prefix="chip_smoke_minedojo_") as root:
+        made, make = [], stand_in["minedojo"].make
+
+        def recording_make(*args, **kwargs):
+            env = make(*args, **kwargs)
+            made.append(env)
+            return env
+
+        stand_in["minedojo"].make = recording_make
+        ops.hafner_cell_launches.reset()
+        ops.hafner_sequence_launches.reset()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            result, wall = _run_once(root, "run_dv3_minedojo", RUN_MINEDOJO_ARGS)
+        launches = {"hafner_cell": ops.hafner_cell_launches.count, "hafner_sequence": ops.hafner_sequence_launches.count}
+        restarts = [str(w.message) for w in caught if "Restarting env" in str(w.message)]
+        if restarts:
+            raise AssertionError(f"the MineDojo run restarted envs: {restarts[:2]}")
+        counts = (result["updates"], result["player_steps"], result["gradient_steps"], result["test_steps"])
+        if counts != RUN_MINEDOJO_COUNTS or result["random_steps"] != 0:
+            raise AssertionError(f"the MineDojo run took (updates, player, gradient, test) steps {counts}, "
+                                 f"{result['random_steps']} random")
+        predicted = result["player_steps"] + DV3_CELL_LAUNCHES_PER_STEP * result["gradient_steps"]
+        if launches != {"hafner_cell": predicted, "hafner_sequence": 0}:
+            raise AssertionError(f"the MineDojo run launched {launches}, predicted {predicted} cells and 0 sequences")
+        received = sum(len(env.received) for env in made)
+        invalid = [flag for env in made for flag in env.invalid]
+        if received != RUN_MINEDOJO_COUNTS[1] * 2 or invalid:
+            raise AssertionError(f"the MineDojo stand-ins received {received} actions, these forbidden by their "
+                                 f"masks: {invalid[:4]}")
+        want_graphs = {"train": {"eager_calls": WARMUP_CALLS, "replays": counts[2] - WARMUP_CALLS, "captured": 1},
+                       "act": {"eager_calls": WARMUP_CALLS, "replays": counts[1] - WARMUP_CALLS, "captured": 1}}
+        graphs = {k: {n: v[n] for n in want_graphs[k]} for k, v in result["graphs"].items()}
+        if graphs != want_graphs:
+            raise AssertionError(f"the MineDojo run's steps ran as {result['graphs']}, expected {want_graphs}")
+        logged = {}
+        for e in read_events(result["event_file"])[1:]:
+            for v in e.get("values", []):
+                logged.setdefault(e["step"], {})[v["tag"]] = v.get("simple_value")
+        losses = {tag: v for tag, v in logged.get(320, {}).items() if tag.startswith("Loss/")}
+        if len(losses) < 7 or not all(v is not None and math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"the MineDojo run's losses at its last log: {losses}")
+        functional = _minedojo_functional_counts(made)
+        ops.hafner_cell_launches.reset()
+        lockstep = _minedojo_player_lockstep(result["checkpoint"])
+        torch.cuda.synchronize()
+    line = {"run_args": list(RUN_MINEDOJO_ARGS), "counts": counts, "wall_s": wall,
+            "policy_steps_per_s": result["policy_steps"] / wall, "hafner_cell_launches": launches["hafner_cell"],
+            "hafner_cell_launches_predicted": predicted, "graphs": result["graphs"], "actions_received": received,
+            "actions_invalid_under_masks": 0, "functional_actions": functional, "losses_at_last_log": losses,
+            "player_card_against_cpu": lockstep, "card": card}
+    print("[run_dv3_minedojo] " + json.dumps(line), flush=True)
+    return ({"run_dv3_minedojo": launches,
+             "dv3_minedojo_player": {"hafner_cell": lockstep["hafner_cell_launches"], "hafner_sequence": 0}}, line)
+
+
+def phase_run_dv3_L(card: str) -> dict:
+    """run_dv3_L's phase: the L DIAMBRA preset, then the L Navigate preset
+    (``phase_run``), then the MineDojo run (``phase_run_minedojo``).
+    Returns the paths' launches."""
+    paths = {}
+    for name in ("run_dv3_L", "run_dv3_L_navigate"):
+        paths[name], _ckpt = phase_run(card, name)
+    minedojo, _line = phase_run_minedojo(card)
+    paths.update(minedojo)
+    return paths
 
 
 # the eval_serve phase: the port's evaluation, registration and serve commands on run_dv3's and run_walker's
@@ -3552,9 +3766,10 @@ def _check_p2e_run(tag: str, result, counts, per_step: int, cell: bool = True) -
     if missing:
         raise AssertionError(f"{tag}: the last log boundary lacks {missing}")
     ckpt = result["checkpoint"]
-    manifest = validate_checkpoint(ckpt, deep=True)
+    manifest = validate_checkpoint(ckpt)  # every shard's size; the read below verifies every array's crc32
     return {"predicted_cell_launches": predicted, "graphs": result["graphs"], "checkpoint": ckpt,
-            "checkpoint_bytes": sum(manifest["files"].values()), "checkpoint_parameters": _f32_parameters(ckpt),
+            "checkpoint_bytes": sum(manifest["files"].values()),
+            "checkpoint_parameters": _f32_parameters(_read_verified(ckpt)),
             "tags_at_last_log": len(last),
             "last_losses": {t: last[t] for t in P2E_TAGS[tag]}}
 
@@ -3572,7 +3787,14 @@ def phase_run_p2e(card: str, family: str, work: str):
     command on the finetuning checkpoint (``_eval_command``: actions equal
     to a plain-cell evaluation's) and ``load_gateway_model`` serving its task
     actor to RUN_CLIENTS lockstep clients, equal to a plain-cell replay.
+    A spec with ``simulators`` runs over those stand-in simulators.
     Returns the launches by path."""
+    spec = RUN_P2E_SPECS[family]
+    with _simulators(spec.get("simulators", ())):
+        return _phase_run_p2e(card, family, work, spec)
+
+
+def _phase_run_p2e(card: str, family: str, work: str, spec: dict):
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3580,7 +3802,6 @@ def phase_run_p2e(card: str, family: str, work: str):
     from sheeprl_tpu_torch.kernels import ops
     from sheeprl_tpu_torch.serve.model import load_gateway_model
 
-    spec = RUN_P2E_SPECS[family]
     cell = spec.get("cell", True)
     root = os.path.join(work, f"run_{family}")
     by_path, lines = {}, {}
@@ -4874,13 +5095,33 @@ def _compute_apps():
     return sorted(int(p) for p in out.stdout.split() if p.strip().isdigit())
 
 
+def _device_files(pid: int) -> list:
+    """The card's device files (``/dev/nvidia*``) that process ``pid`` holds
+    open: a process that has initialised CUDA holds the control, UVM and
+    device nodes for its life; one that has not holds none."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return []
+    found = set()
+    for fd in fds:
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue  # closed since the listing
+        if target.startswith("/dev/nvidia"):
+            found.add(target)
+    return sorted(found)
+
+
 class _PlaneWatch:
     """The process plane's pids while its run is live (``ProcessPlane.start``
-    patched), and who holds a context on the card: the compute apps read
-    with the learner's context open and before any player starts (the
-    learner, under the pid nvidia-smi gives it: the sandbox's process
-    namespace may number it otherwise) must be the compute apps while the
-    players and their env workers run."""
+    patched), and who holds the card: while the players and their env
+    workers run, none of them (``_descendants``) holds one of the card's
+    device files open (``_device_files``), and the learner, whose context is
+    open, does. Other processes on the card (the lanes) leave the reading
+    as it is. nvidia-smi's compute apps are kept beside it: the card's
+    machine numbers them in another pid namespace."""
 
     def __init__(self):
         from sheeprl_tpu_torch.plane import supervisor
@@ -4909,15 +5150,20 @@ class _PlaneWatch:
         return False
 
     def probe(self) -> dict:
-        """The compute apps with the players live: the learner's alone."""
+        """With the players live: no player or env worker holds the card,
+        the learner does."""
         import multiprocessing as mp
 
         players = [pid for plane in self.planes for pid in plane.pids()]
-        apps = _compute_apps()
-        reading = {"learner_pid": os.getpid(), "learner_apps_before_the_players": self.baseline,
-                   "player_pids": players, "compute_app_pids": apps, "children": len(mp.active_children())}
-        if not players or apps != self.baseline or len(apps) > 1 or set(apps) & set(players):
-            raise AssertionError(f"a process other than the learner holds a context on the card: {reading}")
+        workers = sorted({pid for player in players for pid in _descendants(player)})
+        held = {pid: files for pid in players + workers if (files := _device_files(pid))}
+        learner = _device_files(os.getpid())
+        reading = {"learner_pid": os.getpid(), "learner_device_files": learner, "player_pids": players,
+                   "worker_pids": workers, "plane_device_files": held,
+                   "learner_apps_before_the_players": self.baseline, "compute_app_pids": _compute_apps(),
+                   "children": len(mp.active_children())}
+        if not players or not learner or held:
+            raise AssertionError(f"a process of the plane holds the card, or the learner does not: {reading}")
         return reading
 
 
@@ -5132,7 +5378,7 @@ def phase_run_ppo_decoupled(card: str):
 def main_decoupled() -> int:
     """``--decoupled``: the actor-learner plane's phases alone (the kernels
     built first, as the full script builds them); the full script runs them
-    after the on-policy phases."""
+    in the ``plane`` lane."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5200,7 +5446,8 @@ def main_seeds(argv) -> int:
 def main_ppo() -> int:
     """``--ppo``: the on-policy family's phases alone (the kernels built
     first, as the full script builds them), for a short call while they
-    change; the full script runs them after the SAC phases."""
+    change; the full script runs the trainers after the SAC trainers and
+    the runs in the lanes."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5271,10 +5518,14 @@ def main_serve_ops() -> int:
 
 class _PhaseClock:
     """Each phase's wall seconds (printed as the ``[timing]`` line): the
-    script must stay inside its 1,200 s limit on a slow host."""
+    script must stay inside its 1,200 s limit on a slow host. ``lanes``
+    holds each lane process's own line once it has ended (``_Lane``), with
+    ``wall_s`` from its start to its collection: their phases ran beside
+    the main process's, so the phases' seconds add up to more than
+    ``total_s``."""
 
-    def __init__(self):
-        self.seconds, self.start = {}, time.perf_counter()
+    def __init__(self, label: str = ""):
+        self.seconds, self.start, self.label, self.lanes = {}, time.perf_counter(), label, {}
 
     def __call__(self, name: str, fn, *args, **kwargs):
         t = time.perf_counter()
@@ -5282,11 +5533,164 @@ class _PhaseClock:
             return fn(*args, **kwargs)
         finally:
             self.seconds[name] = round(self.seconds.get(name, 0.0) + time.perf_counter() - t, 1)
-            print(f"[timing] {name} {time.perf_counter() - t:.1f} s (total {time.perf_counter() - self.start:.1f} s)",
-                  flush=True)
+            print(f"[timing] {self.label}{name} {time.perf_counter() - t:.1f} s "
+                  f"(total {time.perf_counter() - self.start:.1f} s)", flush=True)
 
     def line(self) -> dict:
-        return {"total_s": round(time.perf_counter() - self.start, 1), "phases_s": self.seconds}
+        line = {"total_s": round(time.perf_counter() - self.start, 1), "phases_s": self.seconds}
+        return {**line, "lanes": self.lanes} if self.lanes else line
+
+
+# The phases that run in two more processes, the lanes (``chip_smoke.py --lane <name> <out>``), while the main
+# process runs run, run_walker, eval_serve and the P2E runs: LANES["runs"], the DV1, L (with L Navigate and
+# MineDojo) and XL runs and the SAC family's and two on-policy CLI runs; LANES["plane"], the decoupled runs and
+# PPO-recurrent's run. Each path counts its launches in its own process with the counts zeroed just before it, as in
+# the main process. What must have the card alone stays in the main process before them: the kernels' and the
+# trainers' timings, and run_dv3 (its profiler window is held against CUDA events around the same replays). The
+# decoupled runs' check of who holds the card reads each process of the plane (``_PlaneWatch``), so other processes
+# on the card leave it as it is. The lanes' rates and idle shares are read beside the other processes' phases.
+LANES = {
+    "runs": ("run_dv1", "run_dv3_L", "run_dv3_XL", *SAC_RUN_SPECS, "run_sac_pendulum", "run_ppo_cartpole",
+             "run_a2c_cartpole"),
+    "plane": ("run_sac_decoupled", "run_ppo_decoupled", "run_ppo_recurrent_cartpole"),
+}
+LANE_TIMEOUT_S = 600
+
+
+def _lane_phase(name: str, card: str, clock: "_PhaseClock") -> dict:
+    """One of the lanes' phases, by name; returns its paths' launches."""
+    if name in ("run_dv1", "run_dv3_XL"):
+        return {name: clock(name, phase_run, card, name)[0]}
+    if name == "run_dv3_L":
+        return clock(name, phase_run_dv3_L, card)
+    if name in SAC_RUN_SPECS:
+        return {name: clock(name, phase_run_sac, card, name)}
+    if name == "run_sac_pendulum":
+        return {name: clock(name, phase_run_sac_pendulum, card)}
+    if name in ONPOLICY_RUN_SPECS:
+        return {name: clock(name, phase_run_onpolicy, card, name)}
+    if name == "run_sac_decoupled":
+        return clock(name, phase_run_sac_decoupled, card)
+    if name == "run_ppo_decoupled":
+        return clock(name, phase_run_ppo_decoupled, card)
+    raise KeyError(name)
+
+
+def main_lane(name: str, out: str) -> int:
+    """``--lane <name> <out>``: LANES[name] in order, started by the full
+    script once the kernels are built; writes their launches, their
+    telemetry checks and their seconds to ``out`` as JSON."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script runs only on the card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    clock, card, paths = _PhaseClock(label=f"lane {name}: "), card_line(), {}
+    for phase in LANES[name]:
+        paths.update(_lane_phase(phase, card, clock))
+    with open(out, "w") as f:
+        json.dump({"paths": paths, "telemetry": TELEMETRY_CHECKS, **clock.line()}, f)
+    return 0
+
+
+class _Lane:
+    """Lane ``name``'s process for the length of a ``with`` block: started in
+    a session of its own, its output kept in files and echoed when it ends.
+    Leaving the block waits for it (LANE_TIMEOUT_S from its start at most)
+    and raises if it failed; ``paths`` are then its launches, and its
+    telemetry checks join TELEMETRY_CHECKS. On an exception in the block, or
+    on any way out, its whole process group is killed."""
+
+    def __init__(self, clock: _PhaseClock, name: str):
+        self.clock, self.name, self.paths = clock, name, None
+
+    def __enter__(self):
+        import tempfile
+
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.dir = tempfile.mkdtemp(prefix=f"chip_smoke_lane_{self.name}_")
+        self.out = os.path.join(self.dir, "lane.json")
+        self.stdout = open(os.path.join(self.dir, "stdout"), "w+b")
+        self.stderr = open(os.path.join(self.dir, "stderr"), "w+b")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), "--lane", self.name, self.out], cwd=here,
+            stdin=subprocess.DEVNULL, stdout=self.stdout, stderr=self.stderr, start_new_session=True)
+        print(f"[lane] {self.name}, pid {self.proc.pid}: {', '.join(LANES[self.name])}", flush=True)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        import shutil
+        import signal
+
+        rc = None
+        try:
+            if exc_type is None:
+                t = time.perf_counter()
+                try:
+                    rc = self.proc.wait(timeout=max(LANE_TIMEOUT_S - (t - self.t0), 1.0))
+                except subprocess.TimeoutExpired:
+                    rc = "timeout"
+                self.clock.seconds[f"lane_{self.name}_wait"] = round(time.perf_counter() - t, 1)
+        finally:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)  # the lane and whatever of its group is left
+            except ProcessLookupError:
+                pass
+            self.proc.wait()
+            for src, dst in ((self.stdout, sys.stdout), (self.stderr, sys.stderr)):
+                src.seek(0)
+                dst.flush()
+                dst.buffer.write(src.read())
+                dst.flush()
+                src.close()
+            lane = None
+            if rc == 0:
+                with open(self.out) as f:
+                    lane = json.load(f)
+            shutil.rmtree(self.dir, ignore_errors=True)
+        if exc_type is not None:
+            return False
+        if rc != 0:
+            raise AssertionError(f"lane {self.name} ({', '.join(LANES[self.name])}) ended with {rc} "
+                                 f"after {time.perf_counter() - self.t0:.1f} s")
+        self.paths = lane.pop("paths")
+        TELEMETRY_CHECKS.update(lane.pop("telemetry"))
+        self.clock.lanes[self.name] = {"wall_s": round(time.perf_counter() - self.t0, 1), **lane}
+        return False
+
+
+def _descendants(root: int) -> list:
+    """The live processes descended from ``root`` (read from ``/proc``)."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        children.setdefault(ppid, []).append(int(entry))
+    stack, found = [root], []
+    while stack:
+        for pid in children.get(stack.pop(), ()):
+            found.append(pid)
+            stack.append(pid)
+    return found
+
+
+def _stop_descendants() -> None:
+    """SIGKILL every live process descended from this one: what a failed
+    phase left running (players, env workers, policy writers, the lanes)."""
+    import signal
+
+    for pid in _descendants(os.getpid()):
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
 
 
 def main() -> int:
@@ -5347,38 +5751,34 @@ def main() -> int:
     for algo in ("dreamer_v1", "p2e_dv1"):
         tag = f"train_{algo.replace('dreamer_v', 'dv')}"
         by_path[tag], dv1_train[algo] = clock(tag, phase_train_dv1, card, algo)
-    by_path["run"], _ckpt = clock("run", phase_run, card, "run")
+    # the SAC family's trainers (no kernel on their path), then the on-policy family's (PPO's pixel path, A2C and
+    # PPO-recurrent): timed, so the card is theirs alone
+    sac_train = {}
+    for algo in SAC_TRAINERS:
+        by_path[f"train_{algo}"], sac_train[algo] = clock(f"train_{algo}", phase_train_sac, card, algo)
+    onpolicy_train = {}
+    for name in ONPOLICY_TRAINERS:
+        by_path[f"train_{name}"], onpolicy_train[name] = clock(f"train_{name}", phase_train_onpolicy, card, name)
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_serve_") as work:
         by_path["run_dv3"], dv3_ckpt = clock("run_dv3", phase_run, card, "run_dv3",
                                              keep_root=os.path.join(work, "run_dv3"))
-        by_path["run_walker"], walker_ckpt = clock("run_walker", phase_run, card, "run_walker",
-                                                   keep_root=os.path.join(work, "run_walker"))
-        by_path.update(clock("eval_serve", phase_eval_serve, card, work, dv3_ckpt, walker_ckpt))
-        for family in RUN_P2E_SPECS:
-            paths, _line = clock(f"run_{family}", phase_run_p2e, card, family, work)
-            by_path.update(paths)
-    for name in ("run_dv1", "run_dv3_L", "run_dv3_XL"):
-        by_path[name], _ckpt = clock(name, phase_run, card, name)
-    # the SAC family (no kernel on its path) and the device envs of env.backend=jax
-    sac_train = {}
-    for algo in SAC_TRAINERS:
-        by_path[f"train_{algo}"], sac_train[algo] = clock(f"train_{algo}", phase_train_sac, card, algo)
-    for name in SAC_RUN_SPECS:
-        by_path[name] = clock(name, phase_run_sac, card, name)
-    by_path["run_sac_pendulum"] = clock("run_sac_pendulum", phase_run_sac_pendulum, card)
-    # the on-policy family (no kernel on its path): PPO's pixel path, A2C and PPO-recurrent, then the JAX learning
-    # tests' runs on the CartPole stand-in
-    onpolicy_train = {}
-    for name in ONPOLICY_TRAINERS:
-        by_path[f"train_{name}"], onpolicy_train[name] = clock(f"train_{name}", phase_train_onpolicy, card, name)
-    for name in ONPOLICY_RUN_SPECS:
-        by_path[name] = clock(name, phase_run_onpolicy, card, name)
-    # the actor-learner plane (no kernel on its path): sac_decoupled's thread, 1-player and 2-player runs, then
-    # ppo_decoupled's 2-player run
-    by_path.update(clock("run_sac_decoupled", phase_run_sac_decoupled, card))
-    by_path.update(clock("run_ppo_decoupled", phase_run_ppo_decoupled, card))
+        torch.cuda.empty_cache()  # the trainers' cached blocks, for the lanes' runs
+        # the lanes beside these runs (LANES): the DV1, L and XL runs, the SAC family's runs and the device envs of
+        # env.backend=jax, two of the JAX learning tests' runs on the CartPole stand-in; the actor-learner plane (no
+        # kernel on its path: sac_decoupled's thread, 1-player and 2-player runs, ppo_decoupled's 2-player run),
+        # then PPO-recurrent's run
+        with _Lane(clock, "runs") as runs_lane, _Lane(clock, "plane") as plane_lane:
+            by_path["run"], _ckpt = clock("run", phase_run, card, "run")
+            by_path["run_walker"], walker_ckpt = clock("run_walker", phase_run, card, "run_walker",
+                                                       keep_root=os.path.join(work, "run_walker"))
+            by_path.update(clock("eval_serve", phase_eval_serve, card, work, dv3_ckpt, walker_ckpt))
+            for family in RUN_P2E_SPECS:
+                paths, _line = clock(f"run_{family}", phase_run_p2e, card, family, work)
+                by_path.update(paths)
+        by_path.update(runs_lane.paths)
+        by_path.update(plane_lane.paths)
     print("[telemetry] " + json.dumps({"runs": telemetry_line(), "card": card}), flush=True)
 
     cell_row = next(r for r in train_rows if r["B"] == 1600)
@@ -5392,10 +5792,10 @@ def main() -> int:
             "route": "cuda",
             "source": "sheeprl_tpu_torch/kernels/csrc/hafner_gru.cu",
             "replaces": "sheeprl_tpu/kernels/pallas_tpu.py:67",
-            # the main paths' f32 runs: the DV2 MsPacman preset's, the DV3 100k, walker, L and XL presets', the
-            # DV1 preset's (0) and the f32 P2E presets' exploration and finetuning runs (P2E-DV1's 0; the bf16
-            # presets' are hafner_cell_bf16's)
-            "launches": sum(by_path[run]["hafner_cell"] for run in RUN_SPECS)
+            # the main paths' f32 runs: the DV2 MsPacman preset's, the DV3 100k, walker, L, L Navigate and XL
+            # presets', the DV3 MineDojo run and its masked acting steps, the DV1 preset's (0) and the f32 P2E
+            # presets' exploration and finetuning runs (P2E-DV1's 0; the bf16 presets' are hafner_cell_bf16's)
+            "launches": sum(by_path[run]["hafner_cell"] for run in (*RUN_SPECS, *MINEDOJO_PATHS))
             + sum(by_path[f"run_{family}_{phase}"]["hafner_cell"] for family, spec in RUN_P2E_SPECS.items()
                   if not spec.get("bf16") for phase in ("exploration", "finetuning")),
             "max_abs_err": max(r["max_abs_err"] for r in serve_rows + train_rows + dv3_rows
@@ -5605,10 +6005,54 @@ def main_train_gaps() -> int:
     return 0
 
 
+# the trainers whose timed steps the script reads (phase_train, phase_train_dv3, phase_train_p2e, phase_train_dv1)
+TIMED_TRAINERS = ("dreamer_v2", "dreamer_v3", "dreamer_v3_walker", "p2e_dv3", "p2e_dv3_continuous", "p2e_dv2",
+                  "p2e_dv3_L_bf16", "dreamer_v3_L", "dreamer_v3_XL", "dreamer_v1", "p2e_dv1")
+
+
+def main_train_steps() -> int:
+    """``--train-steps``: each timed trainer's readings (``bench_dreamer.compare``,
+    eager and graphed, as many steps profiled as timed) at PROFILED_STEPS and
+    at TRAIN_STEPS steps, in the order 2, 4, 4, 2, one JSON line a trainer:
+    the steps/s, the device's busy ms a step and its idle share of the timed
+    steps at each count, and for each reading the difference of the two
+    counts' means against the spread between repeats at one count."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script runs only on the card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from sheeprl_tpu_torch.kernels import build
+    from sheeprl_tpu_torch.tools import bench_dreamer
+
+    card = card_line()
+    print(f"[card] {card}", flush=True)
+    build.build_all()
+    keys = ("value", "device_busy_ms_per_step", "device_idle_share_of_timed_steps")
+    for algo in TIMED_TRAINERS:
+        reads = {}
+        for steps in (PROFILED_STEPS, TRAIN_STEPS, TRAIN_STEPS, PROFILED_STEPS):
+            result = bench_dreamer.compare(steps=steps, device="cuda", profile=True, algo=algo)
+            for mode in ("eager", "graphed"):
+                for key in keys:
+                    reads.setdefault(mode, {}).setdefault(key, {}).setdefault(steps, []).append(result[mode][key])
+        line = {"algo": algo, "card": card, "readings": reads, "against_spread": {}}
+        for mode, by_key in reads.items():
+            for key, by_steps in by_key.items():
+                mean = {n: statistics.mean(v) for n, v in by_steps.items()}
+                spread = max(max(v) - min(v) for v in by_steps.values())
+                line["against_spread"][f"{mode}.{key}"] = {"mean_diff": mean[PROFILED_STEPS] - mean[TRAIN_STEPS],
+                                                           "spread": spread}
+        print("[train_steps] " + json.dumps(line), flush=True)
+    return 0
+
+
 def main_sac() -> int:
     """``--sac``: the SAC family's phases alone (the kernels built first, as
     the full script builds them), for a short call while they change; the
-    full script runs them after the DreamerV1 runs."""
+    full script runs the trainers after the DreamerV1 trainers and the runs
+    in the ``runs`` lane."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5632,9 +6076,29 @@ def main_sac() -> int:
     return 0
 
 
-if __name__ == "__main__":
+def _dispatch() -> int:
     modes = {"--train-gaps": main_train_gaps, "--sac": main_sac, "--ppo": main_ppo, "--decoupled": main_decoupled,
-             "--serve-ops": main_serve_ops}
+             "--serve-ops": main_serve_ops, "--train-steps": main_train_steps}
     if sys.argv[1:2] == ["--seeds"] and len(sys.argv) > 3:
-        sys.exit(main_seeds(sys.argv[2:]))
-    sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes and len(sys.argv) == 2 else main())
+        return main_seeds(sys.argv[2:])
+    if sys.argv[1:2] == ["--lane"] and len(sys.argv) == 4:
+        return main_lane(sys.argv[2], sys.argv[3])
+    return modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes and len(sys.argv) == 2 else main()
+
+
+if __name__ == "__main__":
+    # a failed phase can leave processes behind (a writer that ignores SIGTERM is joined at exit): the script
+    # stops every process it started and leaves without waiting on any
+    try:
+        code = _dispatch()
+    except SystemExit as stop:
+        code = stop.code if isinstance(stop.code, int) else int(stop.code is not None)
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
+        code = 1
+    sys.stdout.flush()
+    sys.stderr.flush()
+    _stop_descendants()
+    os._exit(code)

@@ -863,6 +863,7 @@ def dreamer_player_fns(
     initial_posterior: Optional[Callable[[torch.Tensor], torch.Tensor]],
     normalize: Callable[[Dict[str, torch.Tensor], Sequence[str]], Dict[str, torch.Tensor]],
     gaussian_posterior: bool = False,
+    masked: bool = False,
 ) -> Dict[str, Any]:
     """The Dreamer player over an explicit state dict ``{"actions",
     "recurrent", "stochastic"}`` of ``[n, ...]`` tensors on the model's
@@ -875,7 +876,13 @@ def dreamer_player_fns(
     the actor's categoricals take the ``unimix`` mix. A continuous action is
     the float vector itself. The posterior's noise (``gumbel`` in the
     functions' arguments) is Gumbels ``[n, S, D]``, or with
-    ``gaussian_posterior`` (DreamerV1's latent) standard normals ``[n, S]``."""
+    ``gaussian_posterior`` (DreamerV1's latent) standard normals ``[n, S]``.
+
+    With ``masked`` (MineDojo's three heads), a step given ``masks`` (the
+    env's ``mask_*`` observations) samples through
+    :mod:`~sheeprl_tpu_torch.algos.dreamer_v3.minedojo_actor` (the uniform
+    mix, then the masks; its exploration draw a ``(gumbel [n, dim], u [n,
+    1])`` pair a head); a step given none acts as the unmasked player."""
     distribution = resolve_actor_distribution(cfg.distribution.get("type", "auto"), is_continuous)
     init_std, min_std = float(cfg.algo.actor.init_std), float(cfg.algo.actor.min_std)
     wm_cfg = cfg.algo.world_model
@@ -905,6 +912,11 @@ def dreamer_player_fns(
     def _policy(latent):
         return build_actor_dists(actor(latent), is_continuous, distribution, init_std, min_std, unimix)
 
+    def _masked_actions(latent, masks, is_training, noise=None):
+        from sheeprl_tpu_torch.algos.dreamer_v3.minedojo_actor import sample_minedojo_actions
+
+        return sample_minedojo_actions(actor(latent), masks, unimix, is_training, noise)[0]
+
     @torch.inference_mode()
     def greedy_action(
         state: Dict[str, torch.Tensor],
@@ -912,6 +924,7 @@ def dreamer_player_fns(
         generator: Optional[torch.Generator] = None,
         gumbel: Optional[torch.Tensor] = None,
         action_noise: Optional[Sequence[torch.Tensor]] = None,
+        masks: Optional[Mapping[str, torch.Tensor]] = None,
     ):
         """One greedy step: the posterior is still sampled (from ``gumbel``,
         its noise, or ``generator``), the action is the actor's mode, or
@@ -921,9 +934,12 @@ def dreamer_player_fns(
         embed = world_model.encode(obs)
         recurrent = world_model.recurrent_step(state["stochastic"], state["actions"], state["recurrent"])
         _, stochastic = world_model.representation(recurrent, embed, generator, gumbel)
-        noise = None if action_noise is None else [t.to(device) for t in action_noise]
-        actions = sample_actor_actions(_policy(torch.cat([stochastic, recurrent], dim=-1)), is_continuous,
-                                       generator, is_training=False, noise=noise)
+        latent = torch.cat([stochastic, recurrent], dim=-1)
+        if masked and masks is not None:
+            actions = _masked_actions(latent, masks, is_training=False)
+        else:
+            noise = None if action_noise is None else [t.to(device) for t in action_noise]
+            actions = sample_actor_actions(_policy(latent), is_continuous, generator, is_training=False, noise=noise)
         new_state = {"actions": torch.cat(actions, dim=-1), "recurrent": recurrent, "stochastic": stochastic}
         return actions, new_state
 
@@ -942,6 +958,9 @@ def dreamer_player_fns(
         action_noise = [actor_noise(distribution, (n, d), generator, device) for d in heads]
         if is_continuous:
             expl = [torch.randn((n, act_dim), generator=generator, device=device)]
+        elif masked:
+            expl = [(gumbel_noise((n, d), generator, device), torch.rand((n, 1), generator=generator, device=device))
+                    for d in dims]
         else:
             expl = [
                 (torch.randint(0, d, (n,), generator=generator, device=device),
@@ -950,7 +969,7 @@ def dreamer_player_fns(
             ]
         return {"gumbel": gumbel, "action_gumbels": action_noise, "expl_noise": expl}
 
-    def explore(state, obs, expl_amount: torch.Tensor, gumbel, action_gumbels, expl_noise):
+    def explore(state, obs, expl_amount: torch.Tensor, gumbel, action_gumbels, expl_noise, masks=None):
         """The acting step over given noise and a device ``expl_amount``: no
         host branch, so that it replays from a CUDA graph
         (:func:`add_exploration_noise`: at ``expl_amount = 0`` the sampled
@@ -958,9 +977,15 @@ def dreamer_player_fns(
         embed = world_model.encode(obs)
         recurrent = world_model.recurrent_step(state["stochastic"], state["actions"], state["recurrent"])
         _, stochastic = world_model.representation(recurrent, embed, None, gumbel)
-        actions = sample_actor_actions(_policy(torch.cat([stochastic, recurrent], dim=-1)), is_continuous,
-                                       is_training=True, noise=action_gumbels)
-        noisy = add_exploration_noise(actions, expl_amount, is_continuous, expl_noise)
+        latent = torch.cat([stochastic, recurrent], dim=-1)
+        if masked and masks is not None:
+            from sheeprl_tpu_torch.algos.dreamer_v3.minedojo_actor import add_minedojo_exploration_noise
+
+            actions = _masked_actions(latent, masks, True, noise=action_gumbels)
+            noisy = add_minedojo_exploration_noise(actions, expl_amount, masks, expl_noise)
+        else:
+            actions = sample_actor_actions(_policy(latent), is_continuous, is_training=True, noise=action_gumbels)
+            noisy = add_exploration_noise(actions, expl_amount, is_continuous, expl_noise)
         new_state = {"actions": torch.cat(noisy, dim=-1), "recurrent": recurrent, "stochastic": stochastic}
         return noisy, new_state
 
@@ -973,6 +998,7 @@ def dreamer_player_fns(
         gumbel: Optional[torch.Tensor] = None,
         action_gumbels: Optional[Sequence[torch.Tensor]] = None,
         expl_noise: Optional[Sequence[Any]] = None,
+        masks: Optional[Mapping[str, torch.Tensor]] = None,
     ):
         """One acting step of training (the JAX ``exploration_action``): the
         posterior and each action head are sampled (from ``gumbel``, the
@@ -989,6 +1015,7 @@ def dreamer_player_fns(
             drawn["gumbel"] if gumbel is None else gumbel.to(device),
             drawn["action_gumbels"] if action_gumbels is None else [g.to(device) for g in action_gumbels],
             drawn["expl_noise"] if expl_noise is None else expl_noise,
+            None if masks is None else {k: torch.as_tensor(v).to(device) for k, v in masks.items()},
         )
 
     return {
@@ -1002,16 +1029,22 @@ def dreamer_player_fns(
     }
 
 
+def is_minedojo(cfg) -> bool:
+    """Whether the env is MineDojo's wrapper (by its ``_target_``, as the JAX package dispatches)."""
+    return "minedojo" in str(cfg.env.wrapper.get("_target_", "") or "").lower()
+
+
 def build_player_fns(
     world_model: WorldModel, actor: Actor, cfg, actions_dim: Sequence[int], is_continuous: bool
 ) -> Dict[str, Any]:
     """DreamerV3's player (:func:`dreamer_player_fns`): a fresh state's
     stochastic part is the prior's mode at a zero recurrent state, computed
     with the current weights; the actor's categoricals take
-    ``algo.unimix``; pixels are scaled to [0, 1]."""
+    ``algo.unimix``; pixels are scaled to [0, 1]; on MineDojo the steps that
+    are given the env's masks sample through them."""
     return dreamer_player_fns(
         world_model, actor, cfg, actions_dim, is_continuous, unimix=float(cfg.algo.unimix),
-        initial_posterior=world_model.initial_posterior, normalize=normalize_obs_tensors,
+        initial_posterior=world_model.initial_posterior, normalize=normalize_obs_tensors, masked=is_minedojo(cfg),
     )
 
 
@@ -1030,10 +1063,14 @@ class ExplorationStep:
     With ``reset_in_step=False`` the step has no reset: the loop calls
     :meth:`reset` when envs end, so that a fresh state that depends on the
     weights (DreamerV3's) is made with the weights of that moment, before
-    the next gradient step, as the JAX loop makes it."""
+    the next gradient step, as the JAX loop makes it. ``masks_example``
+    (MineDojo's ``mask_*`` observations) makes the masks inputs of the step
+    too: static buffers each call copies the env's masks into, like the
+    observation."""
 
     def __init__(self, player_fns: Dict[str, Any], n: int, obs_example: Mapping[str, np.ndarray],
-                 cnn_keys: Sequence[str], generator: Optional[torch.Generator], device, reset_in_step: bool = True):
+                 cnn_keys: Sequence[str], generator: Optional[torch.Generator], device, reset_in_step: bool = True,
+                 masks_example: Optional[Mapping[str, np.ndarray]] = None):
         self.device = resolve_device(device)
         self._reset_in_step = bool(reset_in_step)
         self._fns = player_fns
@@ -1043,6 +1080,8 @@ class ExplorationStep:
         self.state = player_fns["init_states"](self.n)
         self.obs = {k: torch.zeros(np.shape(v), dtype=torch.from_numpy(np.asarray(v)).dtype, device=self.device)
                     for k, v in obs_example.items()}
+        self.masks = {k: torch.zeros(np.shape(v), dtype=torch.bool, device=self.device)
+                      for k, v in (masks_example or {}).items()}
         self.reset_mask = torch.zeros((self.n, 1), dtype=torch.float32, device=self.device)
         self.expl_amount = torch.zeros((), dtype=torch.float32, device=self.device)
         self.noise = player_fns["draw_exploration_noise"](self.n, None)
@@ -1053,7 +1092,8 @@ class ExplorationStep:
         state = self._fns["reset_states"](self.state, self.reset_mask) if self._reset_in_step else self.state
         obs = self._fns["normalize"](self.obs, self._cnn_keys)
         actions, new_state = self._fns["explore"](
-            state, obs, self.expl_amount, self.noise["gumbel"], self.noise["action_gumbels"], self.noise["expl_noise"]
+            state, obs, self.expl_amount, self.noise["gumbel"], self.noise["action_gumbels"], self.noise["expl_noise"],
+            self.masks or None,
         )
         for k, v in new_state.items():
             self.state[k].copy_(v)
@@ -1069,12 +1109,15 @@ class ExplorationStep:
             self.state[k].copy_(v)
 
     def __call__(self, obs: Mapping[str, np.ndarray], reset_mask: Optional[np.ndarray], expl_amount: float,
-                 noise: Optional[Dict[str, Any]] = None) -> list:
-        """The actions (one ``[n, dim]`` tensor a head) for ``obs``, after
-        resetting the state rows where ``reset_mask`` ``[n, 1]`` is 1 (None
-        without ``reset_in_step``)."""
+                 noise: Optional[Dict[str, Any]] = None, masks: Optional[Mapping[str, np.ndarray]] = None) -> list:
+        """The actions (one ``[n, dim]`` tensor a head) for ``obs`` (and
+        ``masks``, a step built with ``masks_example``), after resetting the
+        state rows where ``reset_mask`` ``[n, 1]`` is 1 (None without
+        ``reset_in_step``)."""
         for k, v in obs.items():
             self.obs[k].copy_(torch.from_numpy(np.ascontiguousarray(v)))
+        for k, buf in self.masks.items():
+            buf.copy_(torch.from_numpy(np.ascontiguousarray(masks[k], dtype=bool)))
         if self._reset_in_step:
             self.reset_mask.copy_(self._mask(reset_mask))
         self.expl_amount.fill_(float(expl_amount))

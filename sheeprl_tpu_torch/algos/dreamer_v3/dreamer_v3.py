@@ -95,10 +95,12 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     build_actor_dists,
     build_agent,
     build_player_fns,
+    is_minedojo,
     resolve_actor_distribution,
     sample_actor_actions,
 )
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import continue_distribution, reconstruction_loss
+from sheeprl_tpu_torch.algos.dreamer_v3.minedojo_actor import MASK_KEYS, MinedojoActor
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
     compute_lambda_values,
     init_moments,
@@ -421,9 +423,7 @@ def resolve_actor_cls(name: str):
     try:
         return getattr(importlib.import_module(module), attr)
     except (ImportError, AttributeError) as err:
-        raise NotImplementedError(
-            f"algo.actor.cls={name}: not in the port (MineDojo's actor comes with its wrapper, ROADMAP queue A item 6i)"
-        ) from err
+        raise NotImplementedError(f"algo.actor.cls={name}: not in the port") from err
 
 
 def _unsupported(cfg) -> None:
@@ -432,8 +432,17 @@ def _unsupported(cfg) -> None:
 
 
 def check_actor_cls(cfg) -> None:
-    """Only the port's DreamerV3 ``Actor`` (discrete, or its continuous form) is ported."""
-    if resolve_actor_cls(cfg.algo.actor.cls) is not Actor:
+    """The port's DreamerV3 ``Actor`` (discrete, or its continuous form), or
+    ``minedojo_actor.MinedojoActor`` on MineDojo's wrapper. As in the JAX
+    package, MineDojo's masked sampling follows the wrapper's ``_target_``
+    whichever of the two is named."""
+    cls = resolve_actor_cls(cfg.algo.actor.cls)
+    if cls is MinedojoActor and not is_minedojo(cfg):
+        raise ValueError(
+            f"algo.actor.cls={cfg.algo.actor.cls}: the MineDojo actor acts on the MineDojo wrapper's masks "
+            "(env=minedojo)"
+        )
+    if cls not in (Actor, MinedojoActor):
         raise NotImplementedError(
             f"algo.actor.cls={cfg.algo.actor.cls}: only the discrete Actor and its continuous form (the port's Actor) "
             "are ported"
@@ -456,6 +465,7 @@ def train_loop(
     switch_at_learning_starts: bool = False,
     expl_decay_steps: Optional[int] = None,
     replay_state: Optional[Dict[str, Any]] = None,
+    masked_acting: bool = False,
 ) -> Dict[str, Any]:
     """The DreamerV3 loop over an agent built by the caller (:func:`main`,
     the P2E entrypoints), with the hooks of
@@ -464,7 +474,9 @@ def train_loop(
     ``switch_at_learning_starts``, each replayed from its own captured acting
     step, the player state carried over at the switch), the checkpoint's
     entries, the in-run publication, the test player, ``random_prefill`` and
-    a buffer state to restore."""
+    a buffer state to restore. With ``masked_acting`` (MineDojo) the acting
+    steps take the env's ``mask_*`` observations beside the observation, as
+    inputs of their graph; the test episode takes none, as in JAX."""
     world_size = fabric.world_size
     generator, device, logger, log_dir, envs = run.generator, run.device, run.logger, run.log_dir, run.envs
     n_envs, actions_dim, is_continuous = run.n_envs, run.actions_dim, run.is_continuous
@@ -522,6 +534,9 @@ def train_loop(
 
     o = envs.reset(seed=cfg.seed)[0]
     obs = prepare_obs(o, cnn_keys, mlp_keys, n_envs)
+    # MineDojo's validity masks, carried beside the observation for the acting steps only
+    mask_keys = MASK_KEYS if masked_acting else ()
+    masks = {k: np.asarray(o[k]) for k in mask_keys}
     act_width = int(np.sum(actions_dim))
     step_data = {k: obs[k][None] for k in obs_keys}
     step_data["dones"] = np.zeros((1, n_envs, 1), np.float32)
@@ -531,7 +546,7 @@ def train_loop(
     # reset right after its env step (the fresh state depends on the weights of that moment)
     actings = [
         ExplorationStep(player_fns, n_envs, {k: obs[k] for k in obs_keys}, cnn_keys, generator, device,
-                        reset_in_step=False)
+                        reset_in_step=False, masks_example=masks)
         for player_fns in players
     ]
     acting_index = actor_for(start_step)
@@ -583,6 +598,7 @@ def train_loop(
                             real_next_obs[k][idx] = np.asarray(fo[k])
 
         new_obs = prepare_obs(o, cnn_keys, mlp_keys, n_envs)
+        masks.update({k: np.asarray(o[k]) for k in mask_keys})
         for k in obs_keys:
             step_data[k] = new_obs[k][None]
         step_data["dones"] = dones.reshape(1, n_envs, 1)
@@ -631,7 +647,7 @@ def train_loop(
                         for k, v in actings[acting_index].state.items():
                             actings[index].state[k].copy_(v)
                         acting_index, switched_at = index, update
-                    actions_t = actings[index]({k: obs[k] for k in obs_keys}, None, expl_amount)
+                    actions_t = actings[index]({k: obs[k] for k in obs_keys}, None, expl_amount, masks=masks)
                     actions = np.concatenate([a.cpu().numpy() for a in actions_t], -1)
                     if is_continuous:
                         real_actions = actions
@@ -796,4 +812,5 @@ def main(fabric, cfg) -> Dict[str, Any]:
         publish=lambda: {"agent": {k: state[k].state_dict() for k in ("world_model", "actor")}},
         test_player=player_fns,
         replay_state=resumed.get("rb") if resumed is not None and cfg.buffer.get("checkpoint", False) else None,
+        masked_acting=is_minedojo(cfg),
     )

@@ -3,8 +3,10 @@
 
 Reference config trees (``sheeprl.*``, ``torchmetrics.*``, ``lightning.*``)
 resolve to the port's classes through the alias table. A target in the
-port's namespace whose module or class is not ported yet raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+port's namespace whose module or class the port does not have raises
+``NotImplementedError``; a port module that exists but whose dependency is
+missing (a real-simulator wrapper without its simulator) raises its own
+``ModuleNotFoundError``, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -27,20 +29,6 @@ TARGET_ALIASES: Dict[str, str] = {
 # any other `sheeprl.` path maps onto the same path in the port
 _PREFIX_ALIASES = {"sheeprl.": "sheeprl_tpu_torch."}
 _PORT = "sheeprl_tpu_torch."
-# targets of the YAML tree that the port does not have yet → the ROADMAP item that ports them
-NOT_PORTED: Dict[str, str] = {
-    "sheeprl_tpu_torch.envs.crafter": "ROADMAP queue A item 6i (real-simulator env wrappers)",
-    "sheeprl_tpu_torch.envs.diambra": "ROADMAP queue A item 6i (real-simulator env wrappers)",
-    "sheeprl_tpu_torch.envs.minedojo": "ROADMAP queue A item 6i (real-simulator env wrappers)",
-    "sheeprl_tpu_torch.envs.minerl": "ROADMAP queue A item 6i (real-simulator env wrappers)",
-}
-
-
-def _not_ported(path: str) -> str:
-    for prefix, item in NOT_PORTED.items():
-        if path == prefix or path.startswith(prefix + "."):
-            return item
-    return "see ROADMAP queue A"
 
 
 def resolve_target(path: str) -> Any:
@@ -52,16 +40,13 @@ def resolve_target(path: str) -> Any:
     module_name, _, attr = path.rpartition(".")
     if not module_name:
         raise ValueError(f"Cannot resolve target '{path}'")
-    ported = not path.startswith(_PORT) or not any(
-        path == p or path.startswith(p + ".") for p in NOT_PORTED
-    )
     try:
-        if not ported:
-            raise LookupError(path)
         return getattr(importlib.import_module(module_name), attr)
-    except (LookupError, ModuleNotFoundError, AttributeError) as exc:
-        if path.startswith(_PORT):
-            raise NotImplementedError(f"target {path} is not ported yet: {_not_ported(path)}") from exc
+    except (ModuleNotFoundError, AttributeError) as exc:
+        # a port module that imports but lacks what it needs (a simulator) raises its own ModuleNotFoundError
+        missing_here = isinstance(exc, AttributeError) or (exc.name and module_name.startswith(exc.name))
+        if path.startswith(_PORT) and missing_here:
+            raise NotImplementedError(f"target {path} is not in the port: see ROADMAP queue A") from exc
         raise
 
 

@@ -175,7 +175,9 @@ class PolicyPublisher:
                 self._error = exc
 
     def close(self, timeout: float = 30.0) -> None:
-        """Flush pending publications and stop the writer."""
+        """Flush pending publications and stop the writer. A writer process
+        still alive after ``timeout`` is killed: it ignores SIGTERM, and one
+        left running would hold its parent's exit, which joins it."""
         if self._thread is not None:
             self._queue.put(None)
             self._thread.join(timeout=timeout)
@@ -187,7 +189,7 @@ class PolicyPublisher:
             for proc in self._procs:
                 proc.join(timeout=max(deadline - time.monotonic(), 0.5))
                 if proc.is_alive():
-                    proc.terminate()
+                    proc.kill()
                     proc.join(timeout=5.0)
             self._procs = []
             for q in (self._queue, self._errors):

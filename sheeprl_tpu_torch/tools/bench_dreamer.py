@@ -106,9 +106,11 @@ def _device_us_by_name(prof) -> Dict[str, float]:
 
 
 def run(steps: int = 5, device=None, profile: bool = False, seed: int = 0, mode: str = "eager",
-        algo: str = "dreamer_v2", **overrides) -> Dict[str, Any]:
+        algo: str = "dreamer_v2", profiled_steps: Optional[int] = None, **overrides) -> Dict[str, Any]:
     """Warm-up at τ=1, ``steps`` timed steps at τ=0 (``mode`` eager, or
-    graphed: one-sample bursts); returns one side of :func:`compare`."""
+    graphed: one-sample bursts), then with ``profile`` ``profiled_steps``
+    (default ``steps``) more under the profiler; returns one side of
+    :func:`compare`."""
     import torch
 
     from sheeprl_tpu_torch.device import resolve_device
@@ -167,7 +169,7 @@ def run(steps: int = 5, device=None, profile: bool = False, seed: int = 0, mode:
     if profile:
         if not cuda:
             raise RuntimeError("--profile measures the device: it needs a CUDA card")
-        prof = profile_steps(step, steps)
+        prof = profile_steps(step, steps if profiled_steps is None else profiled_steps)
         # the profiler slows the host; the device's work is the same, so its
         # busy time over the unprofiled steps' wall time is the idle share those had
         prof["device_idle_share_of_timed_steps"] = 1.0 - prof["device_busy_ms_per_step"] / (1e3 * wall_s / steps)
@@ -179,10 +181,10 @@ def run(steps: int = 5, device=None, profile: bool = False, seed: int = 0, mode:
 
 
 def compare(steps: int = 5, device=None, profile: bool = False, seed: int = 0, algo: str = "dreamer_v2",
-            **overrides) -> Dict[str, Any]:
+            profiled_steps: Optional[int] = None, **overrides) -> Dict[str, Any]:
     """The eager and the graphed step in one call, each on a fresh trainer."""
-    eager = run(steps, device, profile, seed, mode="eager", algo=algo, **overrides)
-    graphed = run(steps, device, profile, seed, mode="graphed", algo=algo, **overrides)
+    eager = run(steps, device, profile, seed, mode="eager", algo=algo, profiled_steps=profiled_steps, **overrides)
+    graphed = run(steps, device, profile, seed, mode="graphed", algo=algo, profiled_steps=profiled_steps, **overrides)
     return {"metric": _metric(algo), "eager": eager, "graphed": graphed,
             "graphed_over_eager": graphed["value"] / eager["value"]}
 

@@ -121,8 +121,8 @@ def build_env(
     """Build one fully-wrapped env (the body of :func:`make_env`'s thunk)."""
     if cfg.env.capture_video and rank == 0 and vector_env_idx == 0 and run_name is not None:
         raise NotImplementedError(
-            "env.capture_video=True: video capture is not ported and not queued: it needs moviepy "
-            "(ROADMAP queue A, after item 6i); pass env.capture_video=False"
+            "env.capture_video=True: video capture is not ported: it needs moviepy, which the port's machines do "
+            "not have (ROADMAP queue A); pass env.capture_video=False"
         )
     kwargs = {}
     if "seed" in cfg.env.wrapper:

@@ -179,7 +179,9 @@ def test_the_port_cli_trains_checkpoints_resumes_and_serves(tmp_path, monkeypatc
         # the profiler and the learn probes run now (6h-b, 6h-c); values no run can honour still raise
         (["metric.telemetry.profile.every_n_steps=-1"], "every_n_steps must be >= 0"),
         (["metric.telemetry.enabled=true", "metric.telemetry.learn.every_n_bursts=0"], "every_n_bursts must be >= 1"),
-        (["algo.actor.cls=sheeprl_tpu.algos.dreamer_v3.minedojo_actor.MinedojoActor"], "not in the port"),
+        # the MineDojo actor is ported: it acts on the MineDojo wrapper's masks, which env=dummy does not give
+        (["algo.actor.cls=sheeprl_tpu.algos.dreamer_v3.minedojo_actor.MinedojoActor"], "MineDojo wrapper's masks"),
+        (["algo.actor.cls=sheeprl_tpu.algos.dreamer_v3.agent.NotAnActor"], "not in the port"),
         (["algo.actor.cls=sheeprl_tpu_torch.algos.dreamer_v3.agent.MLPWithHead"], "only the discrete Actor"),
         (["algo.actor.cls=other.Actor"], "only its own"),
     ],

@@ -6,27 +6,27 @@ against the JAX package on the CPU.
   (the ``dreamer_v3_L_doapp`` preset as it ships, on the DIAMBRA stand-in's
   spaces): the JAX tree's shapes from ``jax.eval_shape``, zeros of those
   shapes converted and loaded strictly into the port's training build.
-- The stand-in envs that ``chip_smoke.py`` runs these presets on (the card
-  has no diambra or crafter) have the JAX wrappers' spaces: each JAX wrapper
-  is built over a stub simulator module put into ``sys.modules`` that gives
-  the raw spaces the stand-in starts from, and the two are compared key by
-  key (shape, dtype, bounds) with the action space.
-- The port's CLI runs each preset end to end at a reduced width on the
-  stand-ins, at its own precision (f32 for the DreamerV3 presets, bf16-mixed
+- ``chip_smoke.py`` runs these presets through the port's own DIAMBRA and
+  Crafter wrappers over the stand-in simulators of ``tests/sim_stubs.py``
+  (the card has no diambra or crafter): over the same stand-in, the port's
+  wrapper and the JAX wrapper have the same spaces key by key (shape,
+  dtype, bounds) and the same action space.
+- The port's CLI runs each preset end to end at a reduced width through its
+  own wrapper over the stand-ins, at its own precision (f32 for the DreamerV3 presets, bf16-mixed
   for the P2E ones; finetuning from the exploration run's checkpoint) and
   the L preset also under bf16-mixed: every floating array of each
   checkpoint's agent is f32.
 """
 
 import importlib
-import sys
-import types
 
 import gymnasium as gym
 import jax
 import numpy as np
 import pytest
+import sim_stubs
 import torch
+from test_torch_envs_sims import _same, sims  # noqa: F401  (sims: the stand-in simulators fixture)
 
 import chip_smoke
 from sheeprl_tpu.algos.dreamer_v3 import agent as jax_agent
@@ -106,62 +106,10 @@ def test_converter_carries_every_leaf_of_a_jax_build_at_L_width():
     assert modules[0].rssm.recurrent_model.gru.weight.shape == (768 + 2048, 3 * 2048)
 
 
-def _gym_space(kind, *args):
-    if kind == "discrete":
-        return gym.spaces.Discrete(args[0])
-    return gym.spaces.Box(args[0], args[1], (1,), np.int32)
-
-
-def _stub_diambra(monkeypatch):
-    """A ``diambra``/``diambra.arena`` stub whose ``make`` gives an env of the
-    raw Dead or Alive++ spaces the stand-in starts from (``DOAPP_RAW_KEYS``;
-    the frame at the settings' ``frame_shape``, 0 channels meaning RGB, as
-    the engine reads it) and the combo-discrete action space."""
-    diambra, arena = types.ModuleType("diambra"), types.ModuleType("diambra.arena")
-
-    class SpaceTypes:
-        DISCRETE, MULTI_DISCRETE = "DISCRETE", "MULTI_DISCRETE"
-
-    class Settings:
-        def __init__(self, **kwargs):
-            self.__dict__.update(kwargs)
-
-    class Env(gym.Env):
-        def __init__(self, settings):
-            h, w, c = settings.frame_shape
-            frame = gym.spaces.Box(0, 255, (h, w, 1 if c == 1 else 3), np.uint8)
-            raw = {k: _gym_space(*v) for k, v in chip_smoke.DOAPP_RAW_KEYS.items()}
-            self.observation_space = gym.spaces.Dict({"frame": frame, **raw})
-            self.action_space = gym.spaces.Discrete(chip_smoke.DOAPP_ACTIONS)
-
-    arena.SpaceTypes, arena.EnvironmentSettings, arena.WrappersSettings = SpaceTypes, Settings, Settings
-    arena.make = lambda id, settings, wrappers, **kwargs: Env(settings)
-    diambra.arena = arena
-    monkeypatch.setitem(sys.modules, "diambra", diambra)
-    monkeypatch.setitem(sys.modules, "diambra.arena", arena)
-
-
-def _stub_crafter(monkeypatch):
-    crafter = types.ModuleType("crafter")
-
-    class Env(gym.Env):
-        def __init__(self, size, seed=None, reward=True):
-            self.observation_space = gym.spaces.Box(0, 255, tuple(size) + (3,), np.uint8)
-            self.action_space = gym.spaces.Discrete(chip_smoke.CRAFTER_ACTIONS)
-            self.reward_range = None
-
-    crafter.Env = Env
-    monkeypatch.setitem(sys.modules, "crafter", crafter)
-
-
-def _jax_wrapper_module(monkeypatch, name, flags):
-    """``sheeprl_tpu.envs.<name>`` imported afresh over the stubs (its import
-    gate reads the flags of ``sheeprl_tpu.utils.imports``)."""
-    imports = importlib.import_module("sheeprl_tpu.utils.imports")
-    for flag in flags:
-        monkeypatch.setattr(imports, flag, True)
-    monkeypatch.delitem(sys.modules, f"sheeprl_tpu.envs.{name}", raising=False)
-    return importlib.import_module(f"sheeprl_tpu.envs.{name}")
+def _wrappers(name):
+    """The JAX package's and the port's ``envs.<name>`` modules, imported over the stand-ins."""
+    return (importlib.import_module(f"sheeprl_tpu.envs.{name}"),
+            importlib.import_module(f"sheeprl_tpu_torch.envs.{name}"))
 
 
 def _assert_same_spaces(port_env, jax_env):
@@ -176,32 +124,34 @@ def _assert_same_spaces(port_env, jax_env):
 
 
 @pytest.mark.parametrize("grayscale", [False, True], ids=["rgb", "grey"])
-def test_doapp_stand_in_has_the_jax_diambra_wrappers_spaces(monkeypatch, grayscale):
-    _stub_diambra(monkeypatch)
-    module = _jax_wrapper_module(monkeypatch, "diambra", ("_IS_DIAMBRA_AVAILABLE", "_IS_DIAMBRA_ARENA_AVAILABLE"))
-    jax_env = module.DiambraWrapper("doapp", screen_size=64, grayscale=grayscale,
-                                    diambra_settings={"role": None}, diambra_wrappers={})
-    port_env = chip_smoke.doapp_stand_in("doapp", screen_size=64, grayscale=grayscale, rank=0)
+def test_doapp_stand_in_has_the_jax_diambra_wrappers_spaces(sims, grayscale):
+    """Dead or Alive++ at the presets' settings (64 px, RGB or grey, no role), through the port's and the JAX
+    DIAMBRA wrapper over the diambra stand-in: the same spaces and the same first observation; an action outside
+    the combo-discrete space raises."""
+    jax_module, port_module = _wrappers("diambra")
+    kwargs = dict(screen_size=64, grayscale=grayscale, rank=0, diambra_settings={"role": None},
+                  diambra_wrappers={})
+    jax_env = jax_module.DiambraWrapper("doapp", **kwargs)
+    port_env = port_module.DiambraWrapper("doapp", **kwargs)
     _assert_same_spaces(port_env, jax_env)
-    obs, _ = port_env.reset(seed=1)
-    for k, v in obs.items():
-        assert jax_env.observation_space[k].contains(v), k
+    _same(jax_env.reset(seed=1)[0], port_env.reset(seed=1)[0], "reset")
     _obs, _r, terminated, truncated, _ = port_env.step(np.asarray([chip_smoke.DOAPP_ACTIONS - 1]))
     assert not terminated and not truncated
     with pytest.raises(ValueError):
         port_env.step(chip_smoke.DOAPP_ACTIONS)
 
 
-def test_crafter_stand_in_has_the_jax_crafter_wrappers_spaces(monkeypatch):
-    _stub_crafter(monkeypatch)
-    module = _jax_wrapper_module(monkeypatch, "crafter", ("_IS_CRAFTER_AVAILABLE",))
-    jax_env = module.CrafterWrapper("crafter_reward", screen_size=64, seed=0)
-    port_env = chip_smoke.crafter_stand_in("crafter_reward", screen_size=64, seed=0)
+def test_crafter_stand_in_has_the_jax_crafter_wrappers_spaces(sims):
+    """Crafter through the port's and the JAX Crafter wrapper over the crafter stand-in; its episode (a life)
+    ends after ``sim_stubs.EPISODE_STEPS`` steps."""
+    jax_module, port_module = _wrappers("crafter")
+    jax_env = jax_module.CrafterWrapper("crafter_reward", screen_size=64, seed=0)
+    port_env = port_module.CrafterWrapper("crafter_reward", screen_size=64, seed=0)
     _assert_same_spaces(port_env, jax_env)
     port_env.reset(seed=2)
-    for t in range(chip_smoke.STAND_IN_EPISODE):
+    for t in range(sim_stubs.EPISODE_STEPS):
         _obs, _r, terminated, _trunc, _ = port_env.step(3)
-    assert terminated and t == chip_smoke.STAND_IN_EPISODE - 1
+    assert terminated and t == sim_stubs.EPISODE_STEPS - 1
 
 
 SMALL = [
@@ -212,14 +162,14 @@ SMALL = [
     "fabric.accelerator=cpu", "env.sync_env=True", "env.capture_video=False", "buffer.size=512",
     "metric.log_level=0", "algo.ensembles.n=2",
 ]
-# (exp, stand-in, extra overrides: learning from 8 steps an env, 3 bursts after it)
+# (exp, extra overrides: learning from 8 steps an env, 3 bursts after it). The XL preset's env.id "reward" is no
+# Crafter id the wrappers take (the JAX one raises on it too): its run names its task, crafter_reward
 RUNS = {
-    "L": ("dreamer_v3_L_doapp", "doapp", ["algo.learning_starts=64", "total_steps=88"]),
-    "L_bf16": ("dreamer_v3_L_doapp", "doapp", ["algo.learning_starts=64", "total_steps=88",
-                                               "fabric.precision=bf16-mixed"]),
-    "L_128px": ("dreamer_v3_L_doapp_128px_gray_combo_discrete", "doapp",
+    "L": ("dreamer_v3_L_doapp", ["algo.learning_starts=64", "total_steps=88"]),
+    "L_bf16": ("dreamer_v3_L_doapp", ["algo.learning_starts=64", "total_steps=88", "fabric.precision=bf16-mixed"]),
+    "L_128px": ("dreamer_v3_L_doapp_128px_gray_combo_discrete",
                 ["algo.learning_starts=64", "total_steps=88", "env.num_envs=8"]),
-    "XL": ("dreamer_v3_XL_crafter", "crafter", ["algo.learning_starts=16", "total_steps=22"]),
+    "XL": ("dreamer_v3_XL_crafter", ["algo.learning_starts=16", "total_steps=22", "env.id=crafter_reward"]),
 }
 
 
@@ -237,27 +187,27 @@ def _f32_agent(ckpt):
     assert floats and set(floats) == {np.dtype(np.float32)}
 
 
-def _run(tmp_path, name, exp, env, extra):
-    args = [f"exp={exp}", f"env.wrapper._target_=chip_smoke.{env}_stand_in", f"root_dir={tmp_path}",
-            f"run_name={name}"] + SMALL + extra
+def _run(tmp_path, name, exp, extra):
+    """The preset through the port's CLI and its own env.wrapper over the stand-in simulators."""
+    args = [f"exp={exp}", f"root_dir={tmp_path}", f"run_name={name}"] + SMALL + extra
     if not exp.startswith("p2e"):
         args.remove("algo.ensembles.n=2")
     result = cli.run(args)
-    assert result["gradient_steps"] >= 3 and result["test_steps"] == chip_smoke.STAND_IN_EPISODE
+    assert result["gradient_steps"] >= 3 and result["test_steps"] == sim_stubs.EPISODE_STEPS
     _f32_agent(result["checkpoint"])
     return result
 
 
 @pytest.mark.parametrize("name", sorted(RUNS))
-def test_cli_runs_the_preset_on_its_stand_in(tmp_path, name):
+def test_cli_runs_the_preset_on_its_stand_in(sims, tmp_path, name):
     _run(tmp_path, name, *RUNS[name])
 
 
-def test_cli_runs_the_p2e_L_presets_under_bf16(tmp_path):
+def test_cli_runs_the_p2e_L_presets_under_bf16(sims, tmp_path):
     """Exploration, then finetuning from its checkpoint, each at its preset's
     ``bf16-mixed``; the finetuning player switches to the task actor."""
     steps = ["algo.learning_starts=128", "total_steps=176"]
-    expl = _run(tmp_path, "expl", "p2e_dv3_expl_L_doapp_128px_gray_combo_discrete_15Mexpl_20Mstps", "doapp", steps)
-    fntn = _run(tmp_path, "fntn", "p2e_dv3_fntn_L_doapp_64px_gray_combo_discrete_5Mstps", "doapp",
+    expl = _run(tmp_path, "expl", "p2e_dv3_expl_L_doapp_128px_gray_combo_discrete_15Mexpl_20Mstps", steps)
+    fntn = _run(tmp_path, "fntn", "p2e_dv3_fntn_L_doapp_64px_gray_combo_discrete_5Mstps",
                 steps + [f"checkpoint.exploration_ckpt_path={expl['checkpoint']}"])
     assert fntn["actor_switched_at"] == 128 // 16

@@ -52,14 +52,49 @@ def test_importing_every_module_loads_no_forbidden_module():
                  "obs.hist", "obs.spans", "obs.counters", "obs.health", "obs.live", "obs.perf", "obs.telemetry",
                  "obs.dist.staleness", "obs.prof.capture", "obs.prof.trace", "obs.prof.roofline", "obs.prof.harness",
                  "obs.learn.probes", "obs.learn.sentinel", "tools.roofline_report", "tools.run_report",
-                 "obs.reqtrace", "obs.slo", "serve.ops", "tools.serve_report", "tools.trace_view", "tools.lint_serve"):
+                 "obs.reqtrace", "obs.slo", "serve.ops", "tools.serve_report", "tools.trace_view", "tools.lint_serve",
+                 *SIMULATOR_MODULES):
         assert f"sheeprl_tpu_torch.{name}" in modules
+    # the real-simulator wrappers raise at import without their simulators: the stand-ins take their place
     code = (
         "import importlib, sys\n"
+        f"sys.path.insert(0, {str(REPO / 'tests')!r})\n"
+        "import sim_stubs\n"
+        "sim_stubs.install()\n"
         "before = set(sys.modules)\n"
         f"for name in {modules!r}: importlib.import_module(name)\n"
         "new = sorted(set(sys.modules) - before)\n"
         f"bad = [m for m in new if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r})]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+SIMULATOR_MODULES = ("utils.imports", "envs.crafter", "envs.diambra", "envs.minerl",
+                     "envs.minerl_envs.backend", "envs.minerl_envs.navigate", "envs.minerl_envs.obtain",
+                     "envs.minedojo", "algos.dreamer_v3.minedojo_actor", "available_agents")
+
+
+def test_the_simulator_wrappers_load_no_gymnasium_over_duck_typed_stand_ins():
+    """On a machine without gymnasium (the card's) the stand-ins hand out duck-typed spaces, and the wrappers,
+    the MineDojo actor and ``available_agents`` import and build envs without loading gymnasium or JAX."""
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(REPO / 'tests')!r})\n"
+        "import sim_stubs\n"
+        "sim_stubs.install()\n"
+        f"for name in {SIMULATOR_MODULES!r}: importlib.import_module('sheeprl_tpu_torch.' + name)\n"
+        "from sheeprl_tpu_torch.envs.crafter import CrafterWrapper\n"
+        "from sheeprl_tpu_torch.envs.diambra import DiambraWrapper\n"
+        "from sheeprl_tpu_torch.envs.minerl import MineRLWrapper\n"
+        "from sheeprl_tpu_torch.envs.minedojo import MineDojoWrapper\n"
+        "envs = [CrafterWrapper('crafter_reward', 64, seed=0), DiambraWrapper('doapp', rank=0),\n"
+        "        MineRLWrapper('custom_navigate', multihot_inventory=False), MineDojoWrapper('open-ended')]\n"
+        "for env in envs: env.reset(seed=0)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('gymnasium', 'gym', 'jax', 'flax', 'sheeprl_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -379,18 +414,22 @@ def test_the_dreamer_v1_builds_raise_without_a_card(monkeypatch):
 
 
 def test_a_bf16_p2e_run_on_the_doapp_stand_in_loads_none_of_the_card_path_exclusions(tmp_path):
-    """P2E-DV3's L DIAMBRA exploration preset at its ``bf16-mixed`` on the
-    DIAMBRA stand-in, then finetuning from its checkpoint and serving it, in
-    a fresh interpreter: PyYAML, gymnasium, OpenCV, tensorboardX, JAX and the
-    JAX package are never imported, and the served model is built from the
-    run's ``bf16-mixed``."""
+    """P2E-DV3's L DIAMBRA exploration preset at its ``bf16-mixed`` through
+    the port's DIAMBRA wrapper over the diambra stand-in
+    (``tests/sim_stubs.py``), then finetuning from its checkpoint and serving
+    it, in a fresh interpreter: PyYAML, gymnasium, OpenCV, tensorboardX, JAX
+    and the JAX package are never imported, and the served model is built
+    from the run's ``bf16-mixed``."""
     tiny = [a for a in TINY_P2E if not a.startswith(("env=", "env.id=", "env.num_envs=", "total_steps=",
                                                        "algo.learning_starts="))]
-    tiny += ["env.wrapper._target_=chip_smoke.doapp_stand_in", "env.capture_video=False", "env.num_envs=2",
-             "total_steps=8", "algo.learning_starts=4", f"root_dir={tmp_path}", "fabric.accelerator=cpu"]
+    tiny += ["env.capture_video=False", "env.num_envs=2", "total_steps=8", "algo.learning_starts=4",
+             f"root_dir={tmp_path}", "fabric.accelerator=cpu"]
     code = (
         "import sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
+        f"sys.path.insert(0, {str(REPO / 'tests')!r})\n"
+        "import sim_stubs\n"
+        "sim_stubs.install('diambra')\n"
         "from sheeprl_tpu_torch import cli\n"
         "from sheeprl_tpu_torch.serve.model import load_gateway_model\n"
         f"base = {tiny!r}\n"

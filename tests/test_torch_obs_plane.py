@@ -102,6 +102,21 @@ def test_a_gateway_follows_a_live_process_plane_run(tmp_path, monkeypatch):
     assert np.isfinite(np.asarray(actions)).all()
 
 
+def test_close_stops_a_writer_process_that_never_gets_its_turn(tmp_path):
+    import multiprocessing as mp
+
+    ctx = mp.get_context("forkserver")
+    publisher = PolicyPublisher(str(tmp_path / "policy"), algo="sac_decoupled", async_publish=True, mp_context=ctx)
+    publisher._start_writer()
+    publisher._turn.value = 1_000  # no sequence number reaches this turn: the writer waits for it
+    publisher.publish(1, {"w": np.zeros(3, np.float32)})
+    writers = list(publisher._procs)
+    t0 = time.monotonic()
+    publisher.close(timeout=1.0)
+    assert time.monotonic() - t0 < 30
+    assert not any(p.is_alive() for p in writers)
+
+
 def test_a_writer_process_lands_every_version_in_order_and_raises_a_failure(tmp_path):
     import multiprocessing as mp
 

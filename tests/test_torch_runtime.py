@@ -99,15 +99,17 @@ def test_registry_finds_the_ported_entrypoint():
 
 
 @pytest.mark.parametrize(
-    "target,match",
+    "target,error,match",
     [
-        ("sheeprl_tpu_torch.envs.crafter.CrafterWrapper", "item 6"),
-        ("sheeprl_tpu_torch.envs.minerl.MineRLWrapper", "item 6i"),
-        ("sheeprl_tpu_torch.not_a_module.X", "queue A"),
+        # the real-simulator wrappers are ported: without their simulator they raise at import, as JAX's do
+        ("sheeprl_tpu_torch.envs.crafter.CrafterWrapper", ModuleNotFoundError, "crafter is required"),
+        ("sheeprl_tpu_torch.envs.minerl.MineRLWrapper", ModuleNotFoundError, "minerl is required"),
+        ("sheeprl_tpu_torch.not_a_module.X", NotImplementedError, "queue A"),
+        ("sheeprl_tpu_torch.envs.dummy.NotAnEnv", NotImplementedError, "not in the port"),
     ],
 )
-def test_targets_not_ported_raise_naming_their_item(target, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_targets_not_ported_raise_naming_their_item(target, error, match):
+    with pytest.raises(error, match=match):
         instantiate({"_target_": target})
 
 

