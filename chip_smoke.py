@@ -319,6 +319,28 @@ events (``[run_ppo_cartpole_profiler]``). run_sac_decoupled's 2-player run
 opens the flight recorder's profiler window at its dump, which must parse
 with device events and the train step (its ``flight_windows``).
 
+Data-parallel training (ROADMAP queue A item 7a) runs in two phases,
+one in each lane, on the one card: ``ddp_nccl`` spawns a world of one NCCL
+rank (``parallel.spawn``) whose DreamerV3 (100k width), DreamerV2
+(MsPacman width) and PPO (Nature-CNN) steps capture their all-reduces in
+the steps' graphs, each held bit for bit against the same graphed steps
+outside a world (``cudnn.deterministic``), one more DreamerV3 replay
+profiled (its NCCL kernels and the trace parser's ``comms_ms_total`` above
+0: in a world of one rank NCCL's average is one ``oneRankReduce`` kernel a
+bucket, where an in-place sum would be no work and a gather a device copy),
+and ``fabric.devices=2`` through the CLI must
+raise on the one card; ``ddp_gloo`` spawns two gloo ranks sharing the card
+(their train steps eager: gloo's collectives run on the host) for
+DDP_GLOO_STEPS DreamerV3 steps at the 100k width, each rank on its own
+batch and noise (the reward and critic heads moved off their zero init
+from a seed, ``_live_heads``), the ranks' states bitwise equal after every
+step, the cell's launches a rank the prediction, and the first step's metrics held
+against the same two ranks on the CPU within TOL_TRAIN_LOSS and
+TOL_TRAIN_GRAD, the card's ranks taking the CPU ranks' straight-through
+samples' choices (``_PinnedSamples``: a near-tie flipped by rounding is
+counted, not followed) (``[ddp_nccl]``, ``[ddp_gloo]`` lines; the ranks'
+launches join ``ddp_paths``).
+
 Each path's launch counts are zeroed just before its run and read just
 after it: the served run (phase 4), the bench (phase 5), the timed train
 steps (phases 6, train_dv3, train_walker) and the graphed steps
@@ -338,9 +360,9 @@ families', then the SAC and on-policy families') and run_dv3 have the card
 alone. Then two more processes, the lanes (``chip_smoke.py --lane <name>
 <out>``, LANES), run beside the main process's run, run_walker, eval_serve
 and P2E runs: ``runs`` (run_dv1, run_dv3_L's phase, run_dv3_XL, the SAC
-family's runs and run_sac_pendulum, run_ppo_cartpole, run_a2c_cartpole) and
-``plane`` (run_sac_decoupled, run_ppo_decoupled,
-run_ppo_recurrent_cartpole). A lane's output is echoed when it ends, and
+family's runs and run_sac_pendulum, run_ppo_cartpole, run_a2c_cartpole,
+ddp_nccl) and ``plane`` (run_sac_decoupled, run_ppo_decoupled,
+run_ppo_recurrent_cartpole, ddp_gloo). A lane's output is echoed when it ends, and
 it fails the script if it fails. The ``[timing]`` line carries each lane's
 own line under ``lanes``. On a failure the script kills every process it
 started.
@@ -5516,6 +5538,298 @@ def main_serve_ops() -> int:
     return 0
 
 
+# The data-parallel phases (ROADMAP queue A item 7a; ``phase_ddp_nccl``, ``phase_ddp_gloo``). One card: NCCL refuses two ranks on one
+# device, so the DDP path runs (1) as a world of one NCCL rank (spawned by ``parallel.spawn``) whose steps capture
+# their all-reduces in the step's graph, held bitwise against the same steps outside a world; (2) as two gloo ranks
+# sharing the card (gloo's host collectives keep the train step eager), held against the same two ranks on the CPU;
+# and (3) ``fabric.devices=2`` through the CLI raises on the one card before anything is spawned.
+DDP_NCCL_ALGOS = ("dreamer_v3", "dreamer_v2", "ppo")
+# the two gloo ranks: DreamerV3 at the 100k MsPacman width, each rank's batch cut to 4 x 16, the world model at lr 0
+# as the card-against-CPU steps run it (DV1_CPU_OVERRIDES), the actor and critic at the preset's rates
+DDP_GLOO_OVERRIDES = {"per_rank_batch_size": 4, "per_rank_sequence_length": 16, "algo.world_model.optimizer.lr": 0.0}
+DDP_GLOO_STEPS = 2
+DDP_GLOO_HORIZON = 15
+DV3_CELL_LAUNCHES_PER_STEP = 79  # the DV3 100k preset's trainer: 64 posterior steps + 15 imagination steps
+DDP_PATHS = ("ddp_nccl_dreamer_v3", "ddp_nccl_dreamer_v2", "ddp_nccl_ppo", "ddp_gloo_dreamer_v3")
+
+
+def _hashes(tensors: dict) -> dict:
+    """A SHA-256 of each tensor's bytes (bitwise equality across processes)."""
+    import hashlib
+
+    return {k: hashlib.sha256(v.detach().cpu().contiguous().numpy().tobytes()).hexdigest() for k, v in tensors.items()}
+
+
+def _ddp_update_steps() -> dict:
+    """ONPOLICY_GRAPHED_UPDATES updates of PPO's preset (the Nature-CNN pixel
+    update) from seed SEED, graphed, at the trainer's own permutations; the
+    parameters' and the optimizer state's hashes and the metrics."""
+    import torch
+
+    cfg, agent, program, data, perms = onpolicy_trainer("ppo", "cuda")
+    metrics = [program.update(data, _onpolicy_scalars(cfg), perms=perms).tolist()
+               for _ in range(ONPOLICY_GRAPHED_UPDATES)]
+    torch.cuda.synchronize()
+    state = {f"opt.{i}.{k}": v for i, p in enumerate(agent.parameters())
+             for k, v in program.optimizer.state[p].items() if isinstance(v, torch.Tensor)}
+    out = {"metrics": metrics, "hashes": _hashes({**dict(agent.named_parameters()), **state}),
+           "graph": {"eager_calls": program.step.eager_calls, "replays": program.step.replays,
+                     "captured": program.step.graph is not None}}
+    del agent, program, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ddp_steps(algo: str) -> dict:
+    """``algo``'s graphed steps as the main phases run them (``_train_steps``,
+    ``_ddp_update_steps``), with ``cudnn.deterministic``: inside a world, its
+    collectives ride in the graph."""
+    import torch
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        if algo == "ppo":
+            return _ddp_update_steps()
+        run = _train_steps(True, algo)
+        return {"metrics": run["metrics"], "hashes": _hashes(run["params"]), "launches": run["launches"],
+                "graph": run["graph"]}
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _ddp_nccl_rank(fabric, algos) -> dict:
+    """The one NCCL rank: each algorithm's graphed steps, then one more
+    replay of DreamerV3's step under ``torch.profiler``, read by the port's
+    trace parser (its NCCL kernels and ``comms_ms_total``)."""
+    import torch
+
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.obs.prof import trace
+    from sheeprl_tpu_torch.tools import bench_dreamer
+    from sheeprl_tpu_torch.train.burst import run_train_burst, tau_schedule
+
+    out = {"world": (fabric.world_size, fabric.global_rank, fabric.backend), "runs": {}}
+    for algo in algos:
+        before = ops.hafner_cell_launches.count
+        out["runs"][algo] = _ddp_steps(algo)
+        out["runs"][algo]["launches"] = ops.hafner_cell_launches.count - before
+    out["sequence_launches"] = ops.hafner_sequence_launches.count
+    cfg, state, program, data = bench_dreamer.build_trainer("cuda", seed=0, algo="dreamer_v3")
+    stack = {k: v[None] for k, v in data.items()}
+    taus = tau_schedule(WARMUP_CALLS_DDP + 1, 0, 1, tau=0.02, first_hard=True)
+    before = ops.hafner_cell_launches.count
+    for i in range(WARMUP_CALLS_DDP):
+        run_train_burst(program, state, stack, taus[i : i + 1], fetch_metrics=False)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run_train_burst(program, state, stack, taus[-1:], fetch_metrics=False)
+        torch.cuda.synchronize()
+    summary = trace.summarize_events(trace.events_from_profiler(prof))
+    nccl = {}
+    for _c, name, _ts, _dur, _tid, _corr in trace.events_from_profiler(prof):
+        if trace.nccl_kind(name) is not None:
+            nccl[name.split("(")[0]] = nccl.get(name.split("(")[0], 0) + 1
+    out["profiled"] = {"replays": program.step.replays, "captured": program.step.graph is not None,
+                       "comms_ms_total": summary["comms_ms_total"], "comms_ms_by_kind": summary["comms_ms_by_kind"],
+                       "nccl_kernels": nccl, "launches": ops.hafner_cell_launches.count - before}
+    return out
+
+
+WARMUP_CALLS_DDP = 4  # three eager warm-up calls, the capture (a replay); the profiled call is the next replay
+
+
+def _ddp_gloo_inputs(rank: int, step: int):
+    """Rank ``rank``'s batch and noise for gloo step ``step``: drawn on the CPU from seeds."""
+    import torch
+
+    from sheeprl_tpu_torch import configs
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as train
+    from sheeprl_tpu_torch.obs.prof.harness import synthetic_batch
+
+    cfg = configs.dreamer_v2_config("dreamer_v3_100k_ms_pacman", **DDP_GLOO_OVERRIDES)
+    T, B = int(cfg.per_rank_sequence_length), int(cfg.per_rank_batch_size)
+    batch = synthetic_batch(T, B, N_ACTIONS, seed=1 + 10 * rank + step, continuous=False, obs=OBS)
+    noise = train.draw_noise(cfg, (N_ACTIONS,), T, B, torch.Generator().manual_seed(SEED + 100 * rank + step), "cpu",
+                             False)
+    return {k: torch.from_numpy(v) for k, v in batch.items()}, noise
+
+
+def _live_heads(state) -> None:
+    """The reward and critic heads start at zero (Hafner): move them, and the
+    target critic off the critic, from a seed, so that the returns, the
+    advantage and the target term are not rounding noise (the JAX parity
+    tests' set-up)."""
+    import torch
+
+    g = torch.Generator().manual_seed(8)
+    with torch.no_grad():
+        for head in (state["world_model"].reward_model.head, state["critic"].head):
+            head.weight.copy_(0.3 * torch.randn(tuple(head.weight.shape), generator=g))
+        for t, c in zip(state["target_critic"].parameters(), state["critic"].parameters()):
+            t.copy_(0.5 * c)
+
+
+def _ddp_gloo_rank(fabric, choices=None) -> dict:
+    """One of the two gloo ranks: DreamerV3 (the 100k width, DDP_GLOO_OVERRIDES)
+    from seed 0's weights, broadcast from rank 0, DDP_GLOO_STEPS eager steps
+    on this rank's batches and noise; each step's metrics, the state's
+    hashes after each step, the step's graph counts and the cell's
+    launches. Every straight-through sample is recorded (``choices`` None:
+    returned) or replaced by the given run's choice (``_PinnedSamples``:
+    a near-tie that rounding flipped is counted, not followed)."""
+    import torch
+
+    from sheeprl_tpu_torch.kernels import ops
+    from sheeprl_tpu_torch.tools import bench_dreamer
+
+    device = fabric.device
+    pins = _PinnedSamples()
+    if choices is not None:
+        pins.replay = True
+        pins.choices = [c.to(device) for c in choices[fabric.global_rank]]
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+    cfg, state, program, _data = bench_dreamer.build_trainer(device, seed=0, algo="dreamer_v3", **DDP_GLOO_OVERRIDES)
+    _live_heads(state)
+    fabric.sync_modules(*(state[k] for k in ("world_model", "actor", "critic", "target_critic")))
+    taus = [1.0] + [0.02] * (DDP_GLOO_STEPS - 1)
+    from sheeprl_tpu_torch.train.burst import run_train_burst
+
+    before = ops.hafner_cell_launches.count
+    steps = []
+    with pins:
+        for i in range(DDP_GLOO_STEPS):
+            batch, noise = _ddp_gloo_inputs(fabric.global_rank, i)
+            moved = {k: [t.to(device) for t in v] if isinstance(v, list) else v.to(device) for k, v in noise.items()}
+            stack = {k: v.to(device)[None] for k, v in batch.items()}
+            metrics = run_train_burst(program, state, stack, taus[i : i + 1], noise=[moved])
+            tensors = {f"{n}.{k}": v for n, m in _modules_of(state).items() for k, v in m.state_dict().items()}
+            tensors.update({f"moments.{k}": v for k, v in state["moments"].items()})
+            steps.append({"metrics": metrics, "hashes": _hashes(tensors)})
+    if choices is not None and pins.index != len(pins.choices):
+        raise AssertionError(f"the pinned run drew {pins.index} samples, the recorded one {len(pins.choices)}")
+    step = program.step
+    return {"steps": steps, "launches": ops.hafner_cell_launches.count - before,
+            "choices": [c.cpu() for c in pins.choices] if choices is None else None,
+            "flips": pins.flips, "samples": pins.samples,
+            "sequence_launches": ops.hafner_sequence_launches.count,
+            "graph": {"eager_calls": step.eager_calls, "replays": step.replays, "captured": step.graph is not None,
+                      "eager_backend": step.eager_backend},
+            "device": str(device), "world": (fabric.world_size, fabric.global_rank, fabric.backend)}
+
+
+def phase_ddp_nccl(card: str) -> dict:
+    """The data-parallel path in a world of one NCCL rank (ROADMAP queue A
+    item 7a), and ``fabric.devices=2`` through the CLI on the one card;
+    returns each path's launches (a rank is a process: its counts are its
+    own, zero at its start)."""
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.parallel import spawn
+    from sheeprl_tpu_torch.train.graphs import WARMUP_CALLS
+
+    # the steps' collectives captured in their graphs, bitwise the same steps outside a world
+    (nccl,) = spawn(_ddp_nccl_rank, 1, backend="nccl", device_of_rank="cuda:0", args=(DDP_NCCL_ALGOS,))
+    alone = {algo: _ddp_steps(algo) for algo in DDP_NCCL_ALGOS}
+    torch.cuda.empty_cache()
+    bitwise, bad = {}, []
+    for algo in DDP_NCCL_ALGOS:
+        got, want = nccl["runs"][algo], alone[algo]
+        bitwise[algo] = got["hashes"] == want["hashes"] and got["metrics"] == want["metrics"]
+        if not bitwise[algo]:
+            differ = sorted(k for k in want["hashes"] if got["hashes"].get(k) != want["hashes"][k])
+            bad.append(f"{algo}: the one-rank NCCL steps differ from the steps outside a world ({differ[:5]})")
+        if got["graph"] != want["graph"] or not got["graph"]["captured"]:
+            bad.append(f"{algo}: graphs {got['graph']} against {want['graph']}")
+    for algo, want in (("dreamer_v3", GRAPH_STEPS * DV3_CELL_LAUNCHES_PER_STEP),
+                       ("dreamer_v2", GRAPH_STEPS * CELL_LAUNCHES_PER_STEP), ("ppo", 0)):
+        if nccl["runs"][algo]["launches"] != want:
+            bad.append(f"{algo}: {nccl['runs'][algo]['launches']} cell launches in the NCCL world, predicted {want}")
+    prof = nccl["profiled"]
+    if not prof["nccl_kernels"] or not prof["comms_ms_total"] or prof["comms_ms_total"] <= 0:
+        bad.append(f"the profiled replay shows no NCCL kernel time: {prof}")
+    if not prof["captured"] or prof["replays"] != WARMUP_CALLS_DDP + 1 - WARMUP_CALLS:
+        bad.append(f"the profiled step ran as {prof}")
+    if prof["launches"] != (WARMUP_CALLS_DDP + 1) * DV3_CELL_LAUNCHES_PER_STEP:
+        bad.append(f"the profiled trainer launched the cell {prof['launches']} times")
+    if nccl["sequence_launches"]:
+        bad.append("the sequence kernel launched on a data-parallel path (no model path calls it)")
+
+    # two devices through the CLI on one card raise before any rank is spawned
+    try:
+        cli.run(["exp=dreamer_v3", "env=dummy", "fabric.devices=2", "dry_run=True", "metric.log_level=0"])
+        refusal = None
+    except ValueError as err:
+        refusal = str(err)
+    if refusal is None or "only 1 are available" not in refusal:
+        bad.append(f"fabric.devices=2 on one card: {refusal}")
+
+    line = {"card": card, "backend": "nccl", "ranks": 1, "cards": 1, "graphs": "captured",
+            "bitwise_vs_outside_a_world": bitwise,
+            "graph_counts": {a: nccl["runs"][a]["graph"] for a in DDP_NCCL_ALGOS},
+            "launches": {a: nccl["runs"][a]["launches"] for a in DDP_NCCL_ALGOS}, "profiled": prof,
+            "refusal_devices_2": refusal}
+    print("[ddp_nccl] " + json.dumps(line), flush=True)
+    if bad:
+        raise AssertionError(f"ddp_nccl: {bad}")
+    zero = {"hafner_cell": 0, "hafner_sequence": 0}
+    return {
+        "ddp_nccl_dreamer_v3": {**zero, "hafner_cell": nccl["runs"]["dreamer_v3"]["launches"] + prof["launches"]},
+        "ddp_nccl_dreamer_v2": {**zero, "hafner_cell": nccl["runs"]["dreamer_v2"]["launches"]},
+        "ddp_nccl_ppo": {**zero, "hafner_cell": nccl["runs"]["ppo"]["launches"]},
+    }
+
+
+def phase_ddp_gloo(card: str) -> dict:
+    """The data-parallel path on two gloo ranks sharing the card (ROADMAP
+    queue A item 7a; gloo's host collectives keep the train step eager),
+    held against the same two ranks on the CPU; returns the path's launches
+    (the ranks' sum)."""
+    from sheeprl_tpu_torch.parallel import spawn
+
+    # the CPU's ranks first: the card's ranks take their straight-through samples' choices
+    cpu_ranks = spawn(_ddp_gloo_rank, 2, backend="gloo", device_of_rank="cpu")
+    card_ranks = spawn(_ddp_gloo_rank, 2, backend="gloo", device_of_rank="cuda:0",
+                       args=([r["choices"] for r in cpu_ranks],))
+    predicted = DDP_GLOO_STEPS * (DDP_GLOO_OVERRIDES["per_rank_sequence_length"] + DDP_GLOO_HORIZON)
+    bad = []
+    for ranks, where in ((card_ranks, "card"), (cpu_ranks, "cpu")):
+        for i in range(DDP_GLOO_STEPS):
+            if ranks[0]["steps"][i]["hashes"] != ranks[1]["steps"][i]["hashes"]:
+                bad.append(f"gloo on the {where}: the ranks' states differ after step {i}")
+            if ranks[0]["steps"][i]["metrics"] != ranks[1]["steps"][i]["metrics"]:
+                bad.append(f"gloo on the {where}: the ranks' metrics differ at step {i}")
+    for r, rank in enumerate(card_ranks):
+        if rank["launches"] != predicted:
+            bad.append(f"gloo rank {r} launched the cell {rank['launches']} times, predicted {predicted}")
+        if rank["graph"] != {"eager_calls": DDP_GLOO_STEPS, "replays": 0, "captured": False, "eager_backend": "gloo"}:
+            bad.append(f"gloo rank {r}'s step ran as {rank['graph']}")
+        if rank["sequence_launches"]:
+            bad.append("the sequence kernel launched on a data-parallel path (no model path calls it)")
+    card_m, cpu_m = card_ranks[0]["steps"][0]["metrics"], cpu_ranks[0]["steps"][0]["metrics"]
+    gaps = {k: abs(card_m[k] - cpu_m[k]) / max(abs(cpu_m[k]), 1e-6) for k in cpu_m}
+    limits = {k: TOL_TRAIN_LOSS if k.startswith("Loss/") else TOL_TRAIN_GRAD for k in cpu_m}
+    bad += [f"gloo card against CPU: {k} {gaps[k]:.3g} > {limits[k]}" for k in cpu_m if gaps[k] > limits[k]]
+    last = card_ranks[0]["steps"][-1]["metrics"], cpu_ranks[0]["steps"][-1]["metrics"]
+    line = {"card": card, "backend": "gloo", "ranks": 2, "cards": 1, "graphs": "eager (gloo)",
+            "launches_per_rank": [r["launches"] for r in card_ranks], "predicted_per_rank": predicted,
+            "graph_counts": card_ranks[0]["graph"], "bitwise_replicas_every_step": not any("differ" in b for b in bad),
+            "card_vs_cpu_step0": {"rel_diff": gaps, "limits": limits},
+            "card_vs_cpu_last_step_rel_diff": {k: abs(last[0][k] - last[1][k]) / max(abs(last[1][k]), 1e-6)
+                                               for k in last[1]},
+            "pinned_samples": {"flips": [r["flips"] for r in card_ranks], "samples": [r["samples"] for r in card_ranks]},
+            "overrides": DDP_GLOO_OVERRIDES, "steps": DDP_GLOO_STEPS}
+    print("[ddp_gloo] " + json.dumps(line), flush=True)
+    if bad:
+        raise AssertionError(f"ddp_gloo: {bad}")
+    return {"ddp_gloo_dreamer_v3": {"hafner_cell": sum(r["launches"] for r in card_ranks), "hafner_sequence": 0}}
+
+
 class _PhaseClock:
     """Each phase's wall seconds (printed as the ``[timing]`` line): the
     script must stay inside its 1,200 s limit on a slow host. ``lanes``
@@ -5551,8 +5865,8 @@ class _PhaseClock:
 # on the card leave it as it is. The lanes' rates and idle shares are read beside the other processes' phases.
 LANES = {
     "runs": ("run_dv1", "run_dv3_L", "run_dv3_XL", *SAC_RUN_SPECS, "run_sac_pendulum", "run_ppo_cartpole",
-             "run_a2c_cartpole"),
-    "plane": ("run_sac_decoupled", "run_ppo_decoupled", "run_ppo_recurrent_cartpole"),
+             "run_a2c_cartpole", "ddp_nccl"),
+    "plane": ("run_sac_decoupled", "run_ppo_decoupled", "run_ppo_recurrent_cartpole", "ddp_gloo"),
 }
 LANE_TIMEOUT_S = 600
 
@@ -5573,6 +5887,10 @@ def _lane_phase(name: str, card: str, clock: "_PhaseClock") -> dict:
         return clock(name, phase_run_sac_decoupled, card)
     if name == "run_ppo_decoupled":
         return clock(name, phase_run_ppo_decoupled, card)
+    if name == "ddp_nccl":
+        return clock(name, phase_ddp_nccl, card)
+    if name == "ddp_gloo":
+        return clock(name, phase_ddp_gloo, card)
     raise KeyError(name)
 
 
@@ -5795,7 +6113,7 @@ def main() -> int:
             # the main paths' f32 runs: the DV2 MsPacman preset's, the DV3 100k, walker, L, L Navigate and XL
             # presets', the DV3 MineDojo run and its masked acting steps, the DV1 preset's (0) and the f32 P2E
             # presets' exploration and finetuning runs (P2E-DV1's 0; the bf16 presets' are hafner_cell_bf16's)
-            "launches": sum(by_path[run]["hafner_cell"] for run in (*RUN_SPECS, *MINEDOJO_PATHS))
+            "launches": sum(by_path[run]["hafner_cell"] for run in (*RUN_SPECS, *MINEDOJO_PATHS, *DDP_PATHS))
             + sum(by_path[f"run_{family}_{phase}"]["hafner_cell"] for family, spec in RUN_P2E_SPECS.items()
                   if not spec.get("bf16") for phase in ("exploration", "finetuning")),
             "max_abs_err": max(r["max_abs_err"] for r in serve_rows + train_rows + dv3_rows
@@ -5863,6 +6181,9 @@ def main() -> int:
             "ppo_train": onpolicy_train,
             # sac_decoupled and ppo_decoupled: PyTorch operations only, every run at 0 launches of both kernels
             "decoupled_paths": {path: counts for path, counts in by_path.items() if "decoupled" in path},
+            # the data-parallel paths (ROADMAP 7a): DV3, DV2 and PPO in a world of one NCCL rank, DV3 on two gloo
+            # ranks sharing the card (the ranks' sum)
+            "ddp_paths": {path: by_path[path] for path in DDP_PATHS},
         },
         {
             # the cell's bf16 operand path (fabric.precision=bf16-mixed): the same source, the product on

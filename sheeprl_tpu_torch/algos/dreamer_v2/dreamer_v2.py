@@ -24,7 +24,9 @@ cells: with ``objective_mix = 1`` the dynamics term is multiplied by 0, as
 in the reference, and its backward is kept.
 
 The JAX package runs the step as one SPMD program; here it is PyTorch on
-one device, updating the state in place, wrapped as a
+one device a process, updating the state in place (in a data-parallel
+world each module's gradients, then the metrics, are the world's mean
+through ``obs.dist.comms``: :func:`_step`), wrapped as a
 :class:`~sheeprl_tpu_torch.train.burst.TrainProgram`: eager when called,
 replayed from one CUDA graph a step in a burst on the card. Sampling noise
 is passed in (``noise``, for parity with the JAX step's keys) or drawn from
@@ -83,6 +85,7 @@ from sheeprl_tpu_torch.distributions import Bernoulli, Independent, Normal, gumb
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.vector import make_vector_env
 from sheeprl_tpu_torch.evals.inrun import maybe_start_inrun_eval
+from sheeprl_tpu_torch.obs.dist.comms import pmean, pmean_
 from sheeprl_tpu_torch.obs.learn import learn_tap, probe_losses, probe_update
 from sheeprl_tpu_torch.obs.perf import PhaseSeconds, log_sps_metrics, register_step_cost
 from sheeprl_tpu_torch.obs.prof.capture import profile_tick
@@ -186,13 +189,16 @@ def give_zero_grads(modules) -> None:
 
 def _step(module: torch.nn.Module, optimizer: torch.optim.Optimizer, clip: float,
           name: Optional[str] = None) -> torch.Tensor:
-    """Clip the module's gradients (optax's global-norm form) and step.
-    Returns the gradient norm before clipping. Inside a step built with the
-    learn probes on, the raw gradients, the parameters and the applied
-    update are probed under ``name`` (``obs/learn``), and the clip reuses
-    the probes' gradient norm."""
+    """Mean the module's gradients over the data-parallel world (one bucket:
+    ``obs.dist.comms.pmean_``, the identity outside a world), clip them
+    (optax's global-norm form) and step. Returns the gradient norm before
+    clipping. Inside a step built with the learn probes on, the synced
+    gradients, the parameters and the applied update are probed under
+    ``name`` (``obs/learn``), and the clip reuses the probes' gradient
+    norm."""
     params = list(module.parameters())
     grads = [p.grad for p in params]
+    pmean_(grads)
     probed = probe_update(name, grads, params, optimizer, clip)
     norm = clip_by_global_norm_(grads, clip, norm=probed.grad_norm)
     optimizer.step()
@@ -370,7 +376,7 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
         metrics["User/LambdaValues"] = aux["User/LambdaValues"]
         metrics["Loss/value_loss"] = value_loss.detach()
         metrics.update({f"Grads/{name}": norm for name, norm in grad_norms.items()})
-        return metrics
+        return pmean(metrics)
 
     def noise_for(T: int, B: int, generator: Optional[torch.Generator], device):
         return draw_noise(cfg, actions_dim, T, B, generator, device, is_continuous)
@@ -411,9 +417,12 @@ def load_optimizer_state(opt: torch.optim.Optimizer, saved: Dict[str, Any]) -> N
 
 
 def _graph_counts(steps) -> Dict[str, Any]:
-    """How captured steps ran: eager calls, replays, graphs captured and the
-    host seconds the eager warm-up calls and the captures took."""
+    """How captured steps ran: eager calls, replays, graphs captured, the
+    host seconds the eager warm-up calls and the captures took, and the
+    world's backend that kept a train step eager on the card (``gloo``, or
+    None)."""
     return {
+        "eager_backend": next((s.eager_backend for s in steps if s.eager_backend is not None), None),
         "eager_calls": sum(s.eager_calls for s in steps),
         "replays": sum(s.replays for s in steps),
         "captured": sum(s.graph is not None for s in steps),
@@ -444,7 +453,7 @@ def open_run(fabric, cfg) -> SimpleNamespace:
     if fabric.is_global_zero:
         save_configs(cfg, log_dir)
 
-    n_envs = int(cfg.env.num_envs) * fabric.world_size
+    n_envs = int(cfg.env.num_envs)  # this rank's envs
     envs = make_vector_env(cfg, fabric, log_dir, restart_on_exception=True)
     action_space = envs.single_action_space
     observation_space = envs.single_observation_space
@@ -577,7 +586,8 @@ def train_loop(
     policy_step = int(resumed["update"]) * cfg.env.num_envs if resumed is not None else 0
     last_log = int(resumed["last_log"]) if resumed is not None else 0
     last_checkpoint = int(resumed["last_checkpoint"]) if resumed is not None else 0
-    policy_steps_per_update = int(n_envs)
+    # every rank steps its n_envs envs: an update is n_envs · world_size policy steps, as JAX counts them
+    policy_steps_per_update = int(n_envs) * world_size
     updates_before_training = cfg.algo.train_every // policy_steps_per_update if not cfg.dry_run else 0
     num_updates = int(cfg.total_steps // policy_steps_per_update) if not cfg.dry_run else 1
     learning_starts = cfg.algo.learning_starts // policy_steps_per_update if not cfg.dry_run else 0
@@ -606,10 +616,11 @@ def train_loop(
     warn_checkpoint_rounding(cfg, policy_steps_per_update)
     actor_for = acting_order(players, switch_at_learning_starts, learning_starts)
 
-    staging = make_replay_staging(cfg, fabric, rb, seed=cfg.seed)
+    staging = make_replay_staging(cfg, fabric, rb, seed=fabric.rank_seed(cfg.seed))
 
     # First observation: a zero-action is_first row
-    o = envs.reset(seed=cfg.seed)[0]
+    # env i of rank r is JAX's env r·n_envs + i: its seed is the run's seed plus that index
+    o = envs.reset(seed=cfg.seed + fabric.global_rank * n_envs)[0]
     obs = prepare_obs(o, cnn_keys, mlp_keys, n_envs)
     act_width = int(np.sum(actions_dim))
     step_data = {k: obs[k][None] for k in obs_keys}
@@ -638,7 +649,7 @@ def train_loop(
         returns the player's next observation and marks the ended envs in
         ``reset_mask``."""
         nonlocal policy_step
-        policy_step += n_envs
+        policy_step += n_envs * world_size
         # The next row's is_first mirrors the previous dones
         step_data["is_first"] = step_data["dones"].copy()
         with span("Time/env_interaction_time", SumMetric(), phase="env"):
@@ -746,7 +757,7 @@ def train_loop(
             if n_samples > 0:
                 with seconds.phase("sample"):
                     local_data = staging.sample_device(
-                        cfg.per_rank_batch_size * world_size,
+                        cfg.per_rank_batch_size,
                         sequence_length=cfg.per_rank_sequence_length,
                         n_samples=n_samples,
                     )
@@ -800,6 +811,7 @@ def train_loop(
         # Log metrics
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or last == num_updates):
             if aggregator and not aggregator.disabled:
+                aggregator.sync(fabric)  # every rank's episodes, as the JAX run's one process saw them
                 if logger is not None:
                     logger.log_metrics(aggregator.compute(), policy_step)
                 aggregator.reset()
@@ -899,6 +911,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
     resumed = read_resume_checkpoint(fabric, cfg)
     if resumed is not None:
         load_agent_state(state, resumed["agent"])
+    fabric.sync_modules(*modules)  # rank 0's starting weights on every rank (a no-op outside a world)
     player_fns = build_player_fns(state["world_model"], state["actor"], cfg, run.actions_dim, run.is_continuous)
     return train_loop(
         fabric, cfg, run, state, build_train_fn(cfg, run.actions_dim, run.is_continuous), resumed,

@@ -36,8 +36,15 @@ take no gradient while the actor's loss is formed and differentiated, so
 that their ``.grad`` (and the cell's weight gradient) is never computed.
 
 The JAX package runs the step as one SPMD program; here it is PyTorch on
-one device, updating the state in place (parameters, the optimizers' state,
-the target critic and the ``Moments`` state), wrapped as a
+one device a process, updating the state in place (parameters, the
+optimizers' state, the target critic and the ``Moments`` state). In a
+data-parallel world (``fabric.devices>1``) each module's gradients are the
+world's mean before its clip (``dreamer_v2._step``), ``Moments`` takes its
+percentiles over every rank's λ-returns and the metrics are the world's
+mean, all through ``obs.dist.comms``; each rank steps its own
+``env.num_envs`` envs (JAX's global env indices for their seeds), samples
+its own buffer and draws its noise from its own generator. The step is
+wrapped as a
 :class:`~sheeprl_tpu_torch.train.burst.TrainProgram`: eager when called,
 replayed from one CUDA graph a step in a burst on the card. Noise is an
 input (``noise``, for parity with the JAX step's keys) or drawn from the
@@ -119,6 +126,7 @@ from sheeprl_tpu_torch.distributions import (
     gumbel_noise,
 )
 from sheeprl_tpu_torch.evals.inrun import maybe_start_inrun_eval
+from sheeprl_tpu_torch.obs.dist.comms import pmean
 from sheeprl_tpu_torch.obs.learn import learn_tap, probe_losses
 from sheeprl_tpu_torch.obs.perf import PhaseSeconds, log_sps_metrics, register_step_cost
 from sheeprl_tpu_torch.obs.prof.capture import profile_tick
@@ -379,7 +387,7 @@ def build_train_fn(cfg, actions_dim: Sequence[int], is_continuous: bool) -> Trai
         metrics.update(aux)
         metrics["Loss/value_loss"] = value_loss.detach()
         metrics.update({f"Grads/{name}": norm for name, norm in grad_norms.items()})
-        return metrics
+        return pmean(metrics)
 
     def noise_for(T: int, B: int, generator: Optional[torch.Generator], device):
         return draw_noise(cfg, actions_dim, T, B, generator, device, is_continuous)
@@ -501,7 +509,8 @@ def train_loop(
     policy_step = int(resumed["update"]) * cfg.env.num_envs if resumed is not None else 0
     last_log = int(resumed["last_log"]) if resumed is not None else 0
     last_checkpoint = int(resumed["last_checkpoint"]) if resumed is not None else 0
-    policy_steps_per_update = int(n_envs)
+    # every rank steps its n_envs envs: an update is n_envs · world_size policy steps, as JAX counts them
+    policy_steps_per_update = int(n_envs) * world_size
     updates_before_training = cfg.algo.train_every // policy_steps_per_update if not cfg.dry_run else 0
     num_updates = int(cfg.total_steps // policy_steps_per_update) if not cfg.dry_run else 1
     learning_starts = cfg.algo.learning_starts // policy_steps_per_update if not cfg.dry_run else 0
@@ -530,9 +539,10 @@ def train_loop(
     warn_checkpoint_rounding(cfg, policy_steps_per_update)
     actor_for = acting_order(players, switch_at_learning_starts, learning_starts)
 
-    staging = make_replay_staging(cfg, fabric, rb, seed=cfg.seed)
+    staging = make_replay_staging(cfg, fabric, rb, seed=fabric.rank_seed(cfg.seed))
 
-    o = envs.reset(seed=cfg.seed)[0]
+    # env i of rank r is JAX's env r·n_envs + i: its seed is the run's seed plus that index
+    o = envs.reset(seed=cfg.seed + fabric.global_rank * n_envs)[0]
     obs = prepare_obs(o, cnn_keys, mlp_keys, n_envs)
     # MineDojo's validity masks, carried beside the observation for the acting steps only
     mask_keys = MASK_KEYS if masked_acting else ()
@@ -563,7 +573,7 @@ def train_loop(
         observation of each env that ended and reset its player state;
         returns the player's next observation."""
         nonlocal policy_step
-        policy_step += n_envs
+        policy_step += n_envs * world_size
         step_data["actions"] = actions.reshape(1, n_envs, -1).astype(np.float32)
         rb.add(step_data)
         with span("Time/env_interaction_time", SumMetric(), phase="env"):
@@ -670,7 +680,7 @@ def train_loop(
             if n_samples > 0:
                 with seconds.phase("sample"):
                     local_data = staging.sample_device(
-                        cfg.per_rank_batch_size * world_size,
+                        cfg.per_rank_batch_size,
                         sequence_length=cfg.per_rank_sequence_length,
                         n_samples=n_samples,
                     )
@@ -723,6 +733,7 @@ def train_loop(
         # Log metrics
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or last == num_updates):
             if aggregator and not aggregator.disabled:
+                aggregator.sync(fabric)  # every rank's episodes, as the JAX run's one process saw them
                 if logger is not None:
                     logger.log_metrics(aggregator.compute(), policy_step)
                 aggregator.reset()
@@ -804,6 +815,7 @@ def main(fabric, cfg) -> Dict[str, Any]:
     resumed = read_resume_checkpoint(fabric, cfg)
     if resumed is not None:
         load_agent_state(state, resumed["agent"])
+    fabric.sync_modules(*modules)  # rank 0's starting weights on every rank (a no-op outside a world)
     player_fns = build_player_fns(state["world_model"], state["actor"], cfg, run.actions_dim, run.is_continuous)
     return train_loop(
         fabric, cfg, run, state, build_train_fn(cfg, run.actions_dim, run.is_continuous), resumed,

@@ -5,7 +5,9 @@
 :func:`update_moments` is the return normaliser's percentile EMA, with the
 5%/95% percentiles from ``torch.quantile`` (linear interpolation, as
 ``jnp.quantile``): device operations only, so that it replays from a CUDA
-graph. One device, so no gather across ranks."""
+graph. In a data-parallel world the percentiles are taken over the values
+gathered from every rank (``obs.dist.comms.all_gather``, the JAX step's
+``lax.all_gather`` over the mesh); outside one over this rank's."""
 
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from sheeprl_tpu_torch.obs.dist.comms import all_gather
 
 __all__ = [
     "AGGREGATOR_KEYS",
@@ -67,8 +71,9 @@ def update_moments(
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
     """EMA of the ``percentile_low``/``percentile_high`` quantiles of ``x``.
     Returns ``(new_state, offset, invscale)``, all detached; ``state`` is
-    left as it is."""
-    x = x.detach().reshape(-1)
+    left as it is. In a data-parallel world the quantiles are the whole
+    world's: ``x`` is gathered from every rank first."""
+    x = all_gather(x.detach().reshape(-1)).reshape(-1)
     low = torch.quantile(x, percentile_low)
     high = torch.quantile(x, percentile_high)
     new_low = decay * state["low"] + (1 - decay) * low

@@ -25,6 +25,12 @@ device, the metrics summed on the device); the host synchronises once an
 acting step (the env needs the actions) and not inside an update. On the
 CPU the same functions run eagerly.
 
+With ``fabric.devices>1`` each rank steps its own ``env.num_envs`` envs
+(JAX's global env indices for their seeds) and updates on its own rollout
+(or, with ``buffer.share_data``, on its slice of one global permutation of
+every rank's), each minibatch's gradients the world's mean
+(:class:`UpdateProgram`); ``policy_step`` counts the world's steps.
+
 The checkpoint holds the JAX tree's entries: ``params`` (the agent's
 ``state_dict``), ``opt_state`` (the optimizer's per-parameter state and
 learning rate), ``update``, ``batch_size``, ``last_log`` and
@@ -54,6 +60,7 @@ from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.vector import make_vector_env
 from sheeprl_tpu_torch.evals.builders import actions_dim_of
 from sheeprl_tpu_torch.obs.counters import add_rollout_burst, count_h2d
+from sheeprl_tpu_torch.obs.dist.comms import all_gather, pmean, pmean_
 from sheeprl_tpu_torch.obs.learn import learn_tap, probe_losses, probe_update, tapped
 from sheeprl_tpu_torch.obs.perf import PhaseSeconds, log_sps_metrics, register_step_cost
 from sheeprl_tpu_torch.obs.prof.capture import profile_tick
@@ -152,24 +159,37 @@ class UpdateProgram:
     device buffers; on the card the step is replayed from one CUDA graph.
 
     ``update(data, scalars, perms=None)`` loads the data and runs the
-    update; ``perms`` (``[epochs, n_samples]`` int64) replaces the
+    update; ``perms`` (``[epochs, n_rows]`` int64) replaces the
     permutations drawn from ``generator`` (the JAX update's own, in the
     parity tests); ``eager`` runs every step eagerly (the graph's yardstick
     on the card). Returns the metrics' mean over the update's steps, a
     device tensor. Built with the learn probes on (``obs.learn``), each
     step also probes the raw gradients, the parameters and the applied
     update under ``agent``, and an update hands its steps' probes to the
-    sentinel in one pull."""
+    sentinel in one pull.
+
+    In a data-parallel world each minibatch's gradients are the world's
+    mean (``obs.dist.comms.pmean_``) before the clip, and the update's
+    metrics are the world's mean. ``share_data`` is the JAX update's
+    ``buffer.share_data``: the data hold every rank's rollout, rank after
+    rank (``n_rows = world·n_samples``), every rank draws the same
+    permutation of all of them from ``generator`` (seeded alike on every
+    rank) and trains on its own slice of it, ``[rank·n_samples,
+    (rank+1)·n_samples)``; without it each rank permutes its own
+    ``n_samples`` rows."""
 
     def __init__(self, loss_fn, select, agent: torch.nn.Module, optimizer: torch.optim.Optimizer, *,
                  max_grad_norm: float, epochs: int, n_samples: int, batch_size: int, n_metrics: int,
-                 n_scalars: int, generator: Optional[torch.Generator], device):
+                 n_scalars: int, generator: Optional[torch.Generator], device, share_data: bool = False,
+                 rank: int = 0, world_size: int = 1):
         self._loss_fn, self._select = loss_fn, select
         self.agent, self.optimizer = agent, optimizer
         self.max_grad_norm = float(max_grad_norm or 0.0)
         self.epochs, self.n_samples = int(epochs), int(n_samples)
         self.batch_size = min(int(batch_size), self.n_samples)
         self.n_minibatches = self.n_samples // self.batch_size
+        self.share_data, self.rank = bool(share_data), int(rank)
+        self.n_rows = self.n_samples * (int(world_size) if self.share_data else 1)
         self.generator = generator
         self.device = torch.device(device)
         self.data: Optional[Dict[str, torch.Tensor]] = None
@@ -187,6 +207,7 @@ class UpdateProgram:
         torch._foreach_zero_(grads)
         loss, metrics = self._loss_fn(self.agent, self._select(self.data, self.idx), self.scalars)
         loss.backward()
+        pmean_(grads)
         probed = probe_update("agent", grads, self._params, self.optimizer, self.max_grad_norm or None)
         if self.max_grad_norm > 0:
             clip_by_global_norm_(grads, self.max_grad_norm, norm=probed.grad_norm)
@@ -218,7 +239,9 @@ class UpdateProgram:
             if perms is not None:
                 perm = torch.as_tensor(np.asarray(perms[e]), dtype=torch.int64).to(self.device)
             else:
-                perm = torch.randperm(self.n_samples, generator=self.generator, device=self.device)
+                perm = torch.randperm(self.n_rows, generator=self.generator, device=self.device)
+            if self.share_data:
+                perm = perm[self.rank * self.n_samples:(self.rank + 1) * self.n_samples]
             for m in range(self.n_minibatches):
                 self.idx.copy_(perm[m * self.batch_size:(m + 1) * self.batch_size])
                 self._probed_step() if eager else self.step()
@@ -226,7 +249,18 @@ class UpdateProgram:
                     self.learn_tap.collect()
         if self.learn_tap is not None:
             self.learn_tap.flush()
-        return self.acc / float(self.epochs * self.n_minibatches)
+        return pmean(self.acc / float(self.epochs * self.n_minibatches))
+
+
+def gather_rows(data: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
+    """Every rank's rows of ``data`` (``[n, ...]`` arrays or tensors),
+    concatenated rank after rank on ``device``: the JAX update's replicated
+    rollout under ``buffer.share_data``."""
+    out = {}
+    for k, v in data.items():
+        t = (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))).to(device)
+        out[k] = all_gather(t).reshape((-1,) + tuple(t.shape[1:]))
+    return out
 
 
 def select_rows(data: Mapping[str, torch.Tensor], idx: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -304,7 +338,7 @@ def open_run(fabric, cfg, family: str) -> SimpleNamespace:
     cnn_keys, mlp_keys = list(cfg.cnn_keys.encoder), list(cfg.mlp_keys.encoder)
     return SimpleNamespace(
         generator=generator, device=fabric.device, logger=logger, log_dir=log_dir, envs=envs,
-        n_envs=int(cfg.env.num_envs) * fabric.world_size, observation_space=observation_space,
+        n_envs=int(cfg.env.num_envs), observation_space=observation_space,
         action_space=envs.single_action_space, actions_dim=actions_dim, is_continuous=is_continuous,
         cnn_keys=cnn_keys, mlp_keys=mlp_keys, obs_keys=mlp_keys + cnn_keys,
     )
@@ -331,6 +365,7 @@ class PPO:
         self.agent = self.build_agent(torch.Generator().manual_seed(int(cfg.seed)))
         self.optimizer = build_optimizer(cfg, self.agent)
         self.resumed = load_resume(fabric, cfg, self)
+        fabric.sync_modules(self.agent)  # rank 0's starting weights on every rank (a no-op outside a world)
         self.n_steps = int(cfg.algo.rollout_steps)
         self.program = self.make_program(cfg, self.agent, self.optimizer, run, self.samples(cfg), self.device)
         self.acting = ActingGraph(self.acting_policy, self.acting_inputs(self.initial_obs()), self.noise_for_acting,
@@ -352,7 +387,14 @@ class PPO:
     def make_program(cls, cfg, agent, optimizer, run, n_samples: int, device) -> UpdateProgram:
         """The update over ``n_samples`` rows; ``run`` names the spaces and
         keys (``actions_dim``, ``is_continuous``, ``cnn_keys``, ``obs_keys``)
-        and the permutations' ``generator``."""
+        and the permutations' ``generator``. In a data-parallel world with
+        ``buffer.share_data`` the permutations come from a generator seeded
+        with the run's seed on every rank (one global permutation)."""
+        from sheeprl_tpu_torch.parallel import current_world
+
+        world = current_world()
+        share = world is not None and bool(cfg.buffer.get("share_data", False))
+        generator = torch.Generator(device=device).manual_seed(int(cfg.seed)) if share else run.generator
         bs = min(int(cfg.per_rank_batch_size), n_samples)
         if n_samples % bs != 0:
             warnings.warn(
@@ -362,7 +404,9 @@ class PPO:
         return UpdateProgram(ppo_loss(cfg, run.cnn_keys, run.obs_keys, run.actions_dim, run.is_continuous),
                              select_rows, agent, optimizer, max_grad_norm=float(cfg.algo.max_grad_norm or 0.0),
                              epochs=int(cfg.algo.update_epochs), n_samples=n_samples, batch_size=bs,
-                             n_metrics=len(cls.loss_names), n_scalars=2, generator=run.generator, device=device)
+                             n_metrics=len(cls.loss_names), n_scalars=2, generator=generator, device=device,
+                             share_data=share, rank=0 if world is None else world.global_rank,
+                             world_size=1 if world is None else world.world_size)
 
     def initial_obs(self) -> Dict[str, np.ndarray]:
         r = self.run
@@ -513,7 +557,7 @@ def train_loop(fabric, cfg, run: SimpleNamespace, family: PPO) -> Dict[str, Any]
                    if resumed is not None else 0)
     last_log = int(np.asarray(resumed["last_log"])) if resumed is not None else 0
     last_checkpoint = int(np.asarray(resumed["last_checkpoint"])) if resumed is not None else 0
-    policy_steps_per_update = int(n_envs * n_steps)
+    policy_steps_per_update = int(n_envs * n_steps) * world_size
     num_updates = int(cfg.total_steps) // policy_steps_per_update if not cfg.dry_run else 1
     if cfg.metric.log_level > 0 and cfg.metric.log_every % policy_steps_per_update != 0:
         warnings.warn(
@@ -530,7 +574,8 @@ def train_loop(fabric, cfg, run: SimpleNamespace, family: PPO) -> Dict[str, Any]
     loss_sum, loss_count = None, 0
     train_step = last_train = 0
     checkpoint_path = None
-    obs = prepare_obs(envs.reset(seed=cfg.seed)[0], cnn_keys, n_envs)
+    # env i of rank r is JAX's env r·n_envs + i: its seed is the run's seed plus that index
+    obs = prepare_obs(envs.reset(seed=cfg.seed + fabric.global_rank * n_envs)[0], cnn_keys, n_envs)
 
     for update in range(start_step, num_updates + 1):
         lr = float(cfg.algo.optimizer.lr)
@@ -543,7 +588,7 @@ def train_loop(fabric, cfg, run: SimpleNamespace, family: PPO) -> Dict[str, Any]
             with span("Time/rollout_time", SumMetric(), phase="rollout"):
                 with seconds.phase("act"):
                     out = family.act(obs)
-                policy_step += n_envs
+                policy_step += n_envs * world_size
                 with seconds.phase("env"):
                     with span("Time/env_interaction_time", SumMetric(), phase="env"):
                         next_o, rewards, terminated, truncated, info = envs.step(
@@ -585,6 +630,8 @@ def train_loop(fabric, cfg, run: SimpleNamespace, family: PPO) -> Dict[str, Any]
             next_values = family.next_value(obs)
             returns, advantages = gae_step(rb["rewards"], rb["values"], rb["dones"], next_values)
             data = family.update_data(rb, returns, advantages)
+            if family.program.share_data:
+                data = gather_rows(data, device)
         with seconds.phase("train"), span(
             "Time/train_time", SumMetric(sync_on_compute=cfg.metric.sync_on_compute), phase="train"
         ):
@@ -607,6 +654,7 @@ def train_loop(fabric, cfg, run: SimpleNamespace, family: PPO) -> Dict[str, Any]
                 for name, value in zip(family.loss_names, (loss_sum / loss_count).tolist()):
                     if name in aggregator:
                         aggregator.update(name, value)
+                aggregator.sync(fabric)  # every rank's episodes, as the JAX run's one process saw them
                 if logger is not None:
                     logger.log_metrics(aggregator.compute(), policy_step)
                 aggregator.reset()

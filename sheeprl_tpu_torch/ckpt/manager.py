@@ -27,9 +27,15 @@ after its own rename, so it is serialized with every write and can never
 delete a checkpoint that is still being produced; stale ``.tmp`` partials
 from a previously killed process are swept on the same pass.
 
-The port runs one process on one device (rank 0), so every checkpoint is
-``ckpt_<step>_0`` holding the model state and, when asked, the replay
-buffer's shards; the manifest records ``framework: "torch"``.
+Rank ownership follows the JAX package's: a run on one device is rank 0,
+whose ``ckpt_<step>_0`` holds the model state and, when asked, the replay
+buffer's shards. In a data-parallel world (one process a device,
+``sheeprl_tpu_torch.parallel``) rank 0 writes the replicated model state,
+and every rank writes its own replay buffer's shards into its own
+``ckpt_<step>_<rank>`` (a buffer is rank state, the model is not); a resume
+at the same world size reads the model from rank 0's directory and gives
+each rank its own shards back (``ckpt.resume.read_checkpoint``). The
+manifest records ``framework: "torch"``.
 """
 
 from __future__ import annotations

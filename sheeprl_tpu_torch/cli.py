@@ -8,8 +8,13 @@
 ``run`` composes the config from the port's YAML tree, resolves
 ``checkpoint.resume_from`` (``latest``, a run dir or a ``ckpt_*`` dir) and
 merges the checkpointed run's config, builds the
-:class:`~sheeprl_tpu_torch.fabric.Fabric` and calls the registered
-entrypoint; ``-m`` runs a sweep's jobs one after another in the process.
+:class:`~sheeprl_tpu_torch.fabric.Fabric` and launches the registered
+entrypoint through it: on one device here, or with ``fabric.devices=N`` on
+N data-parallel ranks, one process a device (``dreamer_v3``, ``dreamer_v2``
+and ``ppo``; every other entrypoint raises ROADMAP queue A item 7b there,
+before anything is spawned). Each rank sets up its own telemetry and
+checkpoint manager; only rank 0 writes the config, the logs and the event
+file. ``-m`` runs a sweep's jobs one after another in the process.
 ``evaluation`` scores a checkpoint with the eval service, ``serve`` serves
 it through the gateway, ``registration`` copies it into the filesystem
 model registry. ``fabric.accelerator=auto`` means ``cuda``; the CPU runs
@@ -150,13 +155,27 @@ def resume_from_checkpoint(cfg, overrides: Optional[Sequence[str]] = None) -> An
     return old_cfg
 
 
+#: the entrypoints that train data-parallel at ``fabric.devices>1`` (ROADMAP queue A item 7a)
+DATA_PARALLEL_ALGORITHMS = ("dreamer_v3", "dreamer_v2", "ppo")
+
+
+def requested_devices(cfg) -> int:
+    """The ranks a run asks for: ``fabric.devices`` (``auto`` is one) times
+    ``fabric.num_nodes``."""
+    devices = cfg.fabric.get("devices", 1)
+    n = 1 if devices is None or str(devices) in ("auto", "-1") else int(devices)
+    return n * int(cfg.fabric.get("num_nodes", 1) or 1)
+
+
 def check_configs(cfg) -> None:
     """The algorithm is registered; a decoupled entrypoint asks for more
     than one device (``fabric.devices=auto`` passes: one learner card, the
-    players on the CPU), as in the JAX package; ``plane.num_players > 0``
-    needs a worker-pool vector env and ``plane.keep_policies >= 2``; the
-    strategy, devices and precision are the port's (checked again by the
-    Fabric)."""
+    players on the CPU), as in the JAX package; more than one device (or
+    ``strategy=fsdp``) is data-parallel training, which only
+    :data:`DATA_PARALLEL_ALGORITHMS` have (every other entrypoint raises
+    ROADMAP queue A item 7b); ``plane.num_players > 0`` needs a worker-pool
+    vector env and ``plane.keep_policies >= 2``; the strategy, devices and
+    precision are the port's (checked again by the Fabric)."""
     algo_name = cfg.algo.name
     entry = find_algorithm(algo_name)
     if entry is None:
@@ -172,9 +191,17 @@ def check_configs(cfg) -> None:
                 "one player and at least one trainer. "
                 f"Please set `fabric.devices` to at least 2, got {devices}"
             )
+    n_devices = requested_devices(cfg)
+    strategy = str(cfg.fabric.get("strategy", "auto") or "auto").lower()
+    if (n_devices > 1 or strategy == "fsdp") and algo_name not in DATA_PARALLEL_ALGORITHMS:
+        raise NotImplementedError(
+            f"fabric.devices={cfg.fabric.get('devices')} fabric.num_nodes={cfg.fabric.get('num_nodes', 1)} "
+            f"fabric.strategy={strategy}: data-parallel training of {algo_name} is ROADMAP queue A item 7b "
+            f"(the port trains {', '.join(DATA_PARALLEL_ALGORITHMS)} data-parallel)"
+        )
     model_axis = int((cfg.get("parallel", None) or {}).get("model_axis", 1) or 1)
     if model_axis > 1:
-        raise NotImplementedError(f"parallel.model_axis={model_axis}: parameter sharding is ROADMAP queue A item 7")
+        raise NotImplementedError(f"parallel.model_axis={model_axis}: parameter sharding is ROADMAP queue A item 7c")
     plane = cfg.get("plane", None) or {}
     num_players = int(plane.get("num_players", 0) or 0)
     if num_players > 0:
@@ -274,29 +301,36 @@ def profiler_trace_dir(cfg) -> Optional[str]:
 
 
 def run_algorithm(cfg) -> Any:
-    """Registry lookup → Fabric → entrypoint (a P2E finetuning entrypoint also
-    gets its exploration run's config, ``load_exploration_cfg``); the run
-    telemetry (``metric.telemetry``, :mod:`sheeprl_tpu_torch.obs`) and then
-    the checkpoint subsystem are set up before (``metric.profiler`` traces
-    the entrypoint with ``torch.profiler``) and, in the ``finally``, the
-    checkpoint subsystem drained and then the telemetry finalized (a crashed
-    run's ``telemetry.json`` records the exception); the metric aggregator's
-    and the timer's on/off switches follow ``metric.log_level`` for the run
-    and are put back after it. Returns the entrypoint's result, a dict result
-    with the run's checkpoint stats (bytes, write and blocked time) added as
-    ``checkpoint_stats``."""
-    from sheeprl_tpu_torch.ckpt import setup_checkpoint, teardown_checkpoint
-    from sheeprl_tpu_torch.obs.telemetry import finalize_telemetry, setup_telemetry
-
+    """Registry lookup → Fabric → the entrypoint on every rank
+    (:func:`run_rank`; a P2E finetuning entrypoint also gets its
+    exploration run's config, ``load_exploration_cfg``). Returns rank 0's
+    result."""
     check_telemetry_options(cfg)
     entry = find_algorithm(cfg.algo.name)
-    module = importlib.import_module(entry["module"])
-    entrypoint = getattr(module, entry["entrypoint"])
     kwargs = {}
     if "finetuning" in cfg.algo.name and "p2e" in entry["module"]:
         kwargs["exploration_cfg"] = load_exploration_cfg(cfg)
     fabric = instantiate(cfg.fabric)
     _prune_metric_keys(cfg, entry["module"])
+    return fabric.launch(run_rank, cfg, entry["module"], entry["entrypoint"], kwargs)
+
+
+def run_rank(fabric, cfg, module: str, entrypoint: str, kwargs: dict) -> Any:
+    """One rank's run of ``module.entrypoint``: the run telemetry
+    (``metric.telemetry``, :mod:`sheeprl_tpu_torch.obs`) and then the
+    checkpoint subsystem are set up before (``metric.profiler`` traces rank
+    0's entrypoint with ``torch.profiler``) and, in the ``finally``, the
+    checkpoint subsystem drained and then the telemetry finalized (a crashed
+    run's ``telemetry.json`` records the exception; in a world every other
+    rank writes its sidecar before rank 0 merges them); the metric
+    aggregator's and the timer's on/off switches follow ``metric.log_level``
+    for the run and are put back after it. Returns the entrypoint's result,
+    a dict result with the run's checkpoint stats (bytes, write and blocked
+    time) added as ``checkpoint_stats``."""
+    from sheeprl_tpu_torch.ckpt import setup_checkpoint, teardown_checkpoint
+    from sheeprl_tpu_torch.obs.telemetry import finalize_telemetry, setup_telemetry
+
+    fn = getattr(importlib.import_module(module), entrypoint)
     switches = MetricAggregator.disabled, timer.disabled
     MetricAggregator.disabled = cfg.metric.log_level == 0 or len(
         cfg.metric.get("aggregator", {}).get("metrics", {})
@@ -305,19 +339,29 @@ def run_algorithm(cfg) -> Any:
     setup_telemetry(cfg, device=fabric.device, rank=fabric.global_rank)
     setup_checkpoint(cfg)
     try:
-        trace_dir = profiler_trace_dir(cfg)
+        # one whole-run trace a run: rank 0's (the JAX package traces its one process)
+        trace_dir = profiler_trace_dir(cfg) if fabric.is_global_zero else None
         if trace_dir is not None:
             # torch.profiler around the whole run (the JAX package's jax.profiler trace)
             from sheeprl_tpu_torch.obs.prof.capture import whole_run_trace
 
             with whole_run_trace(trace_dir):
-                result = fabric.launch(entrypoint, cfg, **kwargs)
+                result = fn(fabric, cfg, **kwargs)
         else:
-            result = fabric.launch(entrypoint, cfg, **kwargs)
+            result = fn(fabric, cfg, **kwargs)
     finally:
         stats = teardown_checkpoint()
         # inside a finally, exc_info() is the exception in flight (if any)
-        finalize_telemetry(error=sys.exc_info()[1])
+        error = sys.exc_info()[1]
+        if fabric.is_distributed and error is None:
+            # rank 0 folds the other ranks' sidecars into telemetry.json: they finalize first
+            if not fabric.is_global_zero:
+                finalize_telemetry(error=None)
+            fabric.barrier()
+            if fabric.is_global_zero:
+                finalize_telemetry(error=None)
+        else:
+            finalize_telemetry(error=error)
         MetricAggregator.disabled, timer.disabled = switches
     if isinstance(result, dict):
         result["checkpoint_stats"] = stats

@@ -126,8 +126,9 @@ def make_vector_env(
     n_envs: Optional[int] = None,
     rank: Optional[int] = None,
 ):
-    """The train-time vector env: ``env.num_envs`` envs (times the world
-    size) seeded ``env_seeds(seed, rank, n_envs)``, each optionally behind
+    """The train-time vector env of one rank: ``env.num_envs`` envs seeded
+    ``env_seeds(seed, rank, n_envs)`` (the JAX run's global env indices
+    ``rank·n_envs + i``, for the seeds and the envs' own indices), each optionally behind
     :class:`RestartOnException`. ``rank`` overrides the seed partition
     (``fabric.global_rank``): a plane player passes its index with its own
     ``n_envs``, so N players slice the sequence one process would use."""
@@ -136,7 +137,7 @@ def make_vector_env(
         rank = int(fabric.global_rank) if fabric is not None else 0
     rank = int(rank)
     if n_envs is None:
-        n_envs = int(cfg.env.num_envs) * (int(fabric.world_size) if fabric is not None else 1)
+        n_envs = int(cfg.env.num_envs)
     seeds = env_seeds(cfg.seed, rank, n_envs)
     thunks = []
     for idx in range(n_envs):

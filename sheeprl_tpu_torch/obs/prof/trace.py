@@ -38,9 +38,14 @@ Two sources, the same normalized events: a Chrome trace file
 (``prof.export_chrome_trace``; :func:`load_trace`) and the profiler's raw
 events (:func:`events_from_profiler`), which skip building
 ``key_averages()`` (seconds a window at tens of thousands of kernels).
-Collective communication has nothing to read until the port shards
-(ROADMAP item 7): ``comms_ms_total`` is 0.0 and ``comms_ms_by_kind`` empty
-on a device trace.
+Collective communication is the NCCL kernels' device time (the
+data-parallel steps' all-reduces and gathers, ``obs/dist/comms.py``):
+``comms_ms_total`` and ``comms_ms_by_kind`` (``all_reduce``,
+``all_gather``, ``broadcast``, ``reduce_scatter``, ``send_recv``) sum the
+``ncclDevKernel_*`` (``ncclKernel_*`` in older NCCL) records and a
+one-rank world's ``oneRankReduce`` (:func:`nccl_kind`), 0.0 and empty on a
+device trace without any; gloo's collectives run on the host and are
+counted by the run's ``comms_*`` counters instead.
 """
 
 from __future__ import annotations
@@ -327,6 +332,31 @@ class _Ranges:
         return best
 
 
+_NCCL_KERNEL = re.compile(r"^nccl(?:Dev)?Kernel_([A-Za-z]+)")
+_NCCL_KINDS = {"AllReduce": "all_reduce", "AllGather": "all_gather", "Broadcast": "broadcast",
+               "ReduceScatter": "reduce_scatter", "SendRecv": "send_recv", "Reduce": "reduce"}
+
+
+def nccl_kind(name: str) -> Optional[str]:
+    """The collective kind of an NCCL kernel's name (``ncclDevKernel_*``,
+    ``ncclKernel_*``; ``oneRankReduce``, the all-reduce of a world of one
+    rank with a scaled sum such as an average), else None."""
+    m = _NCCL_KERNEL.match(name)
+    if m:
+        return _NCCL_KINDS.get(m.group(1), m.group(1).lower())
+    return "all_reduce" if "oneRankReduce" in name else None
+
+
+def comms_ms_by_kind(device: Iterable[Event]) -> Dict[str, float]:
+    """The NCCL kernels' device milliseconds by collective kind."""
+    out: Dict[str, float] = {}
+    for _c, name, _ts, dur, _tid, _corr in device:
+        kind = nccl_kind(name)
+        if kind is not None:
+            out[kind] = out.get(kind, 0.0) + dur / 1e3
+    return out
+
+
 def summarize_events(events: List[Event]) -> Dict[str, Any]:
     """Attribute one trace's normalized events: per-module executions and
     device time.
@@ -344,7 +374,7 @@ def summarize_events(events: List[Event]) -> Dict[str, Any]:
           "steps_ms_total": None (no step line in a torch trace),
           "top_ops":      {kernel: self_ms_total} (device traces, else {}),
           "kernel_counts": {kernel: executions} (device traces, else {}),
-          "comms_ms_total", "comms_ms_by_kind": 0.0 / {} (device), None (host),
+          "comms_ms_total", "comms_ms_by_kind": the NCCL kernels' ms (device), None (host),
         }
     """
     device = [e for e in events if e[0] in DEVICE_CATS]
@@ -398,8 +428,8 @@ def summarize_events(events: List[Event]) -> Dict[str, Any]:
         out["steps_ms_total"] = None
         out["top_ops"] = {name: us / 1e3 for name, us in self_times.most_common(30)}
         out["kernel_counts"] = dict(collections.Counter(e[1] for e in device))
-        out["comms_ms_total"] = 0.0
-        out["comms_ms_by_kind"] = {}
+        out["comms_ms_by_kind"] = comms_ms_by_kind(device)
+        out["comms_ms_total"] = float(sum(out["comms_ms_by_kind"].values()))
         return out
 
     # CPU fallback: the step ranges' host time (span ranges where no step ran)

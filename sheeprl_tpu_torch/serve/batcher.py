@@ -29,6 +29,11 @@ An optional ops sink (:class:`~sheeprl_tpu_torch.serve.ops.ServeOps`,
 five stamps (``on_request``, failed ones too), the cancelled count
 (``on_cancelled``) and the injected dispatch delay. With no sink the
 request path is the one without ops.
+
+The run's serve counters (``obs.counters``: requests, swaps, failed
+requests, batches, batch rows and deadline misses) are fed at the JAX
+batcher's events; a batch, or a failed one, is counted before its waiters
+wake, so a client holding its answer also sees the count.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from sheeprl_tpu_torch.obs.counters import add_serve_batch, add_serve_failed, add_serve_requests, add_serve_swap
 from sheeprl_tpu_torch.obs.hist import StreamingHist
 from sheeprl_tpu_torch.obs.reqtrace import now as _now
 
@@ -141,6 +147,7 @@ class RequestBatcher:
                 raise ServeClosed("gateway is draining: no new requests accepted")
             self._queue.append(pending)
             self._cv.notify_all()
+        add_serve_requests(1)
         with self._stats_lock:
             self._requests += 1
         return pending
@@ -187,6 +194,7 @@ class RequestBatcher:
         """Install ``model`` for every later dispatch; a batch in flight
         finishes on the old one. Returns the new version."""
         self._model = model  # atomic reference assignment
+        add_serve_swap(1)
         with self._stats_lock:
             self._swaps += 1
         return int(model.version)
@@ -209,11 +217,13 @@ class RequestBatcher:
             self._abandoned = True  # the dispatcher takes no further batch
             leftovers = list(self._queue)
             self._queue.clear()
+        if leftovers:
+            add_serve_failed(len(leftovers))
+        with self._stats_lock:
+            self._failed += len(leftovers)
         for p in leftovers:  # fail loud, never hang clients
             p.error = ServeClosed("gateway stopped before this request dispatched")
             p.event.set()
-        with self._stats_lock:
-            self._failed += len(leftovers)
         ops = self._ops
         if ops is not None:
             for p in leftovers:
@@ -332,11 +342,13 @@ class RequestBatcher:
             actions, new_state = model.act(obs, state, generator)
             actions = np.asarray(actions)
         except Exception as exc:  # fail this batch's waiters, keep serving
+            # counted before the waiters wake: a client that has its error also sees the count
+            add_serve_failed(len(live))
+            with self._stats_lock:
+                self._failed += len(live)
             for p in live:
                 p.error = exc
                 p.event.set()
-            with self._stats_lock:
-                self._failed += len(live)
             if ops is not None:
                 for p in live:
                     ops.on_request(p.client_id, None, int(model.version), ok=False)
@@ -347,6 +359,14 @@ class RequestBatcher:
                 for p, row in zip(live, _split_states(new_state, len(live))):
                     self._states[p.client_id] = row
         version = int(model.version)
+        # the batch is counted before its waiters wake, so a client that has its answer also sees the count
+        add_serve_batch(len(live), deadline_miss=deadline_miss)
+        with self._stats_lock:
+            self._batches += 1
+            self._batch_rows += len(live)
+            self._deadline_misses += int(deadline_miss)
+            if not self._versions_served or self._versions_served[-1] != version:
+                self._versions_served.append(version)
         for i, p in enumerate(live):
             p.action = actions[i]
             p.version = version
@@ -366,12 +386,6 @@ class RequestBatcher:
                 ops.on_request(p.client_id, t_end - p.t_submit, version, ok=True, trace=p.trace,
                                stamps=(p.t_submit, t_collect, t_model, t_done, t_end), rows=len(live))
         self._occupancy.record(len(live))
-        with self._stats_lock:
-            self._batches += 1
-            self._batch_rows += len(live)
-            self._deadline_misses += int(deadline_miss)
-            if not self._versions_served or self._versions_served[-1] != version:
-                self._versions_served.append(version)
         if deadline_miss:
             self._flag_deadline_miss(len(live), lateness)
 

@@ -31,6 +31,16 @@ counterpart of a jitted program's name in an XLA trace: the trace parser
 (``obs/prof/trace.py``) attributes the device work a call launched to the
 step by that name. Outside a session the range costs one flag read.
 
+A train step of a data-parallel rank (``train=True`` inside a world,
+``sheeprl_tpu_torch.parallel``) holds its collectives: NCCL's are captured
+with the rest of the step (the communicator was built by an eager
+collective at the rendezvous, and the warm-up calls run them eagerly
+first); gloo's are host collectives, which no graph can hold, so with a
+gloo world the train step runs eagerly on every call. That is a property
+of the backend, not a fallback: ``eager_backend`` names it (``gloo``, else
+None) and the run's ``graphs`` counts report it. A capture that fails
+still raises.
+
 Nothing may destroy a CUDA graph while another is captured: the
 destruction is not permitted then, and it invalidates the capture (a
 DreamerV3 run's first capture failed so, ``cudaErrorStreamCaptureInvalidated``
@@ -78,6 +88,16 @@ def capture_guard() -> Iterator[None]:
             gc.enable()
 
 
+def _eager_backend(device: torch.device, train: bool) -> Optional[str]:
+    """``gloo`` for a train step on the card in a gloo world, else None."""
+    from sheeprl_tpu_torch.parallel import current_world
+
+    world = current_world()
+    if train and device.type == "cuda" and world is not None and not world.capturable:
+        return world.backend
+    return None
+
+
 def _profiling() -> bool:
     return torch.autograd._profiler_enabled()
 
@@ -105,6 +125,8 @@ class CapturedStep:
         self.replays = 0
         self.warmup_s = 0.0
         self.capture_s = 0.0
+        #: the world's backend when its collectives keep this train step eager on the card (gloo), else None
+        self.eager_backend = _eager_backend(self.device, self.train)
 
     def __call__(self) -> Any:
         if _profiling():
@@ -113,7 +135,7 @@ class CapturedStep:
         return self._call()
 
     def _call(self) -> Any:
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.eager_backend is not None:
             self.eager_calls += 1
             return self._eager()
         if self.graph is None and self.eager_calls < WARMUP_CALLS:

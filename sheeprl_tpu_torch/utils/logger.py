@@ -59,20 +59,41 @@ def _next_version(parent: str) -> int:
 def get_log_dir(cfg) -> str:
     """Create and return ``logs/runs/<root_dir>/<run_name>/version_<k>``
     (an absolute ``root_dir`` places the run there), ``k`` one past the
-    newest existing version."""
+    newest existing version. In a data-parallel world rank 0 picks and
+    creates it and broadcasts the path, so that every rank agrees (the
+    reference's rank-0 broadcast)."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.obs.dist import comms
+    from sheeprl_tpu_torch.parallel import current_world
+
     root_dir = cfg.root_dir if cfg.root_dir is not None else "default"
     base = os.path.join("logs", "runs", str(root_dir), str(cfg.run_name))
-    log_dir = os.path.join(base, f"version_{_next_version(base)}")
-    os.makedirs(log_dir, exist_ok=True)
+    world = current_world()
+    if world is None or world.global_rank == 0:
+        log_dir = os.path.join(base, f"version_{_next_version(base)}")
+        os.makedirs(log_dir, exist_ok=True)
+    else:
+        log_dir = ""
+    if world is not None:
+        buf = np.zeros(4096, np.uint8)
+        encoded = log_dir.encode()
+        buf[: len(encoded)] = np.frombuffer(encoded, np.uint8)
+        log_dir = bytes(comms.host_broadcast(buf, src=0)).rstrip(b"\0").decode()
     return log_dir
 
 
 def create_tensorboard_logger(cfg) -> Tuple[Optional[TensorBoardLogger], str]:
-    """``(logger, log_dir)``: the logger is None at ``metric.log_level=0``."""
+    """``(logger, log_dir)``: the logger is None at ``metric.log_level=0``
+    and on every rank but rank 0 of a data-parallel world (only rank 0
+    writes events), which shares rank 0's ``log_dir``."""
     from sheeprl_tpu_torch.obs.telemetry import get_telemetry
+    from sheeprl_tpu_torch.parallel import current_world
 
     log_dir = get_log_dir(cfg)
-    logger = TensorBoardLogger(log_dir) if int(cfg.metric.log_level) > 0 else None
+    world = current_world()
+    rank0 = world is None or world.global_rank == 0
+    logger = TensorBoardLogger(log_dir) if int(cfg.metric.log_level) > 0 and rank0 else None
     telemetry = get_telemetry()
     if telemetry is not None:
         telemetry.attach_run_dir(log_dir)

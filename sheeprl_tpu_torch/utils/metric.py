@@ -2,8 +2,14 @@
 
 Host-side accumulators over Python floats: callers pass values they have
 already pulled from the device (the training loop pulls a burst's metrics
-at most once, behind ``train.burst.metric_fetch_gate``). One process, one
-device, so ``sync_on_compute`` has nothing to reduce over: the identity.
+at most once, behind ``train.burst.metric_fetch_gate``).
+
+In a data-parallel world each rank steps its own envs, and the JAX
+package's one process saw every env's episodes: at a log boundary
+:meth:`MetricAggregator.sync` sums every metric's state over the ranks (one
+all-reduce), so rank 0 logs the mean over every rank's updates. The train
+metrics are already the world's mean inside the step (equal on every
+rank), so their mean is unchanged. ``sync_on_compute`` is read by nothing.
 """
 
 from __future__ import annotations
@@ -109,6 +115,26 @@ class MetricAggregator:
             if not (isinstance(value, float) and math.isnan(value)):
                 out[name] = value
         return out
+
+    def sync(self, fabric) -> None:
+        """Sum every metric's state (a mean's sum and count, a sum) over the
+        ranks of ``fabric``'s world, in one all-reduce; every rank calls it
+        at the same log boundary. A no-op outside a world."""
+        if self.disabled or not getattr(fabric, "is_distributed", False):
+            return
+        import numpy as np
+
+        names = sorted(self.metrics)
+        state = []
+        for name in names:
+            m = self.metrics[name]
+            state += [m._sum, m._count] if isinstance(m, MeanMetric) else [m._sum, 0.0]
+        total = fabric.all_reduce(np.asarray(state, np.float64)).tolist()
+        for i, name in enumerate(names):
+            m = self.metrics[name]
+            m._sum = total[2 * i]
+            if isinstance(m, MeanMetric):
+                m._count = total[2 * i + 1]
 
     def __contains__(self, name: str) -> bool:
         return name in self.metrics

@@ -142,9 +142,11 @@ def test_fabric_is_one_device_and_raises_for_the_rest(monkeypatch):
     torch_gen, np_gen = fabric.seed_everything(3)
     assert torch.equal(torch.rand(4, generator=torch_gen), torch.rand(4, generator=torch.Generator().manual_seed(3)))
     assert np_gen.integers(1 << 30) == np.random.default_rng(3).integers(1 << 30)
+    # two devices and fsdp train data-parallel now (ROADMAP queue A item 7a): a multi-node run without its
+    # external launcher and a device count below 1 still raise
     for kwargs, match in (
-        (dict(devices=2), "item 7"),
-        (dict(strategy="fsdp"), "item 7"),
+        (dict(devices=2, num_nodes=2), "external launcher"),
+        (dict(devices=0), "positive count"),
     ):
         with pytest.raises((NotImplementedError, ValueError), match=match):
             Fabric(accelerator="cpu", **kwargs)
@@ -164,7 +166,7 @@ def test_fabric_is_one_device_and_raises_for_the_rest(monkeypatch):
         (["metric.telemetry.flight.profiler_capture_s=-1"], "profiler_capture_s must be >= 0"),
         (["parallel.model_axis=2"], "item 7"),
         (["env.act_burst=4"], "act_burst"),
-        (["fabric.devices=2"], "item 7"),
+        (["fabric.devices=2", "fabric.num_nodes=2"], "external launcher"),
         (["buffer.device_ring=True"], "device_ring"),
         (["env.backend=jax"], "item 6d"),
     ],
